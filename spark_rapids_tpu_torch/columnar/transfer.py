@@ -1,0 +1,96 @@
+"""Host <-> device copies through one counting gateway (the analog of
+``spark_rapids_tpu/columnar/transfer.py`` with the ledger of
+``spark_rapids_tpu/aux/transitions.py``).
+
+Every column moves on its own: host planes are staged in pinned memory and
+copied with ``non_blocking=True`` on the current stream, and a download
+ends in exactly one blocking sync.  The JAX package's one-buffer transfers
+(``upload_host_batch`` grouping planes by width into at most four uploads,
+``_pack_planes`` packing results and the row count into one uint32 buffer)
+work around a slow TPU host link and get no kernel here."""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch,
+                                                   HostColumnarBatch)
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn, HostColumn
+
+
+class TransferGateway:
+    """Counts every H2D copy, D2H copy and blocking sync of one device.
+
+    On the CPU the copies are plain tensor copies and the sync is a no-op,
+    but each still counts, so a test on the host sees the same ledger as a
+    run on the card."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._lock = threading.Lock()
+        self._stats = {"h2d_copies": 0, "h2d_bytes": 0, "d2h_copies": 0,
+                       "d2h_bytes": 0, "syncs": 0}
+
+    def stats(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._stats)
+
+    def _count(self, copies: str, nbytes_key: str, nbytes: int) -> None:
+        with self._lock:
+            self._stats[copies] += 1
+            self._stats[nbytes_key] += int(nbytes)
+
+    def to_device(self, array: np.ndarray) -> torch.Tensor:
+        host = torch.from_numpy(np.ascontiguousarray(array))
+        self._count("h2d_copies", "h2d_bytes", host.numel() *
+                    host.element_size())
+        if self.device.type == "cpu":
+            return host.clone()
+        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        pinned.copy_(host)
+        # the caching host allocator keeps ``pinned`` alive until the copy
+        # has run, so it may be dropped here
+        return pinned.to(self.device, non_blocking=True)
+
+    def upload_column(self, column: HostColumn) -> DeviceColumn:
+        data = self.to_device(column.data)
+        if column.validity is None:
+            validity = torch.ones(len(column), dtype=torch.bool,
+                                  device=self.device)
+            return DeviceColumn(data, validity, column.data_type,
+                                all_valid=True)
+        return DeviceColumn(data, self.to_device(column.validity),
+                            column.data_type)
+
+    def upload_batch(self, batch: HostColumnarBatch) -> ColumnarBatch:
+        return ColumnarBatch([self.upload_column(c) for c in batch.columns],
+                             batch.row_count, batch.names)
+
+    def _to_host_async(self, tensor: torch.Tensor) -> torch.Tensor:
+        self._count("d2h_copies", "d2h_bytes", tensor.numel() *
+                    tensor.element_size())
+        if tensor.device.type == "cpu":
+            return tensor.clone()
+        host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+        host.copy_(tensor, non_blocking=True)
+        return host
+
+    def sync(self) -> None:
+        """The one blocking wait for the device."""
+        with self._lock:
+            self._stats["syncs"] += 1
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def download_batch(self, batch: ColumnarBatch) -> HostColumnarBatch:
+        """Copies every plane to pinned host memory, then syncs once."""
+        planes: List = [(self._to_host_async(c.data),
+                         self._to_host_async(c.validity), c.data_type)
+                        for c in batch.columns]
+        self.sync()
+        cols = [HostColumn(d.numpy(), v.numpy(), dt) for d, v, dt in planes]
+        return HostColumnarBatch(cols, batch.row_count, batch.names)

@@ -1,0 +1,307 @@
+"""Fused filter -> project -> aggregate update: kernel 1 (the analog of
+``spark_rapids_tpu/exec/fused.py``: ``TpuFusedAggExec._fused_update``
+``:337`` with ``_trace_chain`` ``:82``; kind ``fused.agg_update``).
+
+``fused_agg_update`` is the kernel's wrapper.  On a CUDA batch it launches
+the Triton kernel that ``kernels/fused_agg.py`` emits for the chain
+(``PROGRAMS_PER_SM`` program instances per SM walk tiles of ``BLOCK_ROWS``
+rows with a grid stride, each writing one partial row; no atomics); on a
+CPU batch it runs ``fused_agg_update_plain``.  Kernel 2 (ops/agg_ops.py)
+then folds the partial rows into the partition's one buffer row, in a
+fixed order.
+
+Bound: the kernel reads every data plane once, and the validity plane of
+each column that may hold nulls (on the main path 8 + 8 + 4 bytes of data
+per row, and no validity: the bench's columns hold no null), and writes 9
+bytes per buffer per program; its arithmetic (under 100 integer operations per row for the
+hash) is far below the card's rate, so it is bound by device memory
+bytes.  The grid stride keeps each program's accumulators in registers and
+reduces them once, instead of once per tile."""
+
+from __future__ import annotations
+
+import functools
+import hashlib
+import threading
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.exec.stage_compiler import get_or_build
+from spark_rapids_tpu_torch.expressions.base import Col, EvalContext
+from spark_rapids_tpu_torch.expressions.evaluator import batch_cols
+from spark_rapids_tpu_torch.kernels import fused_agg as K
+from spark_rapids_tpu_torch.ops import agg_ops
+from spark_rapids_tpu_torch.plan.base import ExecContext, Partitions, \
+    UnaryExec
+
+#: rows per tile, warps per program instance, program instances per SM
+#: (picked by tools/sweep_fused.py: the bench chain on an H100 at 32M rows,
+#: within 1% of the fastest setting both with and without validity reads)
+BLOCK_ROWS = 1024
+NUM_WARPS = 16
+PROGRAMS_PER_SM = 2
+
+#: launches of kernel 1 (incremented only where the kernel is launched)
+LAUNCHES = 0
+
+
+def _ops_signature(ops) -> Tuple:
+    sig = []
+    for kind, payload in ops:
+        if kind == "filter":
+            sig.append(("F", payload.sql(), str(payload.data_type)))
+        else:
+            sig.append(("P", tuple((e.sql(), str(e.data_type))
+                                   for e in payload)))
+    return tuple(sig)
+
+
+class FusedAggProgram:
+    """One chain over one input schema: the key of its kernels, and what
+    kernel 2 needs to fold their partial rows.  The chain has one kernel
+    for each set of input columns that may hold nulls."""
+
+    def __init__(self, ops, layout, input_types: Sequence[T.DataType],
+                 n_literals: int):
+        self.ops = list(ops)
+        self.input_types = list(input_types)
+        self.update_exprs = layout.update_input_exprs()
+        self.update_specs = layout.update_specs()
+        self.n_literals = n_literals
+        if layout.num_keys:
+            raise NotImplementedError(
+                "grouped aggregation is not in this slice of the port")
+        self.key = (_ops_signature(self.ops),
+                    tuple(str(t) for t in self.input_types),
+                    tuple((e.sql(), str(e.data_type))
+                          for e in self.update_exprs),
+                    tuple((o, k, cv, str(dt))
+                          for o, k, cv, dt in self.update_specs),
+                    n_literals)
+        # the kernel for columns that all may hold nulls; emitting it
+        # checks that every expression has a kernel form
+        self.compiled = self.kernel_for((True,) * len(self.input_types))
+        #: kernel 2 kinds that fold partial rows: sums add, counts add
+        self.fold_kinds = [
+            agg_ops.SUM_F64 if kind == "sum" and dt.is_floating
+            else agg_ops.SUM_I64
+            for _o, kind, _cv, dt in self.update_specs]
+        self.buffer_types = [dt for _o, _k, _cv, dt in self.update_specs]
+
+    def kernel_for(self, nullable: Tuple[bool, ...]) -> "FusedKernel":
+        """The kernel that reads the validity planes of the columns marked
+        True in ``nullable`` and takes the others as all valid."""
+        return get_or_build(
+            "fused.agg_update", self.key + (nullable,),
+            lambda: FusedKernel(K.kernel_source(
+                self.input_types, nullable, self.ops, self.update_exprs,
+                self.update_specs, self.n_literals)))
+
+
+class FusedKernel:
+    """A kernel-cache entry: the emitted source, and the Triton kernel
+    imported from it at its first launch (Triton compiles it then)."""
+
+    def __init__(self, source: str):
+        self.source = source
+        self._lock = threading.Lock()
+        self._kernel = None
+
+    def kernel(self):
+        with self._lock:
+            if self._kernel is None:
+                from spark_rapids_tpu_torch.kernels.build import \
+                    load_triton_module
+                name = "fused_agg_" + hashlib.sha1(
+                    self.source.encode()).hexdigest()[:16]
+                self._kernel = getattr(load_triton_module(name, self.source),
+                                       K.KERNEL_NAME)
+            return self._kernel
+
+
+class LiteralArgs:
+    """Promoted literal values: ``values`` for the plain version, ``words``
+    (an int64 tensor on the batch's device) for the kernel."""
+
+    def __init__(self, values: Sequence,
+                 words: Optional[torch.Tensor] = None):
+        self.values = list(values)
+        self.words = words
+
+    @staticmethod
+    def upload(promoted, transfers) -> "LiteralArgs":
+        words = None
+        if promoted:
+            words = transfers.to_device(np.array(
+                [K.literal_word(p.value, p.data_type) for p in promoted],
+                dtype=np.int64))
+        return LiteralArgs([p.value for p in promoted], words)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def grid_size(n_rows: int, device: torch.device) -> int:
+    """Program instances for ``n_rows`` rows: one per tile, at most
+    ``PROGRAMS_PER_SM`` per SM."""
+    n_tiles = -(-n_rows // BLOCK_ROWS)
+    return min(n_tiles, _sm_count(device.index) * PROGRAMS_PER_SM)
+
+
+def _check_batch(program: FusedAggProgram, batch: ColumnarBatch) -> None:
+    types = [c.data_type for c in batch.columns]
+    if types != program.input_types:
+        raise TypeError(f"batch of {types} for a kernel over "
+                        f"{program.input_types}")
+
+
+def fused_agg_update(program: FusedAggProgram, batch: ColumnarBatch,
+                     lits: LiteralArgs) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 1's wrapper: ``(words, valid)`` tables of shape
+    ``[n_programs, n_buffers]``, one partial row per program instance."""
+    _check_batch(program, batch)
+    n_buffers = len(program.update_specs)
+    device = batch.device
+    if device.type == "cpu":
+        return fused_agg_update_plain(program, batch, lits)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    n = batch.row_count
+    if n == 0:
+        # a grid of 0 is an error: no launch, one empty partial row
+        return (torch.zeros((1, n_buffers), dtype=torch.int64, device=device),
+                torch.tensor([[k == "count" for _o, k, _c, _d in
+                               program.update_specs]], device=device))
+    if program.n_literals and (lits.words is None or
+                               lits.words.device != device):
+        raise ValueError("the literal table must lie on the batch's device")
+    n_programs = grid_size(n, device)
+    out = torch.empty((n_programs, n_buffers), dtype=torch.int64,
+                      device=device)
+    out_valid = torch.empty((n_programs, n_buffers), dtype=torch.bool,
+                            device=device)
+    args: List = []
+    for c in batch.columns:
+        args.append(c.data.contiguous())
+        if not c.all_valid:
+            args.append(c.validity.contiguous().view(torch.uint8))
+    if program.n_literals:
+        args.append(lits.words)
+    args += [out, out_valid.view(torch.uint8), n]
+    kernel = program.kernel_for(
+        tuple(not c.all_valid for c in batch.columns)).kernel()
+    with torch.cuda.device(device):
+        kernel[(n_programs,)](*args, BLOCK=BLOCK_ROWS, num_warps=NUM_WARPS)
+    global LAUNCHES
+    LAUNCHES += 1
+    return out, out_valid
+
+
+def trace_chain(ops, ctx: EvalContext) -> Tuple[List[Col], torch.Tensor]:
+    """Applies the filter/project chain in plain PyTorch: (columns,
+    selection mask)."""
+    cols = ctx.cols
+    sel = torch.ones(ctx.row_count, dtype=torch.bool, device=ctx.device)
+    for kind, payload in ops:
+        step = EvalContext(cols, ctx.row_count, ctx.device,
+                           ctx.literal_args)
+        if kind == "filter":
+            pred = payload.eval(step)
+            sel = sel & pred.valid & pred.data
+        else:
+            cols = [e.eval(step) for e in payload]
+    return cols, sel
+
+
+def fused_agg_update_plain(program: FusedAggProgram, batch: ColumnarBatch,
+                           lits: LiteralArgs
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of kernel 1: the whole batch as one
+    program, so the tables have one row."""
+    _check_batch(program, batch)
+    dev = batch.device
+    ctx = EvalContext(batch_cols(batch), batch.row_count, dev,
+                      lits.values)
+    cols, sel = trace_chain(program.ops, ctx)
+    upd_ctx = EvalContext(cols, batch.row_count, dev, lits.values)
+    words, oks = [], []
+    for ordinal, kind, count_valid_only, dtype in program.update_specs:
+        c = program.update_exprs[ordinal].eval(upd_ctx)
+        present = sel if kind == "count" and not count_valid_only \
+            else sel & c.valid
+        if kind == "count":
+            words.append(present.sum())
+            oks.append(torch.ones((), dtype=torch.bool, device=dev))
+            continue
+        if dtype.is_floating:
+            s = torch.where(present, c.data.to(torch.float64), 0.0).sum()
+            words.append(s.reshape(1).view(torch.int64)[0])
+        else:
+            words.append(torch.where(present, c.data.to(torch.int64),
+                                     0).sum())
+        oks.append(present.any())
+    return torch.stack(words).reshape(1, -1), torch.stack(oks).reshape(1, -1)
+
+
+class TorchFusedAggExec(UnaryExec):
+    """Fused [Filter|Project]* chain and the aggregate's update pass: one
+    kernel-1 launch per batch, then a kernel-2 fold of its partial rows.
+    PARTIAL yields one buffer row per batch; COMPLETE merges them and
+    evaluates the final projection."""
+
+    def __init__(self, ops, layout, mode: str, child, promoted=()):
+        super().__init__(child)
+        self.ops = list(ops)
+        self.layout = layout
+        self.mode = mode
+        self.promoted = list(promoted)
+        self.program = FusedAggProgram(
+            self.ops, layout, [f.data_type for f in child.schema.fields],
+            len(self.promoted))
+
+    @property
+    def schema(self):
+        from spark_rapids_tpu_torch.exec.aggregate import PARTIAL
+        return self.layout.buffer_schema if self.mode == PARTIAL else \
+            self.layout.result_schema
+
+    def node_string(self):
+        parts = []
+        for kind, payload in self.ops:
+            if kind == "filter":
+                parts.append(f"F[{payload.sql()}]")
+            else:
+                parts.append(f"P[{', '.join(e.sql() for e in payload)}]")
+        lits = ", ".join(f"$lit{p.slot}={p.value!r}" for p in self.promoted)
+        return (f"TorchFusedAgg[mode={self.mode}, "
+                f"keys={self.layout.num_keys}](" + " -> ".join(parts) + ")"
+                + (f" lits[{lits}]" if lits else ""))
+
+    def update_batch(self, batch: ColumnarBatch, lits: LiteralArgs
+                     ) -> ColumnarBatch:
+        """One buffer row for ``batch``: kernel 1, then kernel 2's fold."""
+        words, valid = fused_agg_update(self.program, batch, lits)
+        row, row_valid = agg_ops.global_reduce(words, valid,
+                                               self.program.fold_kinds)
+        return agg_ops.unpack_row(row, row_valid, self.program.buffer_types,
+                                  self.layout.buffer_names)
+
+    def execute(self, ctx: ExecContext) -> Partitions:
+        from spark_rapids_tpu_torch.exec.aggregate import (PARTIAL, finish,
+                                                           merge_partials)
+        lits = LiteralArgs.upload(self.promoted, ctx.transfers)
+        out = []
+        for part in self.child.execute(ctx):
+            rows = [self.update_batch(b, lits) for b in part]
+            if self.mode == PARTIAL:
+                out.append(rows)
+            elif rows:
+                out.append([finish(self.layout,
+                                   merge_partials(self.layout, rows))])
+        return out

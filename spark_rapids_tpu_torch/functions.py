@@ -1,0 +1,24 @@
+"""DataFrame functions (the subset of ``spark_rapids_tpu/functions.py``
+this slice supports)."""
+
+from __future__ import annotations
+
+from spark_rapids_tpu_torch.expressions.base import Expression, col, lit
+
+__all__ = ["col", "lit", "sum", "count"]
+
+
+def _expr(e) -> Expression:
+    return col(e) if isinstance(e, str) else e
+
+
+def sum(e):  # noqa: A001 - mirrors pyspark.sql.functions naming
+    from spark_rapids_tpu_torch.expressions.aggregates import Sum
+    return Sum(_expr(e))
+
+
+def count(e="*"):
+    from spark_rapids_tpu_torch.expressions.aggregates import Count
+    if isinstance(e, str) and e == "*":
+        return Count(lit(1))
+    return Count(_expr(e))

@@ -1,0 +1,380 @@
+"""Kernel 1's source: one Triton kernel per filter -> project -> update chain.
+
+The JAX package traces one XLA program per chain signature
+(``spark_rapids_tpu/exec/fused.py:337 TpuFusedAggExec._fused_update`` with
+``_trace_chain`` ``:82`` and ``ops/agg_ops.py:259 global_agg_trace``).  The
+counterpart here emits the source of one ``@triton.jit`` kernel per chain
+signature from the expression tree:
+
+- each program instance walks tiles of ``BLOCK`` rows with a grid stride
+  (tile ``pid``, ``pid + n_programs``, ...) and loads every input column
+  once, with its validity plane (bool viewed as uint8) where the column may
+  hold nulls: a column known to hold none is all valid, read no plane, and
+  gets a kernel of its own;
+- filters AND into a selection mask that the reductions read, with no
+  compaction; projections are evaluated inline; Spark's murmur3 runs as
+  uint32 device functions with wrapping multiplies and logical shifts;
+- each lane adds its rows into per-buffer accumulators kept in registers
+  across tiles, and the program reduces them once at the end, writing one
+  partial row: for each buffer a word (int64 sum with wrap, double sum as
+  its bits, or a count) and a validity byte, into an ``[n_programs,
+  n_buffers]`` table the wrapper allocates.  No atomics: kernel 2 folds
+  the table in a fixed order, and for a given grid every addition happens
+  in a fixed order.
+
+Promoted literals (``plan/stages.py``) are read from a runtime table of
+int64 words, so one built kernel serves every literal value.
+
+The emitters live in a registry keyed by expression class, so the
+expression modules never import ``triton``; a class with no emitter is
+refused when a chain is planned.  This module only writes source text."""
+
+from __future__ import annotations
+
+import struct
+from typing import Callable, Dict, List, Sequence, Tuple
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.expressions import arithmetic as A
+from spark_rapids_tpu_torch.expressions import cast as CA
+from spark_rapids_tpu_torch.expressions import conditional as CO
+from spark_rapids_tpu_torch.expressions import hashing as H
+from spark_rapids_tpu_torch.expressions import predicates as P
+from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
+                                                     Expression, Literal)
+from spark_rapids_tpu_torch.plan.stages import PromotedLiteral
+
+KERNEL_NAME = "fused_agg_update"
+
+_TL = {T.INT: "tl.int32", T.LONG: "tl.int64", T.DOUBLE: "tl.float64"}
+
+#: a generated value: (data expression, validity expression) names
+Value = Tuple[str, str]
+Emitter = Callable[["ChainEmitter", Expression, List[Value]], Value]
+
+EMITTERS: Dict[type, Emitter] = {}
+
+
+def emits(*classes: type):
+    def register(fn: Emitter) -> Emitter:
+        for cls in classes:
+            EMITTERS[cls] = fn
+        return fn
+    return register
+
+
+def _signed32(x: int) -> int:
+    return x - (1 << 32) if x >= 1 << 31 else x
+
+
+def f64_bits(value: float) -> int:
+    return struct.unpack("<q", struct.pack("<d", float(value)))[0]
+
+
+def literal_word(value, dtype: T.DataType) -> int:
+    """A literal's value as the int64 word the kernel reads."""
+    if dtype.is_floating:
+        return f64_bits(value)
+    return int(value)
+
+
+_PREAMBLE = f'''"""Generated by spark_rapids_tpu_torch/kernels/fused_agg.py."""
+import triton
+import triton.language as tl
+
+
+@triton.jit
+def _c32(value: tl.constexpr, BLOCK: tl.constexpr):
+    # a uint32 plane from the signed 32-bit pattern of a constant
+    return tl.full([BLOCK], value, tl.int32).to(tl.uint32, bitcast=True)
+
+
+@triton.jit
+def _rotl32(x, r: tl.constexpr, BLOCK: tl.constexpr):
+    return (x << _c32(r, BLOCK)) | (x >> _c32(32 - r, BLOCK))
+
+
+@triton.jit
+def _mix_k1(k1, BLOCK: tl.constexpr):
+    k1 = k1 * _c32({_signed32(H.C1)}, BLOCK)
+    k1 = _rotl32(k1, 15, BLOCK)
+    return k1 * _c32({_signed32(H.C2)}, BLOCK)
+
+
+@triton.jit
+def _mix_h1(h1, k1, BLOCK: tl.constexpr):
+    h1 = _rotl32(h1 ^ k1, 13, BLOCK)
+    return h1 * _c32(5, BLOCK) + _c32({_signed32(H.C3)}, BLOCK)
+
+
+@triton.jit
+def _fmix(h1, length: tl.constexpr, BLOCK: tl.constexpr):
+    h1 = h1 ^ _c32(length, BLOCK)
+    h1 = h1 ^ (h1 >> _c32(16, BLOCK))
+    h1 = h1 * _c32({_signed32(H.F1)}, BLOCK)
+    h1 = h1 ^ (h1 >> _c32(13, BLOCK))
+    h1 = h1 * _c32({_signed32(H.F2)}, BLOCK)
+    return h1 ^ (h1 >> _c32(16, BLOCK))
+
+
+@triton.jit
+def _murmur3_int(x, seed, BLOCK: tl.constexpr):
+    k1 = _mix_k1(x.to(tl.uint32, bitcast=True), BLOCK)
+    return _fmix(_mix_h1(seed, k1, BLOCK), 4, BLOCK)
+
+
+@triton.jit
+def _murmur3_long(x, seed, BLOCK: tl.constexpr):
+    low = x.to(tl.uint32)
+    high = (x >> 32).to(tl.uint32)
+    h1 = _mix_h1(seed, _mix_k1(low, BLOCK), BLOCK)
+    h1 = _mix_h1(h1, _mix_k1(high, BLOCK), BLOCK)
+    return _fmix(h1, 8, BLOCK)
+'''
+
+
+class ChainEmitter:
+    """Accumulates the body of one kernel."""
+
+    TRUE = "all_true"
+    FALSE = "all_false"
+
+    def __init__(self):
+        self.prologue: List[str] = []   # before the tile loop
+        self.lines: List[str] = []      # the loop body
+        self._n = 0
+        self._named: Dict[str, str] = {}
+        self.slots: Dict[int, str] = {}
+
+    def let(self, code: str, hoist: bool = False) -> str:
+        """Names the value of ``code``; the same code (every emitted
+        expression is pure) gets the name it got before."""
+        if code not in self._named:
+            self._n += 1
+            self._named[code] = f"t{self._n}"
+            (self.prologue if hoist else self.lines).append(
+                f"{self._named[code]} = {code}")
+        return self._named[code]
+
+    def both(self, a: str, b: str) -> str:
+        """``a & b`` of two masks, with all-true operands folded away."""
+        if a == self.TRUE:
+            return b
+        if b == self.TRUE:
+            return a
+        return self.let(f"{a} & {b}")
+
+    def emit(self, e: Expression, cols: List[Value]) -> Value:
+        fn = EMITTERS.get(type(e))
+        if fn is None:
+            raise NotImplementedError(
+                f"{type(e).__name__} has no Triton emitter in "
+                "kernels/fused_agg.py; it cannot run in a fused stage yet")
+        return fn(self, e, cols)
+
+    def cast(self, value: str, src: T.DataType, dst: T.DataType) -> str:
+        if src == dst:
+            return value
+        if dst not in _TL:
+            raise NotImplementedError(f"no kernel form for {dst}")
+        return self.let(f"{value}.to({_TL[dst]})")
+
+    def constant(self, value, dtype: T.DataType) -> Value:
+        if isinstance(dtype, T.BooleanType):
+            return (self.TRUE if value else self.FALSE,
+                    self.FALSE if value is None else self.TRUE)
+        if value is None:
+            tl_type = _TL.get(dtype, "tl.int32")
+            return self.let(f"tl.zeros([BLOCK], {tl_type})"), self.FALSE
+        if dtype.is_floating:
+            return (self.let(f"tl.full([BLOCK], {f64_bits(value)}, tl.int64)"
+                             ".to(tl.float64, bitcast=True)"), self.TRUE)
+        if dtype not in _TL:
+            raise NotImplementedError(f"no kernel form for a {dtype} literal")
+        return self.let(f"tl.full([BLOCK], {int(value)}, {_TL[dtype]})"), \
+            self.TRUE
+
+    def slot(self, slot: int, dtype: T.DataType) -> str:
+        """The value of promoted literal ``slot``, read from the table."""
+        if slot not in self.slots:
+            word = f"tl.load(lits + {slot})"
+            if dtype.is_floating:
+                code = f"{word}.to(tl.float64, bitcast=True)"
+            elif isinstance(dtype, T.BooleanType):
+                code = f"{word} != 0"
+            elif dtype in _TL:
+                code = f"{word}.to({_TL[dtype]})"
+            else:
+                raise NotImplementedError(f"no kernel form for a {dtype} "
+                                          "literal")
+            self.slots[slot] = self.let(code, hoist=True)
+        return self.slots[slot]
+
+
+@emits(BoundReference)
+def _bound_reference(em, e, cols):
+    return cols[e.ordinal]
+
+
+@emits(Alias)
+def _alias(em, e, cols):
+    return em.emit(e.children[0], cols)
+
+
+@emits(Literal)
+def _literal(em, e, cols):
+    return em.constant(e.value, e.data_type)
+
+
+@emits(PromotedLiteral)
+def _promoted_literal(em, e, cols):
+    return em.slot(e.slot, e.data_type), em.TRUE
+
+
+_ARITH = {A.Add: "+", A.Multiply: "*"}
+
+
+@emits(*_ARITH)
+def _arithmetic(em, e, cols):
+    rt = e.data_type
+    (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
+    a = em.cast(a, e.left.data_type, rt)
+    b = em.cast(b, e.right.data_type, rt)
+    return em.let(f"{a} {_ARITH[type(e)]} {b}"), em.both(av, bv)
+
+
+@emits(P.GreaterThan)
+def _greater_than(em, e, cols):
+    ot = e.operand_type
+    (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
+    a = em.cast(a, e.left.data_type, ot)
+    b = em.cast(b, e.right.data_type, ot)
+    if ot.is_floating:
+        # NaN is greater than every other value; x != x tests NaN
+        out = f"({a} > {b}) | (({a} != {a}) & ({b} == {b}))"
+    else:
+        out = f"{a} > {b}"
+    return em.let(out), em.both(av, bv)
+
+
+@emits(CO.If)
+def _if(em, e, cols):
+    rt = e.data_type
+    (p, pv), (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
+    a = em.cast(a, e.children[1].data_type, rt)
+    b = em.cast(b, e.children[2].data_type, rt)
+    cond = em.both(pv, p)   # a null predicate takes the else branch
+    return (em.let(f"tl.where({cond}, {a}, {b})"),
+            em.let(f"({cond} & {av}) | ((~{cond}) & {bv})"))
+
+
+@emits(CA.Cast)
+def _cast(em, e, cols):
+    v, valid = em.emit(e.children[0], cols)
+    return em.cast(v, e.children[0].data_type, e.data_type), valid
+
+
+@emits(H.Murmur3Hash)
+def _murmur3(em, e, cols):
+    h = em.let(f"_c32({_signed32(e.seed & H.MASK32)}, BLOCK)")
+    for child in e.children:
+        v, valid = em.emit(child, cols)
+        if isinstance(child.data_type, T.LongType):
+            hashed = em.let(f"_murmur3_long({v}, {h}, BLOCK)")
+        elif isinstance(child.data_type, T.IntegerType):
+            hashed = em.let(f"_murmur3_int({v}, {h}, BLOCK)")
+        else:
+            raise NotImplementedError(
+                f"murmur3 of {child.data_type} has no kernel form yet")
+        # nulls pass h on
+        h = hashed if valid == em.TRUE else \
+            em.let(f"tl.where({valid}, {hashed}, {h})")
+    return em.let(f"{h}.to(tl.int32, bitcast=True)"), em.TRUE
+
+
+def kernel_source(input_types: Sequence[T.DataType], nullable: Sequence[bool],
+                  ops, update_exprs: Sequence[Expression], update_specs,
+                  n_literals: int) -> str:
+    """Source of a module whose ``fused_agg_update`` kernel runs ``ops`` over
+    columns of ``input_types`` and writes one partial row per program.
+
+    The kernel takes each column's data and, where ``nullable`` says the
+    column may hold nulls, its validity plane.  ``update_specs`` are
+    ``(ordinal, kind, count_valid_only, dtype)`` over ``update_exprs``;
+    kinds ``sum`` and ``count`` have kernel forms."""
+    em = ChainEmitter()
+    params = []
+    cols: List[Value] = []
+    for i, (dt, may_be_null) in enumerate(zip(input_types, nullable)):
+        params.append(f"in{i}")
+        load = f"tl.load(in{i} + offs, mask=inb, other=0)"
+        if isinstance(dt, T.BooleanType):
+            load += " != 0"
+        elif dt not in _TL:
+            raise NotImplementedError(f"no kernel form for a {dt} column")
+        em.lines.append(f"x{i} = {load}")
+        valid = em.TRUE
+        if may_be_null:
+            params.append(f"in{i}_valid")
+            em.lines.append(f"m{i} = tl.load(in{i}_valid + offs, mask=inb, "
+                            "other=0) != 0")
+            valid = f"m{i}"
+        cols.append((f"x{i}", valid))
+    if n_literals:
+        params.append("lits")
+    sel = "inb"
+    for kind, payload in ops:
+        if kind == "filter":
+            pred, pred_valid = em.emit(payload, cols)
+            sel = em.both(em.both(sel, pred_valid), pred)
+        else:
+            cols = [em.emit(e, cols) for e in payload]
+    n_buffers = len(update_specs)
+    inits, stores = [], []
+    counts: Dict[str, str] = {}   # presence mask -> its count accumulator
+    for j, (ordinal, kind, count_valid_only, dtype) in \
+            enumerate(update_specs):
+        e = update_exprs[ordinal]
+        v, valid = em.emit(e, cols)
+        present = sel if kind == "count" and not count_valid_only \
+            else em.both(sel, valid)
+        if present not in counts:
+            counts[present] = f"cnt_{present}"
+            inits.append(f"{counts[present]} = tl.zeros([BLOCK], tl.int64)")
+            em.lines.append(f"{counts[present]} += {present}.to(tl.int64)")
+        count = f"tl.sum({counts[present]}, axis=0)"
+        if kind == "count":
+            word, ok = count, "1"
+        elif kind == "sum" and dtype in (T.LONG, T.DOUBLE):
+            v = em.cast(v, e.data_type, dtype)
+            zero = "0.0" if dtype.is_floating else "0"
+            inits.append(f"acc{j} = tl.zeros([BLOCK], {_TL[dtype]})")
+            em.lines.append(f"acc{j} += tl.where({present}, {v}, {zero})")
+            word = f"tl.sum(acc{j}, axis=0)"
+            if dtype.is_floating:
+                word = f"{word}.to(tl.int64, bitcast=True)"
+            ok = f"({count} > 0).to(tl.uint8)"
+        else:
+            raise NotImplementedError(
+                f"update kind {kind!r} over {dtype} has no kernel form yet")
+        stores.append(f"tl.store(out + row + {j}, {word})")
+        stores.append(f"tl.store(out_valid + row + {j}, {ok})")
+    params += ["out", "out_valid", "n_rows"]
+    loop = ["offs = tile.to(tl.int64) * BLOCK + lane",
+            "inb = offs < n_rows",
+            "all_true = offs >= 0",
+            "all_false = offs < 0",
+            *em.lines]
+    body = ["pid = tl.program_id(0)",
+            "lane = tl.arange(0, BLOCK)",
+            "n_tiles = tl.cdiv(n_rows, BLOCK)",
+            *em.prologue,
+            *inits,
+            "for tile in range(pid, n_tiles, tl.num_programs(0)):",
+            *(f"    {line}" for line in loop),
+            f"row = pid.to(tl.int64) * {n_buffers}",
+            *stores]
+    header = (f"\n\n@triton.jit(do_not_specialize=[\"n_rows\"])\n"
+              f"def {KERNEL_NAME}({', '.join(params)}, "
+              f"BLOCK: tl.constexpr):\n")
+    return _PREAMBLE + header + "".join(f"    {line}\n" for line in body)

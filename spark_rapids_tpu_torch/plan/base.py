@@ -1,0 +1,179 @@
+"""Plan nodes (the analog of ``spark_rapids_tpu/plan/base.py``).
+
+Two trees: the logical plan a DataFrame builds (``Scan``, ``Filter``,
+``Project``, ``Aggregate``, ``Exchange``), and the physical ``Exec`` tree
+the planner (``plan/overrides.py``) turns it into.  An exec's ``execute``
+returns its output partitions, each a list of device batches."""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Sequence
+
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch,
+                                                   HostColumnarBatch)
+from spark_rapids_tpu_torch.columnar.transfer import TransferGateway
+from spark_rapids_tpu_torch.expressions.base import Expression, output_name
+
+Partitions = List[List[ColumnarBatch]]
+
+
+class ExecContext:
+    """What one action runs with: its device and the transfer gateway."""
+
+    def __init__(self, device: torch.device, transfers: TransferGateway):
+        self.device = device
+        self.transfers = transfers
+
+
+class _Node:
+    children: List
+
+    def node_string(self) -> str:
+        return type(self).__name__
+
+    def tree_string(self, depth: int = 0) -> str:
+        lines = ["  " * depth + ("+- " if depth else "") + self.node_string()]
+        lines += [c.tree_string(depth + 1) for c in self.children]
+        return "\n".join(lines)
+
+
+class Exec(_Node):
+    def __init__(self, children: Sequence["Exec"] = ()):
+        self.children: List[Exec] = list(children)
+
+    @property
+    def schema(self) -> T.StructType:
+        raise NotImplementedError
+
+    @property
+    def num_partitions(self) -> int:
+        return self.children[0].num_partitions
+
+    def execute(self, ctx: ExecContext) -> Partitions:
+        raise NotImplementedError(f"{type(self).__name__}.execute")
+
+    def transform_up(self, fn: Callable[["Exec"], "Exec"]) -> "Exec":
+        if self.children:
+            kids = [c.transform_up(fn) for c in self.children]
+            if any(k is not c for k, c in zip(kids, self.children)):
+                self.children = kids
+        return fn(self)
+
+
+class UnaryExec(Exec):
+    def __init__(self, child: Exec):
+        super().__init__([child])
+
+    @property
+    def child(self) -> Exec:
+        return self.children[0]
+
+    @property
+    def schema(self):
+        return self.child.schema
+
+
+class LeafExec(Exec):
+    def __init__(self):
+        super().__init__([])
+
+
+# -- logical plan ------------------------------------------------------------
+
+class LogicalPlan(_Node):
+    def __init__(self, children: Sequence["LogicalPlan"] = ()):
+        self.children: List[LogicalPlan] = list(children)
+
+    @property
+    def schema(self) -> T.StructType:
+        return self.children[0].schema
+
+    @property
+    def num_partitions(self) -> int:
+        return self.children[0].num_partitions
+
+
+class Scan(LogicalPlan):
+    """In-memory host partitions.  ``device_cache`` keeps their device copy
+    after the first action, keyed by device, so the table stays resident
+    across actions."""
+
+    def __init__(self, partitions: Sequence[Sequence[HostColumnarBatch]],
+                 schema: T.StructType):
+        super().__init__()
+        self.partitions = [list(p) for p in partitions]
+        self._schema = schema
+        self.device_cache: Dict[str, Partitions] = {}
+
+    @property
+    def schema(self):
+        return self._schema
+
+    @property
+    def num_partitions(self):
+        return len(self.partitions)
+
+    def node_string(self):
+        rows = sum(b.row_count for p in self.partitions for b in p)
+        return f"Scan[{self.num_partitions}p, {rows} rows]"
+
+
+class Filter(LogicalPlan):
+    def __init__(self, condition: Expression, child: LogicalPlan):
+        super().__init__([child])
+        self.condition = condition
+
+    def node_string(self):
+        return f"Filter[{self.condition.sql()}]"
+
+
+class Project(LogicalPlan):
+    def __init__(self, exprs: Sequence[Expression], child: LogicalPlan):
+        super().__init__([child])
+        self.exprs = list(exprs)
+
+    @property
+    def schema(self):
+        return T.StructType([T.StructField(output_name(e), e.data_type,
+                                           e.nullable) for e in self.exprs])
+
+    def node_string(self):
+        return f"Project[{', '.join(e.sql() for e in self.exprs)}]"
+
+
+class Aggregate(LogicalPlan):
+    """One stage of an aggregation: ``mode`` is partial, final or
+    complete (exec/aggregate.py)."""
+
+    def __init__(self, layout, mode: str, child: LogicalPlan):
+        super().__init__([child])
+        self.layout = layout
+        self.mode = mode
+
+    @property
+    def schema(self):
+        from spark_rapids_tpu_torch.exec.aggregate import PARTIAL
+        return self.layout.buffer_schema if self.mode == PARTIAL \
+            else self.layout.result_schema
+
+    @property
+    def num_partitions(self):
+        return self.children[0].num_partitions
+
+    def node_string(self):
+        aggs = ", ".join(a.out_name for a in self.layout.aggs)
+        return f"Aggregate[{self.mode}, keys={self.layout.num_keys}, {aggs}]"
+
+
+class Exchange(LogicalPlan):
+    """Moves every child partition's rows to one partition."""
+
+    @property
+    def num_partitions(self):
+        return 1
+
+    def node_string(self):
+        return "Exchange[SinglePartition]"

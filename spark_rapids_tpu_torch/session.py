@@ -1,0 +1,135 @@
+"""Session, DataFrame and GroupedData (the analog of
+``spark_rapids_tpu/session.py``, for the recipes of this slice: in-memory
+tables, ``filter``, ``select``, global ``agg`` and ``collect``).
+
+A session runs on ``cuda:0`` unless it is given ``device="cpu"``; without a
+CUDA device and without that, it is refused."""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Union
+
+import torch
+
+from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.batch import (HostColumnarBatch,
+                                                   batch_from_pydict)
+from spark_rapids_tpu_torch.columnar.transfer import TransferGateway
+from spark_rapids_tpu_torch.expressions.base import (Alias, Expression,
+                                                     bind_references, col)
+from spark_rapids_tpu_torch.memory.device_manager import resolve_device
+from spark_rapids_tpu_torch.plan import base as L
+
+
+def _to_expr(e) -> Expression:
+    return col(e) if isinstance(e, str) else e
+
+
+class TorchSession:
+    def __init__(self, conf: Optional[Union[C.TorchConf, Dict]] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        self.conf = conf if isinstance(conf, C.TorchConf) \
+            else C.TorchConf(conf)
+        self.device: torch.device = resolve_device(device)
+        self.transfers = TransferGateway(self.device)
+
+    def create_dataframe(self, data, num_partitions: int = 1,
+                         schema: Optional[T.StructType] = None
+                         ) -> "DataFrame":
+        if isinstance(data, dict):
+            hb = batch_from_pydict(data, schema)
+        elif isinstance(data, HostColumnarBatch):
+            hb = data
+        else:
+            raise TypeError(f"cannot create a DataFrame from {type(data)}")
+        if num_partitions < 1:
+            raise ValueError("num_partitions must be at least 1")
+        n = hb.row_count
+        per = -(-n // num_partitions) if n else 1
+        parts = [[hb.slice(i * per, min(per, n - i * per))]
+                 for i in range(num_partitions) if i * per < n] or [[hb]]
+        return DataFrame(L.Scan(parts, hb.schema), self)
+
+
+class DataFrame:
+    """A lazy logical plan; actions plan it and run it on the device."""
+
+    def __init__(self, plan: L.LogicalPlan, session: TorchSession):
+        self._plan = plan
+        self._session = session
+
+    @property
+    def schema(self) -> T.StructType:
+        return self._plan.schema
+
+    @property
+    def columns(self) -> List[str]:
+        return self.schema.names
+
+    def filter(self, condition) -> "DataFrame":
+        cond = bind_references(_to_expr(condition), self.schema)
+        return DataFrame(L.Filter(cond, self._plan), self._session)
+
+    where = filter
+
+    def select(self, *exprs) -> "DataFrame":
+        bound = [bind_references(_to_expr(e), self.schema) for e in exprs]
+        return DataFrame(L.Project(bound, self._plan), self._session)
+
+    def agg(self, *agg_exprs) -> "DataFrame":
+        """Global aggregation (no grouping keys)."""
+        return GroupedData(self, []).agg(*agg_exprs)
+
+    def executed_plan(self) -> L.Exec:
+        from spark_rapids_tpu_torch.plan.overrides import TorchOverrides
+        return TorchOverrides().apply(self._plan)
+
+    def explain(self) -> str:
+        return "== Logical ==\n" + self._plan.tree_string() + \
+            "\n== Physical ==\n" + self.executed_plan().tree_string()
+
+    def collect_batch(self) -> HostColumnarBatch:
+        s = self._session
+        ctx = L.ExecContext(s.device, s.transfers)
+        batches = [b for part in self.executed_plan().execute(ctx)
+                   for b in part]
+        if len(batches) != 1:
+            raise NotImplementedError(
+                f"collecting {len(batches)} batches is not in this slice "
+                "of the port")
+        return s.transfers.download_batch(batches[0])
+
+    def collect(self) -> List[dict]:
+        return self.collect_batch().to_rows()
+
+
+class GroupedData:
+    def __init__(self, df: DataFrame, keys):
+        self._df = df
+        self._keys = [bind_references(_to_expr(k), df.schema) for k in keys]
+
+    def agg(self, *agg_exprs) -> DataFrame:
+        from spark_rapids_tpu_torch.exec.aggregate import (COMPLETE, FINAL,
+                                                           PARTIAL,
+                                                           _AggLayout)
+        from spark_rapids_tpu_torch.expressions.aggregates import (
+            AggregateExpression, AggregateFunction)
+        schema = self._df.schema
+        aggs = []
+        for e in agg_exprs:
+            name = None
+            if isinstance(e, Alias):
+                name, e = e.alias_name, e.children[0]
+            if not isinstance(e, AggregateFunction):
+                raise TypeError(f"not an aggregate expression: {e}")
+            e = bind_references(e, schema)
+            aggs.append(AggregateExpression(e, name or e.sql()))
+        layout = _AggLayout(self._keys, aggs)
+        child = self._df._plan
+        if child.num_partitions == 1:
+            plan = L.Aggregate(layout, COMPLETE, child)
+        else:
+            partial = L.Aggregate(layout, PARTIAL, child)
+            plan = L.Aggregate(layout, FINAL, L.Exchange([partial]))
+        return DataFrame(plan, self._df._session)

@@ -1,0 +1,142 @@
+"""The port stands alone: spark_rapids_tpu_torch and chip_smoke.py import
+neither jax nor anything of spark_rapids_tpu, kernel modules import triton
+only where they launch, and nothing quietly falls back to the CPU."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "spark_rapids_tpu_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name, node
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module, node
+
+
+def _forbidden(name: str) -> bool:
+    return name == "jax" or name.startswith("jax.") or \
+        name.startswith("jaxlib") or name == "spark_rapids_tpu" or \
+        name.startswith("spark_rapids_tpu.")
+
+
+def test_no_port_file_imports_jax_or_the_jax_package():
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text())
+        for name, node in _imported_modules(tree):
+            if _forbidden(name):
+                bad.append(f"{path.relative_to(REPO)}:{node.lineno} {name}")
+        # importlib.import_module("...") with a literal name, too
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Call) and node.args and \
+                    isinstance(node.args[0], ast.Constant) and \
+                    isinstance(node.args[0].value, str) and \
+                    getattr(node.func, "attr", "") == "import_module" and \
+                    _forbidden(node.args[0].value):
+                bad.append(f"{path.relative_to(REPO)}:{node.lineno}")
+    assert not bad, bad
+
+
+def test_triton_is_imported_only_inside_functions():
+    for path in _port_files():
+        tree = ast.parse(path.read_text())
+        for stmt in tree.body:
+            for name, _node in _imported_modules(ast.Module(body=[stmt],
+                                                            type_ignores=[])):
+                if isinstance(stmt, (ast.FunctionDef, ast.ClassDef)):
+                    continue
+                assert not name.startswith("triton"), \
+                    f"{path.relative_to(REPO)} imports {name} at module level"
+
+
+_RECIPE = r"""
+import sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+import importlib, pkgutil
+import spark_rapids_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from spark_rapids_tpu_torch import TorchSession, functions as F
+from spark_rapids_tpu_torch.expressions import arithmetic as A
+from spark_rapids_tpu_torch.expressions import hashing as H
+from spark_rapids_tpu_torch.expressions import predicates as P
+from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+rng = np.random.default_rng(7)
+d = {{"k": rng.integers(0, 1 << 20, 1000).astype(np.int64),
+     "v": rng.standard_normal(1000),
+     "w": rng.integers(-1000, 1000, 1000).astype(np.int32)}}
+df = TorchSession(device="cpu").create_dataframe(d, num_partitions=4)
+rows = (df.filter(P.GreaterThan(col("w"), lit(0)))
+        .select(Alias(A.Add(col("k"), lit(1)), "k1"),
+                Alias(A.Multiply(col("v"), lit(2.0)), "v2"),
+                Alias(H.Murmur3Hash(col("k"), col("w")), "h"))
+        .agg(F.sum("k1").alias("sk"), F.sum("v2").alias("sv"),
+             F.sum("h").alias("sh"))).collect()
+assert len(rows) == 1 and rows[0]["sk"] is not None, rows
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax")
+             or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")
+             or m == "triton" or m.startswith("triton."))
+print("LEAKED", bad)
+"""
+
+
+def test_port_runs_the_recipe_without_jax_in_the_process():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c",
+                          _RECIPE.format(repo=str(REPO))],
+                         capture_output=True, text=True, timeout=300,
+                         env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "LEAKED []" in out.stdout, out.stdout
+
+
+def test_session_without_device_refuses_when_cuda_is_absent(monkeypatch):
+    import torch
+    from spark_rapids_tpu_torch import TorchSession
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchSession()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchSession(device="cuda")
+    assert TorchSession(device="cpu").device.type == "cpu"
+
+
+def test_wrappers_refuse_other_devices():
+    import torch
+    from spark_rapids_tpu_torch.ops import agg_ops
+    meta = torch.zeros(2, 1, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        agg_ops.global_reduce(meta, torch.ones(2, 1, dtype=torch.bool,
+                                               device="meta"),
+                              [agg_ops.SUM_I64])
+
+
+def test_chip_smoke_alone_or_without_a_card_prints_no_result(tmp_path):
+    import torch
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(REPO / "chip_smoke.py", alone)
+    runs = [alone]
+    if not torch.cuda.is_available():
+        runs.append(REPO / "chip_smoke.py")
+    for script in runs:
+        out = subprocess.run([sys.executable, str(script), "--rows", "10"],
+                             capture_output=True, text=True, timeout=300,
+                             cwd=str(script.parent))
+        assert out.returncode != 0, out.stdout
+        assert out.stdout.strip() == "", out.stdout
