@@ -4,7 +4,11 @@
 
 Every column moves on its own: host planes are staged in pinned memory and
 copied with ``non_blocking=True`` on the current stream, and a download
-ends in exactly one blocking sync.  The JAX package's one-buffer transfers
+ends in exactly one blocking sync.  A string column moves as its offsets
+and chars planes.  ``read_counts`` is the one way a size computed on the
+device reaches the host (a join's pair count, a compaction's survivors, a
+gather's chars total): one D2H copy of a few words and one sync, so every
+such wait is counted.  The JAX package's one-buffer transfers
 (``upload_host_batch`` grouping planes by width into at most four uploads,
 ``_pack_planes`` packing results and the row count into one uint32 buffer)
 work around a slow TPU host link and get no kernel here."""
@@ -12,7 +16,7 @@ work around a slow TPU host link and get no kernel here."""
 from __future__ import annotations
 
 import threading
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -58,13 +62,15 @@ class TransferGateway:
 
     def upload_column(self, column: HostColumn) -> DeviceColumn:
         data = self.to_device(column.data)
+        offsets = None if column.offsets is None else \
+            self.to_device(column.offsets)
         if column.validity is None:
             validity = torch.ones(len(column), dtype=torch.bool,
                                   device=self.device)
             return DeviceColumn(data, validity, column.data_type,
-                                all_valid=True)
+                                all_valid=True, offsets=offsets)
         return DeviceColumn(data, self.to_device(column.validity),
-                            column.data_type)
+                            column.data_type, offsets=offsets)
 
     def upload_batch(self, batch: HostColumnarBatch) -> ColumnarBatch:
         return ColumnarBatch([self.upload_column(c) for c in batch.columns],
@@ -86,11 +92,23 @@ class TransferGateway:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
+    def read_counts(self, counts: Sequence[torch.Tensor]) -> List[int]:
+        """Sizes computed on the device, as host ints: each a one-element
+        integer tensor; one D2H copy and one sync for all of them."""
+        words = torch.stack([c.reshape(()).to(torch.int64) for c in counts])
+        host = self._to_host_async(words)
+        self.sync()
+        return [int(x) for x in host.tolist()]
+
     def download_batch(self, batch: ColumnarBatch) -> HostColumnarBatch:
         """Copies every plane to pinned host memory, then syncs once."""
         planes: List = [(self._to_host_async(c.data),
-                         self._to_host_async(c.validity), c.data_type)
+                         self._to_host_async(c.validity), c.data_type,
+                         None if c.offsets is None
+                         else self._to_host_async(c.offsets))
                         for c in batch.columns]
         self.sync()
-        cols = [HostColumn(d.numpy(), v.numpy(), dt) for d, v, dt in planes]
+        cols = [HostColumn(d.numpy(), v.numpy(), dt,
+                           None if o is None else o.numpy())
+                for d, v, dt, o in planes]
         return HostColumnarBatch(cols, batch.row_count, batch.names)

@@ -16,7 +16,10 @@ per row, and no validity: the bench's columns hold no null), and writes 9
 bytes per buffer per program; its arithmetic (under 100 integer operations per row for the
 hash) is far below the card's rate, so it is bound by device memory
 bytes.  The grid stride keeps each program's accumulators in registers and
-reduces them once, instead of once per tile."""
+reduces them once, instead of once per tile.
+
+The compacting stage, K5 (``TpuFusedStageExec``, kind ``fused.stage``),
+is the second half of this module."""
 
 from __future__ import annotations
 
@@ -30,8 +33,11 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.exec.stage_compiler import get_or_build
-from spark_rapids_tpu_torch.expressions.base import Col, EvalContext
+from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
+                                                     Col, EvalContext,
+                                                     output_name)
 from spark_rapids_tpu_torch.expressions.evaluator import batch_cols
 from spark_rapids_tpu_torch.kernels import fused_agg as K
 from spark_rapids_tpu_torch.ops import agg_ops
@@ -103,24 +109,25 @@ class FusedAggProgram:
 
 
 class FusedKernel:
-    """A kernel-cache entry: the emitted source, and the Triton kernel
-    imported from it at its first launch (Triton compiles it then)."""
+    """A kernel-cache entry: the emitted source, and the module of Triton
+    kernels imported from it at its first launch (Triton compiles each
+    kernel at its first launch)."""
 
-    def __init__(self, source: str):
+    def __init__(self, source: str, prefix: str = "fused_agg_"):
         self.source = source
+        self.prefix = prefix
         self._lock = threading.Lock()
-        self._kernel = None
+        self._module = None
 
-    def kernel(self):
+    def kernel(self, name: str = K.KERNEL_NAME):
         with self._lock:
-            if self._kernel is None:
+            if self._module is None:
                 from spark_rapids_tpu_torch.kernels.build import \
                     load_triton_module
-                name = "fused_agg_" + hashlib.sha1(
+                module = self.prefix + hashlib.sha1(
                     self.source.encode()).hexdigest()[:16]
-                self._kernel = getattr(load_triton_module(name, self.source),
-                                       K.KERNEL_NAME)
-            return self._kernel
+                self._module = load_triton_module(module, self.source)
+            return getattr(self._module, name)
 
 
 class LiteralArgs:
@@ -305,3 +312,213 @@ class TorchFusedAggExec(UnaryExec):
                 out.append([finish(self.layout,
                                    merge_partials(self.layout, rows))])
         return out
+
+
+# -- K5: the compacting stage ---------------------------------------------------
+#
+# ``TorchFusedStageExec`` is the counterpart of ``TpuFusedStageExec``
+# (``exec/fused.py:147``; its program ``_program`` ``:202``, kind
+# ``fused.stage``): a filter/project chain that no aggregate absorbs.
+# ``fused_stage_compact`` is K5's wrapper: it launches the three Triton
+# kernels ``kernels/fused_stage.py`` emits for the chain (count, scan,
+# write; the host reads the survivors' count between them), and returns
+# the survivors' row indices and the computed outputs.  The outputs that
+# are input columns as they are go through K7 with those indices.  A chain
+# of bare column references with no filter is a column selection and
+# launches nothing (``exec/basic.py TorchSelectExec``).
+
+#: launches of K5 (wrapper calls that launch it)
+STAGE_LAUNCHES = 0
+#: rows per tile, warps per program of K5's count and write kernels
+STAGE_BLOCK = 1024
+STAGE_WARPS = 4
+#: tile counts one step of K5's scan takes
+SCAN_CHUNK = 1024
+
+
+def bare_ordinal(e) -> Optional[int]:
+    """The input ordinal when ``e`` is a column as it is (under aliases)."""
+    while isinstance(e, Alias):
+        e = e.children[0]
+    return e.ordinal if isinstance(e, BoundReference) else None
+
+
+def flatten_chain(ops, schema: T.StructType):
+    """``(conditions, outputs)`` of a filter/project chain, both as
+    expressions over the chain's input columns."""
+    current = [BoundReference(i, f.data_type, f.nullable, f.name)
+               for i, f in enumerate(schema.fields)]
+
+    def over_input(e):
+        def fix(node):
+            return current[node.ordinal] \
+                if isinstance(node, BoundReference) else node
+        return e.transform_up(fix)
+
+    conditions = []
+    for kind, payload in ops:
+        if kind == "filter":
+            conditions.append(over_input(payload))
+        else:
+            current = [over_input(e) for e in payload]
+    return conditions, current
+
+
+class StageProgram:
+    """One chain over one input schema: its predicates, its outputs (bare
+    ordinals or computed expressions) and the key of its kernels, one per
+    set of input columns that may hold nulls."""
+
+    def __init__(self, ops, schema: T.StructType, n_literals: int):
+        from spark_rapids_tpu_torch.kernels import fused_stage as S
+        self.input_types = list(schema.types)
+        self.conditions, outputs = flatten_chain(ops, schema)
+        self.bare = [bare_ordinal(e) for e in outputs]
+        self.computed = [e for e, b in zip(outputs, self.bare) if b is None]
+        self.used = S.referenced_columns(self.conditions + self.computed)
+        self.n_literals = n_literals
+        self.key = (_ops_signature(ops),
+                    tuple(str(t) for t in self.input_types), n_literals)
+        # emitting checks that every expression has a kernel form
+        self.kernel_for((True,) * len(self.input_types))
+
+    def kernel_for(self, nullable: Tuple[bool, ...]) -> FusedKernel:
+        from spark_rapids_tpu_torch.kernels import fused_stage as S
+        return get_or_build(
+            "fused.stage", self.key + (nullable,),
+            lambda: FusedKernel(S.stage_source(
+                self.input_types, nullable, self.conditions, self.computed,
+                self.n_literals), prefix="fused_stage_"))
+
+
+def fused_stage_compact(program: StageProgram, batch: ColumnarBatch,
+                        lits: LiteralArgs, transfers
+                        ) -> Tuple[torch.Tensor, List[DeviceColumn]]:
+    """K5's wrapper: ``(row indices of the survivors, computed outputs)``."""
+    types = [c.data_type for c in batch.columns]
+    if types != program.input_types:
+        raise TypeError(f"batch of {types} for a stage over "
+                        f"{program.input_types}")
+    device = batch.device
+    if device.type == "cpu":
+        return fused_stage_compact_plain(program, batch, lits, transfers)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    n = batch.row_count
+    if n == 0:
+        return (torch.empty(0, dtype=torch.int64, device=device),
+                [DeviceColumn(torch.empty(0, dtype=e.data_type.torch_dtype,
+                                          device=device),
+                              torch.empty(0, dtype=torch.bool,
+                                          device=device), e.data_type)
+                 for e in program.computed])
+    if program.n_literals and (lits.words is None or
+                               lits.words.device != device):
+        raise ValueError("the literal table must lie on the batch's device")
+    from spark_rapids_tpu_torch.kernels import fused_stage as S
+    fk = program.kernel_for(tuple(not c.all_valid for c in batch.columns))
+    args: List = []
+    for i in program.used:
+        c = batch.columns[i]
+        data = c.data.contiguous()
+        args.append(data.view(torch.uint8) if data.dtype == torch.bool
+                    else data)
+        if not c.all_valid:
+            args.append(c.validity.contiguous().view(torch.uint8))
+    if program.n_literals:
+        args.append(lits.words)
+    n_tiles = -(-n // STAGE_BLOCK)
+    with torch.cuda.device(device):
+        counts = torch.empty(n_tiles + 1, dtype=torch.int64, device=device)
+        fk.kernel(S.COUNT_KERNEL)[(n_tiles,)](
+            *args, counts, n, BLOCK=STAGE_BLOCK, num_warps=STAGE_WARPS)
+        fk.kernel(S.SCAN_KERNEL)[(1,)](counts, n_tiles, CHUNK=SCAN_CHUNK)
+        total, = transfers.read_counts([counts[n_tiles]])
+        idx = torch.empty(total, dtype=torch.int64, device=device)
+        outs, planes = [], []
+        for e in program.computed:
+            data = torch.empty(total, dtype=e.data_type.torch_dtype,
+                               device=device)
+            valid = torch.empty(total, dtype=torch.bool, device=device)
+            outs.append(DeviceColumn(data, valid, e.data_type))
+            planes += [data.view(torch.uint8) if data.dtype == torch.bool
+                       else data, valid.view(torch.uint8)]
+        if total:
+            fk.kernel(S.WRITE_KERNEL)[(n_tiles,)](
+                *args, counts, idx, *planes, n, BLOCK=STAGE_BLOCK,
+                num_warps=STAGE_WARPS)
+    global STAGE_LAUNCHES
+    STAGE_LAUNCHES += 1
+    return idx, outs
+
+
+def fused_stage_compact_plain(program: StageProgram, batch: ColumnarBatch,
+                              lits: LiteralArgs, transfers
+                              ) -> Tuple[torch.Tensor, List[DeviceColumn]]:
+    """The plain PyTorch version of K5 (it reads the survivors' count
+    through the gateway, as the kernel does)."""
+    dev = batch.device
+    ctx = EvalContext(batch_cols(batch), batch.row_count, dev, lits.values)
+    sel = torch.ones(batch.row_count, dtype=torch.bool, device=dev)
+    for cond in program.conditions:
+        p = cond.eval(ctx)
+        sel = sel & p.valid & p.data
+    transfers.read_counts([sel.sum()])
+    idx = torch.nonzero(sel).flatten()
+    outs = []
+    for e in program.computed:
+        c = e.eval(ctx)
+        outs.append(DeviceColumn(c.data[idx].to(e.data_type.torch_dtype),
+                                 c.valid[idx], e.data_type))
+    return idx, outs
+
+
+class TorchFusedStageExec(UnaryExec):
+    """A [Filter|Project]* chain compacted on the device: K5, then K7 for
+    the columns it passes through."""
+
+    def __init__(self, ops, child, promoted=()):
+        super().__init__(child)
+        self.ops = list(ops)
+        self.promoted = list(promoted)
+        self.program = StageProgram(self.ops, child.schema,
+                                    len(self.promoted))
+
+    @property
+    def schema(self):
+        projects = [p for k, p in self.ops if k == "project"]
+        if not projects:
+            return self.child.schema
+        return T.StructType([T.StructField(output_name(e), e.data_type,
+                                           e.nullable)
+                             for e in projects[-1]])
+
+    def node_string(self):
+        parts = []
+        for kind, payload in self.ops:
+            if kind == "filter":
+                parts.append(f"F[{payload.sql()}]")
+            else:
+                parts.append(f"P[{', '.join(e.sql() for e in payload)}]")
+        lits = ", ".join(f"$lit{p.slot}={p.value!r}" for p in self.promoted)
+        return ("TorchFusedStage(" + " -> ".join(parts) + ")" +
+                (f" lits[{lits}]" if lits else ""))
+
+    def stage_batch(self, batch: ColumnarBatch, lits: LiteralArgs,
+                    transfers) -> ColumnarBatch:
+        from spark_rapids_tpu_torch.ops.batch_ops import gather_columns
+        idx, computed = fused_stage_compact(self.program, batch, lits,
+                                            transfers)
+        wanted = sorted({b for b in self.program.bare if b is not None})
+        moved = dict(zip(wanted, gather_columns(
+            [batch.columns[b] for b in wanted], idx, transfers,
+            unique=True))) if wanted else {}
+        it = iter(computed)
+        cols = [next(it) if b is None else moved[b]
+                for b in self.program.bare]
+        return ColumnarBatch(cols, idx.shape[0], self.schema.names)
+
+    def execute(self, ctx: ExecContext) -> Partitions:
+        lits = LiteralArgs.upload(self.promoted, ctx.transfers)
+        return [[self.stage_batch(b, lits, ctx.transfers) for b in part]
+                for part in self.child.execute(ctx)]

@@ -40,3 +40,15 @@ class GreaterThan(BinaryComparison):
         if floating:
             return (a > b) | (torch.isnan(a) & ~torch.isnan(b))
         return a > b
+
+
+class EqualTo(BinaryComparison):
+    """``=``; for doubles Spark has NaN = NaN true (``predicates.py:177``),
+    and -0.0 = 0.0 as IEEE has it."""
+
+    symbol = "="
+
+    def _cmp(self, a, b, floating):
+        if floating:
+            return (a == b) | (torch.isnan(a) & torch.isnan(b))
+        return a == b

@@ -1,11 +1,11 @@
 """DataFrame functions (the subset of ``spark_rapids_tpu/functions.py``
-this slice supports)."""
+the port supports)."""
 
 from __future__ import annotations
 
 from spark_rapids_tpu_torch.expressions.base import Expression, col, lit
 
-__all__ = ["col", "lit", "sum", "count"]
+__all__ = ["col", "lit", "sum", "count", "asc", "desc"]
 
 
 def _expr(e) -> Expression:
@@ -22,3 +22,13 @@ def count(e="*"):
     if isinstance(e, str) and e == "*":
         return Count(lit(1))
     return Count(_expr(e))
+
+
+def asc(e, nulls_first: bool = True):
+    from spark_rapids_tpu_torch.exec.sort import SortSpec
+    return SortSpec(_expr(e), True, nulls_first)
+
+
+def desc(e, nulls_first: bool = False):
+    from spark_rapids_tpu_torch.exec.sort import SortSpec
+    return SortSpec(_expr(e), False, nulls_first)

@@ -9,6 +9,7 @@
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import importlib.util
 import os
@@ -16,7 +17,8 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
-from types import ModuleType
+from types import ModuleType, SimpleNamespace
+from typing import Dict, Sequence
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -65,10 +67,12 @@ def nvcc_path() -> str:
 
 def build_shared_library(source_name: str) -> Path:
     """Compiles ``csrc/<source_name>`` to ``build/cuda/lib<stem>-<hash>.so``
-    (reused when the source is unchanged); the compiler's register and
-    shared-memory report goes beside it as ``.log``."""
+    (reused when the source and the headers under ``csrc/`` are unchanged);
+    the compiler's register and shared-memory report goes beside it as
+    ``.log``."""
     src = CSRC / source_name
-    digest = hashlib.sha1(src.read_bytes() +
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers +
                           " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     out = build_dir("cuda") / f"lib{src.stem}-{digest}.so"
     if out.exists():
@@ -82,3 +86,38 @@ def build_shared_library(source_name: str) -> Path:
                            f"(rc={proc.returncode}):\n{proc.stderr[-4000:]}")
     os.replace(tmp, out)
     return out
+
+
+#: ctypes argument codes of ``load_cuda``'s signatures: a device or host
+#: pointer (``p``), an int64 (``q``), an int32 (``i``)
+_ARG = {"p": ctypes.c_void_p, "q": ctypes.c_int64, "i": ctypes.c_int32}
+
+
+def load_cuda(source_name: str, signatures: Dict[str, str]
+              ) -> SimpleNamespace:
+    """Builds ``csrc/<source_name>`` (first call) and binds its C entry
+    points: ``signatures`` maps each function name to its argument codes
+    (``_ARG``); every entry point returns a ``cudaError_t`` as int."""
+    lib = ctypes.CDLL(str(build_shared_library(source_name)))
+    fns = {}
+    for name, codes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = [_ARG[c] for c in codes]
+        fn.restype = ctypes.c_int
+        fns[name] = fn
+    return SimpleNamespace(**fns)
+
+
+def pointers(tensors: Sequence) -> "ctypes.Array":
+    """A host array of device pointers (None is a null pointer)."""
+    return (ctypes.c_void_p * max(1, len(tensors)))(
+        *[None if t is None else t.data_ptr() for t in tensors])
+
+
+def int32s(values: Sequence[int]) -> "ctypes.Array":
+    return (ctypes.c_int32 * max(1, len(values)))(*values)
+
+
+def check_launch(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc}")

@@ -257,6 +257,20 @@ def _greater_than(em, e, cols):
     return em.let(out), em.both(av, bv)
 
 
+@emits(P.EqualTo)
+def _equal_to(em, e, cols):
+    ot = e.operand_type
+    (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
+    a = em.cast(a, e.left.data_type, ot)
+    b = em.cast(b, e.right.data_type, ot)
+    if ot.is_floating:
+        # NaN equals NaN
+        out = f"({a} == {b}) | (({a} != {a}) & ({b} != {b}))"
+    else:
+        out = f"{a} == {b}"
+    return em.let(out), em.both(av, bv)
+
+
 @emits(CO.If)
 def _if(em, e, cols):
     rt = e.data_type

@@ -1,6 +1,9 @@
-"""Global reduction of aggregation buffers: kernel 2 (the analog of
-``spark_rapids_tpu/ops/agg_ops.py``: ``_global_aggregate`` ``:223``,
-``global_agg_trace`` ``:259``, ``_global_reduce`` ``:159``).
+"""Aggregation kernels (the analog of ``spark_rapids_tpu/ops/agg_ops.py``):
+the global reduction of aggregation buffers, kernel 2 (K3 in ROADMAP;
+``_global_aggregate`` ``:223``, ``global_agg_trace`` ``:259``,
+``_global_reduce`` ``:159``), and the keyed aggregation, K9
+(``keyed_agg_trace`` ``:390``, ``_segment_reduce`` ``:52``,
+``_masked_group_words`` ``:38``), below ``keyed_aggregate``.
 
 ``global_reduce`` is the kernel's wrapper.  Its input is a table of 8-byte
 words ``[n_rows, n_cols]`` (int64 as is, double as its bits) with a
@@ -19,7 +22,6 @@ column, so it is bound by device memory bytes; at the main path's sizes
 
 from __future__ import annotations
 
-import ctypes
 from typing import List, Sequence, Tuple
 
 import torch
@@ -27,6 +29,7 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.ops.join_ops import table_size
 
 SUM_I64, SUM_F64, COUNT, MIN_I64, MAX_I64, MIN_F64, MAX_F64 = range(7)
 #: columns one launch takes (the kind table is passed by value)
@@ -53,22 +56,14 @@ def reduce_kind(kind: str, dtype: T.DataType) -> int:
         f"reduction {kind!r} over {dtype} is not in this port yet")
 
 
-def _load_library():
-    from spark_rapids_tpu_torch.kernels.build import build_shared_library
-    lib = ctypes.CDLL(str(build_shared_library("global_reduce.cu")))
-    fn = lib.srt_global_reduce
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.POINTER(ctypes.c_int32),
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def load_library():
-    """Builds (first call) and returns the kernel's C entry point."""
+    """Builds (first call) and binds ``csrc/global_reduce.cu``."""
     from spark_rapids_tpu_torch.exec.stage_compiler import get_or_build
-    return get_or_build("agg.global", "csrc/global_reduce.cu",
-                        _load_library)
+    from spark_rapids_tpu_torch.kernels.build import load_cuda
+    return get_or_build(
+        "agg.global", "csrc/global_reduce.cu",
+        lambda: load_cuda("global_reduce.cu",
+                          {"srt_global_reduce": "ppqqpppp"}))
 
 
 def _check(values: torch.Tensor, valid: torch.Tensor,
@@ -103,15 +98,14 @@ def global_reduce(values: torch.Tensor, valid: torch.Tensor,
     valid = valid.contiguous()
     out = torch.empty(n_cols, dtype=torch.int64, device=values.device)
     out_valid = torch.empty(n_cols, dtype=torch.bool, device=values.device)
-    fn = load_library()
-    kind_arr = (ctypes.c_int32 * n_cols)(*kinds)
+    from spark_rapids_tpu_torch.kernels.build import check_launch, int32s
+    lib = load_library()
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
-        rc = fn(values.data_ptr(), valid.data_ptr(), n_rows, n_cols,
-                kind_arr, out.data_ptr(), out_valid.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"kernel 2 (global_reduce) launch failed: CUDA "
-                           f"error {rc}")
+        check_launch(lib.srt_global_reduce(
+            values.data_ptr(), valid.data_ptr(), n_rows, n_cols,
+            int32s(kinds), out.data_ptr(), out_valid.data_ptr(), stream),
+            "kernel 2 (global_reduce)")
     global LAUNCHES
     LAUNCHES += 1
     return out, out_valid
@@ -202,3 +196,281 @@ def global_aggregate(batch: ColumnarBatch, specs,
     words, ok = global_reduce(values, valid, kinds)
     names = list(names) or [f"a{j}" for j in range(len(specs))]
     return unpack_row(words, ok, [s[3] for s in specs], names)
+
+
+# -- K9: keyed aggregation ----------------------------------------------------
+#
+# ``keyed_aggregate`` is K9's wrapper.  Rows are grouped by their key
+# columns (int, long or string; a null is a value of its own) through a
+# hash table (``csrc/keyed_agg.cu``); groups are numbered in order of first
+# appearance, and each aggregate is folded over its group's rows in row
+# order, so results do not depend on timing.  The host reads the group
+# count once (one sync) to size the outputs.  ``keyed_aggregate_plain``
+# does the same with torch ops: the same hash (``key_hash_plain``, which a
+# test replaces to force collisions), linear probing in rounds, keys
+# compared value by value and strings byte by byte.
+
+#: K9 aggregate kinds (csrc/keyed_agg.cu AggKind)
+KEYED_SUM_I64, KEYED_SUM_F64, KEYED_COUNT, KEYED_COUNT_ALL = range(4)
+#: launches of K9 (wrapper calls that launch it)
+KEYED_LAUNCHES = 0
+MAX_KEYS = 8
+MAX_AGGS = 16
+SCAN_TILE = 1024
+RADIX_TILE = 256
+
+_KEY_CODES = {T.INT: 0, T.LONG: 1, T.STRING: 3}
+KEYED_KEY_TYPES = tuple(_KEY_CODES)
+_IN_CODES = {T.INT: 0, T.LONG: 1, T.DOUBLE: 2}
+
+_KEYED_SIGNATURES = {
+    "srt_agg_groups": "ipppppqpppqpppp",
+    "srt_agg_reduce": "i" + "p" * 6 + "qq" + "p" * 13,
+}
+
+
+def load_keyed_library():
+    """Builds (first call) and binds ``csrc/keyed_agg.cu``."""
+    from spark_rapids_tpu_torch.exec.stage_compiler import get_or_build
+    from spark_rapids_tpu_torch.kernels.build import load_cuda
+    return get_or_build("agg.keyed", "csrc/keyed_agg.cu",
+                        lambda: load_cuda("keyed_agg.cu", _KEYED_SIGNATURES))
+
+
+def _check_keyed(keys: Sequence[DeviceColumn], inputs, kinds) -> None:
+    if not 1 <= len(keys) <= MAX_KEYS:
+        raise NotImplementedError(f"K9 takes 1..{MAX_KEYS} keys")
+    if len(inputs) != len(kinds) or len(kinds) > MAX_AGGS:
+        raise ValueError(f"one input per kind, at most {MAX_AGGS}")
+    n = keys[0].row_count
+    for k in keys:
+        if k.data_type not in _KEY_CODES:
+            raise NotImplementedError(
+                f"a grouping key of {k.data_type} is not in the port yet "
+                "(int, long and string keys are)")
+        if k.row_count != n:
+            raise ValueError("key columns of different lengths")
+    for c, kind in zip(inputs, kinds):
+        if kind not in range(4):
+            raise ValueError(f"unknown keyed aggregate kind {kind}")
+        if kind == KEYED_COUNT_ALL:
+            continue
+        if c is None or c.row_count != n:
+            raise ValueError("an aggregate input of the keys' rows is "
+                             "needed")
+        if kind != KEYED_COUNT and c.data_type not in _IN_CODES:
+            raise NotImplementedError(
+                f"a sum over {c.data_type} is not in the port yet")
+        if kind == KEYED_SUM_F64 and c.data_type != T.DOUBLE:
+            raise TypeError("a double sum needs a double input")
+        if kind == KEYED_SUM_I64 and c.data_type == T.DOUBLE:
+            raise TypeError("a long sum needs an int or long input")
+
+
+def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
+                    transfers) -> Tuple[torch.Tensor, List[Tuple]]:
+    """K9's wrapper: ``(group_rep, [(values, valid) per aggregate])``.
+    ``group_rep[g]`` is the first row of group ``g``; groups are numbered
+    in order of first appearance.  ``inputs[j]`` is the column aggregate
+    ``j`` folds (None for a count of rows)."""
+    _check_keyed(keys, inputs, kinds)
+    device = keys[0].device
+    if device.type == "cpu":
+        return keyed_aggregate_plain(keys, inputs, kinds, transfers)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    from spark_rapids_tpu_torch.kernels.build import (check_launch, int32s,
+                                                      pointers)
+    lib = load_keyed_library()
+    n = keys[0].row_count
+    size = table_size(n)
+
+    def valid_of(c):
+        return None if c is None or c.all_valid else \
+            c.validity.contiguous().view(torch.uint8)
+
+    def empty(count, dtype=torch.int64):
+        return torch.empty(count, dtype=dtype, device=device)
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        kdata = [k.data.contiguous() for k in keys]
+        kvalid = [valid_of(k) for k in keys]
+        # scratch is held by name until the launches are queued: a tensor
+        # freed at once would let the next one reuse its memory
+        hashes, slots, rep = empty(n), empty(size), empty(size)
+        slot_of, rank = empty(n), empty(n + 1)
+        tiles = empty(-(-n // SCAN_TILE))
+        check_launch(lib.srt_agg_groups(
+            len(keys), int32s([_KEY_CODES[k.data_type] for k in keys]),
+            int32s([int(k.is_string and k.offsets.dtype == torch.int64)
+                    for k in keys]),
+            pointers(kdata), pointers(kvalid),
+            pointers([k.offsets for k in keys]), n, hashes.data_ptr(),
+            slots.data_ptr(), rep.data_ptr(), size, slot_of.data_ptr(),
+            rank.data_ptr(), tiles.data_ptr(), stream), "K9 groups")
+        n_groups, = transfers.read_counts([rank[n]])
+        outs = [empty(n_groups, torch.float64 if kind == KEYED_SUM_F64
+                      else torch.int64) for kind in kinds]
+        valids = [empty(n_groups, torch.bool) for _ in kinds]
+        group_rep = empty(n_groups)
+        idata = [None if c is None else c.data.contiguous() for c in inputs]
+        ivalid = [valid_of(c) for c in inputs]
+        gid, counts, seg = empty(n), empty(n_groups), empty(n_groups + 1)
+        perm, perm_tmp = empty(n), empty(n)
+        hist = empty(256 * -(-n // RADIX_TILE), torch.int32)
+        digit_total = empty(256)
+        group_tiles = empty(max(1, -(-n_groups // SCAN_TILE)))
+        check_launch(lib.srt_agg_reduce(
+            len(kinds), int32s(list(kinds)),
+            int32s([_IN_CODES.get(None if c is None else c.data_type, 0)
+                    for c in inputs]),
+            pointers(idata), pointers(ivalid), pointers(outs),
+            pointers(valids), n, n_groups, slot_of.data_ptr(),
+            rep.data_ptr(), rank.data_ptr(), gid.data_ptr(),
+            group_rep.data_ptr(), counts.data_ptr(), seg.data_ptr(),
+            perm.data_ptr(), perm_tmp.data_ptr(), hist.data_ptr(),
+            digit_total.data_ptr(), group_tiles.data_ptr(), stream),
+            "K9 reduce")
+    global KEYED_LAUNCHES
+    KEYED_LAUNCHES += 1
+    return group_rep, list(zip(outs, valids))
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _signed64(x: int) -> int:
+    x &= _MASK64
+    return x - (1 << 64) if x >= 1 << 63 else x
+
+
+_SEED = _signed64(0x9e3779b97f4a7c15)
+_NULL_WORD = _signed64(0x5bd1e9955bd1e995)
+_FMIX1 = _signed64(0xff51afd7ed558ccd)
+_FMIX2 = _signed64(0xc4ceb9fe1a85ec53)
+_FNV_BASIS = _signed64(0xcbf29ce484222325)
+_FNV_PRIME = 0x100000001b3
+
+
+def _shr(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 bit patterns."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+def _fmix64(h: torch.Tensor) -> torch.Tensor:
+    h = h ^ _shr(h, 33)
+    h = h * _FMIX1
+    h = h ^ _shr(h, 33)
+    h = h * _FMIX2
+    return h ^ _shr(h, 33)
+
+
+def _padded_chars(c: DeviceColumn) -> torch.Tensor:
+    """A string column as a zero-padded ``[rows, longest]`` byte matrix."""
+    off = c.offsets.to(torch.int64)
+    lens = off[1:] - off[:-1]
+    width = int(lens.max()) if lens.numel() else 0
+    pos = torch.arange(width, dtype=torch.int64, device=off.device)
+    inside = pos[None, :] < lens[:, None]
+    at = torch.where(inside, off[:-1, None] + pos[None, :], 0)
+    data = c.data if c.data.numel() else \
+        torch.zeros(1, dtype=torch.uint8, device=off.device)
+    return torch.where(inside, data[at], 0)
+
+
+def key_hash_plain(keys: Sequence[DeviceColumn]) -> torch.Tensor:
+    """Each row's key hash as ``csrc/keyed_agg.cu row_hash`` computes it:
+    fmix64 chained over the columns; a string's bytes folded by FNV-1a."""
+    n = keys[0].row_count
+    h = torch.full((n,), _SEED, dtype=torch.int64, device=keys[0].device)
+    for c in keys:
+        if c.is_string:
+            off = c.offsets.to(torch.int64)
+            lens = off[1:] - off[:-1]
+            mat = _padded_chars(c).to(torch.int64)
+            x = torch.full((n,), _FNV_BASIS, dtype=torch.int64,
+                           device=h.device)
+            for j in range(mat.shape[1]):
+                x = torch.where(j < lens, (x ^ mat[:, j]) * _FNV_PRIME, x)
+        else:
+            x = c.data.to(torch.int64)
+        x = torch.where(c.validity, x, _NULL_WORD)
+        h = _fmix64(h ^ x)
+    return h
+
+
+def _keys_equal(keys, mats, a: torch.Tensor, b: torch.Tensor
+                ) -> torch.Tensor:
+    """Row ``a[i]`` has the keys of row ``b[i]``: nulls equal nulls,
+    strings equal byte by byte."""
+    eq = torch.ones(a.shape[0], dtype=torch.bool, device=a.device)
+    for c, mat in zip(keys, mats):
+        va, vb = c.validity[a], c.validity[b]
+        if mat is None:
+            same = c.data[a] == c.data[b]
+        else:
+            off = c.offsets.to(torch.int64)
+            lens = off[1:] - off[:-1]
+            same = (lens[a] == lens[b]) & (mat[a] == mat[b]).all(dim=1)
+        eq &= (va == vb) & (~va | same)
+    return eq
+
+
+def group_rows_plain(keys: Sequence[DeviceColumn], transfers
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(group id per row, first row per group)`` as K9 groups them:
+    linear probing in a table of ``table_size(rows)`` slots from
+    ``key_hash_plain``, one probe step per round; a slot is claimed by the
+    lowest row that reaches it empty."""
+    n = keys[0].row_count
+    device = keys[0].device
+    h = key_hash_plain(keys)
+    size = table_size(n)
+    mask = size - 1
+    mats = [_padded_chars(c) if c.is_string else None for c in keys]
+    owner = torch.full((size,), n, dtype=torch.int64, device=device)
+    pos = h & mask
+    slot_of = torch.empty(n, dtype=torch.int64, device=device)
+    todo = torch.arange(n, dtype=torch.int64, device=device)
+    while todo.numel():
+        s = pos[todo]
+        free = owner[s] == n
+        owner.scatter_reduce_(0, s[free], todo[free], reduce="amin")
+        first = owner[s]
+        eq = (h[first] == h[todo]) & _keys_equal(keys, mats, first, todo)
+        slot_of[todo[eq]] = s[eq]
+        todo = todo[~eq]
+        pos[todo] = (pos[todo] + 1) & mask
+    first = owner[slot_of]
+    is_first = first == torch.arange(n, dtype=torch.int64, device=device)
+    flags = is_first.to(torch.int64)
+    rank = torch.cumsum(flags, 0) - flags
+    # the group count sizes K9's outputs: read through the gateway, so the
+    # plain path counts the sync the kernel's path makes
+    transfers.read_counts([flags.sum()])
+    return rank[first], torch.nonzero(is_first).flatten()
+
+
+def keyed_aggregate_plain(keys: Sequence[DeviceColumn], inputs, kinds,
+                          transfers) -> Tuple[torch.Tensor, List[Tuple]]:
+    """The plain PyTorch version of K9 (same groups, same order)."""
+    _check_keyed(keys, inputs, kinds)
+    gid, group_rep = group_rows_plain(keys, transfers)
+    g = group_rep.shape[0]
+    device = gid.device
+    out = []
+    for c, kind in zip(inputs, kinds):
+        present = torch.ones_like(gid, dtype=torch.bool) \
+            if kind == KEYED_COUNT_ALL else c.validity
+        cnt = torch.zeros(g, dtype=torch.int64, device=device).index_add_(
+            0, gid, present.to(torch.int64))
+        if kind in (KEYED_COUNT, KEYED_COUNT_ALL):
+            out.append((cnt, torch.ones(g, dtype=torch.bool,
+                                        device=device)))
+            continue
+        dt = torch.float64 if kind == KEYED_SUM_F64 else torch.int64
+        vals = torch.where(present, c.data.to(dt), 0)
+        s = torch.zeros(g, dtype=dt, device=device).index_add_(0, gid, vals)
+        out.append((s, cnt > 0))
+    return group_rep, out

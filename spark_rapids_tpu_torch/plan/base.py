@@ -1,7 +1,8 @@
 """Plan nodes (the analog of ``spark_rapids_tpu/plan/base.py``).
 
 Two trees: the logical plan a DataFrame builds (``Scan``, ``Filter``,
-``Project``, ``Aggregate``, ``Exchange``), and the physical ``Exec`` tree
+``Project``, ``Aggregate``, ``Exchange``, ``Join``, ``Sort``, ``Limit``),
+and the physical ``Exec`` tree
 the planner (``plan/overrides.py``) turns it into.  An exec's ``execute``
 returns its output partitions, each a list of device batches."""
 
@@ -177,3 +178,49 @@ class Exchange(LogicalPlan):
 
     def node_string(self):
         return "Exchange[SinglePartition]"
+
+
+class Join(LogicalPlan):
+    """An equi-join; its output is the left columns, then the right."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression], how: str):
+        super().__init__([left, right])
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.how = how
+
+    @property
+    def schema(self):
+        return T.StructType(list(self.children[0].schema.fields) +
+                            list(self.children[1].schema.fields))
+
+    @property
+    def num_partitions(self):
+        return max(c.num_partitions for c in self.children)
+
+    def node_string(self):
+        keys = ", ".join(f"{a.sql()} = {b.sql()}"
+                         for a, b in zip(self.left_keys, self.right_keys))
+        return f"Join[{self.how}, {keys}]"
+
+
+class Sort(LogicalPlan):
+    """A global sort by ``specs`` (``exec/sort.py SortSpec``)."""
+
+    def __init__(self, specs, child: LogicalPlan):
+        super().__init__([child])
+        self.specs = list(specs)
+
+    def node_string(self):
+        return f"Sort[{', '.join(s.sql() for s in self.specs)}]"
+
+
+class Limit(LogicalPlan):
+    def __init__(self, n: int, child: LogicalPlan):
+        super().__init__([child])
+        self.n = int(n)
+
+    def node_string(self):
+        return f"Limit[{self.n}]"

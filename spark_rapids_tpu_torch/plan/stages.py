@@ -2,13 +2,15 @@
 ``spark_rapids_tpu/plan/stages.py``).
 
 ``fuse_device_stages`` (``:138``) folds the filter/project chain under a
-partial or complete aggregate into one ``TorchFusedAggExec``: one kernel-1
-launch per batch.  ``promote_stage_literals`` (``:84``) turns eligible
+partial or complete global aggregate into one ``TorchFusedAggExec`` (one
+kernel-1 launch per batch), and every other chain into a compacting stage
+(K5) or, when it only picks and renames columns, a column selection with
+no launch.  ``promote_stage_literals`` (``:84``) turns eligible
 literals of the chain into slots read at run time, so the kernel cache key
 depends on the plan's shape and not on literal values: ``w > 0`` and
 ``w > 5`` share one kernel.  As in the JAX package only a literal directly
-under a comparison or ``+``/``*`` whose sibling has the same type and reads
-a column is promoted."""
+under ``>``, ``=``, ``+`` or ``*`` whose sibling has the same type and
+reads a column is promoted."""
 
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ class PromotedLiteral(Literal):
 def _promotable_parents():
     from spark_rapids_tpu_torch.expressions import arithmetic as A
     from spark_rapids_tpu_torch.expressions import predicates as P
-    return (P.GreaterThan, A.Add, A.Multiply)
+    return (P.GreaterThan, P.EqualTo, A.Add, A.Multiply)
 
 
 _PROMOTABLE_TYPES = (T.IntegerType, T.LongType, T.DoubleType)
@@ -86,13 +88,18 @@ def promote_stage_literals(ops) -> Tuple[list, List[PromotedLiteral]]:
 
 
 def fuse_device_stages(plan):
-    """Collapses each partial / complete aggregate and the filter/project
-    chain beneath it into one ``TorchFusedAggExec``."""
+    """Folds every chain of filters and projections into one exec: under a
+    partial or complete global aggregate, a ``TorchFusedAggExec`` (K1);
+    elsewhere, a ``TorchSelectExec`` when the chain only picks and renames
+    columns, else a ``TorchFusedStageExec`` (K5)."""
     from spark_rapids_tpu_torch.exec.aggregate import (FINAL,
                                                        TorchHashAggregateExec)
     from spark_rapids_tpu_torch.exec.basic import (TorchFilterExec,
-                                                   TorchProjectExec)
-    from spark_rapids_tpu_torch.exec.fused import TorchFusedAggExec
+                                                   TorchProjectExec,
+                                                   TorchSelectExec)
+    from spark_rapids_tpu_torch.exec.fused import (TorchFusedAggExec,
+                                                   TorchFusedStageExec,
+                                                   bare_ordinal)
 
     def chain_of(node):
         ops = []
@@ -106,12 +113,34 @@ def fuse_device_stages(plan):
                 return list(reversed(ops)), cur
             cur = cur.child
 
-    def fix(node):
-        if isinstance(node, TorchHashAggregateExec) and node.mode != FINAL:
+    def selection(top, ops, base):
+        """The child ordinals when the chain only picks columns."""
+        ordinals = list(range(len(base.schema)))
+        for kind, payload in ops:
+            if kind == "filter":
+                return None
+            picked = [bare_ordinal(e) for e in payload]
+            if None in picked:
+                return None
+            ordinals = [ordinals[i] for i in picked]
+        return TorchSelectExec(ordinals, top.schema, base)
+
+    def fuse(node):
+        if isinstance(node, TorchHashAggregateExec) and \
+                node.mode != FINAL and not node.layout.num_keys:
             ops, base = chain_of(node.child)
             ops, lits = promote_stage_literals(ops)
-            return TorchFusedAggExec(ops, node.layout, node.mode, base,
+            return TorchFusedAggExec(ops, node.layout, node.mode, fuse(base),
                                      promoted=lits)
+        if isinstance(node, (TorchFilterExec, TorchProjectExec)):
+            ops, base = chain_of(node)
+            base = fuse(base)
+            picked = selection(node, ops, base)
+            if picked is not None:
+                return picked
+            ops, lits = promote_stage_literals(ops)
+            return TorchFusedStageExec(ops, base, promoted=lits)
+        node.children = [fuse(c) for c in node.children]
         return node
 
-    return plan.transform_up(fix)
+    return fuse(plan)

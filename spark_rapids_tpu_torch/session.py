@@ -1,6 +1,9 @@
 """Session, DataFrame and GroupedData (the analog of
-``spark_rapids_tpu/session.py``, for the recipes of this slice: in-memory
-tables, ``filter``, ``select``, global ``agg`` and ``collect``).
+``spark_rapids_tpu/session.py``, for the recipes the port runs: in-memory
+tables, ``filter``, ``select``, ``join`` (``:637``), ``group_by`` (``:729``)
+and ``agg``, ``order_by`` (``:602``), ``limit`` (``:515``) and
+``collect``).  A join, a group-by, a sort and a limit run over one
+partition.
 
 A session runs on ``cuda:0`` unless it is given ``device="cpu"``; without a
 CUDA device and without that, it is refused."""
@@ -16,7 +19,8 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (HostColumnarBatch,
                                                    batch_from_pydict)
 from spark_rapids_tpu_torch.columnar.transfer import TransferGateway
-from spark_rapids_tpu_torch.expressions.base import (Alias, Expression,
+from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
+                                                     Expression,
                                                      bind_references, col)
 from spark_rapids_tpu_torch.memory.device_manager import resolve_device
 from spark_rapids_tpu_torch.plan import base as L
@@ -81,6 +85,61 @@ class DataFrame:
         """Global aggregation (no grouping keys)."""
         return GroupedData(self, []).agg(*agg_exprs)
 
+    def group_by(self, *cols) -> "GroupedData":
+        return GroupedData(self, cols)
+
+    groupBy = group_by
+
+    def join(self, other: "DataFrame", on=None, how: str = "inner",
+             condition=None) -> "DataFrame":
+        """Equi-join on column names with USING semantics, as the JAX
+        package's ``join``: the key columns once (the left side's), then
+        the other left columns, then the other right columns."""
+        if on is None or condition is not None:
+            raise NotImplementedError(
+                "a join without keys or with a condition beyond them is not "
+                "in the port yet")
+        names = [on] if isinstance(on, str) else list(on)
+        lschema, rschema = self.schema, other.schema
+        lkeys = [bind_references(col(n), lschema) for n in names]
+        rkeys = [bind_references(col(n), rschema) for n in names]
+        plan = L.Join(self._plan, other._plan, lkeys, rkeys, how)
+        out = plan.schema
+        nl = len(lschema)
+
+        def ref(i: int, name: str) -> Expression:
+            f = out.fields[i]
+            return Alias(BoundReference(i, f.data_type, f.nullable, name),
+                         name)
+
+        key_l = {lschema.field_index(n) for n in names}
+        key_r = {rschema.field_index(n) for n in names}
+        exprs = [ref(lschema.field_index(n), n) for n in names]
+        exprs += [ref(i, f.name) for i, f in enumerate(lschema.fields)
+                  if i not in key_l]
+        exprs += [ref(nl + i, f.name) for i, f in enumerate(rschema.fields)
+                  if i not in key_r]
+        return DataFrame(L.Project(exprs, plan), self._session)
+
+    def order_by(self, *cols, ascending: bool = True) -> "DataFrame":
+        """A global sort: names or expressions (``ascending`` applies), or
+        ``functions.asc``/``desc`` specs."""
+        from spark_rapids_tpu_torch.exec.sort import SortSpec
+        specs = []
+        for c in cols:
+            if isinstance(c, SortSpec):
+                specs.append(SortSpec(bind_references(c.expr, self.schema),
+                                      c.ascending, c.nulls_first))
+            else:
+                specs.append(SortSpec(
+                    bind_references(_to_expr(c), self.schema), ascending))
+        return DataFrame(L.Sort(specs, self._plan), self._session)
+
+    sort = order_by
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(L.Limit(n, self._plan), self._session)
+
     def executed_plan(self) -> L.Exec:
         from spark_rapids_tpu_torch.plan.overrides import TorchOverrides
         return TorchOverrides().apply(self._plan)
@@ -96,8 +155,7 @@ class DataFrame:
                    for b in part]
         if len(batches) != 1:
             raise NotImplementedError(
-                f"collecting {len(batches)} batches is not in this slice "
-                "of the port")
+                f"collecting {len(batches)} batches is not in the port yet")
         return s.transfers.download_batch(batches[0])
 
     def collect(self) -> List[dict]:

@@ -1,6 +1,7 @@
 """Data types of the port: the subset of ``spark_rapids_tpu/types.py`` that
-the filter -> project -> global aggregate path needs, each with its numpy
-(host) and torch (device) dtype."""
+the port's queries need, each with its numpy (host) and torch (device)
+dtype.  A string has neither: its column is Arrow offsets plus a uint8
+chars plane (``columnar/column.py``)."""
 
 from __future__ import annotations
 
@@ -12,8 +13,9 @@ import torch
 
 __all__ = [
     "DataType", "NullType", "BooleanType", "IntegerType", "LongType",
-    "DoubleType", "StructField", "StructType", "NULL", "BOOLEAN", "INT",
-    "LONG", "DOUBLE", "from_numpy_dtype", "common_type",
+    "DoubleType", "StringType", "StructField", "StructType", "NULL",
+    "BOOLEAN", "INT", "LONG", "DOUBLE", "STRING", "from_numpy_dtype",
+    "common_type",
 ]
 
 
@@ -77,11 +79,16 @@ class DoubleType(DataType):
     torch_dtype = torch.float64
 
 
+class StringType(DataType):
+    """UTF-8 text of any length (``spark_rapids_tpu/types.py:115``)."""
+
+
 NULL = NullType()
 BOOLEAN = BooleanType()
 INT = IntegerType()
 LONG = LongType()
 DOUBLE = DoubleType()
+STRING = StringType()
 
 _FROM_NUMPY = {np.dtype(np.bool_): BOOLEAN, np.dtype(np.int32): INT,
                np.dtype(np.int64): LONG, np.dtype(np.float64): DOUBLE}

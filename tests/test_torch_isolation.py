@@ -89,6 +89,12 @@ rows = (df.filter(P.GreaterThan(col("w"), lit(0)))
         .agg(F.sum("k1").alias("sk"), F.sum("v2").alias("sv"),
              F.sum("h").alias("sh"))).collect()
 assert len(rows) == 1 and rows[0]["sk"] is not None, rows
+from spark_rapids_tpu_torch.testing import tpcds
+tables = tpcds.q3_tables(tpcds.generate_tables(5))
+s = TorchSession(device="cpu")
+q3 = tpcds.q3(*[s.create_dataframe(tables[t])
+                for t in ("date_dim", "store_sales", "item")])[0].collect()
+assert len(q3) >= 10, q3
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax")
              or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")
              or m == "triton" or m.startswith("triton."))
@@ -119,12 +125,28 @@ def test_session_without_device_refuses_when_cuda_is_absent(monkeypatch):
 
 def test_wrappers_refuse_other_devices():
     import torch
-    from spark_rapids_tpu_torch.ops import agg_ops
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import (agg_ops, batch_ops, join_ops,
+                                            sort_ops)
     meta = torch.zeros(2, 1, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         agg_ops.global_reduce(meta, torch.ones(2, 1, dtype=torch.bool,
                                                device="meta"),
                               [agg_ops.SUM_I64])
+    col = DeviceColumn(torch.zeros(2, dtype=torch.int64, device="meta"),
+                       torch.ones(2, dtype=torch.bool, device="meta"),
+                       T.LONG)
+    idx = torch.zeros(2, dtype=torch.int64, device="meta")
+    calls = [lambda: batch_ops.gather_columns([col], idx, None),
+             lambda: join_ops.join_pairs(col, col, None),
+             lambda: sort_ops.sort_permutation([col],
+                                               [sort_ops.SortOrder(0)]),
+             lambda: agg_ops.keyed_aggregate([col], [col],
+                                             [agg_ops.KEYED_SUM_I64], None)]
+    for call in calls:
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
 
 
 def test_chip_smoke_alone_or_without_a_card_prints_no_result(tmp_path):

@@ -171,9 +171,16 @@ def test_explain_shows_one_fused_stage():
 
 
 def test_outside_the_slice_is_refused():
+    """A filter that feeds no aggregate runs since the compacting stage
+    came in; a group-by over several partitions is still refused."""
+    from spark_rapids_tpu_torch import functions as F
     from spark_rapids_tpu_torch.expressions.base import col, lit
     from spark_rapids_tpu_torch.expressions.predicates import GreaterThan
     s = TorchSession(device="cpu")
-    df = s.create_dataframe(bench_data(10))
-    with pytest.raises(NotImplementedError, match="does not feed"):
-        df.filter(GreaterThan(col("w"), lit(0))).collect()
+    d = bench_data(10)
+    rows = s.create_dataframe(d).filter(
+        GreaterThan(col("w"), lit(0))).collect()
+    assert [r["k"] for r in rows] == d["k"][d["w"] > 0].tolist()
+    df = s.create_dataframe(d, num_partitions=2)
+    with pytest.raises(NotImplementedError, match="several partitions"):
+        df.group_by("w").agg(F.sum("v")).collect()
