@@ -5,23 +5,25 @@
 
 Needs one CUDA card; it exits non-zero, printing no result, without one.
 It builds every kernel from the sources in the checkout, into the
-git-ignored build/ directory: kernel 1 and K5 (Triton, emitted by
+git-ignored build/ directory: kernel 1, K5 and K6 (Triton, emitted by
 kernels/fused_agg.py and kernels/fused_stage.py) and kernel 2, K7, K8, K9
 and K10 (csrc/*.cu, one nvcc each, all started together).  It holds each
-kernel against its plain PyTorch version on the card, then drives two
+kernel against its plain PyTorch version on the card, then drives four
 paths through ``TorchSession()``, each with the launch counters set to 0
 just before it and read just after:
 
 - bench.py's recipe -- filter(w > t), project k+1, v*2.0 and
   murmur3(k, w), sum all three, collect -- on 128M rows in 4 partitions,
   checked against the CPU run and numpy;
-- TPC-DS q3 at sf 1000 (store_sales 30M rows, item 2M, date_dim 1461) at
-  one partition, checked against a numpy q3 and the CPU run, timed, with a
-  torch.profiler breakdown by kernel.
+- TPC-DS q3, q1 and q7 at sf 1000 (store_sales 30M rows, store_returns
+  3M, customer and item 2M, date_dim 1461) at one partition, over tables
+  generated once, each checked against a numpy version of the query and
+  the CPU run, timed, with a torch.profiler breakdown by kernel, and every
+  kernel call of its main path held against the kernel's plain version.
 
 Every check that fails ends the run with a non-zero exit.  The last two
-lines of standard output are a JSON object describing each kernel and the
-JSON result line.
+lines of standard output are a JSON object describing each kernel on
+each path and the JSON result line.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -44,11 +46,14 @@ INT64_MAX = 2 ** 63 - 1
 #: the CUDA sources of the kernels (kernel 2, K7, K8, K9, K10)
 CUDA_SOURCES = ("global_reduce.cu", "gather.cu", "sort.cu", "keyed_agg.cu",
                 "hash_join.cu")
-#: q3's kernels: name, route, source, the JAX program each replaces
-Q3_KERNELS = {
+#: the TPC-DS kernels: name, route, source, the JAX program each replaces
+TPCDS_KERNELS = {
     "K5": ("fused_stage", "triton",
            "spark_rapids_tpu_torch/kernels/fused_stage.py",
            "spark_rapids_tpu/exec/fused.py:202"),
+    "K6": ("fused_project", "triton",
+           "spark_rapids_tpu_torch/kernels/fused_stage.py",
+           "spark_rapids_tpu/expressions/evaluator.py:160"),
     "K7": ("gather", "cuda", "spark_rapids_tpu_torch/csrc/gather.cu",
            "spark_rapids_tpu/ops/join_ops.py:335"),
     "K8": ("sort", "cuda", "spark_rapids_tpu_torch/csrc/sort.cu",
@@ -58,17 +63,25 @@ Q3_KERNELS = {
     "K10": ("hash_join", "cuda", "spark_rapids_tpu_torch/csrc/hash_join.cu",
             "spark_rapids_tpu/ops/join_ops.py:125"),
 }
-#: each q3 kernel's launch counter: module and attribute
-Q3_COUNTERS = {"K5": ("exec.fused", "STAGE_LAUNCHES"),
-               "K7": ("ops.batch_ops", "LAUNCHES"),
-               "K8": ("ops.sort_ops", "LAUNCHES"),
-               "K9": ("ops.agg_ops", "KEYED_LAUNCHES"),
-               "K10": ("ops.join_ops", "LAUNCHES")}
+#: each TPC-DS kernel's launch counter: module and attribute
+COUNTERS = {"K5": ("exec.fused", "STAGE_LAUNCHES"),
+            "K6": ("exec.fused", "PROJECT_LAUNCHES"),
+            "K7": ("ops.batch_ops", "LAUNCHES"),
+            "K8": ("ops.sort_ops", "LAUNCHES"),
+            "K9": ("ops.agg_ops", "KEYED_LAUNCHES"),
+            "K10": ("ops.join_ops", "LAUNCHES")}
+#: the kernels each query's main path launches
+QUERY_KERNELS = {"q3": ("K5", "K7", "K8", "K9", "K10"),
+                 "q1": tuple(TPCDS_KERNELS), "q7": tuple(TPCDS_KERNELS)}
+#: the JAX programs K10's and K7's left outer mode replaces (on q1)
+OUTER_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:275",
+                  "spark_rapids_tpu/ops/join_ops.py:313",
+                  "spark_rapids_tpu/ops/join_ops.py:418"]
 #: data bytes of one table row (k int64, v double, w int32), as bench.py
 ROW_BYTES = 8 + 8 + 4
 F64_SUM_RTOL = 1e-10
-#: timed q3 queries after the main path's run
-Q3_REPS = 10
+#: timed queries of each TPC-DS query after its main path's run
+TPCDS_REPS = 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -538,10 +551,11 @@ def same_keyed(keys, inputs, kinds, got, ref, tr, what: str) -> float:
                                         f"{what}, aggregate {j}: values"))
             continue
         v = inputs[j]
+        x = v.data.to(torch.float64)   # an average's sum takes ints too
         absum = torch.zeros(rep.shape[0], dtype=torch.float64,
                             device=v.device).index_add_(
-            0, gid, torch.where(v.validity & torch.isfinite(v.data),
-                                v.data.abs(), 0.0))
+            0, gid, torch.where(v.validity & torch.isfinite(x), x.abs(),
+                                0.0))
         nan = torch.isnan(rd)
         check(bool(torch.equal(torch.isnan(gd), nan)),
               f"{what}, aggregate {j}: NaN sums")
@@ -576,6 +590,162 @@ def check_sort(session, rng) -> float:
     return err
 
 
+# -- slice 3: the new forms of K5 to K10 --------------------------------------
+
+#: strings of phase 2c: prefixes of one another, 0, 7, 8, 14, 15 and 40
+#: bytes (string sort words hold 7 bytes), bytes >= 0x80, the literals
+STEMS = ["", "a", "ab", "ab\0", "abc", "abcdefg", "abcdefgh",
+         "abcdefghijklmn", "abcdefghijklmno", "x" * 40, "x" * 39 + "y",
+         "é", "日本", "ÿ", "N", "TN", "TNX", "College", "AAAAAAAA00000006"]
+
+
+def string_column(rng, n: int, stems, null_frac: float):
+    """A host string column of ``n`` values drawn from ``stems``, built
+    in numpy (a null row has length 0)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    raw = [x.encode("utf-8") for x in stems]
+    pool_lens = np.array([len(b) for b in raw], np.int64)
+    pool_starts = np.concatenate([[0], np.cumsum(pool_lens)[:-1]])
+    pool = np.frombuffer(b"".join(raw), np.uint8)
+    pick = rng.integers(0, len(raw), n)
+    valid = rng.random(n) >= null_frac
+    lens = np.where(valid, pool_lens[pick], 0)
+    offsets = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    at = np.repeat(pool_starts[pick] - offsets[:-1], lens) + \
+        np.arange(int(offsets[-1]))
+    return HostColumn(pool[at].copy(), None if valid.all() else valid,
+                      T.STRING, offsets)
+
+
+def slice3_batch(session, rng, n: int):
+    """A device batch of doubles with NaN, -0.0, 0.0 and nulls (a, b), a
+    nullable int (i), a long with zeros (k) and two nullable strings (s
+    from STEMS, t from "N", "TN" and "")."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import HostColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    pool = np.array([np.nan, -0.0, 0.0, 1.5, -2.25, np.inf, 3.0])
+    cols = [HostColumn(pool[rng.integers(0, len(pool), n)],
+                       rng.random(n) > 0.1, T.DOUBLE) for _ in range(2)]
+    cols.append(HostColumn(rng.integers(-2, 3, n).astype(np.int32),
+                           rng.random(n) > 0.1, T.INT))
+    cols.append(HostColumn(rng.integers(-2, 3, n).astype(np.int64), None,
+                           T.LONG))
+    cols.append(string_column(rng, n, STEMS, 0.1))
+    cols.append(string_column(rng, n, ["N", "TN", ""], 0.2))
+    hb = HostColumnarBatch(cols, n, ["a", "b", "i", "k", "s", "t"])
+    return session.transfers.upload_batch(hb)
+
+
+SLICE3_SIZES = (0, 1, 1000, (1 << 20) + 3)
+
+
+def check_slice3(session, rng):
+    """Phase 2c: K6, K5's string = and Or, K8's string keys, K10's left
+    outer mode and K7's -1 rows against their plain versions on the card,
+    at 0, 1, 1000 and 2**20 + 3 rows.  Returns the max |d| of each."""
+    import torch
+    from spark_rapids_tpu_torch import DataFrame
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.expressions import arithmetic as A
+    from spark_rapids_tpu_torch.expressions import predicates as P
+    from spark_rapids_tpu_torch.expressions.base import (Alias, Literal,
+                                                         bind_references,
+                                                         col, lit)
+    from spark_rapids_tpu_torch.expressions.cast import Cast
+    from spark_rapids_tpu_torch.expressions.conditional import If
+    from spark_rapids_tpu_torch.ops import batch_ops as BO
+    from spark_rapids_tpu_torch.ops import join_ops as J
+    from spark_rapids_tpu_torch.ops import sort_ops as S
+    from spark_rapids_tpu_torch.plan import base as L
+    tr, dev = session.transfers, session.device
+    err = {k: 0.0 for k in ("K5", "K6", "K7", "K8", "K10")}
+    exprs = [A.Divide(col("a"), col("b")), A.Divide(col("i"), col("k")),
+             If(P.GreaterThan(col("k"), Literal(0, T.LONG)),
+                A.Divide(Cast(col("a"), T.DOUBLE), Cast(col("k"), T.DOUBLE)),
+                Literal(None, T.DOUBLE)),
+             P.Or(P.EqualTo(col("s"), lit("N")),
+                  P.EqualTo(col("t"), lit("N"))),
+             P.And(P.EqualTo(col("t"), lit("")),
+                   P.GreaterThan(col("a"), lit(0.0))),
+             P.EqualTo(col("s"), lit("日本")),
+             P.EqualTo(col("t"), lit("TNXXXXXXXXXXXXXXX"))]
+    string_orders = ([S.SortOrder(4, True, True)],
+                     [S.SortOrder(4, False, False)],
+                     [S.SortOrder(4, True, False), S.SortOrder(2, False,
+                                                               True)],
+                     [S.SortOrder(4, False, True), S.SortOrder(0)])
+    for n in SLICE3_SIZES:
+        batch = slice3_batch(session, rng, n)
+        schema = batch.schema
+        bound = [bind_references(Alias(e, f"c{j}"), schema)
+                 for j, e in enumerate(exprs)]
+        program = FU.StageProgram([("project", bound)], schema, 0)
+        lits = FU.LiteralArgs([])
+        got = FU.fused_project(program, batch, lits)
+        torch.cuda.synchronize()
+        err["K6"] = max(err["K6"], same_columns(
+            got, FU.fused_project_plain(program, batch, lits),
+            f"K6, {n} rows"))
+        # K5's string = and Or, chained as q7's filters are
+        df = DataFrame(L.Scan([[]], schema), session)
+        stage = (df.filter(P.Or(P.EqualTo(col("s"), lit("TN")),
+                                P.EqualTo(col("t"), lit("N"))))
+                 .filter(P.EqualTo(col("t"), lit("N")))
+                 .select(Alias(A.Divide(col("a"), col("k")), "q"), col("s"))
+                 .executed_plan())
+        check(isinstance(stage, FU.TorchFusedStageExec),
+              f"K5 plan: {stage.tree_string()}")
+        slits = FU.LiteralArgs.upload(stage.promoted, tr)
+        idx, comp = FU.fused_stage_compact(stage.program, batch, slits, tr)
+        torch.cuda.synchronize()
+        ridx, rcomp = FU.fused_stage_compact_plain(stage.program, batch,
+                                                   slits, tr)
+        err["K5"] = max(err["K5"], same_indices(idx, ridx,
+                                                f"K5, {n} rows: survivors"),
+                        same_columns(comp, rcomp, f"K5, {n} rows"))
+        for orders in string_orders:
+            perm = S.sort_permutation(batch.columns, orders, tr)
+            torch.cuda.synchronize()
+            err["K8"] = max(err["K8"], same_indices(
+                perm, S.sort_permutation_plain(batch.columns, orders, tr),
+                f"K8, {n} rows, {orders}"))
+        # K7 with -1 rows, from this batch and from an empty one
+        for src in (batch, slice3_batch(session, rng, 0)):
+            m = src.row_count
+            gidx = torch.from_numpy(rng.integers(-1, max(m, 1), n + 3)
+                                    if m else np.full(n + 3, -1)).to(dev)
+            got = BO.gather_columns(src.columns, gidx, tr, nullable=True)
+            torch.cuda.synchronize()
+            err["K7"] = max(err["K7"], same_columns(
+                got, BO.gather_columns_plain(src.columns, gidx, tr,
+                                             nullable=True),
+                f"K7 with -1 rows, {m} -> {n + 3} rows"))
+
+    def key(m, lo, hi, null_frac):
+        data = torch.from_numpy(rng.integers(lo, hi, m).astype(np.int64))
+        valid = torch.from_numpy(rng.random(m) >= null_frac)
+        return DeviceColumn(data.to(dev), valid.to(dev), T.LONG,
+                            all_valid=null_frac == 0)
+    for n in SLICE3_SIZES:
+        for case, build in (("no match", key(300, 10_000, 10_300, 0.0)),
+                            ("null probe keys", key(300, 0, 500, 0.1)),
+                            ("duplicate build keys", key(3000, 0, 50, 0.0)),
+                            ("empty build side", key(0, 0, 5, 0.0))):
+            probe = key(n, 0, 500, 0.3 if case == "null probe keys" else 0)
+            got = J.join_pairs(build, probe, tr, outer=True)
+            torch.cuda.synchronize()
+            ref = J.join_pairs_plain(build, probe, tr, outer=True)
+            for g, r, side in zip(got, ref, ("probe", "build")):
+                err["K10"] = max(err["K10"], same_indices(
+                    g, r, f"K10 outer, {case}, {n} probe rows: {side}"))
+    return err
+
+
 def rows_match(expected, actual, what: str) -> None:
     """In order; doubles within 1e-6 relative (the comparator the JAX
     package's TPC-DS oracle uses, rowcompare.val_eq), the rest exact."""
@@ -593,15 +763,15 @@ def rows_match(expected, actual, what: str) -> None:
             check(ok, f"{what}: row {i} {key} {x!r} vs {y!r}")
 
 
-def q3_counter(kernel: str):
-    """(module, attribute) of a q3 kernel's launch counter."""
+def counter_of(kernel: str):
+    """(module, attribute) of a TPC-DS kernel's launch counter."""
     import importlib
-    mod, attr = Q3_COUNTERS[kernel]
+    mod, attr = COUNTERS[kernel]
     return importlib.import_module(f"spark_rapids_tpu_torch.{mod}"), attr
 
 
 class Recorder:
-    """Records the calls of the slice-2 kernels' wrappers that launched
+    """Records the calls of the TPC-DS kernels' wrappers that launched
     their kernel during one run, so each kernel can be checked and timed
     on the inputs the main path gave it; with ``mark``, each call runs in
     a profiler range named ``srt.<kernel>``, which sums the device time of
@@ -614,6 +784,7 @@ class Recorder:
         self.calls = []
         self._patches = [
             (fused, "fused_stage_compact", "K5"),
+            (fused, "fused_project", "K6"),
             (batch_ops, "gather_columns", "K7"),
             (joins, "gather_columns", "K7"),
             (sort_ops, "sort_permutation", "K8"),
@@ -627,7 +798,7 @@ class Recorder:
             self._saved.append((mod, name, fn))
 
             def wrapped(*a, _fn=fn, _k=kernel, **kw):
-                counter = q3_counter(_k)
+                counter = counter_of(_k)
                 before = getattr(*counter)
                 if self.mark:
                     import torch
@@ -656,12 +827,12 @@ def column_bytes(c, rows=None) -> int:
 
 
 def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
-    """A q3 kernel's output on one recorded call against its plain
+    """A TPC-DS kernel's output on one recorded call against its plain
     version's, by phase 2b's comparators; returns the measured max |d|."""
     if name == "K5":
         return max(same_indices(got[0], ref[0], f"{what}: survivors"),
                    same_columns(got[1], ref[1], what))
-    if name == "K7":
+    if name in ("K6", "K7"):
         return same_columns(got, ref, what)
     if name == "K8":
         return same_indices(got, ref, f"{what}: permutation")
@@ -671,10 +842,39 @@ def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
                for g, r, side in zip(got, ref, ("probe", "build")))
 
 
-def time_q3_kernels(session, calls, rate: float, reps: int):
+def k5_library(program, batch, lits):
+    """One-call PyTorch yardstick of a K5 launch whose filter is one
+    numeric ``column = literal``: the mask, ``torch.nonzero`` and
+    ``index_select`` of the stage's fixed-width planes (the gather of those
+    planes is K7's work on the kernel side); None for any other filter."""
+    import torch
+    from spark_rapids_tpu_torch.expressions.base import BoundReference
+    from spark_rapids_tpu_torch.expressions.predicates import EqualTo
+    if len(program.conditions) != 1:
+        return None
+    cond = program.conditions[0]
+    if not isinstance(cond, EqualTo) or \
+            not isinstance(cond.children[0], BoundReference) or \
+            not cond.children[0].data_type.is_numeric:
+        return None
+    c = batch.columns[cond.children[0].ordinal]
+    value = lits.values[0] if lits.values else cond.children[1].value
+    kept = [batch.columns[b] for b in program.bare if b is not None]
+    planes = [k.data for k in kept if not k.is_string] + \
+        [k.validity for k in kept]
+
+    def compact():
+        rows = torch.nonzero(c.data == value).flatten()
+        return [torch.index_select(p, 0, rows) for p in planes]
+    return compact
+
+
+def time_kernels(session, calls, rate: float, reps: int, kernels):
     """Per query: each kernel's device ms, plain ms, bound ms and library
     ms, summed over its recorded launches, and the max |d| of its output
-    on each of them against its plain version's."""
+    on each of them against its plain version's.  A kernel's library ms
+    is None when one of its launches has no one-call PyTorch
+    equivalent."""
     import torch
     from spark_rapids_tpu_torch.exec import fused as FU
     from spark_rapids_tpu_torch.ops import agg_ops as G
@@ -682,25 +882,25 @@ def time_q3_kernels(session, calls, rate: float, reps: int):
     from spark_rapids_tpu_torch.ops import join_ops as J
     from spark_rapids_tpu_torch.ops import sort_ops as S
     tr = session.transfers
-    plain = {"K5": FU.fused_stage_compact_plain,
+    plain = {"K5": FU.fused_stage_compact_plain, "K6": FU.fused_project_plain,
              "K7": BO.gather_columns_plain, "K8": S.sort_permutation_plain,
              "K9": G.keyed_aggregate_plain, "K10": J.join_pairs_plain}
-    kernel = {"K5": FU.fused_stage_compact, "K7": BO.gather_columns,
-              "K8": S.sort_permutation, "K9": G.keyed_aggregate,
-              "K10": J.join_pairs}
+    kernel = {"K5": FU.fused_stage_compact, "K6": FU.fused_project,
+              "K7": BO.gather_columns, "K8": S.sort_permutation,
+              "K9": G.keyed_aggregate, "K10": J.join_pairs}
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "library_ms": 0.0,
-               "shapes": [], "max_abs_err": 0.0} for k in plain}
-    out["K9"]["library_ms"] = out["K10"]["library_ms"] = None
+               "shapes": [], "max_abs_err": 0.0} for k in kernels}
     for i, (name, args, kw) in enumerate(calls):
         o = out[name]
         got = kernel[name](*args, **kw)
         torch.cuda.synchronize()
         o["max_abs_err"] = max(o["max_abs_err"], same_output(
             name, args, kw, got, plain[name](*args, **kw), tr,
-            f"q3 main path, {name} call {i}"))
+            f"main path, {name} call {i}"))
         ms = time_ms(lambda: kernel[name](*args, **kw), reps)
         o["ms"] += ms
         o["plain_ms"] += time_ms(lambda: plain[name](*args, **kw), 2, 1)
+        library = None
         if name == "K5":
             program, batch, lits, _tr = args
             idx = got[0]
@@ -709,40 +909,37 @@ def time_q3_kernels(session, calls, rate: float, reps: int):
                 8 * idx.shape[0]
             o["shapes"].append(f"{batch.row_count}->{idx.shape[0]}: "
                                f"{ms:.4f} ms")
-            # library: the predicate's mask by torch, torch.nonzero, and
-            # index_select of the stage's fixed-width planes (the gather
-            # of those planes is K7's work on the kernel side)
-            cond = program.conditions[0]
-            c = batch.columns[cond.children[0].ordinal]
-            value = lits.values[0] if lits.values else cond.children[1].value
-            kept = [batch.columns[b] for b in program.bare if b is not None]
-            planes = [k.data for k in kept if not k.is_string] + \
-                [k.validity for k in kept]
-
-            def compact(c=c, value=value, planes=planes):
-                rows = torch.nonzero(c.data == value).flatten()
-                return [torch.index_select(p, 0, rows) for p in planes]
-            o["library_ms"] += time_ms(compact, reps)
+            library = k5_library(program, batch, lits)
+        elif name == "K6":
+            program, batch = args[0], args[1]
+            n = batch.row_count
+            o["bytes"] += sum(column_bytes(batch.columns[i])
+                              for i in program.used) + \
+                sum(column_bytes(c) for c in got)
+            o["shapes"].append(f"{n} rows, {len(got)} outputs: {ms:.4f} ms")
         elif name == "K7":
             cols, idx = args[0], args[1]
             n = idx.shape[0]
             o["bytes"] += 8 * n + sum(column_bytes(g) * 2 for g in got)
             o["shapes"].append(f"{len(cols)}x{n}: {ms:.4f} ms")
-            planes = [p for c in cols if not c.is_string for p in (c.data,)]
+            planes = [c.data for c in cols if not c.is_string]
             planes += [c.validity for c in cols]
-            o["library_ms"] += time_ms(
-                lambda: [torch.index_select(p, 0, idx) for p in planes],
-                reps)
+            if not kw.get("nullable"):
+                def library(planes=planes, idx=idx):
+                    return [torch.index_select(p, 0, idx) for p in planes]
         elif name == "K8":
-            cols, orders = args
+            cols, orders = args[0], args[1]
             n = cols[0].row_count
             o["bytes"] += sum(column_bytes(cols[x.ordinal]) for x in orders) \
                 + 8 * n
             o["shapes"].append(f"{n} rows, {len(orders)} keys: {ms:.4f} ms")
-            word = S.order_words_plain(cols[orders[1].ordinal],
-                                       orders[1])[-1]
-            o["library_ms"] += time_ms(
-                lambda: torch.argsort(word, stable=True), reps)
+            numeric = [x for x in orders if not cols[x.ordinal].is_string]
+            if len(numeric) == len(orders):
+                x = numeric[min(1, len(numeric) - 1)]
+                word = S.order_words_plain(cols[x.ordinal], x)[-1]
+
+                def library(word=word):
+                    return torch.argsort(word, stable=True)
         elif name == "K9":
             keys, inputs = args[0], args[1]
             rep, res = got
@@ -757,8 +954,13 @@ def time_q3_kernels(session, calls, rate: float, reps: int):
             pr = got[0]
             o["bytes"] += column_bytes(b) + column_bytes(p) + \
                 16 * pr.shape[0]
-            o["shapes"].append(f"{b.row_count} x {p.row_count} -> "
+            outer = " outer" if kw.get("outer") else ""
+            o["shapes"].append(f"{b.row_count} x {p.row_count} ->{outer} "
                                f"{pr.shape[0]}: {ms:.4f} ms")
+        if library is None or o["library_ms"] is None:
+            o["library_ms"] = None
+        else:
+            o["library_ms"] += time_ms(library, reps)
     for o in out.values():
         o["bound_ms"] = o["bytes"] / rate * 1e3
     return out
@@ -783,127 +985,142 @@ def device_us_by_range(events, prefix: str = "srt."):
     return out
 
 
-def profile_q3(frames, reps: int = 3):
-    """Device time by kernel over ``reps`` q3 queries (torch.profiler, which
+def profile_query(query: str, run, kernels, reps: int = 3):
+    """Device time by kernel over ``reps`` queries (torch.profiler, which
     traces the card through CUPTI), the share of the window in which the
-    card ran nothing, and each slice-2 kernel's device ms per query (what
-    its wrapper calls ran on the card), or None where the profiler saw no
+    card ran nothing, and each kernel's device ms per query (what its
+    wrapper calls ran on the card), or None where the profiler saw no
     device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from spark_rapids_tpu_torch.testing import tpcds
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof, \
             Recorder(mark=True):
         t0 = time.perf_counter()
         for _ in range(reps):
-            tpcds.q3(*frames)[0].collect()
+            run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("srt.")]
+    found = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and not e.key.startswith("srt.")]
 
     def dev_us(e):
         return next((getattr(e, n) for n in ("self_device_time_total",
                                              "self_cuda_time_total")
                      if hasattr(e, n)), 0)
-    busy = sum(dev_us(e) for e in kernels)
-    if not kernels or not busy:
-        print("q3 profile: the profiler recorded no device time (not "
+    busy = sum(dev_us(e) for e in found)
+    if not found or not busy:
+        print(f"{query} profile: the profiler recorded no device time (not "
               "measured)")
-        return {k: None for k in Q3_KERNELS}
-    print(f"q3 profile over {reps} queries: device busy {busy / reps:.1f} "
-          f"us per query of {wall_us / reps:.1f} us wall (profiler on); "
-          f"idle share {1 - busy / wall_us:.4f}; {len(kernels)} kernels")
-    for e in sorted(kernels, key=lambda e: -dev_us(e))[:14]:
+        return {k: None for k in kernels}
+    print(f"{query} profile over {reps} queries: device busy "
+          f"{busy / reps:.1f} us per query of {wall_us / reps:.1f} us wall "
+          f"(profiler on); idle share {1 - busy / wall_us:.4f}; "
+          f"{len(found)} kernels")
+    for e in sorted(found, key=lambda e: -dev_us(e))[:14]:
         print(f"  {dev_us(e) / reps:9.1f} us/query  {e.count // reps:4d} x  "
               f"{e.key[:90]}")
     by_range = device_us_by_range(prof.events())
     device_ms = {k: by_range[k] / reps / 1e3 if by_range.get(k) else None
-                 for k in Q3_KERNELS}
-    print(f"q3 device ms per query by kernel (work inside each wrapper's "
-          f"profiler range): {device_ms}; outside them "
+                 for k in kernels}
+    print(f"{query} device ms per query by kernel (work inside each "
+          f"wrapper's profiler range): {device_ms}; outside them "
           f"{(busy - sum(by_range.values())) / reps / 1e3:.4f} ms")
     return device_ms
 
 
-def run_q3(session, sf: float, rate: float):
-    """Phase 5: TPC-DS q3 at ``sf`` through TorchSession(); checks it
+#: each TPC-DS query: recipe and numpy version (testing/tpcds.py names),
+#: its tables in the recipe's order, the fact table its rows/s count
+QUERIES = {
+    "q3": ("q3", ("date_dim", "store_sales", "item"), "store_sales"),
+    "q1": ("q1", ("date_dim", "store_returns", "store", "customer"),
+           "store_returns"),
+    "q7": ("q7", ("store_sales", "customer_demographics", "date_dim",
+                  "item", "promotion"), "store_sales"),
+}
+
+
+def run_query(session, query: str, tables, rate: float):
+    """Phases 4 and 5: one TPC-DS query over ``tables`` (the generator's
+    output, cut to the query's columns) through TorchSession(); checks it
     against numpy and the CPU run, and times its kernels."""
     import torch
     from spark_rapids_tpu_torch import TorchSession
     from spark_rapids_tpu_torch.exec.stage_compiler import stats as kstats
     from spark_rapids_tpu_torch.testing import tpcds
-    t0 = time.perf_counter()
-    tables = tpcds.q3_tables(tpcds.generate_tables(sf))
-    gen_s = time.perf_counter() - t0
-    names = ("date_dim", "store_sales", "item")
+    recipe_name, names, fact = QUERIES[query]
+    recipe = getattr(tpcds, recipe_name)
+    numpy_query = getattr(tpcds, f"{recipe_name}_numpy")
+    kernels = QUERY_KERNELS[query]
     rows = {t: len(next(iter(tables[t].values()))) for t in names}
     dfs = [session.create_dataframe(tables[t]) for t in names]
+
+    def run():
+        return recipe(*dfs)[0].collect()
     t0 = time.perf_counter()
-    first = tpcds.q3(*dfs)[0].collect()
+    first = run()
     first_s = time.perf_counter() - t0
     device_bytes = sum(column_bytes(c) for df in dfs for part in
                        df._plan.device_cache[str(session.device)]
                        for b in part for c in b.columns)
-    print(f"q3: sf {sf}, rows {rows}, generated in {gen_s:.1f} s; "
-          f"{device_bytes} B of device columns; first action (upload, "
-          f"builds, query) {first_s:.3f} s")
+    print(f"{query}: rows {rows}; {device_bytes} B of device columns; "
+          f"first action (upload, builds, query) {first_s:.3f} s")
 
-    counters = [(*q3_counter(k), k) for k in Q3_KERNELS]
+    counters = [(*counter_of(k), k) for k in kernels]
     for mod, attr, _k in counters:
         setattr(mod, attr, 0)
     tr0, ks0 = session.transfers.stats(), kstats()
     t0 = time.perf_counter()
-    result = tpcds.q3(*dfs)[0].collect()
+    result = run()
     main_s = time.perf_counter() - t0
     launches = {k: getattr(mod, attr) for mod, attr, k in counters}
     tr1, ks1 = session.transfers.stats(), kstats()
     syncs = tr1["syncs"] - tr0["syncs"]
     builds = ks1["builds"] - ks0["builds"]
-    print(f"q3 main path: {main_s * 1e3:.3f} ms, {len(result)} rows, "
+    print(f"{query} main path: {main_s * 1e3:.3f} ms, {len(result)} rows, "
           f"launches {launches}, transfers "
           f"{({k: tr1[k] - tr0[k] for k in tr1})}, builds {builds}")
     for k, n in launches.items():
-        check(n > 0, f"q3 launched {k}: {launches}")
-    check(builds == 0, "a repeated q3 builds nothing")
-    check(result == first, "a repeated q3 gives the same rows")
-    check(len(result) >= 10, f"q3 gives at least 10 rows: {len(result)}")
+        check(n > 0, f"{query} launched {k}: {launches}")
+    check(builds == 0, f"a repeated {query} builds nothing")
+    check(result == first, f"a repeated {query} gives the same rows")
+    want = 10 if query == "q3" else 100
+    check(len(result) >= want, f"{query} gives at least {want} rows: "
+          f"{len(result)}")
 
     times = []
-    for _ in range(Q3_REPS):
+    for _ in range(TPCDS_REPS):
         t0 = time.perf_counter()
-        tpcds.q3(*dfs)[0].collect()
+        run()
         times.append(time.perf_counter() - t0)
     best, median = min(times), float(np.median(times))
 
-    rows_match(tpcds.q3_numpy(tables), result, "q3 vs numpy")
+    rows_match(numpy_query(tables), result, f"{query} vs numpy")
     cpu = TorchSession(device="cpu")
     t0 = time.perf_counter()
-    cpu_rows = tpcds.q3(*[cpu.create_dataframe(tables[t])
-                          for t in names])[0].collect()
+    cpu_rows = recipe(*[cpu.create_dataframe(tables[t])
+                        for t in names])[0].collect()
     cpu_s = time.perf_counter() - t0
-    rows_match(cpu_rows, result, "q3 vs the CPU run")
-    print(f"q3 matches numpy and the CPU run ({cpu_s:.1f} s); first rows "
-          f"{result[:2]}")
+    rows_match(cpu_rows, result, f"{query} vs the CPU run")
+    print(f"{query} matches numpy and the CPU run ({cpu_s:.1f} s); first "
+          f"rows {result[:2]}")
 
-    device_ms = profile_q3(dfs)
+    device_ms = profile_query(query, run, kernels)
     with Recorder() as rec:
-        tpcds.q3(*dfs)[0].collect()
-    recorded = {k: sum(c[0] == k for c in rec.calls) for k in Q3_KERNELS}
-    check(recorded == launches, f"every launch of the main path was "
-          f"recorded: {recorded} vs {launches}")
-    timed = time_q3_kernels(session, rec.calls, rate, 10)
-    print(f"q3 kernels vs plain on the main path's {len(rec.calls)} calls: "
-          f"pass, max |d| "
+        run()
+    recorded = {k: sum(c[0] == k for c in rec.calls) for k in kernels}
+    check(recorded == launches, f"every launch of the {query} main path "
+          f"was recorded: {recorded} vs {launches}")
+    timed = time_kernels(session, rec.calls, rate, 10, kernels)
+    print(f"{query} kernels vs plain on the main path's {len(rec.calls)} "
+          f"calls: pass, max |d| "
           f"{({k: o['max_abs_err'] for k, o in timed.items()})}")
-    ss_rows = rows["store_sales"]
-    print(f"q3 best of {Q3_REPS}: {best * 1e3:.3f} ms, median "
-          f"{median * 1e3:.3f} ms, {ss_rows / best:.6e} store_sales "
-          f"rows/s; {syncs} syncs per query; peak device memory "
+    print(f"{query} best of {TPCDS_REPS}: {best * 1e3:.3f} ms, median "
+          f"{median * 1e3:.3f} ms, {rows[fact] / best:.6e} {fact} rows/s; "
+          f"{syncs} syncs and {builds} builds per query; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
     for k, o in timed.items():
         o["device_ms"] = device_ms[k]
@@ -912,8 +1129,8 @@ def run_q3(session, sf: float, rate: float):
               f"{o['plain_ms']:.4f} ms, bound {o['bound_ms']:.6f} ms "
               f"({o['bytes']} B), library {o['library_ms']}")
     kernel_ms = sum(o["ms"] for o in timed.values())
-    print(f"q3 breakdown: kernels {kernel_ms:.4f} ms (each timed alone, "
-          f"syncs inside), rest {best * 1e3 - kernel_ms:.4f} ms of "
+    print(f"{query} breakdown: kernels {kernel_ms:.4f} ms (each timed "
+          f"alone, syncs inside), rest {best * 1e3 - kernel_ms:.4f} ms of "
           f"{best * 1e3:.4f} ms")
     return launches, timed
 
@@ -924,8 +1141,8 @@ def main() -> int:
     ap.add_argument("--parts", type=int, default=4)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--sf", type=float, default=1000.0,
-                    help="TPC-DS scale of the q3 phase (store_sales "
-                    "30,000 rows per sf)")
+                    help="TPC-DS scale of the q3, q1 and q7 phases "
+                    "(store_sales 30,000 rows per sf)")
     args = ap.parse_args()
 
     import torch
@@ -1013,6 +1230,13 @@ def main() -> int:
             "K10": check_join(session, rng)}
     print(f"K5, K7, K8, K9, K10 vs plain: pass ({time.perf_counter() - t0:.1f}"
           f" s), max |d| {errs}")
+
+    # -- phase 2c: the slice-3 forms against their plain versions -----------
+    t0 = time.perf_counter()
+    errs3 = check_slice3(session, rng)
+    print(f"K6, K5 (string =, OR), K8 (string keys), K10 (left outer), K7 "
+          f"(-1 rows) vs plain: pass ({time.perf_counter() - t0:.1f} s), "
+          f"max |d| {errs3}")
 
     phase("kernels checked")
 
@@ -1145,18 +1369,35 @@ def main() -> int:
 
     phase("bench recipe's kernels timed")
 
-    # -- phase 4: TPC-DS q3 at full size -------------------------------------
-    q3_launches, timed = run_q3(session, args.sf, rate)
-    phase("q3 run, checked and timed")
-    for k, (name_, route, source, replaces) in Q3_KERNELS.items():
-        o = timed[k]
-        kernels.append({
-            "name": name_, "route": route, "source": source,
-            "replaces": replaces, "launches": q3_launches[k],
-            "max_abs_err": max(errs[k], o["max_abs_err"]), "ms": o["ms"],
-            "plain_ms": o["plain_ms"], "bound_ms": o["bound_ms"],
-            "bound_by": "bytes", "library_ms": o["library_ms"],
-            "device_ms": o["device_ms"], "per": "query", "passed": True})
+    # -- phase 4: TPC-DS q3 at full size; phase 5: q1 and q7 ---------------
+    from spark_rapids_tpu_torch.testing import tpcds
+    t0 = time.perf_counter()
+    generated = tpcds.generate_tables(args.sf)
+    cuts = {"q3": tpcds.q3_tables(generated),
+            "q1": tpcds.q1_tables(generated),
+            "q7": tpcds.q7_tables(generated)}
+    del generated   # the cuts keep the arrays the queries read
+    print(f"TPC-DS sf {args.sf} generated in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for q in ("q3", "q1", "q7"):
+        launches, timed = run_query(session, q, cuts[q], rate)
+        phase(f"{q} run, checked and timed")
+        for k in QUERY_KERNELS[q]:
+            name_, route, source, replaces = TPCDS_KERNELS[k]
+            o = timed[k]
+            entry = {
+                "name": name_ if q == "q3" else f"{name_}.{q}",
+                "path": q, "route": route, "source": source,
+                "replaces": replaces, "launches": launches[k],
+                "max_abs_err": max(errs.get(k, 0.0), errs3.get(k, 0.0),
+                                   o["max_abs_err"]),
+                "ms": o["ms"], "plain_ms": o["plain_ms"],
+                "bound_ms": o["bound_ms"], "bound_by": "bytes",
+                "library_ms": o["library_ms"], "device_ms": o["device_ms"],
+                "per": "query", "passed": True}
+            if q == "q1" and k in ("K7", "K10"):
+                entry["also_replaces"] = OUTER_REPLACES
+            kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

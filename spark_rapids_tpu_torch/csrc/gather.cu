@@ -4,7 +4,10 @@
 // `join.gather` (spark_rapids_tpu/ops/join_ops.py:335 gather_join_output,
 // built at :396), the gathers inside `fused.stage` (exec/fused.py:202) and
 // `sort.fused` (ops/sort_ops.py:237), and ops/batch_ops.py:45
-// gather_batch.  Output row i is input row idx[i].
+// gather_batch.  Output row i is input row idx[i]; idx[i] = -1 gives a
+// null row (every plane 0: validity 0, data 0, a string of length 0), the
+// null extension of gather_join_output for a left outer join's unmatched
+// rows.
 //
 // Fixed-width planes (1, 2, 4 or 8 bytes a row: data and validity bytes)
 // go in one launch, one grid row (blockIdx.y) per plane.  A string column
@@ -42,6 +45,15 @@ __global__ void __launch_bounds__(kThreads)
                    threadIdx.x;
        i < n; i += stride) {
     const int64_t r = idx[i];
+    if (r < 0) {
+      switch (w) {
+        case 8: static_cast<int64_t*>(dst)[i] = 0; break;
+        case 4: static_cast<int32_t*>(dst)[i] = 0; break;
+        case 2: static_cast<int16_t*>(dst)[i] = 0; break;
+        default: static_cast<uint8_t*>(dst)[i] = 0;
+      }
+      continue;
+    }
     switch (w) {
       case 8:
         static_cast<int64_t*>(dst)[i] = static_cast<const int64_t*>(src)[r];
@@ -64,6 +76,7 @@ struct GatheredLength {
   const Off* off;
   __device__ __forceinline__ long long operator()(int64_t i) const {
     const int64_t r = idx[i];
+    if (r < 0) return 0;
     return static_cast<long long>(off[r + 1]) - static_cast<long long>(off[r]);
   }
 };
@@ -81,6 +94,7 @@ __global__ void __launch_bounds__(kThreads)
                     threadIdx.x) >> 5;
        i < n; i += warps) {
     const int64_t r = idx[i];
+    if (r < 0) continue;
     const int64_t s = src_off[r];
     const int64_t len = static_cast<int64_t>(src_off[r + 1]) - s;
     const int64_t d = dst_off[i];

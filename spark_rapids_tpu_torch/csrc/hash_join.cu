@@ -1,4 +1,5 @@
-// Kernel K10: inner equi-join of one int or long key through a hash table.
+// Kernel K10: inner and left outer equi-join of one int or long key through
+// a hash table.
 //
 // Replaces the JAX package's sort-based join programs `join.build`,
 // `join.probe`, `join.pair` and `join.compact_pairs`
@@ -99,15 +100,23 @@ __device__ __forceinline__ long long match_count(
   return c;
 }
 
+// pairs a probe row gives: its matches, and in outer mode at least one
+__device__ __forceinline__ long long pair_count(long long matches,
+                                                const Side& p, int64_t i,
+                                                int outer) {
+  return (outer && i < p.n && matches == 0) ? 1 : matches;
+}
+
 __global__ void __launch_bounds__(kThreads)
     probe_count(Side p, const long long* __restrict__ slots,
                 const long long* __restrict__ slot_keys, uint64_t mask,
-                int64_t* tile_counts) {
+                int outer, int64_t* tile_counts) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile;
   long long c = 0;
-  for (int k = 0; k < kScanItems; ++k)
-    c += match_count(p, base + k * kThreads + threadIdx.x, slots, slot_keys,
-                     mask);
+  for (int k = 0; k < kScanItems; ++k) {
+    const int64_t i = base + k * kThreads + threadIdx.x;
+    c += pair_count(match_count(p, i, slots, slot_keys, mask), p, i, outer);
+  }
   long long total;
   srt::block_exclusive_scan(c, &total);
   if (threadIdx.x == 0) tile_counts[blockIdx.x] = total;
@@ -116,18 +125,24 @@ __global__ void __launch_bounds__(kThreads)
 __global__ void __launch_bounds__(kThreads)
     probe_write(Side p, const long long* __restrict__ slots,
                 const long long* __restrict__ slot_keys, uint64_t mask,
-                const int64_t* __restrict__ tile_offsets,
+                int outer, const int64_t* __restrict__ tile_offsets,
                 long long* __restrict__ out_probe,
                 long long* __restrict__ out_build) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile;
   long long carry = tile_offsets[blockIdx.x];
   for (int k = 0; k < kScanItems; ++k) {
     const int64_t i = base + k * kThreads + threadIdx.x;
-    const long long c = match_count(p, i, slots, slot_keys, mask);
+    const long long m = match_count(p, i, slots, slot_keys, mask);
+    const long long c = pair_count(m, p, i, outer);
     long long t;
     const long long start = carry + srt::block_exclusive_scan(c, &t);
     carry += t;
     if (c == 0) continue;
+    if (m == 0) {  // outer mode: the row with no match, null-extended
+      out_probe[start] = i;
+      out_build[start] = -1;
+      continue;
+    }
     const long long key = key_at(p, i);
     long long o = start;
     for (uint64_t s = home(key, mask); slots[s] != kEmpty;
@@ -179,7 +194,8 @@ extern "C" int srt_join_build(const void* keys, int32_t key64,
 extern "C" int srt_join_count(const void* keys, int32_t key64,
                               const void* valid, int64_t n, const void* slots,
                               const void* slot_keys, int64_t table_size,
-                              void* tile_offsets, void* stream) {
+                              int32_t outer, void* tile_offsets,
+                              void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int64_t* offs = static_cast<int64_t*>(tile_offsets);
   if (n == 0)
@@ -188,7 +204,7 @@ extern "C" int srt_join_count(const void* keys, int32_t key64,
   probe_count<<<tiles, kThreads, 0, s>>>(
       side(keys, key64, valid, n), static_cast<const long long*>(slots),
       static_cast<const long long*>(slot_keys),
-      static_cast<uint64_t>(table_size - 1), offs);
+      static_cast<uint64_t>(table_size - 1), outer, offs);
   srt::scan_tile_offsets<<<1, kThreads, 0, s>>>(offs, tiles, offs + tiles);
   return static_cast<int>(cudaGetLastError());
 }
@@ -196,14 +212,15 @@ extern "C" int srt_join_count(const void* keys, int32_t key64,
 extern "C" int srt_join_write(const void* keys, int32_t key64,
                               const void* valid, int64_t n, const void* slots,
                               const void* slot_keys, int64_t table_size,
-                              const void* tile_offsets, void* out_probe,
-                              void* out_build, void* stream) {
+                              int32_t outer, const void* tile_offsets,
+                              void* out_probe, void* out_build,
+                              void* stream) {
   if (n == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   probe_write<<<srt::tiles_for(n), kThreads, 0, s>>>(
       side(keys, key64, valid, n), static_cast<const long long*>(slots),
       static_cast<const long long*>(slot_keys),
-      static_cast<uint64_t>(table_size - 1),
+      static_cast<uint64_t>(table_size - 1), outer,
       static_cast<const int64_t*>(tile_offsets),
       static_cast<long long*>(out_probe), static_cast<long long*>(out_build));
   return static_cast<int>(cudaGetLastError());

@@ -9,7 +9,8 @@
 // Keys: up to 8 columns of int, long or string (offsets int32 or int64 and
 // chars); a null is a value of its own, so nulls form their own group.
 // Aggregates: up to 16 of long sum (int or long input, wrapping), double
-// sum, count of valid inputs and count of rows.
+// sum (of a double input, or of an int or long one converted row by row:
+// an average's sum), count of valid inputs and count of rows.
 //
 // Steps (srt_agg_groups, then the host reads the group count -- the one
 // sync -- then srt_agg_reduce):
@@ -240,7 +241,14 @@ __global__ void __launch_bounds__(kThreads)
         if (!agg_present(a, j, r)) continue;
         ++cnt;
         if (kind == kSumF64) {
-          f += static_cast<const double*>(a.data[j])[r];
+          // an int or long input converts to double row by row
+          f += a.in_type[j] == kInFloat64
+                   ? static_cast<const double*>(a.data[j])[r]
+               : a.in_type[j] == kInInt32
+                   ? static_cast<double>(
+                         static_cast<const int32_t*>(a.data[j])[r])
+                   : static_cast<double>(
+                         static_cast<const long long*>(a.data[j])[r]);
         } else if (kind == kSumI64) {
           u += a.in_type[j] == kInInt32
                    ? static_cast<unsigned long long>(static_cast<long long>(

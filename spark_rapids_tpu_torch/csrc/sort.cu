@@ -20,10 +20,18 @@
 //              sorts after +inf); then bits ^ 2^63 when the sign is clear
 //              and ~bits when it is set;
 //     descending flips the value word's bits (not the rank word's).
+//   - a string key (string_words) has ceil(longest / 7) value words (at
+//     least one), the JAX package's _string_words (:71) bit for bit: 7
+//     bytes a word, big-endian, each byte stored as byte + 1 in a 9-bit
+//     field, 0 past the end, so "ab" sorts before "ab\0" and "abc", and
+//     bytes >= 0x80 above ASCII; 0 under a null; descending flips all 64
+//     bits.  Its longest length comes first from string_max_len (the host
+//     reads it: the sort's one sync, only for a string key).
 //
-// Bound: at the main path's size (a few thousand rows, a 64-bit word per
-// key) launch latency: three launches per 8-bit digit.  At scale each pass
-// reads a word and an index and writes an index per row.
+// Bound: at q3's size (a few thousand rows, a 64-bit word per key) launch
+// latency: three launches per 8-bit digit.  At scale each pass reads a
+// word and an index and writes an index per row; a 16-byte string key
+// takes three words, 24 passes.
 #include "radix.cuh"
 
 namespace {
@@ -67,7 +75,98 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename Off>
+__global__ void __launch_bounds__(kThreads)
+    string_max_len(const Off* __restrict__ off, int64_t n,
+                   unsigned long long* __restrict__ out) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  long long m = 0;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += stride) {
+    const long long len =
+        static_cast<long long>(off[i + 1]) - static_cast<long long>(off[i]);
+    m = len > m ? len : m;
+  }
+  for (int d = 16; d > 0; d >>= 1) {
+    const long long o = __shfl_down_sync(0xffffffffu, m, d);
+    m = o > m ? o : m;
+  }
+  if ((threadIdx.x & 31) == 0 && m > 0)
+    atomicMax(out, static_cast<unsigned long long>(m));
+}
+
+template <typename Off>
+__global__ void __launch_bounds__(kThreads)
+    string_words(const Off* __restrict__ off,
+                 const uint8_t* __restrict__ chars,
+                 const uint8_t* __restrict__ valid, int64_t n,
+                 int32_t n_words, int32_t ascending, int32_t nulls_first,
+                 uint64_t* __restrict__ rank_word,
+                 uint64_t* __restrict__ words) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += stride) {
+    const bool ok = valid == nullptr || valid[i] != 0;
+    if (rank_word != nullptr)
+      rank_word[i] = ok == static_cast<bool>(nulls_first) ? 1ULL : 0ULL;
+    const int64_t s = static_cast<int64_t>(off[i]);
+    const int64_t len = ok ? static_cast<int64_t>(off[i + 1]) - s : 0;
+    for (int32_t w = 0; w < n_words; ++w) {
+      uint64_t word = 0;
+      for (int j = 0; j < 7; ++j) {
+        const int64_t b = static_cast<int64_t>(w) * 7 + j;
+        if (b < len)
+          word |= static_cast<uint64_t>(chars[s + b] + 1) << (9 * (6 - j));
+      }
+      words[static_cast<int64_t>(w) * n + i] = ascending ? word : ~word;
+    }
+  }
+}
+
 }  // namespace
+
+// *out = the longest string of the column (out: one int64 on the device).
+extern "C" int srt_string_max_len(const void* offsets, int32_t off64,
+                                  int64_t n, void* out, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* o = static_cast<unsigned long long*>(out);
+  cudaError_t err = cudaMemsetAsync(o, 0, sizeof(unsigned long long), s);
+  if (err != cudaSuccess || n == 0) return static_cast<int>(err);
+  if (off64)
+    string_max_len<int64_t><<<srt::grid_for(n), kThreads, 0, s>>>(
+        static_cast<const int64_t*>(offsets), n, o);
+  else
+    string_max_len<int32_t><<<srt::grid_for(n), kThreads, 0, s>>>(
+        static_cast<const int32_t*>(offsets), n, o);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// words: n_words * n uint64, word w of row i at words[w * n + i];
+// rank_word and valid may be null.
+extern "C" int srt_string_words(const void* offsets, int32_t off64,
+                                const void* chars, const void* valid,
+                                int64_t n, int32_t n_words,
+                                int32_t ascending, int32_t nulls_first,
+                                void* rank_word, void* words, void* stream) {
+  if (n_words < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint8_t* c = static_cast<const uint8_t*>(chars);
+  const uint8_t* v = static_cast<const uint8_t*>(valid);
+  uint64_t* r = static_cast<uint64_t*>(rank_word);
+  uint64_t* w = static_cast<uint64_t*>(words);
+  if (off64)
+    string_words<int64_t><<<srt::grid_for(n), kThreads, 0, s>>>(
+        static_cast<const int64_t*>(offsets), c, v, n, n_words, ascending,
+        nulls_first, r, w);
+  else
+    string_words<int32_t><<<srt::grid_for(n), kThreads, 0, s>>>(
+        static_cast<const int32_t*>(offsets), c, v, n, n_words, ascending,
+        nulls_first, r, w);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // rank_word may be null (the key holds no null); valid may be null.
 extern "C" int srt_sort_words(const void* data, int32_t type,

@@ -11,8 +11,9 @@ does through ``merge_partials_out_of_core`` (``:173``).
 (``ops/agg_ops.py keyed_aggregate``) groups the rows and folds sum and
 count per group, writing each aggregate's result and its validity (a sum
 of no present value is null, as Spark has it), and K7 gathers the key
-columns from each group's first row.  Groups come out in order of first
-appearance."""
+columns from each group's first row.  An average folds a double sum and a
+count, and K6 (exec/fused.py) evaluates its final expression over the
+groups.  Groups come out in order of first appearance."""
 
 from __future__ import annotations
 
@@ -155,11 +156,13 @@ class TorchHashAggregateExec(UnaryExec):
 
 
 def keyed_inputs(layout: _AggLayout):
-    """``[(input ordinal or None, K9 kind)]`` per aggregate; raises
-    NotImplementedError, naming it, for what K9 cannot fold yet."""
-    from spark_rapids_tpu_torch.expressions.aggregates import Count, Sum
+    """``[(input ordinal or None, K9 kind, result type)]``: one K9
+    aggregate for a sum or a count, two (a double sum and a count of
+    present values) for an average.  Raises NotImplementedError, naming
+    it, for what K9 cannot fold yet."""
+    from spark_rapids_tpu_torch.expressions.aggregates import (Average,
+                                                               Count, Sum)
     from spark_rapids_tpu_torch.expressions.base import Literal
-    from spark_rapids_tpu_torch.expressions.cast import Cast
     from spark_rapids_tpu_torch.ops import agg_ops as G
     for k in layout.grouping:
         if not isinstance(k, BoundReference):
@@ -176,35 +179,67 @@ def keyed_inputs(layout: _AggLayout):
         e = f.children[0]
         if isinstance(f, Count) and isinstance(e, Literal) and \
                 e.value is not None:
-            out.append((None, G.KEYED_COUNT_ALL))
+            out.append((None, G.KEYED_COUNT_ALL, T.LONG))
             continue
-        if isinstance(e, Cast) and e.data_type == T.LONG and \
-                e.children[0].data_type.is_integral:
-            e = e.children[0]   # K9 widens int to long itself
         if not isinstance(e, BoundReference) or \
-                not isinstance(f, (Sum, Count)):
+                not isinstance(f, (Sum, Count, Average)):
             raise NotImplementedError(
                 f"aggregate {f.sql()} in a group-by is not in the port yet "
-                "(sum and count of a column are)")
+                "(sum, count and avg of a column are)")
         if isinstance(f, Count):
-            out.append((e.ordinal, G.KEYED_COUNT))
+            out.append((e.ordinal, G.KEYED_COUNT, T.LONG))
+        elif isinstance(f, Average):
+            # K9 converts an int or long input to double row by row
+            out.append((e.ordinal, G.KEYED_SUM_F64, T.DOUBLE))
+            out.append((e.ordinal, G.KEYED_COUNT, T.LONG))
         elif f.data_type.is_floating:
-            out.append((e.ordinal, G.KEYED_SUM_F64))
+            out.append((e.ordinal, G.KEYED_SUM_F64, T.DOUBLE))
         else:
-            out.append((e.ordinal, G.KEYED_SUM_I64))
+            # K9 widens int to long itself
+            out.append((e.ordinal, G.KEYED_SUM_I64, T.LONG))
     return out
 
 
 class TorchKeyedAggregateExec(UnaryExec):
-    """COMPLETE group-by over one partition: K9, then K7 for the keys."""
+    """COMPLETE group-by over one partition: K9, then K7 for the keys, then,
+    when an aggregate has a final expression (an average's
+    ``If(cnt > 0, sum / cnt, NULL)``), K6 over the group rows, as
+    ``exec/fused.py:653`` runs ``eval_exprs_tpu`` over the merged
+    groups.  A sum's and a count's K9 result is already final."""
 
     def __init__(self, layout: _AggLayout, child):
+        from spark_rapids_tpu_torch.expressions.aggregates import Average
+        from spark_rapids_tpu_torch.exec.fused import StageProgram
         super().__init__(child)
         if child.num_partitions != 1:
             raise NotImplementedError(
                 "a group-by over several partitions is not in the port yet")
         self.layout = layout
         self.inputs = keyed_inputs(layout)
+        nk = layout.num_keys
+        # the batch K9 and K7 give: keys, then one column per K9 aggregate
+        fields = [T.StructField(layout.key_name(i),
+                                layout.grouping[i].data_type, True)
+                  for i in range(nk)]
+        fields += [T.StructField(f"_k9_{j}", dt, True)
+                   for j, (_o, _k, dt) in enumerate(self.inputs)]
+        self._folded = T.StructType(fields)
+        finals: List[Expression] = [
+            Alias(BoundReference(i, f.data_type, True), f.name)
+            for i, f in enumerate(fields[:nk])]
+        j = nk
+        for a in layout.aggs:
+            refs = [BoundReference(j + b, fields[j + b].data_type, True)
+                    for b in range(2 if isinstance(a.func, Average) else 1)]
+            j += len(refs)
+            final = a.func.evaluate(refs) if isinstance(a.func, Average) \
+                else refs[0]
+            finals.append(Alias(final, a.out_name))
+        self.finish = None
+        if any(not isinstance(e.children[0], BoundReference)
+               for e in finals):
+            self.finish = StageProgram([("project", finals)],
+                                       self._folded, 0)
 
     @property
     def schema(self):
@@ -219,17 +254,24 @@ class TorchKeyedAggregateExec(UnaryExec):
     def aggregate_batch(self, batch: ColumnarBatch, transfers
                         ) -> ColumnarBatch:
         from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+        from spark_rapids_tpu_torch.exec.fused import (LiteralArgs,
+                                                       project_batch)
         from spark_rapids_tpu_torch.ops.agg_ops import keyed_aggregate
         from spark_rapids_tpu_torch.ops.batch_ops import gather_columns
         keys = [batch.columns[k.ordinal] for k in self.layout.grouping]
         inputs = [None if o is None else batch.columns[o]
-                  for o, _kind in self.inputs]
+                  for o, _kind, _dt in self.inputs]
         group_rep, results = keyed_aggregate(
-            keys, inputs, [kind for _o, kind in self.inputs], transfers)
+            keys, inputs, [kind for _o, kind, _dt in self.inputs], transfers)
         cols = gather_columns(keys, group_rep, transfers, unique=True)
-        for a, (data, valid) in zip(self.layout.aggs, results):
-            cols.append(DeviceColumn(data, valid, a.func.data_type))
-        return ColumnarBatch(cols, group_rep.shape[0], self.schema.names)
+        for (_o, _kind, dt), (data, valid) in zip(self.inputs, results):
+            cols.append(DeviceColumn(data, valid, dt))
+        names = self.schema.names
+        if self.finish is None:
+            return ColumnarBatch(cols, group_rep.shape[0], names)
+        folded = ColumnarBatch(cols, group_rep.shape[0],
+                               self._folded.names)
+        return project_batch(self.finish, folded, LiteralArgs([]), names)
 
     def execute(self, ctx: ExecContext) -> Partitions:
         out = []

@@ -5,10 +5,14 @@
 the device copy (``TpuInMemoryScanExec``, ``:120``), so later actions read
 it from device memory.  ``TorchFilterExec`` and ``TorchProjectExec`` are
 plan nodes for stage fusion: the planner folds each chain of them into a
-fused aggregate (K1), a compacting stage (K5, exec/fused.py), or, for bare
-column references, a ``TorchSelectExec``, which picks and renames columns
-with no launch.  ``TorchLimitExec`` (``TpuLocalLimitExec``, ``:434``)
-keeps the first rows of its one partition as views."""
+fused aggregate (K1), a compacting stage (K5, exec/fused.py) when the
+chain filters, a ``TorchSelectExec``, which picks and renames columns
+with no launch, when it only picks columns, and else a
+``TorchFusedProjectExec``, which computes its outputs with K6
+(``TpuProjectExec`` over ``eval_exprs_tpu``).  ``TorchLimitExec``
+(``TpuLocalLimitExec``, ``:434``) keeps the first rows of its one
+partition as views.  ``TorchCteCacheExec`` (``TpuCteCacheExec``,
+``:496``) runs a plan that two branches use once per action."""
 
 from __future__ import annotations
 
@@ -96,6 +100,62 @@ class TorchSelectExec(UnaryExec):
         names = self._schema.names
         return [[b.select(self.ordinals, names) for b in part]
                 for part in self.child.execute(ctx)]
+
+
+class TorchFusedProjectExec(UnaryExec):
+    """A projection chain with no filter: K6 writes the outputs that
+    compute something, for every row; bare columns pass through."""
+
+    def __init__(self, ops, child, promoted=()):
+        from spark_rapids_tpu_torch.exec.fused import StageProgram
+        super().__init__(child)
+        self.ops = list(ops)
+        self.promoted = list(promoted)
+        self.program = StageProgram(self.ops, child.schema,
+                                    len(self.promoted))
+        self._schema = T.StructType([
+            T.StructField(output_name(e), e.data_type, e.nullable)
+            for e in self.ops[-1][1]])
+
+    @property
+    def schema(self):
+        return self._schema
+
+    def node_string(self):
+        from spark_rapids_tpu_torch.exec.fused import chain_string
+        return "TorchFusedProject" + chain_string(self.ops, self.promoted)
+
+    def execute(self, ctx: ExecContext) -> Partitions:
+        from spark_rapids_tpu_torch.exec.fused import (LiteralArgs,
+                                                       project_batch)
+        lits = LiteralArgs.upload(self.promoted, ctx.transfers)
+        names = self._schema.names
+        return [[project_batch(self.program, b, lits, names) for b in part]
+                for part in self.child.execute(ctx)]
+
+
+class TorchCteCacheExec(UnaryExec):
+    """A plan two branches read (a ``WITH`` name used twice): its child
+    runs once per action, and the next action runs it again, as
+    ``TpuCteCacheExec`` keeps one result per execution epoch.  An action
+    is one ``ExecContext``."""
+
+    def __init__(self, child):
+        super().__init__(child)
+        self._ctx = None
+        self._result: Partitions = []
+        #: how many times the child ran
+        self.runs = 0
+
+    def node_string(self):
+        return "TorchCteCache"
+
+    def execute(self, ctx: ExecContext) -> Partitions:
+        if self._ctx is not ctx:
+            self._result = self.child.execute(ctx)
+            self._ctx = ctx
+            self.runs += 1
+        return self._result
 
 
 class TorchLimitExec(UnaryExec):

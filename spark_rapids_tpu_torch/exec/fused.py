@@ -19,7 +19,8 @@ bytes.  The grid stride keeps each program's accumulators in registers and
 reduces them once, instead of once per tile.
 
 The compacting stage, K5 (``TpuFusedStageExec``, kind ``fused.stage``),
-is the second half of this module."""
+is the second part of this module, and the computing projection, K6
+(``eval_exprs_tpu``, kind ``expr.project``), the third."""
 
 from __future__ import annotations
 
@@ -53,6 +54,16 @@ PROGRAMS_PER_SM = 2
 
 #: launches of kernel 1 (incremented only where the kernel is launched)
 LAUNCHES = 0
+
+
+def chain_string(ops, promoted) -> str:
+    """A fused chain as ``explain`` shows it, with its promoted literals."""
+    parts = [f"F[{payload.sql()}]" if kind == "filter" else
+             f"P[{', '.join(e.sql() for e in payload)}]"
+             for kind, payload in ops]
+    lits = ", ".join(f"$lit{p.slot}={p.value!r}" for p in promoted)
+    return "(" + " -> ".join(parts) + ")" + (f" lits[{lits}]" if lits
+                                             else "")
 
 
 def _ops_signature(ops) -> Tuple:
@@ -279,16 +290,9 @@ class TorchFusedAggExec(UnaryExec):
             self.layout.result_schema
 
     def node_string(self):
-        parts = []
-        for kind, payload in self.ops:
-            if kind == "filter":
-                parts.append(f"F[{payload.sql()}]")
-            else:
-                parts.append(f"P[{', '.join(e.sql() for e in payload)}]")
-        lits = ", ".join(f"$lit{p.slot}={p.value!r}" for p in self.promoted)
         return (f"TorchFusedAgg[mode={self.mode}, "
-                f"keys={self.layout.num_keys}](" + " -> ".join(parts) + ")"
-                + (f" lits[{lits}]" if lits else ""))
+                f"keys={self.layout.num_keys}]" +
+                chain_string(self.ops, self.promoted))
 
     def update_batch(self, batch: ColumnarBatch, lits: LiteralArgs
                      ) -> ColumnarBatch:
@@ -367,7 +371,8 @@ def flatten_chain(ops, schema: T.StructType):
 class StageProgram:
     """One chain over one input schema: its predicates, its outputs (bare
     ordinals or computed expressions) and the key of its kernels, one per
-    set of input columns that may hold nulls."""
+    set of input columns that may hold nulls.  A chain with predicates
+    is K5's (``fused.stage``), one without K6's (``expr.project``)."""
 
     def __init__(self, ops, schema: T.StructType, n_literals: int):
         from spark_rapids_tpu_torch.kernels import fused_stage as S
@@ -384,11 +389,37 @@ class StageProgram:
 
     def kernel_for(self, nullable: Tuple[bool, ...]) -> FusedKernel:
         from spark_rapids_tpu_torch.kernels import fused_stage as S
+        if not self.conditions:
+            return get_or_build(
+                "expr.project", self.key + (nullable,),
+                lambda: FusedKernel(S.project_source(
+                    self.input_types, nullable, self.computed,
+                    self.n_literals), prefix="project_"))
         return get_or_build(
             "fused.stage", self.key + (nullable,),
             lambda: FusedKernel(S.stage_source(
                 self.input_types, nullable, self.conditions, self.computed,
                 self.n_literals), prefix="fused_stage_"))
+
+
+def _column_args(program, batch: ColumnarBatch, lits: LiteralArgs) -> List:
+    """The kernel arguments of the columns ``program`` uses, in the order
+    ``kernels/fused_stage.py _body`` names them (data, a string's
+    offsets, the validity plane of a column that may hold nulls), then
+    the literal table."""
+    args: List = []
+    for i in program.used:
+        c = batch.columns[i]
+        data = c.data.contiguous()
+        args.append(data.view(torch.uint8) if data.dtype == torch.bool
+                    else data)
+        if c.is_string:
+            args.append(c.offsets.contiguous())
+        if not c.all_valid:
+            args.append(c.validity.contiguous().view(torch.uint8))
+    if program.n_literals:
+        args.append(lits.words)
+    return args
 
 
 def fused_stage_compact(program: StageProgram, batch: ColumnarBatch,
@@ -417,16 +448,7 @@ def fused_stage_compact(program: StageProgram, batch: ColumnarBatch,
         raise ValueError("the literal table must lie on the batch's device")
     from spark_rapids_tpu_torch.kernels import fused_stage as S
     fk = program.kernel_for(tuple(not c.all_valid for c in batch.columns))
-    args: List = []
-    for i in program.used:
-        c = batch.columns[i]
-        data = c.data.contiguous()
-        args.append(data.view(torch.uint8) if data.dtype == torch.bool
-                    else data)
-        if not c.all_valid:
-            args.append(c.validity.contiguous().view(torch.uint8))
-    if program.n_literals:
-        args.append(lits.words)
+    args = _column_args(program, batch, lits)
     n_tiles = -(-n // STAGE_BLOCK)
     with torch.cuda.device(device):
         counts = torch.empty(n_tiles + 1, dtype=torch.int64, device=device)
@@ -494,15 +516,7 @@ class TorchFusedStageExec(UnaryExec):
                              for e in projects[-1]])
 
     def node_string(self):
-        parts = []
-        for kind, payload in self.ops:
-            if kind == "filter":
-                parts.append(f"F[{payload.sql()}]")
-            else:
-                parts.append(f"P[{', '.join(e.sql() for e in payload)}]")
-        lits = ", ".join(f"$lit{p.slot}={p.value!r}" for p in self.promoted)
-        return ("TorchFusedStage(" + " -> ".join(parts) + ")" +
-                (f" lits[{lits}]" if lits else ""))
+        return "TorchFusedStage" + chain_string(self.ops, self.promoted)
 
     def stage_batch(self, batch: ColumnarBatch, lits: LiteralArgs,
                     transfers) -> ColumnarBatch:
@@ -522,3 +536,84 @@ class TorchFusedStageExec(UnaryExec):
         lits = LiteralArgs.upload(self.promoted, ctx.transfers)
         return [[self.stage_batch(b, lits, ctx.transfers) for b in part]
                 for part in self.child.execute(ctx)]
+
+
+# -- K6: the computing projection ---------------------------------------------
+#
+# A ``StageProgram`` with no predicates is the counterpart of the JAX
+# package's ``expr.project`` in its computing form
+# (``expressions/evaluator.py:160 eval_exprs_tpu``, built ``:197``),
+# reached from a projection with no filter
+# (``exec/basic.py TorchFusedProjectExec``) and from a group-by's final
+# expressions (``exec/aggregate.py``, as ``exec/fused.py:653`` runs them).
+# ``fused_project`` is K6's wrapper: one launch of the ``stage_project``
+# kernel ``kernels/fused_stage.py`` emits, which writes each computed
+# output for every row; bare outputs pass through as the input columns.
+#
+# Bound: device memory bytes.  It reads the planes of the columns the
+# outputs read once and writes each output's data and validity once; a
+# division is the most arithmetic it does per row.
+
+#: launches of K6 (wrapper calls that launch it)
+PROJECT_LAUNCHES = 0
+
+
+def fused_project(program: StageProgram, batch: ColumnarBatch,
+                  lits: LiteralArgs) -> List[DeviceColumn]:
+    """K6's wrapper: the computed outputs, each of the batch's rows."""
+    if program.conditions:
+        raise ValueError("a chain with a filter is K5's work")
+    types = [c.data_type for c in batch.columns]
+    if types != program.input_types:
+        raise TypeError(f"batch of {types} for a projection over "
+                        f"{program.input_types}")
+    device = batch.device
+    if device.type == "cpu":
+        return fused_project_plain(program, batch, lits)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if program.n_literals and (lits.words is None or
+                               lits.words.device != device):
+        raise ValueError("the literal table must lie on the batch's device")
+    n = batch.row_count
+    outs, planes = [], []
+    for e in program.computed:
+        data = torch.empty(n, dtype=e.data_type.torch_dtype, device=device)
+        valid = torch.empty(n, dtype=torch.bool, device=device)
+        outs.append(DeviceColumn(data, valid, e.data_type))
+        planes += [data.view(torch.uint8) if data.dtype == torch.bool
+                   else data, valid.view(torch.uint8)]
+    if n == 0 or not outs:
+        return outs
+    from spark_rapids_tpu_torch.kernels import fused_stage as S
+    fk = program.kernel_for(tuple(not c.all_valid for c in batch.columns))
+    args = _column_args(program, batch, lits)
+    with torch.cuda.device(device):
+        fk.kernel(S.PROJECT_KERNEL)[(-(-n // STAGE_BLOCK),)](
+            *args, *planes, n, BLOCK=STAGE_BLOCK, num_warps=STAGE_WARPS)
+    global PROJECT_LAUNCHES
+    PROJECT_LAUNCHES += 1
+    return outs
+
+
+def fused_project_plain(program: StageProgram, batch: ColumnarBatch,
+                        lits: LiteralArgs) -> List[DeviceColumn]:
+    """The plain PyTorch version of K6."""
+    ctx = EvalContext(batch_cols(batch), batch.row_count, batch.device,
+                      lits.values)
+    outs = []
+    for e in program.computed:
+        c = e.eval(ctx)
+        outs.append(DeviceColumn(c.data.to(e.data_type.torch_dtype),
+                                 c.valid, e.data_type))
+    return outs
+
+
+def project_batch(program: StageProgram, batch: ColumnarBatch,
+                  lits: LiteralArgs, names: Sequence[str]) -> ColumnarBatch:
+    """The projection of ``batch``: K6's outputs, and the bare outputs as
+    the input columns."""
+    it = iter(fused_project(program, batch, lits))
+    cols = [next(it) if b is None else batch.columns[b]
+            for b in program.bare]
+    return ColumnarBatch(cols, batch.row_count, names)

@@ -1,7 +1,9 @@
 """Declarative aggregate functions (the analog of ``spark_rapids_tpu/
 expressions/aggregates.py``): each function names its buffers with an
 update kind and a merge kind, and a final expression over the merged
-buffers."""
+buffers.  ``Average`` (``:154``) keeps the JAX package's buffers: a double
+sum of ``Cast(child, DOUBLE)`` and a count, and the final expression
+``If(cnt > 0, sum / cnt, NULL)``."""
 
 from __future__ import annotations
 
@@ -90,6 +92,33 @@ class Count(AggregateFunction):
 
     def evaluate(self, refs):
         return refs[0]
+
+
+class Average(AggregateFunction):
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def data_type(self):
+        return T.DOUBLE
+
+    def inputs(self):
+        from spark_rapids_tpu_torch.expressions.cast import Cast
+        return [Cast(self.children[0], T.DOUBLE)]
+
+    def buffers(self):
+        return [BufferSpec("sum", T.DOUBLE, "sum", "sum"),
+                BufferSpec("cnt", T.LONG, "count", "sum")]
+
+    def evaluate(self, refs):
+        from spark_rapids_tpu_torch.expressions.arithmetic import Divide
+        from spark_rapids_tpu_torch.expressions.cast import Cast
+        from spark_rapids_tpu_torch.expressions.conditional import If
+        from spark_rapids_tpu_torch.expressions.predicates import \
+            GreaterThan
+        return If(GreaterThan(refs[1], Literal(0, T.LONG)),
+                  Divide(Cast(refs[0], T.DOUBLE), Cast(refs[1], T.DOUBLE)),
+                  Literal(None, T.DOUBLE))
 
 
 @dataclasses.dataclass

@@ -2,9 +2,14 @@
 
 Spark non-ANSI semantics: operands widen to the common type, integer
 overflow wraps (torch's int64 and int32 arithmetic is two's complement),
-and a null operand makes the result null."""
+and a null operand makes the result null.  ``Divide`` (``:178``) divides
+as doubles and gives null for a zero divisor (0.0 or -0.0); the data
+under that null is the dividend divided by one, as the JAX package
+computes it."""
 
 from __future__ import annotations
+
+import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expressions.base import Col, EvalContext, \
@@ -57,3 +62,18 @@ class Multiply(BinaryArithmetic):
 
     def _apply(self, a, b):
         return a * b
+
+
+class Divide(BinaryArithmetic):
+    symbol = "/"
+
+    @property
+    def data_type(self) -> T.DataType:
+        return T.DOUBLE
+
+    def eval(self, ctx: EvalContext) -> Col:
+        a = self.left.eval(ctx)
+        b = self.right.eval(ctx)
+        x, y = a.data.to(torch.float64), b.data.to(torch.float64)
+        zero = y == 0
+        return Col(x / torch.where(zero, 1.0, y), a.valid & b.valid & ~zero)

@@ -16,13 +16,16 @@ from spark_rapids_tpu_torch import types as T
 
 
 class Col:
-    """An evaluated column: data and bool validity, ``row_count`` long."""
+    """An evaluated column: data and bool validity, ``row_count`` long; a
+    string also has its offsets (``data`` is then its chars plane)."""
 
-    __slots__ = ("data", "valid")
+    __slots__ = ("data", "valid", "offsets")
 
-    def __init__(self, data: torch.Tensor, valid: torch.Tensor):
+    def __init__(self, data: torch.Tensor, valid: torch.Tensor,
+                 offsets: Optional[torch.Tensor] = None):
         self.data = data
         self.valid = valid
+        self.offsets = offsets
 
 
 class EvalContext:
@@ -39,6 +42,15 @@ class EvalContext:
 
     def full(self, value, dtype: T.DataType) -> Col:
         n = self.row_count
+        if isinstance(dtype, T.StringType):
+            raw = b"" if value is None else value.encode("utf-8")
+            chars = torch.tensor(list(raw) * n, dtype=torch.uint8,
+                                 device=self.device)
+            offsets = torch.arange(n + 1, dtype=torch.int64,
+                                   device=self.device) * len(raw)
+            return Col(chars, torch.full((n,), value is not None,
+                                         dtype=torch.bool,
+                                         device=self.device), offsets)
         if value is None:
             return Col(torch.zeros(n, dtype=dtype.torch_dtype or torch.int64,
                                    device=self.device),
@@ -183,6 +195,8 @@ def _infer_literal_type(value) -> T.DataType:
         return T.INT if -(2 ** 31) <= value < 2 ** 31 else T.LONG
     if isinstance(value, float):
         return T.DOUBLE
+    if isinstance(value, str):
+        return T.STRING
     raise NotImplementedError(
         f"literal {value!r} of {type(value).__name__} is not in this port")
 

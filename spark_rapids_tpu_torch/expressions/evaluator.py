@@ -1,9 +1,10 @@
 """Projection of a batch with the plain PyTorch evaluator (the analog of
 ``spark_rapids_tpu/expressions/evaluator.py``).
 
-On this slice it runs only the final projection of a global aggregate:
-``If(cnt > 0, sum, NULL)`` over one row, a handful of scalars.  Its
-full-size form gets a kernel in the next slice."""
+It runs only the final projection of a global aggregate:
+``If(cnt > 0, sum, NULL)`` over one row, a handful of scalars.  The
+full-size form, ``eval_exprs_tpu``, is K6 (``exec/fused.py
+fused_project``)."""
 
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from spark_rapids_tpu_torch.expressions.base import (Col, EvalContext,
 
 
 def batch_cols(batch: ColumnarBatch) -> List[Col]:
-    return [Col(c.data, c.validity) for c in batch.columns]
+    return [Col(c.data, c.validity, c.offsets) for c in batch.columns]
 
 
 def eval_exprs(exprs: Sequence[Expression], batch: ColumnarBatch

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from spark_rapids_tpu_torch.expressions.base import Expression, col, lit
 
-__all__ = ["col", "lit", "sum", "count", "asc", "desc"]
+__all__ = ["col", "lit", "sum", "count", "avg", "asc", "desc"]
 
 
 def _expr(e) -> Expression:
@@ -15,6 +15,11 @@ def _expr(e) -> Expression:
 def sum(e):  # noqa: A001 - mirrors pyspark.sql.functions naming
     from spark_rapids_tpu_torch.expressions.aggregates import Sum
     return Sum(_expr(e))
+
+
+def avg(e):
+    from spark_rapids_tpu_torch.expressions.aggregates import Average
+    return Average(_expr(e))
 
 
 def count(e="*"):

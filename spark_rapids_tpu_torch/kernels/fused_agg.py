@@ -145,6 +145,8 @@ class ChainEmitter:
         self._n = 0
         self._named: Dict[str, str] = {}
         self.slots: Dict[int, str] = {}
+        #: a string column's value name -> (chars, offsets) parameters
+        self.strings: Dict[str, Tuple[str, str]] = {}
 
     def let(self, code: str, hoist: bool = False) -> str:
         """Names the value of ``code``; the same code (every emitted
@@ -257,9 +259,38 @@ def _greater_than(em, e, cols):
     return em.let(out), em.both(av, bv)
 
 
+def _string_equals_literal(em, column: Expression, text: str, cols
+                           ) -> Value:
+    """A string column ``= text``: the lengths, then each byte against the
+    literal's, which are constants of the kernel.  A byte is read only
+    where every byte before it matched."""
+    v, valid = em.emit(column, cols)
+    if v not in em.strings:
+        raise NotImplementedError(
+            f"a computed string ({column.sql()}) has no kernel form yet")
+    chars, offsets = em.strings[v]
+    start = em.let(f"tl.load({offsets} + offs, mask=inb, other=0)"
+                   ".to(tl.int64)")
+    end = em.let(f"tl.load({offsets} + offs + 1, mask=inb, other=0)"
+                 ".to(tl.int64)")
+    raw = text.encode("utf-8")
+    eq = em.let(f"({end} - {start}) == {len(raw)}")
+    for j, byte in enumerate(raw):
+        eq = em.let(f"{eq} & (tl.load({chars} + {start} + {j}, "
+                    f"mask=inb & {eq}, other=0).to(tl.int32) == {byte})")
+    return eq, valid
+
+
 @emits(P.EqualTo)
 def _equal_to(em, e, cols):
     ot = e.operand_type
+    if isinstance(ot, T.StringType):
+        for column, other in ((e.left, e.right), (e.right, e.left)):
+            if type(other) is Literal and other.value is not None:
+                return _string_equals_literal(em, column, other.value, cols)
+        raise NotImplementedError(
+            f"{e.sql()}: a string = has a kernel form only against a "
+            "string literal")
     (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
     a = em.cast(a, e.left.data_type, ot)
     b = em.cast(b, e.right.data_type, ot)
@@ -269,6 +300,34 @@ def _equal_to(em, e, cols):
     else:
         out = f"{a} == {b}"
     return em.let(out), em.both(av, bv)
+
+
+@emits(P.And)
+def _and(em, e, cols):
+    (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
+    at, bt = em.both(a, av), em.both(b, bv)
+    af = em.let(f"(~{a}) & {av}")
+    bf = em.let(f"(~{b}) & {bv}")
+    out = em.both(at, bt)
+    return out, em.let(f"{out} | {af} | {bf}")
+
+
+@emits(P.Or)
+def _or(em, e, cols):
+    (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
+    at, bt = em.both(a, av), em.both(b, bv)
+    out = em.let(f"{at} | {bt}")
+    return out, em.let(f"{out} | {em.both(av, bv)}")
+
+
+@emits(A.Divide)
+def _divide(em, e, cols):
+    (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
+    a = em.cast(a, e.left.data_type, T.DOUBLE)
+    b = em.cast(b, e.right.data_type, T.DOUBLE)
+    zero = em.let(f"{b} == 0.0")   # -0.0 too
+    out = em.let(f"{a} / tl.where({zero}, 1.0, {b})")
+    return out, em.let(f"{em.both(av, bv)} & (~{zero})")
 
 
 @emits(CO.If)

@@ -1,4 +1,5 @@
-"""K5's source: the compacting stage, three Triton kernels per filter chain.
+"""K5's source: the compacting stage, three Triton kernels per filter chain;
+and K6's: the computing projection, one Triton kernel per projection.
 
 The JAX package's ``fused.stage`` program
 (``spark_rapids_tpu/exec/fused.py:202 TpuFusedStageExec._program``, built
@@ -18,8 +19,19 @@ registry (``kernels/fused_agg.py ChainEmitter``), into:
   survivors' row indices and the values of the outputs that compute
   something.
 
+K6 (``project_source``) is the JAX package's ``expr.project`` in its
+computing form (``spark_rapids_tpu/expressions/evaluator.py:160
+eval_exprs_tpu``, built ``:197``): a projection with no filter.  Its one
+kernel, ``stage_project``, writes the computed outputs of every row at
+the row's own position, so it needs no count, no scan, no sync and no
+row indices.
+
+A string column is read through its chars and offsets (``in{i}``,
+``in{i}_off``); the ``=`` emitter compares it with a literal's bytes.
+
 Outputs that are input columns as they are (bare references) are not
-written here: the caller gathers them through the row indices (K7).  The
+written here: K5's caller gathers them through the row indices (K7), and
+K6's passes them on as they are.  The
 row indices are in input order, so the compaction is stable.  Only the
 input columns that a predicate or a computed output reads are kernel
 arguments.  This module only writes source text."""
@@ -33,6 +45,7 @@ from spark_rapids_tpu_torch.expressions.base import Expression
 from spark_rapids_tpu_torch.kernels.fused_agg import (_PREAMBLE, _TL,
                                                       ChainEmitter, Value)
 
+PROJECT_KERNEL = "stage_project"
 COUNT_KERNEL = "stage_count"
 SCAN_KERNEL = "stage_scan"
 WRITE_KERNEL = "stage_write"
@@ -86,13 +99,19 @@ def _body(input_types, nullable, used, conditions, em: ChainEmitter
     for i in used:
         dt = input_types[i]
         params.append(f"in{i}")
-        load = f"tl.load(in{i} + offs, mask=inb, other=0)"
-        if isinstance(dt, T.BooleanType):
-            load += " != 0"
-        elif dt not in _TL:
-            raise NotImplementedError(
-                f"a {dt} column cannot be read inside a fused stage yet")
-        em.lines.append(f"x{i} = {load}")
+        if isinstance(dt, T.StringType):
+            # chars and offsets: the emitters that read a string load
+            # what they need (``em.strings``)
+            params.append(f"in{i}_off")
+            em.strings[f"x{i}"] = (f"in{i}", f"in{i}_off")
+        else:
+            load = f"tl.load(in{i} + offs, mask=inb, other=0)"
+            if isinstance(dt, T.BooleanType):
+                load += " != 0"
+            elif dt not in _TL:
+                raise NotImplementedError(
+                    f"a {dt} column cannot be read inside a fused stage yet")
+            em.lines.append(f"x{i} = {load}")
         valid = em.TRUE
         if nullable[i]:
             params.append(f"in{i}_valid")
@@ -156,3 +175,25 @@ def stage_source(input_types: Sequence[T.DataType],
     write = _kernel(WRITE_KERNEL, params + lits +
                     ["offsets", "out_idx"] + outs + ["n_rows"], em, tail)
     return _PREAMBLE + count + _SCAN + write
+
+
+def project_source(input_types: Sequence[T.DataType],
+                   nullable: Sequence[bool],
+                   computed: Sequence[Expression], n_literals: int) -> str:
+    """Source of a module with K6's one kernel: ``stage_project`` writes
+    each computed output (data and validity) for every row of its tile,
+    in row order; no count, no scan, no row indices."""
+    used = referenced_columns(list(computed))
+    em = ChainEmitter()
+    params, cols, _sel = _body(input_types, nullable, used, [], em)
+    outs, stores = [], []
+    for j, e in enumerate(computed):
+        v, valid = em.emit(e, cols)
+        kt = _kernel_type(e.data_type)
+        outs += [f"out{j}", f"out{j}_valid"]
+        stores.append(f"tl.store(out{j} + offs, {v}.to({kt}), mask=inb)")
+        stores.append(f"tl.store(out{j}_valid + offs, {valid}.to(tl.uint8), "
+                      "mask=inb)")
+    lits = ["lits"] if n_literals else []
+    return _PREAMBLE + _kernel(PROJECT_KERNEL, params + lits + outs +
+                               ["n_rows"], em, stores)

@@ -204,7 +204,9 @@ def global_aggregate(batch: ColumnarBatch, specs,
 # columns (int, long or string; a null is a value of its own) through a
 # hash table (``csrc/keyed_agg.cu``); groups are numbered in order of first
 # appearance, and each aggregate is folded over its group's rows in row
-# order, so results do not depend on timing.  The host reads the group
+# order, so results do not depend on timing.  A double sum takes an int,
+# long or double input, converting each row to double (an average's sum
+# of ``Cast(child, DOUBLE)``).  The host reads the group
 # count once (one sync) to size the outputs.  ``keyed_aggregate_plain``
 # does the same with torch ops: the same hash (``key_hash_plain``, which a
 # test replaces to force collisions), linear probing in rounds, keys
@@ -261,8 +263,6 @@ def _check_keyed(keys: Sequence[DeviceColumn], inputs, kinds) -> None:
         if kind != KEYED_COUNT and c.data_type not in _IN_CODES:
             raise NotImplementedError(
                 f"a sum over {c.data_type} is not in the port yet")
-        if kind == KEYED_SUM_F64 and c.data_type != T.DOUBLE:
-            raise TypeError("a double sum needs a double input")
         if kind == KEYED_SUM_I64 and c.data_type == T.DOUBLE:
             raise TypeError("a long sum needs an int or long input")
 

@@ -1,15 +1,17 @@
 """Row movement (the analog of ``spark_rapids_tpu/ops/batch_ops.py``): the
 gather kernel (K7) and its wrappers.
 
-``gather_columns`` is K7's wrapper (``gather_batch`` ``:45``; it also does
-the gathers of ``join.gather`` ``ops/join_ops.py:335`` and of the fused
-stage and sort programs).  On CUDA columns it launches
+``gather_columns`` is K7's wrapper (``gather_batch`` ``:45``; it also does the
+gathers of ``join.gather`` ``ops/join_ops.py:335`` and of the fused stage and
+sort programs). ``nullable=True`` lets the map hold -1, which gives a null row
+(validity 0, data 0, length 0): a left outer join's unmatched rows, as
+``gather_join_output`` null-extends them. On CUDA columns it launches
 ``csrc/gather.cu``: one launch for every fixed-width plane, then per string
 column the offsets scan and the chars copy; on CPU columns it runs
-``gather_columns_plain``.  ``unique=True`` says no input row is taken twice
-(a compaction, a permutation, one row per group), so a string's chars fit
-in its input plane and no sync is needed to size them; otherwise the chars
-totals of all string columns reach the host in one sync
+``gather_columns_plain``. ``unique=True`` says no input row is taken twice (a
+compaction, a permutation, one row per group), so a string's chars fit in its
+input plane and no sync is needed to size them; otherwise the chars totals of
+all string columns reach the host in one sync
 (``TransferGateway.read_counts``).
 
 ``take_front`` (``:177``, LIMIT) is a slice with no launch.
@@ -70,12 +72,15 @@ def _empty(c: DeviceColumn, device) -> DeviceColumn:
 
 
 def gather_columns(columns: Sequence[DeviceColumn], idx: torch.Tensor,
-                   transfers, unique: bool = False) -> List[DeviceColumn]:
-    """K7's wrapper: output row i of each column is input row ``idx[i]``."""
+                   transfers, unique: bool = False,
+                   nullable: bool = False) -> List[DeviceColumn]:
+    """K7's wrapper: output row i of each column is input row ``idx[i]``;
+    with ``nullable``, ``idx[i]`` may be -1, which gives a null row."""
     _check(columns, idx)
     device = idx.device
     if device.type == "cpu":
-        return gather_columns_plain(columns, idx, transfers, unique)
+        return gather_columns_plain(columns, idx, transfers, unique,
+                                    nullable)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     n = idx.shape[0]
@@ -134,14 +139,14 @@ def gather_columns(columns: Sequence[DeviceColumn], idx: torch.Tensor,
             outs[j][0] = chars
     global LAUNCHES
     LAUNCHES += 1
-    return [DeviceColumn(data, valid, c.data_type, c.all_valid,
-                         offsets.get(j))
+    return [DeviceColumn(data, valid, c.data_type,
+                         c.all_valid and not nullable, offsets.get(j))
             for j, ((data, valid), c) in enumerate(zip(outs, columns))]
 
 
 def gather_columns_plain(columns: Sequence[DeviceColumn], idx: torch.Tensor,
-                         transfers, unique: bool = False
-                         ) -> List[DeviceColumn]:
+                         transfers, unique: bool = False,
+                         nullable: bool = False) -> List[DeviceColumn]:
     """The plain PyTorch version of K7 (a string's chars plane is sized
     exactly).  Like the kernel it reads the chars totals through the
     gateway unless ``unique``."""
@@ -149,15 +154,26 @@ def gather_columns_plain(columns: Sequence[DeviceColumn], idx: torch.Tensor,
     n = idx.shape[0]
     out: List[DeviceColumn] = []
     strings = []
+    null = idx < 0
+    safe = torch.where(null, 0, idx)
+    all_valid = not nullable
+
+    def take(plane: torch.Tensor) -> torch.Tensor:
+        """plane[idx], 0 where idx is -1."""
+        if not plane.numel():
+            return torch.zeros(n, dtype=plane.dtype, device=idx.device)
+        return torch.where(null, torch.zeros((), dtype=plane.dtype,
+                                             device=idx.device), plane[safe])
+
     for c in columns:
-        valid = c.validity[idx]
+        valid = take(c.validity)
         if not c.is_string:
-            out.append(DeviceColumn(c.data[idx], valid, c.data_type,
-                                    c.all_valid))
+            out.append(DeviceColumn(take(c.data), valid, c.data_type,
+                                    c.all_valid and all_valid))
             continue
         off = c.offsets.to(torch.int64)
-        starts = off[idx]
-        lens = off[idx + 1] - starts
+        starts = take(off[:-1])
+        lens = take(off[1:]) - starts
         dst = torch.zeros(n + 1, dtype=torch.int64, device=idx.device)
         torch.cumsum(lens, 0, out=dst[1:])
         strings.append((len(out), c, starts, lens, dst))
@@ -168,8 +184,8 @@ def gather_columns_plain(columns: Sequence[DeviceColumn], idx: torch.Tensor,
         pos = torch.repeat_interleave(starts - dst[:-1], lens,
                                       output_size=total) + \
             torch.arange(total, dtype=torch.int64, device=idx.device)
-        out[j] = DeviceColumn(c.data[pos], c.validity[idx], T.STRING,
-                              c.all_valid, dst)
+        out[j] = DeviceColumn(c.data[pos], take(c.validity), T.STRING,
+                              c.all_valid and all_valid, dst)
     return out
 
 

@@ -7,7 +7,16 @@
 ``join_pairs`` is the kernel's wrapper: given the build side's and the
 probe side's key column (one int or long key each), it returns the
 matching (probe row, build row) pairs of an inner join, in probe-row order
-and, within a probe row, in build-row order.  Null keys never match.  On
+and, within a probe row, in build-row order.  Null keys never match.
+With ``outer=True`` (a left outer join, the probe side preserved) a probe
+row with no match, a null key included, gives one pair (row, -1) in its
+place: the JAX package's three finishing programs ``matched_flags``
+(``:275``), ``unmatched_positions`` (``:313``) and
+``concat_matched_unmatched`` (``:418``, kinds ``join.matched_flags``,
+``join.unmatched``, ``join.concat_maps``) become one mode of the count
+and write passes, which count ``max(1, matches)`` per probe row.  The
+JAX package puts the matched pairs first and the unmatched rows after
+them; here each unmatched row stays at its probe row's place.  On
 CUDA columns it launches ``csrc/hash_join.cu`` (build, count, then write
 after one sync that sizes the output exactly: the JAX package's
 speculative sizing, ``ops/speculation.py``, is not carried over); on CPU
@@ -34,8 +43,8 @@ KEY_TYPES = (T.IntegerType, T.LongType)
 
 _SIGNATURES = {
     "srt_join_build": "pipqppqp",
-    "srt_join_count": "pipqppqpp",
-    "srt_join_write": "pipqppqpppp",
+    "srt_join_count": "pipqppqipp",
+    "srt_join_write": "pipqppqipppp",
 }
 
 
@@ -65,14 +74,15 @@ def _check(build: DeviceColumn, probe: DeviceColumn) -> None:
         raise ValueError("build and probe keys lie on different devices")
 
 
-def join_pairs(build: DeviceColumn, probe: DeviceColumn, transfers
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+def join_pairs(build: DeviceColumn, probe: DeviceColumn, transfers,
+               outer: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """K10's wrapper: ``(probe_rows, build_rows)``, int64, one entry per
-    matching pair."""
+    matching pair (and with ``outer``, one ``(row, -1)`` per probe row
+    with no match)."""
     _check(build, probe)
     device = probe.device
     if device.type == "cpu":
-        return join_pairs_plain(build, probe, transfers)
+        return join_pairs_plain(build, probe, transfers, outer)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     from spark_rapids_tpu_torch.kernels.build import check_launch
@@ -100,7 +110,7 @@ def join_pairs(build: DeviceColumn, probe: DeviceColumn, transfers
             bkeys.data_ptr(), int(bkeys.dtype == torch.int64), ptr(bvalid),
             build.row_count, *table, stream), "K10 build")
         probe_args = (pkeys.data_ptr(), int(pkeys.dtype == torch.int64),
-                      ptr(pvalid), n) + table
+                      ptr(pvalid), n) + table + (int(outer),)
         check_launch(lib.srt_join_count(*probe_args, tile_offsets.data_ptr(),
                                         stream), "K10 count")
         total, = transfers.read_counts([tile_offsets[tiles]])
@@ -115,11 +125,13 @@ def join_pairs(build: DeviceColumn, probe: DeviceColumn, transfers
     return out_probe, out_build
 
 
-def join_pairs_plain(build: DeviceColumn, probe: DeviceColumn, transfers
+def join_pairs_plain(build: DeviceColumn, probe: DeviceColumn, transfers,
+                     outer: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of K10: the build side's present keys
     sorted stably, each probe key's range of equals found by binary
-    search, the ranges expanded into pairs."""
+    search, the ranges expanded into pairs (an empty range into one pair
+    with build row -1 when ``outer``)."""
     _check(build, probe)
     device = probe.device
     rows = torch.nonzero(build.validity).flatten()
@@ -129,14 +141,19 @@ def join_pairs_plain(build: DeviceColumn, probe: DeviceColumn, transfers
     lo = torch.searchsorted(keys, pk, right=False)
     hi = torch.searchsorted(keys, pk, right=True)
     count = torch.where(probe.validity, hi - lo, 0)
-    total, = transfers.read_counts([count.sum()])
+    emit = count.clamp(min=1) if outer else count
+    total, = transfers.read_counts([emit.sum()])
     n = probe.row_count
     out_probe = torch.repeat_interleave(
-        torch.arange(n, dtype=torch.int64, device=device), count,
+        torch.arange(n, dtype=torch.int64, device=device), emit,
         output_size=total)
-    first = torch.cumsum(count, 0) - count
+    first = torch.cumsum(emit, 0) - emit
     within = torch.arange(total, dtype=torch.int64, device=device) - \
-        torch.repeat_interleave(first, count, output_size=total)
-    out_build = rows[torch.repeat_interleave(lo, count, output_size=total)
-                     + within]
+        torch.repeat_interleave(first, emit, output_size=total)
+    at = torch.repeat_interleave(lo, emit, output_size=total) + within
+    matched = torch.repeat_interleave(count > 0, emit, output_size=total)
+    if not rows.numel():
+        return out_probe, torch.full_like(out_probe, -1)
+    out_build = torch.where(matched, rows[at.clamp(max=rows.numel() - 1)],
+                            -1)
     return out_probe, out_build

@@ -1,7 +1,8 @@
 """Plan nodes (the analog of ``spark_rapids_tpu/plan/base.py``).
 
 Two trees: the logical plan a DataFrame builds (``Scan``, ``Filter``,
-``Project``, ``Aggregate``, ``Exchange``, ``Join``, ``Sort``, ``Limit``),
+``Project``, ``Aggregate``, ``Exchange``, ``Join``, ``Sort``, ``Limit``,
+``CteCache``),
 and the physical ``Exec`` tree
 the planner (``plan/overrides.py``) turns it into.  An exec's ``execute``
 returns its output partitions, each a list of device batches."""
@@ -180,8 +181,19 @@ class Exchange(LogicalPlan):
         return "Exchange[SinglePartition]"
 
 
+def join_schema(left: T.StructType, right: T.StructType,
+                how: str) -> T.StructType:
+    """A join's columns: the left ones, then the right ones; a left outer
+    join makes the right ones nullable."""
+    fields = list(right.fields)
+    if how == "left_outer":
+        fields = [T.StructField(f.name, f.data_type, True) for f in fields]
+    return T.StructType(list(left.fields) + fields)
+
+
 class Join(LogicalPlan):
-    """An equi-join; its output is the left columns, then the right."""
+    """An equi-join (``how`` is ``inner`` or ``left_outer``); its output is
+    the left columns, then the right."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: Sequence[Expression],
@@ -193,8 +205,8 @@ class Join(LogicalPlan):
 
     @property
     def schema(self):
-        return T.StructType(list(self.children[0].schema.fields) +
-                            list(self.children[1].schema.fields))
+        return join_schema(self.children[0].schema, self.children[1].schema,
+                           self.how)
 
     @property
     def num_partitions(self):
@@ -224,3 +236,12 @@ class Limit(LogicalPlan):
 
     def node_string(self):
         return f"Limit[{self.n}]"
+
+
+class CteCache(LogicalPlan):
+    """A plan that several branches of one query read (a ``WITH`` name used
+    twice, as the JAX package's analyzer wraps it, ``sql/analyzer.py:351``):
+    planned once, its child runs once per action."""
+
+    def node_string(self):
+        return "CteCache"

@@ -8,25 +8,34 @@ from __future__ import annotations
 from spark_rapids_tpu_torch.exec.aggregate import (COMPLETE,
                                                    TorchHashAggregateExec,
                                                    TorchKeyedAggregateExec)
-from spark_rapids_tpu_torch.exec.basic import (TorchFilterExec,
+from spark_rapids_tpu_torch.exec.basic import (TorchCteCacheExec,
+                                               TorchFilterExec,
                                                TorchInMemoryScanExec,
                                                TorchLimitExec,
                                                TorchProjectExec)
 from spark_rapids_tpu_torch.exec.exchange import TorchShuffleExchangeExec
 from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
 from spark_rapids_tpu_torch.exec.sort import TorchSortExec
-from spark_rapids_tpu_torch.expressions.aggregates import Count, Sum
+from spark_rapids_tpu_torch.expressions.aggregates import (Average, Count,
+                                                           Sum)
 from spark_rapids_tpu_torch.plan import base as L
 from spark_rapids_tpu_torch.plan.stages import fuse_device_stages
 
-_SUPPORTED_AGGREGATES = (Sum, Count)
+_SUPPORTED_AGGREGATES = (Sum, Count, Average)
 
 
 class TorchOverrides:
     def apply(self, logical: L.LogicalPlan) -> L.Exec:
+        self._ctes = {}
         return fuse_device_stages(self._convert(logical))
 
     def _convert(self, node: L.LogicalPlan) -> L.Exec:
+        if isinstance(node, L.CteCache):
+            # both readers of a CTE get the one exec
+            if id(node) not in self._ctes:
+                self._ctes[id(node)] = (node, TorchCteCacheExec(
+                    self._convert(node.children[0])))
+            return self._ctes[id(node)][1]
         if isinstance(node, L.Scan):
             return TorchInMemoryScanExec(node)
         if isinstance(node, L.Join):

@@ -3,14 +3,14 @@
 
 ``fuse_device_stages`` (``:138``) folds the filter/project chain under a
 partial or complete global aggregate into one ``TorchFusedAggExec`` (one
-kernel-1 launch per batch), and every other chain into a compacting stage
-(K5) or, when it only picks and renames columns, a column selection with
-no launch.  ``promote_stage_literals`` (``:84``) turns eligible
-literals of the chain into slots read at run time, so the kernel cache key
-depends on the plan's shape and not on literal values: ``w > 0`` and
-``w > 5`` share one kernel.  As in the JAX package only a literal directly
-under ``>``, ``=``, ``+`` or ``*`` whose sibling has the same type and
-reads a column is promoted."""
+kernel-1 launch per batch), and every other chain into a compacting stage (K5)
+when it filters, a column selection with no launch when it only picks and
+renames columns, and else a computing projection (K6).
+``promote_stage_literals`` (``:84``) turns eligible literals of the chain into
+slots read at run time, so the kernel cache key depends on the plan's shape and
+not on literal values: ``w > 0`` and ``w > 5`` share one kernel. As in the JAX
+package only a literal directly under ``>``, ``=``, ``+`` or ``*`` whose
+sibling has the same type and reads a column is promoted."""
 
 from __future__ import annotations
 
@@ -90,11 +90,13 @@ def promote_stage_literals(ops) -> Tuple[list, List[PromotedLiteral]]:
 def fuse_device_stages(plan):
     """Folds every chain of filters and projections into one exec: under a
     partial or complete global aggregate, a ``TorchFusedAggExec`` (K1);
-    elsewhere, a ``TorchSelectExec`` when the chain only picks and renames
-    columns, else a ``TorchFusedStageExec`` (K5)."""
+    elsewhere, a ``TorchFusedStageExec`` (K5) when the chain filters, a
+    ``TorchSelectExec`` when it only picks and renames columns, else a
+    ``TorchFusedProjectExec`` (K6)."""
     from spark_rapids_tpu_torch.exec.aggregate import (FINAL,
                                                        TorchHashAggregateExec)
     from spark_rapids_tpu_torch.exec.basic import (TorchFilterExec,
+                                                   TorchFusedProjectExec,
                                                    TorchProjectExec,
                                                    TorchSelectExec)
     from spark_rapids_tpu_torch.exec.fused import (TorchFusedAggExec,
@@ -125,7 +127,15 @@ def fuse_device_stages(plan):
             ordinals = [ordinals[i] for i in picked]
         return TorchSelectExec(ordinals, top.schema, base)
 
+    done = {}
+
     def fuse(node):
+        # a node two branches share (a CTE) is fused once
+        if id(node) not in done:
+            done[id(node)] = (node, fuse_node(node))
+        return done[id(node)][1]
+
+    def fuse_node(node):
         if isinstance(node, TorchHashAggregateExec) and \
                 node.mode != FINAL and not node.layout.num_keys:
             ops, base = chain_of(node.child)
@@ -139,7 +149,9 @@ def fuse_device_stages(plan):
             if picked is not None:
                 return picked
             ops, lits = promote_stage_literals(ops)
-            return TorchFusedStageExec(ops, base, promoted=lits)
+            if any(kind == "filter" for kind, _p in ops):
+                return TorchFusedStageExec(ops, base, promoted=lits)
+            return TorchFusedProjectExec(ops, base, promoted=lits)
         node.children = [fuse(c) for c in node.children]
         return node
 

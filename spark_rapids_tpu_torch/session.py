@@ -1,9 +1,9 @@
 """Session, DataFrame and GroupedData (the analog of
 ``spark_rapids_tpu/session.py``, for the recipes the port runs: in-memory
-tables, ``filter``, ``select``, ``join`` (``:637``), ``group_by`` (``:729``)
-and ``agg``, ``order_by`` (``:602``), ``limit`` (``:515``) and
-``collect``).  A join, a group-by, a sort and a limit run over one
-partition.
+tables, ``filter``, ``select``, ``join`` (``:637``; inner and left outer),
+``group_by`` (``:729``) and ``agg``, ``order_by`` (``:602``), ``limit``
+(``:515``) and ``collect``). A join, a group-by, a sort and a limit run over
+one partition.
 
 A session runs on ``cuda:0`` unless it is given ``device="cpu"``; without a
 CUDA device and without that, it is refused."""
@@ -94,11 +94,14 @@ class DataFrame:
              condition=None) -> "DataFrame":
         """Equi-join on column names with USING semantics, as the JAX
         package's ``join``: the key columns once (the left side's), then
-        the other left columns, then the other right columns."""
+        the other left columns, then the other right columns.  ``how`` is
+        ``inner`` or ``left_outer`` (``left``, ``leftouter``)."""
         if on is None or condition is not None:
             raise NotImplementedError(
                 "a join without keys or with a condition beyond them is not "
                 "in the port yet")
+        from spark_rapids_tpu_torch.exec.joins import normalize_how
+        how = normalize_how(how)
         names = [on] if isinstance(on, str) else list(on)
         lschema, rschema = self.schema, other.schema
         lkeys = [bind_references(col(n), lschema) for n in names]

@@ -9,9 +9,13 @@ Row counts scale with ``sf`` from ``_BASE`` (store_sales 30,000 rows per
 sf); date_dim and the other small dimensions do not scale.  Money columns
 are doubles rounded to cents, as in the JAX package.
 
-``Q3_COLUMNS`` names the columns TPC-DS q3 reads; ``q3_tables`` cuts the
+``Q3_COLUMNS``, ``Q1_COLUMNS`` and ``Q7_COLUMNS`` name the columns each
+query reads; ``q3_tables``, ``q1_tables`` and ``q7_tables`` cut the
 generator's dict down to them (the port has no column pruning and no date
-type yet)."""
+type yet), sharing its arrays.  ``q3``, ``q1`` and ``q7`` are the queries
+of ``spark_rapids_tpu/testing/tpcds_queries.py`` as DataFrame recipes
+(the port has no SQL front end), and ``q3_numpy``, ``q1_numpy`` and
+``q7_numpy`` the same queries in numpy."""
 
 from __future__ import annotations
 
@@ -473,3 +477,184 @@ def q3_numpy(tables: Dict[str, dict], manufact_id=128, month=11,
         rows = rows[:limit]
     return [{"d_year": k[0], "brand_id": k[1], "brand": k[2], "sum_agg": v}
             for k, v in rows]
+
+
+#: the columns of each table that TPC-DS q1 reads
+Q1_COLUMNS = {
+    "date_dim": ["d_date_sk", "d_year"],
+    "store_returns": ["sr_returned_date_sk", "sr_customer_sk",
+                      "sr_store_sk", "sr_return_amt"],
+    "store": ["s_store_sk", "s_state"],
+    "customer": ["c_customer_sk", "c_customer_id"],
+}
+
+#: the columns of each table that TPC-DS q7 reads
+Q7_COLUMNS = {
+    "store_sales": ["ss_sold_date_sk", "ss_item_sk", "ss_cdemo_sk",
+                    "ss_promo_sk", "ss_quantity", "ss_list_price",
+                    "ss_coupon_amt", "ss_sales_price"],
+    "customer_demographics": ["cd_demo_sk", "cd_gender",
+                              "cd_marital_status", "cd_education_status"],
+    "date_dim": ["d_date_sk", "d_year"],
+    "item": ["i_item_sk", "i_item_id"],
+    "promotion": ["p_promo_sk", "p_channel_email", "p_channel_event"],
+}
+
+
+def q1_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q1 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q1_COLUMNS.items()}
+
+
+def q7_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q7 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q7_COLUMNS.items()}
+
+
+def cte(df):
+    """``df`` as a common table expression: a plan that several branches
+    of one query read runs once per action (``TorchCteCacheExec``), as
+    the JAX package's analyzer wraps a ``WITH`` name used twice."""
+    from spark_rapids_tpu_torch.plan import base as L
+    from spark_rapids_tpu_torch.session import DataFrame
+    return DataFrame(L.CteCache([df._plan]), df._session)
+
+
+def q1(date_dim, store_returns, store, customer, year=2000, state="TN",
+       limit=100):
+    """TPC-DS q1 through the port's DataFrame API, over DataFrames of the
+    ``Q1_COLUMNS`` of each table, in the JAX plan's join order: the
+    ``customer_total_return`` CTE (store_returns joined with the year's
+    dates, summed by customer and store) joined with the state's stores,
+    then with customer, then, left outer, with the decorrelated scalar
+    subquery (the CTE's average by store times 1.2); the rows above it
+    keep their customer ids, ordered.  Returns ``(result, parts)``, the
+    intermediate DataFrames named in ``parts`` (``ctr``, ``avg``,
+    ``joined``, ``sorted``).  ``limit=None`` drops the limit."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.arithmetic import Multiply
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import (EqualTo,
+                                                               GreaterThan)
+    dt = date_dim.filter(EqualTo(col("d_year"), lit(year))) \
+        .select(Alias(col("d_date_sk"), "sr_returned_date_sk"))
+    sr = store_returns.select(col("sr_returned_date_sk"),
+                              Alias(col("sr_customer_sk"), "ctr_customer_sk"),
+                              Alias(col("sr_store_sk"), "ctr_store_sk"),
+                              col("sr_return_amt"))
+    ctr = cte(sr.join(dt, on="sr_returned_date_sk")
+              .group_by("ctr_customer_sk", "ctr_store_sk")
+              .agg(F.sum("sr_return_amt").alias("ctr_total_return")))
+    st = store.filter(EqualTo(col("s_state"), lit(state))) \
+        .select(Alias(col("s_store_sk"), "ctr_store_sk"))
+    cu = customer.select(Alias(col("c_customer_sk"), "ctr_customer_sk"),
+                         col("c_customer_id"))
+    avg = (ctr.group_by("ctr_store_sk")
+           .agg(F.avg("ctr_total_return").alias("avg_return"))
+           .select(col("ctr_store_sk"),
+                   Alias(Multiply(col("avg_return"), lit(1.2)), "_sval")))
+    joined = (ctr.join(st, on="ctr_store_sk")
+              .join(cu, on="ctr_customer_sk")
+              .join(avg, on="ctr_store_sk", how="left_outer"))
+    ordered = (joined.filter(GreaterThan(col("ctr_total_return"),
+                                         col("_sval")))
+               .select(col("c_customer_id"))
+               .order_by("c_customer_id"))
+    out = ordered if limit is None else ordered.limit(limit)
+    return out, {"ctr": ctr, "avg": avg, "joined": joined,
+                 "sorted": ordered}
+
+
+def q1_numpy(tables: Dict[str, dict], year=2000, state="TN",
+             limit=100) -> list:
+    """TPC-DS q1 in numpy over ``q1_tables`` output: the rows as dicts."""
+    d, sr = tables["date_dim"], tables["store_returns"]
+    s, c = tables["store"], tables["customer"]
+    sel = np.isin(sr["sr_returned_date_sk"],
+                  d["d_date_sk"][d["d_year"] == year])
+    totals: Dict[tuple, float] = {}
+    for ck, sk, v in zip(sr["sr_customer_sk"][sel].tolist(),
+                         sr["sr_store_sk"][sel].tolist(),
+                         sr["sr_return_amt"][sel].tolist()):
+        totals[(ck, sk)] = totals.get((ck, sk), 0.0) + v
+    by_store: Dict[int, list] = {}
+    for (_ck, sk), v in totals.items():
+        by_store.setdefault(sk, []).append(v)
+    limit_of = {sk: sum(vs) / len(vs) * 1.2 for sk, vs in by_store.items()}
+    states = set(s["s_store_sk"][s["s_state"] == state].tolist())
+    cid = dict(zip(c["c_customer_sk"].tolist(), c["c_customer_id"]))
+    ids = sorted(cid[ck] for (ck, sk), v in totals.items()
+                 if sk in states and ck in cid and v > limit_of[sk])
+    if limit is not None:
+        ids = ids[:limit]
+    return [{"c_customer_id": x} for x in ids]
+
+
+def q7(store_sales, customer_demographics, date_dim, item, promotion,
+       year=2000, gender="M", marital="S", education="College", limit=100):
+    """TPC-DS q7 through the port's DataFrame API, over DataFrames of the
+    ``Q7_COLUMNS`` of each table, in the JAX plan's join order:
+    store_sales joined with the filtered customer_demographics, date_dim
+    and item, then the promotions reached by email or event; four
+    averages by item id, ordered.  Returns ``(result, parts)``
+    (``joined``, ``agg``, ``sorted``).  ``limit=None`` drops the
+    limit."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import EqualTo, Or
+    cd = (customer_demographics
+          .filter(EqualTo(col("cd_gender"), lit(gender)))
+          .filter(EqualTo(col("cd_marital_status"), lit(marital)))
+          .filter(EqualTo(col("cd_education_status"), lit(education)))
+          .select(Alias(col("cd_demo_sk"), "ss_cdemo_sk")))
+    dt = date_dim.filter(EqualTo(col("d_year"), lit(year))) \
+        .select(Alias(col("d_date_sk"), "ss_sold_date_sk"))
+    it = item.select(Alias(col("i_item_sk"), "ss_item_sk"), col("i_item_id"))
+    pr = promotion.filter(Or(EqualTo(col("p_channel_email"), lit("N")),
+                             EqualTo(col("p_channel_event"), lit("N")))) \
+        .select(Alias(col("p_promo_sk"), "ss_promo_sk"))
+    joined = (store_sales.join(cd, on="ss_cdemo_sk")
+              .join(dt, on="ss_sold_date_sk")
+              .join(it, on="ss_item_sk")
+              .join(pr, on="ss_promo_sk"))
+    agg = joined.group_by("i_item_id").agg(
+        F.avg("ss_quantity").alias("agg1"),
+        F.avg("ss_list_price").alias("agg2"),
+        F.avg("ss_coupon_amt").alias("agg3"),
+        F.avg("ss_sales_price").alias("agg4"))
+    ordered = agg.order_by("i_item_id")
+    out = ordered if limit is None else ordered.limit(limit)
+    return out, {"joined": joined, "agg": agg, "sorted": ordered}
+
+
+def q7_numpy(tables: Dict[str, dict], year=2000, gender="M", marital="S",
+             education="College", limit=100) -> list:
+    """TPC-DS q7 in numpy over ``q7_tables`` output: the rows as dicts."""
+    ss, cd = tables["store_sales"], tables["customer_demographics"]
+    d, i, p = tables["date_dim"], tables["item"], tables["promotion"]
+    cds = cd["cd_demo_sk"][(cd["cd_gender"] == gender) &
+                           (cd["cd_marital_status"] == marital) &
+                           (cd["cd_education_status"] == education)]
+    promos = p["p_promo_sk"][(p["p_channel_email"] == "N") |
+                             (p["p_channel_event"] == "N")]
+    sel = np.isin(ss["ss_cdemo_sk"], cds) & \
+        np.isin(ss["ss_sold_date_sk"], d["d_date_sk"][d["d_year"] == year]) \
+        & np.isin(ss["ss_promo_sk"], promos) & \
+        np.isin(ss["ss_item_sk"], i["i_item_sk"])
+    item_id = dict(zip(i["i_item_sk"].tolist(), i["i_item_id"]))
+    cols = ("ss_quantity", "ss_list_price", "ss_coupon_amt",
+            "ss_sales_price")
+    acc: Dict[str, list] = {}
+    for row in zip(ss["ss_item_sk"][sel].tolist(),
+                   *(ss[c][sel].tolist() for c in cols)):
+        a = acc.setdefault(item_id[row[0]], [0.0, 0.0, 0.0, 0.0, 0])
+        for j in range(4):
+            a[j] += row[1 + j]
+        a[4] += 1
+    rows = sorted(acc.items())
+    if limit is not None:
+        rows = rows[:limit]
+    return [{"i_item_id": k, "agg1": a[0] / a[4], "agg2": a[1] / a[4],
+             "agg3": a[2] / a[4], "agg4": a[3] / a[4]} for k, a in rows]

@@ -1,7 +1,9 @@
 """The port's kernels on the card against their plain PyTorch versions:
-K5 (the compacting stage), K7 (gather), K8 (sort), K9 (keyed
-aggregation), K10 (hash join), and TPC-DS q3 end to end against the CPU
-run.
+K5 (the compacting stage, with string = and Or), K6 (the computing
+projection), K7 (gather, with -1 rows), K8 (sort, with string keys), K9
+(keyed aggregation, with a double sum of an int input), K10 (hash join,
+inner and left outer), and TPC-DS q3, q1 and q7 end to end against the
+CPU run.
 
 Every test needs a CUDA card and skips without one.  This file imports
 nothing of JAX, so it runs where JAX is not installed:
@@ -153,3 +155,84 @@ def test_q3_matches_the_cpu_run(card):
         assert (g["d_year"], g["brand_id"], g["brand"]) == \
             (r["d_year"], r["brand_id"], r["brand"])
         assert abs(g["sum_agg"] - r["sum_agg"]) <= 1e-12 * abs(r["sum_agg"])
+
+
+def test_gather_null_rows(card):
+    rng = np.random.default_rng(10)
+    b = batch(card, rng, 3000)
+    idx = rng.integers(-1, 3000, 5000)
+    idx = torch.from_numpy(idx.astype(np.int64)).cuda()
+    same(BO.gather_columns(b.columns, idx, card.transfers, nullable=True),
+         BO.gather_columns_plain(b.columns, idx, card.transfers,
+                                 nullable=True))
+
+
+def test_left_outer_join(card):
+    rng = np.random.default_rng(12)
+
+    def key(n, hi):
+        return DeviceColumn(torch.from_numpy(rng.integers(0, hi, n)).cuda(),
+                            torch.from_numpy(rng.random(n) > 0.2).cuda(),
+                            T.LONG)
+    for nb, npr in ((3000, 100_000), (0, 500), (50, 0)):
+        b, p = key(nb, 700), key(npr, 900)
+        for g, r in zip(J.join_pairs(b, p, card.transfers, outer=True),
+                        J.join_pairs_plain(b, p, card.transfers, True)):
+            assert torch.equal(g, r)
+
+
+def test_project(card):
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.expressions import arithmetic as A
+    from spark_rapids_tpu_torch.expressions import predicates as P
+    from spark_rapids_tpu_torch.expressions.base import (Alias, col,
+                                                         bind_references,
+                                                         lit)
+    rng = np.random.default_rng(6)
+    hb = batch_from_pydict(data(rng, 20_000), SCHEMA)
+    exprs = [A.Divide(col("v"), col("a")),
+             P.Or(P.EqualTo(col("s"), lit("xy")),
+                  P.GreaterThan(col("v"), lit(0.0))),
+             P.And(P.EqualTo(col("s"), lit("日本")),
+                   P.GreaterThan(col("a"), lit(2)))]
+    bound = [bind_references(Alias(e, f"c{j}"), SCHEMA)
+             for j, e in enumerate(exprs)]
+    program = FU.StageProgram([("project", bound)], SCHEMA, 0)
+    b = card.transfers.upload_batch(hb)
+    lits = FU.LiteralArgs([])
+    same(FU.fused_project(program, b, lits),
+         FU.fused_project_plain(program, b, lits))
+
+
+def test_sort_string_keys(card):
+    rng = np.random.default_rng(8)
+    b = batch(card, rng, 20_000)
+    for orders in ([S.SortOrder(2, True, True)],
+                   [S.SortOrder(2, False, False), S.SortOrder(0)]):
+        assert torch.equal(
+            S.sort_permutation(b.columns, orders, card.transfers),
+            S.sort_permutation_plain(b.columns, orders, card.transfers))
+
+
+@pytest.mark.parametrize("query", ["q1", "q7"])
+def test_q1_q7_match_the_cpu_run(card, query):
+    from spark_rapids_tpu_torch.testing import tpcds
+    tables = tpcds.generate_tables(1)
+    recipe, cut, names = {
+        "q1": (tpcds.q1, tpcds.q1_tables,
+               ("date_dim", "store_returns", "store", "customer")),
+        "q7": (tpcds.q7, tpcds.q7_tables,
+               ("store_sales", "customer_demographics", "date_dim", "item",
+                "promotion"))}[query]
+    t = cut(tables)
+    got = recipe(*[card.create_dataframe(t[n]) for n in names])[0].collect()
+    cpu = TorchSession(device="cpu")
+    ref = recipe(*[cpu.create_dataframe(t[n]) for n in names])[0].collect()
+    assert len(got) == len(ref) == 100
+    for g, r in zip(got, ref):
+        assert g.keys() == r.keys()
+        for k in g:
+            if isinstance(r[k], float):
+                assert abs(g[k] - r[k]) <= 1e-12 * abs(r[k])
+            else:
+                assert g[k] == r[k]

@@ -95,6 +95,10 @@ s = TorchSession(device="cpu")
 q3 = tpcds.q3(*[s.create_dataframe(tables[t])
                 for t in ("date_dim", "store_sales", "item")])[0].collect()
 assert len(q3) >= 10, q3
+t1 = tpcds.q1_tables(tpcds.generate_tables(0.3))
+q1 = tpcds.q1(*[s.create_dataframe(t1[t]) for t in
+                ("date_dim", "store_returns", "store", "customer")])[0]
+assert q1.collect() == tpcds.q1_numpy(t1), q1.explain()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax")
              or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")
              or m == "triton" or m.startswith("triton."))

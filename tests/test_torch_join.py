@@ -114,8 +114,8 @@ def test_joins_outside_the_port_are_refused_by_name():
     s = TorchSession(device="cpu")
     a = s.create_dataframe({"k": [1, 2], "s": ["x", "y"]})
     b = s.create_dataframe({"k": [1, 3], "s": ["x", "z"], "v": [1.0, 2.0]})
-    with pytest.raises(NotImplementedError, match="left_outer joins"):
-        a.join(b, on="k", how="left_outer").collect()
+    with pytest.raises(NotImplementedError, match="full_outer joins"):
+        a.join(b, on="k", how="full_outer").collect()
     with pytest.raises(NotImplementedError, match="2 key columns"):
         a.join(b, on=["k", "s"]).collect()
     with pytest.raises(NotImplementedError, match="StringType"):

@@ -140,3 +140,56 @@ def test_one_sync_per_group_by_and_keys_refused_by_name():
     with pytest.raises(NotImplementedError, match="several partitions"):
         parts.group_by("a").agg(F.sum("v")).collect()
 
+
+
+def avg_aggs(f):
+    return [f.avg("v").alias("av"), f.avg("a").alias("aa"),
+            f.avg("w").alias("aw"), f.sum("v").alias("sv")]
+
+
+@pytest.mark.parametrize("n", [1, 9, 300])
+@pytest.mark.parametrize("keys", [["s"], ["b", "s"]])
+def test_avg_over_int_and_double_matches_jax(jax_session, n, keys):
+    """avg of a double, of a nullable int and of a long: K9 folds a double
+    sum (an int converted row by row) and a count, and K6 divides."""
+    d = data(n, seed=100 + n + len(keys))
+    ref = jax_session.create_dataframe(d).group_by(*keys).agg(
+        *avg_aggs(JF)).collect()
+    df = TorchSession(device="cpu").create_dataframe(d, schema=SCHEMA) \
+        .group_by(*keys).agg(*avg_aggs(F))
+    assert "TorchKeyedAggregate" in df.explain()
+    assert rows_equal(ref, df.collect(), check_order=False,
+                      approx_float=True) is None
+
+
+def test_avg_of_a_group_whose_values_are_all_null_is_null(jax_session):
+    d = {"s": ["x", "y", "x", "z", "y"],
+         "v": [None, 1.5, None, None, 2.5],
+         "a": [None, 3, None, 4, 6]}
+    schema = T.StructType([T.StructField("s", T.STRING),
+                           T.StructField("v", T.DOUBLE),
+                           T.StructField("a", T.INT)])
+    got = TorchSession(device="cpu").create_dataframe(d, schema=schema) \
+        .group_by("s").agg(F.avg("v").alias("av"),
+                           F.avg("a").alias("aa")).collect()
+    assert got == [{"s": "x", "av": None, "aa": None},
+                   {"s": "y", "av": 2.0, "aa": 4.5},
+                   {"s": "z", "av": None, "aa": 4.0}]
+    ref = jax_session.create_dataframe(d).group_by("s").agg(
+        JF.avg("v").alias("av"), JF.avg("a").alias("aa")).collect()
+    assert rows_equal(ref, got, check_order=False) is None
+
+
+def test_double_sum_of_an_int_input_converts_each_row():
+    """K9's double sum takes an int or long input (an average's sum)."""
+    s = TorchSession(device="cpu")
+    cols = s.transfers.upload_batch(s.create_dataframe(
+        {"k": [1, 1, 2], "a": [2 ** 31 - 1, 1, None]}, schema=T.StructType(
+            [T.StructField("k", T.LONG),
+             T.StructField("a", T.INT)]))._plan.partitions[0][0]).columns
+    rep, [(sums, valid), (cnt, _)] = G.keyed_aggregate(
+        [cols[0]], [cols[1], cols[1]], [G.KEYED_SUM_F64, G.KEYED_COUNT],
+        s.transfers)
+    assert sums.dtype == torch.float64
+    assert sums.tolist()[0] == 2.0 ** 31 and valid.tolist() == [True, False]
+    assert cnt.tolist() == [2, 0]
