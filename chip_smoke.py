@@ -6,8 +6,8 @@
 Needs one CUDA card; it exits non-zero, printing no result, without one.
 It builds every kernel from the sources in the checkout, into the
 git-ignored build/ directory: kernel 1, K5 and K6 (Triton, emitted by
-kernels/fused_agg.py and kernels/fused_stage.py) and kernel 2, K7, K8, K9
-and K10 (csrc/*.cu, one nvcc each, all started together).  It holds each
+kernels/fused_agg.py and kernels/fused_stage.py) and kernel 2, K7, K8, K9,
+K10 and K14 (csrc/*.cu, one nvcc each, all started together).  It holds each
 kernel against its plain PyTorch version on the card, then drives four
 paths through ``TorchSession()``, each with the launch counters set to 0
 just before it and read just after:
@@ -19,7 +19,9 @@ just before it and read just after:
   3M, customer and item 2M, date_dim 1461) at one partition, over tables
   generated once, each checked against a numpy version of the query and
   the CPU run, timed, with a torch.profiler breakdown by kernel, and every
-  kernel call of its main path held against the kernel's plain version.
+  kernel call of its main path held against the kernel's plain version;
+- TPC-DS q15, q12 and q20 (catalog_sales 15M rows, web_sales 8M,
+  customer_address 1M) over the same tables, checked and timed alike.
 
 Every check that fails ends the run with a non-zero exit.  The last two
 lines of standard output are a JSON object describing each kernel on
@@ -43,9 +45,9 @@ import time
 import numpy as np
 
 INT64_MAX = 2 ** 63 - 1
-#: the CUDA sources of the kernels (kernel 2, K7, K8, K9, K10)
+#: the CUDA sources of the kernels (kernel 2, K7, K8, K9, K10, K14)
 CUDA_SOURCES = ("global_reduce.cu", "gather.cu", "sort.cu", "keyed_agg.cu",
-                "hash_join.cu")
+                "hash_join.cu", "window.cu")
 #: the TPC-DS kernels: name, route, source, the JAX program each replaces
 TPCDS_KERNELS = {
     "K5": ("fused_stage", "triton",
@@ -62,6 +64,8 @@ TPCDS_KERNELS = {
            "spark_rapids_tpu/ops/agg_ops.py:390"),
     "K10": ("hash_join", "cuda", "spark_rapids_tpu_torch/csrc/hash_join.cu",
             "spark_rapids_tpu/ops/join_ops.py:125"),
+    "K14": ("window", "cuda", "spark_rapids_tpu_torch/csrc/window.cu",
+            "spark_rapids_tpu/ops/window_ops.py:79"),
 }
 #: each TPC-DS kernel's launch counter: module and attribute
 COUNTERS = {"K5": ("exec.fused", "STAGE_LAUNCHES"),
@@ -69,10 +73,14 @@ COUNTERS = {"K5": ("exec.fused", "STAGE_LAUNCHES"),
             "K7": ("ops.batch_ops", "LAUNCHES"),
             "K8": ("ops.sort_ops", "LAUNCHES"),
             "K9": ("ops.agg_ops", "KEYED_LAUNCHES"),
-            "K10": ("ops.join_ops", "LAUNCHES")}
+            "K10": ("ops.join_ops", "LAUNCHES"),
+            "K14": ("ops.window_ops", "LAUNCHES")}
 #: the kernels each query's main path launches
 QUERY_KERNELS = {"q3": ("K5", "K7", "K8", "K9", "K10"),
-                 "q1": tuple(TPCDS_KERNELS), "q7": tuple(TPCDS_KERNELS)}
+                 "q1": ("K5", "K6", "K7", "K8", "K9", "K10"),
+                 "q7": ("K5", "K6", "K7", "K8", "K9", "K10"),
+                 "q15": ("K5", "K7", "K8", "K9", "K10"),
+                 "q12": tuple(TPCDS_KERNELS), "q20": tuple(TPCDS_KERNELS)}
 #: the JAX programs K10's and K7's left outer mode replaces (on q1)
 OUTER_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:275",
                   "spark_rapids_tpu/ops/join_ops.py:313",
@@ -559,7 +567,11 @@ def same_keyed(keys, inputs, kinds, got, ref, tr, what: str) -> float:
         nan = torch.isnan(rd)
         check(bool(torch.equal(torch.isnan(gd), nan)),
               f"{what}, aggregate {j}: NaN sums")
-        d = torch.where(nan | ~rv, 0.0, (gd - rd).abs())
+        inf = torch.isinf(rd) & rv
+        check(bool(torch.equal(torch.where(inf, gd, 0.0),
+                               torch.where(inf, rd, 0.0))),
+              f"{what}, aggregate {j}: infinite sums")
+        d = torch.where(nan | inf | ~rv, 0.0, (gd - rd).abs())
         check(bool((d <= F64_SUM_RTOL * absum).all()),
               f"{what}, aggregate {j}: double sums")
         err = max(err, float(d.max()) if d.numel() else 0.0)
@@ -746,6 +758,220 @@ def check_slice3(session, rng):
     return err
 
 
+# -- slice 4: K14, the new emitters of K5 and K6, K9's double keys ------------
+
+#: NaNs of several payloads: quiet, with a payload, negative, signalling
+NAN_BITS = np.array([0x7ff8000000000000, 0x7ff8000000000001,
+                     0xfff8000000000000, 0x7ff0000000000001], np.uint64)
+#: q15's zips and states in part, and strings with bytes >= 0x80
+Z_STEMS = ["85669", "856691234", "GA", "CA", "", "é", "日本語", "ÿÿ", "8",
+           "80348-12"]
+
+
+def slice4_batch(session, rng, n: int):
+    """A device batch of partition keys and values for phase 2d: g (int,
+    values 0..5 and nulls), c (one constant int), u (a long unique per
+    row), p (double: 0.0, -0.0, NaNs of four payloads, 1.5, nulls), d
+    (date, nulls), s (strings from STEMS), z (strings from Z_STEMS), t
+    (from "N", "TN", ""); values v (double: nulls, NaN, +-inf; the
+    partition g = 1 holds +inf and -inf, g = 3 no present value) and w
+    (longs near 2**62, whose sums wrap)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import HostColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    g = rng.integers(0, 6, n).astype(np.int32)
+    pool = np.concatenate([[0.0, -0.0, 1.5], NAN_BITS.view(np.float64)])
+    p = pool[rng.integers(0, len(pool), n)]
+    v = rng.standard_normal(n) * 1e3
+    v[rng.random(n) < 0.02] = np.nan
+    v_valid = rng.random(n) > 0.1
+    ones = np.flatnonzero(g == 1)
+    v[ones[:1]] = np.inf
+    v[ones[1:2]] = -np.inf
+    v_valid[ones[:2]] = True
+    v_valid[g == 3] = False
+    cols = [HostColumn(g, rng.random(n) > 0.1, T.INT),
+            HostColumn(np.zeros(n, np.int32), None, T.INT),
+            HostColumn(rng.permutation(n).astype(np.int64), None, T.LONG),
+            HostColumn(p, rng.random(n) > 0.1, T.DOUBLE),
+            HostColumn(rng.integers(10640, 10700, n).astype(np.int32),
+                       rng.random(n) > 0.1, T.DATE),
+            string_column(rng, n, STEMS, 0.1),
+            string_column(rng, n, Z_STEMS, 0.1),
+            string_column(rng, n, ["N", "TN", ""], 0.0),
+            HostColumn(v, v_valid, T.DOUBLE),
+            HostColumn(rng.integers(1 << 62, (1 << 63) - 1, n), None,
+                       T.LONG)]
+    hb = HostColumnarBatch(cols, n, ["g", "c", "u", "p", "d", "s", "z", "t",
+                                     "v", "w"])
+    return session.transfers.upload_batch(hb)
+
+
+def same_window(got, ref, absum, what: str) -> float:
+    """K14's outputs against the plain version's: validity, counts and
+    long sums exact; a double sum or mean within 1e-10 of its partition's
+    sum |v| (over the count, for a mean), NaN and infinities exact."""
+    import torch
+    err = 0.0
+    for j, (g, r) in enumerate(zip(got, ref)):
+        w = f"{what}, function {j}"
+        check(bool(torch.equal(g.validity.cpu(), r.validity.cpu())),
+              f"{w}: validity")
+        gd, rd = g.data.cpu(), r.data.cpu()
+        if not gd.dtype.is_floating_point:
+            check(bool(torch.equal(gd, rd)), f"{w}: values")
+            err = max(err, max_diff(gd, rd))
+            continue
+        ok = r.validity.cpu()
+        finite = torch.isfinite(rd)
+        check(bool(torch.equal(torch.isnan(gd) & ok, torch.isnan(rd) & ok)),
+              f"{w}: NaN")
+        inf = ok & torch.isinf(rd)
+        check(bool(torch.equal(torch.where(inf, gd, 0.0),
+                               torch.where(inf, rd, 0.0))),
+              f"{w}: infinities")
+        limit = F64_SUM_RTOL * absum[j].cpu()
+        d = torch.where(ok & finite, (gd - rd).abs(), 0.0)
+        worst = float(d.max()) if d.numel() else 0.0
+        check(bool((d <= limit).all()), f"{w}: sums ({worst})")
+        err = max(err, worst)
+    return err
+
+
+def check_window(session, rng):
+    """Phase 2d, K14: no key, one partition, every row its own partition,
+    null, string, double and date keys, two keys; sum, long sum (wrapping),
+    counts and avg, at 0, 1, 1000 and 2**20 + 3 rows.  Returns the max
+    |d|, and K14's ms on one partition of 2**20 + 3 rows with its bound."""
+    import torch
+    from spark_rapids_tpu_torch.ops import batch_ops as BO
+    from spark_rapids_tpu_torch.ops import sort_ops as S
+    from spark_rapids_tpu_torch.ops import window_ops as W
+    tr, dev = session.transfers, session.device
+    kinds = [W.WIN_SUM_F64, W.WIN_SUM_I64, W.WIN_COUNT, W.WIN_COUNT_ALL,
+             W.WIN_MEAN]
+    err, timed = 0.0, None
+    for n in SLICE3_SIZES:
+        b = slice4_batch(session, rng, n)
+        col = dict(zip(b.names, b.columns))
+        for names in ([], ["c"], ["u"], ["g"], ["s"], ["p"], ["d"],
+                      ["z", "g"]):
+            keys = [col[k] for k in names]
+            what = f"K14, {n} rows, keys {names}"
+            if keys and n:
+                perm = S.sort_permutation(
+                    keys, [S.SortOrder(i) for i in range(len(keys))], tr)
+                moved = BO.gather_columns(keys + [col["v"], col["w"]], perm,
+                                          tr, unique=True)
+            else:
+                moved = keys + [col["v"], col["w"]]
+            k, (v, w) = moved[:len(keys)], moved[len(keys):]
+            args = (k, [v, w, v, None, v], kinds, n, dev)
+            got = W.window_reduce(*args)
+            torch.cuda.synchronize()
+            err = max(err, same_window_call(
+                args, got, W.window_reduce_plain(*args), what))
+            if names == ["c"] and n == SLICE3_SIZES[-1]:
+                one = [v]
+                ms = time_ms(lambda: W.window_reduce(
+                    k, one, [W.WIN_SUM_F64], n, dev), 20)
+                # the key and the value read, the output written, once
+                nbytes = column_bytes(k[0]) + column_bytes(v) + 9 * n
+                timed = (ms, nbytes / memory_rate(
+                    torch.cuda.get_device_name(0)) * 1e3, nbytes)
+    return err, timed
+
+
+def check_slice4(session, rng):
+    """Phase 2d: K14 (check_window); K6 and K5 with IN, substring views,
+    <, <=, >= and dates; K9 with double keys and five mixed keys, against
+    their plain versions at 0, 1, 1000 and 2**20 + 3 rows.  Returns the
+    max |d| of each, and K14's one-partition time."""
+    import datetime
+    import torch
+    from spark_rapids_tpu_torch import DataFrame
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.expressions import predicates as P
+    from spark_rapids_tpu_torch.expressions.base import (Alias, Literal,
+                                                         bind_references,
+                                                         col, lit)
+    from spark_rapids_tpu_torch.expressions.strings import Substring
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    from spark_rapids_tpu_torch.plan import base as L
+    tr = session.transfers
+    err = {"K14": 0.0, "K5": 0.0, "K6": 0.0, "K9": 0.0}
+    err["K14"], k14_timed = check_window(session, rng)
+    nan = float("nan")
+    d0, d1 = datetime.date(1999, 2, 22), datetime.date(1999, 3, 24)
+
+    def sub(pos, length=None):
+        return Substring(col("z"), pos, length)
+    exprs = [P.In(col("s"), ["TN", "", "é", "日本", None]),
+             P.In(col("z"), ["GA", "CA", "WA"]),
+             P.In(col("v"), [1.5, nan]),
+             P.In(col("p"), [0.0, nan, None]),
+             P.In(col("g"), [1, 4]),
+             P.In(col("d"), [d0, d1]),
+             P.In(sub(1, 5), ["85669", "80348", "ÿÿ"]),
+             P.EqualTo(sub(0, 2), lit("85")),
+             P.EqualTo(sub(-3), lit("本語")),
+             P.EqualTo(sub(-20, 2), lit("85")),
+             P.EqualTo(sub(30, 2), lit("")),
+             P.EqualTo(sub(2, 0), lit("")),
+             P.EqualTo(sub(2, -4), lit("")),
+             P.In(sub(2, 2), ["56", "A", "\xbf"]),
+             P.LessThan(col("v"), col("p")),
+             P.LessThanOrEqual(col("v"), Literal(nan)),
+             P.GreaterThanOrEqual(col("p"), col("v")),
+             P.LessThan(col("g"), lit(3)),
+             P.GreaterThanOrEqual(col("d"), lit(d0)),
+             P.LessThanOrEqual(col("d"), lit(d1))]
+    for n in SLICE3_SIZES:
+        batch = slice4_batch(session, rng, n)
+        schema = batch.schema
+        bound = [bind_references(Alias(e, f"c{j}"), schema)
+                 for j, e in enumerate(exprs)]
+        program = FU.StageProgram([("project", bound)], schema, 0)
+        lits = FU.LiteralArgs([])
+        got = FU.fused_project(program, batch, lits)
+        torch.cuda.synchronize()
+        err["K6"] = max(err["K6"], same_columns(
+            got, FU.fused_project_plain(program, batch, lits),
+            f"K6 (slice 4), {n} rows"))
+        # q15's and q12's filters, chained
+        df = DataFrame(L.Scan([[]], schema), session)
+        stage = (df.filter(P.Or(P.Or(P.In(sub(1, 5), ["85669", "80348"]),
+                                     P.In(col("z"), ["GA", "CA"])),
+                                P.GreaterThan(col("v"), lit(500.0))))
+                 .filter(P.And(P.GreaterThanOrEqual(col("d"), lit(d0)),
+                               P.LessThanOrEqual(col("d"), lit(d1))))
+                 .select(col("z"), col("v"), col("d"))
+                 .executed_plan())
+        check(isinstance(stage, FU.TorchFusedStageExec),
+              f"K5 plan: {stage.tree_string()}")
+        slits = FU.LiteralArgs.upload(stage.promoted, tr)
+        idx, comp = FU.fused_stage_compact(stage.program, batch, slits, tr)
+        torch.cuda.synchronize()
+        ridx, rcomp = FU.fused_stage_compact_plain(stage.program, batch,
+                                                   slits, tr)
+        err["K5"] = max(err["K5"], same_indices(
+            idx, ridx, f"K5 (slice 4), {n} rows: survivors"),
+            same_columns(comp, rcomp, f"K5 (slice 4), {n} rows"))
+        cols = dict(zip(batch.names, batch.columns))
+        kinds = [G.KEYED_SUM_F64, G.KEYED_SUM_I64, G.KEYED_COUNT,
+                 G.KEYED_COUNT_ALL]
+        inputs = [cols["v"], cols["w"], cols["v"], None]
+        for names in (["p"], ["s", "t", "z", "t", "p"]):
+            keys = [cols[k] for k in names]
+            got = G.keyed_aggregate(keys, inputs, kinds, tr)
+            torch.cuda.synchronize()
+            ref = G.keyed_aggregate_plain(keys, inputs, kinds, tr)
+            err["K9"] = max(err["K9"], same_keyed(
+                keys, inputs, kinds, got, ref, tr,
+                f"K9 (slice 4), {n} rows, keys {names}"))
+    return err, k14_timed
+
+
 def rows_match(expected, actual, what: str) -> None:
     """In order; doubles within 1e-6 relative (the comparator the JAX
     package's TPC-DS oracle uses, rowcompare.val_eq), the rest exact."""
@@ -780,7 +1006,8 @@ class Recorder:
     def __init__(self, mark: bool = False):
         self.mark = mark
         from spark_rapids_tpu_torch.exec import fused, joins
-        from spark_rapids_tpu_torch.ops import agg_ops, batch_ops, sort_ops
+        from spark_rapids_tpu_torch.ops import (agg_ops, batch_ops, sort_ops,
+                                                window_ops)
         self.calls = []
         self._patches = [
             (fused, "fused_stage_compact", "K5"),
@@ -789,7 +1016,8 @@ class Recorder:
             (joins, "gather_columns", "K7"),
             (sort_ops, "sort_permutation", "K8"),
             (agg_ops, "keyed_aggregate", "K9"),
-            (joins, "join_pairs", "K10")]
+            (joins, "join_pairs", "K10"),
+            (window_ops, "window_reduce", "K14")]
         self._saved = []
 
     def __enter__(self):
@@ -838,8 +1066,33 @@ def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
         return same_indices(got, ref, f"{what}: permutation")
     if name == "K9":
         return same_keyed(*args[:3], got, ref, tr, what)
+    if name == "K14":
+        return same_window_call(args, got, ref, what)
     return max(same_indices(g, r, f"{what}: {side} rows")
                for g, r, side in zip(got, ref, ("probe", "build")))
+
+
+def same_window_call(args, got, ref, what: str) -> float:
+    """A K14 call against its plain version: same_window's tolerance from
+    the call's own inputs (each row's partition sum |v| over its present
+    finite values, over their count for a mean)."""
+    import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import window_ops as W
+    keys, values, kinds, n, dev = args
+    absum = []
+    for c, kind in zip(values, kinds):
+        if kind not in (W.WIN_SUM_F64, W.WIN_MEAN):
+            absum.append(None)
+            continue
+        a = DeviceColumn(torch.where(torch.isfinite(c.data), c.data.abs(),
+                                     0.0), c.validity, T.DOUBLE)
+        s, cnt = (x.data for x in W.window_reduce_plain(
+            keys, [a, a], [W.WIN_SUM_F64, W.WIN_COUNT], n, dev))
+        absum.append(s if kind == W.WIN_SUM_F64 else
+                     torch.where(cnt > 0, s / cnt.clamp(min=1), 0.0))
+    return same_window(got, ref, absum, what)
 
 
 def k5_library(program, batch, lits):
@@ -881,13 +1134,16 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
     from spark_rapids_tpu_torch.ops import batch_ops as BO
     from spark_rapids_tpu_torch.ops import join_ops as J
     from spark_rapids_tpu_torch.ops import sort_ops as S
+    from spark_rapids_tpu_torch.ops import window_ops as W
     tr = session.transfers
     plain = {"K5": FU.fused_stage_compact_plain, "K6": FU.fused_project_plain,
              "K7": BO.gather_columns_plain, "K8": S.sort_permutation_plain,
-             "K9": G.keyed_aggregate_plain, "K10": J.join_pairs_plain}
+             "K9": G.keyed_aggregate_plain, "K10": J.join_pairs_plain,
+             "K14": W.window_reduce_plain}
     kernel = {"K5": FU.fused_stage_compact, "K6": FU.fused_project,
               "K7": BO.gather_columns, "K8": S.sort_permutation,
-              "K9": G.keyed_aggregate, "K10": J.join_pairs}
+              "K9": G.keyed_aggregate, "K10": J.join_pairs,
+              "K14": W.window_reduce}
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "library_ms": 0.0,
                "shapes": [], "max_abs_err": 0.0} for k in kernels}
     for i, (name, args, kw) in enumerate(calls):
@@ -949,6 +1205,13 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
                 g * (8 + sum(9 for _ in res))
             o["shapes"].append(f"{keys[0].row_count}->{g} groups: "
                                f"{ms:.4f} ms")
+        elif name == "K14":
+            keys, values, _kinds, n = args[:4]
+            o["bytes"] += sum(column_bytes(c) for c in keys) + \
+                sum(column_bytes(c) for c in values if c is not None) + \
+                sum(column_bytes(c) for c in got)
+            o["shapes"].append(f"{n} rows, {len(keys)} keys, {len(got)} "
+                               f"functions: {ms:.4f} ms")
         else:
             b, p = args[0], args[1]
             pr = got[0]
@@ -1032,19 +1295,35 @@ def profile_query(query: str, run, kernels, reps: int = 3):
     return device_ms
 
 
-#: each TPC-DS query: recipe and numpy version (testing/tpcds.py names),
-#: its tables in the recipe's order, the fact table its rows/s count
+#: each TPC-DS query: recipe and numpy version (testing/tpcds.py names;
+#: q20 is q12's recipe over catalog_sales), its tables in the recipe's
+#: order, the fact table its rows/s count
 QUERIES = {
     "q3": ("q3", ("date_dim", "store_sales", "item"), "store_sales"),
     "q1": ("q1", ("date_dim", "store_returns", "store", "customer"),
            "store_returns"),
     "q7": ("q7", ("store_sales", "customer_demographics", "date_dim",
                   "item", "promotion"), "store_sales"),
+    "q15": ("q15", ("catalog_sales", "customer", "customer_address",
+                    "date_dim"), "catalog_sales"),
+    "q12": ("q12", ("web_sales", "item", "date_dim"), "web_sales"),
+    "q20": ("q20", ("catalog_sales", "item", "date_dim"), "catalog_sales"),
 }
+#: the rows each query gives at sf 1000 (q3: at least)
+QUERY_ROWS = {"q3": 10, "q1": 100, "q7": 100, "q15": 40, "q12": 100,
+              "q20": 100}
 
 
-def run_query(session, query: str, tables, rate: float):
-    """Phases 4 and 5: one TPC-DS query over ``tables`` (the generator's
+def recipe_of(tpcds, name: str):
+    """A query's recipe: q20 is q12's over catalog_sales."""
+    if name == "q20":
+        return lambda *dfs: tpcds.q12(*dfs, prefix="cs")
+    return getattr(tpcds, name)
+
+
+def run_query(session, query: str, tables, rate: float,
+              full_size: bool = True):
+    """Phases 4 to 6: one TPC-DS query over ``tables`` (the generator's
     output, cut to the query's columns) through TorchSession(); checks it
     against numpy and the CPU run, and times its kernels."""
     import torch
@@ -1052,7 +1331,7 @@ def run_query(session, query: str, tables, rate: float):
     from spark_rapids_tpu_torch.exec.stage_compiler import stats as kstats
     from spark_rapids_tpu_torch.testing import tpcds
     recipe_name, names, fact = QUERIES[query]
-    recipe = getattr(tpcds, recipe_name)
+    recipe = recipe_of(tpcds, recipe_name)
     numpy_query = getattr(tpcds, f"{recipe_name}_numpy")
     kernels = QUERY_KERNELS[query]
     rows = {t: len(next(iter(tables[t].values()))) for t in names}
@@ -1087,9 +1366,13 @@ def run_query(session, query: str, tables, rate: float):
         check(n > 0, f"{query} launched {k}: {launches}")
     check(builds == 0, f"a repeated {query} builds nothing")
     check(result == first, f"a repeated {query} gives the same rows")
-    want = 10 if query == "q3" else 100
-    check(len(result) >= want, f"{query} gives at least {want} rows: "
-          f"{len(result)}")
+    want = QUERY_ROWS[query]
+    if query == "q3" or not full_size:
+        check(len(result) >= min(want, 10), f"{query} gives at least "
+              f"{min(want, 10)} rows: {len(result)}")
+    else:
+        check(len(result) == want, f"{query} gives {want} rows: "
+              f"{len(result)}")
 
     times = []
     for _ in range(TPCDS_REPS):
@@ -1141,8 +1424,8 @@ def main() -> int:
     ap.add_argument("--parts", type=int, default=4)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--sf", type=float, default=1000.0,
-                    help="TPC-DS scale of the q3, q1 and q7 phases "
-                    "(store_sales 30,000 rows per sf)")
+                    help="TPC-DS scale of the q3, q1, q7, q15, q12 and q20 "
+                    "phases (store_sales 30,000 rows per sf)")
     args = ap.parse_args()
 
     import torch
@@ -1237,6 +1520,15 @@ def main() -> int:
     print(f"K6, K5 (string =, OR), K8 (string keys), K10 (left outer), K7 "
           f"(-1 rows) vs plain: pass ({time.perf_counter() - t0:.1f} s), "
           f"max |d| {errs3}")
+
+    # -- phase 2d: the slice-4 forms against their plain versions -----------
+    t0 = time.perf_counter()
+    errs4, k14_one = check_slice4(session, rng)
+    print(f"K14, K6 and K5 (IN, substring views, <, <=, >=, dates), K9 "
+          f"(double and five keys) vs plain: pass "
+          f"({time.perf_counter() - t0:.1f} s), max |d| {errs4}")
+    print(f"K14 on one partition of {SLICE3_SIZES[-1]} rows (a double sum): "
+          f"{k14_one[0]:.4f} ms, bound {k14_one[1]:.6f} ms ({k14_one[2]} B)")
 
     phase("kernels checked")
 
@@ -1369,18 +1661,20 @@ def main() -> int:
 
     phase("bench recipe's kernels timed")
 
-    # -- phase 4: TPC-DS q3 at full size; phase 5: q1 and q7 ---------------
+    # -- phase 4: TPC-DS q3 at full size; phase 5: q1 and q7; phase 6: q15,
+    # q12 and q20 ---------------------------------------------------------
     from spark_rapids_tpu_torch.testing import tpcds
     t0 = time.perf_counter()
     generated = tpcds.generate_tables(args.sf)
-    cuts = {"q3": tpcds.q3_tables(generated),
-            "q1": tpcds.q1_tables(generated),
-            "q7": tpcds.q7_tables(generated)}
+    cuts = {q: getattr(tpcds, f"{q}_tables")(generated)
+            for q in ("q3", "q1", "q7", "q15", "q12", "q20")}
     del generated   # the cuts keep the arrays the queries read
     print(f"TPC-DS sf {args.sf} generated in "
           f"{time.perf_counter() - t0:.1f} s")
-    for q in ("q3", "q1", "q7"):
-        launches, timed = run_query(session, q, cuts[q], rate)
+    # phase 6: q15, q12 and q20 over the same tables
+    for q in ("q3", "q1", "q7", "q15", "q12", "q20"):
+        launches, timed = run_query(session, q, cuts.pop(q), rate,
+                                    args.sf == 1000)
         phase(f"{q} run, checked and timed")
         for k in QUERY_KERNELS[q]:
             name_, route, source, replaces = TPCDS_KERNELS[k]
@@ -1390,13 +1684,16 @@ def main() -> int:
                 "path": q, "route": route, "source": source,
                 "replaces": replaces, "launches": launches[k],
                 "max_abs_err": max(errs.get(k, 0.0), errs3.get(k, 0.0),
-                                   o["max_abs_err"]),
+                                   errs4.get(k, 0.0), o["max_abs_err"]),
                 "ms": o["ms"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound_ms"], "bound_by": "bytes",
                 "library_ms": o["library_ms"], "device_ms": o["device_ms"],
                 "per": "query", "passed": True}
             if q == "q1" and k in ("K7", "K10"):
                 entry["also_replaces"] = OUTER_REPLACES
+            if k == "K14":
+                entry["one_partition_ms"] = k14_one[0]
+                entry["one_partition_bound_ms"] = k14_one[1]
             kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,11 +4,13 @@
 per column the ``(data, validity)`` numpy planes that the JAX package's
 ``HostColumn`` holds, so the tests feed one seeded set of arrays to both
 engines.  ``batch_from_pydict`` takes what the JAX package's
-``create_dataframe`` takes: numpy arrays, object arrays of ``str`` and
-``None``, and lists."""
+``create_dataframe`` takes: numpy arrays (``datetime64[D]`` is a date
+column), object arrays of ``str`` and ``None``, and lists (of
+``datetime.date`` for a date column)."""
 
 from __future__ import annotations
 
+import datetime
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -99,10 +101,13 @@ def host_column(values, dt: Optional[T.DataType] = None) -> HostColumn:
                           dt or T.from_numpy_dtype(values.dtype))
     values = list(values)
     valid = np.array([v is not None for v in values], dtype=bool)
+    present = [v for v in values if v is not None]
     if dt is None:
-        present = [v for v in values if v is not None]
-        dt = T.from_numpy_dtype(np.asarray(present).dtype) \
-            if present else T.LONG
+        dt = T.DATE if present and isinstance(present[0], datetime.date) \
+            else T.from_numpy_dtype(np.asarray(present).dtype) if present \
+            else T.LONG
+    if isinstance(dt, T.DateType):
+        values = [None if v is None else T.date_days(v) for v in values]
     data = np.array([0 if v is None else v for v in values],
                     dtype=dt.np_dtype)
     return HostColumn(data, None if valid.all() else valid, dt)

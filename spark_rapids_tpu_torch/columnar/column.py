@@ -101,7 +101,11 @@ class HostColumn:
                           offs - offs.dtype.type(lo))
 
     def to_pylist(self) -> List:
-        if self.offsets is None:
+        """Python values: a date as ``datetime.date``, as the JAX
+        package's rows give it."""
+        if isinstance(self.data_type, T.DateType):
+            values = [T.days_date(d) for d in self.data.tolist()]
+        elif self.offsets is None:
             values = self.data.tolist()
         else:
             raw = self.data.tobytes()

@@ -6,21 +6,20 @@
 // _masked_group_words :38), which sorts rows by their key words and
 // reduces segments because XLA has no hash tables.
 //
-// Keys: up to 8 columns of int, long or string (offsets int32 or int64 and
-// chars); a null is a value of its own, so nulls form their own group.
+// Keys: up to 8 columns of int, date, long, double or string (keys.cuh);
+// a null is a value of its own, so nulls form their own group, and a
+// double key groups -0.0 with 0.0 and every NaN together.
 // Aggregates: up to 16 of long sum (int or long input, wrapping), double
 // sum (of a double input, or of an int or long one converted row by row:
 // an average's sum), count of valid inputs and count of rows.
 //
 // Steps (srt_agg_groups, then the host reads the group count -- the one
 // sync -- then srt_agg_reduce):
-//   1. hash each row's keys: murmur3's fmix64 chained over the columns, a
-//      string's bytes folded by FNV-1a first;
+//   1. hash each row's keys (keys.cuh row_hash);
 //   2. insert every row into an open-addressing table (a power of two >=
 //      2 * rows slots): a row claims an empty slot by atomicCAS or stops at
-//      the slot of a row with equal keys -- equal hashes, then the keys
-//      compared value by value and strings byte by byte through their
-//      offsets, so two keys whose hashes collide stay two groups;
+//      the slot of a row with equal keys -- equal hashes, then keys.cuh
+//      keys_equal, so two keys whose hashes collide stay two groups;
 //      atomicMin leaves each group's first row in rep[slot];
 //   3. a group's id is the exclusive scan of "row is its group's first
 //      row", so groups are numbered in order of first appearance whatever
@@ -35,31 +34,20 @@
 // Bound: at the main path's size (about ten thousand rows into a few
 // thousand groups) launch latency; at scale each row is read a few times
 // (hash, insert, assign, sort passes, fold).
+#include "keys.cuh"
 #include "radix.cuh"
 
 namespace {
 
+using srt::Keys;
 using srt::kThreads;
 
-constexpr int kMaxKeys = 8;
 constexpr int kMaxAggs = 16;
 constexpr long long kEmpty = -1;
-constexpr uint64_t kSeed = 0x9e3779b97f4a7c15ULL;
-constexpr uint64_t kNullWord = 0x5bd1e9955bd1e995ULL;
 
-enum KeyType : int32_t { kInt32 = 0, kInt64 = 1, kString = 3 };
 enum AggKind : int32_t { kSumI64 = 0, kSumF64 = 1, kCount = 2,
                          kCountAll = 3 };
 enum InType : int32_t { kInInt32 = 0, kInInt64 = 1, kInFloat64 = 2 };
-
-struct Keys {
-  int32_t n;
-  int32_t type[kMaxKeys];
-  int32_t off64[kMaxKeys];
-  const void* data[kMaxKeys];
-  const uint8_t* valid[kMaxKeys];
-  const void* offsets[kMaxKeys];
-};
 
 struct Aggs {
   int32_t n;
@@ -71,80 +59,13 @@ struct Aggs {
   uint8_t* out_valid[kMaxAggs];
 };
 
-__device__ __forceinline__ bool key_present(const Keys& k, int c, int64_t i) {
-  return k.valid[c] == nullptr || k.valid[c][i] != 0;
-}
-
-__device__ __forceinline__ void string_bounds(const Keys& k, int c,
-                                              int64_t i, int64_t* start,
-                                              int64_t* end) {
-  if (k.off64[c]) {
-    const int64_t* o = static_cast<const int64_t*>(k.offsets[c]);
-    *start = o[i];
-    *end = o[i + 1];
-  } else {
-    const int32_t* o = static_cast<const int32_t*>(k.offsets[c]);
-    *start = o[i];
-    *end = o[i + 1];
-  }
-}
-
-__device__ __forceinline__ long long int_key(const Keys& k, int c,
-                                             int64_t i) {
-  return k.type[c] == kInt32
-             ? static_cast<long long>(
-                   static_cast<const int32_t*>(k.data[c])[i])
-             : static_cast<const long long*>(k.data[c])[i];
-}
-
-__device__ uint64_t row_hash(const Keys& k, int64_t i) {
-  uint64_t h = kSeed;
-  for (int c = 0; c < k.n; ++c) {
-    uint64_t x;
-    if (!key_present(k, c, i)) {
-      x = kNullWord;
-    } else if (k.type[c] == kString) {
-      int64_t s, e;
-      string_bounds(k, c, i, &s, &e);
-      const uint8_t* chars = static_cast<const uint8_t*>(k.data[c]);
-      x = 0xcbf29ce484222325ULL;
-      for (int64_t b = s; b < e; ++b)
-        x = (x ^ chars[b]) * 0x100000001b3ULL;
-    } else {
-      x = static_cast<uint64_t>(int_key(k, c, i));
-    }
-    h = srt::fmix64(h ^ x);
-  }
-  return h;
-}
-
-__device__ bool keys_equal(const Keys& k, int64_t a, int64_t b) {
-  for (int c = 0; c < k.n; ++c) {
-    const bool pa = key_present(k, c, a);
-    if (pa != key_present(k, c, b)) return false;
-    if (!pa) continue;
-    if (k.type[c] == kString) {
-      int64_t sa, ea, sb, eb;
-      string_bounds(k, c, a, &sa, &ea);
-      string_bounds(k, c, b, &sb, &eb);
-      if (ea - sa != eb - sb) return false;
-      const uint8_t* chars = static_cast<const uint8_t*>(k.data[c]);
-      for (int64_t j = 0; j < ea - sa; ++j)
-        if (chars[sa + j] != chars[sb + j]) return false;
-    } else if (int_key(k, c, a) != int_key(k, c, b)) {
-      return false;
-    }
-  }
-  return true;
-}
-
 __global__ void __launch_bounds__(kThreads)
     agg_hash(Keys k, int64_t n, uint64_t* __restrict__ h) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        i < n; i += stride)
-    h[i] = row_hash(k, i);
+    h[i] = srt::row_hash(k, i);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -178,7 +99,7 @@ __global__ void __launch_bounds__(kThreads)
         if (prev == static_cast<unsigned long long>(kEmpty)) break;
         cur = static_cast<long long>(prev);
       }
-      if (h[cur] == hi && keys_equal(k, cur, i)) break;
+      if (h[cur] == hi && srt::keys_equal(k, cur, i)) break;
       s = (s + 1) & mask;
     }
     slot_of[i] = static_cast<long long>(s);
@@ -270,21 +191,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-Keys make_keys(int32_t n_keys, const int32_t* type, const int32_t* off64,
-               const void* const* data, const void* const* valid,
-               const void* const* offsets) {
-  Keys k;
-  k.n = n_keys;
-  for (int c = 0; c < n_keys; ++c) {
-    k.type[c] = type[c];
-    k.off64[c] = off64[c];
-    k.data[c] = data[c];
-    k.valid[c] = static_cast<const uint8_t*>(valid[c]);
-    k.offsets[c] = offsets[c];
-  }
-  return k;
-}
-
 }  // namespace
 
 // Scratch and outputs, n = rows, T = table_size (a power of two >= 2n):
@@ -298,17 +204,17 @@ extern "C" int srt_agg_groups(int32_t n_keys, const int32_t* type,
                               void* hashes, void* slots, void* rep,
                               int64_t table_size, void* slot_of, void* rank,
                               void* tile_scratch, void* stream) {
-  if (n_keys < 1 || n_keys > kMaxKeys || n < 0 || table_size <= 0 ||
+  if (n_keys < 1 || n_keys > srt::kMaxKeys || n < 0 || table_size <= 0 ||
       (table_size & (table_size - 1)) != 0 || table_size < 2 * n)
     return static_cast<int>(cudaErrorInvalidValue);
   for (int c = 0; c < n_keys; ++c)
-    if (type[c] != kInt32 && type[c] != kInt64 && type[c] != kString)
+    if (!srt::valid_key_type(type[c]))
       return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n == 0)
     return static_cast<int>(
         cudaMemsetAsync(rank, 0, sizeof(int64_t), s));
-  const Keys k = make_keys(n_keys, type, off64, data, valid, offsets);
+  const Keys k = srt::make_keys(n_keys, type, off64, data, valid, offsets);
   long long* sl = static_cast<long long*>(slots);
   long long* rp = static_cast<long long*>(rep);
   long long* so = static_cast<long long*>(slot_of);

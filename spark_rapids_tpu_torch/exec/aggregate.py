@@ -172,7 +172,7 @@ def keyed_inputs(layout: _AggLayout):
         if k.data_type not in G.KEYED_KEY_TYPES:
             raise NotImplementedError(
                 f"a grouping key of {k.data_type} is not in the port yet "
-                "(int, long and string keys are)")
+                "(int, date, long, double and string keys are)")
     out = []
     for a in layout.aggs:
         f = a.func

@@ -48,7 +48,7 @@ class TorchSortExec(UnaryExec):
             if s.expr.data_type not in SORT_KEY_TYPES:
                 raise NotImplementedError(
                     f"a sort key of {s.expr.data_type} is not in the port "
-                    "yet (int, long, double and string keys are)")
+                    "yet (int, date, long, double and string keys are)")
         if child.num_partitions != 1:
             raise NotImplementedError(
                 "a sort over several partitions is not in the port yet")

@@ -44,6 +44,13 @@ class AggregateFunction(Expression):
         args = ", ".join(c.sql() for c in self.children)
         return f"{type(self).__name__.lower()}({args})"
 
+    def over(self, spec) -> Expression:
+        """This aggregate over a window (``functions.Window`` or a
+        ``WindowSpecDef``)."""
+        from spark_rapids_tpu_torch.expressions.window_exprs import (
+            WindowExpression, to_spec)
+        return WindowExpression(self, to_spec(spec))
+
 
 def _sum_result_type(dt: T.DataType) -> T.DataType:
     return T.DOUBLE if dt.is_floating else T.LONG

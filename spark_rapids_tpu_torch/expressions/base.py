@@ -8,6 +8,7 @@ of ``kernels/fused_agg.py`` turns the same tree into Triton source."""
 from __future__ import annotations
 
 import copy
+import datetime
 from typing import Callable, List, Optional, Sequence
 
 import torch
@@ -55,6 +56,8 @@ class EvalContext:
             return Col(torch.zeros(n, dtype=dtype.torch_dtype or torch.int64,
                                    device=self.device),
                        torch.zeros(n, dtype=torch.bool, device=self.device))
+        if isinstance(dtype, T.DateType):
+            value = T.date_days(value)
         return Col(torch.full((n,), value, dtype=dtype.torch_dtype,
                               device=self.device),
                    torch.ones(n, dtype=torch.bool, device=self.device))
@@ -121,6 +124,8 @@ class Literal(Expression):
         return self.value is None
 
     def sql(self):
+        if isinstance(self._dtype, T.DateType) and self.value is not None:
+            return f"DATE '{self.value.isoformat()}'"
         return repr(self.value)
 
     def eval(self, ctx):
@@ -197,6 +202,9 @@ def _infer_literal_type(value) -> T.DataType:
         return T.DOUBLE
     if isinstance(value, str):
         return T.STRING
+    if isinstance(value, datetime.date) and \
+            not isinstance(value, datetime.datetime):
+        return T.DATE
     raise NotImplementedError(
         f"literal {value!r} of {type(value).__name__} is not in this port")
 

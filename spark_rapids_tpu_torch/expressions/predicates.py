@@ -1,20 +1,27 @@
-"""Comparisons and Kleene logic (the analog of
+"""Comparisons, ``IN`` and Kleene logic (the analog of
 ``spark_rapids_tpu/expressions/predicates.py``).
 
 Operands widen to a common type; a null operand gives null.  For doubles
-Spark orders NaN above every other value (``predicates.py:206``).  ``=``
-also compares two strings byte for byte.  ``And`` (``:258``) and ``Or``
-(``:295``) follow Spark's three-valued logic: ``null AND false`` is
-false and ``null OR true`` is true; otherwise a null operand gives
-null."""
+Spark orders NaN above every other value (``predicates.py:190-219``), so
+``NaN >= x`` and ``x <= NaN`` hold for every x.  A date compares as its
+days.  ``=`` also compares two strings byte for byte.  ``And`` (``:258``)
+and ``Or`` (``:295``) follow Spark's three-valued logic: ``null AND
+false`` is false and ``null OR true`` is true; otherwise a null operand
+gives null.  ``In`` (``:413``) is the OR chain of ``value = option``
+over its literal options, so a null value gives null, NaN matches a NaN
+option, and a null option makes a miss null."""
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expressions.arithmetic import BinaryExpr
-from spark_rapids_tpu_torch.expressions.base import Col, EvalContext
+from spark_rapids_tpu_torch.expressions.base import (BoundReference, Col,
+                                                     EvalContext, Expression,
+                                                     Literal)
 
 
 def string_equal(a: Col, b: Col) -> torch.Tensor:
@@ -36,6 +43,20 @@ def string_equal(a: Col, b: Col) -> torch.Tensor:
     return same_len & (bad == 0)
 
 
+def string_equals_literal(a: Col, raw: bytes) -> torch.Tensor:
+    """Rows of a string column that hold the bytes ``raw``: the lengths,
+    then each byte where every byte before it matched."""
+    off = a.offsets.to(torch.int64)
+    starts = off[:-1]
+    eq = off[1:] - starts == len(raw)
+    for j, byte in enumerate(raw):
+        if not a.data.numel():
+            return eq & False
+        at = torch.where(eq, starts + j, 0)
+        eq = eq & (a.data[at] == byte)
+    return eq
+
+
 class BinaryComparison(BinaryExpr):
     @property
     def data_type(self):
@@ -50,13 +71,21 @@ class BinaryComparison(BinaryExpr):
 
     def eval(self, ctx: EvalContext) -> Col:
         ot = self.operand_type
-        a = self.left.eval(ctx)
-        b = self.right.eval(ctx)
         if isinstance(ot, T.StringType):
             if not isinstance(self, EqualTo):
                 raise NotImplementedError(
                     f"{self.symbol} of strings is not in the port yet")
+            for column, other in ((self.left, self.right),
+                                  (self.right, self.left)):
+                if type(other) is Literal and other.value is not None:
+                    a = column.eval(ctx)
+                    return Col(string_equals_literal(
+                        a, other.value.encode("utf-8")), a.valid)
+            a = self.left.eval(ctx)
+            b = self.right.eval(ctx)
             return Col(string_equal(a, b), a.valid & b.valid)
+        a = self.left.eval(ctx)
+        b = self.right.eval(ctx)
         out = self._cmp(a.data.to(ot.torch_dtype), b.data.to(ot.torch_dtype),
                         ot.is_floating)
         return Col(out, a.valid & b.valid)
@@ -69,6 +98,33 @@ class GreaterThan(BinaryComparison):
         if floating:
             return (a > b) | (torch.isnan(a) & ~torch.isnan(b))
         return a > b
+
+
+class GreaterThanOrEqual(BinaryComparison):
+    symbol = ">="
+
+    def _cmp(self, a, b, floating):
+        if floating:
+            return (a >= b) | torch.isnan(a)
+        return a >= b
+
+
+class LessThan(BinaryComparison):
+    symbol = "<"
+
+    def _cmp(self, a, b, floating):
+        if floating:
+            return (a < b) | (torch.isnan(b) & ~torch.isnan(a))
+        return a < b
+
+
+class LessThanOrEqual(BinaryComparison):
+    symbol = "<="
+
+    def _cmp(self, a, b, floating):
+        if floating:
+            return (a <= b) | torch.isnan(b)
+        return a <= b
 
 
 class EqualTo(BinaryComparison):
@@ -115,3 +171,45 @@ class Or(_Logic):
         (at, _, av), (bt, _, bv) = self._sides(ctx)
         out = at | bt
         return Col(out, out | (av & bv))
+
+
+class In(Expression):
+    """``value IN (options)``: the options are literals (a Python value
+    becomes one), compared as ``value = option`` each.  They are not
+    children, so literal promotion leaves them in place: a kernel holds
+    them as constants."""
+
+    def __init__(self, value: Expression, options: Sequence):
+        super().__init__([value])
+        for o in options:
+            if isinstance(o, Expression) and type(o) is not Literal:
+                raise NotImplementedError(
+                    f"IN over {o.sql()}: only literal options are in the "
+                    "port")
+        self.options = [o if isinstance(o, Literal) else Literal(o)
+                        for o in options]
+
+    @property
+    def data_type(self):
+        return T.BOOLEAN
+
+    def sql(self):
+        opts = ", ".join(o.sql() for o in self.options)
+        return f"({self.children[0].sql()} IN ({opts}))"
+
+    def eval(self, ctx: EvalContext) -> Col:
+        value = self.children[0]
+        v = value.eval(ctx)
+        found = torch.zeros(ctx.row_count, dtype=torch.bool,
+                            device=ctx.device)
+        one = EvalContext([v], ctx.row_count, ctx.device)
+        ref = BoundReference(0, value.data_type)
+        has_null = False
+        for o in self.options:
+            if o.value is None:
+                has_null = True
+                continue
+            found = found | EqualTo(ref, o).eval(one).data
+        if not self.options:
+            return Col(found, torch.ones_like(found))
+        return Col(found, v.valid & found if has_null else v.valid)

@@ -40,13 +40,15 @@ from spark_rapids_tpu_torch.expressions import cast as CA
 from spark_rapids_tpu_torch.expressions import conditional as CO
 from spark_rapids_tpu_torch.expressions import hashing as H
 from spark_rapids_tpu_torch.expressions import predicates as P
+from spark_rapids_tpu_torch.expressions import strings as ST
 from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
                                                      Expression, Literal)
 from spark_rapids_tpu_torch.plan.stages import PromotedLiteral
 
 KERNEL_NAME = "fused_agg_update"
 
-_TL = {T.INT: "tl.int32", T.LONG: "tl.int64", T.DOUBLE: "tl.float64"}
+_TL = {T.INT: "tl.int32", T.LONG: "tl.int64", T.DOUBLE: "tl.float64",
+       T.DATE: "tl.int32"}
 
 #: a generated value: (data expression, validity expression) names
 Value = Tuple[str, str]
@@ -75,6 +77,8 @@ def literal_word(value, dtype: T.DataType) -> int:
     """A literal's value as the int64 word the kernel reads."""
     if dtype.is_floating:
         return f64_bits(value)
+    if isinstance(dtype, T.DateType):
+        return T.date_days(value)
     return int(value)
 
 
@@ -145,8 +149,11 @@ class ChainEmitter:
         self._n = 0
         self._named: Dict[str, str] = {}
         self.slots: Dict[int, str] = {}
-        #: a string column's value name -> (chars, offsets) parameters
-        self.strings: Dict[str, Tuple[str, str]] = {}
+        #: a string value's name -> (chars parameter, start, length): the
+        #: row's bytes are chars[start:start + length].  A column enters
+        #: as (chars, offsets parameter, None); ``string_view`` loads its
+        #: offsets at first use.
+        self.strings: Dict[str, Tuple[str, str, object]] = {}
 
     def let(self, code: str, hoist: bool = False) -> str:
         """Names the value of ``code``; the same code (every emitted
@@ -165,6 +172,23 @@ class ChainEmitter:
         if b == self.TRUE:
             return a
         return self.let(f"{a} & {b}")
+
+    def string_view(self, v: str, what: str) -> Tuple[str, str, str]:
+        """``(chars, start, length)`` of string value ``v``; a string that
+        is not a column or a view of one is refused, naming ``what``."""
+        if v not in self.strings:
+            raise NotImplementedError(
+                f"a computed string ({what}) has no kernel form yet")
+        chars, start, length = self.strings[v]
+        if length is None:
+            offsets = start
+            start = self.let(f"tl.load({offsets} + offs, mask=inb, "
+                             "other=0).to(tl.int64)")
+            end = self.let(f"tl.load({offsets} + offs + 1, mask=inb, "
+                           "other=0).to(tl.int64)")
+            length = self.let(f"{end} - {start}")
+            self.strings[v] = (chars, start, length)
+        return chars, start, length
 
     def emit(self, e: Expression, cols: List[Value]) -> Value:
         fn = EMITTERS.get(type(e))
@@ -193,8 +217,8 @@ class ChainEmitter:
                              ".to(tl.float64, bitcast=True)"), self.TRUE)
         if dtype not in _TL:
             raise NotImplementedError(f"no kernel form for a {dtype} literal")
-        return self.let(f"tl.full([BLOCK], {int(value)}, {_TL[dtype]})"), \
-            self.TRUE
+        return self.let(f"tl.full([BLOCK], {literal_word(value, dtype)}, "
+                        f"{_TL[dtype]})"), self.TRUE
 
     def slot(self, slot: int, dtype: T.DataType) -> str:
         """The value of promoted literal ``slot``, read from the table."""
@@ -245,40 +269,48 @@ def _arithmetic(em, e, cols):
     return em.let(f"{a} {_ARITH[type(e)]} {b}"), em.both(av, bv)
 
 
-@emits(P.GreaterThan)
-def _greater_than(em, e, cols):
+#: each order comparison: its operator, and its form for doubles, where
+#: NaN is greater than every other value (x != x tests NaN)
+_ORDER = {
+    P.GreaterThan: (">", "({a} > {b}) | (({a} != {a}) & ({b} == {b}))"),
+    P.GreaterThanOrEqual: (">=", "({a} >= {b}) | ({a} != {a})"),
+    P.LessThan: ("<", "({a} < {b}) | (({b} != {b}) & ({a} == {a}))"),
+    P.LessThanOrEqual: ("<=", "({a} <= {b}) | ({b} != {b})"),
+}
+
+
+@emits(*_ORDER)
+def _order_comparison(em, e, cols):
     ot = e.operand_type
+    if ot not in _TL:
+        raise NotImplementedError(
+            f"{e.sql()}: {e.symbol} of {ot} has no kernel form yet")
     (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
     a = em.cast(a, e.left.data_type, ot)
     b = em.cast(b, e.right.data_type, ot)
-    if ot.is_floating:
-        # NaN is greater than every other value; x != x tests NaN
-        out = f"({a} > {b}) | (({a} != {a}) & ({b} == {b}))"
-    else:
-        out = f"{a} > {b}"
+    op, floating = _ORDER[type(e)]
+    out = floating.format(a=a, b=b) if ot.is_floating else f"{a} {op} {b}"
     return em.let(out), em.both(av, bv)
+
+
+def _view_equals(em, view, raw: bytes) -> str:
+    """Rows whose string view holds the bytes ``raw``: the lengths, then
+    each byte against the literal's, which are constants of the kernel.
+    A byte is read only where every byte before it matched."""
+    chars, start, length = view
+    eq = em.let(f"{length} == {len(raw)}")
+    for j, byte in enumerate(raw):
+        eq = em.let(f"{eq} & (tl.load({chars} + {start} + {j}, "
+                    f"mask=inb & {eq}, other=0).to(tl.int32) == {byte})")
+    return eq
 
 
 def _string_equals_literal(em, column: Expression, text: str, cols
                            ) -> Value:
-    """A string column ``= text``: the lengths, then each byte against the
-    literal's, which are constants of the kernel.  A byte is read only
-    where every byte before it matched."""
+    """A string column, or a substring of one, ``= text``."""
     v, valid = em.emit(column, cols)
-    if v not in em.strings:
-        raise NotImplementedError(
-            f"a computed string ({column.sql()}) has no kernel form yet")
-    chars, offsets = em.strings[v]
-    start = em.let(f"tl.load({offsets} + offs, mask=inb, other=0)"
-                   ".to(tl.int64)")
-    end = em.let(f"tl.load({offsets} + offs + 1, mask=inb, other=0)"
-                 ".to(tl.int64)")
-    raw = text.encode("utf-8")
-    eq = em.let(f"({end} - {start}) == {len(raw)}")
-    for j, byte in enumerate(raw):
-        eq = em.let(f"{eq} & (tl.load({chars} + {start} + {j}, "
-                    f"mask=inb & {eq}, other=0).to(tl.int32) == {byte})")
-    return eq, valid
+    return (_view_equals(em, em.string_view(v, column.sql()),
+                         text.encode("utf-8")), valid)
 
 
 @emits(P.EqualTo)
@@ -300,6 +332,69 @@ def _equal_to(em, e, cols):
     else:
         out = f"{a} == {b}"
     return em.let(out), em.both(av, bv)
+
+
+@emits(P.In)
+def _in(em, e, cols):
+    """The OR of ``value = option`` over the non-null options; a null
+    option makes a miss null, as the JAX package's OR chain does."""
+    value = e.children[0]
+    vt = value.data_type
+    v, valid = em.emit(value, cols)
+    view = em.string_view(v, value.sql()) \
+        if isinstance(vt, T.StringType) else None
+    found = em.FALSE
+    for o in e.options:
+        if o.value is None:
+            continue
+        ot = T.common_type(vt, o.data_type)
+        if view is not None:
+            eq = _view_equals(em, view, o.value.encode("utf-8"))
+        else:
+            if ot not in _TL:
+                raise NotImplementedError(
+                    f"{e.sql()}: IN over {ot} has no kernel form yet")
+            a = em.cast(v, vt, ot)
+            b = em.cast(em.constant(o.value, o.data_type)[0], o.data_type,
+                        ot)
+            eq = em.let(f"({a} == {b}) | (({a} != {a}) & ({b} != {b}))"
+                        if ot.is_floating else f"{a} == {b}")
+        found = eq if found == em.FALSE else em.let(f"{found} | {eq}")
+    if not e.options:
+        return found, em.TRUE
+    if any(o.value is None for o in e.options):
+        return found, em.both(valid, found)
+    return found, valid
+
+
+@emits(ST.Substring)
+def _substring(em, e, cols):
+    """A byte view into the value's chars (``Substring.bounds``, with the
+    literal ``pos`` and ``len`` folded into the source)."""
+    v, valid = em.emit(e.children[0], cols)
+    chars, start, length = em.string_view(v, e.children[0].sql())
+    pos = e.pos
+    if pos > 0:
+        skip = em.let(f"tl.where({length} < {pos - 1}, {length}, "
+                      f"{pos - 1})")
+    elif pos < 0:
+        skip = em.let(f"tl.where({length} + {pos} > 0, {length} + {pos}, "
+                      "0)")
+    else:
+        skip = None
+    rest = length if skip is None else em.let(f"{length} - {skip}")
+    slen = ST.NO_LENGTH if e.length is None else e.length
+    if slen <= 0:
+        out_len = em.let(f"{length} * 0")
+    elif e.length is None:
+        out_len = rest
+    else:
+        out_len = em.let(f"tl.where({rest} < {slen}, {rest}, {slen})")
+    begin = start if skip is None else em.let(f"{start} + {skip}")
+    # the view's name is a key of em.strings, never code of the kernel
+    name = f"view[{begin},{out_len}]"
+    em.strings[name] = (chars, begin, out_len)
+    return name, valid
 
 
 @emits(P.And)

@@ -27,7 +27,9 @@ the row's own position, so it needs no count, no scan, no sync and no
 row indices.
 
 A string column is read through its chars and offsets (``in{i}``,
-``in{i}_off``); the ``=`` emitter compares it with a literal's bytes.
+``in{i}_off``); the ``=`` and ``IN`` emitters compare it, or a
+``Substring`` view of it, with a literal's bytes.  A computed string
+output is refused, by its expression.
 
 Outputs that are input columns as they are (bare references) are not
 written here: K5's caller gathers them through the row indices (K7), and
@@ -81,12 +83,13 @@ def referenced_columns(exprs: Sequence[Expression]) -> List[int]:
     return sorted(found)
 
 
-def _kernel_type(dt: T.DataType) -> str:
+def _kernel_type(e: Expression) -> str:
+    dt = e.data_type
     if isinstance(dt, T.BooleanType):
         return "tl.uint8"
     if dt not in _TL:
         raise NotImplementedError(
-            f"a computed {dt} output has no kernel form yet")
+            f"a computed {dt} output ({e.sql()}) has no kernel form yet")
     return _TL[dt]
 
 
@@ -103,7 +106,7 @@ def _body(input_types, nullable, used, conditions, em: ChainEmitter
             # chars and offsets: the emitters that read a string load
             # what they need (``em.strings``)
             params.append(f"in{i}_off")
-            em.strings[f"x{i}"] = (f"in{i}", f"in{i}_off")
+            em.strings[f"x{i}"] = (f"in{i}", f"in{i}_off", None)
         else:
             load = f"tl.load(in{i} + offs, mask=inb, other=0)"
             if isinstance(dt, T.BooleanType):
@@ -162,7 +165,7 @@ def stage_source(input_types: Sequence[T.DataType],
     outs, stores = [], []
     for j, e in enumerate(computed):
         v, valid = em.emit(e, cols)
-        kt = _kernel_type(e.data_type)
+        kt = _kernel_type(e)
         outs += [f"out{j}", f"out{j}_valid"]
         stores.append(f"tl.store(out{j} + dst, {v}.to({kt}), mask={sel})")
         stores.append(f"tl.store(out{j}_valid + dst, {valid}.to(tl.uint8), "
@@ -189,7 +192,7 @@ def project_source(input_types: Sequence[T.DataType],
     outs, stores = [], []
     for j, e in enumerate(computed):
         v, valid = em.emit(e, cols)
-        kt = _kernel_type(e.data_type)
+        kt = _kernel_type(e)
         outs += [f"out{j}", f"out{j}_valid"]
         stores.append(f"tl.store(out{j} + offs, {v}.to({kt}), mask=inb)")
         stores.append(f"tl.store(out{j}_valid + offs, {valid}.to(tl.uint8), "

@@ -201,7 +201,10 @@ def global_aggregate(batch: ColumnarBatch, specs,
 # -- K9: keyed aggregation ----------------------------------------------------
 #
 # ``keyed_aggregate`` is K9's wrapper.  Rows are grouped by their key
-# columns (int, long or string; a null is a value of its own) through a
+# columns (int, date, long, double or string; a null is a value of its
+# own; a double key groups -0.0 with 0.0 and every NaN together, by its
+# normalised bits, as ``_masked_group_words`` over ``sortable_words``
+# does) through a
 # hash table (``csrc/keyed_agg.cu``); groups are numbered in order of first
 # appearance, and each aggregate is folded over its group's rows in row
 # order, so results do not depend on timing.  A double sum takes an int,
@@ -221,8 +224,9 @@ MAX_AGGS = 16
 SCAN_TILE = 1024
 RADIX_TILE = 256
 
-_KEY_CODES = {T.INT: 0, T.LONG: 1, T.STRING: 3}
-KEYED_KEY_TYPES = tuple(_KEY_CODES)
+#: key type codes (csrc/keys.cuh KeyType)
+KEY_CODES = {T.INT: 0, T.DATE: 0, T.LONG: 1, T.DOUBLE: 2, T.STRING: 3}
+KEYED_KEY_TYPES = tuple(KEY_CODES)
 _IN_CODES = {T.INT: 0, T.LONG: 1, T.DOUBLE: 2}
 
 _KEYED_SIGNATURES = {
@@ -246,10 +250,10 @@ def _check_keyed(keys: Sequence[DeviceColumn], inputs, kinds) -> None:
         raise ValueError(f"one input per kind, at most {MAX_AGGS}")
     n = keys[0].row_count
     for k in keys:
-        if k.data_type not in _KEY_CODES:
+        if k.data_type not in KEY_CODES:
             raise NotImplementedError(
                 f"a grouping key of {k.data_type} is not in the port yet "
-                "(int, long and string keys are)")
+                "(int, date, long, double and string keys are)")
         if k.row_count != n:
             raise ValueError("key columns of different lengths")
     for c, kind in zip(inputs, kinds):
@@ -302,7 +306,7 @@ def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
         slot_of, rank = empty(n), empty(n + 1)
         tiles = empty(-(-n // SCAN_TILE))
         check_launch(lib.srt_agg_groups(
-            len(keys), int32s([_KEY_CODES[k.data_type] for k in keys]),
+            len(keys), int32s([KEY_CODES[k.data_type] for k in keys]),
             int32s([int(k.is_string and k.offsets.dtype == torch.int64)
                     for k in keys]),
             pointers(kdata), pointers(kvalid),
@@ -379,8 +383,19 @@ def _padded_chars(c: DeviceColumn) -> torch.Tensor:
     return torch.where(inside, data[at], 0)
 
 
+def key_words_plain(c: DeviceColumn) -> torch.Tensor:
+    """int64 words of a fixed-width key column, as ``csrc/keys.cuh
+    key_word`` forms them: a double's bits with -0.0 as 0.0 and every NaN
+    as one quiet NaN."""
+    if c.data_type.is_floating:
+        x = torch.where(c.data == 0, 0.0, c.data)
+        x = torch.where(torch.isnan(x), float("nan"), x)
+        return x.contiguous().view(torch.int64)
+    return c.data.to(torch.int64)
+
+
 def key_hash_plain(keys: Sequence[DeviceColumn]) -> torch.Tensor:
-    """Each row's key hash as ``csrc/keyed_agg.cu row_hash`` computes it:
+    """Each row's key hash as ``csrc/keys.cuh row_hash`` computes it:
     fmix64 chained over the columns; a string's bytes folded by FNV-1a."""
     n = keys[0].row_count
     h = torch.full((n,), _SEED, dtype=torch.int64, device=keys[0].device)
@@ -394,7 +409,7 @@ def key_hash_plain(keys: Sequence[DeviceColumn]) -> torch.Tensor:
             for j in range(mat.shape[1]):
                 x = torch.where(j < lens, (x ^ mat[:, j]) * _FNV_PRIME, x)
         else:
-            x = c.data.to(torch.int64)
+            x = key_words_plain(c)
         x = torch.where(c.validity, x, _NULL_WORD)
         h = _fmix64(h ^ x)
     return h
@@ -408,7 +423,8 @@ def _keys_equal(keys, mats, a: torch.Tensor, b: torch.Tensor
     for c, mat in zip(keys, mats):
         va, vb = c.validity[a], c.validity[b]
         if mat is None:
-            same = c.data[a] == c.data[b]
+            w = key_words_plain(c)
+            same = w[a] == w[b]
         else:
             off = c.offsets.to(torch.int64)
             lens = off[1:] - off[:-1]

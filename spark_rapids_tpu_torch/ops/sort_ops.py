@@ -26,7 +26,7 @@ choose.
 
 On CPU tensors ``sort_permutation_plain`` builds words with the same order
 as int64 values and sorts them stably with ``torch.sort``, last key first.
-Int, long, double and string keys are ported."""
+Int, date (its int32 days), long, double and string keys are ported."""
 
 from __future__ import annotations
 
@@ -43,12 +43,12 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 LAUNCHES = 0
 RADIX_TILE = 256
 
-_KEY_CODES = {T.INT: 0, T.LONG: 1, T.DOUBLE: 2}
+_KEY_CODES = {T.INT: 0, T.DATE: 0, T.LONG: 1, T.DOUBLE: 2}
 SORT_KEY_TYPES = tuple(_KEY_CODES) + (T.STRING,)
 #: bytes one string word holds, bits of each byte's field
 STRING_WORD_BYTES = 7
 _BYTE_BITS = 9
-_VALUE_BITS = {T.INT: 32, T.LONG: 64, T.DOUBLE: 64}
+_VALUE_BITS = {T.INT: 32, T.DATE: 32, T.LONG: 64, T.DOUBLE: 64}
 _SIGN = -(1 << 63)
 
 _SIGNATURES = {
@@ -89,7 +89,7 @@ def _check(columns: Sequence[DeviceColumn], orders, transfers) -> None:
         if c.data_type not in SORT_KEY_TYPES:
             raise NotImplementedError(
                 f"a sort key of {c.data_type} is not in the port yet "
-                "(int, long, double and string keys are)")
+                "(int, date, long, double and string keys are)")
         if c.is_string and transfers is None:
             raise ValueError("a string key needs the transfer gateway (its "
                              "word count is read from the device)")

@@ -2,7 +2,7 @@
 
 Two trees: the logical plan a DataFrame builds (``Scan``, ``Filter``,
 ``Project``, ``Aggregate``, ``Exchange``, ``Join``, ``Sort``, ``Limit``,
-``CteCache``),
+``CteCache``, ``Window``),
 and the physical ``Exec`` tree
 the planner (``plan/overrides.py``) turns it into.  An exec's ``execute``
 returns its output partitions, each a list of device batches."""
@@ -245,3 +245,25 @@ class CteCache(LogicalPlan):
 
     def node_string(self):
         return "CteCache"
+
+
+class Window(LogicalPlan):
+    """Window columns that share one partition and order spec, appended to
+    the child's columns: ``window_cols`` is ``[(name, WindowExpression)]``
+    (``session.py`` extracts them from a projection, as the JAX package's
+    ``_plan_windows`` does)."""
+
+    def __init__(self, window_cols, child: LogicalPlan):
+        super().__init__([child])
+        self.window_cols = list(window_cols)
+
+    @property
+    def schema(self):
+        return T.StructType(list(self.children[0].schema.fields) + [
+            T.StructField(name, w.data_type, True)
+            for name, w in self.window_cols])
+
+    def node_string(self):
+        cols = ", ".join(f"{w.sql()} AS {name}"
+                         for name, w in self.window_cols)
+        return f"Window[{cols}]"

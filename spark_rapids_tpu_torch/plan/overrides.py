@@ -16,6 +16,7 @@ from spark_rapids_tpu_torch.exec.basic import (TorchCteCacheExec,
 from spark_rapids_tpu_torch.exec.exchange import TorchShuffleExchangeExec
 from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
 from spark_rapids_tpu_torch.exec.sort import TorchSortExec
+from spark_rapids_tpu_torch.exec.window import TorchWindowExec
 from spark_rapids_tpu_torch.expressions.aggregates import (Average, Count,
                                                            Sum)
 from spark_rapids_tpu_torch.plan import base as L
@@ -67,5 +68,7 @@ class TorchOverrides:
             return TorchSortExec(node.specs, child)
         if isinstance(node, L.Limit):
             return TorchLimitExec(node.n, child)
+        if isinstance(node, L.Window):
+            return TorchWindowExec(node.window_cols, child)
         raise NotImplementedError(
             f"{type(node).__name__} is not in the port yet")

@@ -1,9 +1,10 @@
 """Session, DataFrame and GroupedData (the analog of
 ``spark_rapids_tpu/session.py``, for the recipes the port runs: in-memory
-tables, ``filter``, ``select``, ``join`` (``:637``; inner and left outer),
-``group_by`` (``:729``) and ``agg``, ``order_by`` (``:602``), ``limit``
-(``:515``) and ``collect``). A join, a group-by, a sort and a limit run over
-one partition.
+tables, ``filter``, ``select`` and ``with_column`` (``:460``; with window
+expressions, extracted as ``_plan_windows`` ``:392`` does), ``join``
+(``:637``; inner and left outer), ``group_by`` (``:729``) and ``agg``,
+``order_by`` (``:602``), ``limit`` (``:515``) and ``collect``). A join, a
+group-by, a window, a sort and a limit run over one partition.
 
 A session runs on ``cuda:0`` unless it is given ``device="cpu"``; without a
 CUDA device and without that, it is refused."""
@@ -73,13 +74,58 @@ class DataFrame:
 
     def filter(self, condition) -> "DataFrame":
         cond = bind_references(_to_expr(condition), self.schema)
+        if _windows_in(cond):
+            raise ValueError(
+                "window expressions are not allowed in filter(); compute "
+                "them in a select()/with_column() first")
         return DataFrame(L.Filter(cond, self._plan), self._session)
 
     where = filter
 
     def select(self, *exprs) -> "DataFrame":
         bound = [bind_references(_to_expr(e), self.schema) for e in exprs]
-        return DataFrame(L.Project(bound, self._plan), self._session)
+        plan, bound = self._plan_windows(bound)
+        return DataFrame(L.Project(bound, plan), self._session)
+
+    def with_column(self, name: str, expr) -> "DataFrame":
+        """Every column, with ``name`` replaced by (or appended as)
+        ``expr``."""
+        exprs = [Alias(_to_expr(expr), name) if f.name == name else
+                 col(f.name) for f in self.schema.fields]
+        if name not in self.columns:
+            exprs.append(Alias(_to_expr(expr), name))
+        return self.select(*exprs)
+
+    def _plan_windows(self, bound):
+        """One logical ``Window`` per (partition, order) spec group of the
+        window expressions in ``bound``, each appending its columns; then
+        ``bound`` rewritten to read them (the JAX package's
+        ``_plan_windows``, ``session.py:392``)."""
+        found = [w for e in bound for w in _windows_in(e)]
+        if not found:
+            return self._plan, bound
+        groups = {}
+        for w in found:
+            groups.setdefault(w.spec.group_key(), []).append(w)
+        plan = self._plan
+        replacement = {}
+        for ws in groups.values():
+            base = len(plan.schema)
+            plan = L.Window([(f"_w{base + i}", w) for i, w in enumerate(ws)],
+                            plan)
+            for i, w in enumerate(ws):
+                replacement[id(w)] = BoundReference(base + i, w.data_type,
+                                                    True, f"_w{base + i}")
+
+        def rewrite(e):
+            # top down by identity: transform_up copies nodes first
+            if id(e) in replacement:
+                return replacement[id(e)]
+            if not e.children:
+                return e
+            return e.with_children([rewrite(c) for c in e.children])
+
+        return plan, [rewrite(e) for e in bound]
 
     def agg(self, *agg_exprs) -> "DataFrame":
         """Global aggregation (no grouping keys)."""
@@ -163,6 +209,15 @@ class DataFrame:
 
     def collect(self) -> List[dict]:
         return self.collect_batch().to_rows()
+
+
+def _windows_in(e: Expression) -> List[Expression]:
+    """The window expressions in ``e``'s tree."""
+    from spark_rapids_tpu_torch.expressions.window_exprs import \
+        WindowExpression
+    if isinstance(e, WindowExpression):
+        return [e]
+    return [w for c in e.children for w in _windows_in(c)]
 
 
 class GroupedData:

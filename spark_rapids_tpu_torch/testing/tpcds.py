@@ -9,16 +9,18 @@ Row counts scale with ``sf`` from ``_BASE`` (store_sales 30,000 rows per
 sf); date_dim and the other small dimensions do not scale.  Money columns
 are doubles rounded to cents, as in the JAX package.
 
-``Q3_COLUMNS``, ``Q1_COLUMNS`` and ``Q7_COLUMNS`` name the columns each
-query reads; ``q3_tables``, ``q1_tables`` and ``q7_tables`` cut the
-generator's dict down to them (the port has no column pruning and no date
-type yet), sharing its arrays.  ``q3``, ``q1`` and ``q7`` are the queries
-of ``spark_rapids_tpu/testing/tpcds_queries.py`` as DataFrame recipes
-(the port has no SQL front end), and ``q3_numpy``, ``q1_numpy`` and
-``q7_numpy`` the same queries in numpy."""
+``Q3_COLUMNS``, ``Q1_COLUMNS``, ``Q7_COLUMNS``, ``Q15_COLUMNS``,
+``Q12_COLUMNS`` and ``Q20_COLUMNS`` name the columns each query reads;
+``q3_tables`` to ``q20_tables`` cut the generator's dict down to them (the
+port has no column pruning), sharing its arrays.  ``q3``, ``q1``, ``q7``,
+``q15`` and ``q12`` (q20 is ``q12(..., prefix="cs")``) are the queries of
+``spark_rapids_tpu/testing/tpcds_queries.py`` as DataFrame recipes (the
+port has no SQL front end), and ``q3_numpy`` to ``q20_numpy`` the same
+queries in numpy."""
 
 from __future__ import annotations
 
+import datetime
 from typing import Dict
 
 import numpy as np
@@ -658,3 +660,189 @@ def q7_numpy(tables: Dict[str, dict], year=2000, gender="M", marital="S",
         rows = rows[:limit]
     return [{"i_item_id": k, "agg1": a[0] / a[4], "agg2": a[1] / a[4],
              "agg3": a[2] / a[4], "agg4": a[3] / a[4]} for k, a in rows]
+
+
+#: the columns of each table that TPC-DS q15 reads
+Q15_COLUMNS = {
+    "catalog_sales": ["cs_sold_date_sk", "cs_bill_customer_sk",
+                      "cs_sales_price"],
+    "customer": ["c_customer_sk", "c_current_addr_sk"],
+    "customer_address": ["ca_address_sk", "ca_state", "ca_zip"],
+    "date_dim": ["d_date_sk", "d_year", "d_qoy"],
+}
+
+_ITEM_Q12 = ["i_item_sk", "i_item_id", "i_item_desc", "i_category",
+             "i_class", "i_current_price"]
+#: the columns of each table that TPC-DS q12 (web_sales) and q20
+#: (catalog_sales) read
+Q12_COLUMNS = {
+    "web_sales": ["ws_sold_date_sk", "ws_item_sk", "ws_ext_sales_price"],
+    "item": _ITEM_Q12,
+    "date_dim": ["d_date_sk", "d_date"],
+}
+Q20_COLUMNS = {
+    "catalog_sales": ["cs_sold_date_sk", "cs_item_sk", "cs_ext_sales_price"],
+    "item": _ITEM_Q12,
+    "date_dim": ["d_date_sk", "d_date"],
+}
+
+Q15_ZIPS = ("85669", "86197", "88274", "83405", "86475", "85392", "85460",
+            "80348", "81792")
+Q15_STATES = ("CA", "WA", "GA")
+Q12_CATEGORIES = ("Sports", "Books", "Home")
+Q12_DATES = (datetime.date(1999, 2, 22), datetime.date(1999, 3, 24))
+
+
+def q15_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q15 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q15_COLUMNS.items()}
+
+
+def q12_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q12 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q12_COLUMNS.items()}
+
+
+def q20_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q20 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q20_COLUMNS.items()}
+
+
+def q15(catalog_sales, customer, customer_address, date_dim, year=2001,
+        qoy=2, limit=100):
+    """TPC-DS q15 through the port's DataFrame API, over DataFrames of the
+    ``Q15_COLUMNS`` of each table, in the JAX plan's join order:
+    catalog_sales joined with customer, then customer_address, then the
+    quarter's dates; then the filter ``substr(ca_zip, 1, 5) IN (...) OR
+    ca_state IN (...) OR cs_sales_price > 500``, the sum by ``ca_zip``,
+    ordered.  Returns ``(result, parts)`` (``joined``, ``agg``,
+    ``sorted``).  ``limit=None`` drops the limit."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import (
+        And, EqualTo, GreaterThan, In, Or)
+    cs = catalog_sales
+    cu = customer.select(Alias(col("c_customer_sk"), "cs_bill_customer_sk"),
+                         col("c_current_addr_sk"))
+    ca = customer_address.select(Alias(col("ca_address_sk"),
+                                       "c_current_addr_sk"),
+                                 col("ca_state"), col("ca_zip"))
+    dt = date_dim.filter(And(EqualTo(col("d_qoy"), lit(qoy)),
+                             EqualTo(col("d_year"), lit(year)))) \
+        .select(Alias(col("d_date_sk"), "cs_sold_date_sk"))
+    joined = (cs.join(cu, on="cs_bill_customer_sk")
+              .join(ca, on="c_current_addr_sk")
+              .join(dt, on="cs_sold_date_sk"))
+    cond = Or(Or(In(F.substring("ca_zip", 1, 5), Q15_ZIPS),
+                 In(col("ca_state"), Q15_STATES)),
+              GreaterThan(col("cs_sales_price"), lit(500.0)))
+    agg = joined.filter(cond).group_by("ca_zip").agg(
+        F.sum("cs_sales_price").alias("total_price"))
+    ordered = agg.order_by("ca_zip")
+    out = ordered if limit is None else ordered.limit(limit)
+    return out, {"joined": joined, "agg": agg, "sorted": ordered}
+
+
+def q15_numpy(tables: Dict[str, dict], year=2001, qoy=2,
+              limit=100) -> list:
+    """TPC-DS q15 in numpy over ``q15_tables`` output: the rows as dicts."""
+    cs, c = tables["catalog_sales"], tables["customer"]
+    ca, d = tables["customer_address"], tables["date_dim"]
+    dates = d["d_date_sk"][(d["d_qoy"] == qoy) & (d["d_year"] == year)]
+    addr_of = dict(zip(c["c_customer_sk"].tolist(),
+                       c["c_current_addr_sk"].tolist()))
+    place = dict(zip(ca["ca_address_sk"].tolist(),
+                     zip(ca["ca_zip"].tolist(), ca["ca_state"].tolist())))
+    sel = np.isin(cs["cs_sold_date_sk"], dates)
+    sums: Dict[str, float] = {}
+    for ck, price in zip(cs["cs_bill_customer_sk"][sel].tolist(),
+                         cs["cs_sales_price"][sel].tolist()):
+        ak = addr_of.get(ck)
+        if ak not in place:
+            continue
+        z, st = place[ak]
+        if z[:5] in Q15_ZIPS or st in Q15_STATES or price > 500:
+            sums[z] = sums.get(z, 0.0) + price
+    rows = sorted(sums.items())
+    if limit is not None:
+        rows = rows[:limit]
+    return [{"ca_zip": z, "total_price": v} for z, v in rows]
+
+
+def q12(sales, item, date_dim, prefix="ws", limit=100):
+    """TPC-DS q12 (``prefix="ws"``, web_sales) or q20 (``prefix="cs"``,
+    catalog_sales) through the port's DataFrame API, over DataFrames of
+    the ``Q12_COLUMNS`` or ``Q20_COLUMNS``, in the JAX plan's order: the
+    sales joined with the items of three categories, then with the dates
+    of 1999-02-22 to 1999-03-24; the revenue summed by five item columns;
+    each item's share of its class's revenue, ``itemrevenue * 100.0 /
+    sum(itemrevenue) OVER (PARTITION BY i_class)``; ordered by five keys.
+    Returns ``(result, parts)`` (``joined``, ``agg``, ``windowed``,
+    ``sorted``).  ``limit=None`` drops the limit."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.arithmetic import (Divide,
+                                                               Multiply)
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import (
+        And, GreaterThanOrEqual, In, LessThanOrEqual)
+    from spark_rapids_tpu_torch.functions import Window
+    item_key, date_key = f"{prefix}_item_sk", f"{prefix}_sold_date_sk"
+    it = (item.filter(In(col("i_category"), Q12_CATEGORIES))
+          .select(Alias(col("i_item_sk"), item_key), *map(col, KEYS_Q12)))
+    lo, hi = Q12_DATES
+    dt = date_dim.filter(And(GreaterThanOrEqual(col("d_date"), lit(lo)),
+                             LessThanOrEqual(col("d_date"), lit(hi)))) \
+        .select(Alias(col("d_date_sk"), date_key))
+    joined = sales.join(it, on=item_key).join(dt, on=date_key)
+    agg = joined.group_by(*KEYS_Q12).agg(
+        F.sum(f"{prefix}_ext_sales_price").alias("itemrevenue"))
+    share = Divide(Multiply(col("itemrevenue"), lit(100.0)),
+                   F.sum("itemrevenue").over(Window.partition_by("i_class")))
+    windowed = agg.select(*map(col, KEYS_Q12), col("itemrevenue"),
+                          Alias(share, "revenueratio"))
+    ordered = windowed.order_by("i_category", "i_class", "i_item_id",
+                                "i_item_desc", "revenueratio")
+    out = ordered if limit is None else ordered.limit(limit)
+    return out, {"joined": joined, "agg": agg, "windowed": windowed,
+                 "sorted": ordered}
+
+
+#: q12's and q20's grouping keys, in the SELECT's order
+KEYS_Q12 = ["i_item_id", "i_item_desc", "i_category", "i_class",
+            "i_current_price"]
+
+
+def q12_numpy(tables: Dict[str, dict], prefix="ws", limit=100) -> list:
+    """TPC-DS q12 (or q20 with ``prefix="cs"``) in numpy over
+    ``q12_tables`` (``q20_tables``) output: the rows as dicts."""
+    sales = tables["web_sales" if prefix == "ws" else "catalog_sales"]
+    i, d = tables["item"], tables["date_dim"]
+    lo, hi = (np.datetime64(x, "D") for x in Q12_DATES)
+    dates = d["d_date_sk"][(d["d_date"] >= lo) & (d["d_date"] <= hi)]
+    imask = np.isin(i["i_category"], Q12_CATEGORIES)
+    item_of = dict(zip(i["i_item_sk"][imask].tolist(),
+                       zip(*(i[k][imask].tolist() for k in KEYS_Q12))))
+    sel = np.isin(sales[f"{prefix}_sold_date_sk"], dates) & \
+        np.isin(sales[f"{prefix}_item_sk"], np.fromiter(item_of, np.int64))
+    revenue: Dict[tuple, float] = {}
+    for ik, v in zip(sales[f"{prefix}_item_sk"][sel].tolist(),
+                     sales[f"{prefix}_ext_sales_price"][sel].tolist()):
+        key = item_of[ik]
+        revenue[key] = revenue.get(key, 0.0) + v
+    by_class: Dict[str, float] = {}
+    for key, v in revenue.items():
+        by_class[key[3]] = by_class.get(key[3], 0.0) + v
+    rows = [dict(zip(KEYS_Q12, key), itemrevenue=v,
+                 revenueratio=v * 100.0 / by_class[key[3]])
+            for key, v in revenue.items()]
+    rows.sort(key=lambda r: (r["i_category"], r["i_class"], r["i_item_id"],
+                             r["i_item_desc"], r["revenueratio"]))
+    return rows if limit is None else rows[:limit]
+
+
+def q20_numpy(tables: Dict[str, dict], limit=100) -> list:
+    """TPC-DS q20 in numpy over ``q20_tables`` output."""
+    return q12_numpy(tables, "cs", limit)

@@ -1,11 +1,13 @@
 """Data types of the port: the subset of ``spark_rapids_tpu/types.py`` that
 the port's queries need, each with its numpy (host) and torch (device)
 dtype.  A string has neither: its column is Arrow offsets plus a uint8
-chars plane (``columnar/column.py``)."""
+chars plane (``columnar/column.py``).  A date is int32 days since the
+epoch (``types.py:131``), as the JAX package keeps it."""
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -13,9 +15,9 @@ import torch
 
 __all__ = [
     "DataType", "NullType", "BooleanType", "IntegerType", "LongType",
-    "DoubleType", "StringType", "StructField", "StructType", "NULL",
-    "BOOLEAN", "INT", "LONG", "DOUBLE", "STRING", "from_numpy_dtype",
-    "common_type",
+    "DoubleType", "StringType", "DateType", "StructField", "StructType",
+    "NULL", "BOOLEAN", "INT", "LONG", "DOUBLE", "STRING", "DATE",
+    "from_numpy_dtype", "common_type", "date_days", "days_date",
 ]
 
 
@@ -83,15 +85,40 @@ class StringType(DataType):
     """UTF-8 text of any length (``spark_rapids_tpu/types.py:115``)."""
 
 
+class DateType(DataType):
+    """Days since the unix epoch, int32 (``spark_rapids_tpu/types.py:131``;
+    Spark's DateType).  It orders and compares as its int32, and is not
+    numeric: it takes no arithmetic."""
+    np_dtype = np.dtype(np.int32)
+    torch_dtype = torch.int32
+
+
 NULL = NullType()
 BOOLEAN = BooleanType()
 INT = IntegerType()
 LONG = LongType()
 DOUBLE = DoubleType()
 STRING = StringType()
+DATE = DateType()
 
 _FROM_NUMPY = {np.dtype(np.bool_): BOOLEAN, np.dtype(np.int32): INT,
-               np.dtype(np.int64): LONG, np.dtype(np.float64): DOUBLE}
+               np.dtype(np.int64): LONG, np.dtype(np.float64): DOUBLE,
+               np.dtype("datetime64[D]"): DATE}
+
+_EPOCH = datetime.date(1970, 1, 1)
+
+
+def date_days(value: datetime.date) -> int:
+    """A ``datetime.date`` as days since the epoch."""
+    if isinstance(value, datetime.datetime) or \
+            not isinstance(value, datetime.date):
+        raise TypeError(f"a date needs a datetime.date, got {value!r}")
+    return (value - _EPOCH).days
+
+
+def days_date(days: int) -> datetime.date:
+    """Days since the epoch as a ``datetime.date``."""
+    return _EPOCH + datetime.timedelta(days=int(days))
 
 #: numeric widening order (Spark's findTightestCommonType over this subset)
 _PROMOTION_ORDER = [INT, LONG, DOUBLE]

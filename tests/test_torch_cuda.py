@@ -1,9 +1,10 @@
 """The port's kernels on the card against their plain PyTorch versions:
 K5 (the compacting stage, with string = and Or), K6 (the computing
-projection), K7 (gather, with -1 rows), K8 (sort, with string keys), K9
-(keyed aggregation, with a double sum of an int input), K10 (hash join,
-inner and left outer), and TPC-DS q3, q1 and q7 end to end against the
-CPU run.
+projection, with IN, substring views, <, <=, >= and dates), K7 (gather,
+with -1 rows), K8 (sort, with string keys), K9 (keyed aggregation, with a
+double sum of an int input, double keys and five keys), K10 (hash join,
+inner and left outer), K14 (whole-partition windows), and TPC-DS q3, q1,
+q7, q15, q12 and q20 end to end against the CPU run.
 
 Every test needs a CUDA card and skips without one.  This file imports
 nothing of JAX, so it runs where JAX is not installed:
@@ -229,6 +230,110 @@ def test_q1_q7_match_the_cpu_run(card, query):
     cpu = TorchSession(device="cpu")
     ref = recipe(*[cpu.create_dataframe(t[n]) for n in names])[0].collect()
     assert len(got) == len(ref) == 100
+    for g, r in zip(got, ref):
+        assert g.keys() == r.keys()
+        for k in g:
+            if isinstance(r[k], float):
+                assert abs(g[k] - r[k]) <= 1e-12 * abs(r[k])
+            else:
+                assert g[k] == r[k]
+
+
+def test_project_new_emitters(card):
+    """IN (strings, numbers, a null and a NaN option), substring views,
+    the order comparisons with NaN, and dates."""
+    import datetime
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.expressions import predicates as P
+    from spark_rapids_tpu_torch.expressions.base import (Alias, col,
+                                                         bind_references,
+                                                         lit)
+    rng = np.random.default_rng(16)
+    d = data(rng, 20_000)
+    d0 = datetime.date(1999, 2, 22)
+    d["d"] = [None if rng.random() < 0.1 else
+              d0 + datetime.timedelta(days=int(x))
+              for x in rng.integers(-5, 40, 20_000)]
+    schema = T.StructType(list(SCHEMA.fields) + [T.StructField("d", T.DATE)])
+    exprs = [P.In(col("s"), ["xy", "日本", None]),
+             P.In(F.substring("s", 1, 2), ["xy", "br", ""]),
+             P.EqualTo(F.substring("s", -2, 5), lit("10")),
+             P.EqualTo(F.substring("s", 0, 0), lit("")),
+             P.In(col("v"), [0.5, float("nan")]),
+             P.LessThan(col("v"), lit(float("nan"))),
+             P.GreaterThanOrEqual(col("v"), col("v")),
+             P.LessThanOrEqual(col("a"), col("b")),
+             P.And(P.GreaterThanOrEqual(col("d"), lit(d0)),
+                   P.LessThanOrEqual(col("d"),
+                                     lit(datetime.date(1999, 3, 24))))]
+    bound = [bind_references(Alias(e, f"c{j}"), schema)
+             for j, e in enumerate(exprs)]
+    program = FU.StageProgram([("project", bound)], schema, 0)
+    b = card.transfers.upload_batch(batch_from_pydict(d, schema))
+    lits = FU.LiteralArgs([])
+    same(FU.fused_project(program, b, lits),
+         FU.fused_project_plain(program, b, lits))
+
+
+def test_window_reduce(card):
+    """K14 against its plain version: int, string and double keys, one
+    partition of 2**20 + 3 rows, every row its own partition, and sums
+    that wrap."""
+    from spark_rapids_tpu_torch.ops import window_ops as W
+    rng = np.random.default_rng(17)
+    a, bb, s, v = batch(card, rng, 70_000).columns
+    kinds = [W.WIN_SUM_F64, W.WIN_SUM_I64, W.WIN_COUNT, W.WIN_COUNT_ALL,
+             W.WIN_MEAN]
+    for keys in ([a], [s, a], [v], []):
+        perm = S.sort_permutation(keys, [S.SortOrder(i) for i in
+                                         range(len(keys))],
+                                  card.transfers) if keys else \
+            torch.arange(70_000, device="cuda")
+        cols = BO.gather_columns(keys + [v, bb], perm, card.transfers, True)
+        k, (sv, sb) = cols[:len(keys)], cols[len(keys):]
+        values = [sv, sb, sv, None, sv]
+        got = W.window_reduce(k, values, kinds, 70_000, sv.device)
+        ref = W.window_reduce_plain(k, values, kinds, 70_000, sv.device)
+        for kind, g, r in zip(kinds, got, ref):
+            assert torch.equal(g.validity, r.validity)
+            if kind in (W.WIN_SUM_F64, W.WIN_MEAN):
+                assert torch.allclose(g.data, r.data, rtol=1e-9,
+                                      atol=1e-9, equal_nan=True)
+            else:
+                assert torch.equal(g.data, r.data)
+    n = (1 << 20) + 3
+    big = DeviceColumn(torch.from_numpy(rng.integers(
+        1 << 62, (1 << 63) - 1, n)).cuda(),
+        torch.ones(n, dtype=torch.bool, device="cuda"), T.LONG, True)
+    for key in (torch.zeros(n, dtype=torch.int64),
+                torch.arange(n, dtype=torch.int64)):
+        kc = DeviceColumn(key.cuda(), torch.ones(n, dtype=torch.bool,
+                                                 device="cuda"), T.LONG,
+                          True)
+        got = W.window_reduce([kc], [big], [W.WIN_SUM_I64], n, big.device)
+        ref = W.window_reduce_plain([kc], [big], [W.WIN_SUM_I64], n,
+                                    big.device)
+        assert torch.equal(got[0].data, ref[0].data)
+
+
+@pytest.mark.parametrize("query", ["q15", "q12", "q20"])
+def test_q15_q12_q20_match_the_cpu_run(card, query):
+    from spark_rapids_tpu_torch.testing import tpcds
+    tables = tpcds.generate_tables(1)
+    recipe, cut, names = {
+        "q15": (tpcds.q15, tpcds.q15_tables,
+                ("catalog_sales", "customer", "customer_address",
+                 "date_dim")),
+        "q12": (tpcds.q12, tpcds.q12_tables,
+                ("web_sales", "item", "date_dim")),
+        "q20": (lambda *f: tpcds.q12(*f, prefix="cs"), tpcds.q20_tables,
+                ("catalog_sales", "item", "date_dim"))}[query]
+    t = cut(tables)
+    got = recipe(*[card.create_dataframe(t[n]) for n in names])[0].collect()
+    cpu = TorchSession(device="cpu")
+    ref = recipe(*[cpu.create_dataframe(t[n]) for n in names])[0].collect()
+    assert len(got) == len(ref) == {"q15": 30, "q12": 44, "q20": 100}[query]
     for g, r in zip(got, ref):
         assert g.keys() == r.keys()
         for k in g:

@@ -99,6 +99,14 @@ t1 = tpcds.q1_tables(tpcds.generate_tables(0.3))
 q1 = tpcds.q1(*[s.create_dataframe(t1[t]) for t in
                 ("date_dim", "store_returns", "store", "customer")])[0]
 assert q1.collect() == tpcds.q1_numpy(t1), q1.explain()
+for m in ("exec.window", "ops.window_ops", "expressions.strings",
+          "expressions.window_exprs"):
+    importlib.import_module("spark_rapids_tpu_torch." + m)
+t12 = tpcds.q12_tables(tpcds.generate_tables(0.2))
+q12 = tpcds.q12(*[s.create_dataframe(t12[t]) for t in
+                  ("web_sales", "item", "date_dim")])[0]
+rows = q12.collect()
+assert rows and len(rows) == len(tpcds.q12_numpy(t12)), q12.explain()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax")
              or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")
              or m == "triton" or m.startswith("triton."))
@@ -132,7 +140,7 @@ def test_wrappers_refuse_other_devices():
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.columnar.column import DeviceColumn
     from spark_rapids_tpu_torch.ops import (agg_ops, batch_ops, join_ops,
-                                            sort_ops)
+                                            sort_ops, window_ops)
     meta = torch.zeros(2, 1, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         agg_ops.global_reduce(meta, torch.ones(2, 1, dtype=torch.bool,
@@ -147,7 +155,10 @@ def test_wrappers_refuse_other_devices():
              lambda: sort_ops.sort_permutation([col],
                                                [sort_ops.SortOrder(0)]),
              lambda: agg_ops.keyed_aggregate([col], [col],
-                                             [agg_ops.KEYED_SUM_I64], None)]
+                                             [agg_ops.KEYED_SUM_I64], None),
+             lambda: window_ops.window_reduce([col], [col],
+                                              [window_ops.WIN_SUM_I64], 2,
+                                              col.device)]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):
             call()

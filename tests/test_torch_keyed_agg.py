@@ -3,8 +3,8 @@ exec/aggregate.py TorchKeyedAggregateExec) against the JAX package's
 group-by (exec/aggregate.py over ops/agg_ops.py keyed_agg_trace, on
 JAX-CPU), on the same seeded inputs.
 
-Keys are int, long and string with nulls (a null key is a group of its
-own).  Rows are compared with rowcompare.rows_equal without regard to
+Keys are int, long, string and double with nulls (a null key is a group
+of its own; -0.0 groups with 0.0 and every NaN with every NaN).  Rows are compared with rowcompare.rows_equal without regard to
 order: keys and counts exact, long sums exact, double sums with
 approx_float=True (1e-6 relative: the two engines add in other orders).
 The port numbers groups in order of first appearance; a forced hash
@@ -133,8 +133,9 @@ def test_one_sync_per_group_by_and_keys_refused_by_name():
     df.group_by("a", "s").agg(F.sum("v")).collect()
     # the group count, then the download
     assert s.transfers.stats()["syncs"] - before == 2
-    with pytest.raises(NotImplementedError, match="DoubleType"):
-        df.group_by("v").agg(F.count()).collect()
+    flags = s.create_dataframe({"f": np.array([True, False, True])})
+    with pytest.raises(NotImplementedError, match="BooleanType"):
+        flags.group_by("f").agg(F.count()).collect()
     parts = s.create_dataframe(data(50, seed=1), schema=SCHEMA,
                                num_partitions=2)
     with pytest.raises(NotImplementedError, match="several partitions"):
@@ -193,3 +194,61 @@ def test_double_sum_of_an_int_input_converts_each_row():
     assert sums.dtype == torch.float64
     assert sums.tolist()[0] == 2.0 ** 31 and valid.tolist() == [True, False]
     assert cnt.tolist() == [2, 0]
+
+
+def double_key_data(n, seed):
+    """A double key with -0.0 and 0.0, NaNs of several payloads and nulls,
+    and q12's five keys: four strings and a double."""
+    rng = np.random.default_rng(seed)
+    nan2 = np.frombuffer(np.array([0x7ff8000000000001], np.int64)
+                         .tobytes(), np.float64)[0]
+    nan3 = np.frombuffer(np.array([-0x0008000000000000], np.int64)
+                         .tobytes(), np.float64)[0]
+    pool = [0.0, -0.0, np.nan, nan2, nan3, 1.5, -2.25, np.inf]
+    vals = [None if rng.random() < 0.1 else pool[int(x)]
+            for x in rng.integers(0, len(pool), n)]
+    words = ["", "x", "xy", "class1", "Books"]
+    return {
+        "p": vals,
+        "s": [None if rng.random() < 0.1 else str(rng.choice(words))
+              for _ in range(n)],
+        "t": [str(rng.choice(words[:3])) for _ in range(n)],
+        "u": [str(rng.choice(words[3:])) for _ in range(n)],
+        "x": [str(rng.choice(words[1:3])) for _ in range(n)],
+        "v": (rng.standard_normal(n) * 100).round(2),
+    }
+
+
+DOUBLE_SCHEMA = T.StructType([
+    T.StructField("p", T.DOUBLE), T.StructField("s", T.STRING),
+    T.StructField("t", T.STRING), T.StructField("u", T.STRING),
+    T.StructField("x", T.STRING), T.StructField("v", T.DOUBLE)])
+
+
+@pytest.mark.parametrize("n", [1, 40, 300])
+@pytest.mark.parametrize("keys", [["p"], ["s", "t", "u", "x", "p"]])
+def test_double_and_five_keys_match_jax(jax_session, n, keys):
+    """-0.0 and 0.0 are one group, every NaN (whatever its payload) one
+    more, a null one more; the group's key is its first row's value."""
+    d = double_key_data(n, seed=n + len(keys))
+    ref = jax_session.create_dataframe(d).group_by(*keys).agg(
+        JF.sum("v").alias("sv"), JF.count().alias("c")).collect()
+    got = TorchSession(device="cpu").create_dataframe(
+        d, schema=DOUBLE_SCHEMA).group_by(*keys).agg(
+        F.sum("v").alias("sv"), F.count().alias("c")).collect()
+    assert rows_equal(ref, got, check_order=False, approx_float=True) \
+        is None, (ref, got)
+    if keys == ["p"] and n == 300:
+        # 0.0 and -0.0, NaN, null, 1.5, -2.25, inf
+        assert len(got) == 6
+
+
+def test_double_key_hash_normalises_zero_and_nan():
+    s = TorchSession(device="cpu")
+    nan2 = np.frombuffer(np.array([0x7ff0000000000001], np.int64)
+                         .tobytes(), np.float64)[0]
+    col = s.transfers.upload_batch(s.create_dataframe(
+        {"p": np.array([0.0, -0.0, np.nan, nan2])})._plan.partitions[0][0]
+    ).columns[0]
+    h = G.key_hash_plain([col]).tolist()
+    assert h[0] == h[1] and h[2] == h[3] and h[0] != h[2]

@@ -49,9 +49,13 @@ def test_generator_copy_matches_jax():
     mine = tpcds.generate_tables(0.2)
     ref = jax_generate(0.2)
     assert mine.keys() == ref.keys()
-    # q3's tables, then the others q1 and q7 read
+    # q3's tables, then the others q1, q7, q15, q12 and q20 read (every
+    # column: customer's c_current_addr_sk, item's i_item_desc,
+    # i_category, i_class and i_current_price, date_dim's d_date and
+    # d_qoy among them)
     for t in TABLES + ("store_returns", "customer", "store",
-                       "customer_demographics", "promotion"):
+                       "customer_demographics", "promotion",
+                       "catalog_sales", "web_sales", "customer_address"):
         assert mine[t].keys() == ref[t].keys()
         for c in ref[t]:
             assert mine[t][c].dtype == ref[t][c].dtype, (t, c)
