@@ -7,10 +7,10 @@ Needs one CUDA card; it exits non-zero, printing no result, without one.
 It builds every kernel from the sources in the checkout, into the
 git-ignored build/ directory: kernel 1, K5 and K6 (Triton, emitted by
 kernels/fused_agg.py and kernels/fused_stage.py) and kernel 2, K7, K8, K9,
-K10 and K14 (csrc/*.cu, one nvcc each, all started together).  It holds each
-kernel against its plain PyTorch version on the card, then drives four
-paths through ``TorchSession()``, each with the launch counters set to 0
-just before it and read just after:
+K10, K14 and K15d (csrc/*.cu, one nvcc each, all started together).  It
+holds each kernel against its plain PyTorch version on the card, then drives
+five paths through ``TorchSession()``, each with the launch counters set to
+0 just before it and read just after:
 
 - bench.py's recipe -- filter(w > t), project k+1, v*2.0 and
   murmur3(k, w), sum all three, collect -- on 128M rows in 4 partitions,
@@ -21,7 +21,11 @@ just before it and read just after:
   the CPU run, timed, with a torch.profiler breakdown by kernel, and every
   kernel call of its main path held against the kernel's plain version;
 - TPC-DS q15, q12 and q20 (catalog_sales 15M rows, web_sales 8M,
-  customer_address 1M) over the same tables, checked and timed alike.
+  customer_address 1M) over the same tables, checked and timed alike;
+- TPC-DS q13, q19 and q16 (store_sales 30M rows through five joins into
+  kernel 1; a <> of two substrings; semi and anti joins and
+  count(DISTINCT) over catalog_sales 15M rows) over the same tables,
+  checked and timed alike.
 
 Every check that fails ends the run with a non-zero exit.  The last two
 lines of standard output are a JSON object describing each kernel on
@@ -45,11 +49,17 @@ import time
 import numpy as np
 
 INT64_MAX = 2 ** 63 - 1
-#: the CUDA sources of the kernels (kernel 2, K7, K8, K9, K10, K14)
+#: the CUDA sources of the kernels (kernel 2, K7, K8, K9, K10, K14, K15d)
 CUDA_SOURCES = ("global_reduce.cu", "gather.cu", "sort.cu", "keyed_agg.cu",
-                "hash_join.cu", "window.cu")
+                "hash_join.cu", "window.cu", "distinct.cu")
 #: the TPC-DS kernels: name, route, source, the JAX program each replaces
 TPCDS_KERNELS = {
+    "K1": ("fused_agg_update", "triton",
+           "spark_rapids_tpu_torch/kernels/fused_agg.py",
+           "spark_rapids_tpu/exec/fused.py:337"),
+    "K3": ("global_reduce", "cuda",
+           "spark_rapids_tpu_torch/csrc/global_reduce.cu",
+           "spark_rapids_tpu/ops/agg_ops.py:223"),
     "K5": ("fused_stage", "triton",
            "spark_rapids_tpu_torch/kernels/fused_stage.py",
            "spark_rapids_tpu/exec/fused.py:202"),
@@ -66,25 +76,41 @@ TPCDS_KERNELS = {
             "spark_rapids_tpu/ops/join_ops.py:125"),
     "K14": ("window", "cuda", "spark_rapids_tpu_torch/csrc/window.cu",
             "spark_rapids_tpu/ops/window_ops.py:79"),
+    "K15d": ("count_distinct", "cuda",
+             "spark_rapids_tpu_torch/csrc/distinct.cu",
+             "spark_rapids_tpu/ops/agg_ops.py:550"),
 }
 #: each TPC-DS kernel's launch counter: module and attribute
-COUNTERS = {"K5": ("exec.fused", "STAGE_LAUNCHES"),
+COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
+            "K3": ("ops.agg_ops", "LAUNCHES"),
+            "K5": ("exec.fused", "STAGE_LAUNCHES"),
             "K6": ("exec.fused", "PROJECT_LAUNCHES"),
             "K7": ("ops.batch_ops", "LAUNCHES"),
             "K8": ("ops.sort_ops", "LAUNCHES"),
             "K9": ("ops.agg_ops", "KEYED_LAUNCHES"),
             "K10": ("ops.join_ops", "LAUNCHES"),
-            "K14": ("ops.window_ops", "LAUNCHES")}
+            "K14": ("ops.window_ops", "LAUNCHES"),
+            "K15d": ("ops.agg_ops", "DISTINCT_LAUNCHES")}
 #: the kernels each query's main path launches
 QUERY_KERNELS = {"q3": ("K5", "K7", "K8", "K9", "K10"),
                  "q1": ("K5", "K6", "K7", "K8", "K9", "K10"),
                  "q7": ("K5", "K6", "K7", "K8", "K9", "K10"),
                  "q15": ("K5", "K7", "K8", "K9", "K10"),
-                 "q12": tuple(TPCDS_KERNELS), "q20": tuple(TPCDS_KERNELS)}
+                 "q12": ("K5", "K6", "K7", "K8", "K9", "K10", "K14"),
+                 "q20": ("K5", "K6", "K7", "K8", "K9", "K10", "K14"),
+                 "q13": ("K1", "K3", "K5", "K7", "K10"),
+                 "q19": ("K5", "K7", "K8", "K9", "K10"),
+                 "q16": ("K1", "K3", "K5", "K7", "K9", "K10", "K15d")}
 #: the JAX programs K10's and K7's left outer mode replaces (on q1)
 OUTER_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:275",
                   "spark_rapids_tpu/ops/join_ops.py:313",
                   "spark_rapids_tpu/ops/join_ops.py:418"]
+#: the JAX programs K10's semi and anti modes replace (on q16), and the
+#: segmented aggregation K15d's scalar slots replace beside it
+SEMI_ANTI_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:275",
+                      "spark_rapids_tpu/ops/join_ops.py:313"]
+DISTINCT_REPLACES = ["spark_rapids_tpu/ops/agg_ops.py:646",
+                     "spark_rapids_tpu/ops/agg_ops.py:340"]
 #: data bytes of one table row (k int64, v double, w int32), as bench.py
 ROW_BYTES = 8 + 8 + 4
 F64_SUM_RTOL = 1e-10
@@ -377,18 +403,19 @@ def max_diff(got, ref) -> float:
 
 
 def same_indices(got, ref, what: str) -> float:
-    """Equal int64 index tensors; returns the measured max |d|."""
+    """Equal int64 index tensors (compared where they lie); returns the
+    measured max |d|."""
     import torch
-    g, r = got.cpu(), ref.cpu()
-    check(g.shape == r.shape, f"{what}: {tuple(g.shape)} vs {tuple(r.shape)}")
-    check(bool(torch.equal(g, r)), what)
-    return max_diff(g, r)
+    check(got.shape == ref.shape,
+          f"{what}: {tuple(got.shape)} vs {tuple(ref.shape)}")
+    check(bool(torch.equal(got, ref)), what)
+    return max_diff(got, ref)
 
 
 def same_columns(got, ref, what: str) -> float:
     """Columns equal plane by plane (doubles bit for bit; a string's chars
-    up to its last offset); returns the measured max |d| over the data,
-    offsets and validity planes."""
+    up to its last offset), compared where they lie; returns the measured
+    max |d| over the data, offsets and validity planes."""
     import torch
     check(len(got) == len(ref), f"{what}: column count")
     err = 0.0
@@ -396,18 +423,18 @@ def same_columns(got, ref, what: str) -> float:
         w = f"{what}, column {j}"
         check(g.row_count == r.row_count, f"{w}: {g.row_count} rows vs "
               f"{r.row_count}")
-        gv, rv = g.validity.cpu(), r.validity.cpu()
+        gv, rv = g.validity, r.validity
         check(bool(torch.equal(gv, rv)), f"{w}: validity")
         err = max(err, max_diff(gv, rv))
         if g.is_string:
-            go, ro = g.offsets.cpu().long(), r.offsets.cpu().long()
+            go, ro = g.offsets.long(), r.offsets.long()
             check(bool(torch.equal(go, ro)), f"{w}: offsets")
             end = int(ro[-1])
-            gc, rc = g.data.cpu()[:end], r.data.cpu()[:end]
+            gc, rc = g.data[:end], r.data[:end]
             check(bool(torch.equal(gc, rc)), f"{w}: chars")
             err = max(err, max_diff(go, ro), max_diff(gc, rc))
         else:
-            gd, rd = g.data.cpu(), r.data.cpu()
+            gd, rd = g.data, r.data
             bits = (gd.view(torch.int64), rd.view(torch.int64)) \
                 if gd.dtype == torch.float64 else (gd, rd)
             check(bool(torch.equal(*bits)), f"{w}: data")
@@ -972,6 +999,158 @@ def check_slice4(session, rng):
     return err, k14_timed
 
 
+# -- slice 5: K10's semi and anti modes, K15d, <> and NOT, K1 over strings ---
+
+def check_slice5(session, rng, rate: float):
+    """Phase 2e: K10's semi and anti modes, K15d keyed and global, the <>,
+    NOT and view-to-view emitters in K6 and K5, and kernel 1 over string
+    columns, against their plain versions at 0, 1, 1000 and 2**20 + 3
+    rows; then K15d keyed over 5M groups of 3 rows (q16's subquery shape)
+    and global over one group of 2**20 + 3 rows, timed.  Returns the max
+    |d| of each kernel and the K15d timings."""
+    import datetime
+    import torch
+    from spark_rapids_tpu_torch import DataFrame
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.expressions import predicates as P
+    from spark_rapids_tpu_torch.expressions.base import (Alias,
+                                                         bind_references,
+                                                         col, lit)
+    from spark_rapids_tpu_torch.expressions.strings import Substring
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    from spark_rapids_tpu_torch.ops import join_ops as J
+    from spark_rapids_tpu_torch.plan import base as L
+    tr, dev = session.transfers, session.device
+    err = {k: 0.0 for k in ("K1", "K5", "K6", "K10", "K15d")}
+
+    def key(m, lo, hi, null_frac):
+        data = torch.from_numpy(rng.integers(lo, hi, m).astype(np.int64))
+        valid = torch.from_numpy(rng.random(m) >= null_frac)
+        return DeviceColumn(data.to(dev), valid.to(dev), T.LONG,
+                            all_valid=null_frac == 0)
+    exprs = [P.NotEqual(col("s"), col("z")),
+             P.EqualTo(col("s"), col("t")),
+             P.NotEqual(Substring(col("z"), 1, 5), Substring(col("s"), 1, 5)),
+             P.EqualTo(Substring(col("z"), 2, 3), Substring(col("s"), -3, 3)),
+             P.NotEqual(col("z"), lit("GA")),
+             P.NotEqual(col("p"), col("v")),
+             P.NotEqual(col("g"), col("u")),
+             P.NotEqual(col("d"), lit(datetime.date(1999, 2, 28))),
+             P.Not(P.LessThan(col("v"), col("p"))),
+             P.Not(P.In(col("z"), ["GA", None])),
+             P.Not(P.And(P.EqualTo(col("s"), col("t")),
+                         P.GreaterThan(col("g"), lit(2))))]
+    for n in SLICE3_SIZES:
+        batch = slice4_batch(session, rng, n)
+        schema = batch.schema
+        bound = [bind_references(Alias(e, f"c{j}"), schema)
+                 for j, e in enumerate(exprs)]
+        program = FU.StageProgram([("project", bound)], schema, 0)
+        lits = FU.LiteralArgs([])
+        got = FU.fused_project(program, batch, lits)
+        torch.cuda.synchronize()
+        err["K6"] = max(err["K6"], same_columns(
+            got, FU.fused_project_plain(program, batch, lits),
+            f"K6 (slice 5), {n} rows"))
+        df = DataFrame(L.Scan([[]], schema), session)
+        # q19's filter, then a NOT
+        stage = (df.filter(P.NotEqual(Substring(col("z"), 1, 5),
+                                      Substring(col("s"), 1, 5)))
+                 .filter(P.Not(P.EqualTo(col("t"), lit("N"))))
+                 .select(col("z"), col("v"))
+                 .executed_plan())
+        check(isinstance(stage, FU.TorchFusedStageExec),
+              f"K5 plan: {stage.tree_string()}")
+        slits = FU.LiteralArgs.upload(stage.promoted, tr)
+        idx, comp = FU.fused_stage_compact(stage.program, batch, slits, tr)
+        torch.cuda.synchronize()
+        ridx, rcomp = FU.fused_stage_compact_plain(stage.program, batch,
+                                                   slits, tr)
+        err["K5"] = max(err["K5"], same_indices(
+            idx, ridx, f"K5 (slice 5), {n} rows: survivors"),
+            same_columns(comp, rcomp, f"K5 (slice 5), {n} rows"))
+        # kernel 1 over string columns: q13's filter shape, averages
+        agg = (df.filter(P.And(
+            P.Or(P.And(P.EqualTo(col("t"), lit("TN")),
+                       P.GreaterThanOrEqual(col("v"), lit(-500.0))),
+                 P.And(P.EqualTo(col("s"), lit("College")),
+                       P.LessThanOrEqual(col("v"), lit(500.0)))),
+            P.Or(P.In(col("z"), ["GA", "CA", "85669"]),
+                 P.NotEqual(col("s"), col("z")))))
+            .agg(F.avg("g").alias("a1"), F.avg("v").alias("a2"),
+                 F.sum("v").alias("s1"), F.count("*").alias("c1"))
+            .executed_plan())
+        check(isinstance(agg, FU.TorchFusedAggExec) and
+              agg.program.conditions, f"K1 plan: {agg.tree_string()}")
+        klits = FU.LiteralArgs.upload(agg.promoted, tr)
+        args = (agg.program, batch, klits)
+        got = FU.fused_agg_update(*args)
+        torch.cuda.synchronize()
+        err["K1"] = max(err["K1"], same_kernel1(
+            args, got, FU.fused_agg_update_plain(*args),
+            f"K1 over strings, {n} rows"))
+        # K15d, keyed over K9's groups of g and global, every value type
+        cols = dict(zip(batch.names, batch.columns))
+        rep, _res, gid = G.keyed_aggregate([cols["g"]], [], [], tr,
+                                           row_groups=True)
+        for name in ("g", "u", "p", "d", "s", "z"):
+            c = cols[name]
+            err["K15d"] = max(err["K15d"], same_indices(
+                G.count_distinct(c), G.count_distinct_plain(c),
+                f"K15d global, {n} rows, {name}"))
+            if rep.shape[0]:
+                err["K15d"] = max(err["K15d"], same_indices(
+                    G.count_distinct(c, gid, rep.shape[0]),
+                    G.count_distinct_plain(c, gid, rep.shape[0]),
+                    f"K15d keyed, {n} rows, {name}"))
+        # K10 semi and anti: no match, null keys, duplicates, no build row
+        for case, build in (("no match", key(300, 10_000, 10_300, 0.0)),
+                            ("null keys", key(300, 0, 500, 0.1)),
+                            ("duplicate build keys", key(3000, 0, 50, 0.0)),
+                            ("empty build side", key(0, 0, 5, 0.0))):
+            probe = key(n, 0, 500, 0.3 if case == "null keys" else 0)
+            for mode in ("semi", "anti"):
+                got = J.join_pairs(build, probe, tr, mode=mode)
+                torch.cuda.synchronize()
+                ref = J.join_pairs_plain(build, probe, tr, mode=mode)
+                check(got[1] is None and ref[1] is None,
+                      f"K10 {mode}: no build rows")
+                err["K10"] = max(err["K10"], same_indices(
+                    got[0], ref[0], f"K10 {mode}, {case}, {n} rows"))
+    # q16's subquery shape: 5M orders of 3 rows, warehouses 1..5; and one
+    # group of 2**20 + 3 rows
+    m = 15_000_000
+    gid = torch.arange(m, device=dev) // 3
+    wh = DeviceColumn(torch.from_numpy(rng.integers(1, 6, m)).to(dev),
+                      torch.ones(m, dtype=torch.bool, device=dev), T.LONG,
+                      True)
+    groups = m // 3
+    got = G.count_distinct(wh, gid, groups)
+    torch.cuda.synchronize()
+    err["K15d"] = max(err["K15d"], same_indices(
+        got, G.count_distinct_plain(wh, gid, groups),
+        f"K15d keyed, {m} rows, {groups} groups"))
+    keyed_ms = time_ms(lambda: G.count_distinct(wh, gid, groups), 10)
+    keyed_bytes = column_bytes(wh) + 8 * m + 8 * groups
+    big = slice4_batch(session, rng, SLICE3_SIZES[-1]).columns[2]
+    got = G.count_distinct(big)
+    torch.cuda.synchronize()
+    err["K15d"] = max(err["K15d"], same_indices(
+        got, G.count_distinct_plain(big), "K15d global, one group of "
+        f"{big.row_count} rows"))
+    global_ms = time_ms(lambda: G.count_distinct(big), 10)
+    timed = {"keyed": (keyed_ms, time_ms(lambda: G.count_distinct_plain(
+        wh, gid, groups), 2, 1), keyed_bytes / rate * 1e3, None),
+        "global": (global_ms, time_ms(lambda: G.count_distinct_plain(big),
+                                      2, 1),
+                   (column_bytes(big) + 8) / rate * 1e3,
+                   time_ms(lambda: torch.unique(big.data).numel(), 10))}
+    return err, timed
+
+
 def rows_match(expected, actual, what: str) -> None:
     """In order; doubles within 1e-6 relative (the comparator the JAX
     package's TPC-DS oracle uses, rowcompare.val_eq), the rest exact."""
@@ -1010,6 +1189,9 @@ class Recorder:
                                                 window_ops)
         self.calls = []
         self._patches = [
+            (fused, "fused_agg_update", "K1"),
+            (agg_ops, "global_reduce", "K3"),
+            (agg_ops, "count_distinct", "K15d"),
             (fused, "fused_stage_compact", "K5"),
             (fused, "fused_project", "K6"),
             (batch_ops, "gather_columns", "K7"),
@@ -1065,11 +1247,66 @@ def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
     if name == "K8":
         return same_indices(got, ref, f"{what}: permutation")
     if name == "K9":
-        return same_keyed(*args[:3], got, ref, tr, what)
+        err = same_keyed(*args[:3], got[:2], ref[:2], tr, what)
+        if len(got) > 2:   # each row's group, for K15d
+            err = max(err, same_indices(got[2], ref[2],
+                                        f"{what}: row groups"))
+        return err
     if name == "K14":
         return same_window_call(args, got, ref, what)
+    if name == "K1":
+        return same_kernel1(args, got, ref, what)
+    if name == "K3":
+        return same_kernel2(args, got, ref, what)
+    if name == "K15d":
+        return same_indices(got, ref, f"{what}: distinct counts")
+    if got[1] is None:   # semi and anti: the kept probe rows
+        check(ref[1] is None, f"{what}: build rows")
+        return same_indices(got[0], ref[0], f"{what}: kept rows")
     return max(same_indices(g, r, f"{what}: {side} rows")
                for g, r, side in zip(got, ref, ("probe", "build")))
+
+
+def same_kernel1(args, got, ref, what: str) -> float:
+    """A kernel-1 call against its plain version: both partial tables
+    folded by kernel 2's plain version, then compare_rows with each double
+    buffer's tolerance from the call's own inputs (the sum of |x| over the
+    rows the chain keeps)."""
+    import torch
+    from spark_rapids_tpu_torch.expressions.base import EvalContext
+    from spark_rapids_tpu_torch.expressions.evaluator import batch_cols
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    program, batch, lits = args[:3]
+    ctx = EvalContext(batch_cols(batch), batch.row_count, batch.device,
+                      lits.values)
+    cols, sel = FU.trace_chain(program.ops, ctx)
+    upd = EvalContext(cols, batch.row_count, batch.device, lits.values)
+    abs_sum = 0.0
+    for ordinal, kind, _cv, dtype in program.update_specs:
+        if kind == "sum" and dtype.is_floating:
+            c = program.update_exprs[ordinal].eval(upd)
+            x = c.data.to(torch.float64)
+            abs_sum = max(abs_sum, float(torch.where(
+                sel & c.valid & torch.isfinite(x), x.abs(), 0.0).sum()))
+    return compare_rows(G.global_reduce_plain(*got, program.fold_kinds),
+                        G.global_reduce_plain(*ref, program.fold_kinds),
+                        program.buffer_types, max(abs_sum, 1.0), what)
+
+
+def same_kernel2(args, got, ref, what: str) -> float:
+    """A kernel-2 call against its plain version: words and validity
+    exact, a double sum within F64_SUM_RTOL of its column's sum |x|."""
+    import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    values, valid, kinds = args[:3]
+    types = [T.DOUBLE if k in (G.SUM_F64, G.MIN_F64, G.MAX_F64) else T.LONG
+             for k in kinds]
+    f = values.view(torch.float64)
+    abs_sum = float(torch.where(valid.bool() & torch.isfinite(f), f.abs(),
+                                0.0).sum()) if values.numel() else 0.0
+    return compare_rows(got, ref, types, max(abs_sum, 1.0), what)
 
 
 def same_window_call(args, got, ref, what: str) -> float:
@@ -1136,11 +1373,15 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
     from spark_rapids_tpu_torch.ops import sort_ops as S
     from spark_rapids_tpu_torch.ops import window_ops as W
     tr = session.transfers
-    plain = {"K5": FU.fused_stage_compact_plain, "K6": FU.fused_project_plain,
+    plain = {"K1": FU.fused_agg_update_plain, "K3": G.global_reduce_plain,
+             "K15d": G.count_distinct_plain,
+             "K5": FU.fused_stage_compact_plain, "K6": FU.fused_project_plain,
              "K7": BO.gather_columns_plain, "K8": S.sort_permutation_plain,
              "K9": G.keyed_aggregate_plain, "K10": J.join_pairs_plain,
              "K14": W.window_reduce_plain}
-    kernel = {"K5": FU.fused_stage_compact, "K6": FU.fused_project,
+    kernel = {"K1": FU.fused_agg_update, "K3": G.global_reduce,
+              "K15d": G.count_distinct,
+              "K5": FU.fused_stage_compact, "K6": FU.fused_project,
               "K7": BO.gather_columns, "K8": S.sort_permutation,
               "K9": G.keyed_aggregate, "K10": J.join_pairs,
               "K14": W.window_reduce}
@@ -1157,7 +1398,29 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
         o["ms"] += ms
         o["plain_ms"] += time_ms(lambda: plain[name](*args, **kw), 2, 1)
         library = None
-        if name == "K5":
+        if name == "K1":
+            program, batch = args[0], args[1]
+            words = got[0]
+            o["bytes"] += sum(column_bytes(batch.columns[c])
+                              for c in program.used) + 9 * words.numel()
+            o["shapes"].append(f"{batch.row_count} rows, {len(program.used)}"
+                               f" columns: {ms:.4f} ms")
+        elif name == "K3":
+            values = args[0]
+            o["bytes"] += 9 * values.numel() + 9 * values.shape[1]
+            o["shapes"].append(f"{values.shape[0]}x{values.shape[1]}: "
+                               f"{ms:.4f} ms")
+        elif name == "K15d":
+            values = args[0]
+            gid = args[1] if len(args) > 1 else None
+            o["bytes"] += column_bytes(values) + 8 * got.shape[0] + \
+                (0 if gid is None else 8 * values.row_count)
+            o["shapes"].append(f"{values.row_count} rows -> {got.shape[0]}"
+                               f" groups: {ms:.4f} ms")
+            if gid is None:
+                def library(v=values):
+                    return torch.unique(v.data[v.validity]).numel()
+        elif name == "K5":
             program, batch, lits, _tr = args
             idx = got[0]
             used = [batch.columns[i] for i in program.used]
@@ -1198,7 +1461,7 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
                     return torch.argsort(word, stable=True)
         elif name == "K9":
             keys, inputs = args[0], args[1]
-            rep, res = got
+            rep, res = got[:2]
             g = rep.shape[0]
             o["bytes"] += sum(column_bytes(c) for c in keys) + \
                 sum(column_bytes(c) for c in inputs if c is not None) + \
@@ -1216,9 +1479,10 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
             b, p = args[0], args[1]
             pr = got[0]
             o["bytes"] += column_bytes(b) + column_bytes(p) + \
-                16 * pr.shape[0]
-            outer = " outer" if kw.get("outer") else ""
-            o["shapes"].append(f"{b.row_count} x {p.row_count} ->{outer} "
+                (8 if got[1] is None else 16) * pr.shape[0]
+            mode = " outer" if kw.get("outer") else \
+                f" {kw['mode']}" if kw.get("mode") else ""
+            o["shapes"].append(f"{b.row_count} x {p.row_count} ->{mode} "
                                f"{pr.shape[0]}: {ms:.4f} ms")
         if library is None or o["library_ms"] is None:
             o["library_ms"] = None
@@ -1308,10 +1572,19 @@ QUERIES = {
                     "date_dim"), "catalog_sales"),
     "q12": ("q12", ("web_sales", "item", "date_dim"), "web_sales"),
     "q20": ("q20", ("catalog_sales", "item", "date_dim"), "catalog_sales"),
+    "q13": ("q13", ("store_sales", "store", "customer_demographics",
+                    "household_demographics", "customer_address",
+                    "date_dim"), "store_sales"),
+    "q19": ("q19", ("date_dim", "store_sales", "item", "customer",
+                    "customer_address", "store"), "store_sales"),
+    "q16": ("q16", ("catalog_sales", "date_dim", "customer_address",
+                    "call_center", "catalog_returns"), "catalog_sales"),
 }
 #: the rows each query gives at sf 1000 (q3: at least)
 QUERY_ROWS = {"q3": 10, "q1": 100, "q7": 100, "q15": 40, "q12": 100,
-              "q20": 100}
+              "q20": 100, "q13": 1, "q19": 100, "q16": 1}
+#: phases 4 to 7, in bench.py's TPC-DS order within each slice
+TPCDS_ORDER = ("q3", "q1", "q7", "q15", "q12", "q20", "q13", "q19", "q16")
 
 
 def recipe_of(tpcds, name: str):
@@ -1424,8 +1697,9 @@ def main() -> int:
     ap.add_argument("--parts", type=int, default=4)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--sf", type=float, default=1000.0,
-                    help="TPC-DS scale of the q3, q1, q7, q15, q12 and q20 "
-                    "phases (store_sales 30,000 rows per sf)")
+                    help="TPC-DS scale of the q3, q1, q7, q15, q12, q20, "
+                    "q13, q19 and q16 phases (store_sales 30,000 rows per "
+                    "sf)")
     args = ap.parse_args()
 
     import torch
@@ -1529,6 +1803,18 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s), max |d| {errs4}")
     print(f"K14 on one partition of {SLICE3_SIZES[-1]} rows (a double sum): "
           f"{k14_one[0]:.4f} ms, bound {k14_one[1]:.6f} ms ({k14_one[2]} B)")
+
+    # -- phase 2e: the slice-5 forms against their plain versions -----------
+    t0 = time.perf_counter()
+    errs5, k15d_one = check_slice5(session, rng, rate)
+    print(f"K10 (semi, anti), K15d (keyed, global), K6 and K5 (<>, NOT, "
+          f"string views compared), K1 (string columns) vs plain: pass "
+          f"({time.perf_counter() - t0:.1f} s), max |d| {errs5}")
+    shapes = {"keyed": "15000000 rows in 5000000 groups",
+              "global": f"one group of {SLICE3_SIZES[-1]} rows"}
+    for what, (ms_, plain_, bound_, lib_) in k15d_one.items():
+        print(f"K15d {what} ({shapes[what]}): {ms_:.4f} ms, plain "
+              f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
 
     phase("kernels checked")
 
@@ -1667,12 +1953,13 @@ def main() -> int:
     t0 = time.perf_counter()
     generated = tpcds.generate_tables(args.sf)
     cuts = {q: getattr(tpcds, f"{q}_tables")(generated)
-            for q in ("q3", "q1", "q7", "q15", "q12", "q20")}
+            for q in TPCDS_ORDER}
     del generated   # the cuts keep the arrays the queries read
     print(f"TPC-DS sf {args.sf} generated in "
           f"{time.perf_counter() - t0:.1f} s")
-    # phase 6: q15, q12 and q20 over the same tables
-    for q in ("q3", "q1", "q7", "q15", "q12", "q20"):
+    # phase 6: q15, q12 and q20; phase 7: q13, q19 and q16, over the same
+    # tables
+    for q in TPCDS_ORDER:
         launches, timed = run_query(session, q, cuts.pop(q), rate,
                                     args.sf == 1000)
         phase(f"{q} run, checked and timed")
@@ -1684,13 +1971,23 @@ def main() -> int:
                 "path": q, "route": route, "source": source,
                 "replaces": replaces, "launches": launches[k],
                 "max_abs_err": max(errs.get(k, 0.0), errs3.get(k, 0.0),
-                                   errs4.get(k, 0.0), o["max_abs_err"]),
+                                   errs4.get(k, 0.0), errs5.get(k, 0.0),
+                                   o["max_abs_err"]),
                 "ms": o["ms"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound_ms"], "bound_by": "bytes",
                 "library_ms": o["library_ms"], "device_ms": o["device_ms"],
                 "per": "query", "passed": True}
             if q == "q1" and k in ("K7", "K10"):
                 entry["also_replaces"] = OUTER_REPLACES
+            if q == "q16" and k == "K10":
+                entry["also_replaces"] = SEMI_ANTI_REPLACES
+            if k == "K15d":
+                entry["also_replaces"] = DISTINCT_REPLACES
+                for what, (ms_, plain_, bound_, lib_) in k15d_one.items():
+                    entry[f"{what}_ms"] = ms_
+                    entry[f"{what}_plain_ms"] = plain_
+                    entry[f"{what}_bound_ms"] = bound_
+                    entry[f"{what}_library_ms"] = lib_
             if k == "K14":
                 entry["one_partition_ms"] = k14_one[0]
                 entry["one_partition_bound_ms"] = k14_one[1]

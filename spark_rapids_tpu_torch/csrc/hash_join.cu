@@ -1,5 +1,5 @@
-// Kernel K10: inner and left outer equi-join of one int or long key through
-// a hash table.
+// Kernel K10: inner, left outer, left semi and left anti equi-join of one
+// int or long key through a hash table.
 //
 // Replaces the JAX package's sort-based join programs `join.build`,
 // `join.probe`, `join.pair` and `join.compact_pairs`
@@ -22,6 +22,17 @@
 // insertion sort of that row's run), so the output does not depend on the
 // order in which build rows won their slots.  Null keys never match.
 //
+// Modes (the JAX package's finishing programs join.matched_flags,
+// join.unmatched_positions and concat_matched_unmatched, :275, :313, :418,
+// become modes of the count and write passes):
+//   inner  -- one pair per match;
+//   outer  -- a probe row with no match gives one pair (row, -1);
+//   semi   -- a probe row with a match is kept once, whatever the build
+//             side's duplicates: its chain walk stops at the first match;
+//   anti   -- a probe row with no match is kept, a null key included (the
+//             JAX package's plain anti join, not Spark's null-aware one).
+// Semi and anti write only the kept probe rows, in probe order.
+//
 // Bound: device memory bytes.  The probe side is read twice (count and
 // write passes) where the function needs it once; the table (a few
 // thousand slots on the main path) stays in L2.
@@ -34,6 +45,8 @@ using srt::kScanTile;
 using srt::kThreads;
 
 constexpr long long kEmpty = -1;
+
+enum Mode : int32_t { kInner = 0, kOuter = 1, kSemi = 2, kAnti = 3 };
 
 struct Side {
   const void* keys;
@@ -89,33 +102,46 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// matches of probe row i; semi and anti modes stop at the first
 __device__ __forceinline__ long long match_count(
     const Side& p, int64_t i, const long long* __restrict__ slots,
-    const long long* __restrict__ slot_keys, uint64_t mask) {
+    const long long* __restrict__ slot_keys, uint64_t mask, int mode) {
   if (i >= p.n || !present(p, i)) return 0;
   const long long k = key_at(p, i);
+  const bool first_only = mode == kSemi || mode == kAnti;
   long long c = 0;
-  for (uint64_t s = home(k, mask); slots[s] != kEmpty; s = (s + 1) & mask)
-    c += slot_keys[s] == k;
+  for (uint64_t s = home(k, mask); slots[s] != kEmpty; s = (s + 1) & mask) {
+    if (slot_keys[s] != k) continue;
+    ++c;
+    if (first_only) break;
+  }
   return c;
 }
 
-// pairs a probe row gives: its matches, and in outer mode at least one
+// rows a probe row gives: its matches; in outer mode at least one; in semi
+// mode one if it matched, in anti mode one if it did not
 __device__ __forceinline__ long long pair_count(long long matches,
                                                 const Side& p, int64_t i,
-                                                int outer) {
-  return (outer && i < p.n && matches == 0) ? 1 : matches;
+                                                int mode) {
+  if (i >= p.n) return 0;
+  switch (mode) {
+    case kOuter: return matches == 0 ? 1 : matches;
+    case kSemi: return matches > 0 ? 1 : 0;
+    case kAnti: return matches == 0 ? 1 : 0;
+    default: return matches;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
     probe_count(Side p, const long long* __restrict__ slots,
                 const long long* __restrict__ slot_keys, uint64_t mask,
-                int outer, int64_t* tile_counts) {
+                int mode, int64_t* tile_counts) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile;
   long long c = 0;
   for (int k = 0; k < kScanItems; ++k) {
     const int64_t i = base + k * kThreads + threadIdx.x;
-    c += pair_count(match_count(p, i, slots, slot_keys, mask), p, i, outer);
+    c += pair_count(match_count(p, i, slots, slot_keys, mask, mode), p, i,
+                    mode);
   }
   long long total;
   srt::block_exclusive_scan(c, &total);
@@ -125,19 +151,23 @@ __global__ void __launch_bounds__(kThreads)
 __global__ void __launch_bounds__(kThreads)
     probe_write(Side p, const long long* __restrict__ slots,
                 const long long* __restrict__ slot_keys, uint64_t mask,
-                int outer, const int64_t* __restrict__ tile_offsets,
+                int mode, const int64_t* __restrict__ tile_offsets,
                 long long* __restrict__ out_probe,
                 long long* __restrict__ out_build) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile;
   long long carry = tile_offsets[blockIdx.x];
   for (int k = 0; k < kScanItems; ++k) {
     const int64_t i = base + k * kThreads + threadIdx.x;
-    const long long m = match_count(p, i, slots, slot_keys, mask);
-    const long long c = pair_count(m, p, i, outer);
+    const long long m = match_count(p, i, slots, slot_keys, mask, mode);
+    const long long c = pair_count(m, p, i, mode);
     long long t;
     const long long start = carry + srt::block_exclusive_scan(c, &t);
     carry += t;
     if (c == 0) continue;
+    if (mode == kSemi || mode == kAnti) {  // the kept row alone
+      out_probe[start] = i;
+      continue;
+    }
     if (m == 0) {  // outer mode: the row with no match, null-extended
       out_probe[start] = i;
       out_build[start] = -1;
@@ -189,13 +219,16 @@ extern "C" int srt_join_build(const void* keys, int32_t key64,
   return static_cast<int>(cudaGetLastError());
 }
 
-// tile_offsets: srt::tiles_for(n) + 1 int64; after the call
-// tile_offsets[tiles] holds the number of pairs.
+// mode: Mode.  tile_offsets: srt::tiles_for(n) + 1 int64; after the call
+// tile_offsets[tiles] holds the number of pairs (kept rows in semi and
+// anti modes).
 extern "C" int srt_join_count(const void* keys, int32_t key64,
                               const void* valid, int64_t n, const void* slots,
                               const void* slot_keys, int64_t table_size,
-                              int32_t outer, void* tile_offsets,
+                              int32_t mode, void* tile_offsets,
                               void* stream) {
+  if (mode < kInner || mode > kAnti)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int64_t* offs = static_cast<int64_t*>(tile_offsets);
   if (n == 0)
@@ -204,23 +237,26 @@ extern "C" int srt_join_count(const void* keys, int32_t key64,
   probe_count<<<tiles, kThreads, 0, s>>>(
       side(keys, key64, valid, n), static_cast<const long long*>(slots),
       static_cast<const long long*>(slot_keys),
-      static_cast<uint64_t>(table_size - 1), outer, offs);
+      static_cast<uint64_t>(table_size - 1), mode, offs);
   srt::scan_tile_offsets<<<1, kThreads, 0, s>>>(offs, tiles, offs + tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
+// out_build is not written in semi and anti modes (it may be null).
 extern "C" int srt_join_write(const void* keys, int32_t key64,
                               const void* valid, int64_t n, const void* slots,
                               const void* slot_keys, int64_t table_size,
-                              int32_t outer, const void* tile_offsets,
+                              int32_t mode, const void* tile_offsets,
                               void* out_probe, void* out_build,
                               void* stream) {
+  if (mode < kInner || mode > kAnti)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   probe_write<<<srt::tiles_for(n), kThreads, 0, s>>>(
       side(keys, key64, valid, n), static_cast<const long long*>(slots),
       static_cast<const long long*>(slot_keys),
-      static_cast<uint64_t>(table_size - 1), outer,
+      static_cast<uint64_t>(table_size - 1), mode,
       static_cast<const int64_t*>(tile_offsets),
       static_cast<long long*>(out_probe), static_cast<long long*>(out_build));
   return static_cast<int>(cudaGetLastError());

@@ -29,7 +29,8 @@
 //   5. one thread per group folds its rows in row order: the double sums
 //      do not depend on timing, and equal those of a sequential sum in
 //      row order.
-// The caller gathers the key columns through group_rep (K7).
+// The caller gathers the key columns through group_rep (K7); gid, each
+// row's group id, is there for K15d (distinct.cu) over the same groups.
 //
 // Bound: at the main path's size (about ten thousand rows into a few
 // thousand groups) launch latency; at scale each row is read a few times
@@ -229,8 +230,9 @@ extern "C" int srt_agg_groups(int32_t n_keys, const int32_t* type,
       static_cast<int64_t*>(tile_scratch), s));
 }
 
-// Outputs: group_rep (n_groups int64), each aggregate's out (n_groups
-// words) and out_valid (n_groups bytes).  Scratch: gid (n u64),
+// Outputs: group_rep (n_groups int64), gid (n u64: each row's group), each
+// aggregate's out (n_groups words) and out_valid (n_groups bytes).
+// Scratch:
 // group_count (n_groups int64), seg (n_groups + 1), perm and perm_tmp (n),
 // hist (256 * ceil(n / 256) int32), digit_total (256), tile_scratch
 // (srt::tiles_for(n_groups)).
@@ -268,6 +270,9 @@ extern "C" int srt_agg_reduce(int32_t n_aggs, const int32_t* kind,
       static_cast<const long long*>(rep), static_cast<const int64_t*>(rank),
       static_cast<uint64_t*>(gid), static_cast<long long*>(group_rep),
       counts);
+  // no aggregate to fold (a group-by of count(DISTINCT) alone): the group
+  // ids and first rows are all the caller needs
+  if (n_aggs == 0) return static_cast<int>(cudaGetLastError());
   int64_t* sg = static_cast<int64_t*>(seg);
   err = srt::exclusive_scan(srt::ArrayValues{counts}, n_groups, sg,
                             static_cast<int64_t*>(tile_scratch), s);

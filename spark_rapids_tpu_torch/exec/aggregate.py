@@ -19,6 +19,8 @@ from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
+import torch
+
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.expressions.aggregates import (
@@ -29,6 +31,8 @@ from spark_rapids_tpu_torch.plan.base import ExecContext, Partitions, \
     UnaryExec
 
 PARTIAL, FINAL, COMPLETE = "partial", "final", "complete"
+#: the update kind of a count(DISTINCT)'s buffer, and its keyed_inputs kind
+DISTINCT = "distinct"
 
 
 class _AggLayout:
@@ -43,6 +47,11 @@ class _AggLayout:
         for ai, a in enumerate(self.aggs):
             for spec in a.func.buffers():
                 self.flat.append((ai, spec))
+
+    @property
+    def has_distinct(self) -> bool:
+        """A ``count(DISTINCT)`` is among the aggregates (K15d's)."""
+        return any(spec.update_kind == DISTINCT for _ai, spec in self.flat)
 
     def key_name(self, i: int) -> str:
         return output_name(self.grouping[i])
@@ -155,13 +164,30 @@ class TorchHashAggregateExec(UnaryExec):
         return out
 
 
+def distinct_input(f) -> int:
+    """The input ordinal of ``count(DISTINCT x)``: ``x`` must be a column
+    of a type K15d takes; raises NotImplementedError, naming it, else."""
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    e = f.children[0]
+    if not isinstance(e, BoundReference):
+        raise NotImplementedError(
+            f"{f.sql()}: a distinct count of an expression is not in the "
+            "port yet (of a column is)")
+    if e.data_type not in G.KEY_CODES:
+        raise NotImplementedError(
+            f"{f.sql()}: a distinct count of {e.data_type} is not in the "
+            "port yet (int, date, long, double and string are)")
+    return e.ordinal
+
+
 def keyed_inputs(layout: _AggLayout):
-    """``[(input ordinal or None, K9 kind, result type)]``: one K9
-    aggregate for a sum or a count, two (a double sum and a count of
-    present values) for an average.  Raises NotImplementedError, naming
-    it, for what K9 cannot fold yet."""
-    from spark_rapids_tpu_torch.expressions.aggregates import (Average,
-                                                               Count, Sum)
+    """``[(input ordinal or None, K9 kind or DISTINCT, result type)]``:
+    one K9 aggregate for a sum or a count, two (a double sum and a count
+    of present values) for an average, and a K15d count (``DISTINCT``)
+    for a ``count(DISTINCT)``.  Raises NotImplementedError, naming it,
+    for what K9 and K15d cannot fold yet."""
+    from spark_rapids_tpu_torch.expressions.aggregates import (
+        Average, Count, CountDistinct, Sum)
     from spark_rapids_tpu_torch.expressions.base import Literal
     from spark_rapids_tpu_torch.ops import agg_ops as G
     for k in layout.grouping:
@@ -177,6 +203,9 @@ def keyed_inputs(layout: _AggLayout):
     for a in layout.aggs:
         f = a.func
         e = f.children[0]
+        if isinstance(f, CountDistinct):
+            out.append((distinct_input(f), DISTINCT, T.LONG))
+            continue
         if isinstance(f, Count) and isinstance(e, Literal) and \
                 e.value is not None:
             out.append((None, G.KEYED_COUNT_ALL, T.LONG))
@@ -205,7 +234,10 @@ class TorchKeyedAggregateExec(UnaryExec):
     when an aggregate has a final expression (an average's
     ``If(cnt > 0, sum / cnt, NULL)``), K6 over the group rows, as
     ``exec/fused.py:653`` runs ``eval_exprs_tpu`` over the merged
-    groups.  A sum's and a count's K9 result is already final."""
+    groups.  A sum's and a count's K9 result is already final.  A
+    ``count(DISTINCT)`` is K15d's over K9's groups (its row group ids), as
+    ``_complete_collect`` (``exec/aggregate.py:510``) zips its collect
+    slots with the scalar ones."""
 
     def __init__(self, layout: _AggLayout, child):
         from spark_rapids_tpu_torch.expressions.aggregates import Average
@@ -256,16 +288,28 @@ class TorchKeyedAggregateExec(UnaryExec):
         from spark_rapids_tpu_torch.columnar.column import DeviceColumn
         from spark_rapids_tpu_torch.exec.fused import (LiteralArgs,
                                                        project_batch)
-        from spark_rapids_tpu_torch.ops.agg_ops import keyed_aggregate
+        from spark_rapids_tpu_torch.ops.agg_ops import (count_distinct,
+                                                        keyed_aggregate)
         from spark_rapids_tpu_torch.ops.batch_ops import gather_columns
         keys = [batch.columns[k.ordinal] for k in self.layout.grouping]
-        inputs = [None if o is None else batch.columns[o]
-                  for o, _kind, _dt in self.inputs]
-        group_rep, results = keyed_aggregate(
-            keys, inputs, [kind for _o, kind, _dt in self.inputs], transfers)
+        scalar = [(o, kind) for o, kind, _dt in self.inputs
+                  if kind != DISTINCT]
+        distinct = len(scalar) < len(self.inputs)
+        got = keyed_aggregate(
+            keys, [None if o is None else batch.columns[o]
+                   for o, _kind in scalar],
+            [kind for _o, kind in scalar], transfers, row_groups=distinct)
+        group_rep, results = got[0], iter(got[1])
+        n_groups = group_rep.shape[0]
         cols = gather_columns(keys, group_rep, transfers, unique=True)
-        for (_o, _kind, dt), (data, valid) in zip(self.inputs, results):
-            cols.append(DeviceColumn(data, valid, dt))
+        for o, kind, dt in self.inputs:
+            if kind != DISTINCT:
+                cols.append(DeviceColumn(*next(results), dt))
+                continue
+            counts = count_distinct(batch.columns[o], got[2], n_groups) \
+                if n_groups else group_rep.new_zeros(0)
+            cols.append(DeviceColumn(counts, torch.ones_like(
+                counts, dtype=torch.bool), dt))
         names = self.schema.names
         if self.finish is None:
             return ColumnarBatch(cols, group_rep.shape[0], names)

@@ -10,13 +10,20 @@ CPU batch it runs ``fused_agg_update_plain``.  Kernel 2 (ops/agg_ops.py)
 then folds the partial rows into the partition's one buffer row, in a
 fixed order.
 
-Bound: the kernel reads every data plane once, and the validity plane of
-each column that may hold nulls (on the main path 8 + 8 + 4 bytes of data
-per row, and no validity: the bench's columns hold no null), and writes 9
-bytes per buffer per program; its arithmetic (under 100 integer operations per row for the
-hash) is far below the card's rate, so it is bound by device memory
-bytes.  The grid stride keeps each program's accumulators in registers and
-reduces them once, instead of once per tile.
+The chain is flattened to its predicates and update inputs over the input
+columns, so the kernel takes only the columns they read: a fixed-width
+column's plane, a string column's chars and offsets (q13's filter reads
+three strings, compared with literals' bytes inside the kernel), and the
+validity plane of a column that may hold nulls.
+
+Bound: the kernel reads every plane it takes once (on the slice-1 path 8
++ 8 + 4 bytes of data per row, and no validity: the bench's columns hold
+no null; on q13 ten fixed-width columns and a few bytes of each string),
+and writes 9 bytes per buffer per program; its arithmetic (under 100
+integer operations per row for the hash, a byte compare per literal byte)
+is far below the card's rate, so it is bound by device memory bytes.  The
+grid stride keeps each program's accumulators in registers and reduces
+them once, instead of once per tile.
 
 The compacting stage, K5 (``TpuFusedStageExec``, kind ``fused.stage``),
 is the second part of this module, and the computing projection, K6
@@ -79,8 +86,11 @@ def _ops_signature(ops) -> Tuple:
 
 class FusedAggProgram:
     """One chain over one input schema: the key of its kernels, and what
-    kernel 2 needs to fold their partial rows.  The chain has one kernel
-    for each set of input columns that may hold nulls."""
+    kernel 2 needs to fold their partial rows.  The chain is flattened
+    (``flatten_chain``) to its predicates and its update inputs over the
+    input columns, so the kernel reads only the columns they use.  The
+    chain has one kernel for each set of input columns that may hold
+    nulls."""
 
     def __init__(self, ops, layout, input_types: Sequence[T.DataType],
                  n_literals: int):
@@ -92,6 +102,13 @@ class FusedAggProgram:
         if layout.num_keys:
             raise NotImplementedError(
                 "grouped aggregation is not in this slice of the port")
+        schema = T.StructType([T.StructField(f"_c{i}", t, True)
+                               for i, t in enumerate(self.input_types)])
+        self.conditions, outputs = flatten_chain(self.ops, schema)
+        self.update_inputs = [over_outputs(e, outputs)
+                              for e in self.update_exprs]
+        self.used = K.referenced_columns(self.conditions +
+                                         self.update_inputs)
         self.key = (_ops_signature(self.ops),
                     tuple(str(t) for t in self.input_types),
                     tuple((e.sql(), str(e.data_type))
@@ -115,8 +132,8 @@ class FusedAggProgram:
         return get_or_build(
             "fused.agg_update", self.key + (nullable,),
             lambda: FusedKernel(K.kernel_source(
-                self.input_types, nullable, self.ops, self.update_exprs,
-                self.update_specs, self.n_literals)))
+                self.input_types, nullable, self.conditions,
+                self.update_inputs, self.update_specs, self.n_literals)))
 
 
 class FusedKernel:
@@ -204,13 +221,7 @@ def fused_agg_update(program: FusedAggProgram, batch: ColumnarBatch,
                       device=device)
     out_valid = torch.empty((n_programs, n_buffers), dtype=torch.bool,
                             device=device)
-    args: List = []
-    for c in batch.columns:
-        args.append(c.data.contiguous())
-        if not c.all_valid:
-            args.append(c.validity.contiguous().view(torch.uint8))
-    if program.n_literals:
-        args.append(lits.words)
+    args = _column_args(program, batch, lits)
     args += [out, out_valid.view(torch.uint8), n]
     kernel = program.kernel_for(
         tuple(not c.all_valid for c in batch.columns)).kernel()
@@ -271,17 +282,38 @@ class TorchFusedAggExec(UnaryExec):
     """Fused [Filter|Project]* chain and the aggregate's update pass: one
     kernel-1 launch per batch, then a kernel-2 fold of its partial rows.
     PARTIAL yields one buffer row per batch; COMPLETE merges them and
-    evaluates the final projection."""
+    evaluates the final projection.
+
+    A ``count(DISTINCT)`` (COMPLETE over one batch, no chain: the planner
+    runs the chain as a stage below) is K15d's over one group, beside
+    kernel 1 for the other aggregates, as the JAX package's
+    ``_complete_collect`` (``exec/aggregate.py:510``) runs its collect
+    slots beside the scalar ones."""
 
     def __init__(self, ops, layout, mode: str, child, promoted=()):
+        from spark_rapids_tpu_torch.exec.aggregate import (COMPLETE,
+                                                           _AggLayout,
+                                                           distinct_input)
+        from spark_rapids_tpu_torch.expressions.aggregates import \
+            CountDistinct
         super().__init__(child)
         self.ops = list(ops)
         self.layout = layout
         self.mode = mode
         self.promoted = list(promoted)
+        #: agg index -> the input ordinal of each count(DISTINCT)
+        self.distinct = {i: distinct_input(a.func)
+                         for i, a in enumerate(layout.aggs)
+                         if isinstance(a.func, CountDistinct)}
+        if self.distinct and (mode != COMPLETE or self.ops):
+            raise ValueError("a count(DISTINCT) runs in COMPLETE mode over "
+                             "a chain's output")
+        #: the aggregates kernel 1 updates
+        self.scalar = _AggLayout([], [a for i, a in enumerate(layout.aggs)
+                                      if i not in self.distinct])
         self.program = FusedAggProgram(
-            self.ops, layout, [f.data_type for f in child.schema.fields],
-            len(self.promoted))
+            self.ops, self.scalar, [f.data_type for f in child.schema.fields],
+            len(self.promoted)) if self.scalar.aggs else None
 
     @property
     def schema(self):
@@ -290,8 +322,10 @@ class TorchFusedAggExec(UnaryExec):
             self.layout.result_schema
 
     def node_string(self):
+        distinct = "".join(f", {self.layout.aggs[i].func.sql()}"
+                           for i in self.distinct)
         return (f"TorchFusedAgg[mode={self.mode}, "
-                f"keys={self.layout.num_keys}]" +
+                f"keys={self.layout.num_keys}{distinct}]" +
                 chain_string(self.ops, self.promoted))
 
     def update_batch(self, batch: ColumnarBatch, lits: LiteralArgs
@@ -301,11 +335,41 @@ class TorchFusedAggExec(UnaryExec):
         row, row_valid = agg_ops.global_reduce(words, valid,
                                                self.program.fold_kinds)
         return agg_ops.unpack_row(row, row_valid, self.program.buffer_types,
-                                  self.layout.buffer_names)
+                                  self.scalar.buffer_names)
+
+    def distinct_row(self, part: List[ColumnarBatch], ctx: ExecContext
+                     ) -> ColumnarBatch:
+        """The result row of an aggregation with a ``count(DISTINCT)``:
+        kernel 1 and 2 for the other aggregates, K15d for each distinct
+        count."""
+        from spark_rapids_tpu_torch.exec.aggregate import finish, \
+            merge_partials
+        if len(part) != 1:
+            raise NotImplementedError(
+                f"count(DISTINCT) over {len(part)} batches is not in the "
+                "port yet")
+        batch = part[0]
+        scalar = iter([])
+        if self.program is not None:
+            lits = LiteralArgs.upload(self.promoted, ctx.transfers)
+            scalar = iter(finish(self.scalar, merge_partials(
+                self.scalar, [self.update_batch(batch, lits)])).columns)
+        cols = []
+        for i in range(len(self.layout.aggs)):
+            if i not in self.distinct:
+                cols.append(next(scalar))
+                continue
+            counts = agg_ops.count_distinct(batch.columns[self.distinct[i]])
+            cols.append(DeviceColumn(counts, torch.ones_like(
+                counts, dtype=torch.bool), T.LONG))
+        return ColumnarBatch(cols, 1, self.layout.result_schema.names)
 
     def execute(self, ctx: ExecContext) -> Partitions:
         from spark_rapids_tpu_torch.exec.aggregate import (PARTIAL, finish,
                                                            merge_partials)
+        if self.distinct:
+            return [[self.distinct_row(part, ctx)]
+                    for part in self.child.execute(ctx)]
         lits = LiteralArgs.upload(self.promoted, ctx.transfers)
         out = []
         for part in self.child.execute(ctx):
@@ -352,20 +416,22 @@ def flatten_chain(ops, schema: T.StructType):
     expressions over the chain's input columns."""
     current = [BoundReference(i, f.data_type, f.nullable, f.name)
                for i, f in enumerate(schema.fields)]
-
-    def over_input(e):
-        def fix(node):
-            return current[node.ordinal] \
-                if isinstance(node, BoundReference) else node
-        return e.transform_up(fix)
-
     conditions = []
     for kind, payload in ops:
         if kind == "filter":
-            conditions.append(over_input(payload))
+            conditions.append(over_outputs(payload, current))
         else:
-            current = [over_input(e) for e in payload]
+            current = [over_outputs(e, current) for e in payload]
     return conditions, current
+
+
+def over_outputs(e, outputs):
+    """``e``, which reads columns ``outputs``, rewritten to read what
+    they read."""
+    def fix(node):
+        return outputs[node.ordinal] \
+            if isinstance(node, BoundReference) else node
+    return e.transform_up(fix)
 
 
 class StageProgram:
@@ -380,7 +446,7 @@ class StageProgram:
         self.conditions, outputs = flatten_chain(ops, schema)
         self.bare = [bare_ordinal(e) for e in outputs]
         self.computed = [e for e, b in zip(outputs, self.bare) if b is None]
-        self.used = S.referenced_columns(self.conditions + self.computed)
+        self.used = K.referenced_columns(self.conditions + self.computed)
         self.n_literals = n_literals
         self.key = (_ops_signature(ops),
                     tuple(str(t) for t in self.input_types), n_literals)
@@ -404,7 +470,7 @@ class StageProgram:
 
 def _column_args(program, batch: ColumnarBatch, lits: LiteralArgs) -> List:
     """The kernel arguments of the columns ``program`` uses, in the order
-    ``kernels/fused_stage.py _body`` names them (data, a string's
+    ``kernels/fused_agg.py load_columns`` names them (data, a string's
     offsets, the validity plane of a column that may hold nulls), then
     the literal table."""
     args: List = []

@@ -1,7 +1,7 @@
-"""Inner and left outer equi-joins over one partition (the analog of
-``spark_rapids_tpu/exec/joins.py``: ``TpuShuffledHashJoinExec`` ``:596`` and
-``TpuSubPartitionHashJoinExec`` ``:878``, device core ``_join_device``
-``:389``).
+"""Inner, left outer, left semi and left anti equi-joins over one
+partition (the analog of ``spark_rapids_tpu/exec/joins.py``:
+``TpuShuffledHashJoinExec`` ``:596`` and ``TpuSubPartitionHashJoinExec``
+``:878``, device core ``_join_device`` ``:389``).
 
 An inner join builds its hash table on the side with fewer rows, as
 Spark's shuffled hash join on the GPU chooses (a TPC-DS star join puts
@@ -13,11 +13,18 @@ side is preserved, so it probes (JAX ``:528-535``).  K10
 (``ops/join_ops.py``) gives the row pairs, in its outer mode a left row
 with no match paired with build row -1; K7 gathers each side's columns
 through them and writes a null row for -1.  Output columns stay left
-then right whichever side was built (JAX ``:400-404``).
+then right whichever side was built (JAX ``:400-404``).  A left semi or
+anti join (JAX ``:433-513``) builds on the right side whatever the sizes,
+K10's semi or anti mode gives the kept left rows in order, with no pair
+expansion whatever the right side's duplicates, and K7 gathers the left
+columns alone: its output is the left schema.  Anti keeps a row whose
+key is null, as the JAX package's plain anti join does (its analyzer
+plans ``NOT IN`` so, ``sql/analyzer.py:24-26``; Spark's null-aware anti
+join would drop it).
 
-Refused by name when the plan is built: other join types, a condition
-beyond the keys, several key columns, keys other than int or long, and
-children of several partitions."""
+Refused by name when the plan is built: right, full and cross joins, a
+condition beyond the keys, several key columns, keys other than int or
+long, and children of several partitions."""
 
 from __future__ import annotations
 
@@ -33,8 +40,14 @@ from spark_rapids_tpu_torch.plan.base import (Exec, ExecContext, Partitions,
 
 INNER = "inner"
 LEFT_OUTER = "left_outer"
+LEFT_SEMI = "left_semi"
+LEFT_ANTI = "left_anti"
 
-_HOW = {"inner": INNER, "left": LEFT_OUTER, "leftouter": LEFT_OUTER}
+_HOW = {"inner": INNER, "left": LEFT_OUTER, "leftouter": LEFT_OUTER,
+        "semi": LEFT_SEMI, "leftsemi": LEFT_SEMI,
+        "anti": LEFT_ANTI, "leftanti": LEFT_ANTI}
+#: K10's mode of each existence join
+_EXISTENCE = {LEFT_SEMI: "semi", LEFT_ANTI: "anti"}
 
 
 def normalize_how(how: str) -> str:
@@ -43,8 +56,8 @@ def normalize_how(how: str) -> str:
     h = how.lower().replace("_", "").replace(" ", "")
     if h not in _HOW:
         raise NotImplementedError(
-            f"{how} joins are not in the port yet (inner and left outer "
-            "joins are)")
+            f"{how} joins are not in the port yet (inner, left outer, "
+            "left semi and left anti joins are)")
     return _HOW[h]
 
 
@@ -114,6 +127,11 @@ class TorchHashJoinExec(Exec):
                      transfers) -> ColumnarBatch:
         lkey = lb.columns[self.left_keys[0].ordinal]
         rkey = rb.columns[self.right_keys[0].ordinal]
+        if self.how in _EXISTENCE:
+            lidx, _none = join_pairs(rkey, lkey, transfers,
+                                     mode=_EXISTENCE[self.how])
+            cols = gather_columns(lb.columns, lidx, transfers, unique=True)
+            return ColumnarBatch(cols, lidx.shape[0], self.schema.names)
         outer = self.how == LEFT_OUTER
         if outer:
             lidx, ridx = join_pairs(rkey, lkey, transfers, outer=True)

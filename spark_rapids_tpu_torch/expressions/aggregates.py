@@ -128,6 +128,33 @@ class Average(AggregateFunction):
                   Literal(None, T.DOUBLE))
 
 
+class CountDistinct(AggregateFunction):
+    """count(DISTINCT x): the distinct non-null values; LONG, never null
+    (0 for an empty or all-null group)."""
+
+    requires_complete = True
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def data_type(self):
+        return T.LONG
+
+    @property
+    def nullable(self):
+        return False
+
+    def sql(self):
+        return f"count(DISTINCT {self.children[0].sql()})"
+
+    def buffers(self):
+        return [BufferSpec("distinct", T.LONG, "distinct", "distinct")]
+
+    def evaluate(self, refs):
+        return refs[0]
+
+
 @dataclasses.dataclass
 class AggregateExpression:
     """An aggregate and its output name."""

@@ -4,12 +4,15 @@
 Operands widen to a common type; a null operand gives null.  For doubles
 Spark orders NaN above every other value (``predicates.py:190-219``), so
 ``NaN >= x`` and ``x <= NaN`` hold for every x.  A date compares as its
-days.  ``=`` also compares two strings byte for byte.  ``And`` (``:258``)
-and ``Or`` (``:295``) follow Spark's three-valued logic: ``null AND
-false`` is false and ``null OR true`` is true; otherwise a null operand
-gives null.  ``In`` (``:413``) is the OR chain of ``value = option``
-over its literal options, so a null value gives null, NaN matches a NaN
-option, and a null option makes a miss null."""
+days.  ``=`` and ``<>`` (``NotEqual``, ``:224``) also compare two strings
+byte for byte: columns, substrings of columns or literals.  ``<>`` is NOT
+``=``, so ``NaN <> NaN`` is false.  ``And`` (``:258``) and ``Or``
+(``:295``) follow Spark's three-valued logic: ``null AND false`` is false
+and ``null OR true`` is true; otherwise a null operand gives null.
+``Not`` (``:330``) negates, and NOT null is null.  ``In`` (``:413``) is
+the OR chain of ``value = option`` over its literal options, so a null
+value gives null, NaN matches a NaN option, and a null option makes a
+miss null."""
 
 from __future__ import annotations
 
@@ -69,21 +72,28 @@ class BinaryComparison(BinaryExpr):
     def _cmp(self, a, b, floating: bool):
         raise NotImplementedError
 
+    def _string_equal(self, ctx: EvalContext) -> Col:
+        """``=`` of the two string operands, a literal's bytes compared
+        directly."""
+        for column, other in ((self.left, self.right),
+                              (self.right, self.left)):
+            if type(other) is Literal and other.value is not None:
+                a = column.eval(ctx)
+                return Col(string_equals_literal(
+                    a, other.value.encode("utf-8")), a.valid)
+        a = self.left.eval(ctx)
+        b = self.right.eval(ctx)
+        return Col(string_equal(a, b), a.valid & b.valid)
+
     def eval(self, ctx: EvalContext) -> Col:
         ot = self.operand_type
         if isinstance(ot, T.StringType):
-            if not isinstance(self, EqualTo):
+            if not isinstance(self, (EqualTo, NotEqual)):
                 raise NotImplementedError(
                     f"{self.symbol} of strings is not in the port yet")
-            for column, other in ((self.left, self.right),
-                                  (self.right, self.left)):
-                if type(other) is Literal and other.value is not None:
-                    a = column.eval(ctx)
-                    return Col(string_equals_literal(
-                        a, other.value.encode("utf-8")), a.valid)
-            a = self.left.eval(ctx)
-            b = self.right.eval(ctx)
-            return Col(string_equal(a, b), a.valid & b.valid)
+            eq = self._string_equal(ctx)
+            return Col(~eq.data if isinstance(self, NotEqual) else eq.data,
+                       eq.valid)
         a = self.left.eval(ctx)
         b = self.right.eval(ctx)
         out = self._cmp(a.data.to(ot.torch_dtype), b.data.to(ot.torch_dtype),
@@ -137,6 +147,36 @@ class EqualTo(BinaryComparison):
         if floating:
             return (a == b) | (torch.isnan(a) & torch.isnan(b))
         return a == b
+
+
+class NotEqual(BinaryComparison):
+    """``<>``: NOT ``=``, so NaN <> NaN is false and -0.0 <> 0.0 too."""
+
+    symbol = "<>"
+
+    def _cmp(self, a, b, floating):
+        return ~EqualTo._cmp(self, a, b, floating)
+
+
+class Not(Expression):
+    """NOT: Kleene, so NOT null is null."""
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def data_type(self):
+        return T.BOOLEAN
+
+    def sql(self):
+        return f"(NOT {self.children[0].sql()})"
+
+    def eval(self, ctx: EvalContext) -> Col:
+        c = self.children[0]
+        if not isinstance(c.data_type, T.BooleanType):
+            raise TypeError(f"NOT of {c.data_type}")
+        v = c.eval(ctx)
+        return Col(~v.data, v.valid)
 
 
 class _Logic(BinaryExpr):

@@ -6,8 +6,8 @@ from __future__ import annotations
 from spark_rapids_tpu_torch.expressions import window_exprs as W
 from spark_rapids_tpu_torch.expressions.base import Expression, col, lit
 
-__all__ = ["col", "lit", "sum", "count", "avg", "asc", "desc",
-           "substring", "Window", "WindowBuilder"]
+__all__ = ["col", "lit", "sum", "count", "count_distinct", "avg", "asc",
+           "desc", "substring", "Window", "WindowBuilder"]
 
 
 def _expr(e) -> Expression:
@@ -29,6 +29,15 @@ def count(e="*"):
     if isinstance(e, str) and e == "*":
         return Count(lit(1))
     return Count(_expr(e))
+
+
+def count_distinct(e):
+    """``count(DISTINCT e)``: K15d, over one group or K9's groups."""
+    from spark_rapids_tpu_torch.expressions.aggregates import CountDistinct
+    return CountDistinct(_expr(e))
+
+
+countDistinct = count_distinct
 
 
 def asc(e, nulls_first: bool = True):

@@ -7,10 +7,11 @@ counterpart here emits the source of one ``@triton.jit`` kernel per chain
 signature from the expression tree:
 
 - each program instance walks tiles of ``BLOCK`` rows with a grid stride
-  (tile ``pid``, ``pid + n_programs``, ...) and loads every input column
-  once, with its validity plane (bool viewed as uint8) where the column may
-  hold nulls: a column known to hold none is all valid, read no plane, and
-  gets a kernel of its own;
+  (tile ``pid``, ``pid + n_programs``, ...) and loads each input column
+  the flattened chain reads once (``load_columns``: a string column as its
+  chars and offsets), with its validity plane (bool viewed as uint8) where
+  the column may hold nulls: a column known to hold none is all valid,
+  read no plane, and gets a kernel of its own;
 - filters AND into a selection mask that the reductions read, with no
   compaction; projections are evaluated inline; Spark's murmur3 runs as
   uint32 device functions with wrapping multiplies and logical shifts;
@@ -23,7 +24,11 @@ signature from the expression tree:
   in a fixed order.
 
 Promoted literals (``plan/stages.py``) are read from a runtime table of
-int64 words, so one built kernel serves every literal value.
+int64 words, so one built kernel serves every literal value.  K5 and K6
+(``kernels/fused_stage.py``) share the emitters and ``load_columns``:
+comparisons (``=``, ``<>``, the orders; strings against a literal's bytes
+or another view's), ``IN``, ``NOT`` and Kleene ``AND``/``OR``, arithmetic,
+casts, ``If``, substring views and murmur3.
 
 The emitters live in a registry keyed by expression class, so the
 expression modules never import ``triton``; a class with no emitter is
@@ -305,33 +310,72 @@ def _view_equals(em, view, raw: bytes) -> str:
     return eq
 
 
-def _string_equals_literal(em, column: Expression, text: str, cols
-                           ) -> Value:
-    """A string column, or a substring of one, ``= text``."""
-    v, valid = em.emit(column, cols)
-    return (_view_equals(em, em.string_view(v, column.sql()),
-                         text.encode("utf-8")), valid)
+def _views_equal(em, a, b) -> str:
+    """Rows whose two string views hold the same bytes: the lengths
+    first, then a byte loop bounded by the longest length of the tile
+    among the rows still equal; a byte is read only where the row's
+    bytes so far matched and it lies inside the view.  The two views may
+    read different chars buffers."""
+    (ca, sa, la), (cb, sb, lb) = a, b
+    em._n += 1
+    eq, top, j = f"veq{em._n}", f"vtop{em._n}", f"vj{em._n}"
+    em.lines += [
+        f"{eq} = ({la} == {lb}) & inb",
+        f"{top} = tl.max(tl.where({eq}, {la}, 0), axis=0).to(tl.int32)",
+        f"for {j} in range(0, {top}):",
+        f"    {eq} = {eq} & ((tl.load({ca} + {sa} + {j}, mask={eq} & "
+        f"({j} < {la}), other=0) == tl.load({cb} + {sb} + {j}, "
+        f"mask={eq} & ({j} < {lb}), other=0)) | ({j} >= {la}))"]
+    return eq
 
 
-@emits(P.EqualTo)
-def _equal_to(em, e, cols):
+def _string_equality(em, e, cols) -> Value:
+    """``=`` of two string operands: a literal's bytes are constants of
+    the kernel; otherwise two views (columns or substrings of them) are
+    compared byte by byte."""
+    for column, other in ((e.left, e.right), (e.right, e.left)):
+        if type(other) is Literal and other.value is not None:
+            v, valid = em.emit(column, cols)
+            return (_view_equals(em, em.string_view(v, column.sql()),
+                                 other.value.encode("utf-8")), valid)
+    (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
+    return (_views_equal(em, em.string_view(a, e.left.sql()),
+                         em.string_view(b, e.right.sql())),
+            em.both(av, bv))
+
+
+def _equality(em, e, cols) -> Value:
+    """``=`` of ``e``'s operands (NaN equals NaN)."""
     ot = e.operand_type
     if isinstance(ot, T.StringType):
-        for column, other in ((e.left, e.right), (e.right, e.left)):
-            if type(other) is Literal and other.value is not None:
-                return _string_equals_literal(em, column, other.value, cols)
-        raise NotImplementedError(
-            f"{e.sql()}: a string = has a kernel form only against a "
-            "string literal")
+        return _string_equality(em, e, cols)
     (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
     a = em.cast(a, e.left.data_type, ot)
     b = em.cast(b, e.right.data_type, ot)
     if ot.is_floating:
-        # NaN equals NaN
         out = f"({a} == {b}) | (({a} != {a}) & ({b} != {b}))"
     else:
         out = f"{a} == {b}"
     return em.let(out), em.both(av, bv)
+
+
+@emits(P.EqualTo)
+def _equal_to(em, e, cols):
+    return _equality(em, e, cols)
+
+
+@emits(P.NotEqual)
+def _not_equal(em, e, cols):
+    eq, valid = _equality(em, e, cols)
+    return em.let(f"~{eq}"), valid
+
+
+@emits(P.Not)
+def _not(em, e, cols):
+    v, valid = em.emit(e.children[0], cols)
+    if v in (em.TRUE, em.FALSE):
+        return em.FALSE if v == em.TRUE else em.TRUE, valid
+    return em.let(f"~{v}"), valid
 
 
 @emits(P.In)
@@ -460,43 +504,78 @@ def _murmur3(em, e, cols):
     return em.let(f"{h}.to(tl.int32, bitcast=True)"), em.TRUE
 
 
-def kernel_source(input_types: Sequence[T.DataType], nullable: Sequence[bool],
-                  ops, update_exprs: Sequence[Expression], update_specs,
-                  n_literals: int) -> str:
-    """Source of a module whose ``fused_agg_update`` kernel runs ``ops`` over
-    columns of ``input_types`` and writes one partial row per program.
+def referenced_columns(exprs: Sequence[Expression]) -> List[int]:
+    """The input ordinals ``exprs`` read, in order."""
+    found = set()
 
-    The kernel takes each column's data and, where ``nullable`` says the
-    column may hold nulls, its validity plane.  ``update_specs`` are
-    ``(ordinal, kind, count_valid_only, dtype)`` over ``update_exprs``;
-    kinds ``sum`` and ``count`` have kernel forms."""
-    em = ChainEmitter()
+    def visit(e):
+        if isinstance(e, BoundReference):
+            found.add(e.ordinal)
+        for c in e.children:
+            visit(c)
+    for e in exprs:
+        visit(e)
+    return sorted(found)
+
+
+def load_columns(input_types, nullable, used, conditions, em: ChainEmitter
+                 ) -> tuple:
+    """Emits the loads of the ``used`` columns and the predicates:
+    ``(parameter names, the columns as values, the selection mask)``.  A
+    fixed-width column is one plane (``in{i}``); a string column is its
+    chars and offsets (``in{i}``, ``in{i}_off``), and the emitters that
+    read it load what they need (``em.strings``); a column marked in
+    ``nullable`` adds its validity plane (``in{i}_valid``)."""
     params = []
-    cols: List[Value] = []
-    for i, (dt, may_be_null) in enumerate(zip(input_types, nullable)):
+    cols: List[Value] = [None] * len(input_types)
+    for i in used:
+        dt = input_types[i]
         params.append(f"in{i}")
-        load = f"tl.load(in{i} + offs, mask=inb, other=0)"
-        if isinstance(dt, T.BooleanType):
-            load += " != 0"
-        elif dt not in _TL:
-            raise NotImplementedError(f"no kernel form for a {dt} column")
-        em.lines.append(f"x{i} = {load}")
+        if isinstance(dt, T.StringType):
+            params.append(f"in{i}_off")
+            em.strings[f"x{i}"] = (f"in{i}", f"in{i}_off", None)
+        else:
+            load = f"tl.load(in{i} + offs, mask=inb, other=0)"
+            if isinstance(dt, T.BooleanType):
+                load += " != 0"
+            elif dt not in _TL:
+                raise NotImplementedError(
+                    f"a {dt} column cannot be read inside a fused kernel "
+                    "yet")
+            em.lines.append(f"x{i} = {load}")
         valid = em.TRUE
-        if may_be_null:
+        if nullable[i]:
             params.append(f"in{i}_valid")
             em.lines.append(f"m{i} = tl.load(in{i}_valid + offs, mask=inb, "
                             "other=0) != 0")
             valid = f"m{i}"
-        cols.append((f"x{i}", valid))
+        cols[i] = (f"x{i}", valid)
+    sel = "inb"
+    for cond in conditions:
+        pred, pred_valid = em.emit(cond, cols)
+        sel = em.both(em.both(sel, pred_valid), pred)
+    return params, cols, sel
+
+
+def kernel_source(input_types: Sequence[T.DataType], nullable: Sequence[bool],
+                  conditions: Sequence[Expression],
+                  update_exprs: Sequence[Expression], update_specs,
+                  n_literals: int) -> str:
+    """Source of a module whose ``fused_agg_update`` kernel evaluates the
+    chain's ``conditions`` and ``update_exprs`` (both over the input
+    columns: the chain flattened, ``exec/fused.py flatten_chain``) and
+    writes one partial row per program.
+
+    The kernel takes the columns the expressions read (``load_columns``),
+    then the literal table.  ``update_specs`` are ``(ordinal, kind,
+    count_valid_only, dtype)`` over ``update_exprs``; kinds ``sum`` and
+    ``count`` have kernel forms."""
+    em = ChainEmitter()
+    used = referenced_columns(list(conditions) + list(update_exprs))
+    params, cols, sel = load_columns(input_types, nullable, used,
+                                     conditions, em)
     if n_literals:
         params.append("lits")
-    sel = "inb"
-    for kind, payload in ops:
-        if kind == "filter":
-            pred, pred_valid = em.emit(payload, cols)
-            sel = em.both(em.both(sel, pred_valid), pred)
-        else:
-            cols = [em.emit(e, cols) for e in payload]
     n_buffers = len(update_specs)
     inits, stores = [], []
     counts: Dict[str, str] = {}   # presence mask -> its count accumulator

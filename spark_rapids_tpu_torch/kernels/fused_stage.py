@@ -27,9 +27,11 @@ the row's own position, so it needs no count, no scan, no sync and no
 row indices.
 
 A string column is read through its chars and offsets (``in{i}``,
-``in{i}_off``); the ``=`` and ``IN`` emitters compare it, or a
-``Substring`` view of it, with a literal's bytes.  A computed string
-output is refused, by its expression.
+``in{i}_off``); the ``=``, ``<>`` and ``IN`` emitters compare it, or a
+``Substring`` view of it, with a literal's bytes, and ``=`` and ``<>``
+compare two such views (two columns' chars buffers: the lengths first,
+then a byte loop bounded by the tile's longest equal length).  A computed
+string output is refused, by its expression.
 
 Outputs that are input columns as they are (bare references) are not
 written here: K5's caller gathers them through the row indices (K7), and
@@ -45,7 +47,9 @@ from typing import List, Sequence
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expressions.base import Expression
 from spark_rapids_tpu_torch.kernels.fused_agg import (_PREAMBLE, _TL,
-                                                      ChainEmitter, Value)
+                                                      ChainEmitter,
+                                                      load_columns,
+                                                      referenced_columns)
 
 PROJECT_KERNEL = "stage_project"
 COUNT_KERNEL = "stage_count"
@@ -68,21 +72,6 @@ def {SCAN_KERNEL}(counts, n_tiles, CHUNK: tl.constexpr):
 '''
 
 
-def referenced_columns(exprs: Sequence[Expression]) -> List[int]:
-    """The input ordinals ``exprs`` read, in order."""
-    from spark_rapids_tpu_torch.expressions.base import BoundReference
-    found = set()
-
-    def visit(e):
-        if isinstance(e, BoundReference):
-            found.add(e.ordinal)
-        for c in e.children:
-            visit(c)
-    for e in exprs:
-        visit(e)
-    return sorted(found)
-
-
 def _kernel_type(e: Expression) -> str:
     dt = e.data_type
     if isinstance(dt, T.BooleanType):
@@ -91,42 +80,6 @@ def _kernel_type(e: Expression) -> str:
         raise NotImplementedError(
             f"a computed {dt} output ({e.sql()}) has no kernel form yet")
     return _TL[dt]
-
-
-def _body(input_types, nullable, used, conditions, em: ChainEmitter
-          ) -> tuple:
-    """Emits the loads of the ``used`` columns and the predicates:
-    ``(parameter names, the columns as values, the selection mask)``."""
-    params = []
-    cols: List[Value] = [None] * len(input_types)
-    for i in used:
-        dt = input_types[i]
-        params.append(f"in{i}")
-        if isinstance(dt, T.StringType):
-            # chars and offsets: the emitters that read a string load
-            # what they need (``em.strings``)
-            params.append(f"in{i}_off")
-            em.strings[f"x{i}"] = (f"in{i}", f"in{i}_off", None)
-        else:
-            load = f"tl.load(in{i} + offs, mask=inb, other=0)"
-            if isinstance(dt, T.BooleanType):
-                load += " != 0"
-            elif dt not in _TL:
-                raise NotImplementedError(
-                    f"a {dt} column cannot be read inside a fused stage yet")
-            em.lines.append(f"x{i} = {load}")
-        valid = em.TRUE
-        if nullable[i]:
-            params.append(f"in{i}_valid")
-            em.lines.append(f"m{i} = tl.load(in{i}_valid + offs, mask=inb, "
-                            "other=0) != 0")
-            valid = f"m{i}"
-        cols[i] = (f"x{i}", valid)
-    sel = "inb"
-    for cond in conditions:
-        pred, pred_valid = em.emit(cond, cols)
-        sel = em.both(em.both(sel, pred_valid), pred)
-    return params, cols, sel
 
 
 def _kernel(name: str, params: List[str], em: ChainEmitter,
@@ -155,13 +108,15 @@ def stage_source(input_types: Sequence[T.DataType],
     lits = ["lits"] if n_literals else []
 
     em = ChainEmitter()
-    params, _cols, sel = _body(input_types, nullable, used, conditions, em)
+    params, _cols, sel = load_columns(input_types, nullable, used,
+                                      conditions, em)
     count = _kernel(COUNT_KERNEL, params + lits + ["counts", "n_rows"], em,
                     [f"tl.store(counts + pid, tl.sum({sel}.to(tl.int64), "
                      "axis=0))"])
 
     em = ChainEmitter()
-    params, cols, sel = _body(input_types, nullable, used, conditions, em)
+    params, cols, sel = load_columns(input_types, nullable, used,
+                                     conditions, em)
     outs, stores = [], []
     for j, e in enumerate(computed):
         v, valid = em.emit(e, cols)
@@ -188,7 +143,7 @@ def project_source(input_types: Sequence[T.DataType],
     in row order; no count, no scan, no row indices."""
     used = referenced_columns(list(computed))
     em = ChainEmitter()
-    params, cols, _sel = _body(input_types, nullable, used, [], em)
+    params, cols, _sel = load_columns(input_types, nullable, used, [], em)
     outs, stores = [], []
     for j, e in enumerate(computed):
         v, valid = em.emit(e, cols)

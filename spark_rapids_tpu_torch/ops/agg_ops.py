@@ -3,7 +3,9 @@ the global reduction of aggregation buffers, kernel 2 (K3 in ROADMAP;
 ``_global_aggregate`` ``:223``, ``global_agg_trace`` ``:259``,
 ``_global_reduce`` ``:159``), and the keyed aggregation, K9
 (``keyed_agg_trace`` ``:390``, ``_segment_reduce`` ``:52``,
-``_masked_group_words`` ``:38``), below ``keyed_aggregate``.
+``_masked_group_words`` ``:38``), below ``keyed_aggregate``, and the
+distinct count, K15d (``collect_phase1/2`` ``:550``, ``:646`` with the
+distinct flag), below ``count_distinct``.
 
 ``global_reduce`` is the kernel's wrapper.  Its input is a table of 8-byte
 words ``[n_rows, n_cols]`` (int64 as is, double as its bits) with a
@@ -22,7 +24,7 @@ column, so it is bound by device memory bytes; at the main path's sizes
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -272,15 +274,18 @@ def _check_keyed(keys: Sequence[DeviceColumn], inputs, kinds) -> None:
 
 
 def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
-                    transfers) -> Tuple[torch.Tensor, List[Tuple]]:
+                    transfers, row_groups: bool = False) -> Tuple:
     """K9's wrapper: ``(group_rep, [(values, valid) per aggregate])``.
     ``group_rep[g]`` is the first row of group ``g``; groups are numbered
     in order of first appearance.  ``inputs[j]`` is the column aggregate
-    ``j`` folds (None for a count of rows)."""
+    ``j`` folds (None for a count of rows).  With ``row_groups`` a third
+    element is each row's group id (int64), for K15d over the same
+    groups."""
     _check_keyed(keys, inputs, kinds)
     device = keys[0].device
     if device.type == "cpu":
-        return keyed_aggregate_plain(keys, inputs, kinds, transfers)
+        return keyed_aggregate_plain(keys, inputs, kinds, transfers,
+                                     row_groups)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     from spark_rapids_tpu_torch.kernels.build import (check_launch, int32s,
@@ -338,6 +343,8 @@ def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
             "K9 reduce")
     global KEYED_LAUNCHES
     KEYED_LAUNCHES += 1
+    if row_groups:
+        return group_rep, list(zip(outs, valids)), gid
     return group_rep, list(zip(outs, valids))
 
 
@@ -438,7 +445,8 @@ def group_rows_plain(keys: Sequence[DeviceColumn], transfers
     """``(group id per row, first row per group)`` as K9 groups them:
     linear probing in a table of ``table_size(rows)`` slots from
     ``key_hash_plain``, one probe step per round; a slot is claimed by the
-    lowest row that reaches it empty."""
+    lowest row that reaches it empty.  With ``transfers`` None the group
+    count is not read (K15d's plain version, whose kernel reads none)."""
     n = keys[0].row_count
     device = keys[0].device
     h = key_hash_plain(keys)
@@ -464,12 +472,13 @@ def group_rows_plain(keys: Sequence[DeviceColumn], transfers
     rank = torch.cumsum(flags, 0) - flags
     # the group count sizes K9's outputs: read through the gateway, so the
     # plain path counts the sync the kernel's path makes
-    transfers.read_counts([flags.sum()])
+    if transfers is not None:
+        transfers.read_counts([flags.sum()])
     return rank[first], torch.nonzero(is_first).flatten()
 
 
 def keyed_aggregate_plain(keys: Sequence[DeviceColumn], inputs, kinds,
-                          transfers) -> Tuple[torch.Tensor, List[Tuple]]:
+                          transfers, row_groups: bool = False) -> Tuple:
     """The plain PyTorch version of K9 (same groups, same order)."""
     _check_keyed(keys, inputs, kinds)
     gid, group_rep = group_rows_plain(keys, transfers)
@@ -489,4 +498,109 @@ def keyed_aggregate_plain(keys: Sequence[DeviceColumn], inputs, kinds,
         vals = torch.where(present, c.data.to(dt), 0)
         s = torch.zeros(g, dtype=dt, device=device).index_add_(0, gid, vals)
         out.append((s, cnt > 0))
+    if row_groups:
+        return group_rep, out, gid
     return group_rep, out
+
+
+# -- K15d: count(DISTINCT) ----------------------------------------------------
+#
+# ``count_distinct`` is K15d's wrapper: the number of distinct present
+# values of one column (int, date, long, double or string) in each group,
+# the groups given by a group id per row (K9's, ``keyed_aggregate(...,
+# row_groups=True)``) or, with none, one group of every row.  A null value
+# is not counted; -0.0 and 0.0 are one value and so are all NaNs; strings
+# compare byte for byte (``csrc/keys.cuh``).  On CUDA columns it launches
+# ``csrc/distinct.cu`` (a hash set over (group, value), a group's count
+# raised by each first insertion); the output size is the group count the
+# caller knows, so it reads nothing back.  ``count_distinct_plain`` groups
+# the rows by (group, value) with K9's plain grouping and counts, per
+# group, the (group, value) groups whose value is present.
+
+#: launches of K15d (wrapper calls that launch it)
+DISTINCT_LAUNCHES = 0
+
+
+def load_distinct_library():
+    """Builds (first call) and binds ``csrc/distinct.cu``."""
+    from spark_rapids_tpu_torch.exec.stage_compiler import get_or_build
+    from spark_rapids_tpu_torch.kernels.build import load_cuda
+    return get_or_build(
+        "agg.distinct", "csrc/distinct.cu",
+        lambda: load_cuda("distinct.cu",
+                          {"srt_count_distinct": "iipppp" + "qq" + "ppqpp"}))
+
+
+def _check_distinct(values: DeviceColumn, gid: Optional[torch.Tensor],
+                    n_groups: int) -> None:
+    if values.data_type not in KEY_CODES:
+        raise NotImplementedError(
+            f"count(DISTINCT) of {values.data_type} is not in the port yet "
+            "(int, date, long, double and string values are)")
+    if gid is None:
+        if n_groups != 1:
+            raise ValueError("without group ids there is one group")
+        return
+    if gid.dtype != torch.int64 or gid.shape != (values.row_count,):
+        raise ValueError("one int64 group id per row is needed")
+    if gid.device != values.device:
+        raise ValueError("values and group ids lie on different devices")
+    if n_groups < 1:
+        raise ValueError("at least one group is needed")
+
+
+def count_distinct(values: DeviceColumn, gid: Optional[torch.Tensor] = None,
+                   n_groups: int = 1) -> torch.Tensor:
+    """K15d's wrapper: int64 ``[n_groups]``, the distinct present values
+    of each group (``gid[i]`` is row i's group; None: one group)."""
+    _check_distinct(values, gid, n_groups)
+    device = values.device
+    if device.type == "cpu":
+        return count_distinct_plain(values, gid, n_groups)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    from spark_rapids_tpu_torch.kernels.build import check_launch
+    lib = load_distinct_library()
+    n = values.row_count
+    size = table_size(n)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        # held by name until the launch is queued
+        data = values.data.contiguous()
+        valid = None if values.all_valid else \
+            values.validity.contiguous().view(torch.uint8)
+        offsets = values.offsets.contiguous() if values.is_string else None
+        groups = None if gid is None else gid.contiguous()
+        hashes = torch.empty(n, dtype=torch.int64, device=device)
+        slots = torch.empty(size, dtype=torch.int64, device=device)
+        counts = torch.empty(n_groups, dtype=torch.int64, device=device)
+        check_launch(lib.srt_count_distinct(
+            KEY_CODES[values.data_type],
+            int(values.is_string and offsets.dtype == torch.int64),
+            data.data_ptr(), None if valid is None else valid.data_ptr(),
+            None if offsets is None else offsets.data_ptr(),
+            None if groups is None else groups.data_ptr(), n, n_groups,
+            hashes.data_ptr(), slots.data_ptr(), size, counts.data_ptr(),
+            stream), "K15d (count distinct)")
+    global DISTINCT_LAUNCHES
+    DISTINCT_LAUNCHES += 1
+    return counts
+
+
+def count_distinct_plain(values: DeviceColumn,
+                         gid: Optional[torch.Tensor] = None,
+                         n_groups: int = 1) -> torch.Tensor:
+    """The plain PyTorch version of K15d."""
+    _check_distinct(values, gid, n_groups)
+    device = values.device
+    n = values.row_count
+    counts = torch.zeros(n_groups, dtype=torch.int64, device=device)
+    if n == 0:
+        return counts
+    g = torch.zeros(n, dtype=torch.int64, device=device) if gid is None \
+        else gid
+    group_col = DeviceColumn(g, torch.ones(n, dtype=torch.bool,
+                                           device=device), T.LONG)
+    _pair, first = group_rows_plain([group_col, values], None)
+    first = first[values.validity[first]]
+    return counts.index_add_(0, g[first], torch.ones_like(first))

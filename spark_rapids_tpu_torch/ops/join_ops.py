@@ -16,7 +16,13 @@ place: the JAX package's three finishing programs ``matched_flags``
 ``join.unmatched``, ``join.concat_maps``) become one mode of the count
 and write passes, which count ``max(1, matches)`` per probe row.  The
 JAX package puts the matched pairs first and the unmatched rows after
-them; here each unmatched row stays at its probe row's place.  On
+them; here each unmatched row stays at its probe row's place.  With
+``mode="semi"`` or ``"anti"`` (a left semi or anti join: the JAX
+package's ``matched_flags`` and ``unmatched_positions`` in that role,
+driven from ``exec/joins.py:433-513``) it returns only the kept probe
+rows, in probe order: semi keeps a row with a match, once whatever the
+build side's duplicates, and anti a row with none, a null key included
+(the JAX package's plain anti join, ``sql/analyzer.py:24-26``).  On
 CUDA columns it launches ``csrc/hash_join.cu`` (build, count, then write
 after one sync that sizes the output exactly: the JAX package's
 speculative sizing, ``ops/speculation.py``, is not carried over); on CPU
@@ -27,7 +33,7 @@ the kernel does.  String and multi-column keys are still to port
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,6 +45,8 @@ LAUNCHES = 0
 
 #: probe rows one tile covers (csrc/common.cuh kScanTile)
 SCAN_TILE = 1024
+#: csrc/hash_join.cu Mode of each join type
+MODES = {"inner": 0, "outer": 1, "semi": 2, "anti": 3}
 KEY_TYPES = (T.IntegerType, T.LongType)
 
 _SIGNATURES = {
@@ -74,15 +82,26 @@ def _check(build: DeviceColumn, probe: DeviceColumn) -> None:
         raise ValueError("build and probe keys lie on different devices")
 
 
+def _mode(outer: bool, mode: Optional[str]) -> str:
+    if mode is None:
+        return "outer" if outer else "inner"
+    if mode not in ("semi", "anti") or outer:
+        raise ValueError(f"join mode {mode!r} with outer={outer}")
+    return mode
+
+
 def join_pairs(build: DeviceColumn, probe: DeviceColumn, transfers,
-               outer: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+               outer: bool = False, mode: Optional[str] = None
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K10's wrapper: ``(probe_rows, build_rows)``, int64, one entry per
     matching pair (and with ``outer``, one ``(row, -1)`` per probe row
-    with no match)."""
+    with no match); with ``mode`` ``"semi"`` or ``"anti"``, ``(kept probe
+    rows, None)``."""
     _check(build, probe)
+    kind = _mode(outer, mode)
     device = probe.device
     if device.type == "cpu":
-        return join_pairs_plain(build, probe, transfers, outer)
+        return join_pairs_plain(build, probe, transfers, outer, mode)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     from spark_rapids_tpu_torch.kernels.build import check_launch
@@ -110,29 +129,32 @@ def join_pairs(build: DeviceColumn, probe: DeviceColumn, transfers,
             bkeys.data_ptr(), int(bkeys.dtype == torch.int64), ptr(bvalid),
             build.row_count, *table, stream), "K10 build")
         probe_args = (pkeys.data_ptr(), int(pkeys.dtype == torch.int64),
-                      ptr(pvalid), n) + table + (int(outer),)
+                      ptr(pvalid), n) + table + (MODES[kind],)
         check_launch(lib.srt_join_count(*probe_args, tile_offsets.data_ptr(),
                                         stream), "K10 count")
         total, = transfers.read_counts([tile_offsets[tiles]])
         out_probe = torch.empty(total, dtype=torch.int64, device=device)
-        out_build = torch.empty(total, dtype=torch.int64, device=device)
+        out_build = None if mode else \
+            torch.empty(total, dtype=torch.int64, device=device)
         if total:
             check_launch(lib.srt_join_write(
                 *probe_args, tile_offsets.data_ptr(), out_probe.data_ptr(),
-                out_build.data_ptr(), stream), "K10 write")
+                ptr(out_build), stream), "K10 write")
     global LAUNCHES
     LAUNCHES += 1
     return out_probe, out_build
 
 
 def join_pairs_plain(build: DeviceColumn, probe: DeviceColumn, transfers,
-                     outer: bool = False
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     outer: bool = False, mode: Optional[str] = None
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The plain PyTorch version of K10: the build side's present keys
     sorted stably, each probe key's range of equals found by binary
     search, the ranges expanded into pairs (an empty range into one pair
-    with build row -1 when ``outer``)."""
+    with build row -1 when ``outer``); in semi and anti modes the probe
+    rows whose range is not empty, or is."""
     _check(build, probe)
+    _mode(outer, mode)
     device = probe.device
     rows = torch.nonzero(build.validity).flatten()
     keys, order = torch.sort(build.data[rows].to(torch.int64), stable=True)
@@ -141,6 +163,10 @@ def join_pairs_plain(build: DeviceColumn, probe: DeviceColumn, transfers,
     lo = torch.searchsorted(keys, pk, right=False)
     hi = torch.searchsorted(keys, pk, right=True)
     count = torch.where(probe.validity, hi - lo, 0)
+    if mode:
+        keep = (count > 0) if mode == "semi" else (count == 0)
+        transfers.read_counts([keep.sum()])
+        return torch.nonzero(keep).flatten(), None
     emit = count.clamp(min=1) if outer else count
     total, = transfers.read_counts([emit.sum()])
     n = probe.row_count

@@ -184,7 +184,10 @@ class Exchange(LogicalPlan):
 def join_schema(left: T.StructType, right: T.StructType,
                 how: str) -> T.StructType:
     """A join's columns: the left ones, then the right ones; a left outer
-    join makes the right ones nullable."""
+    join makes the right ones nullable; a left semi or anti join has the
+    left ones alone (JAX ``plan/base.py:184``)."""
+    if how in ("left_semi", "left_anti"):
+        return left
     fields = list(right.fields)
     if how == "left_outer":
         fields = [T.StructField(f.name, f.data_type, True) for f in fields]
@@ -192,8 +195,9 @@ def join_schema(left: T.StructType, right: T.StructType,
 
 
 class Join(LogicalPlan):
-    """An equi-join (``how`` is ``inner`` or ``left_outer``); its output is
-    the left columns, then the right."""
+    """An equi-join (``how`` is ``inner``, ``left_outer``, ``left_semi``
+    or ``left_anti``); its output is the left columns, then the right
+    (the left alone for semi and anti)."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: Sequence[Expression],

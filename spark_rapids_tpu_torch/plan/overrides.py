@@ -18,11 +18,12 @@ from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
 from spark_rapids_tpu_torch.exec.sort import TorchSortExec
 from spark_rapids_tpu_torch.exec.window import TorchWindowExec
 from spark_rapids_tpu_torch.expressions.aggregates import (Average, Count,
+                                                           CountDistinct,
                                                            Sum)
 from spark_rapids_tpu_torch.plan import base as L
 from spark_rapids_tpu_torch.plan.stages import fuse_device_stages
 
-_SUPPORTED_AGGREGATES = (Sum, Count, Average)
+_SUPPORTED_AGGREGATES = (Sum, Count, Average, CountDistinct)
 
 
 class TorchOverrides:
@@ -55,6 +56,11 @@ class TorchOverrides:
                     raise NotImplementedError(
                         f"aggregate {type(a.func).__name__} is not in the "
                         "port yet")
+                if isinstance(a.func, CountDistinct) and \
+                        node.mode != COMPLETE:
+                    raise NotImplementedError(
+                        f"{a.func.sql()} over several partitions is not in "
+                        "the port yet: it needs COMPLETE mode")
             if node.layout.num_keys:
                 if node.mode != COMPLETE:
                     raise NotImplementedError(

@@ -3,7 +3,9 @@
 
 ``fuse_device_stages`` (``:138``) folds the filter/project chain under a
 partial or complete global aggregate into one ``TorchFusedAggExec`` (one
-kernel-1 launch per batch), and every other chain into a compacting stage (K5)
+kernel-1 launch per batch; under an aggregate with a ``count(DISTINCT)``
+the chain is a stage of its own, whose rows K15d reads), and every other
+chain into a compacting stage (K5)
 when it filters, a column selection with no launch when it only picks and
 renames columns, and else a computing projection (K6).
 ``promote_stage_literals`` (``:84``) turns eligible literals of the chain into
@@ -138,6 +140,11 @@ def fuse_device_stages(plan):
     def fuse_node(node):
         if isinstance(node, TorchHashAggregateExec) and \
                 node.mode != FINAL and not node.layout.num_keys:
+            if node.layout.has_distinct:
+                # K15d reads the chain's output rows: the chain runs as a
+                # stage of its own, and kernel 1 takes no chain
+                return TorchFusedAggExec([], node.layout, node.mode,
+                                         fuse(node.child))
             ops, base = chain_of(node.child)
             ops, lits = promote_stage_literals(ops)
             return TorchFusedAggExec(ops, node.layout, node.mode, fuse(base),

@@ -2,7 +2,8 @@
 ``spark_rapids_tpu/session.py``, for the recipes the port runs: in-memory
 tables, ``filter``, ``select`` and ``with_column`` (``:460``; with window
 expressions, extracted as ``_plan_windows`` ``:392`` does), ``join``
-(``:637``; inner and left outer), ``group_by`` (``:729``) and ``agg``,
+(``:637``; inner, left outer, left semi and left anti), ``group_by``
+(``:729``) and ``agg`` (``count_distinct`` in COMPLETE mode only),
 ``order_by`` (``:602``), ``limit`` (``:515``) and ``collect``). A join, a
 group-by, a window, a sort and a limit run over one partition.
 
@@ -141,7 +142,11 @@ class DataFrame:
         """Equi-join on column names with USING semantics, as the JAX
         package's ``join``: the key columns once (the left side's), then
         the other left columns, then the other right columns.  ``how`` is
-        ``inner`` or ``left_outer`` (``left``, ``leftouter``)."""
+        ``inner``, ``left_outer`` (``left``, ``leftouter``), ``semi``
+        (``leftsemi``, ``left_semi``) or ``anti`` (``leftanti``,
+        ``left_anti``); a semi or anti join gives the left columns alone,
+        a row each time its key has a match (semi) or none (anti; a null
+        key has none, as the JAX package plans ``NOT IN``)."""
         if on is None or condition is not None:
             raise NotImplementedError(
                 "a join without keys or with a condition beyond them is not "
@@ -153,6 +158,8 @@ class DataFrame:
         lkeys = [bind_references(col(n), lschema) for n in names]
         rkeys = [bind_references(col(n), rschema) for n in names]
         plan = L.Join(self._plan, other._plan, lkeys, rkeys, how)
+        if how in ("left_semi", "left_anti"):
+            return DataFrame(plan, self._session)
         out = plan.schema
         nl = len(lschema)
 

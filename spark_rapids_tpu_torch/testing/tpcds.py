@@ -10,13 +10,14 @@ sf); date_dim and the other small dimensions do not scale.  Money columns
 are doubles rounded to cents, as in the JAX package.
 
 ``Q3_COLUMNS``, ``Q1_COLUMNS``, ``Q7_COLUMNS``, ``Q15_COLUMNS``,
-``Q12_COLUMNS`` and ``Q20_COLUMNS`` name the columns each query reads;
-``q3_tables`` to ``q20_tables`` cut the generator's dict down to them (the
-port has no column pruning), sharing its arrays.  ``q3``, ``q1``, ``q7``,
-``q15`` and ``q12`` (q20 is ``q12(..., prefix="cs")``) are the queries of
-``spark_rapids_tpu/testing/tpcds_queries.py`` as DataFrame recipes (the
-port has no SQL front end), and ``q3_numpy`` to ``q20_numpy`` the same
-queries in numpy."""
+``Q12_COLUMNS``, ``Q20_COLUMNS``, ``Q13_COLUMNS``, ``Q19_COLUMNS`` and
+``Q16_COLUMNS`` name the columns each query reads; ``q3_tables`` to
+``q16_tables`` cut the generator's dict down to them (the port has no
+column pruning), sharing its arrays.  ``q3``, ``q1``, ``q7``, ``q15``,
+``q12`` (q20 is ``q12(..., prefix="cs")``), ``q13``, ``q19`` and ``q16``
+are the queries of ``spark_rapids_tpu/testing/tpcds_queries.py`` as
+DataFrame recipes (the port has no SQL front end), and ``q3_numpy`` to
+``q16_numpy`` the same queries in numpy."""
 
 from __future__ import annotations
 
@@ -846,3 +847,337 @@ def q12_numpy(tables: Dict[str, dict], prefix="ws", limit=100) -> list:
 def q20_numpy(tables: Dict[str, dict], limit=100) -> list:
     """TPC-DS q20 in numpy over ``q20_tables`` output."""
     return q12_numpy(tables, "cs", limit)
+
+
+def _lookup(keys: np.ndarray, probe: np.ndarray):
+    """``(found, position)``: whether each probe value is among ``keys``
+    (unique) and, where it is, its index in ``keys``."""
+    order = np.argsort(keys, kind="stable")
+    at = np.searchsorted(keys[order], probe)
+    at = np.minimum(at, max(len(keys) - 1, 0))
+    found = keys[order][at] == probe if len(keys) else \
+        np.zeros(len(probe), bool)
+    return found, order[at]
+
+
+#: the columns of each table that TPC-DS q13 reads
+Q13_COLUMNS = {
+    "store_sales": ["ss_sold_date_sk", "ss_store_sk", "ss_cdemo_sk",
+                    "ss_hdemo_sk", "ss_addr_sk", "ss_quantity",
+                    "ss_sales_price", "ss_ext_sales_price",
+                    "ss_ext_wholesale_cost", "ss_net_profit"],
+    "store": ["s_store_sk"],
+    "customer_demographics": ["cd_demo_sk", "cd_marital_status",
+                              "cd_education_status"],
+    "household_demographics": ["hd_demo_sk", "hd_dep_count"],
+    "customer_address": ["ca_address_sk", "ca_state", "ca_country"],
+    "date_dim": ["d_date_sk", "d_year"],
+}
+#: q13's three demographic branches: (marital status, education,
+#: household dep_count), with ``Q13_PRICES``' ss_sales_price band each
+Q13_DEMOGRAPHICS = (("M", "Advanced Degree", 3), ("S", "College", 1),
+                    ("W", "2 yr Degree", 1))
+Q13_PRICES = ((100.0, 150.0), (50.0, 100.0), (150.0, 200.0))
+#: q13's three address branches: states, with ``Q13_PROFITS``'
+#: ss_net_profit band each
+Q13_STATES = (("TX", "OH", "TN"), ("OR", "NM", "KY"), ("VA", "GA", "MS"))
+Q13_PROFITS = ((100.0, 200.0), (150.0, 300.0), (50.0, 250.0))
+
+
+def q13_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q13 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q13_COLUMNS.items()}
+
+
+def q13(store_sales, store, customer_demographics, household_demographics,
+        customer_address, date_dim, year=2001, prices=Q13_PRICES,
+        profits=Q13_PROFITS):
+    """TPC-DS q13 through the port's DataFrame API, over DataFrames of the
+    ``Q13_COLUMNS`` of each table, in the JAX plan's join order:
+    store_sales joined with store, customer_demographics,
+    household_demographics, the United States' customer_address and the
+    year's date_dim; then one global aggregate (three averages and a sum)
+    whose filter, an AND of two ORs of three AND groups, is fused into
+    kernel 1, as the JAX package's ``TpuFusedAgg[F]`` does.  ``prices``
+    and ``profits`` are the three branches' ss_sales_price and
+    ss_net_profit bands (``between``: both ends included).  Returns
+    ``(result, parts)`` (``joined``)."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import (
+        And, EqualTo, GreaterThanOrEqual, In, LessThanOrEqual, Or)
+
+    def between(name, band):
+        return And(GreaterThanOrEqual(col(name), lit(float(band[0]))),
+                   LessThanOrEqual(col(name), lit(float(band[1]))))
+
+    def any_of(conds):
+        out = conds[0]
+        for c in conds[1:]:
+            out = Or(out, c)
+        return out
+
+    st = store.select(Alias(col("s_store_sk"), "ss_store_sk"))
+    cd = customer_demographics.select(
+        Alias(col("cd_demo_sk"), "ss_cdemo_sk"), col("cd_marital_status"),
+        col("cd_education_status"))
+    hd = household_demographics.select(
+        Alias(col("hd_demo_sk"), "ss_hdemo_sk"), col("hd_dep_count"))
+    ca = customer_address \
+        .filter(EqualTo(col("ca_country"), lit("United States"))) \
+        .select(Alias(col("ca_address_sk"), "ss_addr_sk"), col("ca_state"))
+    dt = date_dim.filter(EqualTo(col("d_year"), lit(year))) \
+        .select(Alias(col("d_date_sk"), "ss_sold_date_sk"))
+    joined = (store_sales.join(st, on="ss_store_sk")
+              .join(cd, on="ss_cdemo_sk")
+              .join(hd, on="ss_hdemo_sk")
+              .join(ca, on="ss_addr_sk")
+              .join(dt, on="ss_sold_date_sk"))
+    demographic = any_of([
+        And(And(And(EqualTo(col("cd_marital_status"), lit(m)),
+                    EqualTo(col("cd_education_status"), lit(e))),
+                between("ss_sales_price", band)),
+            EqualTo(col("hd_dep_count"), lit(dep)))
+        for (m, e, dep), band in zip(Q13_DEMOGRAPHICS, prices)])
+    address = any_of([And(In(col("ca_state"), states),
+                          between("ss_net_profit", band))
+                      for states, band in zip(Q13_STATES, profits)])
+    out = joined.filter(And(demographic, address)).agg(
+        F.avg("ss_quantity").alias("avg1"),
+        F.avg("ss_ext_sales_price").alias("avg2"),
+        F.avg("ss_ext_wholesale_cost").alias("avg3"),
+        F.sum("ss_ext_wholesale_cost").alias("sum1"))
+    return out, {"joined": joined}
+
+
+def q13_numpy(tables: Dict[str, dict], year=2001, prices=Q13_PRICES,
+              profits=Q13_PROFITS) -> list:
+    """TPC-DS q13 in numpy over ``q13_tables`` output: the one row as a
+    dict (its values None when no row passes the filter)."""
+    ss, s = tables["store_sales"], tables["store"]
+    cd, hd = tables["customer_demographics"], tables["household_demographics"]
+    ca, d = tables["customer_address"], tables["date_dim"]
+    # each branch's string tests run over the dimension rows, and reach
+    # the fact rows through the join's row lookup
+    sel = np.isin(ss["ss_store_sk"], s["s_store_sk"]) & \
+        np.isin(ss["ss_sold_date_sk"], d["d_date_sk"][d["d_year"] == year])
+    found, cd_at = _lookup(cd["cd_demo_sk"], ss["ss_cdemo_sk"])
+    sel &= found
+    found, hd_at = _lookup(hd["hd_demo_sk"], ss["ss_hdemo_sk"])
+    dep = hd["hd_dep_count"][hd_at]
+    sel &= found
+    us = ca["ca_country"] == "United States"
+    found, ca_at = _lookup(ca["ca_address_sk"][us], ss["ss_addr_sk"])
+    state = ca["ca_state"][us]
+    sel &= found
+    price, profit = ss["ss_sales_price"], ss["ss_net_profit"]
+    demographic = np.zeros(len(price), bool)
+    for (m, e, dp), (lo, hi) in zip(Q13_DEMOGRAPHICS, prices):
+        cd_ok = (cd["cd_marital_status"] == m) & \
+            (cd["cd_education_status"] == e)
+        demographic |= cd_ok[cd_at] & (dep == dp) & (price >= lo) & \
+            (price <= hi)
+    address = np.zeros(len(price), bool)
+    for states, (lo, hi) in zip(Q13_STATES, profits):
+        address |= np.isin(state, states)[ca_at] & (profit >= lo) & \
+            (profit <= hi)
+    sel &= demographic & address
+    n = int(sel.sum())
+
+    def avg(c):
+        return float(ss[c][sel].astype(np.float64).sum() / n) if n else None
+    return [{"avg1": avg("ss_quantity"), "avg2": avg("ss_ext_sales_price"),
+             "avg3": avg("ss_ext_wholesale_cost"),
+             "sum1": float(ss["ss_ext_wholesale_cost"][sel].sum())
+             if n else None}]
+
+
+#: the columns of each table that TPC-DS q19 reads
+Q19_COLUMNS = {
+    "date_dim": ["d_date_sk", "d_year", "d_moy"],
+    "store_sales": ["ss_sold_date_sk", "ss_item_sk", "ss_customer_sk",
+                    "ss_store_sk", "ss_ext_sales_price"],
+    "item": ["i_item_sk", "i_brand_id", "i_brand", "i_manufact_id",
+             "i_manufact", "i_manager_id"],
+    "customer": ["c_customer_sk", "c_current_addr_sk"],
+    "customer_address": ["ca_address_sk", "ca_zip"],
+    "store": ["s_store_sk", "s_zip"],
+}
+
+
+def q19_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q19 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q19_COLUMNS.items()}
+
+
+def q19(date_dim, store_sales, item, customer, customer_address, store,
+        manager_id=8, month=11, year=1998, limit=100):
+    """TPC-DS q19 through the port's DataFrame API, over DataFrames of the
+    ``Q19_COLUMNS`` of each table, in the JAX plan's join order: the
+    month's dates joined with store_sales, then the manager's items,
+    customer, customer_address and store, one key each; then the filter
+    ``substr(ca_zip, 1, 5) <> substr(s_zip, 1, 5)``, the sum by brand id,
+    brand, manufacturer id and manufacturer, ordered by the sum
+    (descending) and the four keys.  Returns ``(result, parts)``
+    (``joined``, ``agg``, ``sorted``).  ``limit=None`` drops the limit."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import (And, EqualTo,
+                                                               NotEqual)
+    dt = date_dim.filter(And(EqualTo(col("d_moy"), lit(month)),
+                             EqualTo(col("d_year"), lit(year)))) \
+        .select(Alias(col("d_date_sk"), "ss_sold_date_sk"))
+    it = item.filter(EqualTo(col("i_manager_id"), lit(manager_id))) \
+        .select(Alias(col("i_item_sk"), "ss_item_sk"), col("i_brand_id"),
+                col("i_brand"), col("i_manufact_id"), col("i_manufact"))
+    cu = customer.select(Alias(col("c_customer_sk"), "ss_customer_sk"),
+                         col("c_current_addr_sk"))
+    ca = customer_address.select(Alias(col("ca_address_sk"),
+                                       "c_current_addr_sk"), col("ca_zip"))
+    st = store.select(Alias(col("s_store_sk"), "ss_store_sk"), col("s_zip"))
+    joined = (dt.join(store_sales, on="ss_sold_date_sk")
+              .join(it, on="ss_item_sk")
+              .join(cu, on="ss_customer_sk")
+              .join(ca, on="c_current_addr_sk")
+              .join(st, on="ss_store_sk"))
+    agg = (joined.filter(NotEqual(F.substring("ca_zip", 1, 5),
+                                  F.substring("s_zip", 1, 5)))
+           .group_by("i_brand_id", "i_brand", "i_manufact_id", "i_manufact")
+           .agg(F.sum("ss_ext_sales_price").alias("ext_price"))
+           .select(Alias(col("i_brand_id"), "brand_id"),
+                   Alias(col("i_brand"), "brand"), col("i_manufact_id"),
+                   col("i_manufact"), col("ext_price")))
+    ordered = agg.order_by(F.desc("ext_price"), "brand", "brand_id",
+                           "i_manufact_id", "i_manufact")
+    out = ordered if limit is None else ordered.limit(limit)
+    return out, {"joined": joined, "agg": agg, "sorted": ordered}
+
+
+def q19_numpy(tables: Dict[str, dict], manager_id=8, month=11, year=1998,
+              limit=100) -> list:
+    """TPC-DS q19 in numpy over ``q19_tables`` output: the rows as dicts."""
+    d, ss, i = tables["date_dim"], tables["store_sales"], tables["item"]
+    c, ca, s = tables["customer"], tables["customer_address"], tables["store"]
+    dates = d["d_date_sk"][(d["d_moy"] == month) & (d["d_year"] == year)]
+    sel = np.isin(ss["ss_sold_date_sk"], dates)
+    mine = i["i_manager_id"] == manager_id
+    found, item_at = _lookup(i["i_item_sk"][mine], ss["ss_item_sk"][sel])
+    rows = np.nonzero(sel)[0][found]
+    item_at = np.nonzero(mine)[0][item_at[found]]
+    found, cust_at = _lookup(c["c_customer_sk"], ss["ss_customer_sk"][rows])
+    rows, item_at, cust_at = rows[found], item_at[found], cust_at[found]
+    found, addr_at = _lookup(ca["ca_address_sk"],
+                             c["c_current_addr_sk"][cust_at])
+    rows, item_at, addr_at = rows[found], item_at[found], addr_at[found]
+    found, store_at = _lookup(s["s_store_sk"], ss["ss_store_sk"][rows])
+    rows, item_at, addr_at, store_at = (rows[found], item_at[found],
+                                        addr_at[found], store_at[found])
+    sums: Dict[tuple, float] = {}
+    for r, ia, aa, sa in zip(rows.tolist(), item_at.tolist(),
+                             addr_at.tolist(), store_at.tolist()):
+        if ca["ca_zip"][aa][:5] == s["s_zip"][sa][:5]:
+            continue
+        key = (int(i["i_brand_id"][ia]), i["i_brand"][ia],
+               int(i["i_manufact_id"][ia]), i["i_manufact"][ia])
+        sums[key] = sums.get(key, 0.0) + float(ss["ss_ext_sales_price"][r])
+    out = sorted(sums.items(),
+                 key=lambda kv: (-kv[1], kv[0][1], kv[0][0], kv[0][2],
+                                 kv[0][3]))
+    if limit is not None:
+        out = out[:limit]
+    return [{"brand_id": k[0], "brand": k[1], "i_manufact_id": k[2],
+             "i_manufact": k[3], "ext_price": v} for k, v in out]
+
+
+#: the columns of each table that TPC-DS q16 reads
+Q16_COLUMNS = {
+    "catalog_sales": ["cs_ship_date_sk", "cs_ship_addr_sk",
+                      "cs_call_center_sk", "cs_order_number",
+                      "cs_warehouse_sk", "cs_ext_ship_cost", "cs_net_profit"],
+    "date_dim": ["d_date_sk", "d_date"],
+    "customer_address": ["ca_address_sk", "ca_state"],
+    "call_center": ["cc_call_center_sk", "cc_county"],
+    "catalog_returns": ["cr_order_number"],
+}
+Q16_DATES = (datetime.date(1999, 2, 1), datetime.date(1999, 4, 2))
+Q16_COUNTIES = ("Rush County", "Toole County", "Jefferson County",
+                "Dona Ana County", "La Porte County")
+
+
+def q16_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q16 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q16_COLUMNS.items()}
+
+
+def q16(catalog_sales, date_dim, customer_address, call_center,
+        catalog_returns, state="GA"):
+    """TPC-DS q16 through the port's DataFrame API, over DataFrames of the
+    ``Q16_COLUMNS`` of each table, in the JAX plan's order: catalog_sales
+    joined with the ship dates of 1999-02-01 to 1999-04-02, the state's
+    addresses and the five counties' call centers; then a left semi join
+    with the orders shipped from more than one warehouse (the ``IN``
+    subquery: ``count(DISTINCT cs_warehouse_sk) > 1`` by order), a left
+    anti join with the returned orders (``NOT IN``, planned as a plain
+    anti join as the JAX analyzer plans it) and one global aggregate:
+    ``count(DISTINCT cs_order_number)`` and two sums.  The query's
+    ``order by`` and ``limit`` over its one row are left out.  Returns
+    ``(result, parts)`` (``joined``, ``multi``, ``kept``)."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import (
+        And, EqualTo, GreaterThan, GreaterThanOrEqual, In, LessThanOrEqual)
+    lo, hi = Q16_DATES
+    dt = date_dim.filter(And(GreaterThanOrEqual(col("d_date"), lit(lo)),
+                             LessThanOrEqual(col("d_date"), lit(hi)))) \
+        .select(Alias(col("d_date_sk"), "cs_ship_date_sk"))
+    ca = customer_address.filter(EqualTo(col("ca_state"), lit(state))) \
+        .select(Alias(col("ca_address_sk"), "cs_ship_addr_sk"))
+    cc = call_center.filter(In(col("cc_county"), Q16_COUNTIES)) \
+        .select(Alias(col("cc_call_center_sk"), "cs_call_center_sk"))
+    joined = (catalog_sales.join(dt, on="cs_ship_date_sk")
+              .join(ca, on="cs_ship_addr_sk")
+              .join(cc, on="cs_call_center_sk"))
+    multi = (catalog_sales.group_by("cs_order_number")
+             .agg(F.count_distinct("cs_warehouse_sk").alias("warehouses"))
+             .filter(GreaterThan(col("warehouses"), lit(1)))
+             .select(col("cs_order_number")))
+    returned = catalog_returns.select(Alias(col("cr_order_number"),
+                                            "cs_order_number"))
+    kept = joined.join(multi, on="cs_order_number", how="semi") \
+        .join(returned, on="cs_order_number", how="anti")
+    out = kept.agg(F.count_distinct("cs_order_number").alias("order_count"),
+                   F.sum("cs_ext_ship_cost").alias("total_shipping_cost"),
+                   F.sum("cs_net_profit").alias("total_net_profit"))
+    return out, {"joined": joined, "multi": multi, "kept": kept}
+
+
+def q16_numpy(tables: Dict[str, dict], state="GA") -> list:
+    """TPC-DS q16 in numpy over ``q16_tables`` output: the one row as a
+    dict."""
+    cs, d = tables["catalog_sales"], tables["date_dim"]
+    ca, cc = tables["customer_address"], tables["call_center"]
+    lo, hi = (np.datetime64(x, "D") for x in Q16_DATES)
+    dates = d["d_date_sk"][(d["d_date"] >= lo) & (d["d_date"] <= hi)]
+    order = cs["cs_order_number"]
+    sel = np.isin(cs["cs_ship_date_sk"], dates) & \
+        np.isin(cs["cs_ship_addr_sk"],
+                ca["ca_address_sk"][ca["ca_state"] == state]) & \
+        np.isin(cs["cs_call_center_sk"], cc["cc_call_center_sk"][
+            np.isin(cc["cc_county"], Q16_COUNTIES)])
+    # orders shipped from more than one warehouse: distinct (order,
+    # warehouse) pairs, counted by order
+    wh = cs["cs_warehouse_sk"].astype(np.int64)
+    span = int(wh.max()) + 1 if len(wh) else 1
+    pairs = np.unique(order.astype(np.int64) * span + wh)
+    orders, n = np.unique(pairs // span, return_counts=True)
+    sel &= np.isin(order, orders[n > 1])
+    sel &= ~np.isin(order, tables["catalog_returns"]["cr_order_number"])
+    any_row = bool(sel.any())
+    return [{"order_count": int(len(np.unique(order[sel]))),
+             "total_shipping_cost": float(cs["cs_ext_ship_cost"][sel].sum())
+             if any_row else None,
+             "total_net_profit": float(cs["cs_net_profit"][sel].sum())
+             if any_row else None}]

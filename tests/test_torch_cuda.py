@@ -3,8 +3,11 @@ K5 (the compacting stage, with string = and Or), K6 (the computing
 projection, with IN, substring views, <, <=, >= and dates), K7 (gather,
 with -1 rows), K8 (sort, with string keys), K9 (keyed aggregation, with a
 double sum of an int input, double keys and five keys), K10 (hash join,
-inner and left outer), K14 (whole-partition windows), and TPC-DS q3, q1,
-q7, q15, q12 and q20 end to end against the CPU run.
+inner, left outer, left semi and left anti), K14 (whole-partition
+windows), K15d (count distinct, keyed and global), the <>, NOT and
+string-to-string emitters in K5 and K6, kernel 1 over string columns, and
+TPC-DS q3, q1, q7, q15, q12, q20, q13, q19 and q16 end to end against the
+CPU run.
 
 Every test needs a CUDA card and skips without one.  This file imports
 nothing of JAX, so it runs where JAX is not installed:
@@ -334,6 +337,147 @@ def test_q15_q12_q20_match_the_cpu_run(card, query):
     cpu = TorchSession(device="cpu")
     ref = recipe(*[cpu.create_dataframe(t[n]) for n in names])[0].collect()
     assert len(got) == len(ref) == {"q15": 30, "q12": 44, "q20": 100}[query]
+    for g, r in zip(got, ref):
+        assert g.keys() == r.keys()
+        for k in g:
+            if isinstance(r[k], float):
+                assert abs(g[k] - r[k]) <= 1e-12 * abs(r[k])
+            else:
+                assert g[k] == r[k]
+
+
+def test_semi_anti_join(card):
+    """K10's semi and anti modes: duplicate and null keys on both sides,
+    an empty build side."""
+    rng = np.random.default_rng(21)
+
+    def key(n, hi):
+        return DeviceColumn(torch.from_numpy(rng.integers(0, hi, n)).cuda(),
+                            torch.from_numpy(rng.random(n) > 0.1).cuda(),
+                            T.LONG)
+    p = key(100_000, 900)
+    for b in (key(3000, 700), key(0, 1)):
+        for mode in ("semi", "anti"):
+            got = J.join_pairs(b, p, card.transfers, mode=mode)
+            ref = J.join_pairs_plain(b, p, card.transfers, mode=mode)
+            assert got[1] is None and torch.equal(got[0], ref[0])
+
+
+@pytest.mark.parametrize("n", [0, 1, 1000, (1 << 20) + 3])
+def test_count_distinct(card, n):
+    """K15d against its plain version, keyed (K9's groups) and global, over
+    int, long, double (nulls, NaN, -0.0) and string values."""
+    rng = np.random.default_rng(22)
+    b = batch(card, rng, n)
+    a, bb, s, v = b.columns
+    if n:
+        v.data[: n // 3] = torch.where(v.data[: n // 3] > 0, float("nan"),
+                                       -0.0)
+    _rep, _res, gid = G.keyed_aggregate([a], [], [], card.transfers,
+                                        row_groups=True)
+    groups = int(_rep.shape[0])
+    for c in (a, bb, v, s):
+        assert torch.equal(G.count_distinct(c), G.count_distinct_plain(c))
+        if groups:
+            assert torch.equal(G.count_distinct(c, gid, groups),
+                               G.count_distinct_plain(c, gid, groups))
+
+
+def test_stage_new_emitters(card):
+    """<>, NOT and string = / <> between two columns or substrings of two
+    columns, in K5 and K6."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.expressions import predicates as P
+    from spark_rapids_tpu_torch.expressions.base import (Alias, col,
+                                                         bind_references,
+                                                         lit)
+    rng = np.random.default_rng(23)
+    d = data(rng, 20_000)
+    d["t"] = [None if rng.random() < 0.1 else str(rng.choice(
+        ["", "x", "xy", "brand1", "brand10", "日本"])) for _ in range(20_000)]
+    schema = T.StructType(list(SCHEMA.fields) +
+                          [T.StructField("t", T.STRING)])
+    exprs = [P.NotEqual(col("s"), col("t")),
+             P.EqualTo(col("s"), col("t")),
+             P.NotEqual(F.substring("s", 1, 5), F.substring("t", 1, 5)),
+             P.NotEqual(col("s"), lit("xy")),
+             P.NotEqual(col("v"), lit(0.5)),
+             P.NotEqual(col("a"), col("b")),
+             P.Not(P.EqualTo(col("s"), col("t"))),
+             P.Not(P.LessThan(col("v"), lit(0.0)))]
+    b = card.transfers.upload_batch(batch_from_pydict(d, schema))
+    lits = FU.LiteralArgs([])
+    bound = [bind_references(Alias(e, f"c{j}"), schema)
+             for j, e in enumerate(exprs)]
+    program = FU.StageProgram([("project", bound)], schema, 0)
+    same(FU.fused_project(program, b, lits),
+         FU.fused_project_plain(program, b, lits))
+    for e in exprs:
+        stage = FU.StageProgram([("filter", bind_references(e, schema)),
+                                 ("project", [bind_references(
+                                     col("b"), schema)])], schema, 0)
+        idx, _c = FU.fused_stage_compact(stage, b, lits, card.transfers)
+        ridx, _r = FU.fused_stage_compact_plain(stage, b, lits,
+                                                card.transfers)
+        assert torch.equal(idx, ridx)
+
+
+def test_kernel1_string_inputs(card):
+    """Kernel 1 over a chain that reads string columns (= literal, IN, a
+    column-to-column compare) and averages, with nulls."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.expressions import predicates as P
+    from spark_rapids_tpu_torch.expressions.base import col, lit
+    rng = np.random.default_rng(24)
+    hb = batch_from_pydict(data(rng, 300_000), SCHEMA)
+    cond = P.Or(P.And(P.EqualTo(col("s"), lit("brand1")),
+                      P.GreaterThanOrEqual(col("v"), lit(-0.5))),
+                P.And(P.In(col("s"), ["xy", "日本"]),
+                      P.NotEqual(col("a"), lit(3))))
+    df = card.create_dataframe(hb).filter(cond).agg(
+        F.avg("a").alias("x"), F.avg("v").alias("y"), F.sum("b").alias("z"))
+    fx = df.executed_plan()
+    assert isinstance(fx, FU.TorchFusedAggExec)
+    b = card.transfers.upload_batch(hb)
+    lits = FU.LiteralArgs.upload(fx.promoted, card.transfers)
+    got = G.global_reduce_plain(*FU.fused_agg_update(fx.program, b, lits),
+                                fx.program.fold_kinds)
+    ref = G.global_reduce_plain(*FU.fused_agg_update_plain(fx.program, b,
+                                                           lits),
+                                fx.program.fold_kinds)
+    assert torch.equal(got[1], ref[1])
+    for j, k in enumerate(fx.program.fold_kinds):
+        if k == G.SUM_F64:
+            x, y = (w[j].view(torch.float64).item() for w in (got[0],
+                                                              ref[0]))
+            assert abs(x - y) <= 1e-9 * max(1.0, abs(y))
+        else:
+            assert got[0][j].item() == ref[0][j].item()
+
+
+@pytest.mark.parametrize("query", ["q13", "q19", "q16"])
+def test_q13_q19_q16_match_the_cpu_run(card, query):
+    from spark_rapids_tpu_torch.testing import tpcds
+    tables = tpcds.generate_tables(1)
+    names = {"q13": ("store_sales", "store", "customer_demographics",
+                     "household_demographics", "customer_address",
+                     "date_dim"),
+             "q19": ("date_dim", "store_sales", "item", "customer",
+                     "customer_address", "store"),
+             "q16": ("catalog_sales", "date_dim", "customer_address",
+                     "call_center", "catalog_returns")}[query]
+    t = getattr(tpcds, f"{query}_tables")(tables)
+    kw = {"prices": ((1.0, 300.0),) * 3,
+          "profits": ((-5000.0, 15000.0),) * 3} if query == "q13" else {}
+    recipe = getattr(tpcds, query)
+    got = recipe(*[card.create_dataframe(t[n]) for n in names],
+                 **kw)[0].collect()
+    cpu = TorchSession(device="cpu")
+    ref = recipe(*[cpu.create_dataframe(t[n]) for n in names],
+                 **kw)[0].collect()
+    assert len(got) == len(ref) == {"q13": 1, "q19": 4, "q16": 1}[query]
     for g, r in zip(got, ref):
         assert g.keys() == r.keys()
         for k in g:

@@ -107,6 +107,27 @@ q12 = tpcds.q12(*[s.create_dataframe(t12[t]) for t in
                   ("web_sales", "item", "date_dim")])[0]
 rows = q12.collect()
 assert rows and len(rows) == len(tpcds.q12_numpy(t12)), q12.explain()
+t16 = tpcds.q16_tables(tpcds.generate_tables(0.5))
+q16 = tpcds.q16(*[s.create_dataframe(t16[t]) for t in
+                  ("catalog_sales", "date_dim", "customer_address",
+                   "call_center", "catalog_returns")])[0]
+got, ref = q16.collect()[0], tpcds.q16_numpy(t16)[0]
+assert got["order_count"] == ref["order_count"] > 0, q16.explain()
+assert abs(got["total_net_profit"] - ref["total_net_profit"]) <= \
+    1e-9 * abs(ref["total_net_profit"]), (got, ref)
+t19 = tpcds.q19_tables(tpcds.generate_tables(0.5))
+q19 = tpcds.q19(*[s.create_dataframe(t19[t]) for t in
+                  ("date_dim", "store_sales", "item", "customer",
+                   "customer_address", "store")])[0]
+assert len(q19.collect()) == len(tpcds.q19_numpy(t19)), q19.explain()
+t13 = tpcds.q13_tables(tpcds.generate_tables(0.5))
+wide = dict(prices=((1.0, 300.0),) * 3,
+            profits=((-5000.0, 15000.0),) * 3)
+q13 = tpcds.q13(*[s.create_dataframe(t13[t]) for t in
+                  ("store_sales", "store", "customer_demographics",
+                   "household_demographics", "customer_address",
+                   "date_dim")], **wide)[0].collect()
+assert q13[0]["sum1"] is not None, q13
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax")
              or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")
              or m == "triton" or m.startswith("triton."))
@@ -158,7 +179,10 @@ def test_wrappers_refuse_other_devices():
                                              [agg_ops.KEYED_SUM_I64], None),
              lambda: window_ops.window_reduce([col], [col],
                                               [window_ops.WIN_SUM_I64], 2,
-                                              col.device)]
+                                              col.device),
+             lambda: join_ops.join_pairs(col, col, None, mode="semi"),
+             lambda: agg_ops.count_distinct(col),
+             lambda: agg_ops.count_distinct(col, idx, 2)]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):
             call()

@@ -1,5 +1,6 @@
-"""The new expressions of the stage kernels -- In, Substring, <, <=, >= and
-date columns -- through K6's and K5's plain versions (exec/fused.py
+"""The new expressions of the stage kernels -- In, Substring, <, <=, >=,
+date columns, <> and NOT, and string = and <> between two columns or two
+substrings -- through K6's and K5's plain versions (exec/fused.py
 fused_project_plain and fused_stage_compact_plain) against the JAX
 package's eval_exprs_tpu and DataFrame.filter (on JAX-CPU), on the same
 seeded inputs; and the Triton source the emitters write for each case
@@ -9,7 +10,10 @@ Edge cases: In over strings (empty, non-ASCII, a null option) and over
 numbers (a NaN option, a null value); Substring with pos 0, 1, negative
 and past the end, len 0, negative and omitted, over empty strings and
 bytes >= 0x80 (compared through = and IN, byte for byte); comparisons
-with NaN, -0.0 and nulls; dates against date literals and each other.
+with NaN, -0.0 and nulls; dates against date literals and each other;
+<> (NOT =: NaN <> NaN and -0.0 <> 0.0 are false) and NOT (NOT null is
+null) over numbers, strings and predicates; two string columns, and
+substrings of two columns, of different lengths, either one null.
 Values are compared in order, exactly."""
 
 import datetime
@@ -36,7 +40,8 @@ SCHEMA = T.StructType([T.StructField("a", T.DOUBLE),
                        T.StructField("k", T.LONG),
                        T.StructField("s", T.STRING),
                        T.StructField("day", T.DATE),
-                       T.StructField("day2", T.DATE)])
+                       T.StructField("day2", T.DATE),
+                       T.StructField("t", T.STRING)])
 
 WORDS = ["", "T", "TN", "TNX", "85669", "856691", "é日", "aé", "GA",
          "ÿÿÿ", "abcdefghij"]
@@ -59,6 +64,7 @@ def data(n, seed):
                       for x in rng.integers(-3, 40, n)]),
         "day2": maybe([D0 + datetime.timedelta(days=int(x))
                        for x in rng.integers(-3, 3, n)]),
+        "t": maybe([str(rng.choice(WORDS)) for _ in range(n)]),
     }
 
 
@@ -107,11 +113,24 @@ def exprs(pkg, case):
                  P.LessThan(col("day"), col("day2")),
                  P.EqualTo(col("day"), lit(D0)),
                  P.In(col("day"), [D0, datetime.date(1999, 3, 1)])],
+        "not": [P.NotEqual(col("s"), col("t")),
+                P.EqualTo(col("s"), col("t")),
+                P.NotEqual(sub(1, 5), S.Substring(col("t"), 1, 5)),
+                P.EqualTo(sub(2, 3), S.Substring(col("t"), -3, 3)),
+                P.NotEqual(col("s"), lit("TN")),
+                P.NotEqual(lit("é日"), col("t")),
+                P.NotEqual(col("a"), col("b")),
+                P.NotEqual(col("i"), col("k")),
+                P.NotEqual(col("day"), col("day2")),
+                P.Not(P.LessThan(col("a"), col("b"))),
+                P.Not(P.In(col("s"), ["TN", None])),
+                P.Not(P.And(P.EqualTo(col("s"), col("t")),
+                            P.GreaterThanOrEqual(col("i"), lit(0))))],
     }
     return [B.Alias(e, f"c{j}") for j, e in enumerate(cases[case])]
 
 
-CASES = ["in", "substring", "order", "date"]
+CASES = ["in", "substring", "order", "date", "not"]
 
 
 def jax_values(d, case):
@@ -171,6 +190,10 @@ def test_k5_and_k6_sources_emit_every_case(case):
     if case == "date":
         # 1999-02-22 is day 10644 since the epoch
         assert "10644" in src
+    if case == "not":
+        # two views compared byte by byte in a loop over the tile's
+        # longest equal length, each read from its own chars buffer
+        assert "for vj" in src and "in4 + " in src and "in7 + " in src
 
 
 def test_computed_string_output_is_refused_by_name():
@@ -237,6 +260,33 @@ def test_filters_match_jax_dataframe_filter():
                      P.GreaterThan(B.col("a"), B.lit(1.0))),
                 P.And(P.GreaterThanOrEqual(B.col("day"), B.lit(lo)),
                       P.LessThanOrEqual(B.col("day"), B.lit(hi)))]
+    for ref_c, got_c in zip(cond("spark_rapids_tpu"),
+                            cond("spark_rapids_tpu_torch")):
+        ref = jax.filter(ref_c).collect()
+        plan = port.filter(got_c)
+        assert isinstance(plan.executed_plan(), FU.TorchFusedStageExec)
+        got = plan.collect()
+        assert 0 < len(got) < 500
+        assert rows_equal(ref, got, check_order=True) is None
+
+
+def test_not_equal_filter_matches_jax_dataframe_filter():
+    """q19's filter, ``substr(s, 1, 5) <> substr(t, 1, 5)``, and a NOT
+    through K5's plain version, in order, against the JAX package's
+    DataFrame.filter."""
+    d = data(500, seed=5)
+    jax = TpuSession({"spark.rapids.sql.enabled": "true"}) \
+        .create_dataframe(d, num_partitions=1)
+    port = TorchSession(device="cpu").create_dataframe(d, schema=SCHEMA)
+
+    def cond(pkg):
+        P = importlib.import_module(f"{pkg}.expressions.predicates")
+        S = importlib.import_module(f"{pkg}.expressions.strings")
+        B = importlib.import_module(f"{pkg}.expressions.base")
+        return [P.NotEqual(S.Substring(B.col("s"), 1, 5),
+                           S.Substring(B.col("t"), 1, 5)),
+                P.Not(P.Or(P.EqualTo(B.col("s"), B.col("t")),
+                           P.GreaterThan(B.col("a"), B.lit(1.0))))]
     for ref_c, got_c in zip(cond("spark_rapids_tpu"),
                             cond("spark_rapids_tpu_torch")):
         ref = jax.filter(ref_c).collect()
