@@ -6,8 +6,9 @@
 Needs one CUDA card; it exits non-zero, printing no result, without one.
 It builds every kernel from the sources in the checkout, into the
 git-ignored build/ directory: kernel 1, K5 and K6 (Triton, emitted by
-kernels/fused_agg.py and kernels/fused_stage.py) and kernel 2, K7, K8, K9,
-K10, K14 and K15d (csrc/*.cu, one nvcc each, all started together).  It
+kernels/fused_agg.py and kernels/fused_stage.py) and kernel 2, K7, K7c,
+K8, K9, K10, K14 and K15d (csrc/*.cu, one nvcc each, all started
+together).  It
 holds each kernel against its plain PyTorch version on the card, then drives
 five paths through ``TorchSession()``, each with the launch counters set to
 0 just before it and read just after:
@@ -25,7 +26,12 @@ five paths through ``TorchSession()``, each with the launch counters set to
 - TPC-DS q13, q19 and q16 (store_sales 30M rows through five joins into
   kernel 1; a <> of two substrings; semi and anti joins and
   count(DISTINCT) over catalog_sales 15M rows) over the same tables,
-  checked and timed alike.
+  checked and timed alike;
+- TPC-DS q17 as written and with its ``sr_item_sk = cs_item_sk``
+  conjunct dropped (joins on three and two key columns, stddev_samp),
+  q10 (a semi join, existence markers over distinct customers, an 8-key
+  group-by and sort) and q18 (ROLLUP: an Expand of five grouping sets
+  concatenated by K7c) over the same tables, checked and timed alike.
 
 Every check that fails ends the run with a non-zero exit.  The last two
 lines of standard output are a JSON object describing each kernel on
@@ -49,9 +55,10 @@ import time
 import numpy as np
 
 INT64_MAX = 2 ** 63 - 1
-#: the CUDA sources of the kernels (kernel 2, K7, K8, K9, K10, K14, K15d)
+#: the CUDA sources of the kernels (kernel 2, K7, K8, K9, K10, K14, K15d,
+#: K7c)
 CUDA_SOURCES = ("global_reduce.cu", "gather.cu", "sort.cu", "keyed_agg.cu",
-                "hash_join.cu", "window.cu", "distinct.cu")
+                "hash_join.cu", "window.cu", "distinct.cu", "concat.cu")
 #: the TPC-DS kernels: name, route, source, the JAX program each replaces
 TPCDS_KERNELS = {
     "K1": ("fused_agg_update", "triton",
@@ -68,6 +75,8 @@ TPCDS_KERNELS = {
            "spark_rapids_tpu/expressions/evaluator.py:160"),
     "K7": ("gather", "cuda", "spark_rapids_tpu_torch/csrc/gather.cu",
            "spark_rapids_tpu/ops/join_ops.py:335"),
+    "K7c": ("concat", "cuda", "spark_rapids_tpu_torch/csrc/concat.cu",
+            "spark_rapids_tpu/ops/batch_ops.py:274"),
     "K8": ("sort", "cuda", "spark_rapids_tpu_torch/csrc/sort.cu",
            "spark_rapids_tpu/ops/sort_ops.py:237"),
     "K9": ("keyed_agg", "cuda", "spark_rapids_tpu_torch/csrc/keyed_agg.cu",
@@ -86,6 +95,7 @@ COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
             "K5": ("exec.fused", "STAGE_LAUNCHES"),
             "K6": ("exec.fused", "PROJECT_LAUNCHES"),
             "K7": ("ops.batch_ops", "LAUNCHES"),
+            "K7c": ("ops.batch_ops", "CONCAT_LAUNCHES"),
             "K8": ("ops.sort_ops", "LAUNCHES"),
             "K9": ("ops.agg_ops", "KEYED_LAUNCHES"),
             "K10": ("ops.join_ops", "LAUNCHES"),
@@ -100,7 +110,12 @@ QUERY_KERNELS = {"q3": ("K5", "K7", "K8", "K9", "K10"),
                  "q20": ("K5", "K6", "K7", "K8", "K9", "K10", "K14"),
                  "q13": ("K1", "K3", "K5", "K7", "K10"),
                  "q19": ("K5", "K7", "K8", "K9", "K10"),
-                 "q16": ("K1", "K3", "K5", "K7", "K9", "K10", "K15d")}
+                 "q16": ("K1", "K3", "K5", "K7", "K9", "K10", "K15d"),
+                 # as written q17 may keep no row: no group to finish or sort
+                 "q17": ("K5", "K7", "K9", "K10"),
+                 "q17v": ("K5", "K6", "K7", "K8", "K9", "K10"),
+                 "q10": ("K5", "K6", "K7", "K8", "K9", "K10"),
+                 "q18": ("K5", "K6", "K7", "K7c", "K8", "K9", "K10")}
 #: the JAX programs K10's and K7's left outer mode replaces (on q1)
 OUTER_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:275",
                   "spark_rapids_tpu/ops/join_ops.py:313",
@@ -111,9 +126,20 @@ SEMI_ANTI_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:275",
                       "spark_rapids_tpu/ops/join_ops.py:313"]
 DISTINCT_REPLACES = ["spark_rapids_tpu/ops/agg_ops.py:646",
                      "spark_rapids_tpu/ops/agg_ops.py:340"]
+#: the JAX function K10's several key columns replace (q17), and K9's m2
+#: kind (q17's stddev_samp)
+MULTIKEY_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:96"]
+M2_REPLACES = ["spark_rapids_tpu/ops/agg_ops.py:490"]
 #: data bytes of one table row (k int64, v double, w int32), as bench.py
 ROW_BYTES = 8 + 8 + 4
 F64_SUM_RTOL = 1e-10
+#: K9's m2 against its plain version: the two sum in other orders (the
+#: plain one with atomics), so their means differ by a few units in the
+#: last place (bounded here by M2_MEAN_RTOL of the group's largest |x|)
+#: and m2 by about n times that difference squared, and its squares'
+#: sum by a few units in the last place; M2_RTOL of m2 covers the rest
+M2_RTOL = 1e-9
+M2_MEAN_RTOL = 1e-12
 #: timed queries of each TPC-DS query after its main path's run
 TPCDS_REPS = 10
 
@@ -581,6 +607,10 @@ def same_keyed(keys, inputs, kinds, got, ref, tr, what: str) -> float:
     for j, ((gd, gv), (rd, rv)) in enumerate(zip(res, rres)):
         check(bool(torch.equal(gv.cpu(), rv.cpu())),
               f"{what}, aggregate {j}: validity")
+        if kinds[j] == G.KEYED_M2:
+            err = max(err, same_m2(inputs[j], gid, rep.shape[0], gd, rd,
+                                   f"{what}, aggregate {j}"))
+            continue
         if kinds[j] != G.KEYED_SUM_F64:
             err = max(err, same_indices(gd, rd,
                                         f"{what}, aggregate {j}: values"))
@@ -603,6 +633,27 @@ def same_keyed(keys, inputs, kinds, got, ref, tr, what: str) -> float:
               f"{what}, aggregate {j}: double sums")
         err = max(err, float(d.max()) if d.numel() else 0.0)
     return err
+
+
+def same_m2(v, gid, n_groups, got, ref, what: str) -> float:
+    """K9's m2 of input ``v`` against the plain version's: within
+    M2_RTOL of the plain m2, plus the group's count times (M2_MEAN_RTOL
+    times its largest |x|) squared; NaN where the plain one is NaN (a
+    group holding a NaN or an infinity)."""
+    import torch
+    x = v.data.to(torch.float64)
+    ok = v.validity & torch.isfinite(x)
+    n = torch.zeros(n_groups, dtype=torch.float64, device=x.device) \
+        .index_add_(0, gid, ok.to(torch.float64))
+    big = torch.zeros(n_groups, dtype=torch.float64, device=x.device) \
+        .scatter_reduce_(0, gid, torch.where(ok, x.abs(), 0.0), "amax")
+    bad = ~torch.isfinite(ref)
+    check(bool(torch.equal(~torch.isfinite(got), bad)),
+          f"{what}: m2 finite where the plain one is")
+    d = torch.where(bad, 0.0, (got - ref).abs())
+    tol = M2_RTOL * ref.abs() + n * (M2_MEAN_RTOL * big) ** 2
+    check(bool((d <= torch.where(bad, 0.0, tol)).all()), f"{what}: m2")
+    return float(d.max()) if d.numel() else 0.0
 
 
 def check_sort(session, rng) -> float:
@@ -1151,6 +1202,169 @@ def check_slice5(session, rng, rate: float):
     return err, timed
 
 
+def check_slice6(session, rng, rate: float):
+    """Phase 2f: K7c (strings, 0-row inputs, a front slice), K9's m2 kind
+    (int and double inputs), K10 on two and three key columns in all four
+    modes (nulls in one key column, duplicates, an empty build side), and
+    the Subtract, Sqrt and null-literal emitters in K6 and K5, against
+    their plain versions at 0, 1, 1000 and 2**20 + 3 rows; then K7c over
+    five slices of 2**20 + 3 rows and K9's m2 over one group of 2**20 + 3
+    rows near 1e9, timed.  Returns the max |d| of each kernel and the
+    timings."""
+    import torch
+    from spark_rapids_tpu_torch import DataFrame
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.expressions import predicates as P
+    from spark_rapids_tpu_torch.expressions.arithmetic import (Divide,
+                                                               Subtract)
+    from spark_rapids_tpu_torch.expressions.base import (Alias, Literal,
+                                                         bind_references,
+                                                         col, lit)
+    from spark_rapids_tpu_torch.expressions.cast import Cast
+    from spark_rapids_tpu_torch.expressions.conditional import If
+    from spark_rapids_tpu_torch.expressions.mathexprs import Sqrt
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    from spark_rapids_tpu_torch.ops import batch_ops as BO
+    from spark_rapids_tpu_torch.ops import join_ops as J
+    from spark_rapids_tpu_torch.plan import base as L
+    tr, dev = session.transfers, session.device
+    err = {k: 0.0 for k in ("K5", "K6", "K7c", "K9", "K10")}
+    u_dbl = Cast(col("u"), T.DOUBLE)
+    exprs = [Subtract(col("g"), col("u")), Subtract(col("v"), lit(1.5)),
+             Subtract(col("w"), col("u")), Sqrt(col("v")), Sqrt(col("p")),
+             Sqrt(Subtract(col("g"), lit(3))),
+             # stddev_samp's finish over a count and an m2
+             If(P.GreaterThan(u_dbl, lit(1.0)),
+                Sqrt(Divide(col("v"), Subtract(u_dbl, lit(1.0)))),
+                Literal(None, T.DOUBLE))]
+
+    def keys(m, n_keys, null_col, hi):
+        out = []
+        for c in range(n_keys):
+            dt = T.INT if c == 1 else T.LONG
+            data = torch.from_numpy(rng.integers(0, hi, m).astype(
+                dt.np_dtype)).to(dev)
+            nulls = 0.2 if c == null_col else 0.0
+            out.append(DeviceColumn(data, torch.from_numpy(
+                rng.random(m) >= nulls).to(dev), dt, nulls == 0.0))
+        return out
+    for n in SLICE3_SIZES:
+        batch = slice4_batch(session, rng, n)
+        schema = batch.schema
+        program = FU.StageProgram(
+            [("project", [bind_references(Alias(e, f"c{j}"), schema)
+                          for j, e in enumerate(exprs)])], schema, 0)
+        lits = FU.LiteralArgs([])
+        got = FU.fused_project(program, batch, lits)
+        torch.cuda.synchronize()
+        err["K6"] = max(err["K6"], same_columns(
+            got, FU.fused_project_plain(program, batch, lits),
+            f"K6 (slice 6), {n} rows"))
+        df = DataFrame(L.Scan([[]], schema), session)
+        stage = (df.filter(P.GreaterThan(Sqrt(Subtract(col("v"), col("p"))),
+                                         lit(2.0)))
+                 .select(col("s"), Alias(Subtract(col("u"), col("g")), "d"))
+                 .executed_plan())
+        check(isinstance(stage, FU.TorchFusedStageExec),
+              f"K5 plan: {stage.tree_string()}")
+        slits = FU.LiteralArgs.upload(stage.promoted, tr)
+        idx, comp = FU.fused_stage_compact(stage.program, batch, slits, tr)
+        torch.cuda.synchronize()
+        ridx, rcomp = FU.fused_stage_compact_plain(stage.program, batch,
+                                                   slits, tr)
+        err["K5"] = max(err["K5"], same_indices(
+            idx, ridx, f"K5 (slice 6), {n} rows: survivors"),
+            same_columns(comp, rcomp, f"K5 (slice 6), {n} rows"))
+        # K7c: this batch, a third of it, an empty one and a front slice
+        # whose chars plane runs past its last offset
+        parts = [batch, batch.front(n // 3), batch.front(0),
+                 slice4_batch(session, rng, n).front(max(0, n - 1))]
+        got = BO.concat_batches(parts)
+        torch.cuda.synchronize()
+        ref = BO.concat_batches_plain(parts)
+        check(got.row_count == ref.row_count, f"K7c, {n} rows: row count")
+        err["K7c"] = max(err["K7c"], same_columns(
+            got.columns, ref.columns, f"K7c, {n} rows"))
+        # K9's m2 (double and int inputs) beside a count, over g and z
+        cols = dict(zip(batch.names, batch.columns))
+        for key_cols in ([cols["g"]], [cols["g"], cols["z"]]):
+            args = (key_cols, [cols["v"], cols["g"], cols["v"]],
+                    [G.KEYED_M2, G.KEYED_M2, G.KEYED_COUNT], tr)
+            got = G.keyed_aggregate(*args)
+            torch.cuda.synchronize()
+            err["K9"] = max(err["K9"], same_keyed(
+                *args[:3], got, G.keyed_aggregate_plain(*args), tr,
+                f"K9 m2, {n} rows, {len(key_cols)} keys"))
+        # K10 on two and three key columns, all four modes
+        for n_keys in (2, 3):
+            probe = keys(n, n_keys, 0, 6)
+            for case, build in (("duplicates", keys(3000, n_keys, 1, 6)),
+                                ("no match", keys(50, n_keys, -1, 6)),
+                                ("empty build side", keys(0, n_keys, 1, 6))):
+                if case == "no match":
+                    for c in build:
+                        c.data.add_(100)
+                for kw in ({}, {"outer": True}, {"mode": "semi"},
+                           {"mode": "anti"}):
+                    got = J.join_pairs(build, probe, tr, **kw)
+                    torch.cuda.synchronize()
+                    ref = J.join_pairs_plain(build, probe, tr, **kw)
+                    what = f"K10 {n_keys} keys {kw}, {case}, {n} rows"
+                    check((got[1] is None) == (ref[1] is None),
+                          f"{what}: build rows")
+                    err["K10"] = max(err["K10"], *[
+                        same_indices(g, r, f"{what}: {side} rows")
+                        for g, r, side in zip(got, ref, ("probe", "build"))
+                        if r is not None])
+    # K7c over five slices of 2**20 + 3 rows (an Expand's five grouping
+    # sets): every column, then the fixed-width ones alone, whose planes
+    # torch.cat joins as the library yardstick
+    big = slice4_batch(session, rng, SLICE3_SIZES[-1])
+    fixed = big.select([j for j, c in enumerate(big.columns)
+                        if not c.is_string],
+                       [nm for nm, c in zip(big.names, big.columns)
+                        if not c.is_string])
+    timed = {}
+    for what, b in (("all columns", big), ("fixed-width columns", fixed)):
+        parts = [b] * 5
+        got = BO.concat_batches(parts)
+        torch.cuda.synchronize()
+        err["K7c"] = max(err["K7c"], same_columns(
+            got.columns, BO.concat_batches_plain(parts).columns,
+            f"K7c, five slices of {b.row_count} rows, {what}"))
+        nbytes = 2 * sum(column_bytes(c) for c in b.columns) * 5
+        planes = [p for c in b.columns for p in (c.data, c.validity)]
+        library = None if what == "all columns" else time_ms(
+            lambda: [torch.cat([p] * 5) for p in planes], 10)
+        timed[what] = (time_ms(lambda: BO.concat_batches(parts), 10),
+                       time_ms(lambda: BO.concat_batches_plain(parts), 2, 1),
+                       nbytes / rate * 1e3, library)
+    # K9's m2 over one group of 2**20 + 3 rows near 1e9
+    m = SLICE3_SIZES[-1]
+    key = DeviceColumn(torch.zeros(m, dtype=torch.int64, device=dev),
+                       torch.ones(m, dtype=torch.bool, device=dev), T.LONG,
+                       True)
+    near = DeviceColumn(torch.from_numpy(1e9 + rng.standard_normal(m)).to(
+        dev), torch.ones(m, dtype=torch.bool, device=dev), T.DOUBLE, True)
+    args = ([key], [near], [G.KEYED_M2], tr)
+    got = G.keyed_aggregate(*args)
+    torch.cuda.synchronize()
+    err["K9"] = max(err["K9"], same_keyed(
+        *args[:3], got, G.keyed_aggregate_plain(*args), tr,
+        f"K9 m2, one group of {m} rows near 1e9"))
+    x = near.data
+    exact = float(((x - x.mean()) ** 2).sum())
+    check(abs(float(got[1][0][0][0]) - exact) <= 1e-6 * exact,
+          f"K9 m2 near 1e9 within 1e-6 of the two-pass m2: "
+          f"{float(got[1][0][0][0])} vs {exact}")
+    timed["m2"] = (time_ms(lambda: G.keyed_aggregate(*args), 5),
+                   time_ms(lambda: G.keyed_aggregate_plain(*args), 2, 1),
+                   (16 * m + 17) / rate * 1e3, None)
+    return err, timed
+
+
 def rows_match(expected, actual, what: str) -> None:
     """In order; doubles within 1e-6 relative (the comparator the JAX
     package's TPC-DS oracle uses, rowcompare.val_eq), the rest exact."""
@@ -1196,6 +1410,7 @@ class Recorder:
             (fused, "fused_project", "K6"),
             (batch_ops, "gather_columns", "K7"),
             (joins, "gather_columns", "K7"),
+            (batch_ops, "concat_batches", "K7c"),
             (sort_ops, "sort_permutation", "K8"),
             (agg_ops, "keyed_aggregate", "K9"),
             (joins, "join_pairs", "K10"),
@@ -1244,6 +1459,9 @@ def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
                    same_columns(got[1], ref[1], what))
     if name in ("K6", "K7"):
         return same_columns(got, ref, what)
+    if name == "K7c":
+        check(got.row_count == ref.row_count, f"{what}: row count")
+        return same_columns(got.columns, ref.columns, what)
     if name == "K8":
         return same_indices(got, ref, f"{what}: permutation")
     if name == "K9":
@@ -1376,13 +1594,15 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
     plain = {"K1": FU.fused_agg_update_plain, "K3": G.global_reduce_plain,
              "K15d": G.count_distinct_plain,
              "K5": FU.fused_stage_compact_plain, "K6": FU.fused_project_plain,
-             "K7": BO.gather_columns_plain, "K8": S.sort_permutation_plain,
+             "K7": BO.gather_columns_plain, "K7c": BO.concat_batches_plain,
+             "K8": S.sort_permutation_plain,
              "K9": G.keyed_aggregate_plain, "K10": J.join_pairs_plain,
              "K14": W.window_reduce_plain}
     kernel = {"K1": FU.fused_agg_update, "K3": G.global_reduce,
               "K15d": G.count_distinct,
               "K5": FU.fused_stage_compact, "K6": FU.fused_project,
-              "K7": BO.gather_columns, "K8": S.sort_permutation,
+              "K7": BO.gather_columns, "K7c": BO.concat_batches,
+              "K8": S.sort_permutation,
               "K9": G.keyed_aggregate, "K10": J.join_pairs,
               "K14": W.window_reduce}
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "library_ms": 0.0,
@@ -1446,6 +1666,19 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
             if not kw.get("nullable"):
                 def library(planes=planes, idx=idx):
                     return [torch.index_select(p, 0, idx) for p in planes]
+        elif name == "K7c":
+            batches = args[0]
+            o["bytes"] += 2 * sum(column_bytes(c) for b in batches
+                                  for c in b.columns)
+            o["shapes"].append(f"{len(batches)} batches of "
+                               f"{len(batches[0].columns)} columns -> "
+                               f"{got.row_count} rows: {ms:.4f} ms")
+            if not any(c.is_string for c in batches[0].columns):
+                def library(batches=batches):
+                    return [torch.cat([b.columns[j].data for b in batches])
+                            for j in range(len(batches[0].columns))] + \
+                        [torch.cat([b.columns[j].validity for b in batches])
+                         for j in range(len(batches[0].columns))]
         elif name == "K8":
             cols, orders = args[0], args[1]
             n = cols[0].row_count
@@ -1476,14 +1709,15 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
             o["shapes"].append(f"{n} rows, {len(keys)} keys, {len(got)} "
                                f"functions: {ms:.4f} ms")
         else:
-            b, p = args[0], args[1]
+            b, p = J.key_list(args[0]), J.key_list(args[1])
             pr = got[0]
-            o["bytes"] += column_bytes(b) + column_bytes(p) + \
+            o["bytes"] += sum(column_bytes(c) for c in b + p) + \
                 (8 if got[1] is None else 16) * pr.shape[0]
             mode = " outer" if kw.get("outer") else \
                 f" {kw['mode']}" if kw.get("mode") else ""
-            o["shapes"].append(f"{b.row_count} x {p.row_count} ->{mode} "
-                               f"{pr.shape[0]}: {ms:.4f} ms")
+            o["shapes"].append(f"{b[0].row_count} x {p[0].row_count} ->"
+                               f"{mode} {pr.shape[0]} ({len(b)} keys): "
+                               f"{ms:.4f} ms")
         if library is None or o["library_ms"] is None:
             o["library_ms"] = None
         else:
@@ -1579,19 +1813,38 @@ QUERIES = {
                     "customer_address", "store"), "store_sales"),
     "q16": ("q16", ("catalog_sales", "date_dim", "customer_address",
                     "call_center", "catalog_returns"), "catalog_sales"),
+    "q17": ("q17", ("store_sales", "store_returns", "catalog_sales",
+                    "date_dim", "store", "item"), "store_sales"),
+    "q17v": ("q17", ("store_sales", "store_returns", "catalog_sales",
+                     "date_dim", "store", "item"), "store_sales"),
+    "q10": ("q10", ("customer", "customer_address", "customer_demographics",
+                    "store_sales", "web_sales", "catalog_sales", "date_dim"),
+            "store_sales"),
+    "q18": ("q18", ("catalog_sales", "customer_demographics", "customer",
+                    "customer_address", "date_dim", "item"),
+            "catalog_sales"),
 }
-#: the rows each query gives at sf 1000 (q3: at least)
+#: keyword arguments of a query's recipe and numpy version: q17v is q17
+#: with its ``sr_item_sk = cs_item_sk`` conjunct dropped
+QUERY_KW = {"q17v": {"same_item": False}}
+#: the rows each query gives at sf 1000 (q3: at least; q17 as written:
+#: whatever numpy gives, none at sf 1 to 20)
 QUERY_ROWS = {"q3": 10, "q1": 100, "q7": 100, "q15": 40, "q12": 100,
-              "q20": 100, "q13": 1, "q19": 100, "q16": 1}
-#: phases 4 to 7, in bench.py's TPC-DS order within each slice
-TPCDS_ORDER = ("q3", "q1", "q7", "q15", "q12", "q20", "q13", "q19", "q16")
+              "q20": 100, "q13": 1, "q19": 100, "q16": 1, "q17": None,
+              "q17v": 100, "q10": 100, "q18": 100}
+#: phases 4 to 8, in bench.py's TPC-DS order within each slice
+TPCDS_ORDER = ("q3", "q1", "q7", "q15", "q12", "q20", "q13", "q19", "q16",
+               "q17", "q17v", "q10", "q18")
 
 
 def recipe_of(tpcds, name: str):
-    """A query's recipe: q20 is q12's over catalog_sales."""
+    """A query's recipe: q20 is q12's over catalog_sales, q17v q17's
+    with ``same_item=False``."""
     if name == "q20":
         return lambda *dfs: tpcds.q12(*dfs, prefix="cs")
-    return getattr(tpcds, name)
+    kw = QUERY_KW.get(name, {})
+    recipe = getattr(tpcds, QUERIES[name][0])
+    return lambda *dfs: recipe(*dfs, **kw)
 
 
 def run_query(session, query: str, tables, rate: float,
@@ -1604,9 +1857,11 @@ def run_query(session, query: str, tables, rate: float,
     from spark_rapids_tpu_torch.exec.stage_compiler import stats as kstats
     from spark_rapids_tpu_torch.testing import tpcds
     recipe_name, names, fact = QUERIES[query]
-    recipe = recipe_of(tpcds, recipe_name)
-    numpy_query = getattr(tpcds, f"{recipe_name}_numpy")
-    kernels = QUERY_KERNELS[query]
+    recipe = recipe_of(tpcds, query)
+    numpy_kw = QUERY_KW.get(query, {})
+
+    def numpy_query(t):
+        return getattr(tpcds, f"{recipe_name}_numpy")(t, **numpy_kw)
     rows = {t: len(next(iter(tables[t].values()))) for t in names}
     dfs = [session.create_dataframe(tables[t]) for t in names]
 
@@ -1621,14 +1876,18 @@ def run_query(session, query: str, tables, rate: float,
     print(f"{query}: rows {rows}; {device_bytes} B of device columns; "
           f"first action (upload, builds, query) {first_s:.3f} s")
 
-    counters = [(*counter_of(k), k) for k in kernels]
+    counters = [(*counter_of(k), k) for k in COUNTERS]
     for mod, attr, _k in counters:
         setattr(mod, attr, 0)
     tr0, ks0 = session.transfers.stats(), kstats()
     t0 = time.perf_counter()
     result = run()
     main_s = time.perf_counter() - t0
-    launches = {k: getattr(mod, attr) for mod, attr, k in counters}
+    launched = {k: getattr(mod, attr) for mod, attr, k in counters}
+    # the kernels the query must launch, and any other it did launch
+    kernels = QUERY_KERNELS[query] + tuple(
+        k for k in COUNTERS if k not in QUERY_KERNELS[query] and launched[k])
+    launches = {k: launched[k] for k in kernels}
     tr1, ks1 = session.transfers.stats(), kstats()
     syncs = tr1["syncs"] - tr0["syncs"]
     builds = ks1["builds"] - ks0["builds"]
@@ -1640,7 +1899,9 @@ def run_query(session, query: str, tables, rate: float,
     check(builds == 0, f"a repeated {query} builds nothing")
     check(result == first, f"a repeated {query} gives the same rows")
     want = QUERY_ROWS[query]
-    if query == "q3" or not full_size:
+    if want is None:
+        pass   # numpy says how many
+    elif query == "q3" or not full_size:
         check(len(result) >= min(want, 10), f"{query} gives at least "
               f"{min(want, 10)} rows: {len(result)}")
     else:
@@ -1720,6 +1981,7 @@ def main() -> int:
     from spark_rapids_tpu_torch.exec.stage_compiler import stats as kstats
     from spark_rapids_tpu_torch.kernels import build as B
     from spark_rapids_tpu_torch.ops import agg_ops as G
+    from spark_rapids_tpu_torch.ops import batch_ops as BO
 
     started = time.perf_counter()
 
@@ -1816,6 +2078,22 @@ def main() -> int:
         print(f"K15d {what} ({shapes[what]}): {ms_:.4f} ms, plain "
               f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
 
+    # -- phase 2f: the slice-6 forms against their plain versions -----------
+    t0 = time.perf_counter()
+    errs6, slice6_one = check_slice6(session, rng, rate)
+    print(f"K7c, K9 (m2), K10 (two and three keys, four modes), K6 and K5 "
+          f"(Subtract, Sqrt, null literals) vs plain: pass "
+          f"({time.perf_counter() - t0:.1f} s), max |d| {errs6}")
+    shapes = {"all columns": f"five slices of {SLICE3_SIZES[-1]} rows, "
+                             "ten columns (three strings)",
+              "fixed-width columns": f"five slices of {SLICE3_SIZES[-1]} "
+                                     "rows, seven fixed-width columns",
+              "m2": f"one group of {SLICE3_SIZES[-1]} rows near 1e9"}
+    for what, (ms_, plain_, bound_, lib_) in slice6_one.items():
+        kernel = "K9 m2" if what == "m2" else "K7c"
+        print(f"{kernel} ({shapes[what]}): {ms_:.4f} ms, plain "
+              f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
+
     phase("kernels checked")
 
     # -- phase 3: the bench recipe at full size -----------------------------
@@ -1828,12 +2106,13 @@ def main() -> int:
 
     FU.LAUNCHES = 0
     G.LAUNCHES = 0
+    BO.CONCAT_LAUNCHES = 0
     tr0, ks0 = session.transfers.stats(), kstats()
     t0 = time.perf_counter()
     result = query(df).collect()
     main_s = time.perf_counter() - t0
     launches = {"fused_agg_update": FU.LAUNCHES,
-                "global_reduce": G.LAUNCHES}
+                "global_reduce": G.LAUNCHES, "concat": BO.CONCAT_LAUNCHES}
     tr1, ks1 = session.transfers.stats(), kstats()
     print(f"main path: {main_s * 1e3:.3f} ms, launches {launches}, "
           f"transfers {({k: tr1[k] - tr0[k] for k in tr1})}")
@@ -1841,6 +2120,8 @@ def main() -> int:
           f"kernel 1 launched once per partition: {launches}")
     check(launches["global_reduce"] == args.parts + 1,
           f"kernel 2 launched per partition plus the merge: {launches}")
+    check(launches["concat"] == int(args.parts > 1),
+          f"K7c joined the partitions' partial rows: {launches}")
     check(tr1["syncs"] - tr0["syncs"] == 1, "one blocking sync per query")
     check(ks1["builds"] == ks0["builds"], "a repeated query builds nothing")
     check(result == first, "a repeated query gives the same row")
@@ -1943,6 +2224,34 @@ def main() -> int:
          "bound_ms": k2_bytes / rate * 1e3, "bound_by": "bytes",
          "library_ms": k2_lib_ms, "per": "launch", "passed": True},
     ]
+    # K7c on the main path's call: the partitions' one-row partials
+    with Recorder() as rec:
+        query(df).collect()
+    partials = [a for k, a, _kw in rec.calls if k == "K7c"]
+    if partials:
+        parts_ = partials[0][0]
+        got = BO.concat_batches(parts_)
+        torch.cuda.synchronize()
+        k7c_err = same_columns(got.columns, BO.concat_batches_plain(
+            parts_).columns, "K7c on the partial rows")
+        k7c_bytes = 2 * sum(column_bytes(c) for b in parts_
+                            for c in b.columns)
+        kernels.append({
+            "name": "concat", "path": "bench", "route": "cuda",
+            "source": "spark_rapids_tpu_torch/csrc/concat.cu",
+            "replaces": "spark_rapids_tpu/ops/batch_ops.py:274",
+            "launches": launches["concat"], "max_abs_err": k7c_err,
+            "ms": time_ms(lambda: BO.concat_batches(parts_), 50),
+            "plain_ms": time_ms(lambda: BO.concat_batches_plain(parts_), 10),
+            "bound_ms": k7c_bytes / rate * 1e3, "bound_by": "bytes",
+            "library_ms": time_ms(lambda: [
+                torch.cat([b.columns[j].data for b in parts_])
+                for j in range(len(parts_[0].columns))], 50),
+            "per": "launch", "passed": True})
+        print(f"K7c on the {len(parts_)} partial rows: "
+              f"{kernels[-1]['ms']:.4f} ms, plain "
+              f"{kernels[-1]['plain_ms']:.4f} ms, library "
+              f"{kernels[-1]['library_ms']:.4f} ms")
     del df, data, part0, words, valid
 
     phase("bench recipe's kernels timed")
@@ -1952,18 +2261,18 @@ def main() -> int:
     from spark_rapids_tpu_torch.testing import tpcds
     t0 = time.perf_counter()
     generated = tpcds.generate_tables(args.sf)
-    cuts = {q: getattr(tpcds, f"{q}_tables")(generated)
+    cuts = {q: getattr(tpcds, f"{QUERIES[q][0]}_tables")(generated)
             for q in TPCDS_ORDER}
     del generated   # the cuts keep the arrays the queries read
     print(f"TPC-DS sf {args.sf} generated in "
           f"{time.perf_counter() - t0:.1f} s")
-    # phase 6: q15, q12 and q20; phase 7: q13, q19 and q16, over the same
-    # tables
+    # phase 6: q15, q12 and q20; phase 7: q13, q19 and q16; phase 8: q17
+    # (as written and q17v), q10 and q18, over the same tables
     for q in TPCDS_ORDER:
         launches, timed = run_query(session, q, cuts.pop(q), rate,
                                     args.sf == 1000)
         phase(f"{q} run, checked and timed")
-        for k in QUERY_KERNELS[q]:
+        for k in launches:
             name_, route, source, replaces = TPCDS_KERNELS[k]
             o = timed[k]
             entry = {
@@ -1972,7 +2281,7 @@ def main() -> int:
                 "replaces": replaces, "launches": launches[k],
                 "max_abs_err": max(errs.get(k, 0.0), errs3.get(k, 0.0),
                                    errs4.get(k, 0.0), errs5.get(k, 0.0),
-                                   o["max_abs_err"]),
+                                   errs6.get(k, 0.0), o["max_abs_err"]),
                 "ms": o["ms"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound_ms"], "bound_by": "bytes",
                 "library_ms": o["library_ms"], "device_ms": o["device_ms"],
@@ -1981,6 +2290,21 @@ def main() -> int:
                 entry["also_replaces"] = OUTER_REPLACES
             if q == "q16" and k == "K10":
                 entry["also_replaces"] = SEMI_ANTI_REPLACES
+            if q in ("q17", "q17v") and k == "K10":
+                entry["also_replaces"] = MULTIKEY_REPLACES
+            if q == "q17v" and k == "K9":
+                entry["also_replaces"] = M2_REPLACES
+                entry["m2_one_group_ms"], entry["m2_one_group_plain_ms"], \
+                    entry["m2_one_group_bound_ms"], _ = slice6_one["m2"]
+            if k == "K7c":
+                for what, key in (("all columns", "five_slices"),
+                                  ("fixed-width columns",
+                                   "five_fixed_slices")):
+                    ms_, plain_, bound_, lib_ = slice6_one[what]
+                    entry[f"{key}_ms"] = ms_
+                    entry[f"{key}_plain_ms"] = plain_
+                    entry[f"{key}_bound_ms"] = bound_
+                    entry[f"{key}_library_ms"] = lib_
             if k == "K15d":
                 entry["also_replaces"] = DISTINCT_REPLACES
                 for what, (ms_, plain_, bound_, lib_) in k15d_one.items():

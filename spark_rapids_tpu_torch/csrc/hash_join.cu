@@ -1,26 +1,39 @@
-// Kernel K10: inner, left outer, left semi and left anti equi-join of one
-// int or long key through a hash table.
+// Kernel K10: inner, left outer, left semi and left anti equi-join on up
+// to 8 key columns of int, date or long, through a hash table.
 //
 // Replaces the JAX package's sort-based join programs `join.build`,
 // `join.probe`, `join.pair` and `join.compact_pairs`
-// (spark_rapids_tpu/ops/join_ops.py: build_side :125, built :150;
-// _probe_ranges :157, :183; _expand_verify :191, :242; compact_pairs :290,
-// :308).  XLA has no hash tables, so the JAX package sorts the build side
-// by key hash and binary-searches it; on the card an open-addressing table
-// is the direct form, as in the plugin this repository models (cuDF hash
-// joins).
+// (spark_rapids_tpu/ops/join_ops.py: build_side :125 with _hash_rows :96
+// folding every key column through _mix64 :58, built :150; _probe_ranges
+// :157, :183; _expand_verify :191, :242; compact_pairs :290, :308).  XLA
+// has no hash tables, so the JAX package sorts the build side by key hash
+// and binary-searches it; on the card an open-addressing table is the
+// direct form, as in the plugin this repository models (cuDF hash joins).
+//
+// Keys: each side's key columns are a keys.cuh Keys (an int key is widened
+// to long before it is hashed or compared, so an int key of one side
+// equals a long key of the other with the same value).  A row whose keys
+// hold a null in any column never matches.  A row's hash is keys.cuh
+// row_hash over all its key columns; equality is keys_equal across the two
+// sides, so two keys whose hashes collide never match.
 //
 // Build: a table of a power of two >= 2 * build rows slots; each build row
-// with a non-null key takes its own slot (atomicCAS, linear probing), so
-// duplicate keys stay apart, and its key is stored beside the row index.
+// whose keys are all present takes its own slot (atomicCAS, linear
+// probing from its hash), so duplicate keys stay apart; the slot holds the
+// row index, and a tag goes beside it in slot_tag: with one key column the
+// key's own 64-bit word, so a tag match is a key match and no build key is
+// read (the one-key form of earlier versions kept the key in the slot the
+// same way); with several, the row hash, a filter before keys_equal reads
+// the build row's keys.
 // Probe, in tiles of 1024 rows: the count pass walks each probe row's
-// chain and writes one match count per tile; common.cuh scans the tile
+// chain -- a slot whose tag differs is skipped -- and writes one match
+// count per tile; common.cuh scans the tile
 // counts and writes the total, which the host reads (the join's one sync)
 // to size the output; the write pass walks again, scans the counts inside
 // the tile, and writes (probe row, build row) pairs in probe-row order.
 // Within one probe row the build rows are put in ascending order (an
 // insertion sort of that row's run), so the output does not depend on the
-// order in which build rows won their slots.  Null keys never match.
+// order in which build rows won their slots.
 //
 // Modes (the JAX package's finishing programs join.matched_flags,
 // join.unmatched_positions and concat_matched_unmatched, :275, :313, :418,
@@ -33,13 +46,17 @@
 //             JAX package's plain anti join, not Spark's null-aware one).
 // Semi and anti write only the kept probe rows, in probe order.
 //
+// One key column is the case n_keys = 1 of the same code; it differs only
+// in its tag (the key word, not the hash).
+//
 // Bound: device memory bytes.  The probe side is read twice (count and
 // write passes) where the function needs it once; the table (a few
 // thousand slots on the main path) stays in L2.
-#include "common.cuh"
+#include "keys.cuh"
 
 namespace {
 
+using srt::Keys;
 using srt::kScanItems;
 using srt::kScanTile;
 using srt::kThreads;
@@ -49,24 +66,21 @@ constexpr long long kEmpty = -1;
 enum Mode : int32_t { kInner = 0, kOuter = 1, kSemi = 2, kAnti = 3 };
 
 struct Side {
-  const void* keys;
-  int key64;
-  const uint8_t* valid;  // null: every key is present
+  Keys k;
   int64_t n;
 };
 
-__device__ __forceinline__ bool present(const Side& s, int64_t i) {
-  return s.valid == nullptr || s.valid[i] != 0;
-}
+struct Table {
+  const long long* slots;
+  const uint64_t* tag;
+  uint64_t mask;
+};
 
-__device__ __forceinline__ long long key_at(const Side& s, int64_t i) {
-  return s.key64 ? static_cast<const long long*>(s.keys)[i]
-                 : static_cast<long long>(static_cast<const int32_t*>(
-                       s.keys)[i]);
-}
-
-__device__ __forceinline__ uint64_t home(long long key, uint64_t mask) {
-  return srt::fmix64(static_cast<uint64_t>(key)) & mask;
+// the tag a slot keeps for a row of hash h: the key's word for one key
+// column, else the hash
+__device__ __forceinline__ uint64_t row_tag(const Keys& k, int64_t i,
+                                           uint64_t h) {
+  return k.n == 1 ? srt::key_word(k, 0, i) : h;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -79,22 +93,22 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 __global__ void __launch_bounds__(kThreads)
-    table_build(Side b, long long* slots, long long* slot_keys,
+    table_build(Side b, long long* slots, uint64_t* slot_tag,
                 uint64_t mask) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                    threadIdx.x;
        r < b.n; r += stride) {
-    if (!present(b, r)) continue;
-    const long long k = key_at(b, r);
-    uint64_t s = home(k, mask);
+    if (!srt::all_present(b.k, r)) continue;
+    const uint64_t h = srt::row_hash(b.k, r);
+    uint64_t s = h & mask;
     while (true) {
       const unsigned long long prev = atomicCAS(
           reinterpret_cast<unsigned long long*>(&slots[s]),
           static_cast<unsigned long long>(kEmpty),
           static_cast<unsigned long long>(r));
       if (prev == static_cast<unsigned long long>(kEmpty)) {
-        slot_keys[s] = k;
+        slot_tag[s] = row_tag(b.k, r, h);
         break;
       }
       s = (s + 1) & mask;
@@ -102,16 +116,27 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// build row of slot s when it matches probe row i of tag `tag`, else -1
+__device__ __forceinline__ long long slot_match(const Side& b, const Side& p,
+                                                const Table& t, uint64_t s,
+                                                int64_t i, uint64_t tag) {
+  if (t.tag[s] != tag) return -1;
+  const long long r = t.slots[s];
+  return p.k.n == 1 || srt::keys_equal(b.k, r, p.k, i) ? r : -1;
+}
+
 // matches of probe row i; semi and anti modes stop at the first
-__device__ __forceinline__ long long match_count(
-    const Side& p, int64_t i, const long long* __restrict__ slots,
-    const long long* __restrict__ slot_keys, uint64_t mask, int mode) {
-  if (i >= p.n || !present(p, i)) return 0;
-  const long long k = key_at(p, i);
+__device__ __forceinline__ long long match_count(const Side& b,
+                                                 const Side& p, int64_t i,
+                                                 const Table& t, int mode) {
+  if (i >= p.n || !srt::all_present(p.k, i)) return 0;
+  const uint64_t h = srt::row_hash(p.k, i);
+  const uint64_t tag = row_tag(p.k, i, h);
   const bool first_only = mode == kSemi || mode == kAnti;
   long long c = 0;
-  for (uint64_t s = home(k, mask); slots[s] != kEmpty; s = (s + 1) & mask) {
-    if (slot_keys[s] != k) continue;
+  for (uint64_t s = h & t.mask; t.slots[s] != kEmpty;
+       s = (s + 1) & t.mask) {
+    if (slot_match(b, p, t, s, i, tag) < 0) continue;
     ++c;
     if (first_only) break;
   }
@@ -133,15 +158,12 @@ __device__ __forceinline__ long long pair_count(long long matches,
 }
 
 __global__ void __launch_bounds__(kThreads)
-    probe_count(Side p, const long long* __restrict__ slots,
-                const long long* __restrict__ slot_keys, uint64_t mask,
-                int mode, int64_t* tile_counts) {
+    probe_count(Side b, Side p, Table t, int mode, int64_t* tile_counts) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile;
   long long c = 0;
   for (int k = 0; k < kScanItems; ++k) {
     const int64_t i = base + k * kThreads + threadIdx.x;
-    c += pair_count(match_count(p, i, slots, slot_keys, mask, mode), p, i,
-                    mode);
+    c += pair_count(match_count(b, p, i, t, mode), p, i, mode);
   }
   long long total;
   srt::block_exclusive_scan(c, &total);
@@ -149,20 +171,19 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 __global__ void __launch_bounds__(kThreads)
-    probe_write(Side p, const long long* __restrict__ slots,
-                const long long* __restrict__ slot_keys, uint64_t mask,
-                int mode, const int64_t* __restrict__ tile_offsets,
+    probe_write(Side b, Side p, Table t, int mode,
+                const int64_t* __restrict__ tile_offsets,
                 long long* __restrict__ out_probe,
                 long long* __restrict__ out_build) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile;
   long long carry = tile_offsets[blockIdx.x];
   for (int k = 0; k < kScanItems; ++k) {
     const int64_t i = base + k * kThreads + threadIdx.x;
-    const long long m = match_count(p, i, slots, slot_keys, mask, mode);
+    const long long m = match_count(b, p, i, t, mode);
     const long long c = pair_count(m, p, i, mode);
-    long long t;
-    const long long start = carry + srt::block_exclusive_scan(c, &t);
-    carry += t;
+    long long total;
+    const long long start = carry + srt::block_exclusive_scan(c, &total);
+    carry += total;
     if (c == 0) continue;
     if (mode == kSemi || mode == kAnti) {  // the kept row alone
       out_probe[start] = i;
@@ -173,13 +194,15 @@ __global__ void __launch_bounds__(kThreads)
       out_build[start] = -1;
       continue;
     }
-    const long long key = key_at(p, i);
+    const uint64_t h = srt::row_hash(p.k, i);
+    const uint64_t tag = row_tag(p.k, i, h);
     long long o = start;
-    for (uint64_t s = home(key, mask); slots[s] != kEmpty;
-         s = (s + 1) & mask) {
-      if (slot_keys[s] != key) continue;
+    for (uint64_t s = h & t.mask; t.slots[s] != kEmpty;
+         s = (s + 1) & t.mask) {
+      const long long r = slot_match(b, p, t, s, i, tag);
+      if (r < 0) continue;
       out_probe[o] = i;
-      out_build[o] = slots[s];
+      out_build[o] = r;
       ++o;
     }
     // build rows of this probe row in ascending order
@@ -195,26 +218,49 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-Side side(const void* keys, int32_t key64, const void* valid, int64_t n) {
-  return Side{keys, key64, static_cast<const uint8_t*>(valid), n};
+bool valid_keys(int32_t n_keys, const int32_t* type) {
+  if (n_keys < 1 || n_keys > srt::kMaxKeys) return false;
+  for (int c = 0; c < n_keys; ++c)
+    if (type[c] != srt::kKeyInt32 && type[c] != srt::kKeyInt64)
+      return false;
+  return true;
+}
+
+Side side(int32_t n_keys, const int32_t* type, const void* const* data,
+          const void* const* valid, int64_t n) {
+  // int and long keys only: no offsets
+  const int32_t off64[srt::kMaxKeys] = {};
+  const void* offsets[srt::kMaxKeys] = {};
+  return Side{srt::make_keys(n_keys, type, off64, data, valid, offsets), n};
+}
+
+Table table(const void* slots, const void* slot_tag, int64_t size) {
+  return Table{static_cast<const long long*>(slots),
+               static_cast<const uint64_t*>(slot_tag),
+               static_cast<uint64_t>(size - 1)};
 }
 
 }  // namespace
 
-// slots, slot_keys: table_size int64 each (a power of two).
-extern "C" int srt_join_build(const void* keys, int32_t key64,
-                              const void* valid, int64_t n, void* slots,
-                              void* slot_keys, int64_t table_size,
-                              void* stream) {
-  if (table_size <= 0 || (table_size & (table_size - 1)) != 0 ||
-      table_size < 2 * n)
+// Each side's keys: n_keys columns, type[c] a keys.cuh KeyType (int32 or
+// int64), data[c] the column's values, valid[c] its validity bytes (null:
+// all present).  slots, slot_tag: table_size int64 each (a power of two
+// >= 2 * build rows).
+extern "C" int srt_join_build(int32_t n_keys, const int32_t* type,
+                              const void* const* data,
+                              const void* const* valid, int64_t n,
+                              void* slots, void* slot_tag,
+                              int64_t table_size, void* stream) {
+  if (!valid_keys(n_keys, type) || table_size <= 0 ||
+      (table_size & (table_size - 1)) != 0 || table_size < 2 * n)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   long long* sl = static_cast<long long*>(slots);
   table_clear<<<srt::grid_for(table_size), kThreads, 0, s>>>(sl, table_size);
   if (n > 0)
     table_build<<<srt::grid_for(n), kThreads, 0, s>>>(
-        side(keys, key64, valid, n), sl, static_cast<long long*>(slot_keys),
+        side(n_keys, type, data, valid, n), sl,
+        static_cast<uint64_t*>(slot_tag),
         static_cast<uint64_t>(table_size - 1));
   return static_cast<int>(cudaGetLastError());
 }
@@ -222,12 +268,16 @@ extern "C" int srt_join_build(const void* keys, int32_t key64,
 // mode: Mode.  tile_offsets: srt::tiles_for(n) + 1 int64; after the call
 // tile_offsets[tiles] holds the number of pairs (kept rows in semi and
 // anti modes).
-extern "C" int srt_join_count(const void* keys, int32_t key64,
-                              const void* valid, int64_t n, const void* slots,
-                              const void* slot_keys, int64_t table_size,
-                              int32_t mode, void* tile_offsets,
-                              void* stream) {
-  if (mode < kInner || mode > kAnti)
+extern "C" int srt_join_count(int32_t n_keys, const int32_t* btype,
+                              const void* const* bdata,
+                              const void* const* bvalid, int64_t nb,
+                              const int32_t* ptype, const void* const* pdata,
+                              const void* const* pvalid, int64_t n,
+                              const void* slots, const void* slot_tag,
+                              int64_t table_size, int32_t mode,
+                              void* tile_offsets, void* stream) {
+  if (mode < kInner || mode > kAnti || !valid_keys(n_keys, btype) ||
+      !valid_keys(n_keys, ptype))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int64_t* offs = static_cast<int64_t*>(tile_offsets);
@@ -235,28 +285,32 @@ extern "C" int srt_join_count(const void* keys, int32_t key64,
     return static_cast<int>(cudaMemsetAsync(offs, 0, sizeof(int64_t), s));
   const unsigned tiles = srt::tiles_for(n);
   probe_count<<<tiles, kThreads, 0, s>>>(
-      side(keys, key64, valid, n), static_cast<const long long*>(slots),
-      static_cast<const long long*>(slot_keys),
-      static_cast<uint64_t>(table_size - 1), mode, offs);
+      side(n_keys, btype, bdata, bvalid, nb),
+      side(n_keys, ptype, pdata, pvalid, n),
+      table(slots, slot_tag, table_size), mode, offs);
   srt::scan_tile_offsets<<<1, kThreads, 0, s>>>(offs, tiles, offs + tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 // out_build is not written in semi and anti modes (it may be null).
-extern "C" int srt_join_write(const void* keys, int32_t key64,
-                              const void* valid, int64_t n, const void* slots,
-                              const void* slot_keys, int64_t table_size,
-                              int32_t mode, const void* tile_offsets,
-                              void* out_probe, void* out_build,
-                              void* stream) {
-  if (mode < kInner || mode > kAnti)
+extern "C" int srt_join_write(int32_t n_keys, const int32_t* btype,
+                              const void* const* bdata,
+                              const void* const* bvalid, int64_t nb,
+                              const int32_t* ptype, const void* const* pdata,
+                              const void* const* pvalid, int64_t n,
+                              const void* slots, const void* slot_tag,
+                              int64_t table_size, int32_t mode,
+                              const void* tile_offsets, void* out_probe,
+                              void* out_build, void* stream) {
+  if (mode < kInner || mode > kAnti || !valid_keys(n_keys, btype) ||
+      !valid_keys(n_keys, ptype))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   probe_write<<<srt::tiles_for(n), kThreads, 0, s>>>(
-      side(keys, key64, valid, n), static_cast<const long long*>(slots),
-      static_cast<const long long*>(slot_keys),
-      static_cast<uint64_t>(table_size - 1), mode,
+      side(n_keys, btype, bdata, bvalid, nb),
+      side(n_keys, ptype, pdata, pvalid, n),
+      table(slots, slot_tag, table_size), mode,
       static_cast<const int64_t*>(tile_offsets),
       static_cast<long long*>(out_probe), static_cast<long long*>(out_build));
   return static_cast<int>(cudaGetLastError());

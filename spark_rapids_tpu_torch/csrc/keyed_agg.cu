@@ -11,7 +11,12 @@
 // double key groups -0.0 with 0.0 and every NaN together.
 // Aggregates: up to 16 of long sum (int or long input, wrapping), double
 // sum (of a double input, or of an int or long one converted row by row:
-// an average's sum), count of valid inputs and count of rows.
+// an average's sum), count of valid inputs, count of rows, and m2 (the
+// variance family's sum of squared deviations from the group's mean over
+// its present values converted to double, ops/agg_ops.py:490-502: the
+// mean first, then the squares, two passes over the group's rows, so a
+// large mean costs no precision as a one-pass form would; 0 for a group
+// with no present value, valid as the JAX package's buffer is).
 //
 // Steps (srt_agg_groups, then the host reads the group count -- the one
 // sync -- then srt_agg_reduce):
@@ -27,8 +32,8 @@
 //   4. rows are ordered by group id with the stable radix sort
 //      (radix.cuh), so each group's rows lie together in row order;
 //   5. one thread per group folds its rows in row order: the double sums
-//      do not depend on timing, and equal those of a sequential sum in
-//      row order.
+//      and m2 do not depend on timing, and equal those of a sequential
+//      sum in row order.
 // The caller gathers the key columns through group_rep (K7); gid, each
 // row's group id, is there for K15d (distinct.cu) over the same groups.
 //
@@ -47,7 +52,7 @@ constexpr int kMaxAggs = 16;
 constexpr long long kEmpty = -1;
 
 enum AggKind : int32_t { kSumI64 = 0, kSumF64 = 1, kCount = 2,
-                         kCountAll = 3 };
+                         kCountAll = 3, kM2 = 4 };
 enum InType : int32_t { kInInt32 = 0, kInInt64 = 1, kInFloat64 = 2 };
 
 struct Aggs {
@@ -140,6 +145,41 @@ __device__ __forceinline__ bool agg_present(const Aggs& a, int j,
   return a.valid[j] == nullptr || a.valid[j][r] != 0;
 }
 
+// input j of row r as a double (an int or long converts)
+__device__ __forceinline__ double agg_double(const Aggs& a, int j,
+                                            int64_t r) {
+  return a.in_type[j] == kInFloat64
+             ? static_cast<const double*>(a.data[j])[r]
+         : a.in_type[j] == kInInt32
+             ? static_cast<double>(static_cast<const int32_t*>(a.data[j])[r])
+             : static_cast<double>(
+                   static_cast<const long long*>(a.data[j])[r]);
+}
+
+// m2 of aggregate j over the group's rows perm[lo..hi): the mean, then the
+// sum of squared deviations from it
+__device__ double agg_m2(const Aggs& a, int j, int64_t lo, int64_t hi,
+                         const long long* __restrict__ perm) {
+  double s = 0.0;
+  long long cnt = 0;
+  for (int64_t p = lo; p < hi; ++p) {
+    const long long r = perm[p];
+    if (!agg_present(a, j, r)) continue;
+    s += agg_double(a, j, r);
+    ++cnt;
+  }
+  if (cnt == 0) return 0.0;
+  const double mean = s / static_cast<double>(cnt);
+  double m2 = 0.0;
+  for (int64_t p = lo; p < hi; ++p) {
+    const long long r = perm[p];
+    if (!agg_present(a, j, r)) continue;
+    const double d = agg_double(a, j, r) - mean;
+    m2 += d * d;
+  }
+  return m2;
+}
+
 __global__ void __launch_bounds__(kThreads)
     agg_fold(Aggs a, int64_t n_groups, const int64_t* __restrict__ seg,
              const long long* __restrict__ perm) {
@@ -151,6 +191,11 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t hi = seg[g + 1];
     for (int j = 0; j < a.n; ++j) {
       const int kind = a.kind[j];
+      if (kind == kM2) {
+        static_cast<double*>(a.out[j])[g] = agg_m2(a, j, lo, hi, perm);
+        a.out_valid[j][g] = 1;
+        continue;
+      }
       unsigned long long u = 0;
       double f = 0.0;
       long long cnt = 0;
@@ -163,14 +208,7 @@ __global__ void __launch_bounds__(kThreads)
         if (!agg_present(a, j, r)) continue;
         ++cnt;
         if (kind == kSumF64) {
-          // an int or long input converts to double row by row
-          f += a.in_type[j] == kInFloat64
-                   ? static_cast<const double*>(a.data[j])[r]
-               : a.in_type[j] == kInInt32
-                   ? static_cast<double>(
-                         static_cast<const int32_t*>(a.data[j])[r])
-                   : static_cast<double>(
-                         static_cast<const long long*>(a.data[j])[r]);
+          f += agg_double(a, j, r);  // an int or long converts row by row
         } else if (kind == kSumI64) {
           u += a.in_type[j] == kInInt32
                    ? static_cast<unsigned long long>(static_cast<long long>(
@@ -253,7 +291,7 @@ extern "C" int srt_agg_reduce(int32_t n_aggs, const int32_t* kind,
   Aggs a;
   a.n = n_aggs;
   for (int j = 0; j < n_aggs; ++j) {
-    if (kind[j] < kSumI64 || kind[j] > kCountAll)
+    if (kind[j] < kSumI64 || kind[j] > kM2)
       return static_cast<int>(cudaErrorInvalidValue);
     a.kind[j] = kind[j];
     a.in_type[j] = in_type[j];

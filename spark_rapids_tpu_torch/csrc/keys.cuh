@@ -1,7 +1,7 @@
-// Key columns shared by the keyed aggregation (keyed_agg.cu, K9) and the
-// window (window.cu, K14): up to 8 columns of int32 (int, date), int64,
-// double or string (offsets int32 or int64 and chars), each with an
-// optional validity plane.
+// Key columns shared by the keyed aggregation (keyed_agg.cu, K9), the
+// window (window.cu, K14) and the hash join (hash_join.cu, K10): up to 8
+// columns of int32 (int, date), int64, double or string (offsets int32 or
+// int64 and chars), each with an optional validity plane.
 //
 // Equality follows the JAX package's _masked_group_words
 // (spark_rapids_tpu/ops/agg_ops.py:38) over sortable_words
@@ -106,23 +106,42 @@ __device__ uint64_t row_hash(const Keys& k, int64_t i) {
   return h;
 }
 
-__device__ bool keys_equal(const Keys& k, int64_t a, int64_t b) {
-  for (int c = 0; c < k.n; ++c) {
-    const bool pa = key_present(k, c, a);
-    if (pa != key_present(k, c, b)) return false;
+// Row a of key columns ka has the keys of row b of kb: the two may be
+// different column sets of the same arity (a join's build and probe
+// sides), so an int key equals a long one of the same value (key_word
+// widens both) and two strings compare across their chars buffers.
+__device__ bool keys_equal(const Keys& ka, int64_t a, const Keys& kb,
+                           int64_t b) {
+  for (int c = 0; c < ka.n; ++c) {
+    const bool pa = key_present(ka, c, a);
+    if (pa != key_present(kb, c, b)) return false;
     if (!pa) continue;
-    if (k.type[c] == kKeyString) {
+    if (ka.type[c] == kKeyString) {
       int64_t sa, ea, sb, eb;
-      string_bounds(k, c, a, &sa, &ea);
-      string_bounds(k, c, b, &sb, &eb);
+      string_bounds(ka, c, a, &sa, &ea);
+      string_bounds(kb, c, b, &sb, &eb);
       if (ea - sa != eb - sb) return false;
-      const uint8_t* chars = static_cast<const uint8_t*>(k.data[c]);
+      const uint8_t* ca = static_cast<const uint8_t*>(ka.data[c]);
+      const uint8_t* cb = static_cast<const uint8_t*>(kb.data[c]);
       for (int64_t j = 0; j < ea - sa; ++j)
-        if (chars[sa + j] != chars[sb + j]) return false;
-    } else if (key_word(k, c, a) != key_word(k, c, b)) {
+        if (ca[sa + j] != cb[sb + j]) return false;
+    } else if (key_word(ka, c, a) != key_word(kb, c, b)) {
       return false;
     }
   }
+  return true;
+}
+
+__device__ __forceinline__ bool keys_equal(const Keys& k, int64_t a,
+                                           int64_t b) {
+  return keys_equal(k, a, k, b);
+}
+
+// every key column of row i is present (a join key with a null never
+// matches)
+__device__ __forceinline__ bool all_present(const Keys& k, int64_t i) {
+  for (int c = 0; c < k.n; ++c)
+    if (!key_present(k, c, i)) return false;
   return true;
 }
 

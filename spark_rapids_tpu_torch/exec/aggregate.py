@@ -8,12 +8,14 @@ and evaluates the final projection, as ``TpuHashAggregateExec(FINAL)``
 does through ``merge_partials_out_of_core`` (``:173``).
 
 ``TorchKeyedAggregateExec`` is a COMPLETE group-by over one partition: K9
-(``ops/agg_ops.py keyed_aggregate``) groups the rows and folds sum and
-count per group, writing each aggregate's result and its validity (a sum
+(``ops/agg_ops.py keyed_aggregate``) groups the rows and folds sum, count
+and m2 per group, writing each aggregate's result and its validity (a sum
 of no present value is null, as Spark has it), and K7 gathers the key
 columns from each group's first row.  An average folds a double sum and a
-count, and K6 (exec/fused.py) evaluates its final expression over the
-groups.  Groups come out in order of first appearance."""
+count, the variance family a count and m2, and K6 (exec/fused.py)
+evaluates their final expressions over the groups.  Groups come out in
+order of first appearance.  The batches of one partition (an Expand's)
+are concatenated first (K7c)."""
 
 from __future__ import annotations
 
@@ -180,14 +182,30 @@ def distinct_input(f) -> int:
     return e.ordinal
 
 
+def _column_of(e) -> int:
+    """The column ordinal K9 reads for input ``e``: a column, or a
+    widening cast of one (K9 widens int to long and converts to double
+    row by row itself); -1 for any other expression."""
+    from spark_rapids_tpu_torch.expressions.cast import Cast
+    if isinstance(e, Cast) and isinstance(e.children[0], BoundReference) \
+            and e.children[0].data_type in (T.INT, T.LONG, T.DOUBLE):
+        e = e.children[0]
+    return e.ordinal if isinstance(e, BoundReference) else -1
+
+
 def keyed_inputs(layout: _AggLayout):
-    """``[(input ordinal or None, K9 kind or DISTINCT, result type)]``:
-    one K9 aggregate for a sum or a count, two (a double sum and a count
-    of present values) for an average, and a K15d count (``DISTINCT``)
-    for a ``count(DISTINCT)``.  Raises NotImplementedError, naming it,
-    for what K9 and K15d cannot fold yet."""
+    """``(slots, per_agg)``.  ``slots`` is ``[(input ordinal or None, K9
+    kind or DISTINCT, result type)]``, each (input, kind) once, so
+    aggregates that fold the same value share a slot (q17's ``count``,
+    ``avg`` and ``stddev_samp`` of one column share its count);
+    ``per_agg[i]`` is the slot indices aggregate ``i`` reads: one for a
+    sum or a count, a double sum and a count of present values for an
+    average, a count and m2 for the variance family, and a K15d count
+    (``DISTINCT``) for a ``count(DISTINCT)``.  Raises
+    NotImplementedError, naming it, for what K9 and K15d cannot fold
+    yet."""
     from spark_rapids_tpu_torch.expressions.aggregates import (
-        Average, Count, CountDistinct, Sum)
+        Average, Count, CountDistinct, Sum, _CentralMoment)
     from spark_rapids_tpu_torch.expressions.base import Literal
     from spark_rapids_tpu_torch.ops import agg_ops as G
     for k in layout.grouping:
@@ -199,79 +217,110 @@ def keyed_inputs(layout: _AggLayout):
             raise NotImplementedError(
                 f"a grouping key of {k.data_type} is not in the port yet "
                 "(int, date, long, double and string keys are)")
-    out = []
+    slots, per_agg = [], []
+
+    def slot(ordinal, kind, dtype) -> int:
+        for j, (o, k, _dt) in enumerate(slots):
+            if (o, k) == (ordinal, kind):
+                return j
+        slots.append((ordinal, kind, dtype))
+        return len(slots) - 1
+
     for a in layout.aggs:
         f = a.func
         e = f.children[0]
         if isinstance(f, CountDistinct):
-            out.append((distinct_input(f), DISTINCT, T.LONG))
+            per_agg.append((slot(distinct_input(f), DISTINCT, T.LONG),))
             continue
         if isinstance(f, Count) and isinstance(e, Literal) and \
                 e.value is not None:
-            out.append((None, G.KEYED_COUNT_ALL, T.LONG))
+            per_agg.append((slot(None, G.KEYED_COUNT_ALL, T.LONG),))
             continue
-        if not isinstance(e, BoundReference) or \
-                not isinstance(f, (Sum, Count, Average)):
+        o = _column_of(e)
+        if o < 0 or not isinstance(f, (Sum, Count, Average,
+                                       _CentralMoment)):
             raise NotImplementedError(
                 f"aggregate {f.sql()} in a group-by is not in the port yet "
-                "(sum, count and avg of a column are)")
+                "(sum, count, avg and the variance family of a column "
+                "are)")
         if isinstance(f, Count):
-            out.append((e.ordinal, G.KEYED_COUNT, T.LONG))
+            per_agg.append((slot(o, G.KEYED_COUNT, T.LONG),))
         elif isinstance(f, Average):
             # K9 converts an int or long input to double row by row
-            out.append((e.ordinal, G.KEYED_SUM_F64, T.DOUBLE))
-            out.append((e.ordinal, G.KEYED_COUNT, T.LONG))
+            per_agg.append((slot(o, G.KEYED_SUM_F64, T.DOUBLE),
+                            slot(o, G.KEYED_COUNT, T.LONG)))
+        elif isinstance(f, _CentralMoment):
+            per_agg.append((slot(o, G.KEYED_COUNT, T.LONG),
+                            slot(o, G.KEYED_M2, T.DOUBLE)))
         elif f.data_type.is_floating:
-            out.append((e.ordinal, G.KEYED_SUM_F64, T.DOUBLE))
+            per_agg.append((slot(o, G.KEYED_SUM_F64, T.DOUBLE),))
         else:
             # K9 widens int to long itself
-            out.append((e.ordinal, G.KEYED_SUM_I64, T.LONG))
-    return out
+            per_agg.append((slot(o, G.KEYED_SUM_I64, T.LONG),))
+    if sum(kind != DISTINCT for _o, kind, _dt in slots) > G.MAX_AGGS:
+        raise NotImplementedError(
+            f"a group-by of more than {G.MAX_AGGS} distinct K9 slots is "
+            "not in the port yet")
+    return slots, per_agg
 
 
 class TorchKeyedAggregateExec(UnaryExec):
     """COMPLETE group-by over one partition: K9, then K7 for the keys, then,
     when an aggregate has a final expression (an average's
-    ``If(cnt > 0, sum / cnt, NULL)``), K6 over the group rows, as
+    ``If(cnt > 0, sum / cnt, NULL)``, ``stddev_samp``'s
+    ``If(n > 1, sqrt(m2 / (n - 1)), NULL)``), K6 over the group rows, as
     ``exec/fused.py:653`` runs ``eval_exprs_tpu`` over the merged
-    groups.  A sum's and a count's K9 result is already final.  A
-    ``count(DISTINCT)`` is K15d's over K9's groups (its row group ids), as
-    ``_complete_collect`` (``exec/aggregate.py:510``) zips its collect
-    slots with the scalar ones."""
+    groups; with none, the results are a selection of K9's slots (no
+    launch).  A ``count(DISTINCT)`` is K15d's over K9's groups (its row
+    group ids), as ``_complete_collect`` (``exec/aggregate.py:510``) zips
+    its collect slots with the scalar ones.  A partition of several
+    batches (an Expand's, one per grouping set) is concatenated first
+    (K7c), as the JAX package's aggregate concatenates its input
+    (``exec/aggregate.py:200``)."""
 
     def __init__(self, layout: _AggLayout, child):
-        from spark_rapids_tpu_torch.expressions.aggregates import Average
-        from spark_rapids_tpu_torch.exec.fused import StageProgram
+        from spark_rapids_tpu_torch.expressions.aggregates import (
+            Average, _CentralMoment)
+        from spark_rapids_tpu_torch.expressions.cast import Cast
+        from spark_rapids_tpu_torch.exec.fused import (StageProgram,
+                                                       bare_ordinal)
         super().__init__(child)
         if child.num_partitions != 1:
             raise NotImplementedError(
                 "a group-by over several partitions is not in the port yet")
         self.layout = layout
-        self.inputs = keyed_inputs(layout)
+        self.inputs, per_agg = keyed_inputs(layout)
         nk = layout.num_keys
-        # the batch K9 and K7 give: keys, then one column per K9 aggregate
+        # the batch K9 and K7 give: keys, then one column per slot
         fields = [T.StructField(layout.key_name(i),
                                 layout.grouping[i].data_type, True)
                   for i in range(nk)]
         fields += [T.StructField(f"_k9_{j}", dt, True)
                    for j, (_o, _k, dt) in enumerate(self.inputs)]
         self._folded = T.StructType(fields)
+
+        def ref(j: int) -> BoundReference:
+            return BoundReference(nk + j, fields[nk + j].data_type, True)
         finals: List[Expression] = [
             Alias(BoundReference(i, f.data_type, True), f.name)
             for i, f in enumerate(fields[:nk])]
-        j = nk
-        for a in layout.aggs:
-            refs = [BoundReference(j + b, fields[j + b].data_type, True)
-                    for b in range(2 if isinstance(a.func, Average) else 1)]
-            j += len(refs)
-            final = a.func.evaluate(refs) if isinstance(a.func, Average) \
-                else refs[0]
+        for a, js in zip(layout.aggs, per_agg):
+            if isinstance(a.func, Average):
+                final = a.func.evaluate([ref(j) for j in js])
+            elif isinstance(a.func, _CentralMoment):
+                cnt, m2 = (ref(j) for j in js)
+                final = a.func.evaluate([Cast(cnt, T.DOUBLE), None, m2])
+            else:
+                final = ref(js[0])
             finals.append(Alias(final, a.out_name))
+        #: the slots the output reads when it computes nothing (a
+        #: selection), else K6's program
+        self.picked = [bare_ordinal(e) for e in finals]
         self.finish = None
-        if any(not isinstance(e.children[0], BoundReference)
-               for e in finals):
-            self.finish = StageProgram([("project", finals)],
-                                       self._folded, 0)
+        if None in self.picked:
+            self.picked = None
+            self.finish = StageProgram([("project", finals)], self._folded,
+                                       0)
 
     @property
     def schema(self):
@@ -311,18 +360,12 @@ class TorchKeyedAggregateExec(UnaryExec):
             cols.append(DeviceColumn(counts, torch.ones_like(
                 counts, dtype=torch.bool), dt))
         names = self.schema.names
-        if self.finish is None:
-            return ColumnarBatch(cols, group_rep.shape[0], names)
-        folded = ColumnarBatch(cols, group_rep.shape[0],
-                               self._folded.names)
+        folded = ColumnarBatch(cols, n_groups, self._folded.names)
+        if self.picked is not None:
+            return folded.select(self.picked, names)
         return project_batch(self.finish, folded, LiteralArgs([]), names)
 
     def execute(self, ctx: ExecContext) -> Partitions:
-        out = []
-        for part in self.child.execute(ctx):
-            if len(part) > 1:
-                raise NotImplementedError(
-                    "a group-by over several batches is not in the port yet")
-            out.append([self.aggregate_batch(b, ctx.transfers)
-                        for b in part])
-        return out
+        from spark_rapids_tpu_torch.ops.batch_ops import concat_batches
+        return [[self.aggregate_batch(concat_batches(part), ctx.transfers)]
+                if part else [] for part in self.child.execute(ctx)]

@@ -22,9 +22,13 @@ key is null, as the JAX package's plain anti join does (its analyzer
 plans ``NOT IN`` so, ``sql/analyzer.py:24-26``; Spark's null-aware anti
 join would drop it).
 
+Keys are one to eight column pairs of int, date or long (q17 joins
+store_sales to store_returns on customer, item and ticket); a row with a
+null in any of its key columns never matches.
+
 Refused by name when the plan is built: right, full and cross joins, a
-condition beyond the keys, several key columns, keys other than int or
-long, and children of several partitions."""
+condition beyond the keys, keys other than int, date or long (string and
+double keys), and children of several partitions."""
 
 from __future__ import annotations
 
@@ -34,7 +38,8 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.expressions.base import (BoundReference,
                                                      Expression)
 from spark_rapids_tpu_torch.ops.batch_ops import gather_columns
-from spark_rapids_tpu_torch.ops.join_ops import KEY_TYPES, join_pairs
+from spark_rapids_tpu_torch.ops.join_ops import (KEY_TYPES, MAX_KEYS,
+                                                 join_pairs)
 from spark_rapids_tpu_torch.plan.base import (Exec, ExecContext, Partitions,
                                               join_schema)
 
@@ -66,10 +71,13 @@ def check_join(how: str, left_keys: Sequence[Expression],
     """Raises NotImplementedError, naming it, for a join the port cannot
     run yet."""
     normalize_how(how)
-    if len(left_keys) != 1 or len(right_keys) != 1:
+    if len(left_keys) != len(right_keys):
+        raise ValueError(f"{len(left_keys)} left keys for "
+                         f"{len(right_keys)} right keys")
+    if not 1 <= len(left_keys) <= MAX_KEYS:
         raise NotImplementedError(
             f"a join on {len(left_keys)} key columns is not in the port yet "
-            "(one key column is)")
+            f"(1 to {MAX_KEYS} key columns are)")
     for k in (*left_keys, *right_keys):
         if not isinstance(k, BoundReference):
             raise NotImplementedError(
@@ -77,11 +85,17 @@ def check_join(how: str, left_keys: Sequence[Expression],
                 "the port yet")
         if not isinstance(k.data_type, KEY_TYPES):
             raise NotImplementedError(
-                f"a join key of {k.data_type} is not in the port yet (int "
-                "and long keys are)")
+                f"a join key of {k.data_type} is not in the port yet (int, "
+                "date and long keys are)")
     if left.num_partitions != 1 or right.num_partitions != 1:
         raise NotImplementedError(
             "a join of several partitions is not in the port yet")
+
+
+def _keys_of(batch: ColumnarBatch, keys: Sequence[BoundReference]):
+    """K10's key argument: the key column alone, or the list of them."""
+    cols = [batch.columns[k.ordinal] for k in keys]
+    return cols[0] if len(cols) == 1 else cols
 
 
 class TorchHashJoinExec(Exec):
@@ -111,8 +125,9 @@ class TorchHashJoinExec(Exec):
         return join_schema(self.left.schema, self.right.schema, self.how)
 
     def node_string(self):
-        return (f"TorchHashJoin[{self.how}, "
-                f"{self.left_keys[0].sql()} = {self.right_keys[0].sql()}]")
+        keys = ", ".join(f"{a.sql()} = {b.sql()}"
+                         for a, b in zip(self.left_keys, self.right_keys))
+        return f"TorchHashJoin[{self.how}, {keys}]"
 
     @staticmethod
     def _one_batch(parts: Partitions, side: str) -> ColumnarBatch:
@@ -125,8 +140,8 @@ class TorchHashJoinExec(Exec):
 
     def join_batches(self, lb: ColumnarBatch, rb: ColumnarBatch,
                      transfers) -> ColumnarBatch:
-        lkey = lb.columns[self.left_keys[0].ordinal]
-        rkey = rb.columns[self.right_keys[0].ordinal]
+        lkey, rkey = _keys_of(lb, self.left_keys), _keys_of(rb,
+                                                          self.right_keys)
         if self.how in _EXISTENCE:
             lidx, _none = join_pairs(rkey, lkey, transfers,
                                      mode=_EXISTENCE[self.how])

@@ -3,7 +3,8 @@ expressions/aggregates.py``): each function names its buffers with an
 update kind and a merge kind, and a final expression over the merged
 buffers.  ``Average`` (``:154``) keeps the JAX package's buffers: a double
 sum of ``Cast(child, DOUBLE)`` and a count, and the final expression
-``If(cnt > 0, sum / cnt, NULL)``."""
+``If(cnt > 0, sum / cnt, NULL)``; the variance family (``_CentralMoment``,
+``:228``) its count, mean and m2."""
 
 from __future__ import annotations
 
@@ -153,6 +154,94 @@ class CountDistinct(AggregateFunction):
 
     def evaluate(self, refs):
         return refs[0]
+
+
+class _CentralMoment(AggregateFunction):
+    """The variance family over the JAX package's buffers (``:228``):
+    count, mean and m2 (the sum of squared deviations from the group's
+    mean) of ``Cast(child, DOUBLE)``.  A group-by folds the count and m2
+    on K9 (its m2 kind: the mean, then the squared deviations, two passes
+    over the group's rows); the PARTIAL/FINAL merge (``m2_cnt``,
+    ``m2_mean``, ``m2_m2``: Chan's formula) is not in the port yet."""
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def data_type(self):
+        return T.DOUBLE
+
+    def inputs(self):
+        from spark_rapids_tpu_torch.expressions.cast import Cast
+        return [Cast(self.children[0], T.DOUBLE)]
+
+    def buffers(self):
+        return [BufferSpec("cnt", T.DOUBLE, "count", "m2_cnt"),
+                BufferSpec("mean", T.DOUBLE, "mean", "m2_mean"),
+                BufferSpec("m2", T.DOUBLE, "m2", "m2_m2")]
+
+    def _final(self, refs):
+        raise NotImplementedError
+
+    def evaluate(self, refs):
+        """The result from ``[cnt, mean, m2]`` (DOUBLE) references."""
+        return self._final(refs)
+
+
+class VarianceSamp(_CentralMoment):
+    """``var_samp``: ``If(n > 1, m2 / (n - 1), NULL)`` (``:259``)."""
+
+    def sql(self):
+        return f"var_samp({self.children[0].sql()})"
+
+    def _final(self, refs):
+        from spark_rapids_tpu_torch.expressions.arithmetic import (Divide,
+                                                                   Subtract)
+        from spark_rapids_tpu_torch.expressions.conditional import If
+        from spark_rapids_tpu_torch.expressions.predicates import \
+            GreaterThan
+        n, m2 = refs[0], refs[2]
+        return If(GreaterThan(n, Literal(1.0, T.DOUBLE)),
+                  Divide(m2, Subtract(n, Literal(1.0, T.DOUBLE))),
+                  Literal(None, T.DOUBLE))
+
+
+class VariancePop(_CentralMoment):
+    """``var_pop``: ``If(n > 0, m2 / n, NULL)``."""
+
+    def sql(self):
+        return f"var_pop({self.children[0].sql()})"
+
+    def _final(self, refs):
+        from spark_rapids_tpu_torch.expressions.arithmetic import Divide
+        from spark_rapids_tpu_torch.expressions.conditional import If
+        from spark_rapids_tpu_torch.expressions.predicates import \
+            GreaterThan
+        n, m2 = refs[0], refs[2]
+        return If(GreaterThan(n, Literal(0.0, T.DOUBLE)), Divide(m2, n),
+                  Literal(None, T.DOUBLE))
+
+
+class StddevSamp(_CentralMoment):
+    """``stddev_samp``: ``Sqrt`` of ``var_samp``'s final (``:279``)."""
+
+    def sql(self):
+        return f"stddev_samp({self.children[0].sql()})"
+
+    def _final(self, refs):
+        from spark_rapids_tpu_torch.expressions.mathexprs import Sqrt
+        return Sqrt(VarianceSamp(self.children[0])._final(refs))
+
+
+class StddevPop(_CentralMoment):
+    """``stddev_pop``: ``Sqrt`` of ``var_pop``'s final."""
+
+    def sql(self):
+        return f"stddev_pop({self.children[0].sql()})"
+
+    def _final(self, refs):
+        from spark_rapids_tpu_torch.expressions.mathexprs import Sqrt
+        return Sqrt(VariancePop(self.children[0])._final(refs))
 
 
 @dataclasses.dataclass

@@ -2,7 +2,8 @@
 
 Spark non-ANSI semantics: operands widen to the common type, integer
 overflow wraps (torch's int64 and int32 arithmetic is two's complement),
-and a null operand makes the result null.  ``Divide`` (``:178``) divides
+and a null operand makes the result null (``Add``, ``Subtract``,
+``Multiply``).  ``Divide`` (``:178``) divides
 as doubles and gives null for a zero divisor (0.0 or -0.0); the data
 under that null is the dividend divided by one, as the JAX package
 computes it."""
@@ -55,6 +56,14 @@ class Add(BinaryArithmetic):
 
     def _apply(self, a, b):
         return a + b
+
+
+class Subtract(BinaryArithmetic):
+    """``a - b`` (JAX ``:162``); integer overflow wraps."""
+    symbol = "-"
+
+    def _apply(self, a, b):
+        return a - b
 
 
 class Multiply(BinaryArithmetic):

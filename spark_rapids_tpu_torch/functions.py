@@ -6,8 +6,9 @@ from __future__ import annotations
 from spark_rapids_tpu_torch.expressions import window_exprs as W
 from spark_rapids_tpu_torch.expressions.base import Expression, col, lit
 
-__all__ = ["col", "lit", "sum", "count", "count_distinct", "avg", "asc",
-           "desc", "substring", "Window", "WindowBuilder"]
+__all__ = ["col", "lit", "sum", "count", "count_distinct", "avg",
+           "stddev", "stddev_samp", "stddev_pop", "var_samp", "var_pop",
+           "asc", "desc", "substring", "Window", "WindowBuilder"]
 
 
 def _expr(e) -> Expression:
@@ -29,6 +30,30 @@ def count(e="*"):
     if isinstance(e, str) and e == "*":
         return Count(lit(1))
     return Count(_expr(e))
+
+
+def var_samp(e):
+    from spark_rapids_tpu_torch.expressions.aggregates import VarianceSamp
+    return VarianceSamp(_expr(e))
+
+
+def var_pop(e):
+    from spark_rapids_tpu_torch.expressions.aggregates import VariancePop
+    return VariancePop(_expr(e))
+
+
+def stddev(e):
+    """``stddev_samp(e)``: K9's count and m2 kinds, then K6's finish."""
+    from spark_rapids_tpu_torch.expressions.aggregates import StddevSamp
+    return StddevSamp(_expr(e))
+
+
+stddev_samp = stddev
+
+
+def stddev_pop(e):
+    from spark_rapids_tpu_torch.expressions.aggregates import StddevPop
+    return StddevPop(_expr(e))
 
 
 def count_distinct(e):

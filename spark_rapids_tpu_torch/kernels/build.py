@@ -118,6 +118,10 @@ def int32s(values: Sequence[int]) -> "ctypes.Array":
     return (ctypes.c_int32 * max(1, len(values)))(*values)
 
 
+def int64s(values: Sequence[int]) -> "ctypes.Array":
+    return (ctypes.c_int64 * max(1, len(values)))(*values)
+
+
 def check_launch(rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: CUDA error {rc}")

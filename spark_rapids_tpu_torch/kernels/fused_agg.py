@@ -27,8 +27,9 @@ Promoted literals (``plan/stages.py``) are read from a runtime table of
 int64 words, so one built kernel serves every literal value.  K5 and K6
 (``kernels/fused_stage.py``) share the emitters and ``load_columns``:
 comparisons (``=``, ``<>``, the orders; strings against a literal's bytes
-or another view's), ``IN``, ``NOT`` and Kleene ``AND``/``OR``, arithmetic,
-casts, ``If``, substring views and murmur3.
+or another view's), ``IN``, ``NOT`` and Kleene ``AND``/``OR``, arithmetic
+(``+``, ``-``, ``*``, ``/``), ``sqrt``, casts, ``If``, substring views and
+murmur3.
 
 The emitters live in a registry keyed by expression class, so the
 expression modules never import ``triton``; a class with no emitter is
@@ -44,6 +45,7 @@ from spark_rapids_tpu_torch.expressions import arithmetic as A
 from spark_rapids_tpu_torch.expressions import cast as CA
 from spark_rapids_tpu_torch.expressions import conditional as CO
 from spark_rapids_tpu_torch.expressions import hashing as H
+from spark_rapids_tpu_torch.expressions import mathexprs as M
 from spark_rapids_tpu_torch.expressions import predicates as P
 from spark_rapids_tpu_torch.expressions import strings as ST
 from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
@@ -262,7 +264,7 @@ def _promoted_literal(em, e, cols):
     return em.slot(e.slot, e.data_type), em.TRUE
 
 
-_ARITH = {A.Add: "+", A.Multiply: "*"}
+_ARITH = {A.Add: "+", A.Subtract: "-", A.Multiply: "*"}
 
 
 @emits(*_ARITH)
@@ -467,6 +469,18 @@ def _divide(em, e, cols):
     zero = em.let(f"{b} == 0.0")   # -0.0 too
     out = em.let(f"{a} / tl.where({zero}, 1.0, {b})")
     return out, em.let(f"{em.both(av, bv)} & (~{zero})")
+
+
+@emits(M.Sqrt)
+def _sqrt(em, e, cols):
+    """IEEE square root of the operand as a double (``tl.sqrt`` of an
+    f64 is ``sqrt.rn``); one quiet NaN below 0 and for a NaN, as
+    ``Sqrt.eval`` gives it."""
+    v, valid = em.emit(e.children[0], cols)
+    x = em.cast(v, e.children[0].data_type, T.DOUBLE)
+    nan, _ = em.constant(float("nan"), T.DOUBLE)
+    return (em.let(f"tl.where(({x} < 0.0) | ({x} != {x}), {nan}, "
+                   f"tl.sqrt({x}))"), valid)
 
 
 @emits(CO.If)

@@ -211,14 +211,20 @@ def global_aggregate(batch: ColumnarBatch, specs,
 # appearance, and each aggregate is folded over its group's rows in row
 # order, so results do not depend on timing.  A double sum takes an int,
 # long or double input, converting each row to double (an average's sum
-# of ``Cast(child, DOUBLE)``).  The host reads the group
+# of ``Cast(child, DOUBLE)``); so does m2, the variance family's sum of
+# squared deviations from the group's mean (``keyed_agg_trace``'s m2
+# kind, ``:490-502``: the mean first, then the squares; 0.0 and valid for
+# a group with no present value).  The host reads the group
 # count once (one sync) to size the outputs.  ``keyed_aggregate_plain``
 # does the same with torch ops: the same hash (``key_hash_plain``, which a
 # test replaces to force collisions), linear probing in rounds, keys
 # compared value by value and strings byte by byte.
 
 #: K9 aggregate kinds (csrc/keyed_agg.cu AggKind)
-KEYED_SUM_I64, KEYED_SUM_F64, KEYED_COUNT, KEYED_COUNT_ALL = range(4)
+KEYED_SUM_I64, KEYED_SUM_F64, KEYED_COUNT, KEYED_COUNT_ALL, KEYED_M2 = \
+    range(5)
+#: the kinds whose result is a double
+_KEYED_F64 = (KEYED_SUM_F64, KEYED_M2)
 #: launches of K9 (wrapper calls that launch it)
 KEYED_LAUNCHES = 0
 MAX_KEYS = 8
@@ -259,7 +265,7 @@ def _check_keyed(keys: Sequence[DeviceColumn], inputs, kinds) -> None:
         if k.row_count != n:
             raise ValueError("key columns of different lengths")
     for c, kind in zip(inputs, kinds):
-        if kind not in range(4):
+        if kind not in range(5):
             raise ValueError(f"unknown keyed aggregate kind {kind}")
         if kind == KEYED_COUNT_ALL:
             continue
@@ -271,6 +277,9 @@ def _check_keyed(keys: Sequence[DeviceColumn], inputs, kinds) -> None:
                 f"a sum over {c.data_type} is not in the port yet")
         if kind == KEYED_SUM_I64 and c.data_type == T.DOUBLE:
             raise TypeError("a long sum needs an int or long input")
+        if kind == KEYED_M2 and c.data_type not in _IN_CODES:
+            raise NotImplementedError(
+                f"m2 over {c.data_type} is not in the port yet")
 
 
 def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
@@ -319,7 +328,7 @@ def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
             slots.data_ptr(), rep.data_ptr(), size, slot_of.data_ptr(),
             rank.data_ptr(), tiles.data_ptr(), stream), "K9 groups")
         n_groups, = transfers.read_counts([rank[n]])
-        outs = [empty(n_groups, torch.float64 if kind == KEYED_SUM_F64
+        outs = [empty(n_groups, torch.float64 if kind in _KEYED_F64
                       else torch.int64) for kind in kinds]
         valids = [empty(n_groups, torch.bool) for _ in kinds]
         group_rep = empty(n_groups)
@@ -490,13 +499,20 @@ def keyed_aggregate_plain(keys: Sequence[DeviceColumn], inputs, kinds,
             if kind == KEYED_COUNT_ALL else c.validity
         cnt = torch.zeros(g, dtype=torch.int64, device=device).index_add_(
             0, gid, present.to(torch.int64))
+        ones = torch.ones(g, dtype=torch.bool, device=device)
         if kind in (KEYED_COUNT, KEYED_COUNT_ALL):
-            out.append((cnt, torch.ones(g, dtype=torch.bool,
-                                        device=device)))
+            out.append((cnt, ones))
             continue
-        dt = torch.float64 if kind == KEYED_SUM_F64 else torch.int64
+        dt = torch.float64 if kind in _KEYED_F64 else torch.int64
         vals = torch.where(present, c.data.to(dt), 0)
         s = torch.zeros(g, dtype=dt, device=device).index_add_(0, gid, vals)
+        if kind == KEYED_M2:
+            # the mean, then the sum of squared deviations from it
+            mean = torch.where(cnt > 0, s / cnt.clamp(min=1), 0.0)
+            d = torch.where(present, vals - mean[gid], 0.0)
+            out.append((torch.zeros(g, dtype=dt, device=device)
+                        .index_add_(0, gid, d * d), ones))
+            continue
         out.append((s, cnt > 0))
     if row_groups:
         return group_rep, out, gid

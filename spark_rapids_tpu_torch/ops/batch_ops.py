@@ -15,9 +15,20 @@ all string columns reach the host in one sync
 (``TransferGateway.read_counts``).
 
 ``take_front`` (``:177``, LIMIT) is a slice with no launch.
-``concat_batches`` (``:274``) joins the partitions' one-row partial
-aggregates before the final merge: torch glue over a handful of scalars;
-its full-size form is still to port (ROADMAP queue 2, K7)."""
+
+``concat_batches`` (``:274``, kind ``batch.concat``, built ``:374``) is
+K7c's wrapper: it joins several batches of one schema into one, the
+partitions' partial aggregate rows before a FINAL merge and an Expand's
+grouping-set batches before K9.  On CUDA columns it launches
+``csrc/concat.cu`` once per column over all the batches (their planes'
+pointers and row counts passed by value): fixed-width values and validity
+at each batch's row offset; a string's offsets rebased by the chars
+before it (computed on the card, so no sync) and its chars copied after
+them.  The row counts are exact on the host, so every output is sized
+exactly (a string's chars plane to the sum of the inputs' planes, which
+may run past its last offset).  On CPU columns it runs
+``concat_batches_plain``: ``torch.cat`` of the planes, the library call,
+which is the plain version and no part of the card path."""
 
 from __future__ import annotations
 
@@ -36,6 +47,10 @@ LAUNCHES = 0
 MAX_PLANES = 32
 #: values one scan tile covers (csrc/common.cuh kScanTile)
 SCAN_TILE = 1024
+#: launches of K7c (concat_batches calls that launch it)
+CONCAT_LAUNCHES = 0
+#: batches one K7c launch takes (csrc/concat.cu kMaxInputs)
+MAX_CONCAT_INPUTS = 32
 
 _SIGNATURES = {
     "srt_gather_fixed": "pqipppp",
@@ -201,20 +216,113 @@ def take_front(batch: ColumnarBatch, k: int) -> ColumnarBatch:
     return batch.front(k)
 
 
-def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
+def load_concat_library():
+    """Builds (first call) and binds ``csrc/concat.cu``."""
+    from spark_rapids_tpu_torch.exec.stage_compiler import get_or_build
+    from spark_rapids_tpu_torch.kernels.build import load_cuda
+    return get_or_build(
+        "batch.concat", "csrc/concat.cu",
+        lambda: load_cuda("concat.cu",
+                          {"srt_concat_column": "iipppppqppppp"}))
+
+
+def _check_concat(batches: Sequence[ColumnarBatch]) -> None:
     if not batches:
         raise ValueError("cannot concat zero batches")
+    types = [c.data_type for c in batches[0].columns]
+    for b in batches[1:]:
+        if [c.data_type for c in b.columns] != types:
+            raise TypeError("batches of different column types")
+        if b.columns and b.device != batches[0].device:
+            raise ValueError("batches lie on different devices")
+
+
+def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
+    """K7c's wrapper: the batches' rows, in order, as one batch (the
+    first batch's names)."""
+    _check_concat(batches)
     first = batches[0]
     if len(batches) == 1:
         return first
-    if any(c.is_string for c in first.columns):
+    if not first.columns or first.device.type == "cpu":
+        return concat_batches_plain(batches)
+    device = first.device
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if len(batches) > MAX_CONCAT_INPUTS:
         raise NotImplementedError(
-            "concatenating string columns is not in the port yet")
+            f"K7c concatenates at most {MAX_CONCAT_INPUTS} batches, got "
+            f"{len(batches)}")
+    from spark_rapids_tpu_torch.kernels.build import (check_launch, int32s,
+                                                      int64s, pointers)
+    lib = load_concat_library()
+    n = sum(b.row_count for b in batches)
+    rows = [b.row_count for b in batches]
     cols = []
-    for i, c in enumerate(first.columns):
-        cols.append(DeviceColumn(
-            torch.cat([b.columns[i].data for b in batches]),
-            torch.cat([b.columns[i].validity for b in batches]),
-            c.data_type))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for i, c0 in enumerate(first.columns):
+            ins = [b.columns[i] for b in batches]
+            # held by name until the launch is queued
+            data = [c.data.contiguous() for c in ins]
+            valid = [None if c.all_valid else
+                     c.validity.contiguous().view(torch.uint8) for c in ins]
+            out_valid = torch.empty(n, dtype=torch.bool, device=device)
+            all_valid = all(c.all_valid for c in ins)
+            if c0.is_string:
+                offsets = [c.offsets.contiguous() for c in ins]
+                chars = torch.empty(sum(d.numel() for d in data),
+                                    dtype=torch.uint8, device=device)
+                out_off = torch.empty(n + 1, dtype=torch.int64,
+                                      device=device)
+                check_launch(lib.srt_concat_column(
+                    len(ins), 0, pointers(data), pointers(valid),
+                    pointers(offsets),
+                    int32s([int(o.dtype == torch.int64) for o in offsets]),
+                    int64s(rows), max(rows + [d.numel() for d in data]),
+                    None, out_valid.data_ptr(), out_off.data_ptr(),
+                    chars.data_ptr(), stream), "K7c concat (string)")
+                cols.append(DeviceColumn(chars, out_valid, c0.data_type,
+                                         all_valid, out_off))
+                continue
+            out = torch.empty(n, dtype=data[0].dtype, device=device)
+            check_launch(lib.srt_concat_column(
+                len(ins), out.element_size(), pointers(data),
+                pointers(valid), pointers([]), int32s([]), int64s(rows),
+                max(rows), out.data_ptr(), out_valid.data_ptr(), None, None,
+                stream), "K7c concat")
+            cols.append(DeviceColumn(out, out_valid, c0.data_type,
+                                     all_valid))
+    global CONCAT_LAUNCHES
+    CONCAT_LAUNCHES += 1
+    return ColumnarBatch(cols, n, first.names)
+
+
+def concat_batches_plain(batches: Sequence[ColumnarBatch]
+                         ) -> ColumnarBatch:
+    """The plain PyTorch version of K7c: ``torch.cat`` of each plane, a
+    string's offsets rebased by the chars before it."""
+    _check_concat(batches)
+    first = batches[0]
+    cols = []
+    for i, c0 in enumerate(first.columns):
+        ins = [b.columns[i] for b in batches]
+        valid = torch.cat([c.validity for c in ins])
+        all_valid = all(c.all_valid for c in ins)
+        if not c0.is_string:
+            cols.append(DeviceColumn(torch.cat([c.data for c in ins]), valid,
+                                     c0.data_type, all_valid))
+            continue
+        pieces, chars, base = [], [], 0
+        for c in ins:
+            off = c.offsets.to(torch.int64)
+            lo, hi = int(off[0]), int(off[-1])
+            pieces.append(off[:-1] - lo + base)
+            chars.append(c.data[lo:hi])
+            base += hi - lo
+        pieces.append(torch.full((1,), base, dtype=torch.int64,
+                                 device=valid.device))
+        cols.append(DeviceColumn(torch.cat(chars), valid, c0.data_type,
+                                 all_valid, torch.cat(pieces)))
     return ColumnarBatch(cols, sum(b.row_count for b in batches),
                          first.names)

@@ -1,13 +1,15 @@
 """Equi-join pairs through a hash table: kernel K10 (the analog of
-``spark_rapids_tpu/ops/join_ops.py``: ``build_side`` ``:125``,
-``_probe_ranges`` ``:157``, ``_expand_verify`` ``:191`` and
-``compact_pairs`` ``:290``, kinds ``join.build``, ``join.probe``,
-``join.pair`` and ``join.compact_pairs``).
+``spark_rapids_tpu/ops/join_ops.py``: ``build_side`` ``:125`` with
+``_hash_rows`` ``:96``, ``_probe_ranges`` ``:157``, ``_expand_verify``
+``:191`` and ``compact_pairs`` ``:290``, kinds ``join.build``,
+``join.probe``, ``join.pair`` and ``join.compact_pairs``).
 
 ``join_pairs`` is the kernel's wrapper: given the build side's and the
-probe side's key column (one int or long key each), it returns the
-matching (probe row, build row) pairs of an inner join, in probe-row order
-and, within a probe row, in build-row order.  Null keys never match.
+probe side's key columns (one to eight each, int, date or long; a column
+alone or a sequence), it returns the matching (probe row, build row) pairs
+of an inner join, in probe-row order and, within a probe row, in
+build-row order.  A row with a null in any key column never matches; an
+int key equals a long one of the same value.
 With ``outer=True`` (a left outer join, the probe side preserved) a probe
 row with no match, a null key included, gives one pair (row, -1) in its
 place: the JAX package's three finishing programs ``matched_flags``
@@ -27,13 +29,14 @@ CUDA columns it launches ``csrc/hash_join.cu`` (build, count, then write
 after one sync that sizes the output exactly: the JAX package's
 speculative sizing, ``ops/speculation.py``, is not carried over); on CPU
 columns ``join_pairs_plain`` computes the same pairs with a stable sort
-and binary search, and reads the pair count through the gateway just as
-the kernel does.  String and multi-column keys are still to port
-(ROADMAP queue 2, K10)."""
+and binary search (over one id per distinct key tuple when there are
+several key columns), and reads the pair count through the gateway just
+as the kernel does.  String and double keys are still to port (ROADMAP
+queue 2, K10)."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -47,13 +50,17 @@ LAUNCHES = 0
 SCAN_TILE = 1024
 #: csrc/hash_join.cu Mode of each join type
 MODES = {"inner": 0, "outer": 1, "semi": 2, "anti": 3}
-KEY_TYPES = (T.IntegerType, T.LongType)
+KEY_TYPES = (T.IntegerType, T.LongType, T.DateType)
+#: key columns one join takes (csrc/keys.cuh kMaxKeys)
+MAX_KEYS = 8
 
 _SIGNATURES = {
-    "srt_join_build": "pipqppqp",
-    "srt_join_count": "pipqppqipp",
-    "srt_join_write": "pipqppqipppp",
+    "srt_join_build": "ipppqppqp",
+    "srt_join_count": "ipppqpppqppqipp",
+    "srt_join_write": "ipppqpppqppqipppp",
 }
+
+Keys = Union[DeviceColumn, Sequence[DeviceColumn]]
 
 
 def load_library():
@@ -72,14 +79,27 @@ def table_size(n_build: int) -> int:
     return size
 
 
-def _check(build: DeviceColumn, probe: DeviceColumn) -> None:
-    for c in (build, probe):
+def key_list(keys: Keys) -> List[DeviceColumn]:
+    """One key column, or a sequence of them, as a list."""
+    return [keys] if isinstance(keys, DeviceColumn) else list(keys)
+
+
+def _check(build: List[DeviceColumn], probe: List[DeviceColumn]) -> None:
+    if not 1 <= len(build) <= MAX_KEYS or len(probe) != len(build):
+        raise NotImplementedError(
+            f"K10 takes 1..{MAX_KEYS} key columns a side, the same number "
+            f"on both; got {len(build)} and {len(probe)}")
+    for c in (*build, *probe):
         if not isinstance(c.data_type, KEY_TYPES):
             raise NotImplementedError(
                 f"a join key of {c.data_type} is not in the port yet "
-                "(int and long keys are)")
-    if build.device != probe.device:
-        raise ValueError("build and probe keys lie on different devices")
+                "(int, date and long keys are)")
+        if c.device != probe[0].device:
+            raise ValueError("build and probe keys lie on different "
+                             "devices")
+    for side in (build, probe):
+        if any(c.row_count != side[0].row_count for c in side):
+            raise ValueError("key columns of one side differ in length")
 
 
 def _mode(outer: bool, mode: Optional[str]) -> str:
@@ -90,46 +110,51 @@ def _mode(outer: bool, mode: Optional[str]) -> str:
     return mode
 
 
-def join_pairs(build: DeviceColumn, probe: DeviceColumn, transfers,
-               outer: bool = False, mode: Optional[str] = None
+def join_pairs(build: Keys, probe: Keys, transfers, outer: bool = False,
+               mode: Optional[str] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K10's wrapper: ``(probe_rows, build_rows)``, int64, one entry per
     matching pair (and with ``outer``, one ``(row, -1)`` per probe row
     with no match); with ``mode`` ``"semi"`` or ``"anti"``, ``(kept probe
     rows, None)``."""
+    build, probe = key_list(build), key_list(probe)
     _check(build, probe)
     kind = _mode(outer, mode)
-    device = probe.device
+    device = probe[0].device
     if device.type == "cpu":
         return join_pairs_plain(build, probe, transfers, outer, mode)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    from spark_rapids_tpu_torch.kernels.build import check_launch
+    from spark_rapids_tpu_torch.kernels.build import (check_launch, int32s,
+                                                      pointers)
     lib = load_library()
-    size = table_size(build.row_count)
-    n = probe.row_count
+    nb, n = build[0].row_count, probe[0].row_count
+    size = table_size(nb)
     tiles = -(-n // SCAN_TILE)
-    bkeys, pkeys = build.data.contiguous(), probe.data.contiguous()
-    bvalid = None if build.all_valid else \
-        build.validity.contiguous().view(torch.uint8)
-    pvalid = None if probe.all_valid else \
-        probe.validity.contiguous().view(torch.uint8)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    def keys(cols):
+        """(key types, data, validity) of one side, each held by name
+        until the launches are queued."""
+        data = [c.data.contiguous() for c in cols]
+        valid = [None if c.all_valid else
+                 c.validity.contiguous().view(torch.uint8) for c in cols]
+        types = int32s([int(d.dtype == torch.int64) for d in data])
+        return types, data, valid
 
+    btypes, bdata, bvalid = keys(build)
+    ptypes, pdata, pvalid = keys(probe)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         slots = torch.empty(size, dtype=torch.int64, device=device)
-        slot_keys = torch.empty(size, dtype=torch.int64, device=device)
+        slot_tag = torch.empty(size, dtype=torch.int64, device=device)
         tile_offsets = torch.empty(tiles + 1, dtype=torch.int64,
                                    device=device)
-        table = (slots.data_ptr(), slot_keys.data_ptr(), size)
-        check_launch(lib.srt_join_build(
-            bkeys.data_ptr(), int(bkeys.dtype == torch.int64), ptr(bvalid),
-            build.row_count, *table, stream), "K10 build")
-        probe_args = (pkeys.data_ptr(), int(pkeys.dtype == torch.int64),
-                      ptr(pvalid), n) + table + (MODES[kind],)
+        table = (slots.data_ptr(), slot_tag.data_ptr(), size)
+        bargs = (btypes, pointers(bdata), pointers(bvalid), nb)
+        check_launch(lib.srt_join_build(len(build), *bargs, *table, stream),
+                     "K10 build")
+        probe_args = (len(build), *bargs, ptypes, pointers(pdata),
+                      pointers(pvalid), n, *table, MODES[kind])
         check_launch(lib.srt_join_count(*probe_args, tile_offsets.data_ptr(),
                                         stream), "K10 count")
         total, = transfers.read_counts([tile_offsets[tiles]])
@@ -139,13 +164,35 @@ def join_pairs(build: DeviceColumn, probe: DeviceColumn, transfers,
         if total:
             check_launch(lib.srt_join_write(
                 *probe_args, tile_offsets.data_ptr(), out_probe.data_ptr(),
-                ptr(out_build), stream), "K10 write")
+                None if out_build is None else out_build.data_ptr(),
+                stream), "K10 write")
     global LAUNCHES
     LAUNCHES += 1
     return out_probe, out_build
 
 
-def join_pairs_plain(build: DeviceColumn, probe: DeviceColumn, transfers,
+def _key_ids(build: List[DeviceColumn], probe: List[DeviceColumn]):
+    """One int64 key per row of each side and whether every key column of
+    the row is present: the column itself for one key, else the index of
+    the row's key tuple among the distinct tuples of both sides (an int
+    key widened to long, so it equals a long of the same value)."""
+    def valid(cols):
+        v = cols[0].validity
+        for c in cols[1:]:
+            v = v & c.validity
+        return v
+
+    if len(build) == 1:
+        return (build[0].data.to(torch.int64), valid(build),
+                probe[0].data.to(torch.int64), valid(probe))
+    words = torch.cat([torch.stack([c.data.to(torch.int64) for c in cols], 1)
+                       for cols in (build, probe)])
+    _u, ids = torch.unique(words, dim=0, return_inverse=True)
+    nb = build[0].row_count
+    return ids[:nb], valid(build), ids[nb:], valid(probe)
+
+
+def join_pairs_plain(build: Keys, probe: Keys, transfers,
                      outer: bool = False, mode: Optional[str] = None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The plain PyTorch version of K10: the build side's present keys
@@ -153,23 +200,24 @@ def join_pairs_plain(build: DeviceColumn, probe: DeviceColumn, transfers,
     search, the ranges expanded into pairs (an empty range into one pair
     with build row -1 when ``outer``); in semi and anti modes the probe
     rows whose range is not empty, or is."""
+    build, probe = key_list(build), key_list(probe)
     _check(build, probe)
     _mode(outer, mode)
-    device = probe.device
-    rows = torch.nonzero(build.validity).flatten()
-    keys, order = torch.sort(build.data[rows].to(torch.int64), stable=True)
+    device = probe[0].device
+    bk, bvalid, pk, pvalid = _key_ids(build, probe)
+    rows = torch.nonzero(bvalid).flatten()
+    keys, order = torch.sort(bk[rows], stable=True)
     rows = rows[order]
-    pk = probe.data.to(torch.int64)
     lo = torch.searchsorted(keys, pk, right=False)
     hi = torch.searchsorted(keys, pk, right=True)
-    count = torch.where(probe.validity, hi - lo, 0)
+    count = torch.where(pvalid, hi - lo, 0)
     if mode:
         keep = (count > 0) if mode == "semi" else (count == 0)
         transfers.read_counts([keep.sum()])
         return torch.nonzero(keep).flatten(), None
     emit = count.clamp(min=1) if outer else count
     total, = transfers.read_counts([emit.sum()])
-    n = probe.row_count
+    n = probe[0].row_count
     out_probe = torch.repeat_interleave(
         torch.arange(n, dtype=torch.int64, device=device), emit,
         output_size=total)

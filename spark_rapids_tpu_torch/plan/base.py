@@ -2,7 +2,7 @@
 
 Two trees: the logical plan a DataFrame builds (``Scan``, ``Filter``,
 ``Project``, ``Aggregate``, ``Exchange``, ``Join``, ``Sort``, ``Limit``,
-``CteCache``, ``Window``),
+``CteCache``, ``Window``, ``Expand``),
 and the physical ``Exec`` tree
 the planner (``plan/overrides.py``) turns it into.  An exec's ``execute``
 returns its output partitions, each a list of device batches."""
@@ -249,6 +249,29 @@ class CteCache(LogicalPlan):
 
     def node_string(self):
         return "CteCache"
+
+
+class Expand(LogicalPlan):
+    """One output batch per projection over each input batch, all of one
+    schema (``names``): a grouping-set query's fan-out (the JAX package's
+    ``exec/expand.py``); each projection holds column references and
+    literals."""
+
+    def __init__(self, projections, names, child: LogicalPlan):
+        super().__init__([child])
+        self.projections = [list(p) for p in projections]
+        self.names = list(names)
+
+    @property
+    def schema(self):
+        first = self.projections[0]
+        return T.StructType([
+            T.StructField(name, e.data_type,
+                          any(p[j].nullable for p in self.projections))
+            for j, (name, e) in enumerate(zip(self.names, first))])
+
+    def node_string(self):
+        return f"Expand[{len(self.projections)} projections]"
 
 
 class Window(LogicalPlan):

@@ -14,16 +14,18 @@ from spark_rapids_tpu_torch.exec.basic import (TorchCteCacheExec,
                                                TorchLimitExec,
                                                TorchProjectExec)
 from spark_rapids_tpu_torch.exec.exchange import TorchShuffleExchangeExec
+from spark_rapids_tpu_torch.exec.expand import TorchExpandExec
 from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
 from spark_rapids_tpu_torch.exec.sort import TorchSortExec
 from spark_rapids_tpu_torch.exec.window import TorchWindowExec
 from spark_rapids_tpu_torch.expressions.aggregates import (Average, Count,
                                                            CountDistinct,
-                                                           Sum)
+                                                           Sum,
+                                                           _CentralMoment)
 from spark_rapids_tpu_torch.plan import base as L
 from spark_rapids_tpu_torch.plan.stages import fuse_device_stages
 
-_SUPPORTED_AGGREGATES = (Sum, Count, Average, CountDistinct)
+_SUPPORTED_AGGREGATES = (Sum, Count, Average, CountDistinct, _CentralMoment)
 
 
 class TorchOverrides:
@@ -56,6 +58,11 @@ class TorchOverrides:
                     raise NotImplementedError(
                         f"aggregate {type(a.func).__name__} is not in the "
                         "port yet")
+                if isinstance(a.func, _CentralMoment) and \
+                        not node.layout.num_keys:
+                    raise NotImplementedError(
+                        f"{a.func.sql()} without grouping keys is not in "
+                        "the port yet (in a group-by it is)")
                 if isinstance(a.func, CountDistinct) and \
                         node.mode != COMPLETE:
                     raise NotImplementedError(
@@ -76,5 +83,7 @@ class TorchOverrides:
             return TorchLimitExec(node.n, child)
         if isinstance(node, L.Window):
             return TorchWindowExec(node.window_cols, child)
+        if isinstance(node, L.Expand):
+            return TorchExpandExec(node.projections, node.schema, child)
         raise NotImplementedError(
             f"{type(node).__name__} is not in the port yet")

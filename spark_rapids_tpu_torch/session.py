@@ -2,10 +2,13 @@
 ``spark_rapids_tpu/session.py``, for the recipes the port runs: in-memory
 tables, ``filter``, ``select`` and ``with_column`` (``:460``; with window
 expressions, extracted as ``_plan_windows`` ``:392`` does), ``join``
-(``:637``; inner, left outer, left semi and left anti), ``group_by``
-(``:729``) and ``agg`` (``count_distinct`` in COMPLETE mode only),
-``order_by`` (``:602``), ``limit`` (``:515``) and ``collect``). A join, a
-group-by, a window, a sort and a limit run over one partition.
+(``:637``; inner, left outer, left semi and left anti, on one or several
+key columns), ``group_by`` (``:729``), ``rollup`` (``:736``; lowered to
+an Expand and a group-by, ``_expand_for_grouping_sets`` ``:973``) and
+``agg`` (``count_distinct`` in COMPLETE mode only), ``distinct``
+(``:771``), ``order_by`` (``:602``), ``limit`` (``:515``) and
+``collect``). A join, a group-by, a window, a sort and a limit run over
+one partition.
 
 A session runs on ``cuda:0`` unless it is given ``device="cpu"``; without a
 CUDA device and without that, it is refused."""
@@ -137,6 +140,19 @@ class DataFrame:
 
     groupBy = group_by
 
+    def rollup(self, *cols) -> "GroupedData":
+        """GROUP BY ROLLUP(k1..kn): the grouping sets (k1..kn),
+        (k1..kn-1), ..., (), as the JAX package's ``rollup`` (``:736``)."""
+        sets = [tuple(range(i)) for i in range(len(cols), -1, -1)]
+        return GroupedData(self, cols, grouping_sets=sets)
+
+    def distinct(self) -> "DataFrame":
+        """The distinct rows: a group-by of every column with no aggregate
+        (K9, then K7 for the keys)."""
+        return self.group_by(*self.columns).agg()
+
+    drop_duplicates = distinct
+
     def join(self, other: "DataFrame", on=None, how: str = "inner",
              condition=None) -> "DataFrame":
         """Equi-join on column names with USING semantics, as the JAX
@@ -228,9 +244,15 @@ def _windows_in(e: Expression) -> List[Expression]:
 
 
 class GroupedData:
-    def __init__(self, df: DataFrame, keys):
+    """Grouping keys of a DataFrame; ``grouping_sets`` (tuples of key
+    indices, from ``rollup``) lowers ``agg`` to an Expand and a group-by
+    on the keys and the grouping id, as the JAX package's
+    ``_agg_grouping_sets`` (``:1111``) does."""
+
+    def __init__(self, df: DataFrame, keys, grouping_sets=None):
         self._df = df
         self._keys = [bind_references(_to_expr(k), df.schema) for k in keys]
+        self._grouping_sets = grouping_sets
 
     def agg(self, *agg_exprs) -> DataFrame:
         from spark_rapids_tpu_torch.exec.aggregate import (COMPLETE, FINAL,
@@ -248,6 +270,8 @@ class GroupedData:
                 raise TypeError(f"not an aggregate expression: {e}")
             e = bind_references(e, schema)
             aggs.append(AggregateExpression(e, name or e.sql()))
+        if self._grouping_sets is not None:
+            return self._agg_grouping_sets(aggs)
         layout = _AggLayout(self._keys, aggs)
         child = self._df._plan
         if child.num_partitions == 1:
@@ -256,3 +280,65 @@ class GroupedData:
             partial = L.Aggregate(layout, PARTIAL, child)
             plan = L.Aggregate(layout, FINAL, L.Exchange([partial]))
         return DataFrame(plan, self._df._session)
+
+    def _agg_grouping_sets(self, aggs) -> DataFrame:
+        """One Expand projection per grouping set -- each key, or a null
+        of its type where the set does not group it; the grouping id
+        (LONG; bit ``n - 1 - i`` set when key ``i`` is not grouped, Spark's
+        order); then the child columns the aggregates read -- and a
+        group-by on the keys and the grouping id, so a null the rollup
+        makes never merges with a real null key; the grouping id is then
+        dropped (``_expand_for_grouping_sets``, ``:973``)."""
+        from spark_rapids_tpu_torch.exec.aggregate import (COMPLETE,
+                                                           _AggLayout)
+        from spark_rapids_tpu_torch.expressions.aggregates import \
+            AggregateExpression
+        from spark_rapids_tpu_torch.expressions.base import (Literal,
+                                                             output_name)
+        child = self._df._plan
+        schema = child.schema
+        keys = self._keys
+        nk = len(keys)
+        used = sorted({e.ordinal for a in aggs for e in _refs_in(a.func)})
+        moved = {o: nk + 1 + j for j, o in enumerate(used)}
+        projections = []
+        for s in self._grouping_sets:
+            gid = sum(1 << (nk - 1 - i) for i in range(nk) if i not in s)
+            proj = [keys[i] if i in s else Literal(None, keys[i].data_type)
+                    for i in range(nk)]
+            proj.append(Literal(gid, T.LONG))
+            proj += [BoundReference(o, schema.types[o],
+                                    schema.fields[o].nullable,
+                                    schema.names[o]) for o in used]
+            projections.append(proj)
+        names = [output_name(k) for k in keys] + ["__grouping_id"] + \
+            [schema.names[o] for o in used]
+        expand = L.Expand(projections, names, child)
+        es = expand.schema
+        new_keys = [BoundReference(i, es.types[i], True, es.names[i])
+                    for i in range(nk + 1)]
+
+        def rebind(node):
+            if isinstance(node, BoundReference):
+                return BoundReference(moved[node.ordinal], node.data_type,
+                                      node.nullable, node.ref_name)
+            return node
+        aggs = [AggregateExpression(a.func.transform_up(rebind), a.out_name)
+                for a in aggs]
+        if child.num_partitions != 1:
+            raise NotImplementedError(
+                "a rollup over several partitions is not in the port yet")
+        plan = L.Aggregate(_AggLayout(new_keys, aggs), COMPLETE, expand)
+        out = plan.schema
+        keep = [i for i in range(len(out)) if i != nk]
+        return DataFrame(L.Project(
+            [Alias(BoundReference(i, out.types[i], out.fields[i].nullable,
+                                  out.names[i]), out.names[i])
+             for i in keep], plan), self._df._session)
+
+
+def _refs_in(e: Expression) -> List[BoundReference]:
+    """The column references in ``e``'s tree."""
+    if isinstance(e, BoundReference):
+        return [e]
+    return [r for c in e.children for r in _refs_in(c)]

@@ -1181,3 +1181,464 @@ def q16_numpy(tables: Dict[str, dict], state="GA") -> list:
              if any_row else None,
              "total_net_profit": float(cs["cs_net_profit"][sel].sum())
              if any_row else None}]
+
+
+def _key_pairs(left, right):
+    """``(left rows, right rows)`` of every match of the key tuples
+    ``left`` and ``right`` (lists of equal-length arrays, one per key
+    column): an inner join's pairs, in numpy."""
+    nl = len(left[0])
+    if len(left) == 1:
+        lk, rk = left[0].astype(np.int64), right[0].astype(np.int64)
+    else:
+        both = np.concatenate([np.stack(left, 1), np.stack(right, 1)])
+        _u, ids = np.unique(both.astype(np.int64), axis=0,
+                            return_inverse=True)
+        ids = ids.ravel()
+        lk, rk = ids[:nl], ids[nl:]
+    order = np.argsort(rk, kind="stable")
+    lo = np.searchsorted(rk[order], lk, "left")
+    cnt = np.searchsorted(rk[order], lk, "right") - lo
+    li = np.repeat(np.arange(nl), cnt)
+    within = np.arange(int(cnt.sum())) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    return li, order[np.repeat(lo, cnt) + within]
+
+
+def _group_ids(*columns):
+    """One id per distinct tuple of ``columns`` (arrays of one length),
+    and the tuples' first rows."""
+    codes = [np.unique(c, return_inverse=True)[1].ravel().astype(np.int64)
+             for c in columns]
+    _u, first, gid = np.unique(np.stack(codes, 1), axis=0,
+                               return_index=True, return_inverse=True)
+    return gid.ravel(), first
+
+
+#: the columns of each table that TPC-DS q17 reads
+Q17_COLUMNS = {
+    "store_sales": ["ss_sold_date_sk", "ss_item_sk", "ss_store_sk",
+                    "ss_customer_sk", "ss_ticket_number", "ss_quantity"],
+    "store_returns": ["sr_returned_date_sk", "sr_item_sk", "sr_customer_sk",
+                      "sr_ticket_number", "sr_return_quantity"],
+    "catalog_sales": ["cs_sold_date_sk", "cs_item_sk", "cs_bill_customer_sk",
+                      "cs_quantity"],
+    "date_dim": ["d_date_sk", "d_quarter_name"],
+    "store": ["s_store_sk", "s_state"],
+    "item": ["i_item_sk", "i_item_id", "i_item_desc"],
+}
+Q17_QUARTERS = ("2001Q1", "2001Q2", "2001Q3")
+#: q17's output: each quantity's prefix and column
+Q17_QUANTITIES = (("store_sales", "ss_quantity"),
+                  ("store_returns", "sr_return_quantity"),
+                  ("catalog_sales", "cs_quantity"))
+
+
+def q17_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q17 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q17_COLUMNS.items()}
+
+
+def q17(store_sales, store_returns, catalog_sales, date_dim, store, item,
+        same_item=True, limit=100):
+    """TPC-DS q17 through the port's DataFrame API, over DataFrames of the
+    ``Q17_COLUMNS`` of each table.  date_dim is read three times, each
+    copy's date key renamed to the fact column it joins (a selection, no
+    launch), and each fact table meets its dates before the fact joins,
+    so the 30M-row probe meets a small build: store_sales of 2001Q1
+    joined with store_returns of 2001Q1 to Q3 on customer, item and
+    ticket (three key columns), then with catalog_sales of the same
+    quarters on customer and item (two; ``same_item=False`` drops the
+    item, the one conjunct whose removal lets rows through on this
+    generator), store and item; then count, avg and stddev_samp of the
+    three quantities by item id, description and state (K9's count, sum
+    and m2, sharing each quantity's count), ordered by the keys.  Returns
+    ``(result, parts)`` (``joined``, ``agg``, ``sorted``).  ``limit=None``
+    drops the limit."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import EqualTo, In
+
+    def dates(quarters, name):
+        return date_dim.filter(In(col("d_quarter_name"), list(quarters))) \
+            .select(Alias(col("d_date_sk"), name))
+    d1 = date_dim.filter(EqualTo(col("d_quarter_name"), lit("2001Q1"))) \
+        .select(Alias(col("d_date_sk"), "ss_sold_date_sk"))
+    ss = store_sales.join(d1, on="ss_sold_date_sk")
+    sr = (store_returns
+          .join(dates(Q17_QUARTERS, "sr_returned_date_sk"),
+                on="sr_returned_date_sk")
+          .select(Alias(col("sr_customer_sk"), "ss_customer_sk"),
+                  Alias(col("sr_item_sk"), "ss_item_sk"),
+                  Alias(col("sr_ticket_number"), "ss_ticket_number"),
+                  col("sr_return_quantity")))
+    cs_keys = [Alias(col("cs_bill_customer_sk"), "ss_customer_sk")]
+    if same_item:
+        cs_keys.append(Alias(col("cs_item_sk"), "ss_item_sk"))
+    cs = (catalog_sales
+          .join(dates(Q17_QUARTERS, "cs_sold_date_sk"), on="cs_sold_date_sk")
+          .select(*cs_keys, col("cs_quantity")))
+    st = store.select(Alias(col("s_store_sk"), "ss_store_sk"), col("s_state"))
+    it = item.select(Alias(col("i_item_sk"), "ss_item_sk"), col("i_item_id"),
+                     col("i_item_desc"))
+    joined = (ss.join(sr, on=["ss_customer_sk", "ss_item_sk",
+                              "ss_ticket_number"])
+              .join(cs, on=["ss_customer_sk", "ss_item_sk"] if same_item
+                    else "ss_customer_sk")
+              .join(st, on="ss_store_sk")
+              .join(it, on="ss_item_sk"))
+    aggs = []
+    for table, c in Q17_QUANTITIES:
+        name = f"{table}_quantity"
+        aggs += [F.count(c).alias(f"{name}count"),
+                 F.avg(c).alias(f"{name}ave"),
+                 F.stddev_samp(c).alias(f"{name}stdev")]
+    agg = joined.group_by("i_item_id", "i_item_desc", "s_state").agg(*aggs)
+    ordered = agg.order_by("i_item_id", "i_item_desc", "s_state")
+    out = ordered if limit is None else ordered.limit(limit)
+    return out, {"joined": joined, "agg": agg, "sorted": ordered}
+
+
+def _moments(gid, x, n_groups):
+    """count, mean and stddev_samp of ``x`` (as doubles) per group: the
+    mean, then the squared deviations from it; None where n < 2."""
+    x = x.astype(np.float64)
+    n = np.bincount(gid, minlength=n_groups)
+    mean = np.bincount(gid, weights=x, minlength=n_groups) / \
+        np.maximum(n, 1)
+    m2 = np.bincount(gid, weights=(x - mean[gid]) ** 2, minlength=n_groups)
+    sd = [float(np.sqrt(m / (k - 1))) if k > 1 else None
+          for m, k in zip(m2.tolist(), n.tolist())]
+    return n.tolist(), mean.tolist(), sd
+
+
+def q17_numpy(tables: Dict[str, dict], same_item=True, limit=100) -> list:
+    """TPC-DS q17 in numpy over ``q17_tables`` output: the rows as dicts."""
+    ss, sr = tables["store_sales"], tables["store_returns"]
+    cs, d = tables["catalog_sales"], tables["date_dim"]
+    s, i = tables["store"], tables["item"]
+    q = d["d_quarter_name"]
+    d1 = d["d_date_sk"][q == "2001Q1"]
+    d23 = d["d_date_sk"][np.isin(q, Q17_QUARTERS)]
+    s_rows = np.nonzero(np.isin(ss["ss_sold_date_sk"], d1))[0]
+    r_rows = np.nonzero(np.isin(sr["sr_returned_date_sk"], d23))[0]
+    c_rows = np.nonzero(np.isin(cs["cs_sold_date_sk"], d23))[0]
+    a, b = _key_pairs(
+        [ss[c][s_rows] for c in ("ss_customer_sk", "ss_item_sk",
+                                 "ss_ticket_number")],
+        [sr[c][r_rows] for c in ("sr_customer_sk", "sr_item_sk",
+                                 "sr_ticket_number")])
+    s_at, r_at = s_rows[a], r_rows[b]
+    left = [sr["sr_customer_sk"][r_at]]
+    right = [cs["cs_bill_customer_sk"][c_rows]]
+    if same_item:
+        left.append(sr["sr_item_sk"][r_at])
+        right.append(cs["cs_item_sk"][c_rows])
+    a, b = _key_pairs(left, right)
+    s_at, r_at, c_at = s_at[a], r_at[a], c_rows[b]
+    found, st_at = _lookup(s["s_store_sk"], ss["ss_store_sk"][s_at])
+    s_at, r_at, c_at, st_at = s_at[found], r_at[found], c_at[found], \
+        st_at[found]
+    found, it_at = _lookup(i["i_item_sk"], ss["ss_item_sk"][s_at])
+    s_at, r_at, c_at, st_at, it_at = (s_at[found], r_at[found], c_at[found],
+                                      st_at[found], it_at[found])
+    if not len(s_at):
+        return []
+    keys = (i["i_item_id"][it_at], i["i_item_desc"][it_at],
+            s["s_state"][st_at])
+    gid, first = _group_ids(*keys)
+    g = len(first)
+    cols = {}
+    for (table, c), rows, src in zip(Q17_QUANTITIES, (s_at, r_at, c_at),
+                                     (ss, sr, cs)):
+        n, mean, sd = _moments(gid, src[c][rows], g)
+        name = f"{table}_quantity"
+        cols[f"{name}count"], cols[f"{name}ave"] = n, mean
+        cols[f"{name}stdev"] = sd
+    out = []
+    for k in range(g):
+        row = {"i_item_id": keys[0][first[k]],
+               "i_item_desc": keys[1][first[k]],
+               "s_state": keys[2][first[k]]}
+        for table, _c in Q17_QUANTITIES:
+            name = f"{table}_quantity"
+            row[f"{name}count"] = cols[f"{name}count"][k]
+            row[f"{name}ave"] = cols[f"{name}ave"][k]
+            row[f"{name}stdev"] = cols[f"{name}stdev"][k]
+        out.append(row)
+    out.sort(key=lambda r: (r["i_item_id"], r["i_item_desc"], r["s_state"]))
+    return out if limit is None else out[:limit]
+
+
+#: the columns of each table that TPC-DS q10 reads
+Q10_COLUMNS = {
+    "customer": ["c_customer_sk", "c_current_addr_sk", "c_current_cdemo_sk"],
+    "customer_address": ["ca_address_sk", "ca_county"],
+    "customer_demographics": [
+        "cd_demo_sk", "cd_gender", "cd_marital_status", "cd_education_status",
+        "cd_purchase_estimate", "cd_credit_rating", "cd_dep_count",
+        "cd_dep_employed_count", "cd_dep_college_count"],
+    "store_sales": ["ss_sold_date_sk", "ss_customer_sk"],
+    "web_sales": ["ws_sold_date_sk", "ws_bill_customer_sk"],
+    "catalog_sales": ["cs_sold_date_sk", "cs_ship_customer_sk"],
+    "date_dim": ["d_date_sk", "d_year", "d_moy"],
+}
+Q10_COUNTIES = ("Rush County", "Toole County", "Jefferson County",
+                "Dona Ana County", "La Porte County")
+#: q10's eight grouping keys, each followed in the output by a count(*)
+Q10_KEYS = ("cd_gender", "cd_marital_status", "cd_education_status",
+            "cd_purchase_estimate", "cd_credit_rating", "cd_dep_count",
+            "cd_dep_employed_count", "cd_dep_college_count")
+#: q10's output columns, in the query's order
+Q10_OUTPUT = ("cd_gender", "cd_marital_status", "cd_education_status",
+              "cnt1", "cd_purchase_estimate", "cnt2", "cd_credit_rating",
+              "cnt3", "cd_dep_count", "cnt4", "cd_dep_employed_count",
+              "cnt5", "cd_dep_college_count", "cnt6")
+
+
+def q10_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q10 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q10_COLUMNS.items()}
+
+
+def q10(customer, customer_address, customer_demographics, store_sales,
+        web_sales, catalog_sales, date_dim, year=2000, months=(1, 4),
+        limit=100):
+    """TPC-DS q10 through the port's DataFrame API, over DataFrames of the
+    ``Q10_COLUMNS`` of each table, in the JAX analyzer's plan shape
+    (``sql/analyzer.py:1047 _exists_join``): customer joined with the
+    five counties' addresses and its demographics; the top-level
+    ``EXISTS`` over store_sales of the months a left semi join; each of
+    the two ``OR``-ed ``EXISTS`` a left outer join with the distinct
+    customers of web_sales or catalog_sales in the months, each beside a
+    TRUE marker (K6), and the filter ``m1 OR m2`` (Kleene, in K5) keeps
+    a customer either marks; then six ``count(*)`` by the eight
+    demographic keys (one K9 slot), ordered by them, in the query's
+    column order.  Returns ``(result, parts)`` (``joined``, ``agg``,
+    ``sorted``).  ``limit=None`` drops the limit."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import (
+        And, EqualTo, GreaterThanOrEqual, In, LessThanOrEqual, Or)
+    lo, hi = months
+
+    def dates(name):
+        return date_dim.filter(And(
+            EqualTo(col("d_year"), lit(year)),
+            And(GreaterThanOrEqual(col("d_moy"), lit(lo)),
+                LessThanOrEqual(col("d_moy"), lit(hi))))) \
+            .select(Alias(col("d_date_sk"), name))
+
+    def buyers(sales, prefix, customer_col):
+        return (sales.join(dates(f"{prefix}_sold_date_sk"),
+                           on=f"{prefix}_sold_date_sk")
+                .select(Alias(col(customer_col), "c_customer_sk")))
+
+    def marker(sales, prefix, customer_col, name):
+        return buyers(sales, prefix, customer_col).distinct() \
+            .select(col("c_customer_sk"), Alias(lit(True), name))
+    ca = customer_address.filter(In(col("ca_county"), list(Q10_COUNTIES))) \
+        .select(Alias(col("ca_address_sk"), "c_current_addr_sk"))
+    cd = customer_demographics.select(
+        Alias(col("cd_demo_sk"), "c_current_cdemo_sk"),
+        *[col(k) for k in Q10_KEYS])
+    joined = (customer.join(ca, on="c_current_addr_sk")
+              .join(cd, on="c_current_cdemo_sk")
+              .join(buyers(store_sales, "ss", "ss_customer_sk"),
+                    on="c_customer_sk", how="semi")
+              .join(marker(web_sales, "ws", "ws_bill_customer_sk", "m1"),
+                    on="c_customer_sk", how="left")
+              .join(marker(catalog_sales, "cs", "cs_ship_customer_sk",
+                           "m2"), on="c_customer_sk", how="left")
+              .filter(Or(col("m1"), col("m2"))))
+    agg = joined.group_by(*Q10_KEYS).agg(
+        *[F.count("*").alias(f"cnt{j}") for j in range(1, 7)])
+    ordered = agg.order_by(*Q10_KEYS)
+    out = ordered if limit is None else ordered.limit(limit)
+    out = out.select(*[col(c) for c in Q10_OUTPUT])
+    return out, {"joined": joined, "agg": agg, "sorted": ordered}
+
+
+def q10_numpy(tables: Dict[str, dict], year=2000, months=(1, 4),
+              limit=100) -> list:
+    """TPC-DS q10 in numpy over ``q10_tables`` output: the rows as
+    dicts."""
+    c, ca = tables["customer"], tables["customer_address"]
+    cd, d = tables["customer_demographics"], tables["date_dim"]
+    lo, hi = months
+    dates = d["d_date_sk"][(d["d_year"] == year) & (d["d_moy"] >= lo) &
+                           (d["d_moy"] <= hi)]
+
+    def buyers(table, prefix, customer_col):
+        t = tables[table]
+        return t[customer_col][np.isin(t[f"{prefix}_sold_date_sk"], dates)]
+    sk = c["c_customer_sk"]
+    sel = np.isin(c["c_current_addr_sk"], ca["ca_address_sk"][
+        np.isin(ca["ca_county"], Q10_COUNTIES)])
+    sel &= np.isin(sk, buyers("store_sales", "ss", "ss_customer_sk"))
+    sel &= np.isin(sk, buyers("web_sales", "ws", "ws_bill_customer_sk")) | \
+        np.isin(sk, buyers("catalog_sales", "cs", "cs_ship_customer_sk"))
+    found, cd_at = _lookup(cd["cd_demo_sk"], c["c_current_cdemo_sk"][sel])
+    cd_at = cd_at[found]
+    counts: Dict[tuple, int] = {}
+    for r in cd_at.tolist():
+        key = tuple(cd[k][r] for k in Q10_KEYS)
+        counts[key] = counts.get(key, 0) + 1
+    out = []
+    for key in sorted(counts):
+        row = dict(zip(Q10_KEYS, key))
+        out.append({name: row.get(name, counts[key]) for name in Q10_OUTPUT})
+    out = [{k: (int(v) if isinstance(v, np.integer) else v)
+            for k, v in r.items()} for r in out]
+    return out if limit is None else out[:limit]
+
+
+#: the columns of each table that TPC-DS q18 reads
+Q18_COLUMNS = {
+    "catalog_sales": ["cs_sold_date_sk", "cs_item_sk", "cs_bill_cdemo_sk",
+                      "cs_bill_customer_sk", "cs_quantity", "cs_list_price",
+                      "cs_coupon_amt", "cs_sales_price", "cs_net_profit"],
+    "customer_demographics": ["cd_demo_sk", "cd_gender",
+                              "cd_education_status", "cd_dep_count"],
+    "customer": ["c_customer_sk", "c_current_cdemo_sk", "c_current_addr_sk",
+                 "c_birth_month", "c_birth_year"],
+    "customer_address": ["ca_address_sk", "ca_country", "ca_state",
+                         "ca_county"],
+    "date_dim": ["d_date_sk", "d_year"],
+    "item": ["i_item_sk", "i_item_id"],
+}
+Q18_MONTHS = (1, 6, 8, 9, 12, 2)
+Q18_STATES = ("MS", "IN", "ND", "OK", "NM", "VA", "MS")
+#: the rollup keys, and the order of the output
+Q18_KEYS = ("i_item_id", "ca_country", "ca_state", "ca_county")
+Q18_ORDER = ("ca_country", "ca_state", "ca_county", "i_item_id")
+#: q18's averages: output name and column (each cast to double)
+Q18_AVERAGES = (("agg1", "cs_quantity"), ("agg2", "cs_list_price"),
+                ("agg3", "cs_coupon_amt"), ("agg4", "cs_sales_price"),
+                ("agg5", "cs_net_profit"), ("agg6", "c_birth_year"),
+                ("agg7", "cd_dep_count"))
+
+
+def q18_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q18 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q18_COLUMNS.items()}
+
+
+def q18(catalog_sales, customer_demographics, customer, customer_address,
+        date_dim, item, year=1998, limit=100):
+    """TPC-DS q18 through the port's DataFrame API, over DataFrames of the
+    ``Q18_COLUMNS`` of each table: catalog_sales joined with the year's
+    dates, the women of unknown education (``cd1``), the customers born
+    in the six months, their current demographics (``cd2``, the second
+    copy of customer_demographics, its key renamed: a selection), the
+    seven states' addresses and item; then seven averages of casts to
+    double by ``ROLLUP(i_item_id, ca_country, ca_state, ca_county)``
+    (an Expand of five grouping sets, concatenated by K7c, then K9 on the
+    four keys and the grouping id), ordered by country, state, county
+    and item id (ascending, nulls first).  Returns ``(result, parts)``
+    (``joined``, ``agg``, ``sorted``).  ``limit=None`` drops the
+    limit."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.cast import Cast
+    from spark_rapids_tpu_torch.expressions.predicates import EqualTo, In
+    dt = date_dim.filter(EqualTo(col("d_year"), lit(year))) \
+        .select(Alias(col("d_date_sk"), "cs_sold_date_sk"))
+    cd1 = (customer_demographics
+           .filter(EqualTo(col("cd_gender"), lit("F")))
+           .filter(EqualTo(col("cd_education_status"), lit("Unknown")))
+           .select(Alias(col("cd_demo_sk"), "cs_bill_cdemo_sk"),
+                   col("cd_dep_count")))
+    cu = customer.filter(In(col("c_birth_month"), list(Q18_MONTHS))) \
+        .select(Alias(col("c_customer_sk"), "cs_bill_customer_sk"),
+                col("c_current_cdemo_sk"), col("c_current_addr_sk"),
+                col("c_birth_year"))
+    cd2 = customer_demographics.select(Alias(col("cd_demo_sk"),
+                                             "c_current_cdemo_sk"))
+    ca = customer_address.filter(In(col("ca_state"), list(Q18_STATES))) \
+        .select(Alias(col("ca_address_sk"), "c_current_addr_sk"),
+                col("ca_country"), col("ca_state"), col("ca_county"))
+    it = item.select(Alias(col("i_item_sk"), "cs_item_sk"), col("i_item_id"))
+    joined = (catalog_sales.join(dt, on="cs_sold_date_sk")
+              .join(cd1, on="cs_bill_cdemo_sk")
+              .join(cu, on="cs_bill_customer_sk")
+              .join(cd2, on="c_current_cdemo_sk")
+              .join(ca, on="c_current_addr_sk")
+              .join(it, on="cs_item_sk"))
+    agg = joined.rollup(*Q18_KEYS).agg(
+        *[F.avg(Cast(col(c), T.DOUBLE)).alias(name)
+          for name, c in Q18_AVERAGES])
+    ordered = agg.order_by(*Q18_ORDER)
+    out = ordered if limit is None else ordered.limit(limit)
+    return out, {"joined": joined, "agg": agg, "sorted": ordered}
+
+
+def q18_numpy(tables: Dict[str, dict], year=1998, limit=100) -> list:
+    """TPC-DS q18 in numpy over ``q18_tables`` output: the rows as
+    dicts, the rollup's rows with None for the keys a level drops."""
+    cs, cd = tables["catalog_sales"], tables["customer_demographics"]
+    c, ca = tables["customer"], tables["customer_address"]
+    d, i = tables["date_dim"], tables["item"]
+    rows = np.nonzero(np.isin(cs["cs_sold_date_sk"],
+                              d["d_date_sk"][d["d_year"] == year]))[0]
+    women = (cd["cd_gender"] == "F") & \
+        (cd["cd_education_status"] == "Unknown")
+    found, cd1_at = _lookup(cd["cd_demo_sk"][women],
+                            cs["cs_bill_cdemo_sk"][rows])
+    rows, cd1_at = rows[found], np.nonzero(women)[0][cd1_at[found]]
+    born = np.isin(c["c_birth_month"], Q18_MONTHS)
+    found, c_at = _lookup(c["c_customer_sk"][born],
+                          cs["cs_bill_customer_sk"][rows])
+    rows, cd1_at = rows[found], cd1_at[found]
+    c_at = np.nonzero(born)[0][c_at[found]]
+    keep = np.isin(c["c_current_cdemo_sk"][c_at], cd["cd_demo_sk"])
+    rows, cd1_at, c_at = rows[keep], cd1_at[keep], c_at[keep]
+    states = np.isin(ca["ca_state"], Q18_STATES)
+    found, ca_at = _lookup(ca["ca_address_sk"][states],
+                           c["c_current_addr_sk"][c_at])
+    rows, cd1_at, c_at = rows[found], cd1_at[found], c_at[found]
+    ca_at = np.nonzero(states)[0][ca_at[found]]
+    found, i_at = _lookup(i["i_item_sk"], cs["cs_item_sk"][rows])
+    rows, cd1_at, c_at, ca_at, i_at = (rows[found], cd1_at[found],
+                                       c_at[found], ca_at[found],
+                                       i_at[found])
+    keys = {"i_item_id": i["i_item_id"][i_at],
+            "ca_country": ca["ca_country"][ca_at],
+            "ca_state": ca["ca_state"][ca_at],
+            "ca_county": ca["ca_county"][ca_at]}
+    values = {"cs_quantity": cs["cs_quantity"][rows],
+              "cs_list_price": cs["cs_list_price"][rows],
+              "cs_coupon_amt": cs["cs_coupon_amt"][rows],
+              "cs_sales_price": cs["cs_sales_price"][rows],
+              "cs_net_profit": cs["cs_net_profit"][rows],
+              "c_birth_year": c["c_birth_year"][c_at],
+              "cd_dep_count": cd["cd_dep_count"][cd1_at]}
+    out = []
+    if not len(rows):
+        return out   # the grouping sets of no row give no row, () too
+    for level in range(len(Q18_KEYS), -1, -1):
+        grouped = Q18_KEYS[:level]
+        if level:
+            gid, first = _group_ids(*[keys[k] for k in grouped])
+            g = len(first)
+        else:
+            gid, first, g = np.zeros(len(rows), np.int64), [0], 1
+        n = np.bincount(gid, minlength=g)
+        avgs = {name: np.bincount(gid, weights=values[col_].astype(
+            np.float64), minlength=g) / np.maximum(n, 1)
+            for name, col_ in Q18_AVERAGES}
+        for k in range(g):
+            row = {key: (keys[key][first[k]] if key in grouped else None)
+                   for key in Q18_KEYS}
+            for name, _c in Q18_AVERAGES:
+                row[name] = float(avgs[name][k]) if n[k] else None
+            out.append(row)
+
+    def order(r):
+        return tuple((0, "") if r[k] is None else (1, r[k])
+                     for k in Q18_ORDER)
+    out.sort(key=order)
+    return out if limit is None else out[:limit]

@@ -5,9 +5,10 @@ with -1 rows), K8 (sort, with string keys), K9 (keyed aggregation, with a
 double sum of an int input, double keys and five keys), K10 (hash join,
 inner, left outer, left semi and left anti), K14 (whole-partition
 windows), K15d (count distinct, keyed and global), the <>, NOT and
-string-to-string emitters in K5 and K6, kernel 1 over string columns, and
-TPC-DS q3, q1, q7, q15, q12, q20, q13, q19 and q16 end to end against the
-CPU run.
+string-to-string emitters in K5 and K6, kernel 1 over string columns, K7c
+(concat, with strings), K9's m2 kind, K10 on two and three key columns,
+and TPC-DS q3, q1, q7, q15, q12, q20, q13, q19, q16, q17, q10 and q18 end
+to end against the CPU run.
 
 Every test needs a CUDA card and skips without one.  This file imports
 nothing of JAX, so it runs where JAX is not installed:
@@ -15,7 +16,8 @@ nothing of JAX, so it runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
 (``--noconftest``: tests/conftest.py sets up JAX for the other tests).
-Exact, except double sums within 1e-12 relative (another order)."""
+Exact, except double sums (and m2) within 1e-12 relative (another
+order)."""
 
 import numpy as np
 import pytest
@@ -478,6 +480,124 @@ def test_q13_q19_q16_match_the_cpu_run(card, query):
     ref = recipe(*[cpu.create_dataframe(t[n]) for n in names],
                  **kw)[0].collect()
     assert len(got) == len(ref) == {"q13": 1, "q19": 4, "q16": 1}[query]
+    for g, r in zip(got, ref):
+        assert g.keys() == r.keys()
+        for k in g:
+            if isinstance(r[k], float):
+                assert abs(g[k] - r[k]) <= 1e-12 * abs(r[k])
+            else:
+                assert g[k] == r[k]
+
+
+@pytest.mark.parametrize("sizes", [(0, 1), (1000, 0, 1), (4099, 70000, 3)])
+def test_concat(card, sizes):
+    """K7c against its plain version: strings (empty, null, non-ASCII),
+    ints, longs and doubles, inputs of no row, a front slice whose chars
+    plane runs past its last offset."""
+    rng = np.random.default_rng(sum(sizes))
+    parts = [batch(card, rng, n) for n in sizes]
+    parts[-1] = parts[-1].front(max(0, sizes[-1] - 1))
+    got = BO.concat_batches(parts)
+    ref = BO.concat_batches_plain(parts)
+    assert got.row_count == ref.row_count == sum(p.row_count for p in parts)
+    same(got.columns, ref.columns)
+    assert got.columns[2].offsets[-1] == ref.columns[2].offsets[-1]
+
+
+def test_keyed_m2(card):
+    """K9's m2 kind against its plain version: groups of 0, 1 and 2
+    present values and one of 2**20 + 3 values near 1e9; int and double
+    inputs."""
+    n = (1 << 20) + 3
+    rng = np.random.default_rng(31)
+    g = np.concatenate([[0, 0, 1, 2, 2], np.full(n, 3),
+                        rng.integers(4, 400, 5000)]).astype(np.int64)
+    m = len(g)
+    x = rng.standard_normal(m) * 100.0
+    x[5:5 + n] = 1e9 + rng.standard_normal(n)
+    valid = rng.random(m) > 0.05
+    valid[:2] = False
+    key = DeviceColumn(torch.from_numpy(g).cuda(),
+                       torch.ones(m, dtype=torch.bool).cuda(), T.LONG)
+    dbl = DeviceColumn(torch.from_numpy(x).cuda(),
+                       torch.from_numpy(valid).cuda(), T.DOUBLE)
+    ints = DeviceColumn(torch.from_numpy(rng.integers(-99, 99, m).astype(
+        np.int32)).cuda(), torch.from_numpy(valid).cuda(), T.INT)
+    args = ([key], [dbl, ints, dbl], [G.KEYED_M2, G.KEYED_M2, G.KEYED_COUNT],
+            card.transfers)
+    got = G.keyed_aggregate(*args)
+    ref = G.keyed_aggregate_plain(*args)
+    assert torch.equal(got[0], ref[0])
+    gid = torch.from_numpy(g).cuda()
+    for c, (gv, gok), (rv, rok) in zip(args[1], got[1], ref[1]):
+        assert torch.equal(gok, rok)
+        if gv.dtype == torch.int64:   # the count
+            assert torch.equal(gv, rv)
+            continue
+        # the plain version sums with atomics in another order, so the
+        # two means differ in their last places (bounded by 1e-12 of the
+        # group's largest |x|), which moves m2 by about n times that
+        # squared; 1e-9 of m2 covers the squares' sums
+        xv = c.data.double()
+        big = torch.zeros_like(gv).scatter_reduce_(
+            0, gid, torch.where(c.validity, xv.abs(), 0.0), "amax")
+        n_g = torch.zeros_like(gv).index_add_(0, gid, c.validity.double())
+        tol = 1e-9 * rv.abs() + n_g * (1e-12 * big) ** 2
+        assert bool(((gv - rv).abs() <= tol).all())
+    near = torch.from_numpy(x[5:5 + n][valid[5:5 + n]]).cuda()
+    exact = float(((near - near.mean()) ** 2).sum())
+    assert abs(float(got[1][0][0][3]) - exact) <= 1e-6 * exact
+
+
+@pytest.mark.parametrize("n_keys", [2, 3])
+def test_multikey_join(card, n_keys):
+    """K10 on two and three key columns of int and long in all four modes
+    against its plain version: duplicates, nulls in one key column, an
+    empty build side."""
+    rng = np.random.default_rng(n_keys)
+
+    def keys(n, null_col):
+        out = []
+        for c in range(n_keys):
+            dt = T.INT if c == 1 else T.LONG
+            data = torch.from_numpy(rng.integers(0, 6, n).astype(
+                dt.np_dtype)).cuda()
+            valid = torch.from_numpy(rng.random(n) > (0.2 if c == null_col
+                                                      else 0.0)).cuda()
+            out.append(DeviceColumn(data, valid, dt))
+        return out
+    probe = keys(200_000, 0)
+    for build in (keys(3000, 1), keys(0, 1)):
+        for kw in ({}, {"outer": True}, {"mode": "semi"},
+                   {"mode": "anti"}):
+            got = J.join_pairs(build, probe, card.transfers, **kw)
+            ref = J.join_pairs_plain(build, probe, card.transfers, **kw)
+            assert torch.equal(got[0], ref[0])
+            assert (got[1] is None) == (ref[1] is None)
+            if got[1] is not None:
+                assert torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("query,kw", [("q17", {}),
+                                      ("q17", {"same_item": False}),
+                                      ("q10", {}), ("q18", {})])
+def test_q17_q10_q18_match_the_cpu_run(card, query, kw):
+    from spark_rapids_tpu_torch.testing import tpcds
+    names = {"q17": ("store_sales", "store_returns", "catalog_sales",
+                     "date_dim", "store", "item"),
+             "q10": ("customer", "customer_address", "customer_demographics",
+                     "store_sales", "web_sales", "catalog_sales",
+                     "date_dim"),
+             "q18": ("catalog_sales", "customer_demographics", "customer",
+                     "customer_address", "date_dim", "item")}[query]
+    t = getattr(tpcds, f"{query}_tables")(tpcds.generate_tables(1))
+    recipe = getattr(tpcds, query)
+    got = recipe(*[card.create_dataframe(t[n]) for n in names],
+                 **kw)[0].collect()
+    cpu = TorchSession(device="cpu")
+    ref = recipe(*[cpu.create_dataframe(t[n]) for n in names],
+                 **kw)[0].collect()
+    assert len(got) == len(ref) == (0 if query == "q17" and not kw else 100)
     for g, r in zip(got, ref):
         assert g.keys() == r.keys()
         for k in g:

@@ -128,6 +128,23 @@ q13 = tpcds.q13(*[s.create_dataframe(t13[t]) for t in
                    "household_demographics", "customer_address",
                    "date_dim")], **wide)[0].collect()
 assert q13[0]["sum1"] is not None, q13
+t17 = tpcds.q17_tables(tpcds.generate_tables(0.5))
+q17 = tpcds.q17(*[s.create_dataframe(t17[t]) for t in
+                  ("store_sales", "store_returns", "catalog_sales",
+                   "date_dim", "store", "item")], same_item=False)[0]
+rows = q17.collect()
+ref = tpcds.q17_numpy(t17, same_item=False)
+assert rows and [(r["i_item_id"], r["s_state"], r["store_sales_quantitycount"])
+                 for r in rows] == \
+    [(r["i_item_id"], r["s_state"], r["store_sales_quantitycount"])
+     for r in ref], q17.explain()
+t18 = tpcds.q18_tables(tpcds.generate_tables(0.5))
+q18 = tpcds.q18(*[s.create_dataframe(t18[t]) for t in
+                  ("catalog_sales", "customer_demographics", "customer",
+                   "customer_address", "date_dim", "item")])[0]
+rows = q18.collect()
+assert rows and len(rows) == len(tpcds.q18_numpy(t18)), q18.explain()
+assert all(rows[0][k] is None for k in tpcds.Q18_KEYS), rows[0]
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax")
              or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")
              or m == "triton" or m.startswith("triton."))
@@ -159,6 +176,7 @@ def test_session_without_device_refuses_when_cuda_is_absent(monkeypatch):
 def test_wrappers_refuse_other_devices():
     import torch
     from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
     from spark_rapids_tpu_torch.columnar.column import DeviceColumn
     from spark_rapids_tpu_torch.ops import (agg_ops, batch_ops, join_ops,
                                             sort_ops, window_ops)
@@ -171,6 +189,7 @@ def test_wrappers_refuse_other_devices():
                        torch.ones(2, dtype=torch.bool, device="meta"),
                        T.LONG)
     idx = torch.zeros(2, dtype=torch.int64, device="meta")
+    batch = ColumnarBatch([col], 2, ["k"])
     calls = [lambda: batch_ops.gather_columns([col], idx, None),
              lambda: join_ops.join_pairs(col, col, None),
              lambda: sort_ops.sort_permutation([col],
@@ -182,7 +201,11 @@ def test_wrappers_refuse_other_devices():
                                               col.device),
              lambda: join_ops.join_pairs(col, col, None, mode="semi"),
              lambda: agg_ops.count_distinct(col),
-             lambda: agg_ops.count_distinct(col, idx, 2)]
+             lambda: agg_ops.count_distinct(col, idx, 2),
+             lambda: join_ops.join_pairs([col, col], [col, col], None),
+             lambda: agg_ops.keyed_aggregate([col], [col],
+                                             [agg_ops.KEYED_M2], None),
+             lambda: batch_ops.concat_batches([batch, batch])]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):
             call()

@@ -116,8 +116,13 @@ def test_joins_outside_the_port_are_refused_by_name():
     b = s.create_dataframe({"k": [1, 3], "s": ["x", "z"], "v": [1.0, 2.0]})
     with pytest.raises(NotImplementedError, match="full_outer joins"):
         a.join(b, on="k", how="full_outer").collect()
-    with pytest.raises(NotImplementedError, match="2 key columns"):
+    # several key columns join (tests/test_torch_multikey_join.py), but
+    # not a string among them, nor more than eight
+    with pytest.raises(NotImplementedError, match="StringType"):
         a.join(b, on=["k", "s"]).collect()
+    wide = s.create_dataframe({f"c{i}": [1, 2] for i in range(9)})
+    with pytest.raises(NotImplementedError, match="9 key columns"):
+        wide.join(wide, on=[f"c{i}" for i in range(9)]).collect()
     with pytest.raises(NotImplementedError, match="StringType"):
         a.join(b, on="s").collect()
     from spark_rapids_tpu_torch.expressions.base import col, lit

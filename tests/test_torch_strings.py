@@ -147,3 +147,41 @@ def test_gather_refuses_other_devices_and_maps():
     with pytest.raises(ValueError, match="different devices"):
         BO.gather_columns([dev], meta, s.transfers)
 
+
+
+def test_substring_negative_pos_past_the_start_clamps_first():
+    """A reference fault pinned (ROADMAP queue 3): Spark's substringSQL
+    takes the end as ``start + len`` before it clamps ``start`` to 0, so
+    ``substring('abc', -5, 3)`` is ``'a'`` and ``substring('ab', -5, 3)``
+    is ``''``; both forms of the JAX package clamp first and give
+    ``'abc'`` and ``'ab'``, and the port, which matches the reference,
+    does the same on its CPU path (``Substring.eval``, and the byte view
+    a filter compares)."""
+    from spark_rapids_tpu import functions as JF
+    from spark_rapids_tpu.session import TpuSession
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.base import (BoundReference,
+                                                         Col, EvalContext,
+                                                         lit)
+    from spark_rapids_tpu_torch.expressions.predicates import EqualTo
+    from spark_rapids_tpu_torch.expressions.strings import Substring
+    values = ["abc", "ab", None, ""]
+    schema = JT.StructType([JT.StructField("s", JT.STRING)])
+    ref = {}
+    for enabled in ("true", "false"):
+        s = TpuSession({"spark.rapids.sql.enabled": enabled})
+        ref[enabled] = [r["x"] for r in s.create_dataframe(
+            {"s": values}, schema).select(
+                JF.substring("s", -5, 3).alias("x")).collect()]
+    c = HostColumn.from_strings(values)
+    ctx = EvalContext([Col(torch.from_numpy(c.data),
+                           torch.tensor([v is not None for v in values]),
+                           torch.from_numpy(c.offsets))], 4,
+                      torch.device("cpu"))
+    got = Substring(BoundReference(0, T.STRING), -5, 3).eval(ctx)
+    got = HostColumn(got.data.numpy(), got.valid.numpy(), T.STRING,
+                     got.offsets.numpy()).to_pylist()
+    assert got == ref["true"] == ref["false"] == ["abc", "ab", None, ""]
+    df = TorchSession(device="cpu").create_dataframe({"s": values})
+    kept = df.filter(EqualTo(F.substring("s", -5, 3), lit("abc"))).collect()
+    assert kept == [{"s": "abc"}]
