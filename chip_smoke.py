@@ -7,11 +7,11 @@ Needs one CUDA card; it exits non-zero, printing no result, without one.
 It builds every kernel from the sources in the checkout, into the
 git-ignored build/ directory: kernel 1, K5 and K6 (Triton, emitted by
 kernels/fused_agg.py and kernels/fused_stage.py) and kernel 2, K7, K7c,
-K8, K9, K10, K14 and K15d (csrc/*.cu, one nvcc each, all started
-together).  It
-holds each kernel against its plain PyTorch version on the card, then drives
-five paths through ``TorchSession()``, each with the launch counters set to
-0 just before it and read just after:
+K8, K9, K10, K10x, K14 (with its ranking pass K14r) and K15d (csrc/*.cu,
+one nvcc each, all started together).  It holds each kernel against its
+plain PyTorch version on the card, then drives six paths through
+``TorchSession()``, each query with the launch counters set to 0 just
+before it and read just after:
 
 - bench.py's recipe -- filter(w > t), project k+1, v*2.0 and
   murmur3(k, w), sum all three, collect -- on 128M rows in 4 partitions,
@@ -31,7 +31,17 @@ five paths through ``TorchSession()``, each with the launch counters set to
   conjunct dropped (joins on three and two key columns, stddev_samp),
   q10 (a semi join, existence markers over distinct customers, an 8-key
   group-by and sort) and q18 (ROLLUP: an Expand of five grouping sets
-  concatenated by K7c) over the same tables, checked and timed alike.
+  concatenated by K7c) over the same tables, checked and timed alike;
+- TPC-DS q6 (an eager scalar subquery, a left outer join on the string
+  key i_category), q28 (six global aggregates with count(DISTINCT),
+  cross-joined: K10x) and q36 (rank() over a rollup's parents: K14r, a
+  CASE WHEN string view in K6, a sort by expressions) over the same
+  tables, checked and timed alike.
+
+The CPU run of q3 to q18 is held against a card run over tables at a
+tenth of the scale (sf 100), to keep the script inside its time; q6, q28
+and q36 are held against the CPU run at full size.  Each phase prints
+its seconds.
 
 Every check that fails ends the run with a non-zero exit.  The last two
 lines of standard output are a JSON object describing each kernel on
@@ -55,10 +65,11 @@ import time
 import numpy as np
 
 INT64_MAX = 2 ** 63 - 1
-#: the CUDA sources of the kernels (kernel 2, K7, K8, K9, K10, K14, K15d,
-#: K7c)
+#: the CUDA sources of the kernels (kernel 2, K7, K8, K9, K10, K14 and
+#: its ranking pass K14r, K15d, K7c, K10x)
 CUDA_SOURCES = ("global_reduce.cu", "gather.cu", "sort.cu", "keyed_agg.cu",
-                "hash_join.cu", "window.cu", "distinct.cu", "concat.cu")
+                "hash_join.cu", "window.cu", "distinct.cu", "concat.cu",
+                "cross_join.cu")
 #: the TPC-DS kernels: name, route, source, the JAX program each replaces
 TPCDS_KERNELS = {
     "K1": ("fused_agg_update", "triton",
@@ -85,6 +96,11 @@ TPCDS_KERNELS = {
             "spark_rapids_tpu/ops/join_ops.py:125"),
     "K14": ("window", "cuda", "spark_rapids_tpu_torch/csrc/window.cu",
             "spark_rapids_tpu/ops/window_ops.py:79"),
+    "K14r": ("window_rank", "cuda", "spark_rapids_tpu_torch/csrc/window.cu",
+             "spark_rapids_tpu/ops/window_ops.py:177"),
+    "K10x": ("cross_pairs", "cuda",
+             "spark_rapids_tpu_torch/csrc/cross_join.cu",
+             "spark_rapids_tpu/ops/join_ops.py:251"),
     "K15d": ("count_distinct", "cuda",
              "spark_rapids_tpu_torch/csrc/distinct.cu",
              "spark_rapids_tpu/ops/agg_ops.py:550"),
@@ -100,6 +116,8 @@ COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
             "K9": ("ops.agg_ops", "KEYED_LAUNCHES"),
             "K10": ("ops.join_ops", "LAUNCHES"),
             "K14": ("ops.window_ops", "LAUNCHES"),
+            "K14r": ("ops.window_ops", "RANK_LAUNCHES"),
+            "K10x": ("ops.join_ops", "CROSS_LAUNCHES"),
             "K15d": ("ops.agg_ops", "DISTINCT_LAUNCHES")}
 #: the kernels each query's main path launches
 QUERY_KERNELS = {"q3": ("K5", "K7", "K8", "K9", "K10"),
@@ -115,7 +133,11 @@ QUERY_KERNELS = {"q3": ("K5", "K7", "K8", "K9", "K10"),
                  "q17": ("K5", "K7", "K9", "K10"),
                  "q17v": ("K5", "K6", "K7", "K8", "K9", "K10"),
                  "q10": ("K5", "K6", "K7", "K8", "K9", "K10"),
-                 "q18": ("K5", "K6", "K7", "K7c", "K8", "K9", "K10")}
+                 "q18": ("K5", "K6", "K7", "K7c", "K8", "K9", "K10"),
+                 "q6": ("K5", "K6", "K7", "K8", "K9", "K10"),
+                 "q28": ("K1", "K3", "K5", "K7", "K10x", "K15d"),
+                 "q36": ("K5", "K6", "K7", "K7c", "K8", "K9", "K10",
+                         "K14r")}
 #: the JAX programs K10's and K7's left outer mode replaces (on q1)
 OUTER_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:275",
                   "spark_rapids_tpu/ops/join_ops.py:313",
@@ -129,6 +151,11 @@ DISTINCT_REPLACES = ["spark_rapids_tpu/ops/agg_ops.py:646",
 #: the JAX function K10's several key columns replace (q17), and K9's m2
 #: kind (q17's stddev_samp)
 MULTIKEY_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:96"]
+#: the JAX function K10's string keys replace (q6: _hash_rows over the
+#: string words whose widths the sides agree on), and the boundaries and
+#: first positions K14r replaces beside the ranking kinds (q36)
+STRING_KEY_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:71"]
+RANK_REPLACES = ["spark_rapids_tpu/ops/window_ops.py:122"]
 M2_REPLACES = ["spark_rapids_tpu/ops/agg_ops.py:490"]
 #: data bytes of one table row (k int64, v double, w int32), as bench.py
 ROW_BYTES = 8 + 8 + 4
@@ -1365,6 +1392,198 @@ def check_slice6(session, rng, rate: float):
     return err, timed
 
 
+def string_keys(rng, n: int, base, null_frac: float):
+    """A host string column of ``n`` keys, each a prefix (0 to 40 bytes)
+    of one of the byte rows of ``base``: prefixes of one another, the
+    empty string among them, and nulls."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    fam = rng.integers(0, base.shape[0], n)
+    valid = rng.random(n) >= null_frac
+    lens = np.where(valid, rng.integers(0, base.shape[1] + 1, n), 0)
+    offsets = np.zeros(n + 1, np.int32)
+    np.cumsum(lens, out=offsets[1:])
+    row = np.repeat(fam, lens)
+    pos = np.arange(int(offsets[-1])) - np.repeat(offsets[:-1], lens)
+    return HostColumn(base[row, pos].astype(np.uint8), None if valid.all()
+                      else valid, T.STRING, offsets)
+
+
+def check_slice7(session, rng, rate: float):
+    """Phase 2g: K14's ranking pass (partition and order keys of every
+    kind, ascending and descending, nulls first and last), the div, % and
+    CASE WHEN emitters in K6 (a string CASE as a view's validity) and K5,
+    at 0, 1, 1000 and 2**20 + 3 rows; K10x over 3,001 x 1,024 rows and an
+    empty side; K10 on string keys, alone and beside an int key, in all
+    four modes, 1M probe rows against 64k and 16 build rows (prefixes of
+    one another, 0 to 40 bytes, nulls); and K14r over one partition of
+    2**20 + 3 rows of peers of 7, each against its plain version.  K14r,
+    K10x and the string-key joins are timed.  Returns the max |d| of each
+    kernel and the timings."""
+    import torch
+    from spark_rapids_tpu_torch import DataFrame
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import HostColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn, \
+        HostColumn
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.expressions import predicates as P
+    from spark_rapids_tpu_torch.expressions.arithmetic import (
+        IntegralDivide, Remainder, Subtract)
+    from spark_rapids_tpu_torch.expressions.base import (Alias, Literal,
+                                                         bind_references,
+                                                         col, lit)
+    from spark_rapids_tpu_torch.expressions.conditional import CaseWhen
+    from spark_rapids_tpu_torch.ops import batch_ops as BO
+    from spark_rapids_tpu_torch.ops import join_ops as J
+    from spark_rapids_tpu_torch.ops import sort_ops as S
+    from spark_rapids_tpu_torch.ops import window_ops as W
+    from spark_rapids_tpu_torch.plan import base as L
+    tr, dev = session.transfers, session.device
+    err = {k: 0.0 for k in ("K5", "K6", "K10", "K10x", "K14r")}
+    exprs = [IntegralDivide(col("u"), col("g")),
+             Remainder(col("g"), Subtract(col("g"), lit(2))),
+             IntegralDivide(col("w"), lit(-1)),
+             Remainder(col("w"), col("u")),
+             IntegralDivide(Literal(-(2 ** 63), T.LONG), lit(-1)),
+             CaseWhen([(P.GreaterThan(col("v"), lit(0.0)), col("g")),
+                       (P.EqualTo(col("t"), lit("TN")), col("u"))],
+                      lit(-1)),
+             CaseWhen([(P.GreaterThan(col("p"), lit(0.0)), col("s"))]),
+             CaseWhen([(P.EqualTo(Remainder(col("g"), lit(2)), lit(0)),
+                        Literal(None, T.STRING))], col("z"))]
+    orderings = ((["g"], ["p"], [(True, True)]),
+                 (["s", "g"], ["u"], [(False, False)]),
+                 ([], ["z", "v"], [(True, False), (False, True)]),
+                 (["d"], ["s"], [(False, True)]))
+    for n in SLICE3_SIZES:
+        batch = slice4_batch(session, rng, n)
+        schema = batch.schema
+        program = FU.StageProgram(
+            [("project", [bind_references(Alias(e, f"c{j}"), schema)
+                          for j, e in enumerate(exprs)])], schema, 0)
+        lits = FU.LiteralArgs([])
+        got = FU.fused_project(program, batch, lits)
+        torch.cuda.synchronize()
+        err["K6"] = max(err["K6"], same_columns(
+            got, FU.fused_project_plain(program, batch, lits),
+            f"K6 (slice 7), {n} rows"))
+        df = DataFrame(L.Scan([[]], schema), session)
+        stage = (df.filter(P.GreaterThan(CaseWhen(
+            [(P.GreaterThan(col("v"), lit(0.0)),
+              IntegralDivide(col("u"), lit(3)))],
+            Remainder(col("w"), lit(7))), lit(0)))
+            .select(col("s"), Alias(Remainder(col("u"), lit(5)), "r"))
+            .executed_plan())
+        check(isinstance(stage, FU.TorchFusedStageExec),
+              f"K5 plan: {stage.tree_string()}")
+        slits = FU.LiteralArgs.upload(stage.promoted, tr)
+        idx, comp = FU.fused_stage_compact(stage.program, batch, slits, tr)
+        torch.cuda.synchronize()
+        ridx, rcomp = FU.fused_stage_compact_plain(stage.program, batch,
+                                                   slits, tr)
+        err["K5"] = max(err["K5"], same_indices(
+            idx, ridx, f"K5 (slice 7), {n} rows: survivors"),
+            same_columns(comp, rcomp, f"K5 (slice 7), {n} rows"))
+        cols = dict(zip(batch.names, batch.columns))
+        for keys, order, dirs in orderings:
+            every = [cols[k] for k in keys + order]
+            perm = S.sort_permutation(
+                every, [S.SortOrder(i) for i in range(len(keys))] +
+                [S.SortOrder(len(keys) + j, *d) for j, d in enumerate(dirs)],
+                tr) if n else torch.empty(0, dtype=torch.int64, device=dev)
+            moved = BO.gather_columns(every, perm, tr, unique=True)
+            args = (moved[:len(keys)], moved[len(keys):], list(W.RANKING), n,
+                    dev)
+            got = W.window_rank(*args)
+            torch.cuda.synchronize()
+            err["K14r"] = max(err["K14r"], same_output(
+                "K14r", args, {}, got, W.window_rank_plain(*args), tr,
+                f"K14r, {n} rows, {keys} by {order}"))
+    # K14r over one partition of 2**20 + 3 rows, peers of 7 rows
+    m = SLICE3_SIZES[-1]
+    ones = torch.ones(m, dtype=torch.bool, device=dev)
+    one = DeviceColumn(torch.zeros(m, dtype=torch.int64, device=dev), ones,
+                       T.LONG, True)
+    peers = DeviceColumn(torch.arange(m, device=dev) // 7, ones, T.LONG,
+                         True)
+    rank_args = ([one], [peers], list(W.RANKING), m, dev)
+    got = W.window_rank(*rank_args)
+    torch.cuda.synchronize()
+    err["K14r"] = max(err["K14r"], same_output(
+        "K14r", rank_args, {}, got, W.window_rank_plain(*rank_args), tr,
+        f"K14r, one partition of {m} rows"))
+    timed = {"rank": (time_ms(lambda: W.window_rank(*rank_args), 20),
+                      time_ms(lambda: W.window_rank_plain(*rank_args), 2,
+                              1), (16 * m + 12 * m) / rate * 1e3, None)}
+    # K10x: 3,001 x 1,024 pairs, and an empty side
+    for sizes in ((3001, 1024), (0, 1024), (3001, 0), (1, 1)):
+        got = J.cross_pairs(*sizes, dev)
+        torch.cuda.synchronize()
+        err["K10x"] = max(err["K10x"], *[
+            same_indices(g, r, f"K10x {sizes}: {side} rows")
+            for g, r, side in zip(got, J.cross_pairs_plain(*sizes, dev),
+                                  ("probe", "build"))])
+    timed["cross"] = (
+        time_ms(lambda: J.cross_pairs(3001, 1024, dev), 20),
+        time_ms(lambda: J.cross_pairs_plain(3001, 1024, dev), 2, 1),
+        16 * 3001 * 1024 / rate * 1e3,
+        time_ms(lambda: torch.cartesian_prod(
+            torch.arange(3001, device=dev), torch.arange(1024, device=dev)),
+            20))
+    # K10 on string keys: 1M probe rows, 64k and 16 build rows
+    base = rng.integers(97, 100, (4096, 40))
+
+    def side(rows):
+        hb = HostColumnarBatch(
+            [string_keys(rng, rows, base, 0.05),
+             HostColumn(rng.integers(0, 3, rows).astype(np.int32), None,
+                        T.INT)], rows, ["k", "a"])
+        return tr.upload_batch(hb).columns
+
+    def distinct_side(rows):
+        """``rows`` build rows of distinct strings from the same
+        families (no key repeats, so no probe row meets duplicates)."""
+        c = string_keys(rng, 4 * rows, base, 0.0)
+        off = c.offsets.tolist()
+        raw = c.data.tobytes()
+        keys = sorted({raw[off[i]:off[i + 1]] for i in range(4 * rows)})
+        keys = [keys[i].decode() for i in rng.permutation(len(keys))[:rows]]
+        hb = HostColumnarBatch(
+            [HostColumn.from_strings(keys),
+             HostColumn(rng.integers(0, 3, len(keys)).astype(np.int32), None,
+                        T.INT)], len(keys), ["k", "a"])
+        return tr.upload_batch(hb).columns
+    probe = side(1_000_000)
+    for rows, build in (("65536", side(65_536)),
+                        ("65536 distinct", distinct_side(65_536)),
+                        ("16", side(16))):
+        for keys in ((build[0], probe[0]), (build, probe)):
+            for kw in ({}, {"outer": True}, {"mode": "semi"},
+                       {"mode": "anti"}):
+                args = (*keys, tr)
+                got = J.join_pairs(*args, **kw)
+                torch.cuda.synchronize()
+                err["K10"] = max(err["K10"], same_output(
+                    "K10", args, kw, got, J.join_pairs_plain(*args, **kw),
+                    tr, f"K10 string keys {rows} x 1000000, "
+                    f"{len(J.key_list(keys[0]))} keys, {kw}"))
+        # a key repeated m times on the build side costs each probe row
+        # that meets it m**2 moves in the write pass (its matches are put
+        # in build-row order by insertion): the first build side repeats
+        # its short keys, the second holds each key once
+        pairs = J.join_pairs(build[0], probe[0], tr)[0].shape[0]
+        print(f"K10 string keys, {build[0].row_count} build rows ({rows}) "
+              f"x 1000000 probe rows: {pairs} pairs")
+        timed[f"string {rows}"] = (
+            time_ms(lambda: J.join_pairs(build[0], probe[0], tr), 10),
+            time_ms(lambda: J.join_pairs_plain(build[0], probe[0], tr), 2,
+                    1),
+            (column_bytes(build[0]) + column_bytes(probe[0]) + 16 * pairs)
+            / rate * 1e3, None)
+    return err, timed
+
+
 def rows_match(expected, actual, what: str) -> None:
     """In order; doubles within 1e-6 relative (the comparator the JAX
     package's TPC-DS oracle uses, rowcompare.val_eq), the rest exact."""
@@ -1414,7 +1633,9 @@ class Recorder:
             (sort_ops, "sort_permutation", "K8"),
             (agg_ops, "keyed_aggregate", "K9"),
             (joins, "join_pairs", "K10"),
-            (window_ops, "window_reduce", "K14")]
+            (window_ops, "window_reduce", "K14"),
+            (window_ops, "window_rank", "K14r"),
+            (joins, "cross_pairs", "K10x")]
         self._saved = []
 
     def __enter__(self):
@@ -1472,6 +1693,9 @@ def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
         return err
     if name == "K14":
         return same_window_call(args, got, ref, what)
+    if name == "K14r":
+        return max([same_indices(g.data, r.data, f"{what}: ranks")
+                    for g, r in zip(got, ref)] + [0.0])
     if name == "K1":
         return same_kernel1(args, got, ref, what)
     if name == "K3":
@@ -1597,14 +1821,16 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
              "K7": BO.gather_columns_plain, "K7c": BO.concat_batches_plain,
              "K8": S.sort_permutation_plain,
              "K9": G.keyed_aggregate_plain, "K10": J.join_pairs_plain,
-             "K14": W.window_reduce_plain}
+             "K14": W.window_reduce_plain, "K14r": W.window_rank_plain,
+             "K10x": J.cross_pairs_plain}
     kernel = {"K1": FU.fused_agg_update, "K3": G.global_reduce,
               "K15d": G.count_distinct,
               "K5": FU.fused_stage_compact, "K6": FU.fused_project,
               "K7": BO.gather_columns, "K7c": BO.concat_batches,
               "K8": S.sort_permutation,
               "K9": G.keyed_aggregate, "K10": J.join_pairs,
-              "K14": W.window_reduce}
+              "K14": W.window_reduce, "K14r": W.window_rank,
+              "K10x": J.cross_pairs}
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "library_ms": 0.0,
                "shapes": [], "max_abs_err": 0.0} for k in kernels}
     for i, (name, args, kw) in enumerate(calls):
@@ -1652,9 +1878,10 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
         elif name == "K6":
             program, batch = args[0], args[1]
             n = batch.row_count
+            # a string output is a view: K6 writes its validity alone
             o["bytes"] += sum(column_bytes(batch.columns[i])
                               for i in program.used) + \
-                sum(column_bytes(c) for c in got)
+                sum(n if c.is_string else column_bytes(c) for c in got)
             o["shapes"].append(f"{n} rows, {len(got)} outputs: {ms:.4f} ms")
         elif name == "K7":
             cols, idx = args[0], args[1]
@@ -1708,6 +1935,22 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
                 sum(column_bytes(c) for c in got)
             o["shapes"].append(f"{n} rows, {len(keys)} keys, {len(got)} "
                                f"functions: {ms:.4f} ms")
+        elif name == "K14r":
+            keys, order, _kinds, n = args[:4]
+            o["bytes"] += sum(column_bytes(c) for c in keys + order) + \
+                sum(column_bytes(c) for c in got)
+            o["shapes"].append(f"{n} rows, {len(keys)} partition and "
+                               f"{len(order)} order keys, {len(got)} "
+                               f"functions: {ms:.4f} ms")
+        elif name == "K10x":
+            n_probe, n_build = args[:2]
+            o["bytes"] += 16 * n_probe * n_build
+            o["shapes"].append(f"{n_probe} x {n_build}: {ms:.4f} ms")
+
+            def library(n_probe=n_probe, n_build=n_build, dev=args[2]):
+                return torch.cartesian_prod(
+                    torch.arange(n_probe, device=dev),
+                    torch.arange(n_build, device=dev))
         else:
             b, p = J.key_list(args[0]), J.key_list(args[1])
             pr = got[0]
@@ -1823,7 +2066,14 @@ QUERIES = {
     "q18": ("q18", ("catalog_sales", "customer_demographics", "customer",
                     "customer_address", "date_dim", "item"),
             "catalog_sales"),
+    "q6": ("q6", ("customer_address", "customer", "store_sales", "date_dim",
+                  "item"), "store_sales"),
+    "q28": ("q28", ("store_sales",), "store_sales"),
+    "q36": ("q36", ("store_sales", "date_dim", "item", "store"),
+            "store_sales"),
 }
+#: the queries that must join on a string key (K10)
+STRING_JOIN_QUERIES = ("q6",)
 #: keyword arguments of a query's recipe and numpy version: q17v is q17
 #: with its ``sr_item_sk = cs_item_sk`` conjunct dropped
 QUERY_KW = {"q17v": {"same_item": False}}
@@ -1831,10 +2081,14 @@ QUERY_KW = {"q17v": {"same_item": False}}
 #: whatever numpy gives, none at sf 1 to 20)
 QUERY_ROWS = {"q3": 10, "q1": 100, "q7": 100, "q15": 40, "q12": 100,
               "q20": 100, "q13": 1, "q19": 100, "q16": 1, "q17": None,
-              "q17v": 100, "q10": 100, "q18": 100}
-#: phases 4 to 8, in bench.py's TPC-DS order within each slice
+              "q17v": 100, "q10": 100, "q18": 100, "q6": 10, "q28": 1,
+              "q36": 100}
+#: phases 4 to 9, in bench.py's TPC-DS order within each slice
 TPCDS_ORDER = ("q3", "q1", "q7", "q15", "q12", "q20", "q13", "q19", "q16",
-               "q17", "q17v", "q10", "q18")
+               "q17", "q17v", "q10", "q18", "q6", "q28", "q36")
+#: the queries whose CPU run is held against the card at full size; the
+#: others' CPU run is held against a card run at a tenth of the scale
+FULL_CPU_CHECK = ("q6", "q28", "q36")
 
 
 def recipe_of(tpcds, name: str):
@@ -1848,10 +2102,12 @@ def recipe_of(tpcds, name: str):
 
 
 def run_query(session, query: str, tables, rate: float,
-              full_size: bool = True):
-    """Phases 4 to 6: one TPC-DS query over ``tables`` (the generator's
+              full_size: bool = True, cross_tables=None):
+    """Phases 4 to 9: one TPC-DS query over ``tables`` (the generator's
     output, cut to the query's columns) through TorchSession(); checks it
-    against numpy and the CPU run, and times its kernels."""
+    against numpy and the CPU run, and times its kernels.  With
+    ``cross_tables`` (the same cut of smaller tables) the CPU run is held
+    against a card run over those instead of the full-size one."""
     import torch
     from spark_rapids_tpu_torch import TorchSession
     from spark_rapids_tpu_torch.exec.stage_compiler import stats as kstats
@@ -1918,12 +2174,18 @@ def run_query(session, query: str, tables, rate: float,
     rows_match(numpy_query(tables), result, f"{query} vs numpy")
     cpu = TorchSession(device="cpu")
     t0 = time.perf_counter()
-    cpu_rows = recipe(*[cpu.create_dataframe(tables[t])
+    small = tables if cross_tables is None else cross_tables
+    cpu_rows = recipe(*[cpu.create_dataframe(small[t])
                         for t in names])[0].collect()
     cpu_s = time.perf_counter() - t0
-    rows_match(cpu_rows, result, f"{query} vs the CPU run")
-    print(f"{query} matches numpy and the CPU run ({cpu_s:.1f} s); first "
-          f"rows {result[:2]}")
+    card_rows = result if cross_tables is None else recipe(*[
+        session.create_dataframe(small[t]) for t in names])[0].collect()
+    rows_match(cpu_rows, card_rows, f"{query} vs the CPU run")
+    scale = "" if cross_tables is None else \
+        f" (the CPU run against a card run over the smaller tables, " \
+        f"{len(card_rows)} rows)"
+    print(f"{query} matches numpy and the CPU run{scale} ({cpu_s:.1f} s); "
+          f"first rows {result[:2]}")
 
     device_ms = profile_query(query, run, kernels)
     with Recorder() as rec:
@@ -1931,6 +2193,11 @@ def run_query(session, query: str, tables, rate: float,
     recorded = {k: sum(c[0] == k for c in rec.calls) for k in kernels}
     check(recorded == launches, f"every launch of the {query} main path "
           f"was recorded: {recorded} vs {launches}")
+    if query in STRING_JOIN_QUERIES:
+        from spark_rapids_tpu_torch.ops.join_ops import key_list
+        check(any(k == "K10" and any(c.is_string for c in key_list(a[0]))
+                  for k, a, _kw in rec.calls),
+              f"{query} launched K10 with a string key")
     timed = time_kernels(session, rec.calls, rate, 10, kernels)
     print(f"{query} kernels vs plain on the main path's {len(rec.calls)} "
           f"calls: pass, max |d| "
@@ -1958,9 +2225,9 @@ def main() -> int:
     ap.add_argument("--parts", type=int, default=4)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--sf", type=float, default=1000.0,
-                    help="TPC-DS scale of the q3, q1, q7, q15, q12, q20, "
-                    "q13, q19 and q16 phases (store_sales 30,000 rows per "
-                    "sf)")
+                    help="TPC-DS scale of the query phases (store_sales "
+                    "30,000 rows per sf; the CPU cross-check of q3 to q18 "
+                    "runs at a tenth of it)")
     args = ap.parse_args()
 
     import torch
@@ -2091,6 +2358,25 @@ def main() -> int:
               "m2": f"one group of {SLICE3_SIZES[-1]} rows near 1e9"}
     for what, (ms_, plain_, bound_, lib_) in slice6_one.items():
         kernel = "K9 m2" if what == "m2" else "K7c"
+        print(f"{kernel} ({shapes[what]}): {ms_:.4f} ms, plain "
+              f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
+
+    # -- phase 2g: the slice-7 forms against their plain versions -----------
+    t0 = time.perf_counter()
+    errs7, slice7_one = check_slice7(session, rng, rate)
+    print(f"K14r (ranking), K10x (cross pairs), K10 (string keys), K6 and "
+          f"K5 (div, %, CASE WHEN) vs plain: pass "
+          f"({time.perf_counter() - t0:.1f} s), max |d| {errs7}")
+    shapes = {"rank": f"one partition of {SLICE3_SIZES[-1]} rows, peers "
+                      "of 7, three functions",
+              "cross": "3001 x 1024 pairs",
+              "string 65536": "65536 build x 1000000 probe string keys "
+                              "(keys repeated up to about 1,600 times)",
+              "string 65536 distinct": "65536 distinct build x 1000000 "
+                                       "probe string keys",
+              "string 16": "16 build x 1000000 probe string keys"}
+    for what, (ms_, plain_, bound_, lib_) in slice7_one.items():
+        kernel = {"rank": "K14r", "cross": "K10x"}.get(what, "K10")
         print(f"{kernel} ({shapes[what]}): {ms_:.4f} ms, plain "
               f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
 
@@ -2264,14 +2550,21 @@ def main() -> int:
     cuts = {q: getattr(tpcds, f"{QUERIES[q][0]}_tables")(generated)
             for q in TPCDS_ORDER}
     del generated   # the cuts keep the arrays the queries read
-    print(f"TPC-DS sf {args.sf} generated in "
+    small = tpcds.generate_tables(args.sf / 10)
+    small_cuts = {q: getattr(tpcds, f"{QUERIES[q][0]}_tables")(small)
+                  for q in TPCDS_ORDER if q not in FULL_CPU_CHECK}
+    del small
+    print(f"TPC-DS sf {args.sf} and sf {args.sf / 10} generated in "
           f"{time.perf_counter() - t0:.1f} s")
     # phase 6: q15, q12 and q20; phase 7: q13, q19 and q16; phase 8: q17
-    # (as written and q17v), q10 and q18, over the same tables
+    # (as written and q17v), q10 and q18; phase 9: q6, q28 and q36, over
+    # the same tables
     for q in TPCDS_ORDER:
+        q0 = time.perf_counter()
         launches, timed = run_query(session, q, cuts.pop(q), rate,
-                                    args.sf == 1000)
-        phase(f"{q} run, checked and timed")
+                                    args.sf == 1000, small_cuts.pop(q, None))
+        phase(f"{q} run, checked and timed "
+              f"({time.perf_counter() - q0:.1f} s)")
         for k in launches:
             name_, route, source, replaces = TPCDS_KERNELS[k]
             o = timed[k]
@@ -2281,7 +2574,8 @@ def main() -> int:
                 "replaces": replaces, "launches": launches[k],
                 "max_abs_err": max(errs.get(k, 0.0), errs3.get(k, 0.0),
                                    errs4.get(k, 0.0), errs5.get(k, 0.0),
-                                   errs6.get(k, 0.0), o["max_abs_err"]),
+                                   errs6.get(k, 0.0), errs7.get(k, 0.0),
+                                   o["max_abs_err"]),
                 "ms": o["ms"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound_ms"], "bound_by": "bytes",
                 "library_ms": o["library_ms"], "device_ms": o["device_ms"],
@@ -2315,6 +2609,24 @@ def main() -> int:
             if k == "K14":
                 entry["one_partition_ms"] = k14_one[0]
                 entry["one_partition_bound_ms"] = k14_one[1]
+            if q in STRING_JOIN_QUERIES and k == "K10":
+                entry["also_replaces"] = STRING_KEY_REPLACES
+                for what in ("string 65536", "string 65536 distinct",
+                             "string 16"):
+                    key = what.replace(" ", "_")
+                    ms_, plain_, bound_, _lib = slice7_one[what]
+                    entry[f"{key}_ms"] = ms_
+                    entry[f"{key}_plain_ms"] = plain_
+                    entry[f"{key}_bound_ms"] = bound_
+            if k in ("K14r", "K10x"):
+                what = "rank" if k == "K14r" else "cross"
+                if k == "K14r":
+                    entry["also_replaces"] = RANK_REPLACES
+                ms_, plain_, bound_, lib_ = slice7_one[what]
+                entry["phase_2g_ms"] = ms_
+                entry["phase_2g_plain_ms"] = plain_
+                entry["phase_2g_bound_ms"] = bound_
+                entry["phase_2g_library_ms"] = lib_
             kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 // Kernel K10: inner, left outer, left semi and left anti equi-join on up
-// to 8 key columns of int, date or long, through a hash table.
+// to 8 key columns of int, date, long or string, through a hash table.
 //
 // Replaces the JAX package's sort-based join programs `join.build`,
 // `join.probe`, `join.pair` and `join.compact_pairs`
@@ -12,19 +12,23 @@
 //
 // Keys: each side's key columns are a keys.cuh Keys (an int key is widened
 // to long before it is hashed or compared, so an int key of one side
-// equals a long key of the other with the same value).  A row whose keys
-// hold a null in any column never matches.  A row's hash is keys.cuh
-// row_hash over all its key columns; equality is keys_equal across the two
-// sides, so two keys whose hashes collide never match.
+// equals a long key of the other with the same value; a string key,
+// offsets and chars, meets a string key of the other side, each side with
+// its own planes, the JAX package's _hash_rows :96 with string word
+// widths agreed between the sides :71).  A row whose keys hold a null in
+// any column never matches; an empty string is not null.  A row's hash is
+// keys.cuh row_hash over all its key columns (a string's bytes folded by
+// FNV-1a); equality is keys_equal across the two sides, byte by byte for
+// a string, so two keys whose hashes collide never match.
 //
 // Build: a table of a power of two >= 2 * build rows slots; each build row
 // whose keys are all present takes its own slot (atomicCAS, linear
 // probing from its hash), so duplicate keys stay apart; the slot holds the
-// row index, and a tag goes beside it in slot_tag: with one key column the
-// key's own 64-bit word, so a tag match is a key match and no build key is
-// read (the one-key form of earlier versions kept the key in the slot the
-// same way); with several, the row hash, a filter before keys_equal reads
-// the build row's keys.
+// row index, and a tag goes beside it in slot_tag: with one int, date or
+// long key column the key's own 64-bit word, so a tag match is a key match
+// and no build key is read (the one-key form of earlier versions kept the
+// key in the slot the same way); with several, or a string key, the row
+// hash, a filter before keys_equal reads the build row's keys.
 // Probe, in tiles of 1024 rows: the count pass walks each probe row's
 // chain -- a slot whose tag differs is skipped -- and writes one match
 // count per tile; common.cuh scans the tile
@@ -46,8 +50,8 @@
 //             JAX package's plain anti join, not Spark's null-aware one).
 // Semi and anti write only the kept probe rows, in probe order.
 //
-// One key column is the case n_keys = 1 of the same code; it differs only
-// in its tag (the key word, not the hash).
+// One key column is the case n_keys = 1 of the same code; one fixed-width
+// key differs only in its tag (the key word, not the hash).
 //
 // Bound: device memory bytes.  The probe side is read twice (count and
 // write passes) where the function needs it once; the table (a few
@@ -76,11 +80,16 @@ struct Table {
   uint64_t mask;
 };
 
-// the tag a slot keeps for a row of hash h: the key's word for one key
-// column, else the hash
+// one fixed-width key column: the key's word is the slot's tag
+__device__ __forceinline__ bool word_tagged(const Keys& k) {
+  return k.n == 1 && k.type[0] != srt::kKeyString;
+}
+
+// the tag a slot keeps for a row of hash h: the key's word for one
+// fixed-width key column, else the hash
 __device__ __forceinline__ uint64_t row_tag(const Keys& k, int64_t i,
                                            uint64_t h) {
-  return k.n == 1 ? srt::key_word(k, 0, i) : h;
+  return word_tagged(k) ? srt::key_word(k, 0, i) : h;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -122,7 +131,7 @@ __device__ __forceinline__ long long slot_match(const Side& b, const Side& p,
                                                 int64_t i, uint64_t tag) {
   if (t.tag[s] != tag) return -1;
   const long long r = t.slots[s];
-  return p.k.n == 1 || srt::keys_equal(b.k, r, p.k, i) ? r : -1;
+  return word_tagged(p.k) || srt::keys_equal(b.k, r, p.k, i) ? r : -1;
 }
 
 // matches of probe row i; semi and anti modes stop at the first
@@ -221,16 +230,23 @@ __global__ void __launch_bounds__(kThreads)
 bool valid_keys(int32_t n_keys, const int32_t* type) {
   if (n_keys < 1 || n_keys > srt::kMaxKeys) return false;
   for (int c = 0; c < n_keys; ++c)
-    if (type[c] != srt::kKeyInt32 && type[c] != srt::kKeyInt64)
+    if (type[c] != srt::kKeyInt32 && type[c] != srt::kKeyInt64 &&
+        type[c] != srt::kKeyString)
       return false;
   return true;
 }
 
-Side side(int32_t n_keys, const int32_t* type, const void* const* data,
-          const void* const* valid, int64_t n) {
-  // int and long keys only: no offsets
-  const int32_t off64[srt::kMaxKeys] = {};
-  const void* offsets[srt::kMaxKeys] = {};
+// a string key column of one side meets a string one on the other
+bool same_kinds(int32_t n_keys, const int32_t* btype, const int32_t* ptype) {
+  for (int c = 0; c < n_keys; ++c)
+    if ((btype[c] == srt::kKeyString) != (ptype[c] == srt::kKeyString))
+      return false;
+  return true;
+}
+
+Side side(int32_t n_keys, const int32_t* type, const int32_t* off64,
+          const void* const* data, const void* const* valid,
+          const void* const* offsets, int64_t n) {
   return Side{srt::make_keys(n_keys, type, off64, data, valid, offsets), n};
 }
 
@@ -242,13 +258,15 @@ Table table(const void* slots, const void* slot_tag, int64_t size) {
 
 }  // namespace
 
-// Each side's keys: n_keys columns, type[c] a keys.cuh KeyType (int32 or
-// int64), data[c] the column's values, valid[c] its validity bytes (null:
-// all present).  slots, slot_tag: table_size int64 each (a power of two
-// >= 2 * build rows).
+// Each side's keys: n_keys columns, type[c] a keys.cuh KeyType (int32,
+// int64 or string), data[c] the column's values (a string's chars),
+// valid[c] its validity bytes (null: all present), and for a string
+// offsets[c] (int64 where off64[c], else int32).  slots, slot_tag:
+// table_size int64 each (a power of two >= 2 * build rows).
 extern "C" int srt_join_build(int32_t n_keys, const int32_t* type,
-                              const void* const* data,
-                              const void* const* valid, int64_t n,
+                              const int32_t* off64, const void* const* data,
+                              const void* const* valid,
+                              const void* const* offsets, int64_t n,
                               void* slots, void* slot_tag,
                               int64_t table_size, void* stream) {
   if (!valid_keys(n_keys, type) || table_size <= 0 ||
@@ -259,7 +277,7 @@ extern "C" int srt_join_build(int32_t n_keys, const int32_t* type,
   table_clear<<<srt::grid_for(table_size), kThreads, 0, s>>>(sl, table_size);
   if (n > 0)
     table_build<<<srt::grid_for(n), kThreads, 0, s>>>(
-        side(n_keys, type, data, valid, n), sl,
+        side(n_keys, type, off64, data, valid, offsets, n), sl,
         static_cast<uint64_t*>(slot_tag),
         static_cast<uint64_t>(table_size - 1));
   return static_cast<int>(cudaGetLastError());
@@ -269,15 +287,18 @@ extern "C" int srt_join_build(int32_t n_keys, const int32_t* type,
 // tile_offsets[tiles] holds the number of pairs (kept rows in semi and
 // anti modes).
 extern "C" int srt_join_count(int32_t n_keys, const int32_t* btype,
-                              const void* const* bdata,
-                              const void* const* bvalid, int64_t nb,
-                              const int32_t* ptype, const void* const* pdata,
-                              const void* const* pvalid, int64_t n,
+                              const int32_t* boff64, const void* const* bdata,
+                              const void* const* bvalid,
+                              const void* const* boffsets, int64_t nb,
+                              const int32_t* ptype, const int32_t* poff64,
+                              const void* const* pdata,
+                              const void* const* pvalid,
+                              const void* const* poffsets, int64_t n,
                               const void* slots, const void* slot_tag,
                               int64_t table_size, int32_t mode,
                               void* tile_offsets, void* stream) {
   if (mode < kInner || mode > kAnti || !valid_keys(n_keys, btype) ||
-      !valid_keys(n_keys, ptype))
+      !valid_keys(n_keys, ptype) || !same_kinds(n_keys, btype, ptype))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int64_t* offs = static_cast<int64_t*>(tile_offsets);
@@ -285,8 +306,8 @@ extern "C" int srt_join_count(int32_t n_keys, const int32_t* btype,
     return static_cast<int>(cudaMemsetAsync(offs, 0, sizeof(int64_t), s));
   const unsigned tiles = srt::tiles_for(n);
   probe_count<<<tiles, kThreads, 0, s>>>(
-      side(n_keys, btype, bdata, bvalid, nb),
-      side(n_keys, ptype, pdata, pvalid, n),
+      side(n_keys, btype, boff64, bdata, bvalid, boffsets, nb),
+      side(n_keys, ptype, poff64, pdata, pvalid, poffsets, n),
       table(slots, slot_tag, table_size), mode, offs);
   srt::scan_tile_offsets<<<1, kThreads, 0, s>>>(offs, tiles, offs + tiles);
   return static_cast<int>(cudaGetLastError());
@@ -294,22 +315,25 @@ extern "C" int srt_join_count(int32_t n_keys, const int32_t* btype,
 
 // out_build is not written in semi and anti modes (it may be null).
 extern "C" int srt_join_write(int32_t n_keys, const int32_t* btype,
-                              const void* const* bdata,
-                              const void* const* bvalid, int64_t nb,
-                              const int32_t* ptype, const void* const* pdata,
-                              const void* const* pvalid, int64_t n,
+                              const int32_t* boff64, const void* const* bdata,
+                              const void* const* bvalid,
+                              const void* const* boffsets, int64_t nb,
+                              const int32_t* ptype, const int32_t* poff64,
+                              const void* const* pdata,
+                              const void* const* pvalid,
+                              const void* const* poffsets, int64_t n,
                               const void* slots, const void* slot_tag,
                               int64_t table_size, int32_t mode,
                               const void* tile_offsets, void* out_probe,
                               void* out_build, void* stream) {
   if (mode < kInner || mode > kAnti || !valid_keys(n_keys, btype) ||
-      !valid_keys(n_keys, ptype))
+      !valid_keys(n_keys, ptype) || !same_kinds(n_keys, btype, ptype))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   probe_write<<<srt::tiles_for(n), kThreads, 0, s>>>(
-      side(n_keys, btype, bdata, bvalid, nb),
-      side(n_keys, ptype, pdata, pvalid, n),
+      side(n_keys, btype, boff64, bdata, bvalid, boffsets, nb),
+      side(n_keys, ptype, poff64, pdata, pvalid, poffsets, n),
       table(slots, slot_tag, table_size), mode,
       static_cast<const int64_t*>(tile_offsets),
       static_cast<long long*>(out_probe), static_cast<long long*>(out_build));

@@ -1,5 +1,6 @@
 // Kernel K14: whole-partition window aggregates -- sum, count and avg over
-// PARTITION BY with no ORDER BY.
+// PARTITION BY with no ORDER BY -- and the ranking functions row_number,
+// rank and dense_rank over PARTITION BY ... ORDER BY.
 //
 // Replaces the JAX package's `window.frame` program
 // (spark_rapids_tpu/ops/window_ops.py:79 compute_windows, built :157, with
@@ -42,6 +43,27 @@
 // Bound: device memory bytes.  Each key is read twice (the scan's two
 // passes), each value and validity once, the rank twice, and each output
 // written once; a few additions a row.
+//
+// srt_window_rank, the ranking pass (the JAX program's ranking kinds,
+// ops/window_ops.py:122-150 for the boundaries and first positions and
+// :177-186 for row_number, rank and dense_rank), over rows sorted by the
+// partition keys and then the order keys (K8 and K7):
+//   1. part_rank = the exclusive scan of partition starts (the first
+//      n_part key columns differ from the row before's), peer_rank = the
+//      one of peer starts (any key column differs), both with StartOf and
+//      common.cuh's tiled scan: a row's partition id is part_rank[i + 1]
+//      - 1, its peer group's id peer_rank[i + 1] - 1.
+//   2. rank_firsts: each start row writes its position at its id, in
+//      part_first and peer_first.  The JAX program takes these first
+//      positions with a segment minimum; here each id has one writer, so
+//      a scatter gives them with no atomics and no scan of maxima.
+//   3. rank_write: row_number = i - pstart + 1, rank = peerstart - pstart
+//      + 1, dense_rank = peer_rank[i + 1] - peer_rank[pstart + 1] + 1 (the
+//      peer starts in [pstart, i]), as int32.
+// Peers compare as partitions do: a null equals a null, doubles by their
+// normalised bits (-0.0 = 0.0, NaN = NaN), strings byte by byte.  No
+// atomics, no sync.  Bound: device memory bytes: the keys read twice, a
+// few int64 planes of scratch, 4 bytes written a row per function.
 #include "keys.cuh"
 
 namespace {
@@ -282,6 +304,43 @@ cudaError_t run_agg(int32_t kind, const void* data, const uint8_t* valid,
   return cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(kThreads)
+    rank_firsts(int64_t n, const int64_t* __restrict__ part_rank,
+                const int64_t* __restrict__ peer_rank,
+                int64_t* __restrict__ part_first,
+                int64_t* __restrict__ peer_first) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += stride) {
+    if (starts_at(part_rank, i)) part_first[part_rank[i]] = i;
+    if (starts_at(peer_rank, i)) peer_first[peer_rank[i]] = i;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    rank_write(int64_t n, const int64_t* __restrict__ part_rank,
+               const int64_t* __restrict__ peer_rank,
+               const int64_t* __restrict__ part_first,
+               const int64_t* __restrict__ peer_first,
+               int32_t* __restrict__ row_number, int32_t* __restrict__ rank,
+               int32_t* __restrict__ dense_rank) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       i < n; i += stride) {
+    const int64_t first = part_first[part_rank[i + 1] - 1];
+    if (row_number != nullptr)
+      row_number[i] = static_cast<int32_t>(i - first + 1);
+    if (rank != nullptr)
+      rank[i] = static_cast<int32_t>(peer_first[peer_rank[i + 1] - 1] -
+                                     first + 1);
+    if (dense_rank != nullptr)
+      dense_rank[i] =
+          static_cast<int32_t>(peer_rank[i + 1] - peer_rank[first + 1] + 1);
+  }
+}
+
 }  // namespace
 
 // rank: n + 1 int64 (rank[n] = the number of partitions); tile_scratch:
@@ -338,4 +397,45 @@ extern "C" int srt_window_agg(int32_t kind, const void* data,
   return static_cast<int>(run_agg<unsigned long long>(
       kind, data, v, n, r, out, ov, seg_sum, sc, head_sum, hc, tail_sum, tc,
       he, to, s));
+}
+
+// The ranking pass.  Keys as keys.cuh takes them: the n_part partition
+// keys, then the order keys, n_keys in all (0 <= n_part <= n_keys <= 8).
+// part_rank, peer_rank: n + 1 int64; tile_scratch: srt::tiles_for(n)
+// int64; part_first, peer_first: n int64.  Each of row_number, rank and
+// dense_rank is n int32, or null when not wanted.
+extern "C" int srt_window_rank(int32_t n_part, int32_t n_keys,
+                               const int32_t* type, const int32_t* off64,
+                               const void* const* data,
+                               const void* const* valid,
+                               const void* const* offsets, int64_t n,
+                               void* part_rank, void* peer_rank,
+                               void* tile_scratch, void* part_first,
+                               void* peer_first, void* row_number,
+                               void* rank, void* dense_rank, void* stream) {
+  if (n_part < 0 || n_part > n_keys || n_keys > srt::kMaxKeys || n < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int c = 0; c < n_keys; ++c)
+    if (!srt::valid_key_type(type[c]))
+      return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int64_t* pr = static_cast<int64_t*>(part_rank);
+  int64_t* qr = static_cast<int64_t*>(peer_rank);
+  int64_t* scratch = static_cast<int64_t*>(tile_scratch);
+  const StartOf parts{srt::make_keys(n_part, type, off64, data, valid,
+                                     offsets)};
+  const StartOf peers{srt::make_keys(n_keys, type, off64, data, valid,
+                                     offsets)};
+  cudaError_t e = srt::exclusive_scan(parts, n, pr, scratch, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = srt::exclusive_scan(peers, n, qr, scratch, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int64_t* pf = static_cast<int64_t*>(part_first);
+  int64_t* qf = static_cast<int64_t*>(peer_first);
+  rank_firsts<<<srt::grid_for(n), kThreads, 0, s>>>(n, pr, qr, pf, qf);
+  rank_write<<<srt::grid_for(n), kThreads, 0, s>>>(
+      n, pr, qr, pf, qf, static_cast<int32_t*>(row_number),
+      static_cast<int32_t*>(rank), static_cast<int32_t*>(dense_rank));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -644,8 +644,12 @@ def fused_project(program: StageProgram, batch: ColumnarBatch,
     n = batch.row_count
     outs, planes = [], []
     for e in program.computed:
-        data = torch.empty(n, dtype=e.data_type.torch_dtype, device=device)
         valid = torch.empty(n, dtype=torch.bool, device=device)
+        if isinstance(e.data_type, T.StringType):
+            outs.append(_string_view(batch, e, valid))
+            planes.append(valid.view(torch.uint8))
+            continue
+        data = torch.empty(n, dtype=e.data_type.torch_dtype, device=device)
         outs.append(DeviceColumn(data, valid, e.data_type))
         planes += [data.view(torch.uint8) if data.dtype == torch.bool
                    else data, valid.view(torch.uint8)]
@@ -662,6 +666,15 @@ def fused_project(program: StageProgram, batch: ColumnarBatch,
     return outs
 
 
+def _string_view(batch: ColumnarBatch, e, valid) -> DeviceColumn:
+    """A string output of K6: the chars and offsets of the column it is a
+    view of, with its own validity plane."""
+    from spark_rapids_tpu_torch.kernels.fused_stage import \
+        string_view_ordinal
+    c = batch.columns[string_view_ordinal(e)]
+    return DeviceColumn(c.data, valid, T.STRING, offsets=c.offsets)
+
+
 def fused_project_plain(program: StageProgram, batch: ColumnarBatch,
                         lits: LiteralArgs) -> List[DeviceColumn]:
     """The plain PyTorch version of K6."""
@@ -670,6 +683,9 @@ def fused_project_plain(program: StageProgram, batch: ColumnarBatch,
     outs = []
     for e in program.computed:
         c = e.eval(ctx)
+        if isinstance(e.data_type, T.StringType):
+            outs.append(_string_view(batch, e, c.valid))
+            continue
         outs.append(DeviceColumn(c.data.to(e.data_type.torch_dtype),
                                  c.valid, e.data_type))
     return outs

@@ -22,33 +22,45 @@ key is null, as the JAX package's plain anti join does (its analyzer
 plans ``NOT IN`` so, ``sql/analyzer.py:24-26``; Spark's null-aware anti
 join would drop it).
 
-Keys are one to eight column pairs of int, date or long (q17 joins
-store_sales to store_returns on customer, item and ticket); a row with a
-null in any of its key columns never matches.
+Keys are one to eight column pairs of int, date, long or string (q17
+joins store_sales to store_returns on customer, item and ticket; q6 joins
+its facts to the average price by ``i_category``); a string key meets a
+string key; a row with a null in any of its key columns never matches.
 
-Refused by name when the plan is built: right, full and cross joins, a
-condition beyond the keys, keys other than int, date or long (string and
-double keys), and children of several partitions."""
+A cross join (``TorchBroadcastNestedLoopJoinExec``, the JAX package's
+``TpuBroadcastNestedLoopJoinExec`` ``:714`` with no condition, driven from
+``:271`` and ``:493``) pairs every left row with every right row: K10x
+(``ops/join_ops.py cross_pairs``) gives the probe-major pairs, the left
+side probing, sized on the host with no sync, and K7 gathers both sides;
+its columns are the left ones, then the right ones, and it is empty when
+either side is (q28 joins six one-row aggregates so).
+
+Refused by name when the plan is built: right and full joins, a condition
+beyond the keys (a cross join's too), keys other than int, date, long or
+string (double keys), and children of several partitions."""
 
 from __future__ import annotations
 
 from typing import Sequence
 
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.expressions.base import (BoundReference,
                                                      Expression)
 from spark_rapids_tpu_torch.ops.batch_ops import gather_columns
 from spark_rapids_tpu_torch.ops.join_ops import (KEY_TYPES, MAX_KEYS,
-                                                 join_pairs)
+                                                 cross_pairs, join_pairs)
 from spark_rapids_tpu_torch.plan.base import (Exec, ExecContext, Partitions,
                                               join_schema)
 
 INNER = "inner"
+CROSS = "cross"
 LEFT_OUTER = "left_outer"
 LEFT_SEMI = "left_semi"
 LEFT_ANTI = "left_anti"
 
-_HOW = {"inner": INNER, "left": LEFT_OUTER, "leftouter": LEFT_OUTER,
+_HOW = {"inner": INNER, "cross": CROSS, "left": LEFT_OUTER,
+        "leftouter": LEFT_OUTER,
         "semi": LEFT_SEMI, "leftsemi": LEFT_SEMI,
         "anti": LEFT_ANTI, "leftanti": LEFT_ANTI}
 #: K10's mode of each existence join
@@ -61,8 +73,8 @@ def normalize_how(how: str) -> str:
     h = how.lower().replace("_", "").replace(" ", "")
     if h not in _HOW:
         raise NotImplementedError(
-            f"{how} joins are not in the port yet (inner, left outer, "
-            "left semi and left anti joins are)")
+            f"{how} joins are not in the port yet (inner, cross, left "
+            "outer, left semi and left anti joins are)")
     return _HOW[h]
 
 
@@ -70,7 +82,9 @@ def check_join(how: str, left_keys: Sequence[Expression],
                right_keys: Sequence[Expression], left, right) -> None:
     """Raises NotImplementedError, naming it, for a join the port cannot
     run yet."""
-    normalize_how(how)
+    if normalize_how(how) == CROSS:
+        raise ValueError("a cross join has no keys "
+                         "(TorchBroadcastNestedLoopJoinExec)")
     if len(left_keys) != len(right_keys):
         raise ValueError(f"{len(left_keys)} left keys for "
                          f"{len(right_keys)} right keys")
@@ -86,7 +100,12 @@ def check_join(how: str, left_keys: Sequence[Expression],
         if not isinstance(k.data_type, KEY_TYPES):
             raise NotImplementedError(
                 f"a join key of {k.data_type} is not in the port yet (int, "
-                "date and long keys are)")
+                "date, long and string keys are)")
+    for a, b in zip(left_keys, right_keys):
+        if isinstance(a.data_type, T.StringType) != \
+                isinstance(b.data_type, T.StringType):
+            raise TypeError(f"the join key {a.sql()} of {a.data_type} "
+                            f"cannot meet {b.sql()} of {b.data_type}")
     if left.num_partitions != 1 or right.num_partitions != 1:
         raise NotImplementedError(
             "a join of several partitions is not in the port yet")
@@ -98,15 +117,13 @@ def _keys_of(batch: ColumnarBatch, keys: Sequence[BoundReference]):
     return cols[0] if len(cols) == 1 else cols
 
 
-class TorchHashJoinExec(Exec):
-    def __init__(self, left_keys: Sequence[Expression],
-                 right_keys: Sequence[Expression], left, right,
-                 how: str = INNER):
-        check_join(how, left_keys, right_keys, left, right)
+class _JoinExec(Exec):
+    """A join of two one-partition children, each one batch: ``execute``
+    hands the two batches to ``join_batches``."""
+
+    def __init__(self, left, right, how: str):
         super().__init__([left, right])
-        self.left_keys = list(left_keys)
-        self.right_keys = list(right_keys)
-        self.how = normalize_how(how)
+        self.how = how
 
     @property
     def left(self):
@@ -124,11 +141,6 @@ class TorchHashJoinExec(Exec):
     def schema(self):
         return join_schema(self.left.schema, self.right.schema, self.how)
 
-    def node_string(self):
-        keys = ", ".join(f"{a.sql()} = {b.sql()}"
-                         for a, b in zip(self.left_keys, self.right_keys))
-        return f"TorchHashJoin[{self.how}, {keys}]"
-
     @staticmethod
     def _one_batch(parts: Partitions, side: str) -> ColumnarBatch:
         batches = [b for part in parts for b in part]
@@ -137,6 +149,26 @@ class TorchHashJoinExec(Exec):
                 f"a join whose {side} side holds {len(batches)} batches is "
                 "not in the port yet")
         return batches[0]
+
+    def execute(self, ctx: ExecContext) -> Partitions:
+        lb = self._one_batch(self.left.execute(ctx), "left")
+        rb = self._one_batch(self.right.execute(ctx), "right")
+        return [[self.join_batches(lb, rb, ctx.transfers)]]
+
+
+class TorchHashJoinExec(_JoinExec):
+    def __init__(self, left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression], left, right,
+                 how: str = INNER):
+        check_join(how, left_keys, right_keys, left, right)
+        super().__init__(left, right, normalize_how(how))
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+
+    def node_string(self):
+        keys = ", ".join(f"{a.sql()} = {b.sql()}"
+                         for a, b in zip(self.left_keys, self.right_keys))
+        return f"TorchHashJoin[{self.how}, {keys}]"
 
     def join_batches(self, lb: ColumnarBatch, rb: ColumnarBatch,
                      transfers) -> ColumnarBatch:
@@ -158,7 +190,23 @@ class TorchHashJoinExec(Exec):
             gather_columns(rb.columns, ridx, transfers, nullable=outer)
         return ColumnarBatch(cols, lidx.shape[0], self.schema.names)
 
-    def execute(self, ctx: ExecContext) -> Partitions:
-        lb = self._one_batch(self.left.execute(ctx), "left")
-        rb = self._one_batch(self.right.execute(ctx), "right")
-        return [[self.join_batches(lb, rb, ctx.transfers)]]
+
+class TorchBroadcastNestedLoopJoinExec(_JoinExec):
+    """A cross join of two one-partition children: every left row with
+    every right row (K10x, then K7 for each side)."""
+
+    def __init__(self, left, right):
+        if left.num_partitions != 1 or right.num_partitions != 1:
+            raise NotImplementedError(
+                "a join of several partitions is not in the port yet")
+        super().__init__(left, right, CROSS)
+
+    def node_string(self):
+        return "TorchBroadcastNestedLoopJoin[cross]"
+
+    def join_batches(self, lb: ColumnarBatch, rb: ColumnarBatch,
+                     transfers) -> ColumnarBatch:
+        lidx, ridx = cross_pairs(lb.row_count, rb.row_count, lb.device)
+        cols = gather_columns(lb.columns, lidx, transfers) + \
+            gather_columns(rb.columns, ridx, transfers)
+        return ColumnarBatch(cols, lidx.shape[0], self.schema.names)

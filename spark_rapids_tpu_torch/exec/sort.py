@@ -1,20 +1,21 @@
 """ORDER BY over one partition (the analog of ``spark_rapids_tpu/exec/
 sort.py``: ``SortSpec`` and ``TpuSortExec`` ``:221``).
 
-``TorchSortExec`` sorts its one batch with K8 and gathers it with K7
-(``ops/sort_ops.py sort_batch``).  Keys must be columns of the child (a
-sort by a computed expression, several partitions or several batches are
-refused by name)."""
+``TorchSortExec`` sorts its one batch with K8 and gathers it with K7.  A
+key that computes (the JAX package's hidden ``_ord`` columns of
+``TakeOrderedAndProject``; q36 orders by a ``CASE WHEN``) is computed by
+K6 beside the keys that are columns; K8 sorts the key columns and K7
+gathers the child's columns alone, so the computed keys never join the
+output.  Several partitions or several batches are refused by name."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Sequence
 
-from spark_rapids_tpu_torch.expressions.base import (BoundReference,
-                                                     Expression)
-from spark_rapids_tpu_torch.ops.sort_ops import (SORT_KEY_TYPES, SortOrder,
-                                                 sort_batch)
+from spark_rapids_tpu_torch.expressions.base import Expression
+from spark_rapids_tpu_torch.ops import sort_ops
+from spark_rapids_tpu_torch.ops.sort_ops import SORT_KEY_TYPES, SortOrder
 from spark_rapids_tpu_torch.plan.base import (ExecContext, Partitions,
                                               UnaryExec)
 
@@ -38,13 +39,10 @@ class SortSpec:
 
 class TorchSortExec(UnaryExec):
     def __init__(self, specs: Sequence[SortSpec], child):
+        from spark_rapids_tpu_torch.exec.fused import StageProgram
         super().__init__(child)
         self.specs = list(specs)
         for s in self.specs:
-            if not isinstance(s.expr, BoundReference):
-                raise NotImplementedError(
-                    f"a sort by an expression ({s.expr.sql()}) is not in the "
-                    "port yet")
             if s.expr.data_type not in SORT_KEY_TYPES:
                 raise NotImplementedError(
                     f"a sort key of {s.expr.data_type} is not in the port "
@@ -52,9 +50,11 @@ class TorchSortExec(UnaryExec):
         if child.num_partitions != 1:
             raise NotImplementedError(
                 "a sort over several partitions is not in the port yet")
-        self.orders = [SortOrder(s.expr.ordinal, s.ascending,
-                                 s.effective_nulls_first)
-                       for s in self.specs]
+        # the key columns: K6 computes those that are not columns
+        self.keys = StageProgram([("project", [s.expr for s in self.specs])],
+                                 child.schema, 0)
+        self.orders = [SortOrder(j, s.ascending, s.effective_nulls_first)
+                       for j, s in enumerate(self.specs)]
 
     def node_string(self):
         return f"TorchSort[{', '.join(s.sql() for s in self.specs)}]"
@@ -65,6 +65,19 @@ class TorchSortExec(UnaryExec):
             if len(part) > 1:
                 raise NotImplementedError(
                     "a sort over several batches is not in the port yet")
-            out.append([sort_batch(b, self.orders, ctx.transfers)
-                        for b in part])
+            out.append([self.sort_batch(b, ctx.transfers) for b in part])
         return out
+
+    def sort_batch(self, batch, transfers):
+        """The batch in SQL order: K6 for the computed keys, K8, then K7
+        through the permutation."""
+        from spark_rapids_tpu_torch.exec.fused import (LiteralArgs,
+                                                       project_batch)
+        from spark_rapids_tpu_torch.ops.batch_ops import gather_batch
+        if batch.row_count == 0:
+            return batch
+        keys = project_batch(self.keys, batch, LiteralArgs([]),
+                             [f"_ord{j}" for j in range(len(self.specs))])
+        perm = sort_ops.sort_permutation(keys.columns, self.orders,
+                                         transfers)
+        return gather_batch(batch, perm, transfers, unique=True)

@@ -8,12 +8,16 @@ batches, evaluates the partition keys and each function's input (a sum's
 ``Cast(child, sum type)``, an average's ``Cast(child, DOUBLE)``) through K6
 where they compute and by selection where they are columns, and hands
 them to ``ops/window_ops.py compute_windows`` (K8, K7, K14).  Its rows
-come out sorted by the partition keys, as the JAX program gives them.
+come out sorted by the partition keys (and the order keys), as the JAX
+program gives them.  Order keys that compute (q36's ratio of two sums)
+go through K6 with the partition keys.
 
 The port runs the whole-partition frame (no ORDER BY) of sum, count and
-avg.  It refuses, by name, an ORDER BY (running frames), a frame other
-than the whole partition (bounded ROWS), any other function (row_number,
-rank, dense_rank, ntile, lag, lead, min, max) and several partitions."""
+avg, and row_number, rank and dense_rank over an ORDER BY (Spark's
+default frame).  It refuses, by name, sum, count and avg with an ORDER BY
+(running frames), a frame other than these (bounded ROWS), a ranking
+function without an ORDER BY, any other function (ntile, lag, lead, min,
+max) and several partitions."""
 
 from __future__ import annotations
 
@@ -21,10 +25,16 @@ from typing import List, Optional, Tuple
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.expressions import window_exprs as WE
 from spark_rapids_tpu_torch.expressions.base import Expression, Literal
 from spark_rapids_tpu_torch.ops import window_ops as W
 from spark_rapids_tpu_torch.plan.base import (ExecContext, Partitions,
                                               UnaryExec)
+
+
+#: K14's ranking kind of each ranking function
+_RANKING = {WE.RowNumber: W.WIN_ROW_NUMBER, WE.Rank: W.WIN_RANK,
+            WE.DenseRank: W.WIN_DENSE_RANK}
 
 
 def lower_window_expr(wexpr) -> Tuple[int, Optional[Expression]]:
@@ -34,20 +44,30 @@ def lower_window_expr(wexpr) -> Tuple[int, Optional[Expression]]:
                                                                Count, Sum)
     from spark_rapids_tpu_torch.expressions.cast import Cast
     spec = wexpr.spec
+    f = wexpr.function
+    if type(f) in _RANKING:
+        if not spec.order_specs:
+            raise NotImplementedError(
+                f"{wexpr.sql()}: a ranking function needs an ORDER BY")
+        if spec.frame is not None:
+            raise NotImplementedError(
+                f"{wexpr.sql()}: a ranking function over the frame "
+                f"{spec.frame.desc()} is not in the port yet")
+        return _RANKING[type(f)], None
     if spec.order_specs:
         raise NotImplementedError(
             f"a window with ORDER BY ({wexpr.sql()}; a running frame) is "
-            "not in the port yet")
+            "not in the port yet (row_number, rank and dense_rank are)")
     frame = spec.effective_frame()
     if not (frame.lo_unbounded and frame.hi_unbounded):
         raise NotImplementedError(
             f"the window frame {frame.desc()} is not in the port yet (the "
             "whole partition is)")
-    f = wexpr.function
     if not isinstance(f, (Sum, Count, Average)):
         raise NotImplementedError(
             f"window function {type(f).__name__} is not in the port yet "
-            "(sum, count and avg over the whole partition are)")
+            "(sum, count and avg over the whole partition, row_number, "
+            "rank and dense_rank are)")
     child = f.children[0]
     if isinstance(f, Count):
         if isinstance(child, Literal) and child.value is not None:
@@ -74,18 +94,20 @@ class TorchWindowExec(UnaryExec):
                 "a window over several partitions is not in the port yet")
         spec = self.window_cols[0][1].spec
         self.partition_exprs = list(spec.partition_exprs)
-        for e in self.partition_exprs:
+        self.order_exprs = [e for e, _a, _nf in spec.order_specs]
+        self.orders = [(a, nf) for _e, a, nf in spec.order_specs]
+        for e in self.partition_exprs + self.order_exprs:
             if e.data_type not in W.WINDOW_KEY_TYPES:
                 raise NotImplementedError(
-                    f"a window partition key of {e.data_type} is not in "
-                    "the port yet (int, date, long, double and string "
-                    "keys are)")
+                    f"a window key of {e.data_type} is not in the port yet "
+                    "(int, date, long, double and string keys are)")
         self.lowered = [lower_window_expr(w) for _n, w in self.window_cols]
         inputs = [e for _k, e in self.lowered if e is not None]
-        # keys, then the inputs: K6 computes what is not a column
-        self.program = StageProgram(
-            [("project", self.partition_exprs + inputs)], child.schema, 0) \
-            if self.partition_exprs or inputs else None
+        # partition keys, order keys, then the inputs: K6 computes what
+        # is not a column
+        exprs = self.partition_exprs + self.order_exprs + inputs
+        self.program = StageProgram([("project", exprs)], child.schema,
+                                    0) if exprs else None
         self._schema = T.StructType(list(child.schema.fields) + [
             T.StructField(name, W.result_type(kind), True)
             for (name, _w), (kind, _e) in zip(self.window_cols,
@@ -111,13 +133,13 @@ class TorchWindowExec(UnaryExec):
                                       names).columns
         elif program is not None:
             evaluated = [batch.columns[b] for b in program.bare]
-        nk = len(self.partition_exprs)
-        it = iter(evaluated[nk:])
+        nk, no = len(self.partition_exprs), len(self.order_exprs)
+        it = iter(evaluated[nk + no:])
         values = [None if e is None else next(it) for _k, e in self.lowered]
         payload, outs = W.compute_windows(
             batch.columns, evaluated[:nk], values,
             [k for k, _e in self.lowered], batch.row_count, batch.device,
-            transfers)
+            transfers, evaluated[nk:nk + no], self.orders)
         return ColumnarBatch(payload + outs, batch.row_count,
                              self._schema.names)
 

@@ -191,6 +191,26 @@ class Alias(Expression):
         return self.children[0].eval(ctx)
 
 
+class Grouping(Expression):
+    """``grouping(key)`` of a grouping-set aggregation: it holds only in a
+    ``rollup(...).agg(...)``, which replaces it with the key's bit of the
+    grouping id (``session.py GroupedData``)."""
+
+    def __init__(self, key: Expression):
+        super().__init__([key])
+
+    @property
+    def data_type(self):
+        return T.LONG
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def sql(self):
+        return f"grouping({self.children[0].sql()})"
+
+
 def _infer_literal_type(value) -> T.DataType:
     if value is None:
         return T.NULL

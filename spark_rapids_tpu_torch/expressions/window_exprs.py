@@ -1,12 +1,15 @@
 """Window specs and window expressions (the analog of ``spark_rapids_tpu/
 expressions/window_exprs.py``: ``WindowFrame`` ``:27``, ``WHOLE_PARTITION``
-``:61``, ``WindowSpecDef`` ``:66`` and ``WindowExpression`` ``:93``).
+``:61``, ``WindowSpecDef`` ``:66``, ``WindowExpression`` ``:93`` and the
+ranking functions ``RowNumber`` ``:150``, ``Rank`` ``:163`` and
+``DenseRank`` ``:176``).
 
-An aggregate function ``.over(spec)`` is a ``WindowExpression``.  A
-``select`` extracts these into one logical ``Window`` node per (partition,
-order) group and reads their columns (``session.py``).  The port runs the
-whole-partition frame (no ORDER BY) of sum, count and avg
-(``exec/window.py``); other frames and functions are refused there, by
+An aggregate function or a ranking function ``.over(spec)`` is a
+``WindowExpression``.  A ``select`` extracts these into one logical
+``Window`` node per (partition, order) group and reads their columns
+(``session.py``).  The port runs the whole-partition frame (no ORDER BY)
+of sum, count and avg, and row_number, rank and dense_rank over an ORDER
+BY (``exec/window.py``); other frames and functions are refused there, by
 name."""
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Tuple
 
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expressions.base import Expression
 
 # frame bound sentinels (Spark's Window.unboundedPreceding/Following)
@@ -134,3 +138,43 @@ def to_spec(spec) -> WindowSpecDef:
     if isinstance(spec, WindowBuilder):
         return spec.spec
     raise TypeError(f"not a window spec: {spec!r}")
+
+
+class WindowFunction(Expression):
+    """A function that only runs over a window (``:133``)."""
+
+    def __init__(self):
+        super().__init__([])
+
+    @property
+    def data_type(self):
+        return T.INT
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def sql(self):
+        return f"{self.fn_name}()"
+
+    def over(self, spec) -> "WindowExpression":
+        return WindowExpression(self, to_spec(spec))
+
+    def eval(self, ctx):
+        raise NotImplementedError(
+            f"{self.sql()} runs in its Window node (exec/window.py)")
+
+
+class RowNumber(WindowFunction):
+    """The row's position in its partition, from 1."""
+    fn_name = "row_number"
+
+
+class Rank(WindowFunction):
+    """1 + the rows of the partition before the row's first peer."""
+    fn_name = "rank"
+
+
+class DenseRank(WindowFunction):
+    """The number of peer groups of the partition up to the row's."""
+    fn_name = "dense_rank"

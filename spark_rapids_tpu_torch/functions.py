@@ -8,7 +8,8 @@ from spark_rapids_tpu_torch.expressions.base import Expression, col, lit
 
 __all__ = ["col", "lit", "sum", "count", "count_distinct", "avg",
            "stddev", "stddev_samp", "stddev_pop", "var_samp", "var_pop",
-           "asc", "desc", "substring", "Window", "WindowBuilder"]
+           "asc", "desc", "substring", "when", "grouping", "row_number",
+           "rank", "dense_rank", "Window", "WindowBuilder"]
 
 
 def _expr(e) -> Expression:
@@ -81,6 +82,37 @@ def substring(e, pos: int, length_: int):
     return Substring(_expr(e), pos, length_)
 
 
+def when(condition, value):
+    """``CASE WHEN condition THEN value``; chain ``.when(...)`` and
+    ``.otherwise(...)`` (``expressions/conditional.py CaseWhen``)."""
+    from spark_rapids_tpu_torch.expressions.conditional import CaseWhen
+    return CaseWhen([(_expr(condition), _expr(value))])
+
+
+def grouping(e):
+    """``grouping(e)`` in a ``rollup(...).agg(...)``: 1 where the row's
+    grouping set drops key ``e``, else 0 (a LONG), computed from the
+    grouping id as the JAX analyzer's ``_grouping_bit`` does
+    (``session.py GroupedData``)."""
+    from spark_rapids_tpu_torch.expressions.base import Grouping
+    return Grouping(_expr(e))
+
+
+def row_number():
+    from spark_rapids_tpu_torch.expressions.window_exprs import RowNumber
+    return RowNumber()
+
+
+def rank():
+    from spark_rapids_tpu_torch.expressions.window_exprs import Rank
+    return Rank()
+
+
+def dense_rank():
+    from spark_rapids_tpu_torch.expressions.window_exprs import DenseRank
+    return DenseRank()
+
+
 # -- windows (``functions.py:125 WindowBuilder``, ``:174 _WindowNamespace``) --
 
 class WindowBuilder:
@@ -113,10 +145,13 @@ class WindowBuilder:
 
 
 class _WindowNamespace:
-    """``Window.partition_by(...)``."""
+    """``Window.partition_by(...)``, ``Window.order_by(...)``."""
 
     def partition_by(self, *cols) -> WindowBuilder:
         return WindowBuilder().partition_by(*cols)
+
+    def order_by(self, *cols) -> WindowBuilder:
+        return WindowBuilder().order_by(*cols)
 
 
 Window = _WindowNamespace()

@@ -28,8 +28,9 @@ int64 words, so one built kernel serves every literal value.  K5 and K6
 (``kernels/fused_stage.py``) share the emitters and ``load_columns``:
 comparisons (``=``, ``<>``, the orders; strings against a literal's bytes
 or another view's), ``IN``, ``NOT`` and Kleene ``AND``/``OR``, arithmetic
-(``+``, ``-``, ``*``, ``/``), ``sqrt``, casts, ``If``, substring views and
-murmur3.
+(``+``, ``-``, ``*``, ``/``, ``div``, ``%``), ``sqrt``, casts, ``If``,
+``CASE WHEN`` (a string one as a view of its column), substring views
+and murmur3.
 
 The emitters live in a registry keyed by expression class, so the
 expression modules never import ``triton``; a class with no emitter is
@@ -492,6 +493,47 @@ def _if(em, e, cols):
     cond = em.both(pv, p)   # a null predicate takes the else branch
     return (em.let(f"tl.where({cond}, {a}, {b})"),
             em.let(f"({cond} & {av}) | ((~{cond}) & {bv})"))
+
+
+@emits(A.IntegralDivide, A.Remainder)
+def _integral_division(em, e, cols):
+    """``div`` (a long) and ``%`` (the operands' type).  Triton's ``//``
+    and ``%`` on signed integers truncate as C does (``sdiv``, ``srem``);
+    a zero divisor gives null, and a divisor of -1 is taken apart
+    (``0 - a`` wraps for INT64_MIN; ``% -1`` is 0), where C is
+    undefined."""
+    e.check_operands()
+    rt = e.data_type if isinstance(e, A.Remainder) else T.LONG
+    (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
+    a = em.cast(a, e.left.data_type, rt)
+    b = em.cast(b, e.right.data_type, rt)
+    zero = em.let(f"{b} == 0")
+    minus_one = em.let(f"{b} == -1")
+    safe = em.let(f"tl.where({zero} | {minus_one}, 1, {b})")
+    out = f"tl.where({minus_one}, 0 - {a}, {a} // {safe})" \
+        if isinstance(e, A.IntegralDivide) else \
+        f"tl.where({minus_one}, 0, {a} % {safe})"
+    return em.let(out), em.let(f"{em.both(av, bv)} & (~{zero})")
+
+
+@emits(CO.CaseWhen)
+def _case_when(em, e, cols):
+    """A numeric CASE is its fold of ``If``.  A string CASE is a view of
+    its one column (``CaseWhen.view_column``): the column's value, valid
+    where a branch holding the column is taken and the row is valid."""
+    if not isinstance(e.data_type, T.StringType):
+        return em.emit(e.folded(), cols)
+    v, valid = em.emit(e.view_column(), cols)
+    rest, taken = em.TRUE, em.FALSE
+    for p, value in e.branches:
+        pv, pvalid = em.emit(p, cols)
+        hit = em.both(rest, em.both(pvalid, pv))
+        if e.holds_column(value):
+            taken = hit if taken == em.FALSE else em.let(f"{taken} | {hit}")
+        rest = em.both(rest, em.let(f"~{hit}"))
+    if e.holds_column(e.else_value):
+        taken = rest if taken == em.FALSE else em.let(f"{taken} | {rest}")
+    return v, em.both(taken, valid)
 
 
 @emits(CA.Cast)

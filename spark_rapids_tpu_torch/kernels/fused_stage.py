@@ -31,7 +31,9 @@ A string column is read through its chars and offsets (``in{i}``,
 ``Substring`` view of it, with a literal's bytes, and ``=`` and ``<>``
 compare two such views (two columns' chars buffers: the lengths first,
 then a byte loop bounded by the tile's longest equal length).  A computed
-string output is refused, by its expression.
+string output is refused, by its expression, but for K6's string ``CASE
+WHEN`` over one column and nulls: a view of that column, whose validity
+plane alone K6 writes.
 
 Outputs that are input columns as they are (bare references) are not
 written here: K5's caller gathers them through the row indices (K7), and
@@ -45,7 +47,8 @@ from __future__ import annotations
 from typing import List, Sequence
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.expressions.base import Expression
+from spark_rapids_tpu_torch.expressions.base import Alias, Expression
+from spark_rapids_tpu_torch.expressions.conditional import CaseWhen
 from spark_rapids_tpu_torch.kernels.fused_agg import (_PREAMBLE, _TL,
                                                       ChainEmitter,
                                                       load_columns,
@@ -135,18 +138,38 @@ def stage_source(input_types: Sequence[T.DataType],
     return _PREAMBLE + count + _SCAN + write
 
 
+def string_view_ordinal(e: Expression) -> int:
+    """The input column a computed string output is a view of (a string
+    ``CASE WHEN``, ``CaseWhen.view_column``); K6 writes its validity
+    alone.  Any other computed string is refused, by its expression."""
+    while isinstance(e, Alias):
+        e = e.children[0]
+    if not isinstance(e, CaseWhen):
+        raise NotImplementedError(
+            f"a computed {e.data_type} output ({e.sql()}) has no kernel "
+            "form yet")
+    return e.view_column().ordinal
+
+
 def project_source(input_types: Sequence[T.DataType],
                    nullable: Sequence[bool],
                    computed: Sequence[Expression], n_literals: int) -> str:
     """Source of a module with K6's one kernel: ``stage_project`` writes
     each computed output (data and validity) for every row of its tile,
-    in row order; no count, no scan, no row indices."""
+    in row order; no count, no scan, no row indices.  A string output
+    (a view, ``string_view_ordinal``) has its validity written alone."""
     used = referenced_columns(list(computed))
     em = ChainEmitter()
     params, cols, _sel = load_columns(input_types, nullable, used, [], em)
     outs, stores = [], []
     for j, e in enumerate(computed):
         v, valid = em.emit(e, cols)
+        if isinstance(e.data_type, T.StringType):
+            string_view_ordinal(e)
+            outs.append(f"out{j}_valid")
+            stores.append(f"tl.store(out{j}_valid + offs, "
+                          f"{valid}.to(tl.uint8), mask=inb)")
+            continue
         kt = _kernel_type(e)
         outs += [f"out{j}", f"out{j}_valid"]
         stores.append(f"tl.store(out{j} + offs, {v}.to({kt}), mask=inb)")

@@ -8,8 +8,8 @@ normalizers ``_float_sortable`` ``:61``, ``sortable_words`` ``:92`` and
 ``sort_words``: a null-rank word for a key that may hold nulls, then the
 value word; descending flips the value word; NaN sorts after +inf and -0.0
 equals 0.0), and a stable LSD radix sort orders the row indices by them.
-``sort_batch`` gathers the batch through the permutation (K7, every row
-once, so no sync).  Ties keep their input order.
+``exec/sort.py`` gathers the batch through the permutation (K7, every
+row once, so no sync).  Ties keep their input order.
 
 Under a null the value word is 0, as the JAX package's host twin
 ``host_order_words`` has it; its device path leaves the data under a null
@@ -36,7 +36,6 @@ from typing import List, Sequence
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 
 #: launches of K8 (wrapper calls that launch it)
@@ -256,13 +255,3 @@ def sort_permutation_plain(columns: Sequence[DeviceColumn],
         _, order = torch.sort(w[perm], stable=True)
         perm = perm[order]
     return perm
-
-
-def sort_batch(batch: ColumnarBatch, orders: Sequence[SortOrder],
-               transfers) -> ColumnarBatch:
-    """The batch in SQL order: K8, then K7 through the permutation."""
-    from spark_rapids_tpu_torch.ops.batch_ops import gather_batch
-    if batch.row_count == 0:
-        return batch
-    perm = sort_permutation(batch.columns, orders, transfers)
-    return gather_batch(batch, perm, transfers, unique=True)

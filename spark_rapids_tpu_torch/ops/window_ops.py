@@ -1,14 +1,17 @@
-"""Whole-partition windows: kernel K14 (the analog of ``spark_rapids_tpu/
-ops/window_ops.py``: ``compute_windows`` ``:79``, kind ``window.frame``,
-built ``:157``, with ``_one_func`` ``:173`` in its whole-partition ``agg``
-kind).
+"""Windows: kernel K14 (the analog of ``spark_rapids_tpu/ops/
+window_ops.py``: ``compute_windows`` ``:79``, kind ``window.frame``, built
+``:157``, with ``_one_func`` ``:173`` in its whole-partition ``agg`` kind
+and its ranking kinds ``row_number``, ``rank`` and ``dense_rank``
+``:177-186``).
 
 ``compute_windows`` sorts the rows by the partition keys with K8
 (ascending, nulls first, stable: the JAX program's ``SortOrder(i, True,
-True)``), gathers the payload, the keys and the function inputs through
-the permutation with K7, and calls ``window_reduce``, K14's wrapper, on the
-sorted keys and inputs.  With no partition key the rows keep their order
-(one partition) and nothing is sorted or gathered.
+True)``), then by the order keys in their own direction and null order
+(``:99-115``), gathers the payload, the keys and the function inputs
+through the permutation with K7, and calls ``window_reduce``, K14's
+wrapper, on the sorted keys and inputs, or ``window_rank``, its ranking
+pass, on the sorted partition and order keys.  With no key the rows keep
+their order (one partition) and nothing is sorted or gathered.
 
 ``window_reduce`` finds partition starts from adjacent rows' keys (a null
 equals a null and its data is not read, as ``_masked_group_words``
@@ -21,7 +24,16 @@ null.  On CUDA tensors it launches ``csrc/window.cu`` (a segment scan,
 then per function a tile-parallel segmented reduction, a combine of the
 pieces of partitions that span tiles, and a write; no atomics); on CPU
 tensors ``window_reduce_plain`` (cumsum segment ids, ``index_add_``, a
-gather).  Neither reads a count back to the host: no sync."""
+gather).  Neither reads a count back to the host: no sync.
+
+``window_rank`` finds partition starts over the partition keys and peer
+starts over the partition and order keys (the same adjacent-row
+equality), and writes each row's ``row_number = i - pstart + 1``, ``rank
+= peerstart - pstart + 1`` and ``dense_rank`` (the peer groups of the
+partition up to the row's), as int32 with no null.  On CUDA tensors it
+launches ``csrc/window.cu srt_window_rank``; on CPU tensors
+``window_rank_plain`` (cumulative maxima of the start positions and a
+cumulative sum of the peer starts).  No sync."""
 
 from __future__ import annotations
 
@@ -34,10 +46,15 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.ops import batch_ops, sort_ops
 from spark_rapids_tpu_torch.ops.agg_ops import KEY_CODES, key_words_plain
 
-#: K14 function kinds (csrc/window.cu WinKind)
+#: K14 function kinds (csrc/window.cu WinKind), then the ranking kinds
+#: of its ranking pass (csrc/window.cu srt_window_rank's outputs)
 WIN_SUM_I64, WIN_SUM_F64, WIN_COUNT, WIN_COUNT_ALL, WIN_MEAN = range(5)
-#: launches of K14 (wrapper calls that launch it)
+WIN_ROW_NUMBER, WIN_RANK, WIN_DENSE_RANK = range(5, 8)
+RANKING = (WIN_ROW_NUMBER, WIN_RANK, WIN_DENSE_RANK)
+#: launches of K14's reduction and of its ranking pass (wrapper calls
+#: that launch them)
 LAUNCHES = 0
+RANK_LAUNCHES = 0
 #: rows of one tile of the reduction pass (csrc/window.cu kTile)
 TILE = 1024
 #: values one scan tile covers (csrc/common.cuh kScanTile)
@@ -48,10 +65,13 @@ WINDOW_KEY_TYPES = tuple(KEY_CODES)
 _SIGNATURES = {
     "srt_window_segments": "ipppppqppp",
     "srt_window_agg": "ippq" + "p" * 12,
+    "srt_window_rank": "iippppp" + "q" + "p" * 9,
 }
 
 
 def result_type(kind: int) -> T.DataType:
+    if kind in RANKING:
+        return T.INT
     return T.DOUBLE if kind in (WIN_SUM_F64, WIN_MEAN) else T.LONG
 
 
@@ -205,20 +225,122 @@ def window_reduce_plain(keys: Sequence[DeviceColumn], values, kinds,
     return outs
 
 
+def _check_rank(keys: Sequence[DeviceColumn],
+                order_keys: Sequence[DeviceColumn], kinds, n: int,
+                device) -> None:
+    if len(keys) + len(order_keys) > MAX_KEYS:
+        raise NotImplementedError(
+            f"K14 takes at most {MAX_KEYS} partition and order keys")
+    for k in (*keys, *order_keys):
+        if k.data_type not in KEY_CODES:
+            raise NotImplementedError(
+                f"a window key of {k.data_type} is not in the port yet "
+                "(int, date, long, double and string keys are)")
+        if k.row_count != n or k.device != device:
+            raise ValueError("a key column of another length or device")
+    for kind in kinds:
+        if kind not in RANKING:
+            raise ValueError(f"not a ranking kind: {kind}")
+
+
+def window_rank(keys: Sequence[DeviceColumn],
+                order_keys: Sequence[DeviceColumn], kinds, n: int,
+                device: torch.device) -> List[DeviceColumn]:
+    """K14's ranking pass: for ``n`` rows on ``device`` sorted by the
+    partition ``keys`` and then the ``order_keys``, each ranking
+    function's int32 result."""
+    _check_rank(keys, order_keys, kinds, n, device)
+    if device.type == "cpu":
+        return window_rank_plain(keys, order_keys, kinds, n, device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    outs = [DeviceColumn(torch.empty(n, dtype=torch.int32, device=device),
+                         torch.ones(n, dtype=torch.bool, device=device),
+                         T.INT, True) for _k in kinds]
+    if n == 0 or not kinds:
+        return outs
+    from spark_rapids_tpu_torch.kernels.build import (check_launch, int32s,
+                                                      pointers)
+    lib = load_library()
+    every = list(keys) + list(order_keys)
+    by_kind = {k: o.data for k, o in zip(kinds, outs)}
+
+    def empty(count):
+        return torch.empty(count, dtype=torch.int64, device=device)
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        # scratch is held by name until the launch is queued: a tensor
+        # freed at once would let the next one reuse its memory
+        kdata = [k.data.contiguous() for k in every]
+        kvalid = [None if k.all_valid else
+                  k.validity.contiguous().view(torch.uint8) for k in every]
+        part_rank, peer_rank = empty(n + 1), empty(n + 1)
+        part_first, peer_first = empty(n), empty(n)
+        scan_tiles = empty(-(-n // SCAN_TILE))
+        check_launch(lib.srt_window_rank(
+            len(keys), len(every),
+            int32s([KEY_CODES[k.data_type] for k in every]),
+            int32s([int(k.is_string and k.offsets.dtype == torch.int64)
+                    for k in every]),
+            pointers(kdata), pointers(kvalid),
+            pointers([k.offsets for k in every]), n, part_rank.data_ptr(),
+            peer_rank.data_ptr(), scan_tiles.data_ptr(),
+            part_first.data_ptr(), peer_first.data_ptr(),
+            *[by_kind[k].data_ptr() if k in by_kind else None
+              for k in RANKING], stream), "K14 rank")
+    global RANK_LAUNCHES
+    RANK_LAUNCHES += 1
+    return outs
+
+
+def window_rank_plain(keys: Sequence[DeviceColumn],
+                      order_keys: Sequence[DeviceColumn], kinds, n: int,
+                      device: torch.device) -> List[DeviceColumn]:
+    """The plain PyTorch version of K14's ranking pass: each row's
+    partition and peer group start as cumulative maxima of the start
+    positions, dense_rank from a cumulative sum of peer starts."""
+    _check_rank(keys, order_keys, kinds, n, device)
+    pos = torch.arange(n, dtype=torch.int64, device=device)
+    values = {k: pos for k in RANKING}
+    if n:
+        part = partition_starts_plain(keys, n, device)
+        peer = partition_starts_plain(list(keys) + list(order_keys), n,
+                                      device)
+        zero = torch.zeros_like(pos)
+        pfirst = torch.cummax(torch.where(part, pos, zero), 0)[0]
+        qfirst = torch.cummax(torch.where(peer, pos, zero), 0)[0]
+        peers = torch.cumsum(peer.to(torch.int64), 0)
+        values = {WIN_ROW_NUMBER: pos - pfirst + 1,
+                  WIN_RANK: qfirst - pfirst + 1,
+                  WIN_DENSE_RANK: peers - peers[pfirst] + 1}
+    return [DeviceColumn(values[k].to(torch.int32),
+                         torch.ones(n, dtype=torch.bool, device=device),
+                         T.INT, True) for k in kinds]
+
+
 def compute_windows(payload: Sequence[DeviceColumn],
                     keys: Sequence[DeviceColumn],
                     values: Sequence[Optional[DeviceColumn]], kinds,
-                    n: int, device: torch.device, transfers
+                    n: int, device: torch.device, transfers,
+                    order_keys: Sequence[DeviceColumn] = (),
+                    orders: Sequence[Tuple[bool, bool]] = ()
                     ) -> Tuple[List[DeviceColumn], List[DeviceColumn]]:
     """``(payload sorted by the keys, one column per function)`` of ``n``
-    rows on ``device``: K8 and K7 when there are keys, then K14."""
-    if keys and n > 1:
+    rows on ``device``: K8 and K7 when there are keys, then K14's
+    reduction, or its ranking pass when ``kinds`` are ranking kinds (over
+    ``order_keys``, each with the ``(ascending, nulls_first)`` of
+    ``orders``)."""
+    every = list(keys) + list(order_keys)
+    if every and n > 1:
         perm = sort_ops.sort_permutation(
-            keys, [sort_ops.SortOrder(i, True, True)
-                   for i in range(len(keys))], transfers)
+            every, [sort_ops.SortOrder(i, True, True)
+                    for i in range(len(keys))] +
+            [sort_ops.SortOrder(len(keys) + j, a, nf)
+             for j, (a, nf) in enumerate(orders)], transfers)
         # each distinct column is gathered once
         cols, slot = [], {}
-        for c in list(payload) + list(keys) + list(values):
+        for c in list(payload) + every + list(values):
             if c is not None and id(c) not in slot:
                 slot[id(c)] = len(cols)
                 cols.append(c)
@@ -228,5 +350,13 @@ def compute_windows(payload: Sequence[DeviceColumn],
             return None if c is None else moved[slot[id(c)]]
         payload = [sorted_(c) for c in payload]
         keys = [sorted_(c) for c in keys]
+        order_keys = [sorted_(c) for c in order_keys]
         values = [sorted_(c) for c in values]
+    if kinds and all(k in RANKING for k in kinds):
+        return list(payload), window_rank(keys, order_keys, kinds, n,
+                                          device)
+    if order_keys:
+        raise NotImplementedError(
+            "a window aggregate with ORDER BY (a running frame) is not in "
+            "the port yet")
     return list(payload), window_reduce(keys, values, kinds, n, device)

@@ -196,8 +196,9 @@ def join_schema(left: T.StructType, right: T.StructType,
 
 class Join(LogicalPlan):
     """An equi-join (``how`` is ``inner``, ``left_outer``, ``left_semi``
-    or ``left_anti``); its output is the left columns, then the right
-    (the left alone for semi and anti)."""
+    or ``left_anti``), or a cross join with no keys (``cross``); its
+    output is the left columns, then the right (the left alone for semi
+    and anti)."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: Sequence[Expression],

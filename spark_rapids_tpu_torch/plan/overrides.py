@@ -15,7 +15,8 @@ from spark_rapids_tpu_torch.exec.basic import (TorchCteCacheExec,
                                                TorchProjectExec)
 from spark_rapids_tpu_torch.exec.exchange import TorchShuffleExchangeExec
 from spark_rapids_tpu_torch.exec.expand import TorchExpandExec
-from spark_rapids_tpu_torch.exec.joins import TorchHashJoinExec
+from spark_rapids_tpu_torch.exec.joins import (
+    CROSS, TorchBroadcastNestedLoopJoinExec, TorchHashJoinExec)
 from spark_rapids_tpu_torch.exec.sort import TorchSortExec
 from spark_rapids_tpu_torch.exec.window import TorchWindowExec
 from spark_rapids_tpu_torch.expressions.aggregates import (Average, Count,
@@ -42,6 +43,10 @@ class TorchOverrides:
             return self._ctes[id(node)][1]
         if isinstance(node, L.Scan):
             return TorchInMemoryScanExec(node)
+        if isinstance(node, L.Join) and node.how == CROSS:
+            return TorchBroadcastNestedLoopJoinExec(
+                self._convert(node.children[0]),
+                self._convert(node.children[1]))
         if isinstance(node, L.Join):
             return TorchHashJoinExec(node.left_keys, node.right_keys,
                                      self._convert(node.children[0]),

@@ -3,11 +3,12 @@
 tables, ``filter``, ``select`` and ``with_column`` (``:460``; with window
 expressions, extracted as ``_plan_windows`` ``:392`` does), ``join``
 (``:637``; inner, left outer, left semi and left anti, on one or several
-key columns), ``group_by`` (``:729``), ``rollup`` (``:736``; lowered to
-an Expand and a group-by, ``_expand_for_grouping_sets`` ``:973``) and
-``agg`` (``count_distinct`` in COMPLETE mode only), ``distinct``
-(``:771``), ``order_by`` (``:602``), ``limit`` (``:515``) and
-``collect``). A join, a group-by, a window, a sort and a limit run over
+key columns, and cross), ``group_by`` (``:729``), ``rollup`` (``:736``;
+lowered to an Expand and a group-by, ``_expand_for_grouping_sets``
+``:973``) and ``agg`` (``count_distinct`` in COMPLETE mode only;
+``grouping()`` after a rollup), ``distinct``
+(``:771``), ``order_by`` (``:602``), ``limit`` (``:515``), ``collect``
+and ``scalar``). A join, a group-by, a window, a sort and a limit run over
 one partition.
 
 A session runs on ``cuda:0`` unless it is given ``device="cpu"``; without a
@@ -162,13 +163,24 @@ class DataFrame:
         (``leftsemi``, ``left_semi``) or ``anti`` (``leftanti``,
         ``left_anti``); a semi or anti join gives the left columns alone,
         a row each time its key has a match (semi) or none (anti; a null
-        key has none, as the JAX package plans ``NOT IN``)."""
-        if on is None or condition is not None:
+        key has none, as the JAX package plans ``NOT IN``).  ``how="cross"``
+        takes no keys: every left row with every right row, the left
+        columns then the right ones (``from a, b``)."""
+        from spark_rapids_tpu_torch.exec.joins import CROSS, normalize_how
+        if condition is not None:
             raise NotImplementedError(
-                "a join without keys or with a condition beyond them is not "
-                "in the port yet")
-        from spark_rapids_tpu_torch.exec.joins import normalize_how
+                "a join with a condition beyond its keys is not in the port "
+                "yet")
         how = normalize_how(how)
+        if how == CROSS:
+            if on is not None:
+                raise ValueError("a cross join takes no keys")
+            return DataFrame(L.Join(self._plan, other._plan, [], [], how),
+                             self._session)
+        if on is None:
+            raise NotImplementedError(
+                f"a {how} join without keys is not in the port yet (a "
+                "cross join is)")
         names = [on] if isinstance(on, str) else list(on)
         lschema, rschema = self.schema, other.schema
         lkeys = [bind_references(col(n), lschema) for n in names]
@@ -233,6 +245,15 @@ class DataFrame:
     def collect(self) -> List[dict]:
         return self.collect_batch().to_rows()
 
+    def scalar(self):
+        """An eager scalar subquery (the JAX analyzer's, ``sql/
+        analyzer.py:1174-1190``): the plan runs and its rows come back
+        through the one counted download; the first column of the first
+        row, or None when there is no row.  With several rows it takes
+        the first, as the JAX package does (Spark would raise)."""
+        rows = self.collect()
+        return next(iter(rows[0].values())) if rows else None
+
 
 def _windows_in(e: Expression) -> List[Expression]:
     """The window expressions in ``e``'s tree."""
@@ -261,17 +282,27 @@ class GroupedData:
         from spark_rapids_tpu_torch.expressions.aggregates import (
             AggregateExpression, AggregateFunction)
         schema = self._df.schema
-        aggs = []
+        aggs, outputs = [], []
         for e in agg_exprs:
             name = None
             if isinstance(e, Alias):
                 name, e = e.alias_name, e.children[0]
+            e = bind_references(e, schema)
+            if _groupings_in(e) and not isinstance(e, AggregateFunction):
+                if self._grouping_sets is None:
+                    raise ValueError("grouping() needs a rollup")
+                if _refs_outside_groupings(e):
+                    raise NotImplementedError(
+                        f"{e.sql()}: only grouping() calls and literals "
+                        "can be combined in agg() in the port yet")
+                outputs.append((name or e.sql(), e))
+                continue
             if not isinstance(e, AggregateFunction):
                 raise TypeError(f"not an aggregate expression: {e}")
-            e = bind_references(e, schema)
+            outputs.append((name or e.sql(), len(aggs)))
             aggs.append(AggregateExpression(e, name or e.sql()))
         if self._grouping_sets is not None:
-            return self._agg_grouping_sets(aggs)
+            return self._agg_grouping_sets(aggs, outputs)
         layout = _AggLayout(self._keys, aggs)
         child = self._df._plan
         if child.num_partitions == 1:
@@ -281,19 +312,27 @@ class GroupedData:
             plan = L.Aggregate(layout, FINAL, L.Exchange([partial]))
         return DataFrame(plan, self._df._session)
 
-    def _agg_grouping_sets(self, aggs) -> DataFrame:
+    def _agg_grouping_sets(self, aggs, outputs) -> DataFrame:
         """One Expand projection per grouping set -- each key, or a null
         of its type where the set does not group it; the grouping id
         (LONG; bit ``n - 1 - i`` set when key ``i`` is not grouped, Spark's
         order); then the child columns the aggregates read -- and a
         group-by on the keys and the grouping id, so a null the rollup
-        makes never merges with a real null key; the grouping id is then
-        dropped (``_expand_for_grouping_sets``, ``:973``)."""
+        makes never merges with a real null key (``_expand_for_grouping_
+        sets``, ``:973``).  The output is the keys, then ``outputs`` in
+        order: ``(name, index into aggs)`` for an aggregate, ``(name,
+        expression)`` for one over ``grouping(k)`` calls, each of which
+        becomes ``(gid div 2^(n - 1 - i)) % 2`` for key ``i``, the JAX
+        analyzer's ``_grouping_bit`` (``sql/analyzer.py:810``); the
+        grouping id is read by those and then dropped."""
         from spark_rapids_tpu_torch.exec.aggregate import (COMPLETE,
                                                            _AggLayout)
         from spark_rapids_tpu_torch.expressions.aggregates import \
             AggregateExpression
-        from spark_rapids_tpu_torch.expressions.base import (Literal,
+        from spark_rapids_tpu_torch.expressions.arithmetic import (
+            IntegralDivide, Remainder)
+        from spark_rapids_tpu_torch.expressions.base import (Grouping,
+                                                             Literal,
                                                              output_name)
         child = self._df._plan
         schema = child.schema
@@ -330,11 +369,44 @@ class GroupedData:
                 "a rollup over several partitions is not in the port yet")
         plan = L.Aggregate(_AggLayout(new_keys, aggs), COMPLETE, expand)
         out = plan.schema
-        keep = [i for i in range(len(out)) if i != nk]
-        return DataFrame(L.Project(
-            [Alias(BoundReference(i, out.types[i], out.fields[i].nullable,
-                                  out.names[i]), out.names[i])
-             for i in keep], plan), self._df._session)
+
+        def ref(i: int) -> Expression:
+            return BoundReference(i, out.types[i], out.fields[i].nullable,
+                                  out.names[i])
+        key_sql = [k.sql() for k in keys]
+
+        def bit(node):
+            if not isinstance(node, Grouping):
+                return node
+            k = node.children[0].sql()
+            if k not in key_sql:
+                raise ValueError(f"{node.sql()}: {k} is not a grouping key")
+            return Remainder(IntegralDivide(
+                ref(nk), Literal(1 << (nk - 1 - key_sql.index(k)), T.LONG)),
+                Literal(2, T.LONG))
+        exprs = [Alias(ref(i), out.names[i]) for i in range(nk)]
+        for name, o in outputs:
+            exprs.append(Alias(ref(nk + 1 + o) if isinstance(o, int)
+                               else o.transform_up(bit), name))
+        return DataFrame(L.Project(exprs, plan), self._df._session)
+
+
+def _groupings_in(e: Expression) -> bool:
+    """``e``'s tree holds a ``grouping(k)`` call."""
+    from spark_rapids_tpu_torch.expressions.base import Grouping
+    return isinstance(e, Grouping) or any(_groupings_in(c)
+                                          for c in e.children)
+
+
+def _refs_outside_groupings(e: Expression) -> List[BoundReference]:
+    """The column references in ``e``'s tree that no ``grouping()``
+    holds."""
+    from spark_rapids_tpu_torch.expressions.base import Grouping
+    if isinstance(e, Grouping):
+        return []
+    if isinstance(e, BoundReference):
+        return [e]
+    return [r for c in e.children for r in _refs_outside_groupings(c)]
 
 
 def _refs_in(e: Expression) -> List[BoundReference]:

@@ -1642,3 +1642,308 @@ def q18_numpy(tables: Dict[str, dict], year=1998, limit=100) -> list:
                      for k in Q18_ORDER)
     out.sort(key=order)
     return out if limit is None else out[:limit]
+
+
+#: the columns of each table that TPC-DS q6 reads
+Q6_COLUMNS = {
+    "customer_address": ["ca_address_sk", "ca_state"],
+    "customer": ["c_customer_sk", "c_current_addr_sk"],
+    "store_sales": ["ss_sold_date_sk", "ss_item_sk", "ss_customer_sk"],
+    "date_dim": ["d_date_sk", "d_month_seq", "d_year", "d_moy"],
+    "item": ["i_item_sk", "i_current_price", "i_category"],
+}
+
+
+def q6_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q6 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q6_COLUMNS.items()}
+
+
+def q6(customer_address, customer, store_sales, date_dim, item, year=2001,
+       moy=1, limit=100):
+    """TPC-DS q6 through the port's DataFrame API, over DataFrames of the
+    ``Q6_COLUMNS`` of each table.  The JAX plan (``sql/analyzer.py
+    _scalar_subquery``, ``:1174-1228``) runs the uncorrelated subquery
+    ``select distinct d_month_seq ... where d_year = 2001 and d_moy = 1``
+    eagerly and inlines it as a literal (here ``DataFrame.scalar()``:
+    1212), and decorrelates ``avg(j.i_current_price)`` by category into a
+    keyed average over item, left outer joined on the string key
+    ``i_category`` (K10 with a string key: the ten categories build, the
+    joined facts probe).  It joins address, customer, store_sales,
+    date_dim and item, and then filters ``d_month_seq = 1212 and
+    i_current_price > 1.2 * avg`` over the joins; here the month filter
+    is applied to date_dim before the joins (the same rows: an inner
+    join's conjunct on one side's column), and the joins run from
+    store_sales outwards (inner joins, so the same pairs).  Then a count
+    by ``ca_state``, ``HAVING count(*) >= 10`` (K5 over the groups) and
+    ``ORDER BY cnt, state``.  Returns ``(result, parts)`` (``month``,
+    ``joined``, ``agg``)."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.arithmetic import Multiply
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import (
+        And, EqualTo, GreaterThan, GreaterThanOrEqual)
+    month = (date_dim.filter(And(EqualTo(col("d_year"), lit(year)),
+                                 EqualTo(col("d_moy"), lit(moy))))
+             .select(col("d_month_seq")).distinct().scalar())
+    dt = date_dim.filter(EqualTo(col("d_month_seq"), lit(month))) \
+        .select(Alias(col("d_date_sk"), "ss_sold_date_sk"))
+    c = customer.select(Alias(col("c_customer_sk"), "ss_customer_sk"),
+                        col("c_current_addr_sk"))
+    ca = customer_address.select(Alias(col("ca_address_sk"),
+                                       "c_current_addr_sk"), col("ca_state"))
+    it = item.select(Alias(col("i_item_sk"), "ss_item_sk"),
+                     col("i_current_price"), col("i_category"))
+    by_category = item.group_by("i_category").agg(
+        F.avg("i_current_price").alias("_sval"))
+    joined = (store_sales.join(dt, on="ss_sold_date_sk")
+              .join(c, on="ss_customer_sk")
+              .join(ca, on="c_current_addr_sk")
+              .join(it, on="ss_item_sk")
+              .join(by_category, on="i_category", how="left"))
+    kept = joined.filter(GreaterThan(col("i_current_price"),
+                                     Multiply(lit(1.2), col("_sval"))))
+    agg = (kept.group_by("ca_state").agg(F.count().alias("cnt"))
+           .filter(GreaterThanOrEqual(col("cnt"), lit(10))))
+    ordered = agg.select(Alias(col("ca_state"), "state"), col("cnt")) \
+        .order_by("cnt", "state")
+    out = ordered if limit is None else ordered.limit(limit)
+    return out, {"month": month, "joined": joined, "agg": agg}
+
+
+def q6_numpy(tables: Dict[str, dict], year=2001, moy=1, limit=100) -> list:
+    """TPC-DS q6 in numpy over ``q6_tables`` output: the rows as dicts."""
+    ca, c = tables["customer_address"], tables["customer"]
+    ss, d, i = tables["store_sales"], tables["date_dim"], tables["item"]
+    months = np.unique(d["d_month_seq"][(d["d_year"] == year) &
+                                        (d["d_moy"] == moy)])
+    if not len(months):
+        return []
+    dates = d["d_date_sk"][d["d_month_seq"] == months[0]]
+    rows = np.nonzero(np.isin(ss["ss_sold_date_sk"], dates))[0]
+    found, c_at = _lookup(c["c_customer_sk"], ss["ss_customer_sk"][rows])
+    rows, c_at = rows[found], c_at[found]
+    found, ca_at = _lookup(ca["ca_address_sk"], c["c_current_addr_sk"][c_at])
+    rows, ca_at = rows[found], ca_at[found]
+    found, i_at = _lookup(i["i_item_sk"], ss["ss_item_sk"][rows])
+    ca_at, i_at = ca_at[found], i_at[found]
+    cats, cat_of = np.unique(i["i_category"], return_inverse=True)
+    cat_of = cat_of.ravel()
+    price = i["i_current_price"].astype(np.float64)
+    avg = np.bincount(cat_of, weights=price, minlength=len(cats)) / \
+        np.maximum(np.bincount(cat_of, minlength=len(cats)), 1)
+    keep = price[i_at] > 1.2 * avg[cat_of[i_at]]
+    states, cnt = np.unique(ca["ca_state"][ca_at[keep]], return_counts=True)
+    out = [{"state": s, "cnt": int(n)} for s, n in zip(states.tolist(),
+                                                        cnt.tolist())
+           if n >= 10]
+    out.sort(key=lambda r: (r["cnt"], r["state"]))
+    return out if limit is None else out[:limit]
+
+
+#: the columns of store_sales that TPC-DS q28 reads
+Q28_COLUMNS = {
+    "store_sales": ["ss_quantity", "ss_list_price", "ss_coupon_amt",
+                    "ss_wholesale_cost"],
+}
+#: q28's six buckets: the quantity range, then the low ends of the
+#: list price (+ 10), coupon amount (+ 1000) and wholesale cost (+ 20)
+#: ranges
+Q28_BUCKETS = ((0, 5, 8, 459, 57), (6, 10, 90, 2323, 31),
+               (11, 15, 142, 12214, 79), (16, 20, 135, 6071, 38),
+               (21, 25, 122, 836, 17), (26, 30, 154, 7326, 25))
+
+
+def q28_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q28 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q28_COLUMNS.items()}
+
+
+def _q28_bounds(bucket):
+    """The BETWEEN ranges of one bucket: (column, low, high)."""
+    qlo, qhi, lp, ca, wc = bucket
+    return (("ss_quantity", qlo, qhi),
+            (("ss_list_price", float(lp), float(lp + 10)),
+             ("ss_coupon_amt", float(ca), float(ca + 1000)),
+             ("ss_wholesale_cost", float(wc), float(wc + 20))))
+
+
+def q28(store_sales, limit=100):
+    """TPC-DS q28 through the port's DataFrame API, over a DataFrame of
+    ``Q28_COLUMNS``: six global aggregates of store_sales, each of
+    ``avg``, ``count`` and ``count(DISTINCT)`` of ``ss_list_price`` over a
+    quantity range and an ``OR`` of three ``BETWEEN`` ranges (K5 for the
+    filters, then K1 and K3 beside the global K15d, as q16 runs them),
+    cross-joined left-deep as the JAX plan's
+    ``BroadcastNestedLoopJoinExec[cross]`` chain (K10x and K7 for each of
+    the five joins of one-row sides).  Returns ``(result, parts)``
+    (``buckets``)."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.base import col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import (
+        And, GreaterThanOrEqual, LessThanOrEqual, Or)
+
+    def between(name, lo, hi):
+        return And(GreaterThanOrEqual(col(name), lit(lo)),
+                   LessThanOrEqual(col(name), lit(hi)))
+    buckets = []
+    for j, bucket in enumerate(Q28_BUCKETS, 1):
+        quantity, ranges = _q28_bounds(bucket)
+        any_range = between(*ranges[0])
+        for r in ranges[1:]:
+            any_range = Or(any_range, between(*r))
+        buckets.append(
+            store_sales.filter(between(*quantity)).filter(any_range)
+            .agg(F.avg("ss_list_price").alias(f"b{j}_lp"),
+                 F.count("ss_list_price").alias(f"b{j}_cnt"),
+                 F.count_distinct("ss_list_price").alias(f"b{j}_cntd")))
+    out = buckets[0]
+    for b in buckets[1:]:
+        out = out.join(b, how="cross")
+    return (out if limit is None else out.limit(limit)), \
+        {"buckets": buckets}
+
+
+def q28_numpy(tables: Dict[str, dict], limit=100) -> list:
+    """TPC-DS q28 in numpy over ``q28_tables`` output: its one row."""
+    ss = tables["store_sales"]
+    row = {}
+    for j, bucket in enumerate(Q28_BUCKETS, 1):
+        (qc, qlo, qhi), ranges = _q28_bounds(bucket)
+        sel = (ss[qc] >= qlo) & (ss[qc] <= qhi)
+        any_range = np.zeros(len(sel), bool)
+        for name, lo, hi in ranges:
+            any_range |= (ss[name] >= lo) & (ss[name] <= hi)
+        price = ss["ss_list_price"][sel & any_range].astype(np.float64)
+        row[f"b{j}_lp"] = float(price.sum() / len(price)) if len(price) \
+            else None
+        row[f"b{j}_cnt"] = int(len(price))
+        row[f"b{j}_cntd"] = int(len(np.unique(price)))
+    return [row][:limit]
+
+
+#: the columns of each table that TPC-DS q36 reads
+Q36_COLUMNS = {
+    "store_sales": ["ss_sold_date_sk", "ss_item_sk", "ss_store_sk",
+                    "ss_net_profit", "ss_ext_sales_price"],
+    "date_dim": ["d_date_sk", "d_year"],
+    "item": ["i_item_sk", "i_category", "i_class"],
+    "store": ["s_store_sk", "s_state"],
+}
+
+
+def q36_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q36 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q36_COLUMNS.items()}
+
+
+def q36(store_sales, date_dim, item, store, year=2001, state="TN",
+        limit=100):
+    """TPC-DS q36 through the port's DataFrame API, over DataFrames of the
+    ``Q36_COLUMNS`` of each table, as the JAX plan runs it: store_sales
+    joined with the year's dates, item and the state's stores; two sums
+    by ``ROLLUP(i_category, i_class)`` (an Expand of three grouping sets,
+    K7c, K9 on the keys and the grouping id), with ``lochierarchy =
+    grouping(i_category) + grouping(i_class)`` and ``grouping(i_class)``
+    computed from the grouping id by K6 (``(gid div 2) % 2 + (gid div 1)
+    % 2``; the JAX plan computes them inside its window and projection
+    from the grouping id it keeps); then ``rank() OVER (PARTITION BY
+    lochierarchy, CASE WHEN grouping(i_class) = 0 THEN i_category END
+    ORDER BY sum(ss_net_profit) / sum(ss_ext_sales_price))`` (K6 for the
+    CASE, a string view, and the ratio; K8, K7 and K14's ranking pass),
+    ``gross_margin`` (K6) and ``ORDER BY lochierarchy DESC, CASE WHEN
+    lochierarchy = 0 THEN i_category END, rank_within_parent`` (K6 for
+    the CASE key, K8, K7).  Returns ``(result, parts)`` (``joined``,
+    ``agg``, ``ranked``)."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.arithmetic import Add, Divide
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import EqualTo
+    dt = date_dim.filter(EqualTo(col("d_year"), lit(year))) \
+        .select(Alias(col("d_date_sk"), "ss_sold_date_sk"))
+    it = item.select(Alias(col("i_item_sk"), "ss_item_sk"),
+                     col("i_category"), col("i_class"))
+    st = store.filter(EqualTo(col("s_state"), lit(state))) \
+        .select(Alias(col("s_store_sk"), "ss_store_sk"))
+    joined = (store_sales.join(dt, on="ss_sold_date_sk")
+              .join(it, on="ss_item_sk")
+              .join(st, on="ss_store_sk"))
+    agg = joined.rollup("i_category", "i_class").agg(
+        F.sum("ss_net_profit").alias("sum_net_profit"),
+        F.sum("ss_ext_sales_price").alias("sum_sales"),
+        Add(F.grouping("i_category"),
+            F.grouping("i_class")).alias("lochierarchy"),
+        F.grouping("i_class").alias("g_class"))
+    margin = Divide(col("sum_net_profit"), col("sum_sales"))
+    parent = F.Window.partition_by(
+        col("lochierarchy"),
+        F.when(EqualTo(col("g_class"), lit(0)), col("i_category"))
+    ).order_by(F.asc(margin))
+    ranked = agg.select(Alias(margin, "gross_margin"), col("i_category"),
+                        col("i_class"), col("lochierarchy"),
+                        F.rank().over(parent).alias("rank_within_parent"))
+    ordered = ranked.order_by(
+        F.desc("lochierarchy"),
+        F.asc(F.when(EqualTo(col("lochierarchy"), lit(0)),
+                     col("i_category"))),
+        F.asc("rank_within_parent"))
+    out = ordered if limit is None else ordered.limit(limit)
+    return out, {"joined": joined, "agg": agg, "ranked": ranked}
+
+
+def q36_numpy(tables: Dict[str, dict], year=2001, state="TN",
+              limit=100) -> list:
+    """TPC-DS q36 in numpy over ``q36_tables`` output: the rows as
+    dicts."""
+    ss, d = tables["store_sales"], tables["date_dim"]
+    i, s = tables["item"], tables["store"]
+    rows = np.nonzero(np.isin(ss["ss_sold_date_sk"],
+                              d["d_date_sk"][d["d_year"] == year]) &
+                      np.isin(ss["ss_store_sk"],
+                              s["s_store_sk"][s["s_state"] == state]))[0]
+    found, i_at = _lookup(i["i_item_sk"], ss["ss_item_sk"][rows])
+    rows, i_at = rows[found], i_at[found]
+    keys = (i["i_category"][i_at], i["i_class"][i_at])
+    profit = ss["ss_net_profit"][rows].astype(np.float64)
+    sales = ss["ss_ext_sales_price"][rows].astype(np.float64)
+    groups = []     # (category or None, class or None, lochierarchy, sums)
+    if len(rows):
+        for level in (2, 1, 0):
+            if level:
+                gid, first = _group_ids(*keys[:level])
+                g = len(first)
+            else:
+                gid, first, g = np.zeros(len(rows), np.int64), [0], 1
+            p = np.bincount(gid, weights=profit, minlength=g)
+            t = np.bincount(gid, weights=sales, minlength=g)
+            for k in range(g):
+                groups.append((keys[0][first[k]] if level else None,
+                               keys[1][first[k]] if level == 2 else None,
+                               2 - level, p[k], t[k]))
+    out = []
+    parents = {}
+    for cat, cls, loc, p, t in groups:
+        margin = float(p / t) if t != 0 else None
+        parent = (loc, cat if cls is not None else None)
+        parents.setdefault(parent, []).append(margin)
+        out.append({"gross_margin": margin, "i_category": cat,
+                    "i_class": cls, "lochierarchy": loc,
+                    "rank_within_parent": None})
+    for r in out:
+        peers = parents[(r["lochierarchy"], r["i_category"]
+                         if r["i_class"] is not None else None)]
+        m = r["gross_margin"]
+        # nulls first; rank = 1 + the rows strictly before the row
+        r["rank_within_parent"] = 1 + sum(
+            1 for x in peers if m is not None and
+            (x is None or x < m))
+
+    def order(r):
+        case = r["i_category"] if r["lochierarchy"] == 0 else None
+        return (-r["lochierarchy"], (0, "") if case is None else (1, case),
+                r["rank_within_parent"])
+    out.sort(key=order)
+    return out if limit is None else out[:limit]

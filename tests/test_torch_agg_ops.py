@@ -6,6 +6,7 @@ Long sums (wrapping) and counts are exact; double sums agree within
 1e-12 * sum|x| because the two sum in different orders; min and max are
 exact with NaN greatest; an empty or all-null input gives NULL."""
 
+import gc
 import types
 
 import jax.numpy as jnp
@@ -19,6 +20,20 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.ops import agg_ops as G
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
+
 
 F64_RTOL = 1e-12
 _TYPES = {"long": (T.LONG, JT.LONG, np.int64),

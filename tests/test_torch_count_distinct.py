@@ -10,6 +10,8 @@ them within 1e-9 relative.  The cases: nulls (never counted), NaN (one
 value), -0.0 and 0.0 (one value), long, int, double and string values,
 an empty input (a global count of 0) and one row."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -25,6 +27,20 @@ from spark_rapids_tpu_torch.exec import fused as FU
 from spark_rapids_tpu_torch.expressions.base import col, lit
 from spark_rapids_tpu_torch.expressions.predicates import GreaterThan
 from spark_rapids_tpu_torch.ops import agg_ops as G
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
+
 
 SCHEMA = T.StructType([T.StructField("g", T.INT), T.StructField("l", T.LONG),
                        T.StructField("i", T.INT), T.StructField("d", T.DOUBLE),

@@ -7,8 +7,9 @@ inner, left outer, left semi and left anti), K14 (whole-partition
 windows), K15d (count distinct, keyed and global), the <>, NOT and
 string-to-string emitters in K5 and K6, kernel 1 over string columns, K7c
 (concat, with strings), K9's m2 kind, K10 on two and three key columns,
-and TPC-DS q3, q1, q7, q15, q12, q20, q13, q19, q16, q17, q10 and q18 end
-to end against the CPU run.
+K14's ranking pass, K10x (the cross join's pairs), K10 on string keys,
+K6's div, % and CASE WHEN, and TPC-DS q3, q1, q7, q15, q12, q20, q13, q19,
+q16, q17, q10, q18, q6, q28 and q36 end to end against the CPU run.
 
 Every test needs a CUDA card and skips without one.  This file imports
 nothing of JAX, so it runs where JAX is not installed:
@@ -598,6 +599,145 @@ def test_q17_q10_q18_match_the_cpu_run(card, query, kw):
     ref = recipe(*[cpu.create_dataframe(t[n]) for n in names],
                  **kw)[0].collect()
     assert len(got) == len(ref) == (0 if query == "q17" and not kw else 100)
+    for g, r in zip(got, ref):
+        assert g.keys() == r.keys()
+        for k in g:
+            if isinstance(r[k], float):
+                assert abs(g[k] - r[k]) <= 1e-12 * abs(r[k])
+            else:
+                assert g[k] == r[k]
+
+
+def test_window_rank(card):
+    """K14's ranking pass against its plain version: int, string and
+    double keys with ties, NaN, -0.0 and nulls (sorted by K8 first), no
+    partition key, and one partition of 2**20 + 3 rows of few peers."""
+    from spark_rapids_tpu_torch.ops import window_ops as W
+    rng = np.random.default_rng(23)
+    n = 70_000
+    a, bb, s, v = batch(card, rng, n).columns
+    v = DeviceColumn(torch.where(v.data > 1.0, float("nan"),
+                                 torch.where(v.data < -1.0, -0.0,
+                                             v.data.round())),
+                     v.validity, T.DOUBLE)
+    for keys, order, dirs in (([a], [v], [(True, True)]),
+                              ([s, a], [bb], [(False, False)]),
+                              ([], [s, v], [(True, False), (False, True)]),
+                              ([v], [a], [(False, True)])):
+        every = keys + order
+        perm = S.sort_permutation(
+            every, [S.SortOrder(i) for i in range(len(keys))] +
+            [S.SortOrder(len(keys) + j, *d) for j, d in enumerate(dirs)],
+            card.transfers)
+        cols = BO.gather_columns(every, perm, card.transfers, True)
+        k, o = cols[:len(keys)], cols[len(keys):]
+        got = W.window_rank(k, o, list(W.RANKING), n, a.device)
+        ref = W.window_rank_plain(k, o, list(W.RANKING), n, a.device)
+        for g, r in zip(got, ref):
+            assert g.data.dtype == torch.int32
+            assert torch.equal(g.data, r.data)
+    m = (1 << 20) + 3
+    one = DeviceColumn(torch.zeros(m, dtype=torch.int64, device="cuda"),
+                       torch.ones(m, dtype=torch.bool, device="cuda"),
+                       T.LONG, True)
+    peers = DeviceColumn(torch.arange(m, device="cuda") // 7,
+                         torch.ones(m, dtype=torch.bool, device="cuda"),
+                         T.LONG, True)
+    got = W.window_rank([one], [peers], list(W.RANKING), m, one.device)
+    ref = W.window_rank_plain([one], [peers], list(W.RANKING), m,
+                              one.device)
+    for g, r in zip(got, ref):
+        assert torch.equal(g.data, r.data)
+
+
+@pytest.mark.parametrize("sizes", [(3001, 1024), (0, 5), (5, 0), (1, 1)])
+def test_cross_pairs(card, sizes):
+    got = J.cross_pairs(*sizes, torch.device("cuda"))
+    ref = J.cross_pairs_plain(*sizes, torch.device("cuda"))
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_string_key_join(card):
+    """K10 on string keys, alone and beside an int key, in all four
+    modes: prefixes, empty strings, strings over 8 bytes, nulls; int64
+    offsets on one side."""
+    rng = np.random.default_rng(31)
+    stems = ["", "a", "ab", "ab\0", "abcdefgh", "abcdefghi", "abcdefghX",
+             "é日", "x" * 40, None]
+    tr = card.transfers
+
+    def side(n, pool):
+        d = {"s": [pool[x] for x in rng.integers(0, len(pool), n)],
+             "a": [int(x) for x in rng.integers(0, 3, n)]}
+        return tr.upload_batch(batch_from_pydict(d, T.StructType([
+            T.StructField("s", T.STRING), T.StructField("a", T.INT)])))
+    probe = side(100_000, stems)
+    s64 = probe.columns[0]
+    s64 = DeviceColumn(s64.data, s64.validity, T.STRING, s64.all_valid,
+                       s64.offsets.to(torch.int64))
+    for build in (side(4_000, stems[:-3]), side(16, stems)):
+        for keys in ((build.columns[0], s64),
+                     ([build.columns[0], build.columns[1]],
+                      [probe.columns[0], probe.columns[1]])):
+            for kw in ({}, {"outer": True}, {"mode": "semi"},
+                       {"mode": "anti"}):
+                got = J.join_pairs(*keys, tr, **kw)
+                ref = J.join_pairs_plain(*keys, tr, **kw)
+                assert torch.equal(got[0], ref[0])
+                assert (got[1] is None) == (ref[1] is None)
+                if got[1] is not None:
+                    assert torch.equal(got[1], ref[1])
+
+
+def test_project_case_div_remainder(card):
+    """K6's div, % and CASE WHEN (numeric, and a string view's validity)
+    against its plain version, INT64_MIN div -1 and zero divisors
+    included."""
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.expressions import arithmetic as A
+    from spark_rapids_tpu_torch.expressions import predicates as P
+    from spark_rapids_tpu_torch.expressions.base import (Alias,
+                                                         bind_references,
+                                                         col, lit)
+    from spark_rapids_tpu_torch.expressions.conditional import CaseWhen
+    rng = np.random.default_rng(37)
+    for n in (0, 1, 1000, (1 << 20) + 3):
+        b = batch(card, rng, n)
+        big = DeviceColumn(torch.from_numpy(rng.choice(
+            np.array([-(2 ** 63), 2 ** 63 - 1, -7, 7, 0]), n)).cuda(),
+            torch.ones(n, dtype=torch.bool, device="cuda"), T.LONG, True)
+        b = type(b)(b.columns + [big], n, b.names + ["m"])
+        exprs = [A.IntegralDivide(col("m"), lit(-1)),
+                 A.IntegralDivide(col("b"), col("a")),
+                 A.Remainder(col("a"), A.Subtract(col("a"), lit(3))),
+                 A.Remainder(col("m"), col("b")),
+                 CaseWhen([(P.GreaterThan(col("v"), lit(0.0)), col("a"))],
+                          col("b")),
+                 CaseWhen([(P.EqualTo(A.Remainder(col("b"), lit(2)),
+                                      lit(0)), col("s"))])]
+        program = FU.StageProgram(
+            [("project", [bind_references(Alias(e, f"c{j}"), b.schema)
+                          for j, e in enumerate(exprs)])], b.schema, 0)
+        lits = FU.LiteralArgs([])
+        got = FU.fused_project(program, b, lits)
+        torch.cuda.synchronize()
+        same(got, FU.fused_project_plain(program, b, lits))
+
+
+@pytest.mark.parametrize("query", ["q6", "q28", "q36"])
+def test_q6_q28_q36_match_the_cpu_run(card, query):
+    from spark_rapids_tpu_torch.testing import tpcds
+    names = {"q6": ("customer_address", "customer", "store_sales",
+                    "date_dim", "item"),
+             "q28": ("store_sales",),
+             "q36": ("store_sales", "date_dim", "item", "store")}[query]
+    t = getattr(tpcds, f"{query}_tables")(tpcds.generate_tables(1))
+    recipe = getattr(tpcds, query)
+    got = recipe(*[card.create_dataframe(t[n]) for n in names])[0].collect()
+    cpu = TorchSession(device="cpu")
+    ref = recipe(*[cpu.create_dataframe(t[n]) for n in names])[0].collect()
+    assert len(got) == len(ref) == {"q6": 10, "q28": 1, "q36": 100}[query]
     for g, r in zip(got, ref):
         assert g.keys() == r.keys()
         for k in g:

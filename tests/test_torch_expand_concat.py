@@ -11,6 +11,8 @@ among K9's keys); rows are compared without regard to order, doubles
 within 1e-6 relative.  The concat covers strings with empty values,
 nulls and batches of no row, exactly."""
 
+import gc
+
 import numpy as np
 import pytest
 
@@ -24,6 +26,20 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import batch_from_pydict
 from spark_rapids_tpu_torch.exec.expand import TorchExpandExec
 from spark_rapids_tpu_torch.ops import batch_ops as BO
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
+
 
 SCHEMA = T.StructType([T.StructField("s", T.STRING), T.StructField("k", T.INT),
                        T.StructField("v", T.DOUBLE),

@@ -8,6 +8,7 @@ rows.  Long sums and counts are exact; the double sum agrees within
 1e-12 * sum|v2| (another summation order)."""
 
 import ast
+import gc
 
 import numpy as np
 import pytest
@@ -22,6 +23,20 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import batch_from_numpy
 from spark_rapids_tpu_torch.exec import fused as FU
 from spark_rapids_tpu_torch.expressions.base import Alias, Expression
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
+
 
 F64_RTOL = 1e-12
 INT64_MAX = 2 ** 63 - 1

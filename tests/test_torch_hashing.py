@@ -3,6 +3,7 @@ the JAX package's Murmur3Hash / murmur3_col run through jnp on JAX-CPU:
 bit-exact for int and long columns, nulls, the extremes of both types and a
 chained pair."""
 
+import gc
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +15,20 @@ from spark_rapids_tpu.expressions import hashing as JH
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expressions import base as PB
 from spark_rapids_tpu_torch.expressions import hashing as PH
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
+
 
 INT_EXTREMES = [-(2 ** 31), 2 ** 31 - 1, -1, 0, 1, 42]
 LONG_EXTREMES = [-(2 ** 63), 2 ** 63 - 1, -1, 0, 1, 2 ** 32, -(2 ** 32)]

@@ -145,6 +145,17 @@ q18 = tpcds.q18(*[s.create_dataframe(t18[t]) for t in
 rows = q18.collect()
 assert rows and len(rows) == len(tpcds.q18_numpy(t18)), q18.explain()
 assert all(rows[0][k] is None for k in tpcds.Q18_KEYS), rows[0]
+t = tpcds.generate_tables(0.5)
+for q, names in (("q6", ("customer_address", "customer", "store_sales",
+                         "date_dim", "item")),
+                 ("q28", ("store_sales",)),
+                 ("q36", ("store_sales", "date_dim", "item", "store"))):
+    cut = getattr(tpcds, q + "_tables")(t)
+    df = getattr(tpcds, q)(*[s.create_dataframe(cut[n]) for n in names])[0]
+    rows, ref = df.collect(), getattr(tpcds, q + "_numpy")(cut)
+    assert rows and len(rows) == len(ref), (q, df.explain())
+    assert [r[k] for r in rows for k in r if isinstance(r[k], (int, str))] \
+        == [r[k] for r in ref for k in r if isinstance(r[k], (int, str))], q
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax")
              or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu.")
              or m == "triton" or m.startswith("triton."))
@@ -205,7 +216,11 @@ def test_wrappers_refuse_other_devices():
              lambda: join_ops.join_pairs([col, col], [col, col], None),
              lambda: agg_ops.keyed_aggregate([col], [col],
                                              [agg_ops.KEYED_M2], None),
-             lambda: batch_ops.concat_batches([batch, batch])]
+             lambda: batch_ops.concat_batches([batch, batch]),
+             lambda: join_ops.cross_pairs(2, 3, col.device),
+             lambda: window_ops.window_rank([col], [col],
+                                            [window_ops.WIN_RANK], 2,
+                                            col.device)]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):
             call()

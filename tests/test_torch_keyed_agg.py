@@ -10,6 +10,8 @@ approx_float=True (1e-6 relative: the two engines add in other orders).
 The port numbers groups in order of first appearance; a forced hash
 collision must still give separate groups."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,20 @@ from spark_rapids_tpu_torch import TorchSession
 from spark_rapids_tpu_torch import functions as F
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.ops import agg_ops as G
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
+
 
 SCHEMA = T.StructType([T.StructField("a", T.INT), T.StructField("b", T.LONG),
                        T.StructField("s", T.STRING),

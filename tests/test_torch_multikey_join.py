@@ -12,6 +12,8 @@ row with a null in any key column never matches, so inner and semi drop
 it, left outer null-extends it and anti keeps it.  The wrapper's own
 pairs are held against a brute-force join."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,20 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.exec import joins as PJ
 from spark_rapids_tpu_torch.ops import join_ops as J
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
+
 
 #: key columns of each case: (name, type, distinct values, null fraction)
 KEYS = {

@@ -11,6 +11,8 @@ match at all, null probe keys, duplicate build keys, an empty build
 side, an empty probe side, and string columns on the null-extended
 side."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,20 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.exec import joins as PJ
 from spark_rapids_tpu_torch.ops import batch_ops as BO
 from spark_rapids_tpu_torch.ops import join_ops as J
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
+
 
 LEFT = T.StructType([T.StructField("k", T.LONG),
                      T.StructField("lv", T.DOUBLE)])

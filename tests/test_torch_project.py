@@ -11,6 +11,7 @@ non-ASCII, longer than the value) -- over columns with nulls, NaN and
 -0.0.  A projection keeps its rows in order, so values are compared in
 order, exactly: the plain version repeats the same IEEE operations."""
 
+import gc
 import importlib
 
 import numpy as np
@@ -27,6 +28,20 @@ from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch,
 from spark_rapids_tpu_torch.exec import fused as FU
 from spark_rapids_tpu_torch.exec.basic import TorchFusedProjectExec
 from spark_rapids_tpu_torch.kernels.fused_stage import project_source
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
+
 
 SCHEMA = T.StructType([T.StructField("a", T.DOUBLE),
                        T.StructField("b", T.DOUBLE),

@@ -10,6 +10,8 @@ all, an empty build side, an empty probe side, and one row each.  The
 JAX package plans NOT IN as a plain anti join, so a null left key is kept
 by anti and dropped by semi; so does the port."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,20 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.exec import joins as PJ
 from spark_rapids_tpu_torch.ops import join_ops as J
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
+
 
 LEFT = T.StructType([T.StructField("k", T.LONG),
                      T.StructField("lv", T.DOUBLE),
@@ -142,5 +158,8 @@ def test_semi_anti_build_on_the_right_whatever_the_sizes(monkeypatch, how):
 def test_other_join_types_stay_refused_by_name(how):
     s = TorchSession(device="cpu")
     a = s.create_dataframe({"k": np.arange(3, dtype=np.int64)})
-    with pytest.raises(NotImplementedError, match=f"{how} joins"):
+    # a cross join runs (tests/test_torch_cross_join.py), but not on keys
+    refused = (ValueError, "cross join takes no keys") if how == "cross" \
+        else (NotImplementedError, f"{how} joins")
+    with pytest.raises(refused[0], match=refused[1]):
         a.join(a, on="k", how=how).collect()

@@ -7,6 +7,8 @@ compared with spark_rapids_tpu/testing/rowcompare.py::rows_equal.
 sk and sh must match exactly; sv within 1e-12 * sum|v2| (the two engines
 sum in different orders)."""
 
+import gc
+
 import numpy as np
 import pytest
 
@@ -20,6 +22,20 @@ from spark_rapids_tpu_torch import TorchSession
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import batch_from_numpy
 from spark_rapids_tpu_torch.exec import stage_compiler
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
+
 
 F64_RTOL = 1e-12
 INT64_MAX = 2 ** 63 - 1

@@ -6,6 +6,8 @@ Keys hold NaN, -0.0, +-inf, nulls and ties; a row-number column shows
 that ties keep their input order (both sorts are stable).  Rows are
 compared in order with rowcompare.rows_equal, exactly."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,19 @@ from spark_rapids_tpu_torch import functions as F
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.ops import sort_ops as S
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
 
 
 @pytest.fixture(scope="module")

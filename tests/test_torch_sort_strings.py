@@ -8,6 +8,8 @@ first in a key list followed by an int key.  Both sorts are stable, so
 the permutations must be equal; the words themselves equal the JAX
 package's bit for bit."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,20 @@ from spark_rapids_tpu_torch import functions as F
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import batch_from_pydict
 from spark_rapids_tpu_torch.ops import sort_ops as S
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
+
 
 SCHEMA = T.StructType([T.StructField("s", T.STRING),
                        T.StructField("i", T.INT)])

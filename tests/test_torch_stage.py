@@ -7,6 +7,8 @@ A filter keeps the surviving rows in input order, so rows are compared in
 order with rowcompare.rows_equal, exactly: the computed outputs repeat
 the same IEEE operations."""
 
+import gc
+
 import numpy as np
 import pytest
 
@@ -18,6 +20,20 @@ from spark_rapids_tpu_torch.exec import stage_compiler
 from spark_rapids_tpu_torch.exec.basic import TorchSelectExec
 from spark_rapids_tpu_torch.exec.fused import TorchFusedStageExec
 from spark_rapids_tpu_torch.kernels.fused_stage import stage_source
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
+
 
 SCHEMA = T.StructType([T.StructField("i", T.INT), T.StructField("k", T.LONG),
                        T.StructField("v", T.DOUBLE),

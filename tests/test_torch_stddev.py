@@ -12,6 +12,7 @@ squares would lose it); inputs are int and double.  Rows are compared
 without regard to order, doubles within 1e-6 relative.  Subtract wraps on
 overflow; Sqrt gives NaN below 0 and null for a null."""
 
+import gc
 import math
 
 import numpy as np
@@ -29,6 +30,20 @@ from spark_rapids_tpu_torch.expressions.base import (Alias, bind_references,
                                                      col, lit)
 from spark_rapids_tpu_torch.expressions.mathexprs import Sqrt
 from spark_rapids_tpu_torch.ops import agg_ops as G
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
+
 
 SCHEMA = T.StructType([T.StructField("g", T.LONG), T.StructField("x", T.DOUBLE),
                        T.StructField("i", T.INT)])

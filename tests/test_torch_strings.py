@@ -7,6 +7,8 @@ and validity as the port's; a gather through the same map must give the
 same rows as the JAX package's gather_batch (ops/batch_ops.py:45) run on
 JAX-CPU.  Everything here is exact."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,19 @@ from spark_rapids_tpu_torch.columnar.batch import (HostColumnarBatch,
                                                    batch_from_pydict)
 from spark_rapids_tpu_torch.columnar.column import HostColumn
 from spark_rapids_tpu_torch.ops import batch_ops as BO
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
 
 
 def strings(rng, n, null_frac=0.15):

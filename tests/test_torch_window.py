@@ -14,6 +14,7 @@ and long sums exact, double sums and means within 1e-6 relative (the JAX
 package takes prefix-sum differences, the port sums each partition)."""
 
 import datetime
+import gc
 
 import numpy as np
 import pytest
@@ -27,6 +28,19 @@ from spark_rapids_tpu_torch import functions as F
 from spark_rapids_tpu_torch.exec.window import TorchWindowExec
 from spark_rapids_tpu_torch.expressions import arithmetic as A
 from spark_rapids_tpu_torch.expressions.base import Alias
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _collect_outside_reference_locks():
+    """The JAX package's ``aux/events.py`` retires a ring sink from a
+    weakref finalizer under the plain lock ``RingBufferSink.__init__``
+    holds, so a cyclic collection landing there deadlocks the process.
+    This module's fixtures and tests run with automatic collection off;
+    it collects once they are done."""
+    gc.disable()
+    yield
+    gc.enable()
+    gc.collect()
 
 
 @pytest.fixture(scope="module")
