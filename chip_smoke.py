@@ -7,11 +7,12 @@ Needs one CUDA card; it exits non-zero, printing no result, without one.
 It builds every kernel from the sources in the checkout, into the
 git-ignored build/ directory: kernel 1, K5 and K6 (Triton, emitted by
 kernels/fused_agg.py and kernels/fused_stage.py) and kernel 2, K7, K7c,
-K8, K9, K10, K10x, K14 (with its ranking pass K14r) and K15d (csrc/*.cu,
-one nvcc each, all started together).  It holds each kernel against its
-plain PyTorch version on the card, then drives six paths through
-``TorchSession()``, each query with the launch counters set to 0 just
-before it and read just after:
+K8, K9, K10, K10x, K14 (with its ranking pass K14r), K15d, and K11h, K11r
+and K7s (csrc/*.cu, one nvcc each, all started together).  It holds each
+kernel against its plain PyTorch version on the card (phase 2h: the
+exchange's kernels and K9's merge kinds), then drives seven paths
+through ``TorchSession()``, each query with the launch counters set to 0
+just before it and read just after:
 
 - bench.py's recipe -- filter(w > t), project k+1, v*2.0 and
   murmur3(k, w), sum all three, collect -- on 128M rows in 4 partitions,
@@ -36,12 +37,18 @@ before it and read just after:
   key i_category), q28 (six global aggregates with count(DISTINCT),
   cross-joined: K10x) and q36 (rank() over a rollup's parents: K14r, a
   CASE WHEN string view in K6, a sort by expressions) over the same
-  tables, checked and timed alike.
+  tables, checked and timed alike;
+- phase 10: q3, q1, q7, q12, q16, q17 without its item conjunct and q18
+  over the same tables cut into ``--parts`` partitions (the JAX package's
+  register_tables rule): every group-by, join, sort and window behind a
+  hash or range exchange (K11h, K11r, K7s), PARTIAL/FINAL group-bys
+  through K9's merge kinds, each query's rows held against its
+  one-partition run and numpy, timed and profiled alike.
 
-The CPU run of q3 to q18 is held against a card run over tables at a
-tenth of the scale (sf 100), to keep the script inside its time; q6, q28
-and q36 are held against the CPU run at full size.  Each phase prints
-its seconds.
+The CPU run of each query of phases 4 to 9 is held against a card run
+over tables at a tenth of the scale (sf 100), to keep the script inside
+its time (q6, q28 and q36 were held against it at full size up to PR
+7).  Each phase prints its seconds.
 
 Every check that fails ends the run with a non-zero exit.  The last two
 lines of standard output are a JSON object describing each kernel on
@@ -66,10 +73,10 @@ import numpy as np
 
 INT64_MAX = 2 ** 63 - 1
 #: the CUDA sources of the kernels (kernel 2, K7, K8, K9, K10, K14 and
-#: its ranking pass K14r, K15d, K7c, K10x)
+#: its ranking pass K14r, K15d, K7c, K10x, and K11h, K11r and K7s)
 CUDA_SOURCES = ("global_reduce.cu", "gather.cu", "sort.cu", "keyed_agg.cu",
                 "hash_join.cu", "window.cu", "distinct.cu", "concat.cu",
-                "cross_join.cu")
+                "cross_join.cu", "partition.cu")
 #: the TPC-DS kernels: name, route, source, the JAX program each replaces
 TPCDS_KERNELS = {
     "K1": ("fused_agg_update", "triton",
@@ -104,6 +111,14 @@ TPCDS_KERNELS = {
     "K15d": ("count_distinct", "cuda",
              "spark_rapids_tpu_torch/csrc/distinct.cu",
              "spark_rapids_tpu/ops/agg_ops.py:550"),
+    "K11h": ("hash_partition", "cuda",
+             "spark_rapids_tpu_torch/csrc/partition.cu",
+             "spark_rapids_tpu/plan/partitioning.py:77"),
+    "K11r": ("range_partition", "cuda",
+             "spark_rapids_tpu_torch/csrc/partition.cu",
+             "spark_rapids_tpu/plan/partitioning.py:186"),
+    "K7s": ("split", "cuda", "spark_rapids_tpu_torch/csrc/partition.cu",
+            "spark_rapids_tpu/ops/batch_ops.py:71"),
 }
 #: each TPC-DS kernel's launch counter: module and attribute
 COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
@@ -118,7 +133,10 @@ COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
             "K14": ("ops.window_ops", "LAUNCHES"),
             "K14r": ("ops.window_ops", "RANK_LAUNCHES"),
             "K10x": ("ops.join_ops", "CROSS_LAUNCHES"),
-            "K15d": ("ops.agg_ops", "DISTINCT_LAUNCHES")}
+            "K15d": ("ops.agg_ops", "DISTINCT_LAUNCHES"),
+            "K11h": ("ops.partition_ops", "HASH_LAUNCHES"),
+            "K11r": ("ops.partition_ops", "RANGE_LAUNCHES"),
+            "K7s": ("ops.partition_ops", "SPLIT_LAUNCHES")}
 #: the kernels each query's main path launches
 QUERY_KERNELS = {"q3": ("K5", "K7", "K8", "K9", "K10"),
                  "q1": ("K5", "K6", "K7", "K8", "K9", "K10"),
@@ -138,6 +156,19 @@ QUERY_KERNELS = {"q3": ("K5", "K7", "K8", "K9", "K10"),
                  "q28": ("K1", "K3", "K5", "K7", "K10x", "K15d"),
                  "q36": ("K5", "K6", "K7", "K7c", "K8", "K9", "K10",
                          "K14r")}
+#: phase 10: the queries run over tables at 4 partitions, and the kernels
+#: each launches beside its one-partition ones (q16 sorts its one-row
+#: global aggregate: no range exchange)
+PARTS_QUERIES = ("q3", "q1", "q7", "q12", "q16", "q17v", "q18")
+PARTS_KERNELS = {"q16": ("K7c", "K11h", "K7s")}
+PARTS_DEFAULT_KERNELS = ("K7c", "K11h", "K11r", "K7s")
+#: the histogram the exchange's one read brings to the host (exec/
+#: exchange.py:658) beside the partition ids
+HISTOGRAM_REPLACES = ["spark_rapids_tpu/exec/exchange.py:658"]
+#: the JAX programs K9's merge kinds, with K7c and K6, replace
+#: (fused.agg_merge_final, K3b, and the merge specs with the Chan merge)
+MERGE_REPLACES = ["spark_rapids_tpu/exec/fused.py:468",
+                  "spark_rapids_tpu/ops/agg_ops.py:466"]
 #: the JAX programs K10's and K7's left outer mode replaces (on q1)
 OUTER_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:275",
                   "spark_rapids_tpu/ops/join_ops.py:313",
@@ -167,8 +198,11 @@ F64_SUM_RTOL = 1e-10
 #: sum by a few units in the last place; M2_RTOL of m2 covers the rest
 M2_RTOL = 1e-9
 M2_MEAN_RTOL = 1e-12
-#: timed queries of each TPC-DS query after its main path's run
-TPCDS_REPS = 10
+#: timed queries of each TPC-DS query after its main path's run (10 up to
+#: PR 7; 5 since phase 10 came in, to keep the run inside its time)
+TPCDS_REPS = 5
+#: timed queries of each phase-10 query
+PARTS_REPS = 3
 
 
 def check(ok: bool, what: str) -> None:
@@ -1584,6 +1618,210 @@ def check_slice7(session, rng, rate: float):
     return err, timed
 
 
+#: rows of phase 2h's hash and range checks
+SLICE8_ROWS = 1_000_000
+
+
+def slice8_keys(session, rng, n: int):
+    """Phase 2h's key columns of every type K11h hashes, ``n`` rows: int,
+    date, long, double (NaN, -0.0, infinities), bool, float32 (raw planes)
+    and strings (empty to 40 bytes, bytes of 0x80 and above), each with
+    nulls."""
+    import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops.partition_ops import HashColumn
+    dev = session.device
+
+    def valid():
+        return torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    d = rng.choice(np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 1.5,
+                             -2.25]), n)
+    d[::3] = rng.standard_normal(len(d[::3]))
+    base = rng.integers(0, 256, (64, 40)).astype(np.uint8)
+    s = session.transfers.upload_column(string_keys(rng, n, base, 0.1))
+    return [
+        DeviceColumn(torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n)
+                                      .astype(np.int32)).to(dev), valid(),
+                     T.INT),
+        DeviceColumn(torch.from_numpy(rng.integers(-30000, 30000, n)
+                                      .astype(np.int32)).to(dev), valid(),
+                     T.DATE),
+        DeviceColumn(torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n))
+                     .to(dev), valid(), T.LONG),
+        DeviceColumn(torch.from_numpy(d).to(dev), valid(), T.DOUBLE),
+        DeviceColumn(torch.from_numpy(rng.random(n) < 0.5).to(dev), valid(),
+                     T.BOOLEAN),
+        HashColumn(torch.from_numpy(d.astype(np.float32)).to(dev), valid(),
+                   None),
+        s]
+
+
+def check_slice8(session, rng, rate: float):
+    """Phase 2h: K11h (1M rows, one to three keys of each type, n = 1, 2,
+    3, 7, 200, 1024), K11r (the same rows against 3 and 199 bounds,
+    ascending and descending, nulls first and last), K7s (a mixed batch at
+    n = 4 and 200, at 0, 1, 1000 and 2**20 + 3 rows) and K9's merge kinds
+    (four partials of 1M groups; one group of 2**20 + 3 partial rows)
+    against their plain versions: ids, histograms and offsets equal, the
+    merged doubles within M2_RTOL.  Then each timed at one shape.  Returns
+    the max |d| of each and the timings."""
+    import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    from spark_rapids_tpu_torch.ops import batch_ops as BO
+    from spark_rapids_tpu_torch.ops import partition_ops as PO
+    from spark_rapids_tpu_torch.ops.sort_ops import (SortOrder,
+                                                     order_words_plain,
+                                                     sort_permutation)
+    tr, dev = session.transfers, session.device
+    err = {k: 0.0 for k in ("K11h", "K11r", "K7s", "K9")}
+    timed = {}
+    n = SLICE8_ROWS
+    keys = slice8_keys(session, rng, n)
+    strings = [keys[-1]]
+    combos = [[j] for j in range(len(keys))] + [[0, 6], [3, 2, 6],
+                                                [4, 1, 5]]
+    for combo in combos:
+        ks = [keys[j] for j in combo]
+        for parts in (1, 2, 3, 7, 200, 1024):
+            for wide in (False, True):
+                as_long = [wide] * len(ks)
+                got = PO.hash_partition(ks, parts, strings, as_long)
+                torch.cuda.synchronize()
+                ref = PO.hash_partition_plain(ks, parts, strings, as_long)
+                what = f"K11h, keys {combo}, n = {parts}"
+                err["K11h"] = max(err["K11h"],
+                                  same_indices(got[0], ref[0], what),
+                                  same_indices(got[1], ref[1],
+                                               f"{what}: histogram"))
+    # K11r: bounds picked from a sorted sample of the same rows
+    for combo in ([2], [3], [6], [0, 3], [6, 2]):
+        ks = [keys[j] for j in combo]
+        for asc, nf in ((True, True), (True, False), (False, True),
+                        (False, False)):
+            orders = [(asc, nf)] * len(ks)
+            for nb in (3, 199):
+                pick = torch.from_numpy(rng.choice(n, 8 * nb)).to(dev)
+                sample = BO.gather_columns(ks, pick, tr)
+                perm = sort_permutation(
+                    sample, [SortOrder(j, asc, nf) for j in range(len(ks))],
+                    tr)
+                at = perm[torch.arange(1, nb + 1, device=dev) * 8 - 1]
+                bounds = BO.gather_columns(sample, at, tr, unique=True)
+                got = PO.range_partition(ks, bounds, orders, nb + 1,
+                                         strings)
+                torch.cuda.synchronize()
+                ref = PO.range_partition_plain(ks, bounds, orders, nb + 1,
+                                               strings)
+                what = f"K11r, keys {combo}, {nb} bounds, asc {asc}, " \
+                    f"nulls first {nf}"
+                err["K11r"] = max(err["K11r"],
+                                  same_indices(got[0], ref[0], what),
+                                  same_indices(got[1], ref[1],
+                                               f"{what}: histogram"))
+    # K7s on a mixed batch, at 4 and 200 partitions
+    for rows in SLICE3_SIZES:
+        b = mixed_batch(session, rng, rows)
+        bs = [c for c in b.columns if c.is_string]
+        for parts in (4, 200):
+            pids, counts = PO.hash_partition([b.columns[1]], parts, bs)
+            host = tr.read_counts(counts)
+            chars = [host[(1 + j) * parts:(2 + j) * parts]
+                     for j in range(len(bs))]
+            got = PO.split_columns(b.columns, pids, host[:parts], chars, tr)
+            torch.cuda.synchronize()
+            ref = PO.split_columns_plain(b.columns, pids, host[:parts],
+                                         chars, tr)
+            for p, (g, r) in enumerate(zip(got, ref)):
+                err["K7s"] = max(err["K7s"], same_columns(
+                    g, r, f"K7s, {rows} rows, {parts} partitions, "
+                          f"partition {p}"))
+    # K9's merge kinds: four partials of 1M groups, one group of 2**20 + 3
+    for rows, groups in ((4 * SLICE8_ROWS, SLICE8_ROWS),
+                         (SLICE3_SIZES[-1], 1)):
+        g = torch.from_numpy(rng.permutation(np.arange(rows) % groups)).to(
+            dev)
+        cnt = torch.from_numpy(rng.integers(0, 40, rows).astype(
+            np.float64)).to(dev)
+        ones = torch.ones(rows, dtype=torch.bool, device=dev)
+        mean = DeviceColumn(torch.from_numpy(rng.normal(1e3, 5.0, rows)).to(
+            dev), cnt > 0, T.DOUBLE)
+        n_col = DeviceColumn(cnt, ones, T.DOUBLE, True)
+        m2 = DeviceColumn(torch.from_numpy(rng.random(rows) * 50.0).to(dev),
+                          ones, T.DOUBLE, True)
+        total = DeviceColumn(torch.from_numpy(rng.normal(0, 1e6, rows)).to(
+            dev), torch.from_numpy(rng.random(rows) > 0.1).to(dev),
+            T.DOUBLE)
+        counts_ = DeviceColumn(cnt.long(), ones, T.LONG, True)
+        args = ([DeviceColumn(g, ones, T.LONG, True)],
+                [total, counts_, n_col, mean, m2],
+                [G.KEYED_SUM_F64, G.KEYED_SUM_I64, G.KEYED_SUM_F64,
+                 G.KEYED_CHAN_MEAN, G.KEYED_CHAN_M2], tr)
+        kw = {"aux": [None, None, None, (n_col, mean), (n_col, mean)]}
+        got = G.keyed_aggregate(*args, **kw)
+        torch.cuda.synchronize()
+        ref = G.keyed_aggregate_plain(*args, **kw)
+        what = f"K9 merge kinds, {rows} partial rows in {groups} groups"
+        err["K9"] = max(err["K9"], same_indices(got[0], ref[0], what))
+        for j, ((gv, gok), (rv, rok)) in enumerate(zip(got[1], ref[1])):
+            check(bool(torch.equal(gok, rok)), f"{what}: validity {j}")
+            if gv.dtype == torch.int64:
+                err["K9"] = max(err["K9"], same_indices(gv, rv, what))
+                continue
+            scale = rv.abs().max().item() if rv.numel() else 0.0
+            d = max_diff(gv, rv)
+            check(d <= M2_RTOL * max(scale, 1.0),
+                  f"{what}: kind {args[2][j]} max |d| {d} vs scale {scale}")
+            err["K9"] = max(err["K9"], d)
+        if groups > 1:
+            timed["merge"] = (
+                time_ms(lambda: G.keyed_aggregate(*args, **kw), 5),
+                time_ms(lambda: G.keyed_aggregate_plain(*args, **kw), 2, 1),
+                (8 * rows + 41 * rows + groups * (8 + 5 * 9)) / rate * 1e3,
+                None)
+    # timings: K11h on one long key, K11r on one long key (one word: the
+    # library is torch.searchsorted), K7s on a fixed-width batch (the
+    # library is a stable argsort and index_select of every plane)
+    long_key = DeviceColumn(keys[2].data, torch.ones(n, dtype=torch.bool,
+                                                     device=dev), T.LONG,
+                            True)
+    timed["K11h"] = (time_ms(lambda: PO.hash_partition([long_key], 200), 20),
+                     time_ms(lambda: PO.hash_partition_plain([long_key], 200),
+                             3, 1),
+                     (8 * n + 4 * n + 8 * 200) / rate * 1e3, None)
+    pick = torch.from_numpy(rng.choice(n, 199, replace=False)).to(dev)
+    bnd = BO.gather_columns([long_key], pick, tr)
+    bnd = BO.gather_columns(bnd, sort_permutation(bnd, [SortOrder(0)], tr),
+                            tr, unique=True)
+    o = [(True, True)]
+    row_word = order_words_plain(long_key, SortOrder(0))[-1]
+    bound_word = order_words_plain(bnd[0], SortOrder(0))[-1]
+    timed["K11r"] = (
+        time_ms(lambda: PO.range_partition([long_key], bnd, o, 200), 20),
+        time_ms(lambda: PO.range_partition_plain([long_key], bnd, o, 200),
+                3, 1),
+        (8 * n + 8 * 199 + 4 * n + 8 * 200) / rate * 1e3,
+        time_ms(lambda: torch.searchsorted(bound_word, row_word), 20))
+    fixed = [c for c in mixed_batch(session, rng, n).columns
+             if not c.is_string]
+    pids, counts = PO.hash_partition([fixed[1]], 4)
+    host = tr.read_counts(counts)
+    planes = [p for c in fixed for p in (c.data, c.validity)]
+
+    def library():
+        perm = torch.argsort(pids, stable=True)
+        return [torch.index_select(p, 0, perm) for p in planes]
+    timed["K7s"] = (
+        time_ms(lambda: PO.split_columns(fixed, pids, host, [], tr), 20),
+        time_ms(lambda: PO.split_columns_plain(fixed, pids, host, [], tr),
+                3, 1),
+        (4 * n + 2 * sum(column_bytes(c) for c in fixed)) / rate * 1e3,
+        time_ms(library, 20))
+    return err, timed
+
+
 def rows_match(expected, actual, what: str) -> None:
     """In order; doubles within 1e-6 relative (the comparator the JAX
     package's TPC-DS oracle uses, rowcompare.val_eq), the rest exact."""
@@ -1618,7 +1856,8 @@ class Recorder:
     def __init__(self, mark: bool = False):
         self.mark = mark
         from spark_rapids_tpu_torch.exec import fused, joins
-        from spark_rapids_tpu_torch.ops import (agg_ops, batch_ops, sort_ops,
+        from spark_rapids_tpu_torch.ops import (agg_ops, batch_ops,
+                                                partition_ops, sort_ops,
                                                 window_ops)
         self.calls = []
         self._patches = [
@@ -1635,7 +1874,10 @@ class Recorder:
             (joins, "join_pairs", "K10"),
             (window_ops, "window_reduce", "K14"),
             (window_ops, "window_rank", "K14r"),
-            (joins, "cross_pairs", "K10x")]
+            (joins, "cross_pairs", "K10x"),
+            (partition_ops, "hash_partition", "K11h"),
+            (partition_ops, "range_partition", "K11r"),
+            (partition_ops, "split_columns", "K7s")]
         self._saved = []
 
     def __enter__(self):
@@ -1702,6 +1944,13 @@ def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
         return same_kernel2(args, got, ref, what)
     if name == "K15d":
         return same_indices(got, ref, f"{what}: distinct counts")
+    if name in ("K11h", "K11r"):
+        return max(same_indices(got[0], ref[0], f"{what}: partition ids"),
+                   same_indices(got[1], ref[1], f"{what}: histogram"))
+    if name == "K7s":
+        check(len(got) == len(ref), f"{what}: partitions")
+        return max([same_columns(g, r, f"{what}, partition {p}")
+                    for p, (g, r) in enumerate(zip(got, ref))] + [0.0])
     if got[1] is None:   # semi and anti: the kept probe rows
         check(ref[1] is None, f"{what}: build rows")
         return same_indices(got[0], ref[0], f"{what}: kept rows")
@@ -1812,6 +2061,7 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
     from spark_rapids_tpu_torch.ops import agg_ops as G
     from spark_rapids_tpu_torch.ops import batch_ops as BO
     from spark_rapids_tpu_torch.ops import join_ops as J
+    from spark_rapids_tpu_torch.ops import partition_ops as PO
     from spark_rapids_tpu_torch.ops import sort_ops as S
     from spark_rapids_tpu_torch.ops import window_ops as W
     tr = session.transfers
@@ -1822,7 +2072,9 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
              "K8": S.sort_permutation_plain,
              "K9": G.keyed_aggregate_plain, "K10": J.join_pairs_plain,
              "K14": W.window_reduce_plain, "K14r": W.window_rank_plain,
-             "K10x": J.cross_pairs_plain}
+             "K10x": J.cross_pairs_plain, "K11h": PO.hash_partition_plain,
+             "K11r": PO.range_partition_plain,
+             "K7s": PO.split_columns_plain}
     kernel = {"K1": FU.fused_agg_update, "K3": G.global_reduce,
               "K15d": G.count_distinct,
               "K5": FU.fused_stage_compact, "K6": FU.fused_project,
@@ -1830,7 +2082,8 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
               "K8": S.sort_permutation,
               "K9": G.keyed_aggregate, "K10": J.join_pairs,
               "K14": W.window_reduce, "K14r": W.window_rank,
-              "K10x": J.cross_pairs}
+              "K10x": J.cross_pairs, "K11h": PO.hash_partition,
+              "K11r": PO.range_partition, "K7s": PO.split_columns}
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "library_ms": 0.0,
                "shapes": [], "max_abs_err": 0.0} for k in kernels}
     for i, (name, args, kw) in enumerate(calls):
@@ -1942,6 +2195,40 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
             o["shapes"].append(f"{n} rows, {len(keys)} partition and "
                                f"{len(order)} order keys, {len(got)} "
                                f"functions: {ms:.4f} ms")
+        elif name in ("K11h", "K11r"):
+            keys = args[0]
+            strings = args[2] if name == "K11h" else args[4]
+            parts = args[1] if name == "K11h" else args[3]
+            n = got[0].shape[0]
+            # the key planes read (and the bounds, and the offsets of the
+            # strings whose chars it counts), the pids and histogram written
+            o["bytes"] += sum(column_bytes(k) for k in keys) + 4 * n + \
+                8 * got[1].numel() + sum(
+                    c.offsets.element_size() * (n + 1) for c in strings)
+            if name == "K11r":
+                o["bytes"] += sum(column_bytes(b) for b in args[1])
+            o["shapes"].append(f"{n} rows, {len(keys)} keys -> {parts} "
+                               f"partitions: {ms:.4f} ms")
+            if name == "K11r" and len(keys) == 1 and keys[0].all_valid \
+                    and not keys[0].is_string:
+                x = S.SortOrder(0, *args[2][0])
+                row_word = S.order_words_plain(keys[0], x)[-1]
+                bound_word = S.order_words_plain(args[1][0], x)[-1]
+
+                def library(r=row_word, b=bound_word):
+                    return torch.searchsorted(b, r)
+        elif name == "K7s":
+            cols, pids = args[0], args[1]
+            n = pids.shape[0]
+            o["bytes"] += 4 * n + 2 * sum(column_bytes(c) for c in cols)
+            o["shapes"].append(f"{len(cols)} columns x {n} rows -> "
+                               f"{len(args[2])} partitions: {ms:.4f} ms")
+            if not any(c.is_string for c in cols):
+                planes = [p for c in cols for p in (c.data, c.validity)]
+
+                def library(planes=planes, pids=pids):
+                    perm = torch.argsort(pids, stable=True)
+                    return [torch.index_select(p, 0, perm) for p in planes]
         elif name == "K10x":
             n_probe, n_build = args[:2]
             o["bytes"] += 16 * n_probe * n_build
@@ -2091,6 +2378,30 @@ TPCDS_ORDER = ("q3", "q1", "q7", "q15", "q12", "q20", "q13", "q19", "q16",
 FULL_CPU_CHECK = ("q6", "q28", "q36")
 
 
+#: each generated column's host form, by the id of its numpy array (the
+#: queries' cuts share the generator's arrays): a string column is encoded
+#: once for every query that reads it, not once per query and run
+_HOST_COLUMNS = {}
+
+
+def host_tables(tables):
+    """A query's tables (the generator's column dicts) as host batches,
+    each column built once (``_HOST_COLUMNS``)."""
+    from spark_rapids_tpu_torch.columnar.batch import (HostColumnarBatch,
+                                                       host_column)
+    out = {}
+    for name, cols in tables.items():
+        built = []
+        for values in cols.values():
+            key = id(values)
+            if key not in _HOST_COLUMNS:
+                # the array is kept with its column, so its id stays its own
+                _HOST_COLUMNS[key] = (values, host_column(values))
+            built.append(_HOST_COLUMNS[key][1])
+        out[name] = HostColumnarBatch(built, len(built[0]), list(cols))
+    return out
+
+
 def recipe_of(tpcds, name: str):
     """A query's recipe: q20 is q12's over catalog_sales, q17v q17's
     with ``same_item=False``."""
@@ -2102,24 +2413,37 @@ def recipe_of(tpcds, name: str):
 
 
 def run_query(session, query: str, tables, rate: float,
-              full_size: bool = True, cross_tables=None):
-    """Phases 4 to 9: one TPC-DS query over ``tables`` (the generator's
+              full_size: bool = True, cross_tables=None, parts: int = 1,
+              reference=None):
+    """Phases 4 to 10: one TPC-DS query over ``tables`` (the generator's
     output, cut to the query's columns) through TorchSession(); checks it
     against numpy and the CPU run, and times its kernels.  With
     ``cross_tables`` (the same cut of smaller tables) the CPU run is held
-    against a card run over those instead of the full-size one."""
+    against a card run over those instead of the full-size one.  With
+    ``parts`` > 1 (phase 10) the tables are cut into that many partitions
+    (``testing/tpcds.py partitioned_frames``) and the rows are held
+    against ``reference``, the one-partition card run's rows and numpy's.
+    Returns the launches, the kernels' timings and the rows."""
     import torch
-    from spark_rapids_tpu_torch import TorchSession
     from spark_rapids_tpu_torch.exec.stage_compiler import stats as kstats
     from spark_rapids_tpu_torch.testing import tpcds
     recipe_name, names, fact = QUERIES[query]
     recipe = recipe_of(tpcds, query)
     numpy_kw = QUERY_KW.get(query, {})
 
-    def numpy_query(t):
-        return getattr(tpcds, f"{recipe_name}_numpy")(t, **numpy_kw)
+    raw = tables
+
+    def numpy_query():
+        return getattr(tpcds, f"{recipe_name}_numpy")(raw, **numpy_kw)
     rows = {t: len(next(iter(tables[t].values()))) for t in names}
-    dfs = [session.create_dataframe(tables[t]) for t in names]
+    t_tables = time.perf_counter()
+    tables = host_tables({t: tables[t] for t in names})
+    t_tables = time.perf_counter() - t_tables
+    torch.cuda.reset_peak_memory_stats()
+    label = query if parts == 1 else f"{query} at {parts} partitions"
+    dfs = tpcds.partitioned_frames(session, tables, names, parts) \
+        if parts > 1 else [session.create_dataframe(tables[t])
+                           for t in names]
 
     def run():
         return recipe(*dfs)[0].collect()
@@ -2129,7 +2453,7 @@ def run_query(session, query: str, tables, rate: float,
     device_bytes = sum(column_bytes(c) for df in dfs for part in
                        df._plan.device_cache[str(session.device)]
                        for b in part for c in b.columns)
-    print(f"{query}: rows {rows}; {device_bytes} B of device columns; "
+    print(f"{label}: rows {rows}; {device_bytes} B of device columns; "
           f"first action (upload, builds, query) {first_s:.3f} s")
 
     counters = [(*counter_of(k), k) for k in COUNTERS]
@@ -2141,19 +2465,22 @@ def run_query(session, query: str, tables, rate: float,
     main_s = time.perf_counter() - t0
     launched = {k: getattr(mod, attr) for mod, attr, k in counters}
     # the kernels the query must launch, and any other it did launch
-    kernels = QUERY_KERNELS[query] + tuple(
-        k for k in COUNTERS if k not in QUERY_KERNELS[query] and launched[k])
+    required = QUERY_KERNELS[query] + (() if parts == 1 else tuple(
+        k for k in PARTS_KERNELS.get(query, PARTS_DEFAULT_KERNELS)
+        if k not in QUERY_KERNELS[query]))
+    kernels = required + tuple(
+        k for k in COUNTERS if k not in required and launched[k])
     launches = {k: launched[k] for k in kernels}
     tr1, ks1 = session.transfers.stats(), kstats()
     syncs = tr1["syncs"] - tr0["syncs"]
     builds = ks1["builds"] - ks0["builds"]
-    print(f"{query} main path: {main_s * 1e3:.3f} ms, {len(result)} rows, "
+    print(f"{label} main path: {main_s * 1e3:.3f} ms, {len(result)} rows, "
           f"launches {launches}, transfers "
           f"{({k: tr1[k] - tr0[k] for k in tr1})}, builds {builds}")
     for k, n in launches.items():
-        check(n > 0, f"{query} launched {k}: {launches}")
-    check(builds == 0, f"a repeated {query} builds nothing")
-    check(result == first, f"a repeated {query} gives the same rows")
+        check(n > 0, f"{label} launched {k}: {launches}")
+    check(builds == 0, f"a repeated {label} builds nothing")
+    check(result == first, f"a repeated {label} gives the same rows")
     want = QUERY_ROWS[query]
     if want is None:
         pass   # numpy says how many
@@ -2164,17 +2491,80 @@ def run_query(session, query: str, tables, rate: float,
         check(len(result) == want, f"{query} gives {want} rows: "
               f"{len(result)}")
 
+    stage = {"host tables": t_tables,
+             "first and main": time.perf_counter() - t0 + first_s}
+    t_stage = time.perf_counter()
+    reps = TPCDS_REPS if parts == 1 else PARTS_REPS
     times = []
-    for _ in range(TPCDS_REPS):
+    for _ in range(reps):
         t0 = time.perf_counter()
         run()
         times.append(time.perf_counter() - t0)
     best, median = min(times), float(np.median(times))
 
-    rows_match(numpy_query(tables), result, f"{query} vs numpy")
+    if reference is not None:
+        rows_match(reference["numpy"], result, f"{label} vs numpy")
+        rows_match(reference["rows"], result,
+                   f"{label} vs its one-partition card run")
+        print(f"{label} matches numpy and the one-partition card run; "
+              f"first rows {result[:2]}")
+        numpy_rows = reference["numpy"]
+    else:
+        numpy_rows = check_against_cpu(query, recipe, names, tables,
+                                       cross_tables, session, result,
+                                       numpy_query)
+    stage["timed runs and checks"] = time.perf_counter() - t_stage
+    t_stage = time.perf_counter()
+    device_ms = profile_query(label, run, kernels)
+    stage["profile"] = time.perf_counter() - t_stage
+    t_stage = time.perf_counter()
+    with Recorder() as rec:
+        run()
+    recorded = {k: sum(c[0] == k for c in rec.calls) for k in kernels}
+    check(recorded == launches, f"every launch of the {label} main path "
+          f"was recorded: {recorded} vs {launches}")
+    if query in STRING_JOIN_QUERIES:
+        from spark_rapids_tpu_torch.ops.join_ops import key_list
+        check(any(k == "K10" and any(c.is_string for c in key_list(a[0]))
+                  for k, a, _kw in rec.calls),
+              f"{query} launched K10 with a string key")
+    timed = time_kernels(session, rec.calls, rate, 5 if parts == 1 else 3,
+                         kernels)
+    stage["kernels vs plain, timed"] = time.perf_counter() - t_stage
+    print(f"{label} seconds by stage: "
+          f"{({k: round(v, 1) for k, v in stage.items()})}")
+    print(f"{label} kernels vs plain on the main path's {len(rec.calls)} "
+          f"calls: pass, max |d| "
+          f"{({k: o['max_abs_err'] for k, o in timed.items()})}")
+    print(f"{label} best of {reps}: {best * 1e3:.3f} ms, median "
+          f"{median * 1e3:.3f} ms, {rows[fact] / best:.6e} {fact} rows/s; "
+          f"{syncs} syncs and {builds} builds per query; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    for k, o in timed.items():
+        o["device_ms"] = device_ms[k]
+        print(f"  {k}: {o['ms']:.4f} ms per query over {launches[k]} "
+              f"launches (per launch: {'; '.join(o['shapes'])}), plain "
+              f"{o['plain_ms']:.4f} ms, bound {o['bound_ms']:.6f} ms "
+              f"({o['bytes']} B), library {o['library_ms']}")
+    kernel_ms = sum(o["ms"] for o in timed.values())
+    print(f"{label} breakdown: kernels {kernel_ms:.4f} ms (each timed "
+          f"alone, syncs inside), rest {best * 1e3 - kernel_ms:.4f} ms of "
+          f"{best * 1e3:.4f} ms")
+    return launches, timed, {"rows": result, "numpy": numpy_rows}
+
+
+def check_against_cpu(query, recipe, names, tables, cross_tables, session,
+                      result, numpy_query):
+    """Phases 4 to 9: the rows against numpy and the CPU run (over
+    ``cross_tables`` against a card run over them where given); returns
+    numpy's rows."""
+    from spark_rapids_tpu_torch import TorchSession
+    numpy_rows = numpy_query()
+    rows_match(numpy_rows, result, f"{query} vs numpy")
     cpu = TorchSession(device="cpu")
     t0 = time.perf_counter()
-    small = tables if cross_tables is None else cross_tables
+    small = tables if cross_tables is None else \
+        host_tables({t: cross_tables[t] for t in names})
     cpu_rows = recipe(*[cpu.create_dataframe(small[t])
                         for t in names])[0].collect()
     cpu_s = time.perf_counter() - t0
@@ -2186,43 +2576,15 @@ def run_query(session, query: str, tables, rate: float,
         f"{len(card_rows)} rows)"
     print(f"{query} matches numpy and the CPU run{scale} ({cpu_s:.1f} s); "
           f"first rows {result[:2]}")
-
-    device_ms = profile_query(query, run, kernels)
-    with Recorder() as rec:
-        run()
-    recorded = {k: sum(c[0] == k for c in rec.calls) for k in kernels}
-    check(recorded == launches, f"every launch of the {query} main path "
-          f"was recorded: {recorded} vs {launches}")
-    if query in STRING_JOIN_QUERIES:
-        from spark_rapids_tpu_torch.ops.join_ops import key_list
-        check(any(k == "K10" and any(c.is_string for c in key_list(a[0]))
-                  for k, a, _kw in rec.calls),
-              f"{query} launched K10 with a string key")
-    timed = time_kernels(session, rec.calls, rate, 10, kernels)
-    print(f"{query} kernels vs plain on the main path's {len(rec.calls)} "
-          f"calls: pass, max |d| "
-          f"{({k: o['max_abs_err'] for k, o in timed.items()})}")
-    print(f"{query} best of {TPCDS_REPS}: {best * 1e3:.3f} ms, median "
-          f"{median * 1e3:.3f} ms, {rows[fact] / best:.6e} {fact} rows/s; "
-          f"{syncs} syncs and {builds} builds per query; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
-    for k, o in timed.items():
-        o["device_ms"] = device_ms[k]
-        print(f"  {k}: {o['ms']:.4f} ms per query over {launches[k]} "
-              f"launches (per launch: {'; '.join(o['shapes'])}), plain "
-              f"{o['plain_ms']:.4f} ms, bound {o['bound_ms']:.6f} ms "
-              f"({o['bytes']} B), library {o['library_ms']}")
-    kernel_ms = sum(o["ms"] for o in timed.values())
-    print(f"{query} breakdown: kernels {kernel_ms:.4f} ms (each timed "
-          f"alone, syncs inside), rest {best * 1e3 - kernel_ms:.4f} ms of "
-          f"{best * 1e3:.4f} ms")
-    return launches, timed
+    return numpy_rows
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=128_000_000)
-    ap.add_argument("--parts", type=int, default=4)
+    ap.add_argument("--parts", type=int, default=4,
+                    help="partitions of the recipe's table and of phase "
+                    "10's TPC-DS tables (bench.py's --parts)")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--sf", type=float, default=1000.0,
                     help="TPC-DS scale of the query phases (store_sales "
@@ -2377,6 +2739,22 @@ def main() -> int:
               "string 16": "16 build x 1000000 probe string keys"}
     for what, (ms_, plain_, bound_, lib_) in slice7_one.items():
         kernel = {"rank": "K14r", "cross": "K10x"}.get(what, "K10")
+        print(f"{kernel} ({shapes[what]}): {ms_:.4f} ms, plain "
+              f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
+
+    # -- phase 2h: the slice-8 kernels against their plain versions ---------
+    t0 = time.perf_counter()
+    errs8, slice8_one = check_slice8(session, rng, rate)
+    print(f"K11h (every key type), K11r, K7s, K9 (merge kinds) vs plain: "
+          f"pass ({time.perf_counter() - t0:.1f} s), max |d| {errs8}")
+    shapes = {"K11h": "1000000 rows, one long key, 200 partitions",
+              "K11r": "1000000 rows, one long key, 199 bounds",
+              "K7s": "1000000 rows of three fixed-width columns, 4 "
+                     "partitions",
+              "merge": "4000000 partial rows (sums, counts, Chan) into "
+                       "1000000 groups"}
+    for what, (ms_, plain_, bound_, lib_) in slice8_one.items():
+        kernel = "K9 merge" if what == "merge" else what
         print(f"{kernel} ({shapes[what]}): {ms_:.4f} ms, plain "
               f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
 
@@ -2559,23 +2937,41 @@ def main() -> int:
     # phase 6: q15, q12 and q20; phase 7: q13, q19 and q16; phase 8: q17
     # (as written and q17v), q10 and q18; phase 9: q6, q28 and q36, over
     # the same tables
-    for q in TPCDS_ORDER:
+    parts_cuts, one_part = {}, {}
+    runs = [(q, 1) for q in TPCDS_ORDER] + [(q, args.parts)
+                                            for q in PARTS_QUERIES]
+    for q, parts in runs:
         q0 = time.perf_counter()
-        launches, timed = run_query(session, q, cuts.pop(q), rate,
-                                    args.sf == 1000, small_cuts.pop(q, None))
-        phase(f"{q} run, checked and timed "
+        if parts == 1:
+            tables_ = cuts.pop(q)
+            if q in PARTS_QUERIES:
+                parts_cuts[q] = tables_
+            launches, timed, got = run_query(
+                session, q, tables_, rate, args.sf == 1000,
+                small_cuts.pop(q, None))
+            one_part[q] = got
+            del tables_
+        else:
+            # phase 10: the query over tables cut into partitions
+            launches, timed, _got = run_query(
+                session, q, parts_cuts.pop(q), rate, args.sf == 1000,
+                parts=parts, reference=one_part[q])
+        where = "" if parts == 1 else f" at {parts} partitions"
+        phase(f"{q}{where} run, checked and timed "
               f"({time.perf_counter() - q0:.1f} s)")
         for k in launches:
             name_, route, source, replaces = TPCDS_KERNELS[k]
             o = timed[k]
+            tag = q if parts == 1 else f"{q}.p{parts}"
             entry = {
-                "name": name_ if q == "q3" else f"{name_}.{q}",
-                "path": q, "route": route, "source": source,
+                "name": name_ if tag == "q3" else f"{name_}.{tag}",
+                "path": q if parts == 1 else f"{q} at {parts} partitions",
+                "route": route, "source": source,
                 "replaces": replaces, "launches": launches[k],
                 "max_abs_err": max(errs.get(k, 0.0), errs3.get(k, 0.0),
                                    errs4.get(k, 0.0), errs5.get(k, 0.0),
                                    errs6.get(k, 0.0), errs7.get(k, 0.0),
-                                   o["max_abs_err"]),
+                                   errs8.get(k, 0.0), o["max_abs_err"]),
                 "ms": o["ms"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound_ms"], "bound_by": "bytes",
                 "library_ms": o["library_ms"], "device_ms": o["device_ms"],
@@ -2618,6 +3014,20 @@ def main() -> int:
                     entry[f"{key}_ms"] = ms_
                     entry[f"{key}_plain_ms"] = plain_
                     entry[f"{key}_bound_ms"] = bound_
+            if k in ("K11h", "K11r", "K7s"):
+                if k != "K7s":
+                    entry["also_replaces"] = HISTOGRAM_REPLACES
+                ms_, plain_, bound_, lib_ = slice8_one[k]
+                entry["phase_2h_ms"] = ms_
+                entry["phase_2h_plain_ms"] = plain_
+                entry["phase_2h_bound_ms"] = bound_
+                entry["phase_2h_library_ms"] = lib_
+            if parts > 1 and k == "K9":
+                entry["also_replaces"] = MERGE_REPLACES
+                ms_, plain_, bound_, _lib = slice8_one["merge"]
+                entry["merge_ms"] = ms_
+                entry["merge_plain_ms"] = plain_
+                entry["merge_bound_ms"] = bound_
             if k in ("K14r", "K10x"):
                 what = "rank" if k == "K14r" else "cross"
                 if k == "K14r":

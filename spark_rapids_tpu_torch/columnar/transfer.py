@@ -7,7 +7,7 @@ copied with ``non_blocking=True`` on the current stream, and a download
 ends in exactly one blocking sync.  A string column moves as its offsets
 and chars planes.  ``read_counts`` is the one way a size computed on the
 device reaches the host (a join's pair count, a compaction's survivors, a
-gather's chars total): one D2H copy of a few words and one sync, so every
+gather's chars total, an exchange's histogram): one D2H copy of a few words and one sync, so every
 such wait is counted.  The JAX package's one-buffer transfers
 (``upload_host_batch`` grouping planes by width into at most four uploads,
 ``_pack_planes`` packing results and the row count into one uint32 buffer)
@@ -16,7 +16,7 @@ work around a slow TPU host link and get no kernel here."""
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Union
 
 import numpy as np
 import torch
@@ -92,10 +92,16 @@ class TransferGateway:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
 
-    def read_counts(self, counts: Sequence[torch.Tensor]) -> List[int]:
-        """Sizes computed on the device, as host ints: each a one-element
-        integer tensor; one D2H copy and one sync for all of them."""
-        words = torch.stack([c.reshape(()).to(torch.int64) for c in counts])
+    def read_counts(self, counts: Union[torch.Tensor,
+                                        Sequence[torch.Tensor]]) -> List[int]:
+        """Sizes computed on the device, as host ints: a 1-D integer tensor
+        (an exchange's histogram) or a sequence of one-element integer
+        tensors; one D2H copy and one sync for all of them."""
+        if isinstance(counts, torch.Tensor):
+            words = counts.reshape(-1).to(torch.int64)
+        else:
+            words = torch.stack([c.reshape(()).to(torch.int64)
+                                 for c in counts])
         host = self._to_host_async(words)
         self.sync()
         return [int(x) for x in host.tolist()]

@@ -9,7 +9,7 @@
 // Keys: up to 8 columns of int, date, long, double or string (keys.cuh);
 // a null is a value of its own, so nulls form their own group, and a
 // double key groups -0.0 with 0.0 and every NaN together.
-// Aggregates: up to 16 of long sum (int or long input, wrapping), double
+// Aggregates: up to 32 of long sum (int or long input, wrapping), double
 // sum (of a double input, or of an int or long one converted row by row:
 // an average's sum), count of valid inputs, count of rows, and m2 (the
 // variance family's sum of squared deviations from the group's mean over
@@ -17,6 +17,15 @@
 // mean first, then the squares, two passes over the group's rows, so a
 // large mean costs no precision as a one-pass form would; 0 for a group
 // with no present value, valid as the JAX package's buffer is).
+// Merge kinds (a FINAL aggregate over partial buffers, the JAX package's
+// merge specs, ops/agg_ops.py:340, and fused.agg_merge_final,
+// exec/fused.py:468): sums of sums and of counts are the sum kinds over
+// buffer columns; the joint Chan merge of (n, mean, m2) triples
+// (ops/agg_ops.py:466-487) is two kinds over the triple's columns (aux_n
+// and aux_mean beside the kind's own): over the rows whose n is present,
+// n = sum n_i, mean = sum n_i mean_i / n (0 when n is 0), m2 = sum (m2_i +
+// n_i (mean_i - mean)^2), the mean first and then the sum, in row order;
+// both always valid, as the JAX package writes them.
 //
 // Steps (srt_agg_groups, then the host reads the group count -- the one
 // sync -- then srt_agg_reduce):
@@ -48,11 +57,12 @@ namespace {
 using srt::Keys;
 using srt::kThreads;
 
-constexpr int kMaxAggs = 16;
+constexpr int kMaxAggs = 32;
 constexpr long long kEmpty = -1;
 
 enum AggKind : int32_t { kSumI64 = 0, kSumF64 = 1, kCount = 2,
-                         kCountAll = 3, kM2 = 4 };
+                         kCountAll = 3, kM2 = 4, kChanMean = 5,
+                         kChanM2 = 6 };
 enum InType : int32_t { kInInt32 = 0, kInInt64 = 1, kInFloat64 = 2 };
 
 struct Aggs {
@@ -63,6 +73,11 @@ struct Aggs {
   const uint8_t* valid[kMaxAggs];
   void* out[kMaxAggs];
   uint8_t* out_valid[kMaxAggs];
+  // a Chan merge kind's n and mean columns (doubles)
+  const double* aux_n[kMaxAggs];
+  const uint8_t* aux_n_valid[kMaxAggs];
+  const double* aux_mean[kMaxAggs];
+  const uint8_t* aux_mean_valid[kMaxAggs];
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -180,6 +195,42 @@ __device__ double agg_m2(const Aggs& a, int j, int64_t lo, int64_t hi,
   return m2;
 }
 
+// the Chan merge of aggregate j over the group's rows perm[lo..hi): its
+// mean, or its m2
+__device__ double agg_chan(const Aggs& a, int j, int64_t lo, int64_t hi,
+                           const long long* __restrict__ perm) {
+  double tot = 0.0, wsum = 0.0;
+  for (int64_t p = lo; p < hi; ++p) {
+    const long long r = perm[p];
+    if (a.aux_n_valid[j] != nullptr && a.aux_n_valid[j][r] == 0) continue;
+    const double ni = a.aux_n[j][r];
+    const double mi = a.aux_mean_valid[j] == nullptr ||
+                              a.aux_mean_valid[j][r] != 0
+                          ? a.aux_mean[j][r]
+                          : 0.0;
+    tot += ni;
+    wsum += ni * mi;
+  }
+  const double mean = tot > 0.0 ? wsum / tot : 0.0;
+  if (a.kind[j] == kChanMean) return mean;
+  double m2 = 0.0;
+  for (int64_t p = lo; p < hi; ++p) {
+    const long long r = perm[p];
+    if (a.aux_n_valid[j] != nullptr && a.aux_n_valid[j][r] == 0) continue;
+    const double ni = a.aux_n[j][r];
+    const double mi = a.aux_mean_valid[j] == nullptr ||
+                              a.aux_mean_valid[j][r] != 0
+                          ? a.aux_mean[j][r]
+                          : 0.0;
+    const double m2i = agg_present(a, j, r)
+                           ? static_cast<const double*>(a.data[j])[r]
+                           : 0.0;
+    const double d = mi - mean;
+    m2 += m2i + ni * d * d;
+  }
+  return m2;
+}
+
 __global__ void __launch_bounds__(kThreads)
     agg_fold(Aggs a, int64_t n_groups, const int64_t* __restrict__ seg,
              const long long* __restrict__ perm) {
@@ -193,6 +244,11 @@ __global__ void __launch_bounds__(kThreads)
       const int kind = a.kind[j];
       if (kind == kM2) {
         static_cast<double*>(a.out[j])[g] = agg_m2(a, j, lo, hi, perm);
+        a.out_valid[j][g] = 1;
+        continue;
+      }
+      if (kind == kChanMean || kind == kChanM2) {
+        static_cast<double*>(a.out[j])[g] = agg_chan(a, j, lo, hi, perm);
         a.out_valid[j][g] = 1;
         continue;
       }
@@ -269,7 +325,9 @@ extern "C" int srt_agg_groups(int32_t n_keys, const int32_t* type,
 }
 
 // Outputs: group_rep (n_groups int64), gid (n u64: each row's group), each
-// aggregate's out (n_groups words) and out_valid (n_groups bytes).
+// aggregate's out (n_groups words) and out_valid (n_groups bytes).  A Chan
+// merge kind reads aux_n[j] and aux_mean[j] (doubles, with their validity:
+// null for none) beside data[j]; other kinds leave them null.
 // Scratch:
 // group_count (n_groups int64), seg (n_groups + 1), perm and perm_tmp (n),
 // hist (256 * ceil(n / 256) int32), digit_total (256), tile_scratch
@@ -277,7 +335,11 @@ extern "C" int srt_agg_groups(int32_t n_keys, const int32_t* type,
 extern "C" int srt_agg_reduce(int32_t n_aggs, const int32_t* kind,
                               const int32_t* in_type, const void* const* data,
                               const void* const* valid, void* const* out,
-                              void* const* out_valid, int64_t n,
+                              void* const* out_valid,
+                              const void* const* aux_n,
+                              const void* const* aux_n_valid,
+                              const void* const* aux_mean,
+                              const void* const* aux_mean_valid, int64_t n,
                               int64_t n_groups, const void* slot_of,
                               const void* rep, const void* rank, void* gid,
                               void* group_rep, void* group_count, void* seg,
@@ -291,8 +353,17 @@ extern "C" int srt_agg_reduce(int32_t n_aggs, const int32_t* kind,
   Aggs a;
   a.n = n_aggs;
   for (int j = 0; j < n_aggs; ++j) {
-    if (kind[j] < kSumI64 || kind[j] > kM2)
+    if (kind[j] < kSumI64 || kind[j] > kChanM2)
       return static_cast<int>(cudaErrorInvalidValue);
+    const bool chan = kind[j] == kChanMean || kind[j] == kChanM2;
+    if (chan && (aux_n[j] == nullptr || aux_mean[j] == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.aux_n[j] = chan ? static_cast<const double*>(aux_n[j]) : nullptr;
+    a.aux_n_valid[j] =
+        chan ? static_cast<const uint8_t*>(aux_n_valid[j]) : nullptr;
+    a.aux_mean[j] = chan ? static_cast<const double*>(aux_mean[j]) : nullptr;
+    a.aux_mean_valid[j] =
+        chan ? static_cast<const uint8_t*>(aux_mean_valid[j]) : nullptr;
     a.kind[j] = kind[j];
     a.in_type[j] = in_type[j];
     a.data[j] = data[j];

@@ -7,7 +7,7 @@ partitions' partial rows, merges them with kernel 2 under the merge kinds,
 and evaluates the final projection, as ``TpuHashAggregateExec(FINAL)``
 does through ``merge_partials_out_of_core`` (``:173``).
 
-``TorchKeyedAggregateExec`` is a COMPLETE group-by over one partition: K9
+``TorchKeyedAggregateExec`` is a group-by per partition: K9
 (``ops/agg_ops.py keyed_aggregate``) groups the rows and folds sum, count
 and m2 per group, writing each aggregate's result and its validity (a sum
 of no present value is null, as Spark has it), and K7 gathers the key
@@ -15,7 +15,9 @@ columns from each group's first row.  An average folds a double sum and a
 count, the variance family a count and m2, and K6 (exec/fused.py)
 evaluates their final expressions over the groups.  Groups come out in
 order of first appearance.  The batches of one partition (an Expand's)
-are concatenated first (K7c)."""
+are concatenated first (K7c).  Over several partitions it runs PARTIAL
+(the buffers, unfinished), then, behind a hash exchange on the keys,
+FINAL (K9's merge kinds over the buffers, then the finish)."""
 
 from __future__ import annotations
 
@@ -193,7 +195,7 @@ def _column_of(e) -> int:
     return e.ordinal if isinstance(e, BoundReference) else -1
 
 
-def keyed_inputs(layout: _AggLayout):
+def keyed_inputs(layout: _AggLayout, partial: bool = False):
     """``(slots, per_agg)``.  ``slots`` is ``[(input ordinal or None, K9
     kind or DISTINCT, result type)]``, each (input, kind) once, so
     aggregates that fold the same value share a slot (q17's ``count``,
@@ -201,9 +203,10 @@ def keyed_inputs(layout: _AggLayout):
     ``per_agg[i]`` is the slot indices aggregate ``i`` reads: one for a
     sum or a count, a double sum and a count of present values for an
     average, a count and m2 for the variance family, and a K15d count
-    (``DISTINCT``) for a ``count(DISTINCT)``.  Raises
-    NotImplementedError, naming it, for what K9 and K15d cannot fold
-    yet."""
+    (``DISTINCT``) for a ``count(DISTINCT)``.  With ``partial`` (the
+    PARTIAL buffers) a sum also reads a count and the variance family a
+    double sum (its mean's).  Raises NotImplementedError, naming it, for
+    what K9 and K15d cannot fold yet."""
     from spark_rapids_tpu_torch.expressions.aggregates import (
         Average, Count, CountDistinct, Sum, _CentralMoment)
     from spark_rapids_tpu_torch.expressions.base import Literal
@@ -230,6 +233,8 @@ def keyed_inputs(layout: _AggLayout):
         f = a.func
         e = f.children[0]
         if isinstance(f, CountDistinct):
+            if partial:
+                raise ValueError(f"{f.sql()} runs in COMPLETE mode only")
             per_agg.append((slot(distinct_input(f), DISTINCT, T.LONG),))
             continue
         if isinstance(f, Count) and isinstance(e, Literal) and \
@@ -251,12 +256,16 @@ def keyed_inputs(layout: _AggLayout):
                             slot(o, G.KEYED_COUNT, T.LONG)))
         elif isinstance(f, _CentralMoment):
             per_agg.append((slot(o, G.KEYED_COUNT, T.LONG),
-                            slot(o, G.KEYED_M2, T.DOUBLE)))
-        elif f.data_type.is_floating:
-            per_agg.append((slot(o, G.KEYED_SUM_F64, T.DOUBLE),))
+                            slot(o, G.KEYED_M2, T.DOUBLE)) +
+                           ((slot(o, G.KEYED_SUM_F64, T.DOUBLE),)
+                            if partial else ()))
         else:
             # K9 widens int to long itself
-            per_agg.append((slot(o, G.KEYED_SUM_I64, T.LONG),))
+            total = slot(o, G.KEYED_SUM_F64, T.DOUBLE) \
+                if f.data_type.is_floating else \
+                slot(o, G.KEYED_SUM_I64, T.LONG)
+            per_agg.append((total, slot(o, G.KEYED_COUNT, T.LONG))
+                           if partial else (total,))
     if sum(kind != DISTINCT for _o, kind, _dt in slots) > G.MAX_AGGS:
         raise NotImplementedError(
             f"a group-by of more than {G.MAX_AGGS} distinct K9 slots is "
@@ -264,73 +273,157 @@ def keyed_inputs(layout: _AggLayout):
     return slots, per_agg
 
 
-class TorchKeyedAggregateExec(UnaryExec):
-    """COMPLETE group-by over one partition: K9, then K7 for the keys, then,
-    when an aggregate has a final expression (an average's
-    ``If(cnt > 0, sum / cnt, NULL)``, ``stddev_samp``'s
-    ``If(n > 1, sqrt(m2 / (n - 1)), NULL)``), K6 over the group rows, as
-    ``exec/fused.py:653`` runs ``eval_exprs_tpu`` over the merged
-    groups; with none, the results are a selection of K9's slots (no
-    launch).  A ``count(DISTINCT)`` is K15d's over K9's groups (its row
-    group ids), as ``_complete_collect`` (``exec/aggregate.py:510``) zips
-    its collect slots with the scalar ones.  A partition of several
-    batches (an Expand's, one per grouping set) is concatenated first
-    (K7c), as the JAX package's aggregate concatenates its input
-    (``exec/aggregate.py:200``)."""
+#: K9 kind of each merge kind over a buffer column
+_MERGE_KINDS = {"m2_cnt": "sum", "m2_mean": "chan_mean",
+                "m2_m2": "chan_m2"}
 
-    def __init__(self, layout: _AggLayout, child):
-        from spark_rapids_tpu_torch.expressions.aggregates import (
-            Average, _CentralMoment)
-        from spark_rapids_tpu_torch.expressions.cast import Cast
-        from spark_rapids_tpu_torch.exec.fused import (StageProgram,
-                                                       bare_ordinal)
-        super().__init__(child)
-        if child.num_partitions != 1:
+
+def merge_inputs(layout: _AggLayout):
+    """K9's slots of a FINAL group-by over the buffer columns (ordinals
+    ``num_keys + j``): ``[(ordinal, kind, aux)]``, one per buffer in
+    order.  A sum or a count merges as the sum of its buffer column (a
+    count's sum is a sum, not a count); the variance family's triple by
+    the Chan merge, whose ``aux`` is the triple's (count, mean)
+    ordinals."""
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    nk = layout.num_keys
+    out = []
+    for j, (_ai, spec) in enumerate(layout.flat):
+        kind = _MERGE_KINDS.get(spec.merge_kind, spec.merge_kind)
+        if kind == "sum":
+            out.append((nk + j, G.KEYED_SUM_F64 if spec.dtype.is_floating
+                        else G.KEYED_SUM_I64, None))
+        elif kind in ("chan_mean", "chan_m2"):
+            first = j - (1 if kind == "chan_mean" else 2)
+            out.append((nk + j, G.KEYED_CHAN_MEAN if kind == "chan_mean"
+                        else G.KEYED_CHAN_M2, (nk + first, nk + first + 1)))
+        else:
             raise NotImplementedError(
-                "a group-by over several partitions is not in the port yet")
-        self.layout = layout
-        self.inputs, per_agg = keyed_inputs(layout)
-        nk = layout.num_keys
-        # the batch K9 and K7 give: keys, then one column per slot
-        fields = [T.StructField(layout.key_name(i),
-                                layout.grouping[i].data_type, True)
-                  for i in range(nk)]
-        fields += [T.StructField(f"_k9_{j}", dt, True)
-                   for j, (_o, _k, dt) in enumerate(self.inputs)]
-        self._folded = T.StructType(fields)
+                f"the merge kind {spec.merge_kind} is not in the port yet")
+    if len(out) > G.MAX_AGGS:
+        raise NotImplementedError(
+            f"a FINAL group-by of more than {G.MAX_AGGS} buffers is not in "
+            "the port yet")
+    return out
 
-        def ref(j: int) -> BoundReference:
-            return BoundReference(nk + j, fields[nk + j].data_type, True)
-        finals: List[Expression] = [
-            Alias(BoundReference(i, f.data_type, True), f.name)
-            for i, f in enumerate(fields[:nk])]
-        for a, js in zip(layout.aggs, per_agg):
-            if isinstance(a.func, Average):
-                final = a.func.evaluate([ref(j) for j in js])
-            elif isinstance(a.func, _CentralMoment):
-                cnt, m2 = (ref(j) for j in js)
-                final = a.func.evaluate([Cast(cnt, T.DOUBLE), None, m2])
-            else:
-                final = ref(js[0])
-            finals.append(Alias(final, a.out_name))
+
+class TorchKeyedAggregateExec(UnaryExec):
+    """A group-by over each partition: K9, then K7 for the keys, then,
+    when an output computes, K6 over the group rows, as
+    ``exec/fused.py:653`` runs ``eval_exprs_tpu`` over the merged groups;
+    when none does, the output is a selection of K9's slots (no launch).
+    The batches of a partition (an Expand's, one per grouping set) are
+    concatenated first (K7c), as the JAX package's aggregate concatenates
+    its input (``exec/aggregate.py:200``).
+
+    - COMPLETE: the results (an average's ``If(cnt > 0, sum / cnt,
+      NULL)``, ``stddev_samp``'s ``If(n > 1, sqrt(m2 / (n - 1)), NULL)``).
+      A ``count(DISTINCT)`` is K15d's over K9's groups (its row group
+      ids), as ``_complete_collect`` (``exec/aggregate.py:510``) zips its
+      collect slots with the scalar ones.
+    - PARTIAL: the buffer layout, unfinished (``_AggLayout.buffer_schema``
+      ``:58``): a sum's sum and count, a count, an average's double sum
+      and count, the variance family's (count, mean, m2) with the count a
+      double and the mean null where it is 0.
+    - FINAL: over a hash exchange of PARTIAL buffers (``merge_partials_
+      out_of_core``'s in-core path, ``:173-226``): K9's merge kinds fold
+      each group's partial rows (sums of sums and counts, the Chan merge
+      of the triples), and K6 evaluates the final expressions; the port
+      of ``fused.agg_merge_final`` (``exec/fused.py:468``, K3b) is the
+      reducer's K7c (the exchange), this K9 and that K6."""
+
+    def __init__(self, layout: _AggLayout, child, mode: str = COMPLETE):
+        from spark_rapids_tpu_torch.exec.fused import StageProgram, \
+            bare_ordinal
+        super().__init__(child)
+        self.layout = layout
+        self.mode = mode
+        if mode == FINAL:
+            self.merges = merge_inputs(layout)
+            folded, outs = self._final_outputs()
+        else:
+            self.inputs, per_agg = keyed_inputs(layout, mode == PARTIAL)
+            folded, outs = self._partial_outputs(per_agg) \
+                if mode == PARTIAL else self._complete_outputs(per_agg)
+        self._folded = folded
         #: the slots the output reads when it computes nothing (a
         #: selection), else K6's program
-        self.picked = [bare_ordinal(e) for e in finals]
+        self.picked = [bare_ordinal(e) for e in outs]
         self.finish = None
         if None in self.picked:
             self.picked = None
-            self.finish = StageProgram([("project", finals)], self._folded,
-                                       0)
+            self.finish = StageProgram([("project", outs)], folded, 0)
+
+    def _slot_fields(self, types):
+        nk = self.layout.num_keys
+        fields = [T.StructField(self.layout.key_name(i),
+                                self.layout.grouping[i].data_type, True)
+                  for i in range(nk)]
+        fields += [T.StructField(f"_k9_{j}", dt, True)
+                   for j, dt in enumerate(types)]
+        refs = [BoundReference(nk + j, dt, True)
+                for j, dt in enumerate(types)]
+        keys = [Alias(BoundReference(i, f.data_type, True), f.name)
+                for i, f in enumerate(fields[:nk])]
+        return T.StructType(fields), refs, keys
+
+    def _complete_outputs(self, per_agg):
+        from spark_rapids_tpu_torch.expressions.aggregates import (
+            Average, _CentralMoment)
+        from spark_rapids_tpu_torch.expressions.cast import Cast
+        folded, ref, outs = self._slot_fields(
+            [dt for _o, _k, dt in self.inputs])
+        for a, js in zip(self.layout.aggs, per_agg):
+            if isinstance(a.func, Average):
+                final = a.func.evaluate([ref[j] for j in js])
+            elif isinstance(a.func, _CentralMoment):
+                cnt, m2 = (ref[j] for j in js)
+                final = a.func.evaluate([Cast(cnt, T.DOUBLE), None, m2])
+            else:
+                final = ref[js[0]]
+            outs.append(Alias(final, a.out_name))
+        return folded, outs
+
+    def _partial_outputs(self, per_agg):
+        """The buffers of ``layout.flat``, in order: a sum's or an
+        average's sum and count, a count, and the variance family's count
+        as a double, its mean (null where the count is 0) and m2."""
+        from spark_rapids_tpu_torch.expressions.aggregates import (
+            Average, _CentralMoment)
+        from spark_rapids_tpu_torch.expressions.cast import Cast
+        folded, ref, outs = self._slot_fields(
+            [dt for _o, _k, dt in self.inputs])
+        buffers = []
+        for a, js in zip(self.layout.aggs, per_agg):
+            if isinstance(a.func, _CentralMoment):
+                cnt, m2, total = (ref[j] for j in js)
+                buffers += [Cast(cnt, T.DOUBLE),
+                            Average(total).evaluate([total, cnt]), m2]
+            else:
+                buffers += [ref[j] for j in js]
+        for j, e in enumerate(buffers):
+            outs.append(Alias(e, self.layout.buffer_name(j)))
+        return folded, outs
+
+    def _final_outputs(self):
+        from spark_rapids_tpu_torch.ops import agg_ops as G
+        bschema = self.layout.buffer_schema
+        types = [bschema.types[o] if kind not in G._KEYED_CHAN else T.DOUBLE
+                 for o, kind, _aux in self.merges]
+        folded, ref, _keys = self._slot_fields(types)
+        return folded, self.layout.final_exprs()
 
     @property
     def schema(self):
-        return self.layout.result_schema
+        return self.layout.buffer_schema if self.mode == PARTIAL \
+            else self.layout.result_schema
 
     def node_string(self):
         keys = ", ".join(self.layout.key_name(i)
                          for i in range(self.layout.num_keys))
         aggs = ", ".join(a.out_name for a in self.layout.aggs)
-        return f"TorchKeyedAggregate[complete, keys=[{keys}], {aggs}]"
+        return (f"TorchKeyedAggregate[{self.mode}, keys=[{keys}], "
+                f"{aggs}]")
 
     def aggregate_batch(self, batch: ColumnarBatch, transfers
                         ) -> ColumnarBatch:
@@ -340,27 +433,45 @@ class TorchKeyedAggregateExec(UnaryExec):
         from spark_rapids_tpu_torch.ops.agg_ops import (count_distinct,
                                                         keyed_aggregate)
         from spark_rapids_tpu_torch.ops.batch_ops import gather_columns
-        keys = [batch.columns[k.ordinal] for k in self.layout.grouping]
-        scalar = [(o, kind) for o, kind, _dt in self.inputs
-                  if kind != DISTINCT]
-        distinct = len(scalar) < len(self.inputs)
-        got = keyed_aggregate(
-            keys, [None if o is None else batch.columns[o]
-                   for o, _kind in scalar],
-            [kind for _o, kind in scalar], transfers, row_groups=distinct)
-        group_rep, results = got[0], iter(got[1])
-        n_groups = group_rep.shape[0]
-        cols = gather_columns(keys, group_rep, transfers, unique=True)
-        for o, kind, dt in self.inputs:
-            if kind != DISTINCT:
-                cols.append(DeviceColumn(*next(results), dt))
-                continue
-            counts = count_distinct(batch.columns[o], got[2], n_groups) \
-                if n_groups else group_rep.new_zeros(0)
-            cols.append(DeviceColumn(counts, torch.ones_like(
-                counts, dtype=torch.bool), dt))
+        nk = self.layout.num_keys
+        if self.mode == FINAL:
+            keys = batch.columns[:nk]
+            got = keyed_aggregate(
+                keys, [batch.columns[o] for o, _k, _a in self.merges],
+                [kind for _o, kind, _a in self.merges], transfers,
+                aux=[None if a is None else tuple(batch.columns[x]
+                                                   for x in a)
+                     for _o, _k, a in self.merges])
+            group_rep, results = got
+            n_groups = group_rep.shape[0]
+            cols = gather_columns(keys, group_rep, transfers, unique=True)
+            cols += [DeviceColumn(v, ok, self._folded.types[nk + j])
+                     for j, (v, ok) in enumerate(results)]
+            folded = ColumnarBatch(cols, n_groups, self._folded.names)
+        else:
+            keys = [batch.columns[k.ordinal] for k in self.layout.grouping]
+            scalar = [(o, kind) for o, kind, _dt in self.inputs
+                      if kind != DISTINCT]
+            distinct = len(scalar) < len(self.inputs)
+            got = keyed_aggregate(
+                keys, [None if o is None else batch.columns[o]
+                       for o, _kind in scalar],
+                [kind for _o, kind in scalar], transfers,
+                row_groups=distinct)
+            group_rep, results = got[0], iter(got[1])
+            n_groups = group_rep.shape[0]
+            cols = gather_columns(keys, group_rep, transfers, unique=True)
+            for o, kind, dt in self.inputs:
+                if kind != DISTINCT:
+                    cols.append(DeviceColumn(*next(results), dt))
+                    continue
+                counts = count_distinct(batch.columns[o], got[2],
+                                        n_groups) \
+                    if n_groups else group_rep.new_zeros(0)
+                cols.append(DeviceColumn(counts, torch.ones_like(
+                    counts, dtype=torch.bool), dt))
+            folded = ColumnarBatch(cols, n_groups, self._folded.names)
         names = self.schema.names
-        folded = ColumnarBatch(cols, n_groups, self._folded.names)
         if self.picked is not None:
             return folded.select(self.picked, names)
         return project_batch(self.finish, folded, LiteralArgs([]), names)

@@ -10,8 +10,10 @@ chain filters, a ``TorchSelectExec``, which picks and renames columns
 with no launch, when it only picks columns, and else a
 ``TorchFusedProjectExec``, which computes its outputs with K6
 (``TpuProjectExec`` over ``eval_exprs_tpu``).  ``TorchLimitExec``
-(``TpuLocalLimitExec``, ``:434``) keeps the first rows of its one
-partition as views.  ``TorchCteCacheExec`` (``TpuCteCacheExec``,
+(``TpuLocalLimitExec``, ``:434``) keeps the first rows of one partition
+as views, and over several partitions streams them in order until it
+has its rows (``TpuGlobalLimitExec``, ``:566``), joined into one batch
+(K7c).  ``TorchCteCacheExec`` (``TpuCteCacheExec``,
 ``:496``) runs a plan that two branches use once per action."""
 
 from __future__ import annotations
@@ -159,23 +161,29 @@ class TorchCteCacheExec(UnaryExec):
 
 
 class TorchLimitExec(UnaryExec):
-    """LIMIT over one partition of one batch: its first rows (views)."""
+    """LIMIT: the first ``n`` rows of the child's partitions, in
+    partition order, as one partition; of one batch, views of it."""
 
     def __init__(self, n: int, child):
         super().__init__(child)
-        if child.num_partitions != 1:
-            raise NotImplementedError(
-                "a limit over several partitions is not in the port yet")
         self.n = n
+
+    @property
+    def num_partitions(self):
+        return 1
 
     def node_string(self):
         return f"TorchLimit[{self.n}]"
 
     def execute(self, ctx: ExecContext) -> Partitions:
-        out = []
-        for part in self.child.execute(ctx):
-            if len(part) > 1:
-                raise NotImplementedError(
-                    "a limit over several batches is not in the port yet")
-            out.append([take_front(b, self.n) for b in part])
-        return out
+        from spark_rapids_tpu_torch.ops.batch_ops import concat_batches
+        parts = self.child.execute(ctx)
+        if len(parts) == 1 and len(parts[0]) <= 1:
+            return [[take_front(b, self.n) for b in parts[0]]]
+        pieces, left = [], self.n
+        for b in (b for part in parts for b in part):
+            if left <= 0:
+                break
+            pieces.append(take_front(b, left))
+            left -= pieces[-1].row_count
+        return [[concat_batches(pieces)] if pieces else []]

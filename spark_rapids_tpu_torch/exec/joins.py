@@ -1,7 +1,13 @@
-"""Inner, left outer, left semi and left anti equi-joins over one
-partition (the analog of ``spark_rapids_tpu/exec/joins.py``:
+"""Inner, left outer, left semi and left anti equi-joins (the analog of
+``spark_rapids_tpu/exec/joins.py``: ``CpuShuffledHashJoinExec`` ``:577``,
 ``TpuShuffledHashJoinExec`` ``:596`` and ``TpuSubPartitionHashJoinExec``
 ``:878``, device core ``_join_device`` ``:389``).
+
+Over several partitions the planner (``session.py join``) hash-exchanges
+both sides on their keys to ``max(l, r)`` partitions, an int key hashed
+as a long where its partner is a long, so equal keys meet in one
+partition; the join then runs once per partition pair, each side one
+batch (K7c joins a partition's batches).
 
 An inner join builds its hash table on the side with fewer rows, as
 Spark's shuffled hash join on the GPU chooses (a TPC-DS star join puts
@@ -35,9 +41,13 @@ side probing, sized on the host with no sync, and K7 gathers both sides;
 its columns are the left ones, then the right ones, and it is empty when
 either side is (q28 joins six one-row aggregates so).
 
+A cross join over several partitions broadcasts its right side: K7c
+joins all its partitions into one batch, which every left partition
+meets (the left side's partitions are the output's).
+
 Refused by name when the plan is built: right and full joins, a condition
-beyond the keys (a cross join's too), keys other than int, date, long or
-string (double keys), and children of several partitions."""
+beyond the keys (a cross join's too), and keys other than int, date,
+long or string (double keys)."""
 
 from __future__ import annotations
 
@@ -106,9 +116,29 @@ def check_join(how: str, left_keys: Sequence[Expression],
                 isinstance(b.data_type, T.StringType):
             raise TypeError(f"the join key {a.sql()} of {a.data_type} "
                             f"cannot meet {b.sql()} of {b.data_type}")
-    if left.num_partitions != 1 or right.num_partitions != 1:
-        raise NotImplementedError(
-            "a join of several partitions is not in the port yet")
+    if left.num_partitions != right.num_partitions:
+        raise ValueError(
+            f"a join of {left.num_partitions} partitions with "
+            f"{right.num_partitions} (the planner exchanges both sides to "
+            "one count)")
+
+
+def hash_as_long(left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression]) -> list:
+    """Per key pair, whether both sides hash the key as a long: an int or
+    date key whose partner is a long, so equal keys land in one partition
+    (the JAX analyzer casts both to the wider type, ``sql/analyzer.py:
+    388-401 _coerce_pair``)."""
+    return [isinstance(a.data_type, T.LongType) !=
+            isinstance(b.data_type, T.LongType)
+            for a, b in zip(left_keys, right_keys)]
+
+
+def _one_batch(part, schema, device) -> ColumnarBatch:
+    """A partition's rows as one batch (K7c joins several)."""
+    from spark_rapids_tpu_torch.ops.batch_ops import (concat_batches,
+                                                      empty_batch)
+    return concat_batches(part) if part else empty_batch(schema, device)
 
 
 def _keys_of(batch: ColumnarBatch, keys: Sequence[BoundReference]):
@@ -118,8 +148,8 @@ def _keys_of(batch: ColumnarBatch, keys: Sequence[BoundReference]):
 
 
 class _JoinExec(Exec):
-    """A join of two one-partition children, each one batch: ``execute``
-    hands the two batches to ``join_batches``."""
+    """A join of two children of one partition count: ``execute`` hands
+    each partition pair, one batch a side, to ``join_batches``."""
 
     def __init__(self, left, right, how: str):
         super().__init__([left, right])
@@ -135,25 +165,26 @@ class _JoinExec(Exec):
 
     @property
     def num_partitions(self):
-        return 1
+        return self.left.num_partitions
 
     @property
     def schema(self):
         return join_schema(self.left.schema, self.right.schema, self.how)
 
-    @staticmethod
-    def _one_batch(parts: Partitions, side: str) -> ColumnarBatch:
-        batches = [b for part in parts for b in part]
-        if len(batches) != 1:
-            raise NotImplementedError(
-                f"a join whose {side} side holds {len(batches)} batches is "
-                "not in the port yet")
-        return batches[0]
+    def right_partitions(self, ctx: ExecContext) -> Partitions:
+        return self.right.execute(ctx)
 
     def execute(self, ctx: ExecContext) -> Partitions:
-        lb = self._one_batch(self.left.execute(ctx), "left")
-        rb = self._one_batch(self.right.execute(ctx), "right")
-        return [[self.join_batches(lb, rb, ctx.transfers)]]
+        lparts = self.left.execute(ctx)
+        rparts = self.right_partitions(ctx)
+        if len(rparts) == 1 < len(lparts):
+            rparts = rparts * len(lparts)
+        out = []
+        for lp, rp in zip(lparts, rparts):
+            lb = _one_batch(lp, self.left.schema, ctx.device)
+            rb = _one_batch(rp, self.right.schema, ctx.device)
+            out.append([self.join_batches(lb, rb, ctx.transfers)])
+        return out
 
 
 class TorchHashJoinExec(_JoinExec):
@@ -192,14 +223,17 @@ class TorchHashJoinExec(_JoinExec):
 
 
 class TorchBroadcastNestedLoopJoinExec(_JoinExec):
-    """A cross join of two one-partition children: every left row with
-    every right row (K10x, then K7 for each side)."""
+    """A cross join: every left row with every right row (K10x, then K7
+    for each side); the right side's partitions are joined into one batch
+    (K7c) that meets every left partition."""
 
     def __init__(self, left, right):
-        if left.num_partitions != 1 or right.num_partitions != 1:
-            raise NotImplementedError(
-                "a join of several partitions is not in the port yet")
         super().__init__(left, right, CROSS)
+
+    def right_partitions(self, ctx: ExecContext) -> Partitions:
+        from spark_rapids_tpu_torch.ops.batch_ops import concat_batches
+        batches = [b for part in self.right.execute(ctx) for b in part]
+        return [[concat_batches(batches)] if batches else []]
 
     def node_string(self):
         return "TorchBroadcastNestedLoopJoin[cross]"

@@ -1,12 +1,15 @@
-"""ORDER BY over one partition (the analog of ``spark_rapids_tpu/exec/
-sort.py``: ``SortSpec`` and ``TpuSortExec`` ``:221``).
+"""ORDER BY (the analog of ``spark_rapids_tpu/exec/sort.py``: ``SortSpec``
+and ``TpuSortExec`` ``:221``).
 
-``TorchSortExec`` sorts its one batch with K8 and gathers it with K7.  A
-key that computes (the JAX package's hidden ``_ord`` columns of
-``TakeOrderedAndProject``; q36 orders by a ``CASE WHEN``) is computed by
-K6 beside the keys that are columns; K8 sorts the key columns and K7
+``TorchSortExec`` sorts each partition's batch with K8 and gathers it
+with K7.  A key that computes (the JAX package's hidden ``_ord`` columns
+of ``TakeOrderedAndProject``; q36 orders by a ``CASE WHEN``) is computed
+by K6 beside the keys that are columns; K8 sorts the key columns and K7
 gathers the child's columns alone, so the computed keys never join the
-output.  Several partitions or several batches are refused by name."""
+output.  Over several partitions the planner puts a range exchange
+(K11r) below it (``CpuSortExec(global_sort=True)`` over
+``RangePartitioning``), so the sorted partitions come out in range
+order; several batches of one partition are joined first (K7c)."""
 
 from __future__ import annotations
 
@@ -47,9 +50,6 @@ class TorchSortExec(UnaryExec):
                 raise NotImplementedError(
                     f"a sort key of {s.expr.data_type} is not in the port "
                     "yet (int, date, long, double and string keys are)")
-        if child.num_partitions != 1:
-            raise NotImplementedError(
-                "a sort over several partitions is not in the port yet")
         # the key columns: K6 computes those that are not columns
         self.keys = StageProgram([("project", [s.expr for s in self.specs])],
                                  child.schema, 0)
@@ -60,13 +60,9 @@ class TorchSortExec(UnaryExec):
         return f"TorchSort[{', '.join(s.sql() for s in self.specs)}]"
 
     def execute(self, ctx: ExecContext) -> Partitions:
-        out = []
-        for part in self.child.execute(ctx):
-            if len(part) > 1:
-                raise NotImplementedError(
-                    "a sort over several batches is not in the port yet")
-            out.append([self.sort_batch(b, ctx.transfers) for b in part])
-        return out
+        from spark_rapids_tpu_torch.ops.batch_ops import concat_batches
+        return [[self.sort_batch(concat_batches(part), ctx.transfers)]
+                if part else [] for part in self.child.execute(ctx)]
 
     def sort_batch(self, batch, transfers):
         """The batch in SQL order: K6 for the computed keys, K8, then K7

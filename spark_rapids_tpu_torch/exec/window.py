@@ -3,8 +3,11 @@
 ``execute_partition`` ``:465``).
 
 ``TorchWindowExec`` appends one column per window expression of one spec
-to its child's columns.  It takes one partition and concatenates its
-batches, evaluates the partition keys and each function's input (a sum's
+to its child's columns.  It runs per partition and concatenates a
+partition's batches (K7c); over several partitions the planner puts a
+hash exchange on the ``partition_by`` keys below it (one of a single
+partition without keys), as ``session.py:416-425`` does.  Per partition
+it evaluates the partition keys and each function's input (a sum's
 ``Cast(child, sum type)``, an average's ``Cast(child, DOUBLE)``) through K6
 where they compute and by selection where they are columns, and hands
 them to ``ops/window_ops.py compute_windows`` (K8, K7, K14).  Its rows
@@ -17,7 +20,7 @@ avg, and row_number, rank and dense_rank over an ORDER BY (Spark's
 default frame).  It refuses, by name, sum, count and avg with an ORDER BY
 (running frames), a frame other than these (bounded ROWS), a ranking
 function without an ORDER BY, any other function (ntile, lag, lead, min,
-max) and several partitions."""
+max)."""
 
 from __future__ import annotations
 
@@ -89,9 +92,6 @@ class TorchWindowExec(UnaryExec):
         from spark_rapids_tpu_torch.exec.fused import StageProgram
         super().__init__(child)
         self.window_cols = list(window_cols)
-        if child.num_partitions != 1:
-            raise NotImplementedError(
-                "a window over several partitions is not in the port yet")
         spec = self.window_cols[0][1].spec
         self.partition_exprs = list(spec.partition_exprs)
         self.order_exprs = [e for e, _a, _nf in spec.order_specs]

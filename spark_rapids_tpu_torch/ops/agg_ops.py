@@ -219,16 +219,25 @@ def global_aggregate(batch: ColumnarBatch, specs,
 # does the same with torch ops: the same hash (``key_hash_plain``, which a
 # test replaces to force collisions), linear probing in rounds, keys
 # compared value by value and strings byte by byte.
+#
+# The merge kinds fold partial buffers (a FINAL aggregate, the JAX
+# package's merge specs ``:340`` and ``fused.agg_merge_final``,
+# ``exec/fused.py:468``): sums of sums and counts are the sum kinds over
+# the buffer columns, and the joint Chan merge of (n, mean, m2) triples
+# (``:466-487``) is ``KEYED_CHAN_MEAN`` and ``KEYED_CHAN_M2``, whose
+# ``aux`` entry gives the triple's n and mean columns.
 
 #: K9 aggregate kinds (csrc/keyed_agg.cu AggKind)
-KEYED_SUM_I64, KEYED_SUM_F64, KEYED_COUNT, KEYED_COUNT_ALL, KEYED_M2 = \
-    range(5)
+(KEYED_SUM_I64, KEYED_SUM_F64, KEYED_COUNT, KEYED_COUNT_ALL, KEYED_M2,
+ KEYED_CHAN_MEAN, KEYED_CHAN_M2) = range(7)
+#: the Chan merge kinds (an (n, mean) aux pair each)
+_KEYED_CHAN = (KEYED_CHAN_MEAN, KEYED_CHAN_M2)
 #: the kinds whose result is a double
-_KEYED_F64 = (KEYED_SUM_F64, KEYED_M2)
+_KEYED_F64 = (KEYED_SUM_F64, KEYED_M2) + _KEYED_CHAN
 #: launches of K9 (wrapper calls that launch it)
 KEYED_LAUNCHES = 0
 MAX_KEYS = 8
-MAX_AGGS = 16
+MAX_AGGS = 32
 SCAN_TILE = 1024
 RADIX_TILE = 256
 
@@ -239,7 +248,7 @@ _IN_CODES = {T.INT: 0, T.LONG: 1, T.DOUBLE: 2}
 
 _KEYED_SIGNATURES = {
     "srt_agg_groups": "ipppppqpppqpppp",
-    "srt_agg_reduce": "i" + "p" * 6 + "qq" + "p" * 13,
+    "srt_agg_reduce": "i" + "p" * 10 + "qq" + "p" * 13,
 }
 
 
@@ -251,11 +260,21 @@ def load_keyed_library():
                         lambda: load_cuda("keyed_agg.cu", _KEYED_SIGNATURES))
 
 
-def _check_keyed(keys: Sequence[DeviceColumn], inputs, kinds) -> None:
+def _check_keyed(keys: Sequence[DeviceColumn], inputs, kinds,
+                 aux=None) -> None:
     if not 1 <= len(keys) <= MAX_KEYS:
         raise NotImplementedError(f"K9 takes 1..{MAX_KEYS} keys")
     if len(inputs) != len(kinds) or len(kinds) > MAX_AGGS:
         raise ValueError(f"one input per kind, at most {MAX_AGGS}")
+    for j, kind in enumerate(kinds):
+        if kind in _KEYED_CHAN:
+            pair = None if aux is None else aux[j]
+            if pair is None or any(c.data_type != T.DOUBLE or
+                                   c.row_count != keys[0].row_count
+                                   for c in pair + (inputs[j],)):
+                raise ValueError("a Chan merge kind needs double (n, mean) "
+                                 "columns of the keys' rows beside its "
+                                 "double input")
     n = keys[0].row_count
     for k in keys:
         if k.data_type not in KEY_CODES:
@@ -265,6 +284,8 @@ def _check_keyed(keys: Sequence[DeviceColumn], inputs, kinds) -> None:
         if k.row_count != n:
             raise ValueError("key columns of different lengths")
     for c, kind in zip(inputs, kinds):
+        if kind in _KEYED_CHAN:
+            continue
         if kind not in range(5):
             raise ValueError(f"unknown keyed aggregate kind {kind}")
         if kind == KEYED_COUNT_ALL:
@@ -283,18 +304,21 @@ def _check_keyed(keys: Sequence[DeviceColumn], inputs, kinds) -> None:
 
 
 def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
-                    transfers, row_groups: bool = False) -> Tuple:
+                    transfers, row_groups: bool = False,
+                    aux=None) -> Tuple:
     """K9's wrapper: ``(group_rep, [(values, valid) per aggregate])``.
     ``group_rep[g]`` is the first row of group ``g``; groups are numbered
     in order of first appearance.  ``inputs[j]`` is the column aggregate
-    ``j`` folds (None for a count of rows).  With ``row_groups`` a third
-    element is each row's group id (int64), for K15d over the same
-    groups."""
-    _check_keyed(keys, inputs, kinds)
+    ``j`` folds (None for a count of rows; a Chan merge kind's own column,
+    the partial means or m2s).  ``aux[j]`` is a Chan merge kind's ``(n,
+    mean)`` columns (None elsewhere).  With ``row_groups`` a third element
+    is each row's group id (int64), for K15d over the same groups."""
+    _check_keyed(keys, inputs, kinds, aux)
+    aux = list(aux) if aux is not None else [None] * len(kinds)
     device = keys[0].device
     if device.type == "cpu":
         return keyed_aggregate_plain(keys, inputs, kinds, transfers,
-                                     row_groups)
+                                     row_groups, aux)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     from spark_rapids_tpu_torch.kernels.build import (check_launch, int32s,
@@ -334,6 +358,12 @@ def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
         group_rep = empty(n_groups)
         idata = [None if c is None else c.data.contiguous() for c in inputs]
         ivalid = [valid_of(c) for c in inputs]
+        aux_n = [None if a is None else a[0].data.contiguous() for a in aux]
+        aux_n_valid = [None if a is None else valid_of(a[0]) for a in aux]
+        aux_mean = [None if a is None else a[1].data.contiguous()
+                    for a in aux]
+        aux_mean_valid = [None if a is None else valid_of(a[1])
+                          for a in aux]
         gid, counts, seg = empty(n), empty(n_groups), empty(n_groups + 1)
         perm, perm_tmp = empty(n), empty(n)
         hist = empty(256 * -(-n // RADIX_TILE), torch.int32)
@@ -344,7 +374,9 @@ def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
             int32s([_IN_CODES.get(None if c is None else c.data_type, 0)
                     for c in inputs]),
             pointers(idata), pointers(ivalid), pointers(outs),
-            pointers(valids), n, n_groups, slot_of.data_ptr(),
+            pointers(valids), pointers(aux_n), pointers(aux_n_valid),
+            pointers(aux_mean), pointers(aux_mean_valid), n, n_groups,
+            slot_of.data_ptr(),
             rep.data_ptr(), rank.data_ptr(), gid.data_ptr(),
             group_rep.data_ptr(), counts.data_ptr(), seg.data_ptr(),
             perm.data_ptr(), perm_tmp.data_ptr(), hist.data_ptr(),
@@ -486,15 +518,40 @@ def group_rows_plain(keys: Sequence[DeviceColumn], transfers
     return rank[first], torch.nonzero(is_first).flatten()
 
 
+def _chan_plain(gid: torch.Tensor, g: int, kind: int, c: DeviceColumn,
+                n_col: DeviceColumn, mean_col: DeviceColumn) -> torch.Tensor:
+    """The Chan merge of each group's (n, mean, m2) rows: its mean, or its
+    m2 (rows whose n is null are left out; a null mean or m2 is 0)."""
+    zeros = torch.zeros(g, dtype=torch.float64, device=gid.device)
+    pres = n_col.validity
+    ni = torch.where(pres, n_col.data, 0.0)
+    mi = torch.where(pres & mean_col.validity, mean_col.data, 0.0)
+    tot = zeros.clone().index_add_(0, gid, ni)
+    wsum = zeros.clone().index_add_(0, gid, ni * mi)
+    mean = torch.where(tot > 0, wsum / torch.where(tot > 0, tot, 1.0), 0.0)
+    if kind == KEYED_CHAN_MEAN:
+        return mean
+    m2i = torch.where(pres & c.validity, c.data, 0.0)
+    d = mi - mean[gid]
+    return zeros.index_add_(0, gid, torch.where(pres, m2i + ni * d * d,
+                                                0.0))
+
+
 def keyed_aggregate_plain(keys: Sequence[DeviceColumn], inputs, kinds,
-                          transfers, row_groups: bool = False) -> Tuple:
+                          transfers, row_groups: bool = False,
+                          aux=None) -> Tuple:
     """The plain PyTorch version of K9 (same groups, same order)."""
-    _check_keyed(keys, inputs, kinds)
+    _check_keyed(keys, inputs, kinds, aux)
+    aux = list(aux) if aux is not None else [None] * len(kinds)
     gid, group_rep = group_rows_plain(keys, transfers)
     g = group_rep.shape[0]
     device = gid.device
     out = []
-    for c, kind in zip(inputs, kinds):
+    for c, kind, pair in zip(inputs, kinds, aux):
+        if kind in _KEYED_CHAN:
+            out.append((_chan_plain(gid, g, kind, c, *pair),
+                        torch.ones(g, dtype=torch.bool, device=device)))
+            continue
         present = torch.ones_like(gid, dtype=torch.bool) \
             if kind == KEYED_COUNT_ALL else c.validity
         cnt = torch.zeros(g, dtype=torch.int64, device=device).index_add_(

@@ -211,6 +211,24 @@ def gather_batch(batch: ColumnarBatch, idx: torch.Tensor, transfers,
                          idx.shape[0], batch.names)
 
 
+def empty_batch(schema: T.StructType, device: torch.device
+                ) -> ColumnarBatch:
+    """A batch of no row of ``schema`` (views of empty planes, no
+    launch)."""
+    cols = []
+    for dt in schema.types:
+        valid = torch.empty(0, dtype=torch.bool, device=device)
+        if isinstance(dt, T.StringType):
+            cols.append(DeviceColumn(
+                torch.empty(0, dtype=torch.uint8, device=device), valid, dt,
+                True, torch.zeros(1, dtype=torch.int64, device=device)))
+        else:
+            cols.append(DeviceColumn(torch.empty(0, dtype=dt.torch_dtype,
+                                                 device=device), valid, dt,
+                                     True))
+    return ColumnarBatch(cols, 0, schema.names)
+
+
 def take_front(batch: ColumnarBatch, k: int) -> ColumnarBatch:
     """LIMIT ``k``: the first ``k`` rows, views with no launch."""
     return batch.front(k)
@@ -239,7 +257,8 @@ def _check_concat(batches: Sequence[ColumnarBatch]) -> None:
 
 def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
     """K7c's wrapper: the batches' rows, in order, as one batch (the
-    first batch's names)."""
+    first batch's names).  More than ``MAX_CONCAT_INPUTS`` batches are
+    joined in groups first (a launch a group and column)."""
     _check_concat(batches)
     first = batches[0]
     if len(batches) == 1:
@@ -250,9 +269,9 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     if len(batches) > MAX_CONCAT_INPUTS:
-        raise NotImplementedError(
-            f"K7c concatenates at most {MAX_CONCAT_INPUTS} batches, got "
-            f"{len(batches)}")
+        return concat_batches([
+            concat_batches(batches[k:k + MAX_CONCAT_INPUTS])
+            for k in range(0, len(batches), MAX_CONCAT_INPUTS)])
     from spark_rapids_tpu_torch.kernels.build import (check_launch, int32s,
                                                       int64s, pointers)
     lib = load_concat_library()

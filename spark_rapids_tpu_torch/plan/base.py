@@ -171,14 +171,20 @@ class Aggregate(LogicalPlan):
 
 
 class Exchange(LogicalPlan):
-    """Moves every child partition's rows to one partition."""
+    """Moves the child's rows to the partitions ``partitioning``
+    (``plan/partitioning.py``) gives them: one partition, by hash or by
+    range."""
+
+    def __init__(self, partitioning, child: LogicalPlan):
+        super().__init__([child])
+        self.partitioning = partitioning
 
     @property
     def num_partitions(self):
-        return 1
+        return self.partitioning.num_partitions
 
     def node_string(self):
-        return "Exchange[SinglePartition]"
+        return f"Exchange[{self.partitioning.desc()}]"
 
 
 def join_schema(left: T.StructType, right: T.StructType,
@@ -235,9 +241,16 @@ class Sort(LogicalPlan):
 
 
 class Limit(LogicalPlan):
+    """The first ``n`` rows, of the child's partitions in order: one
+    partition."""
+
     def __init__(self, n: int, child: LogicalPlan):
         super().__init__([child])
         self.n = int(n)
+
+    @property
+    def num_partitions(self):
+        return 1
 
     def node_string(self):
         return f"Limit[{self.n}]"

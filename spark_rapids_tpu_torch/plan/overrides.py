@@ -5,8 +5,7 @@ whatever the port cannot run yet, naming it."""
 
 from __future__ import annotations
 
-from spark_rapids_tpu_torch.exec.aggregate import (COMPLETE,
-                                                   TorchHashAggregateExec,
+from spark_rapids_tpu_torch.exec.aggregate import (TorchHashAggregateExec,
                                                    TorchKeyedAggregateExec)
 from spark_rapids_tpu_torch.exec.basic import (TorchCteCacheExec,
                                                TorchFilterExec,
@@ -68,20 +67,12 @@ class TorchOverrides:
                     raise NotImplementedError(
                         f"{a.func.sql()} without grouping keys is not in "
                         "the port yet (in a group-by it is)")
-                if isinstance(a.func, CountDistinct) and \
-                        node.mode != COMPLETE:
-                    raise NotImplementedError(
-                        f"{a.func.sql()} over several partitions is not in "
-                        "the port yet: it needs COMPLETE mode")
             if node.layout.num_keys:
-                if node.mode != COMPLETE:
-                    raise NotImplementedError(
-                        "a group-by over several partitions is not in the "
-                        "port yet")
-                return TorchKeyedAggregateExec(node.layout, child)
+                return TorchKeyedAggregateExec(node.layout, child,
+                                               node.mode)
             return TorchHashAggregateExec(node.layout, node.mode, child)
         if isinstance(node, L.Exchange):
-            return TorchShuffleExchangeExec(child)
+            return TorchShuffleExchangeExec(node.partitioning, child)
         if isinstance(node, L.Sort):
             return TorchSortExec(node.specs, child)
         if isinstance(node, L.Limit):

@@ -5,11 +5,21 @@ expressions, extracted as ``_plan_windows`` ``:392`` does), ``join``
 (``:637``; inner, left outer, left semi and left anti, on one or several
 key columns, and cross), ``group_by`` (``:729``), ``rollup`` (``:736``;
 lowered to an Expand and a group-by, ``_expand_for_grouping_sets``
-``:973``) and ``agg`` (``count_distinct`` in COMPLETE mode only;
-``grouping()`` after a rollup), ``distinct``
+``:973``) and ``agg`` (``grouping()`` after a rollup), ``distinct``
 (``:771``), ``order_by`` (``:602``), ``limit`` (``:515``), ``collect``
-and ``scalar``). A join, a group-by, a window, a sort and a limit run over
-one partition.
+and ``scalar``).
+
+Over several partitions each operator is planned behind an exchange
+(``plan/partitioning.py``, ``exec/exchange.py``), as the JAX package
+plans it: a group-by as PARTIAL, a hash exchange on the keys (one
+partition without keys) and FINAL (``:1095-1108``; a rollup so over its
+Expand, with the grouping id among the keys, ``:1110-1131``); a
+``count(DISTINCT)``, which needs COMPLETE mode, behind a hash exchange
+of the raw rows by the keys, or one partition without keys
+(``:1083-1094``); a join with both sides hash-exchanged on their keys
+(``:677-690``); a sort behind a range exchange (``:610-626``); a window
+behind a hash exchange on its partition keys (``:416-425``).  A limit
+takes the partitions in order.
 
 A session runs on ``cuda:0`` unless it is given ``device="cpu"``; without a
 CUDA device and without that, it is refused."""
@@ -109,12 +119,19 @@ class DataFrame:
         found = [w for e in bound for w in _windows_in(e)]
         if not found:
             return self._plan, bound
+        from spark_rapids_tpu_torch.plan.partitioning import (
+            HashPartitioning, SinglePartitioning)
         groups = {}
         for w in found:
             groups.setdefault(w.spec.group_key(), []).append(w)
         plan = self._plan
         replacement = {}
         for ws in groups.values():
+            n = plan.num_partitions
+            if n > 1:
+                keys = ws[0].spec.partition_exprs
+                plan = L.Exchange(HashPartitioning(keys, n) if keys
+                                  else SinglePartitioning(), plan)
             base = len(plan.schema)
             plan = L.Window([(f"_w{base + i}", w) for i, w in enumerate(ws)],
                             plan)
@@ -166,7 +183,10 @@ class DataFrame:
         key has none, as the JAX package plans ``NOT IN``).  ``how="cross"``
         takes no keys: every left row with every right row, the left
         columns then the right ones (``from a, b``)."""
-        from spark_rapids_tpu_torch.exec.joins import CROSS, normalize_how
+        from spark_rapids_tpu_torch.exec.joins import (CROSS, hash_as_long,
+                                                       normalize_how)
+        from spark_rapids_tpu_torch.plan.partitioning import \
+            HashPartitioning
         if condition is not None:
             raise NotImplementedError(
                 "a join with a condition beyond its keys is not in the port "
@@ -185,7 +205,13 @@ class DataFrame:
         lschema, rschema = self.schema, other.schema
         lkeys = [bind_references(col(n), lschema) for n in names]
         rkeys = [bind_references(col(n), rschema) for n in names]
-        plan = L.Join(self._plan, other._plan, lkeys, rkeys, how)
+        lplan, rplan = self._plan, other._plan
+        nparts = max(lplan.num_partitions, rplan.num_partitions)
+        if nparts > 1:
+            wide = hash_as_long(lkeys, rkeys)
+            lplan = L.Exchange(HashPartitioning(lkeys, nparts, wide), lplan)
+            rplan = L.Exchange(HashPartitioning(rkeys, nparts, wide), rplan)
+        plan = L.Join(lplan, rplan, lkeys, rkeys, how)
         if how in ("left_semi", "left_anti"):
             return DataFrame(plan, self._session)
         out = plan.schema
@@ -207,8 +233,11 @@ class DataFrame:
 
     def order_by(self, *cols, ascending: bool = True) -> "DataFrame":
         """A global sort: names or expressions (``ascending`` applies), or
-        ``functions.asc``/``desc`` specs."""
+        ``functions.asc``/``desc`` specs; over several partitions behind a
+        range exchange, so the partitions come out in order."""
         from spark_rapids_tpu_torch.exec.sort import SortSpec
+        from spark_rapids_tpu_torch.plan.partitioning import \
+            RangePartitioning
         specs = []
         for c in cols:
             if isinstance(c, SortSpec):
@@ -217,7 +246,11 @@ class DataFrame:
             else:
                 specs.append(SortSpec(
                     bind_references(_to_expr(c), self.schema), ascending))
-        return DataFrame(L.Sort(specs, self._plan), self._session)
+        plan = self._plan
+        if plan.num_partitions > 1:
+            plan = L.Exchange(RangePartitioning(specs,
+                                                plan.num_partitions), plan)
+        return DataFrame(L.Sort(specs, plan), self._session)
 
     sort = order_by
 
@@ -233,14 +266,17 @@ class DataFrame:
             "\n== Physical ==\n" + self.executed_plan().tree_string()
 
     def collect_batch(self) -> HostColumnarBatch:
+        """The rows of every partition in order, joined on the device
+        (K7c) and downloaded once."""
+        from spark_rapids_tpu_torch.ops.batch_ops import (concat_batches,
+                                                          empty_batch)
         s = self._session
         ctx = L.ExecContext(s.device, s.transfers)
         batches = [b for part in self.executed_plan().execute(ctx)
                    for b in part]
-        if len(batches) != 1:
-            raise NotImplementedError(
-                f"collecting {len(batches)} batches is not in the port yet")
-        return s.transfers.download_batch(batches[0])
+        whole = concat_batches(batches) if batches else \
+            empty_batch(self.schema, s.device)
+        return s.transfers.download_batch(whole)
 
     def collect(self) -> List[dict]:
         return self.collect_batch().to_rows()
@@ -276,9 +312,7 @@ class GroupedData:
         self._grouping_sets = grouping_sets
 
     def agg(self, *agg_exprs) -> DataFrame:
-        from spark_rapids_tpu_torch.exec.aggregate import (COMPLETE, FINAL,
-                                                           PARTIAL,
-                                                           _AggLayout)
+        from spark_rapids_tpu_torch.exec.aggregate import _AggLayout
         from spark_rapids_tpu_torch.expressions.aggregates import (
             AggregateExpression, AggregateFunction)
         schema = self._df.schema
@@ -304,13 +338,8 @@ class GroupedData:
         if self._grouping_sets is not None:
             return self._agg_grouping_sets(aggs, outputs)
         layout = _AggLayout(self._keys, aggs)
-        child = self._df._plan
-        if child.num_partitions == 1:
-            plan = L.Aggregate(layout, COMPLETE, child)
-        else:
-            partial = L.Aggregate(layout, PARTIAL, child)
-            plan = L.Aggregate(layout, FINAL, L.Exchange([partial]))
-        return DataFrame(plan, self._df._session)
+        return DataFrame(_plan_aggregate(layout, self._df._plan),
+                         self._df._session)
 
     def _agg_grouping_sets(self, aggs, outputs) -> DataFrame:
         """One Expand projection per grouping set -- each key, or a null
@@ -325,8 +354,7 @@ class GroupedData:
         becomes ``(gid div 2^(n - 1 - i)) % 2`` for key ``i``, the JAX
         analyzer's ``_grouping_bit`` (``sql/analyzer.py:810``); the
         grouping id is read by those and then dropped."""
-        from spark_rapids_tpu_torch.exec.aggregate import (COMPLETE,
-                                                           _AggLayout)
+        from spark_rapids_tpu_torch.exec.aggregate import _AggLayout
         from spark_rapids_tpu_torch.expressions.aggregates import \
             AggregateExpression
         from spark_rapids_tpu_torch.expressions.arithmetic import (
@@ -364,10 +392,7 @@ class GroupedData:
             return node
         aggs = [AggregateExpression(a.func.transform_up(rebind), a.out_name)
                 for a in aggs]
-        if child.num_partitions != 1:
-            raise NotImplementedError(
-                "a rollup over several partitions is not in the port yet")
-        plan = L.Aggregate(_AggLayout(new_keys, aggs), COMPLETE, expand)
+        plan = _plan_aggregate(_AggLayout(new_keys, aggs), expand)
         out = plan.schema
 
         def ref(i: int) -> Expression:
@@ -389,6 +414,33 @@ class GroupedData:
             exprs.append(Alias(ref(nk + 1 + o) if isinstance(o, int)
                                else o.transform_up(bit), name))
         return DataFrame(L.Project(exprs, plan), self._df._session)
+
+
+def _plan_aggregate(layout, child: L.LogicalPlan) -> L.LogicalPlan:
+    """A group-by (or a global aggregate) of ``child``: COMPLETE over one
+    partition; over several, PARTIAL, an exchange on the buffer keys by
+    hash (one partition without keys) and FINAL; an aggregation with a
+    ``count(DISTINCT)`` COMPLETE behind an exchange of the raw rows by
+    the keys (one partition without keys), as ``requires_complete``
+    aggregates are planned (JAX ``session.py:1083-1108``)."""
+    from spark_rapids_tpu_torch.exec.aggregate import (COMPLETE, FINAL,
+                                                       PARTIAL)
+    from spark_rapids_tpu_torch.plan.partitioning import (
+        HashPartitioning, SinglePartitioning)
+    n = child.num_partitions
+    if n == 1:
+        return L.Aggregate(layout, COMPLETE, child)
+    nk = layout.num_keys
+    if layout.has_distinct:
+        part = HashPartitioning(layout.grouping, n) if nk \
+            else SinglePartitioning()
+        return L.Aggregate(layout, COMPLETE, L.Exchange(part, child))
+    partial = L.Aggregate(layout, PARTIAL, child)
+    schema = partial.schema
+    keys = [BoundReference(i, schema.types[i], schema.fields[i].nullable,
+                           schema.names[i]) for i in range(nk)]
+    part = HashPartitioning(keys, n) if nk else SinglePartitioning()
+    return L.Aggregate(layout, FINAL, L.Exchange(part, partial))
 
 
 def _groupings_in(e: Expression) -> bool:

@@ -420,6 +420,23 @@ Q3_COLUMNS = {
 }
 
 
+def partitioned_frames(session, tables: Dict[str, dict], names,
+                       num_partitions: int = 2) -> list:
+    """Each named table (a column dict or a host batch) as a DataFrame at
+    ``num_partitions`` partitions, by the JAX package's
+    ``register_tables`` rule (``spark_rapids_tpu/testing/tpcds.py:414``,
+    ``:432``): a table under 1000 rows stays whole; the partitions are
+    cut as ``create_dataframe`` cuts them."""
+    out = []
+    for name in names:
+        cols = tables[name]
+        rows = cols.row_count if hasattr(cols, "row_count") else \
+            len(next(iter(cols.values())))
+        out.append(session.create_dataframe(
+            cols, num_partitions=num_partitions if rows >= 1000 else 1))
+    return out
+
+
 def q3_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
     """The q3 columns of ``generate_tables``' output."""
     return {t: {c: tables[t][c] for c in cols}

@@ -161,12 +161,17 @@ def test_plans_and_refusals():
     assert q.collect() == [{
         "n": len({r["s"] for r in rows if r["s"] is not None}),
         "t": sum(r["l"] for r in rows if r["l"] is not None)}]
+    # over several partitions: COMPLETE behind an exchange of the raw rows
+    # by the keys, or of everything into one partition
     two = s.create_dataframe(table(np.random.default_rng(4), 50, 4),
                              num_partitions=2, schema=SCHEMA)
-    for agg in (two.agg(F.count_distinct("l")),
-                two.group_by("g").agg(F.count_distinct("l"))):
-        with pytest.raises(NotImplementedError, match="COMPLETE mode"):
-            agg.collect()
+    one = s.create_dataframe(table(np.random.default_rng(4), 50, 4),
+                             schema=SCHEMA)
+    assert two.agg(F.count_distinct("l")).collect() == \
+        one.agg(F.count_distinct("l")).collect()
+    by_g = [two.group_by("g").agg(F.count_distinct("l")).collect(),
+            one.group_by("g").agg(F.count_distinct("l")).collect()]
+    assert sorted(by_g[0], key=str) == sorted(by_g[1], key=str)
     with pytest.raises(NotImplementedError, match="of an expression"):
         df.agg(F.count_distinct(F.substring("s", 1, 1))).collect()
 

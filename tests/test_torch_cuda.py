@@ -8,8 +8,10 @@ windows), K15d (count distinct, keyed and global), the <>, NOT and
 string-to-string emitters in K5 and K6, kernel 1 over string columns, K7c
 (concat, with strings), K9's m2 kind, K10 on two and three key columns,
 K14's ranking pass, K10x (the cross join's pairs), K10 on string keys,
-K6's div, % and CASE WHEN, and TPC-DS q3, q1, q7, q15, q12, q20, q13, q19,
-q16, q17, q10, q18, q6, q28 and q36 end to end against the CPU run.
+K6's div, % and CASE WHEN, K11h, K11r, K7s (and their launch counts),
+K9's merge kinds, and TPC-DS q3, q1, q7, q15, q12, q20, q13, q19,
+q16, q17, q10, q18, q6, q28 and q36 end to end against the CPU run (q3
+and q18 also over four partitions against one).
 
 Every test needs a CUDA card and skips without one.  This file imports
 nothing of JAX, so it runs where JAX is not installed:
@@ -743,5 +745,183 @@ def test_q6_q28_q36_match_the_cpu_run(card, query):
         for k in g:
             if isinstance(r[k], float):
                 assert abs(g[k] - r[k]) <= 1e-12 * abs(r[k])
+            else:
+                assert g[k] == r[k]
+
+
+def hash_keys(rng, n):
+    """Key columns of every type K11h hashes: nulls, -0.0, NaN, empty
+    and 40-byte strings, bytes of 0x80 and above."""
+    from spark_rapids_tpu_torch.ops.partition_ops import HashColumn
+    dev = "cuda"
+    valid = torch.from_numpy(rng.random(n) > 0.1).to(dev)
+    d = rng.choice(np.array([0.0, -0.0, np.nan, 1.5, -2.25, np.inf]), n)
+    words = ["", "a", "abc", "abcd", "abcde", "é日本", "x" * 40,
+             "ÿ\u0080"]
+    chars = [str(rng.choice(words)) for _ in range(n)]
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    s = card_column(HostColumn.from_strings(chars), valid)
+    return [
+        DeviceColumn(torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, n)
+                                      .astype(np.int32)).to(dev), valid,
+                     T.INT),
+        DeviceColumn(torch.from_numpy(rng.integers(-2 ** 62, 2 ** 62, n))
+                     .to(dev), valid, T.LONG),
+        DeviceColumn(torch.from_numpy(d).to(dev), valid, T.DOUBLE),
+        DeviceColumn(torch.from_numpy(rng.random(n) < 0.5).to(dev), valid,
+                     T.BOOLEAN),
+        HashColumn(torch.from_numpy(d.astype(np.float32)).to(dev), valid,
+                   None),
+        s,
+    ]
+
+
+def card_column(host, valid):
+    return DeviceColumn(torch.from_numpy(host.data).cuda(), valid,
+                        host.data_type, False,
+                        torch.from_numpy(host.offsets).cuda())
+
+
+def test_hash_partition_ids_match_plain(card):
+    """K11h against its plain version: one to three keys of each type,
+    n = 1, 2, 3, 7, 200 and 1024; ids and histogram (rows and chars)
+    equal."""
+    from spark_rapids_tpu_torch.ops import partition_ops as PO
+    rng = np.random.default_rng(41)
+    for rows in (0, 1, 1000, (1 << 16) + 3):
+        keys = hash_keys(rng, rows)
+        for combo in ([0], [1], [2], [3], [4], [5], [0, 5], [2, 1, 5]):
+            ks = [keys[j] for j in combo]
+            for n in (1, 2, 3, 7, 200, 1024):
+                got = PO.hash_partition(ks, n, [keys[5]], [True] * len(ks))
+                ref = PO.hash_partition_plain(ks, n, [keys[5]],
+                                              [True] * len(ks))
+                assert torch.equal(got[0], ref[0]), (rows, combo, n)
+                assert torch.equal(got[1], ref[1]), (rows, combo, n)
+
+
+def test_range_partition_ids_match_plain(card):
+    """K11r against its plain version over 3 and 199 bounds of int, long,
+    double and string keys, ascending and descending, nulls first and
+    last."""
+    from spark_rapids_tpu_torch.ops import partition_ops as PO
+    from spark_rapids_tpu_torch.ops.sort_ops import (SortOrder,
+                                                     sort_permutation)
+    rng = np.random.default_rng(43)
+    rows = 50_000
+    b = batch(card, rng, rows)
+    for ords in ([1], [2], [3], [0, 2], [2, 1]):
+        for asc, nf in ((True, True), (False, False), (True, False)):
+            keys = [b.columns[o] for o in ords]
+            orders = [(asc, nf)] * len(ords)
+            for nb in (3, 199):
+                pick = torch.from_numpy(rng.choice(rows, 4 * nb)).cuda()
+                sample = BO.gather_columns(keys, pick, card.transfers)
+                perm = sort_permutation(
+                    sample, [SortOrder(j, asc, nf) for j in range(len(ords))],
+                    card.transfers)
+                at = perm[torch.arange(1, nb + 1, device="cuda") * 4 - 1]
+                bounds = BO.gather_columns(sample, at, card.transfers,
+                                           unique=True)
+                got = PO.range_partition(keys, bounds, orders, nb + 1)
+                ref = PO.range_partition_plain(keys, bounds, orders, nb + 1)
+                assert torch.equal(got[0], ref[0]), (ords, asc, nf, nb)
+                assert torch.equal(got[1], ref[1])
+
+
+def test_split_matches_plain(card):
+    """K7s against its plain version: every column of a mixed batch, at 4
+    and 200 partitions; each segment equal."""
+    from spark_rapids_tpu_torch.ops import partition_ops as PO
+    rng = np.random.default_rng(47)
+    for rows in (0, 1, 1000, (1 << 17) + 3):
+        b = batch(card, rng, rows)
+        strings = [c for c in b.columns if c.is_string]
+        for n in (4, 200):
+            pids, counts = PO.hash_partition([b.columns[1]], n, strings)
+            host = card.transfers.read_counts(counts)
+            chars = [host[n:2 * n]]
+            got = PO.split_columns(b.columns, pids, host[:n], chars,
+                                   card.transfers)
+            ref = PO.split_columns_plain(b.columns, pids, host[:n], chars)
+            for g, r in zip(got, ref):
+                same(g, r)
+
+
+def test_partition_wrappers_count_only_launches(card):
+    """K11h, K11r and K7s count a launch only where one is queued: an
+    exchange of no rows counts none, one of a row counts one each."""
+    from spark_rapids_tpu_torch.ops import partition_ops as PO
+    rng = np.random.default_rng(59)
+    for rows in (0, 1):
+        b = batch(card, rng, rows)
+        strings = [c for c in b.columns if c.is_string]
+        bounds = BO.gather_columns([b.columns[1]], torch.zeros(
+            rows, dtype=torch.int64, device="cuda"), card.transfers)
+        PO.HASH_LAUNCHES = PO.RANGE_LAUNCHES = PO.SPLIT_LAUNCHES = 0
+        pids, counts = PO.hash_partition([b.columns[1]], 4, strings)
+        PO.range_partition([b.columns[1]], bounds, [(True, True)], 4,
+                           strings)
+        host = card.transfers.read_counts(counts)
+        PO.split_columns(b.columns, pids, host[:4], [host[4:8]],
+                         card.transfers)
+        assert (PO.HASH_LAUNCHES, PO.RANGE_LAUNCHES,
+                PO.SPLIT_LAUNCHES) == (rows, rows, rows)
+        assert sum(host[:4]) == rows
+
+
+def test_keyed_merge_kinds_match_plain(card):
+    """K9's merge kinds (sums of sums and counts, the Chan merge of (n,
+    mean, m2) triples) against their plain version: four partials of a
+    group-by, and one group of 2^20 + 3 partial rows."""
+    rng = np.random.default_rng(53)
+    for rows, groups in ((4 * 1000, 1000), ((1 << 20) + 3, 1)):
+        g = torch.from_numpy(rng.integers(0, groups, rows)).cuda()
+        ones = torch.ones(rows, dtype=torch.bool, device="cuda")
+        n = torch.from_numpy(rng.integers(0, 50, rows).astype(np.float64))
+        mean = torch.from_numpy(rng.normal(100.0, 10.0, rows))
+        m2 = torch.from_numpy(rng.random(rows) * 40.0)
+        mean_valid = (n > 0).cuda()
+        cols = [DeviceColumn(g, ones, T.LONG),
+                DeviceColumn(n.cuda(), ones, T.DOUBLE),
+                DeviceColumn(mean.cuda(), mean_valid, T.DOUBLE),
+                DeviceColumn(m2.cuda(), ones, T.DOUBLE),
+                DeviceColumn(n.long().cuda(), ones, T.LONG)]
+        kinds = [G.KEYED_SUM_F64, G.KEYED_CHAN_MEAN, G.KEYED_CHAN_M2,
+                 G.KEYED_SUM_I64]
+        inputs = [cols[1], cols[2], cols[3], cols[4]]
+        aux = [None, (cols[1], cols[2]), (cols[1], cols[2]), None]
+        got = G.keyed_aggregate([cols[0]], inputs, kinds, card.transfers,
+                                aux=aux)
+        ref = G.keyed_aggregate_plain([cols[0]], inputs, kinds,
+                                      card.transfers, aux=aux)
+        assert torch.equal(got[0], ref[0])
+        for (gv, gok), (rv, rok), kind in zip(got[1], ref[1], kinds):
+            assert torch.equal(gok, rok)
+            if kind == G.KEYED_SUM_I64:
+                assert torch.equal(gv, rv)
+            else:
+                assert torch.allclose(gv, rv, rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize("query", ["q3", "q18"])
+def test_queries_over_four_partitions_match_one(card, query):
+    """q3 (a string-key PARTIAL/FINAL, a range sort and a limit) and q18
+    (a rollup over partitions) at 4 partitions on the card equal the
+    CPU run at one partition."""
+    from spark_rapids_tpu_torch.testing import tpcds
+    names = {"q3": ("date_dim", "store_sales", "item"),
+             "q18": ("catalog_sales", "customer_demographics", "customer",
+                     "customer_address", "date_dim", "item")}[query]
+    t = getattr(tpcds, f"{query}_tables")(tpcds.generate_tables(5))
+    recipe = getattr(tpcds, query)
+    got = recipe(*tpcds.partitioned_frames(card, t, names, 4))[0].collect()
+    cpu = TorchSession(device="cpu")
+    ref = recipe(*[cpu.create_dataframe(t[n]) for n in names])[0].collect()
+    assert len(got) == len(ref) and len(ref) >= 10
+    for g, r in zip(got, ref):
+        for k in g:
+            if isinstance(r[k], float):
+                assert abs(g[k] - r[k]) <= 1e-9 * abs(r[k])
             else:
                 assert g[k] == r[k]

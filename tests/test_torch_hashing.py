@@ -105,7 +105,23 @@ def test_murmur3_col_running_seed_matches_jax(kind):
 
 
 def test_murmur3_refuses_double():
-    col = PB.Col(torch.zeros(2, dtype=torch.float64),
-                 torch.ones(2, dtype=torch.bool))
+    """Kernel 1 still refuses murmur3 of a double by name; the plain form
+    hashes it since the hash exchanges came in (K11h), -0.0 as 0.0, equal
+    to the JAX package's murmur3_col."""
+    from spark_rapids_tpu_torch.expressions.base import BoundReference
+    from spark_rapids_tpu_torch.kernels import fused_agg as K
+    data = np.array([0.0, -0.0, np.nan, 1.5], dtype=np.float64)
+    valid = np.ones(4, dtype=bool)
+    col = PB.Col(torch.from_numpy(data), torch.from_numpy(valid))
+    got = PH.murmur3_col(col, T.DOUBLE, torch.zeros(4, dtype=torch.int64))
+    ref = JH.murmur3_col(JB.TCol(jnp.asarray(data), jnp.asarray(valid),
+                                 JT.DOUBLE), JT.DOUBLE,
+                         jnp.zeros(4, dtype=jnp.uint32),
+                         JB.EvalContext([], "tpu", 4), jnp)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(ref).astype(np.int64))
+    assert got[0] == got[1]
     with pytest.raises(NotImplementedError, match="DoubleType"):
-        PH.murmur3_col(col, T.DOUBLE, torch.zeros(2, dtype=torch.int64))
+        K.kernel_source([T.DOUBLE], (True,), [],
+                        [PH.Murmur3Hash(BoundReference(0, T.DOUBLE))],
+                        [(0, "sum", True, T.LONG)], 0)

@@ -95,6 +95,9 @@ s = TorchSession(device="cpu")
 q3 = tpcds.q3(*[s.create_dataframe(tables[t])
                 for t in ("date_dim", "store_sales", "item")])[0].collect()
 assert len(q3) >= 10, q3
+q3p = tpcds.q3(*tpcds.partitioned_frames(
+    s, tables, ("date_dim", "store_sales", "item"), 3))[0].collect()
+assert q3p == q3, (q3p, q3)
 t1 = tpcds.q1_tables(tpcds.generate_tables(0.3))
 q1 = tpcds.q1(*[s.create_dataframe(t1[t]) for t in
                 ("date_dim", "store_returns", "store", "customer")])[0]
@@ -190,7 +193,8 @@ def test_wrappers_refuse_other_devices():
     from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
     from spark_rapids_tpu_torch.columnar.column import DeviceColumn
     from spark_rapids_tpu_torch.ops import (agg_ops, batch_ops, join_ops,
-                                            sort_ops, window_ops)
+                                            partition_ops, sort_ops,
+                                            window_ops)
     meta = torch.zeros(2, 1, dtype=torch.int64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         agg_ops.global_reduce(meta, torch.ones(2, 1, dtype=torch.bool,
@@ -220,7 +224,13 @@ def test_wrappers_refuse_other_devices():
              lambda: join_ops.cross_pairs(2, 3, col.device),
              lambda: window_ops.window_rank([col], [col],
                                             [window_ops.WIN_RANK], 2,
-                                            col.device)]
+                                            col.device),
+             lambda: partition_ops.hash_partition([col], 4),
+             lambda: partition_ops.range_partition(
+                 [col], [col], [(True, True)], 4),
+             lambda: partition_ops.split_columns(
+                 [col], torch.zeros(2, dtype=torch.int32, device="meta"),
+                 [2, 0, 0, 0])]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):
             call()

@@ -147,7 +147,9 @@ def test_joins_outside_the_port_are_refused_by_name():
         a.join(b, on="k", condition=GreaterThan(col("v"), lit(1.0)))
     with pytest.raises(NotImplementedError, match="without keys"):
         a.join(b)
+    # a join over several partitions runs behind two hash exchanges
     parts = s.create_dataframe({"k": [1, 2, 3, 4]}, num_partitions=2)
-    with pytest.raises(NotImplementedError, match="several partitions"):
-        parts.join(b, on="k").collect()
+    got = parts.join(b, on="k").collect()
+    assert got == [{"k": 1, "s": 1.5, "v": 1.0}, {"k": 3, "s": 3.5,
+                                                  "v": 2.0}]
 

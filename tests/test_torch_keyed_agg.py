@@ -152,10 +152,16 @@ def test_one_sync_per_group_by_and_keys_refused_by_name():
     flags = s.create_dataframe({"f": np.array([True, False, True])})
     with pytest.raises(NotImplementedError, match="BooleanType"):
         flags.group_by("f").agg(F.count()).collect()
+    # over several partitions: PARTIAL, a hash exchange, FINAL
     parts = s.create_dataframe(data(50, seed=1), schema=SCHEMA,
                                num_partitions=2)
-    with pytest.raises(NotImplementedError, match="several partitions"):
-        parts.group_by("a").agg(F.sum("v")).collect()
+    one = df.group_by("a").agg(F.sum("v").alias("sv")).collect()
+    got = parts.group_by("a").agg(F.sum("v").alias("sv")).collect()
+    key = (lambda r: (r["a"] is None, r["a"] or 0))
+    assert len(got) == len(one)
+    for g, o in zip(sorted(got, key=key), sorted(one, key=key)):
+        assert g["a"] == o["a"] and (g["sv"] == o["sv"] or abs(
+            g["sv"] - o["sv"]) <= 1e-12 * abs(o["sv"]))
 
 
 

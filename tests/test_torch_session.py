@@ -188,7 +188,8 @@ def test_explain_shows_one_fused_stage():
 
 def test_outside_the_slice_is_refused():
     """A filter that feeds no aggregate runs since the compacting stage
-    came in; a group-by over several partitions is still refused."""
+    came in; a group-by over several partitions since the exchanges came
+    in (PARTIAL, a hash exchange, FINAL)."""
     from spark_rapids_tpu_torch import functions as F
     from spark_rapids_tpu_torch.expressions.base import col, lit
     from spark_rapids_tpu_torch.expressions.predicates import GreaterThan
@@ -198,5 +199,10 @@ def test_outside_the_slice_is_refused():
         GreaterThan(col("w"), lit(0))).collect()
     assert [r["k"] for r in rows] == d["k"][d["w"] > 0].tolist()
     df = s.create_dataframe(d, num_partitions=2)
-    with pytest.raises(NotImplementedError, match="several partitions"):
-        df.group_by("w").agg(F.sum("v")).collect()
+    got = df.group_by("w").agg(F.sum("v").alias("sv")).collect()
+    want = {int(w): float(d["v"][d["w"] == w].sum())
+            for w in np.unique(d["w"])}
+    assert {r["w"]: r["sv"] for r in got}.keys() == want.keys()
+    for r in got:
+        assert abs(r["sv"] - want[r["w"]]) <= 1e-12 * max(1.0, abs(
+            want[r["w"]]))

@@ -114,7 +114,8 @@ def test_sorts_outside_the_port_are_refused():
     with pytest.raises(NotImplementedError, match="BooleanType"):
         s.create_dataframe({"b": np.array([True, False])}).order_by("b") \
             .collect()
-    with pytest.raises(NotImplementedError, match="several partitions"):
-        s.create_dataframe({"k": np.arange(4)}, num_partitions=2) \
-            .order_by("k").collect()
+    # over several partitions a range exchange comes first
+    got = s.create_dataframe({"k": np.arange(4)[::-1].copy()},
+                             num_partitions=2).order_by("k").collect()
+    assert [r["k"] for r in got] == [0, 1, 2, 3]
 
