@@ -7,12 +7,14 @@ Needs one CUDA card; it exits non-zero, printing no result, without one.
 It builds every kernel from the sources in the checkout, into the
 git-ignored build/ directory: kernel 1, K5 and K6 (Triton, emitted by
 kernels/fused_agg.py and kernels/fused_stage.py) and kernel 2, K7, K7c,
-K8, K9, K10, K10x, K14 (with its ranking pass K14r), K15d, and K11h, K11r
+K8, K9, K10 (with its full outer mode K10f), K10x, K14 (with its ranking
+pass K14r and its frame kinds K14s, K14b and K14o), K15d, and K11h, K11r
 and K7s (csrc/*.cu, one nvcc each, all started together).  It holds each
 kernel against its plain PyTorch version on the card (phase 2h: the
-exchange's kernels and K9's merge kinds), then drives seven paths
-through ``TorchSession()``, each query with the launch counters set to 0
-just before it and read just after:
+exchange's kernels and K9's merge kinds; phase 2i: the window frames and
+the full outer join), then drives eight paths through ``TorchSession()``,
+each query with the launch counters set to 0 just before it and read
+just after:
 
 - bench.py's recipe -- filter(w > t), project k+1, v*2.0 and
   murmur3(k, w), sum all three, collect -- on 128M rows in 4 partitions,
@@ -38,8 +40,12 @@ just before it and read just after:
   cross-joined: K10x) and q36 (rank() over a rollup's parents: K14r, a
   CASE WHEN string view in K6, a sort by expressions) over the same
   tables, checked and timed alike;
-- phase 10: q3, q1, q7, q12, q16, q17 without its item conjunct and q18
-  over the same tables cut into ``--parts`` partitions (the JAX package's
+- phase 9b: TPC-DS q51 (running sums and maxima: K14s; the full outer
+  join: K10f; CASE over an int and a date) and q51w (q51's store half
+  with a 7-day moving average, lag, lead and ntile: K14b, K14o) over the
+  same tables, checked and timed alike;
+- phase 10: q3, q1, q7, q12, q16, q17 without its item conjunct, q18 and
+  q51 over the same tables cut into ``--parts`` partitions (the JAX package's
   register_tables rule): every group-by, join, sort and window behind a
   hash or range exchange (K11h, K11r, K7s), PARTIAL/FINAL group-bys
   through K9's merge kinds, each query's rows held against its
@@ -119,6 +125,18 @@ TPCDS_KERNELS = {
              "spark_rapids_tpu/plan/partitioning.py:186"),
     "K7s": ("split", "cuda", "spark_rapids_tpu_torch/csrc/partition.cu",
             "spark_rapids_tpu/ops/batch_ops.py:71"),
+    "K14s": ("window_running", "cuda",
+             "spark_rapids_tpu_torch/csrc/window.cu",
+             "spark_rapids_tpu/ops/window_ops.py:210"),
+    "K14b": ("window_bounded", "cuda",
+             "spark_rapids_tpu_torch/csrc/window.cu",
+             "spark_rapids_tpu/ops/window_ops.py:305"),
+    "K14o": ("window_offset", "cuda",
+             "spark_rapids_tpu_torch/csrc/window.cu",
+             "spark_rapids_tpu/ops/window_ops.py:197"),
+    "K10f": ("full_outer_join", "cuda",
+             "spark_rapids_tpu_torch/csrc/hash_join.cu",
+             "spark_rapids_tpu/ops/join_ops.py:275"),
 }
 #: each TPC-DS kernel's launch counter: module and attribute
 COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
@@ -136,7 +154,13 @@ COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
             "K15d": ("ops.agg_ops", "DISTINCT_LAUNCHES"),
             "K11h": ("ops.partition_ops", "HASH_LAUNCHES"),
             "K11r": ("ops.partition_ops", "RANGE_LAUNCHES"),
-            "K7s": ("ops.partition_ops", "SPLIT_LAUNCHES")}
+            "K7s": ("ops.partition_ops", "SPLIT_LAUNCHES"),
+            "K14s": ("ops.window_ops", "FRAME_LAUNCHES"),
+            "K14b": ("ops.window_ops", "BOUNDED_LAUNCHES"),
+            "K14o": ("ops.window_ops", "OFFSET_LAUNCHES"),
+            "K10f": ("ops.join_ops", "FULL_LAUNCHES")}
+#: K14o's three wrappers, recorded apart: ntile and the lag/lead default
+K14O_PARTS = {"K14on": "K14o", "K14of": "K14o"}
 #: the kernels each query's main path launches
 QUERY_KERNELS = {"q3": ("K5", "K7", "K8", "K9", "K10"),
                  "q1": ("K5", "K6", "K7", "K8", "K9", "K10"),
@@ -155,11 +179,14 @@ QUERY_KERNELS = {"q3": ("K5", "K7", "K8", "K9", "K10"),
                  "q6": ("K5", "K6", "K7", "K8", "K9", "K10"),
                  "q28": ("K1", "K3", "K5", "K7", "K10x", "K15d"),
                  "q36": ("K5", "K6", "K7", "K7c", "K8", "K9", "K10",
-                         "K14r")}
+                         "K14r"),
+                 "q51": ("K5", "K6", "K7", "K8", "K9", "K10", "K10f",
+                         "K14s"),
+                 "q51w": ("K5", "K7", "K8", "K9", "K10", "K14b", "K14o")}
 #: phase 10: the queries run over tables at 4 partitions, and the kernels
 #: each launches beside its one-partition ones (q16 sorts its one-row
 #: global aggregate: no range exchange)
-PARTS_QUERIES = ("q3", "q1", "q7", "q12", "q16", "q17v", "q18")
+PARTS_QUERIES = ("q3", "q1", "q7", "q12", "q16", "q17v", "q18", "q51")
 PARTS_KERNELS = {"q16": ("K7c", "K11h", "K7s")}
 PARTS_DEFAULT_KERNELS = ("K7c", "K11h", "K11r", "K7s")
 #: the histogram the exchange's one read brings to the host (exec/
@@ -187,6 +214,14 @@ MULTIKEY_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:96"]
 #: first positions K14r replaces beside the ranking kinds (q36)
 STRING_KEY_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:71"]
 RANK_REPLACES = ["spark_rapids_tpu/ops/window_ops.py:122"]
+#: the JAX programs beside each frame kind: the min/max half of the agg
+#: kind (K14s, K14b), ntile beside the offset kind (K14o), and the
+#: unmatched positions and the maps' concatenation beside the build
+#: side's matched flags (K10f)
+FRAME_REPLACES = ["spark_rapids_tpu/ops/window_ops.py:279"]
+NTILE_REPLACES = ["spark_rapids_tpu/ops/window_ops.py:187"]
+FULL_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:313",
+                 "spark_rapids_tpu/ops/join_ops.py:418"]
 M2_REPLACES = ["spark_rapids_tpu/ops/agg_ops.py:490"]
 #: data bytes of one table row (k int64, v double, w int32), as bench.py
 ROW_BYTES = 8 + 8 + 4
@@ -1822,6 +1857,201 @@ def check_slice8(session, rng, rate: float):
     return err, timed
 
 
+def frame_inputs(session, rng, n: int, big: int):
+    """Phase 2i's sorted batch: a partition key (runs of 1 to 9 rows, one
+    of ``big`` rows in the middle), an order key with ties, and values:
+    doubles with NaN, +-inf, -0.0 and nulls, longs, ints and dates with
+    nulls."""
+    import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    dev = session.device
+    sizes = []
+    while sum(sizes) < n - big:
+        sizes.append(int(rng.integers(1, 10)))
+    sizes.insert(len(sizes) // 2, big)
+    g = np.repeat(np.arange(len(sizes)), sizes)[:n]
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    valid = torch.from_numpy(rng.random(n) > 0.15).to(dev)
+    d = rng.standard_normal(n) * 100
+    u = rng.random(n)
+    d = np.where(u < 0.01, np.nan, d)
+    d = np.where((u > 0.01) & (u < 0.015), np.inf, d)
+    d = np.where((u > 0.015) & (u < 0.02), -np.inf, d)
+    d = np.where((u > 0.02) & (u < 0.03), -0.0, d)
+    ints = rng.integers(-1000, 1000, n)
+    key = DeviceColumn(torch.from_numpy(g).to(dev), ones, T.LONG, True)
+    order = DeviceColumn(torch.from_numpy(np.concatenate(
+        [np.sort(rng.integers(0, 4, k)) for k in sizes])[:n].astype(
+            np.int64)).to(dev), ones, T.LONG, True)
+    values = {
+        "double": DeviceColumn(torch.from_numpy(d).to(dev), valid,
+                               T.DOUBLE),
+        "long": DeviceColumn(torch.from_numpy(ints * 3_000_000_000).to(dev),
+                             valid, T.LONG),
+        "int": DeviceColumn(torch.from_numpy(ints.astype(np.int32)).to(dev),
+                            valid, T.INT),
+        "date": DeviceColumn(torch.from_numpy((ints + 11000).astype(
+            np.int32)).to(dev), valid, T.DATE)}
+    return key, order, values
+
+
+def check_slice9(session, rng, rate: float):
+    """Phase 2i: K14s and K14b (every kind over every frame form: running
+    to the row, to i + k, to the last peer, the whole partition, from the
+    row or i + k to the end, bounded ROWS frames) and K14o (lag/lead
+    source rows, ntile, the default of each fixed-width type) on sorted
+    batches of 0, 1, 1000 and 2**20 + 3 rows, whose middle partition
+    spans more than three tiles (and at the largest size most rows), and
+    K10f (int, string and two keys with nulls on both sides; empty sides;
+    1M probe rows against 64k build rows, a third of the keys matching)
+    against their plain versions.  Then each timed at one shape: K14s over
+    one partition of 2**20 + 3 rows, a running sum (library: torch.cumsum)
+    and a running max (torch.cummax); K14b a 7-row moving average and K14o
+    lag over the same rows; K10f 1M x 64k.  Returns the max |d| of each
+    and the timings."""
+    import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import batch_from_pydict
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import batch_ops as BO
+    from spark_rapids_tpu_torch.ops import join_ops as J
+    from spark_rapids_tpu_torch.ops import window_ops as W
+    tr, dev = session.transfers, session.device
+    err = {k: 0.0 for k in ("K14s", "K14b", "K14o", "K10f")}
+    timed = {}
+    unbounded = [("rows", None, 0), ("rows", None, 2), ("rows", None, -2),
+                 ("range", None, 0), ("rows", None, None), ("rows", 0, None),
+                 ("rows", 3, None), ("rows", -1, None)]
+    bounded = [("rows", -1, 1), ("rows", -2, 0), ("rows", 0, 2),
+               ("rows", -3, -1), ("rows", 1, 3), ("rows", -40, 5)]
+    kinds = [(W.WIN_SUM_F64, "double"), (W.WIN_SUM_I64, "long"),
+             (W.WIN_COUNT, "double"), (W.WIN_COUNT_ALL, None),
+             (W.WIN_MEAN, "double")] + \
+        [(k, t) for k in (W.WIN_MIN, W.WIN_MAX)
+         for t in ("double", "long", "int", "date")]
+    for n in SLICE3_SIZES:
+        big = min(n, 3 * 1024 + 517) if n < (1 << 20) else n - 4000
+        key, order, values = frame_inputs(session, rng, n, big)
+        for fk, lo, hi in unbounded + bounded:
+            funcs, inputs = [], []
+            for kind, t in kinds:
+                f = W.FrameAgg(kind, fk, lo, hi)
+                if kind in (W.WIN_MIN, W.WIN_MAX) and not (
+                        f.bounded or (lo is None and hi in (None, 0)) or
+                        (lo == 0 and hi is None)):
+                    continue   # refused, as the JAX program refuses it
+                funcs.append(f)
+                inputs.append(None if t is None else values[t])
+            name = "K14b" if funcs[0].bounded else "K14s"
+            args = ([key], funcs, inputs, n, dev) if name == "K14b" else \
+                ([key], [order], funcs, inputs, n, dev)
+            fn = W.window_bounded if name == "K14b" else W.window_running
+            plain = W.window_bounded_plain if name == "K14b" else \
+                W.window_running_plain
+            got = fn(*args)
+            torch.cuda.synchronize()
+            err[name] = max(err[name], same_frame_call(
+                name, args, got, plain(*args),
+                f"{name}, {n} rows, frame {fk} {lo} {hi}"))
+        offsets = [-1, -2, 1, 3, 0, -big, big - 1]
+        for g, r in zip(W.window_offset([key], offsets, n, dev),
+                        W.window_offset_plain([key], offsets, n, dev)):
+            err["K14o"] = max(err["K14o"], same_indices(
+                g, r, f"K14o, {n} rows: source rows"))
+        for g, r in zip(W.window_ntile([key], [1, 3, 7, big + 5], n, dev),
+                        W.window_ntile_plain([key], [1, 3, 7, big + 5], n,
+                                             dev)):
+            err["K14o"] = max(err["K14o"], same_indices(
+                g.data, r.data, f"K14o, {n} rows: ntile"))
+        m, = W.window_offset([key], [-2], n, dev)
+        for t, default in (("double", -99.5), ("long", -(2 ** 40)),
+                           ("int", -7), ("date", 11111)):
+            col, = BO.gather_columns([values[t]], m, tr, nullable=True)
+            err["K14o"] = max(err["K14o"], same_columns(
+                [W.window_fill(col, m, default)],
+                [W.window_fill_plain(col, m, default)],
+                f"K14o, {n} rows: a {t} default"))
+
+    # K10f: int, string and two keys with nulls on both sides
+    def side(rows, card):
+        d = {"k": [None if rng.random() < 0.1 else int(x)
+                   for x in rng.integers(0, card, rows)],
+             "s": [None if rng.random() < 0.1 else f"k{x}"
+                   for x in rng.integers(0, card, rows)],
+             "a": [int(x) for x in rng.integers(0, 3, rows)]}
+        return tr.upload_batch(batch_from_pydict(d, T.StructType([
+            T.StructField("k", T.LONG), T.StructField("s", T.STRING),
+            T.StructField("a", T.INT)])))
+    probe, build = side(100_000, 40_000), side(30_000, 60_000)
+    for b, p in ((build, probe), (side(0, 5), probe), (build, side(0, 5)),
+                 (side(1, 5), side(1, 5))):
+        for keys in ((b.columns[0], p.columns[0]),
+                     (b.columns[1], p.columns[1]),
+                     ([b.columns[0], b.columns[2]],
+                      [p.columns[0], p.columns[2]])):
+            got = J.join_pairs(*keys, tr, mode="full")
+            torch.cuda.synchronize()
+            err["K10f"] = max(err["K10f"], same_output(
+                "K10f", keys, {"mode": "full"}, got,
+                J.join_pairs_plain(*keys, tr, mode="full"), tr,
+                f"K10f, {b.row_count} x {p.row_count}"))
+    # timings
+    n = SLICE3_SIZES[-1]
+    ones = torch.ones(n, dtype=torch.bool, device=dev)
+    one = DeviceColumn(torch.zeros(n, dtype=torch.int64, device=dev), ones,
+                       T.LONG, True)
+    x = DeviceColumn(torch.from_numpy(rng.normal(size=n)).to(dev), ones,
+                     T.DOUBLE, True)
+    for what, kind, library in (
+            ("running sum", W.WIN_SUM_F64,
+             lambda: torch.cumsum(x.data, 0)),
+            ("running max", W.WIN_MAX,
+             lambda: torch.cummax(x.data, 0))):
+        f = [W.FrameAgg(kind, "rows", None, 0)]
+        got = W.window_running([one], [], f, [x], n, dev)
+        torch.cuda.synchronize()
+        err["K14s"] = max(err["K14s"], same_frame_call(
+            "K14s", ([one], [], f, [x], n, dev), got,
+            W.window_running_plain([one], [], f, [x], n, dev),
+            f"K14s, {what} over one partition of {n} rows"))
+        timed[f"K14s {what}"] = (
+            time_ms(lambda: W.window_running([one], [], f, [x], n, dev), 10),
+            time_ms(lambda: W.window_running_plain([one], [], f, [x], n,
+                                                   dev), 2, 1),
+            (8 * n + 8 * n + 9 * n) / rate * 1e3, time_ms(library, 10))
+    f = [W.FrameAgg(W.WIN_MEAN, "rows", -6, 0)]
+    timed["K14b moving average"] = (
+        time_ms(lambda: W.window_bounded([one], f, [x], n, dev), 10),
+        time_ms(lambda: W.window_bounded_plain([one], f, [x], n, dev), 2, 1),
+        (8 * n + 8 * n + 9 * n) / rate * 1e3, None)
+    timed["K14o lag"] = (
+        time_ms(lambda: W.window_offset([one], [-1], n, dev), 10),
+        time_ms(lambda: W.window_offset_plain([one], [-1], n, dev), 2, 1),
+        (8 * n + 8 * n) / rate * 1e3, None)
+    # K10f: 1M probe rows against 64k build rows, a third of them matching
+    pk = torch.from_numpy(rng.integers(0, 3 * 65536, SLICE8_ROWS)).to(dev)
+    bk = torch.from_numpy(rng.permutation(65536) * 3).to(dev)
+    pcol = DeviceColumn(pk, torch.ones(SLICE8_ROWS, dtype=torch.bool,
+                                       device=dev), T.LONG, True)
+    bcol = DeviceColumn(bk, torch.ones(65536, dtype=torch.bool, device=dev),
+                        T.LONG, True)
+    got = J.join_pairs(bcol, pcol, tr, mode="full")
+    err["K10f"] = max(err["K10f"], same_output(
+        "K10f", (bcol, pcol), {"mode": "full"}, got,
+        J.join_pairs_plain(bcol, pcol, tr, mode="full"), tr,
+        "K10f, 65536 x 1000000"))
+    timed["K10f"] = (
+        time_ms(lambda: J.join_pairs(bcol, pcol, tr, mode="full"), 10),
+        time_ms(lambda: J.join_pairs_plain(bcol, pcol, tr, mode="full"), 2,
+                1),
+        (8 * 65536 + 8 * SLICE8_ROWS + 16 * got[0].shape[0] + 65536) /
+        rate * 1e3, None)
+    print(f"K10f 65536 x {SLICE8_ROWS}: {got[2]} pairs, "
+          f"{got[0].shape[0] - got[2]} unmatched build rows")
+    return err, timed
+
+
 def rows_match(expected, actual, what: str) -> None:
     """In order; doubles within 1e-6 relative (the comparator the JAX
     package's TPC-DS oracle uses, rowcompare.val_eq), the rest exact."""
@@ -1877,7 +2107,12 @@ class Recorder:
             (joins, "cross_pairs", "K10x"),
             (partition_ops, "hash_partition", "K11h"),
             (partition_ops, "range_partition", "K11r"),
-            (partition_ops, "split_columns", "K7s")]
+            (partition_ops, "split_columns", "K7s"),
+            (window_ops, "window_running", "K14s"),
+            (window_ops, "window_bounded", "K14b"),
+            (window_ops, "window_offset", "K14o"),
+            (window_ops, "window_ntile", "K14on"),
+            (window_ops, "window_fill", "K14of")]
         self._saved = []
 
     def __enter__(self):
@@ -1886,11 +2121,14 @@ class Recorder:
             self._saved.append((mod, name, fn))
 
             def wrapped(*a, _fn=fn, _k=kernel, **kw):
-                counter = counter_of(_k)
+                if _k == "K10" and kw.get("mode") == "full":
+                    _k = "K10f"
+                counter = counter_of(K14O_PARTS.get(_k, _k))
                 before = getattr(*counter)
                 if self.mark:
                     import torch
-                    with torch.profiler.record_function(f"srt.{_k}"):
+                    with torch.profiler.record_function(
+                            f"srt.{K14O_PARTS.get(_k, _k)}"):
                         out = _fn(*a, **kw)
                 else:
                     out = _fn(*a, **kw)
@@ -1938,6 +2176,20 @@ def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
     if name == "K14r":
         return max([same_indices(g.data, r.data, f"{what}: ranks")
                     for g, r in zip(got, ref)] + [0.0])
+    if name in ("K14s", "K14b"):
+        return same_frame_call(name, args, got, ref, what)
+    if name == "K14o":
+        return max([same_indices(g, r, f"{what}: source rows")
+                    for g, r in zip(got, ref)] + [0.0])
+    if name == "K14on":
+        return max([same_indices(g.data, r.data, f"{what}: tiles")
+                    for g, r in zip(got, ref)] + [0.0])
+    if name == "K14of":
+        return same_columns([got], [ref], f"{what}: default")
+    if name == "K10f":
+        check(got[2] == ref[2], f"{what}: pairs {got[2]} vs {ref[2]}")
+        return max(same_indices(got[0], ref[0], f"{what}: probe rows"),
+                   same_indices(got[1], ref[1], f"{what}: build rows"))
     if name == "K1":
         return same_kernel1(args, got, ref, what)
     if name == "K3":
@@ -2023,6 +2275,62 @@ def same_window_call(args, got, ref, what: str) -> float:
     return same_window(got, ref, absum, what)
 
 
+def same_frames(got, ref, absum, what: str) -> float:
+    """Frame outputs against the plain version's: validity, integers,
+    NaN and infinities exact; a finite double within F64_SUM_RTOL of its
+    frame's sum of |x| (``absum[j]``; exact where it is None)."""
+    import torch
+    err = 0.0
+    for j, (g, r) in enumerate(zip(got, ref)):
+        w = f"{what}, function {j}"
+        ok = r.validity
+        check(bool(torch.equal(g.validity, ok)), f"{w}: validity")
+        zero = torch.zeros((), dtype=r.data.dtype, device=r.data.device)
+        gd, rd = torch.where(ok, g.data, zero), torch.where(ok, r.data,
+                                                            zero)
+        if not rd.dtype.is_floating_point:
+            check(bool(torch.equal(gd, rd)), f"{w}: values")
+            err = max(err, max_diff(gd, rd))
+            continue
+        check(bool(torch.equal(torch.isnan(gd), torch.isnan(rd))),
+              f"{w}: NaN")
+        inf = torch.isinf(rd)
+        check(bool(torch.equal(torch.where(inf, gd, 0.0),
+                               torch.where(inf, rd, 0.0))),
+              f"{w}: infinities")
+        d = torch.where(torch.isfinite(rd), (gd - rd).abs(), 0.0)
+        worst = float(d.max()) if d.numel() else 0.0
+        limit = 0.0 if absum[j] is None else F64_SUM_RTOL * absum[j]
+        check(bool((d <= limit).all()), f"{w}: values ({worst})")
+        err = max(err, worst)
+    return err
+
+
+def same_frame_call(name, args, got, ref, what: str) -> float:
+    """A K14s or K14b call against its plain version: a running double sum
+    or mean within F64_SUM_RTOL of its frame's sum of |x| (the plain
+    version rebases prefix sums), everything else exact (K14b and the
+    plain version fold each frame in row order alike)."""
+    import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import window_ops as W
+    if name == "K14b":
+        return same_frames(got, ref, [None] * len(got), what)
+    keys, order, funcs, values, n, dev = args
+    absum = []
+    for f, c in zip(funcs, values):
+        if f.kind not in (W.WIN_SUM_F64, W.WIN_MEAN):
+            absum.append(None)
+            continue
+        a = DeviceColumn(torch.where(torch.isfinite(c.data), c.data.abs(),
+                                     0.0), c.validity, T.DOUBLE)
+        absum.append(W.window_running_plain(
+            keys, order, [W.FrameAgg(W.WIN_SUM_F64, f.frame, f.lo, f.hi)],
+            [a], n, dev)[0].data)
+    return same_frames(got, ref, absum, what)
+
+
 def k5_library(program, batch, lits):
     """One-call PyTorch yardstick of a K5 launch whose filter is one
     numeric ``column = literal``: the mask, ``torch.nonzero`` and
@@ -2074,7 +2382,10 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
              "K14": W.window_reduce_plain, "K14r": W.window_rank_plain,
              "K10x": J.cross_pairs_plain, "K11h": PO.hash_partition_plain,
              "K11r": PO.range_partition_plain,
-             "K7s": PO.split_columns_plain}
+             "K7s": PO.split_columns_plain,
+             "K14s": W.window_running_plain, "K14b": W.window_bounded_plain,
+             "K14o": W.window_offset_plain, "K14on": W.window_ntile_plain,
+             "K14of": W.window_fill_plain, "K10f": J.join_pairs_plain}
     kernel = {"K1": FU.fused_agg_update, "K3": G.global_reduce,
               "K15d": G.count_distinct,
               "K5": FU.fused_stage_compact, "K6": FU.fused_project,
@@ -2083,11 +2394,14 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
               "K9": G.keyed_aggregate, "K10": J.join_pairs,
               "K14": W.window_reduce, "K14r": W.window_rank,
               "K10x": J.cross_pairs, "K11h": PO.hash_partition,
-              "K11r": PO.range_partition, "K7s": PO.split_columns}
+              "K11r": PO.range_partition, "K7s": PO.split_columns,
+              "K14s": W.window_running, "K14b": W.window_bounded,
+              "K14o": W.window_offset, "K14on": W.window_ntile,
+              "K14of": W.window_fill, "K10f": J.join_pairs}
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "library_ms": 0.0,
                "shapes": [], "max_abs_err": 0.0} for k in kernels}
     for i, (name, args, kw) in enumerate(calls):
-        o = out[name]
+        o = out[K14O_PARTS.get(name, name)]
         got = kernel[name](*args, **kw)
         torch.cuda.synchronize()
         o["max_abs_err"] = max(o["max_abs_err"], same_output(
@@ -2229,6 +2543,32 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
                 def library(planes=planes, pids=pids):
                     perm = torch.argsort(pids, stable=True)
                     return [torch.index_select(p, 0, perm) for p in planes]
+        elif name in ("K14s", "K14b"):
+            keys = args[0]
+            order = args[1] if name == "K14s" else []
+            funcs, values, n = args[-4:-1] if name == "K14s" else args[1:4]
+            peers = name == "K14s" and any(
+                f.running_form()[1] == W.TAKE_PEERS for f in funcs)
+            o["bytes"] += sum(column_bytes(c) for c in keys) + \
+                (sum(column_bytes(c) for c in order) if peers else 0) + \
+                sum(0 if c is None else n * (1 if f.kind == W.WIN_COUNT
+                                             else 1 + c.data.element_size())
+                    for f, c in zip(funcs, values)) + \
+                sum(column_bytes(c) for c in got)
+            o["shapes"].append(f"{n} rows, {len(keys)} keys, {len(funcs)} "
+                               f"functions: {ms:.4f} ms")
+        elif name in ("K14o", "K14on"):
+            keys, counts, n = args[:3]
+            o["bytes"] += sum(column_bytes(c) for c in keys) + \
+                (8 if name == "K14o" else 4) * n * len(counts)
+            o["shapes"].append(f"{n} rows, {len(counts)} "
+                               f"{'offsets' if name == 'K14o' else 'ntiles'}"
+                               f": {ms:.4f} ms")
+        elif name == "K14of":
+            c, src = args[0], args[1]
+            o["bytes"] += 2 * column_bytes(c) + 8 * src.shape[0]
+            o["shapes"].append(f"default into {src.shape[0]} rows: "
+                               f"{ms:.4f} ms")
         elif name == "K10x":
             n_probe, n_build = args[:2]
             o["bytes"] += 16 * n_probe * n_build
@@ -2243,6 +2583,8 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
             pr = got[0]
             o["bytes"] += sum(column_bytes(c) for c in b + p) + \
                 (8 if got[1] is None else 16) * pr.shape[0]
+            if name == "K10f":
+                o["bytes"] += b[0].row_count   # the matched flags
             mode = " outer" if kw.get("outer") else \
                 f" {kw['mode']}" if kw.get("mode") else ""
             o["shapes"].append(f"{b[0].row_count} x {p[0].row_count} ->"
@@ -2358,6 +2700,8 @@ QUERIES = {
     "q28": ("q28", ("store_sales",), "store_sales"),
     "q36": ("q36", ("store_sales", "date_dim", "item", "store"),
             "store_sales"),
+    "q51": ("q51", ("web_sales", "store_sales", "date_dim"), "store_sales"),
+    "q51w": ("q51w", ("store_sales", "date_dim"), "store_sales"),
 }
 #: the queries that must join on a string key (K10)
 STRING_JOIN_QUERIES = ("q6",)
@@ -2369,10 +2713,11 @@ QUERY_KW = {"q17v": {"same_item": False}}
 QUERY_ROWS = {"q3": 10, "q1": 100, "q7": 100, "q15": 40, "q12": 100,
               "q20": 100, "q13": 1, "q19": 100, "q16": 1, "q17": None,
               "q17v": 100, "q10": 100, "q18": 100, "q6": 10, "q28": 1,
-              "q36": 100}
+              "q36": 100, "q51": 100, "q51w": 1}
 #: phases 4 to 9, in bench.py's TPC-DS order within each slice
 TPCDS_ORDER = ("q3", "q1", "q7", "q15", "q12", "q20", "q13", "q19", "q16",
-               "q17", "q17v", "q10", "q18", "q6", "q28", "q36")
+               "q17", "q17v", "q10", "q18", "q6", "q28", "q36", "q51",
+               "q51w")
 #: the queries whose CPU run is held against the card at full size; the
 #: others' CPU run is held against a card run at a tenth of the scale
 FULL_CPU_CHECK = ("q6", "q28", "q36")
@@ -2520,7 +2865,8 @@ def run_query(session, query: str, tables, rate: float,
     t_stage = time.perf_counter()
     with Recorder() as rec:
         run()
-    recorded = {k: sum(c[0] == k for c in rec.calls) for k in kernels}
+    recorded = {k: sum(K14O_PARTS.get(c[0], c[0]) == k for c in rec.calls)
+                for k in kernels}
     check(recorded == launches, f"every launch of the {label} main path "
           f"was recorded: {recorded} vs {launches}")
     if query in STRING_JOIN_QUERIES:
@@ -2758,6 +3104,24 @@ def main() -> int:
         print(f"{kernel} ({shapes[what]}): {ms_:.4f} ms, plain "
               f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
 
+    # -- phase 2i: the slice-9 kernels against their plain versions ---------
+    t0 = time.perf_counter()
+    errs9, slice9_one = check_slice9(session, rng, rate)
+    print(f"K14s (running frames), K14b (bounded ROWS frames), K14o (lag/"
+          f"lead, ntile, defaults), K10f (full outer) vs plain: pass "
+          f"({time.perf_counter() - t0:.1f} s), max |d| {errs9}")
+    shapes = {"K14s running sum": f"one partition of {SLICE3_SIZES[-1]} "
+                                  "rows",
+              "K14s running max": f"one partition of {SLICE3_SIZES[-1]} "
+                                  "rows",
+              "K14b moving average": f"one partition of {SLICE3_SIZES[-1]}"
+                                     " rows, ROWS 6 PRECEDING",
+              "K14o lag": f"one partition of {SLICE3_SIZES[-1]} rows",
+              "K10f": f"65536 build x {SLICE8_ROWS} probe rows"}
+    for what, (ms_, plain_, bound_, lib_) in slice9_one.items():
+        print(f"{what} ({shapes[what]}): {ms_:.4f} ms, plain "
+              f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
+
     phase("kernels checked")
 
     # -- phase 3: the bench recipe at full size -----------------------------
@@ -2971,7 +3335,8 @@ def main() -> int:
                 "max_abs_err": max(errs.get(k, 0.0), errs3.get(k, 0.0),
                                    errs4.get(k, 0.0), errs5.get(k, 0.0),
                                    errs6.get(k, 0.0), errs7.get(k, 0.0),
-                                   errs8.get(k, 0.0), o["max_abs_err"]),
+                                   errs8.get(k, 0.0), errs9.get(k, 0.0),
+                                   o["max_abs_err"]),
                 "ms": o["ms"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound_ms"], "bound_by": "bytes",
                 "library_ms": o["library_ms"], "device_ms": o["device_ms"],
@@ -3037,6 +3402,19 @@ def main() -> int:
                 entry["phase_2g_plain_ms"] = plain_
                 entry["phase_2g_bound_ms"] = bound_
                 entry["phase_2g_library_ms"] = lib_
+            if k in ("K14s", "K14b", "K14o", "K10f"):
+                entry["also_replaces"] = {"K14s": FRAME_REPLACES,
+                                          "K14b": FRAME_REPLACES,
+                                          "K14o": NTILE_REPLACES,
+                                          "K10f": FULL_REPLACES}[k]
+                for what, (ms_, plain_, bound_, lib_) in slice9_one.items():
+                    if what.split(" ")[0] != k:
+                        continue
+                    key = what.replace(" ", "_").lower()
+                    entry[f"phase_2i_{key}_ms"] = ms_
+                    entry[f"phase_2i_{key}_plain_ms"] = plain_
+                    entry[f"phase_2i_{key}_bound_ms"] = bound_
+                    entry[f"phase_2i_{key}_library_ms"] = lib_
             kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

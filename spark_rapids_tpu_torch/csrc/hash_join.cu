@@ -1,5 +1,6 @@
-// Kernel K10: inner, left outer, left semi and left anti equi-join on up
-// to 8 key columns of int, date, long or string, through a hash table.
+// Kernel K10: inner, left (and right) outer, full outer, left semi and
+// left anti equi-join on up to 8 key columns of int, date, long or string,
+// through a hash table.
 //
 // Replaces the JAX package's sort-based join programs `join.build`,
 // `join.probe`, `join.pair` and `join.compact_pairs`
@@ -47,7 +48,19 @@
 //   semi   -- a probe row with a match is kept once, whatever the build
 //             side's duplicates: its chain walk stops at the first match;
 //   anti   -- a probe row with no match is kept, a null key included (the
-//             JAX package's plain anti join, not Spark's null-aware one).
+//             JAX package's plain anti join, not Spark's null-aware one);
+//   full   -- K10f, the full outer join (join.matched_flags,
+//             join.unmatched and join.concat_maps, :275, :313, :418): the
+//             pairs of the outer mode, and the count pass also stores
+//             flag[build row] = 1 for every match it finds (a plain byte
+//             store: threads that race write the same value).  Then
+//             srt_join_unmatched scans the build rows whose flag is 0 (a
+//             null key is never inserted, so never matched: it comes out
+//             unmatched, as Spark gives it), and its count joins the pair
+//             count in the join's one read; srt_join_unmatched_write puts
+//             each such row after the pairs as (-1, build row), in build
+//             order.  A right outer join is the outer mode with the sides
+//             swapped.
 // Semi and anti write only the kept probe rows, in probe order.
 //
 // One key column is the case n_keys = 1 of the same code; one fixed-width
@@ -67,7 +80,8 @@ using srt::kThreads;
 
 constexpr long long kEmpty = -1;
 
-enum Mode : int32_t { kInner = 0, kOuter = 1, kSemi = 2, kAnti = 3 };
+enum Mode : int32_t { kInner = 0, kOuter = 1, kSemi = 2, kAnti = 3,
+                      kFull = 4 };
 
 struct Side {
   Keys k;
@@ -134,10 +148,12 @@ __device__ __forceinline__ long long slot_match(const Side& b, const Side& p,
   return word_tagged(p.k) || srt::keys_equal(b.k, r, p.k, i) ? r : -1;
 }
 
-// matches of probe row i; semi and anti modes stop at the first
+// matches of probe row i; semi and anti modes stop at the first; each
+// match's build row is flagged where flags is not null
 __device__ __forceinline__ long long match_count(const Side& b,
                                                  const Side& p, int64_t i,
-                                                 const Table& t, int mode) {
+                                                 const Table& t, int mode,
+                                                 uint8_t* flags = nullptr) {
   if (i >= p.n || !srt::all_present(p.k, i)) return 0;
   const uint64_t h = srt::row_hash(p.k, i);
   const uint64_t tag = row_tag(p.k, i, h);
@@ -145,8 +161,10 @@ __device__ __forceinline__ long long match_count(const Side& b,
   long long c = 0;
   for (uint64_t s = h & t.mask; t.slots[s] != kEmpty;
        s = (s + 1) & t.mask) {
-    if (slot_match(b, p, t, s, i, tag) < 0) continue;
+    const long long r = slot_match(b, p, t, s, i, tag);
+    if (r < 0) continue;
     ++c;
+    if (flags != nullptr) flags[r] = 1;
     if (first_only) break;
   }
   return c;
@@ -159,7 +177,8 @@ __device__ __forceinline__ long long pair_count(long long matches,
                                                 int mode) {
   if (i >= p.n) return 0;
   switch (mode) {
-    case kOuter: return matches == 0 ? 1 : matches;
+    case kOuter:
+    case kFull: return matches == 0 ? 1 : matches;
     case kSemi: return matches > 0 ? 1 : 0;
     case kAnti: return matches == 0 ? 1 : 0;
     default: return matches;
@@ -167,12 +186,13 @@ __device__ __forceinline__ long long pair_count(long long matches,
 }
 
 __global__ void __launch_bounds__(kThreads)
-    probe_count(Side b, Side p, Table t, int mode, int64_t* tile_counts) {
+    probe_count(Side b, Side p, Table t, int mode, uint8_t* flags,
+                int64_t* tile_counts) {
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kScanTile;
   long long c = 0;
   for (int k = 0; k < kScanItems; ++k) {
     const int64_t i = base + k * kThreads + threadIdx.x;
-    c += pair_count(match_count(b, p, i, t, mode), p, i, mode);
+    c += pair_count(match_count(b, p, i, t, mode, flags), p, i, mode);
   }
   long long total;
   srt::block_exclusive_scan(c, &total);
@@ -198,7 +218,7 @@ __global__ void __launch_bounds__(kThreads)
       out_probe[start] = i;
       continue;
     }
-    if (m == 0) {  // outer mode: the row with no match, null-extended
+    if (m == 0) {  // outer and full: the row with no match, null-extended
       out_probe[start] = i;
       out_build[start] = -1;
       continue;
@@ -224,6 +244,29 @@ __global__ void __launch_bounds__(kThreads)
       }
       out_build[j + 1] = v;
     }
+  }
+}
+
+// 1 for a build row no probe row matched
+struct Unmatched {
+  const uint8_t* flags;
+  __device__ __forceinline__ long long operator()(int64_t i) const {
+    return flags[i] ? 0 : 1;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads)
+    unmatched_write(const uint8_t* __restrict__ flags, int64_t nb,
+                    const int64_t* __restrict__ offsets, int64_t base,
+                    long long* __restrict__ out_probe,
+                    long long* __restrict__ out_build) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                   threadIdx.x;
+       r < nb; r += stride) {
+    if (flags[r]) continue;
+    out_probe[base + offsets[r]] = -1;
+    out_build[base + offsets[r]] = r;
   }
 }
 
@@ -283,9 +326,10 @@ extern "C" int srt_join_build(int32_t n_keys, const int32_t* type,
   return static_cast<int>(cudaGetLastError());
 }
 
-// mode: Mode.  tile_offsets: srt::tiles_for(n) + 1 int64; after the call
-// tile_offsets[tiles] holds the number of pairs (kept rows in semi and
-// anti modes).
+// mode: Mode.  flags: nb bytes in full mode (cleared here, then each
+// matched build row's set), else null.  tile_offsets: srt::tiles_for(n) +
+// 1 int64; after the call tile_offsets[tiles] holds the number of pairs
+// (kept rows in semi and anti modes).
 extern "C" int srt_join_count(int32_t n_keys, const int32_t* btype,
                               const int32_t* boff64, const void* const* bdata,
                               const void* const* bvalid,
@@ -296,19 +340,26 @@ extern "C" int srt_join_count(int32_t n_keys, const int32_t* btype,
                               const void* const* poffsets, int64_t n,
                               const void* slots, const void* slot_tag,
                               int64_t table_size, int32_t mode,
-                              void* tile_offsets, void* stream) {
-  if (mode < kInner || mode > kAnti || !valid_keys(n_keys, btype) ||
-      !valid_keys(n_keys, ptype) || !same_kinds(n_keys, btype, ptype))
+                              void* flags, void* tile_offsets,
+                              void* stream) {
+  if (mode < kInner || mode > kFull || !valid_keys(n_keys, btype) ||
+      !valid_keys(n_keys, ptype) || !same_kinds(n_keys, btype, ptype) ||
+      ((mode == kFull) != (flags != nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int64_t* offs = static_cast<int64_t*>(tile_offsets);
+  uint8_t* fl = static_cast<uint8_t*>(flags);
+  if (fl != nullptr && nb > 0) {
+    const cudaError_t e = cudaMemsetAsync(fl, 0, nb, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if (n == 0)
     return static_cast<int>(cudaMemsetAsync(offs, 0, sizeof(int64_t), s));
   const unsigned tiles = srt::tiles_for(n);
   probe_count<<<tiles, kThreads, 0, s>>>(
       side(n_keys, btype, boff64, bdata, bvalid, boffsets, nb),
       side(n_keys, ptype, poff64, pdata, pvalid, poffsets, n),
-      table(slots, slot_tag, table_size), mode, offs);
+      table(slots, slot_tag, table_size), mode, fl, offs);
   srt::scan_tile_offsets<<<1, kThreads, 0, s>>>(offs, tiles, offs + tiles);
   return static_cast<int>(cudaGetLastError());
 }
@@ -326,7 +377,7 @@ extern "C" int srt_join_write(int32_t n_keys, const int32_t* btype,
                               int64_t table_size, int32_t mode,
                               const void* tile_offsets, void* out_probe,
                               void* out_build, void* stream) {
-  if (mode < kInner || mode > kAnti || !valid_keys(n_keys, btype) ||
+  if (mode < kInner || mode > kFull || !valid_keys(n_keys, btype) ||
       !valid_keys(n_keys, ptype) || !same_kinds(n_keys, btype, ptype))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
@@ -336,6 +387,35 @@ extern "C" int srt_join_write(int32_t n_keys, const int32_t* btype,
       side(n_keys, ptype, poff64, pdata, pvalid, poffsets, n),
       table(slots, slot_tag, table_size), mode,
       static_cast<const int64_t*>(tile_offsets),
+      static_cast<long long*>(out_probe), static_cast<long long*>(out_build));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K10f, after srt_join_count in full mode: offsets[r] = the unmatched
+// build rows before row r, offsets[nb] = their number.  offsets: nb + 1
+// int64; tile_scratch: srt::tiles_for(nb) int64.
+extern "C" int srt_join_unmatched(const void* flags, int64_t nb,
+                                  void* offsets, void* tile_scratch,
+                                  void* stream) {
+  if (nb < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(srt::exclusive_scan(
+      Unmatched{static_cast<const uint8_t*>(flags)}, nb,
+      static_cast<int64_t*>(offsets), static_cast<int64_t*>(tile_scratch),
+      static_cast<cudaStream_t>(stream)));
+}
+
+// K10f: each unmatched build row r as the pair (-1, r) at base +
+// offsets[r] (base: the number of pairs srt_join_write wrote).
+extern "C" int srt_join_unmatched_write(const void* flags, int64_t nb,
+                                        const void* offsets, int64_t base,
+                                        void* out_probe, void* out_build,
+                                        void* stream) {
+  if (nb < 0 || base < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (nb == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unmatched_write<<<srt::grid_for(nb), kThreads, 0, s>>>(
+      static_cast<const uint8_t*>(flags), nb,
+      static_cast<const int64_t*>(offsets), base,
       static_cast<long long*>(out_probe), static_cast<long long*>(out_build));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,5 @@
-"""Inner, left outer, left semi and left anti equi-joins (the analog of
+"""Inner, left, right and full outer, left semi and left anti equi-joins
+(the analog of
 ``spark_rapids_tpu/exec/joins.py``: ``CpuShuffledHashJoinExec`` ``:577``,
 ``TpuShuffledHashJoinExec`` ``:596`` and ``TpuSubPartitionHashJoinExec``
 ``:878``, device core ``_join_device`` ``:389``).
@@ -15,7 +16,15 @@ the small filtered dimension on one side and the fact table on the
 other; building on the fact table would make a table thousands of times
 larger).  Row counts are exact on the host, so the choice needs no sync.
 A left outer join builds on the right side whatever the sizes: the left
-side is preserved, so it probes (JAX ``:528-535``).  K10
+side is preserved, so it probes (JAX ``:528-535``); a right outer join
+is the same with the sides swapped, built on the left side and probed
+with the right; a full outer join builds on the right side, as the JAX
+package does, and K10f (K10's full mode) gives the left outer pairs,
+then each right row no left row matched (a null key included) with left
+row -1: the build side's matched flags span the partition's one probe
+batch, so its unmatched rows come out once, after it (JAX ``:499-502``,
+``:544-551``).  Over several partitions each side is hash-exchanged
+first, so a preserved side is never broadcast.  K10
 (``ops/join_ops.py``) gives the row pairs, in its outer mode a left row
 with no match paired with build row -1; K7 gathers each side's columns
 through them and writes a null row for -1.  Output columns stay left
@@ -45,9 +54,15 @@ A cross join over several partitions broadcasts its right side: K7c
 joins all its partitions into one batch, which every left partition
 meets (the left side's partitions are the output's).
 
-Refused by name when the plan is built: right and full joins, a condition
-beyond the keys (a cross join's too), and keys other than int, date,
-long or string (double keys)."""
+With USING keys (``DataFrame.join(on=names)``) a right outer join gives
+the right side's key columns and a full outer join their coalesce (JAX
+``session.py`` ``join``): the join exec then writes, for each key pair,
+the left key of its pairs and the right key of its unmatched right rows,
+joined by K7c (``coalesce_keys``).
+
+Refused by name when the plan is built: a condition beyond the keys (a
+cross join's too), and keys other than int, date, long or string (double
+keys)."""
 
 from __future__ import annotations
 
@@ -66,11 +81,15 @@ from spark_rapids_tpu_torch.plan.base import (Exec, ExecContext, Partitions,
 INNER = "inner"
 CROSS = "cross"
 LEFT_OUTER = "left_outer"
+RIGHT_OUTER = "right_outer"
+FULL_OUTER = "full_outer"
 LEFT_SEMI = "left_semi"
 LEFT_ANTI = "left_anti"
 
 _HOW = {"inner": INNER, "cross": CROSS, "left": LEFT_OUTER,
-        "leftouter": LEFT_OUTER,
+        "leftouter": LEFT_OUTER, "right": RIGHT_OUTER,
+        "rightouter": RIGHT_OUTER, "full": FULL_OUTER,
+        "fullouter": FULL_OUTER, "outer": FULL_OUTER,
         "semi": LEFT_SEMI, "leftsemi": LEFT_SEMI,
         "anti": LEFT_ANTI, "leftanti": LEFT_ANTI}
 #: K10's mode of each existence join
@@ -83,8 +102,8 @@ def normalize_how(how: str) -> str:
     h = how.lower().replace("_", "").replace(" ", "")
     if h not in _HOW:
         raise NotImplementedError(
-            f"{how} joins are not in the port yet (inner, cross, left "
-            "outer, left semi and left anti joins are)")
+            f"{how} joins are not in the port (inner, cross, left, right "
+            "and full outer, left semi and left anti joins are)")
     return _HOW[h]
 
 
@@ -188,13 +207,23 @@ class _JoinExec(Exec):
 
 
 class TorchHashJoinExec(_JoinExec):
+    """``coalesce_keys`` (a full outer join with USING keys): each left key
+    column of the output holds the left key of the pairs and the right key
+    of the unmatched right rows."""
+
     def __init__(self, left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression], left, right,
-                 how: str = INNER):
+                 how: str = INNER, coalesce_keys: bool = False):
         check_join(how, left_keys, right_keys, left, right)
         super().__init__(left, right, normalize_how(how))
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
+        if coalesce_keys and (self.how != FULL_OUTER or any(
+                a.data_type != b.data_type
+                for a, b in zip(self.left_keys, self.right_keys))):
+            raise TypeError("coalesced USING keys need a full outer join "
+                            "on keys of one type a pair")
+        self.coalesce_keys = coalesce_keys
 
     def node_string(self):
         keys = ", ".join(f"{a.sql()} = {b.sql()}"
@@ -210,6 +239,22 @@ class TorchHashJoinExec(_JoinExec):
                                      mode=_EXISTENCE[self.how])
             cols = gather_columns(lb.columns, lidx, transfers, unique=True)
             return ColumnarBatch(cols, lidx.shape[0], self.schema.names)
+        if self.how == RIGHT_OUTER:
+            # the left outer join with the sides swapped
+            ridx, lidx = join_pairs(lkey, rkey, transfers, outer=True)
+            cols = gather_columns(lb.columns, lidx, transfers,
+                                  nullable=True) + \
+                gather_columns(rb.columns, ridx, transfers)
+            return ColumnarBatch(cols, lidx.shape[0], self.schema.names)
+        if self.how == FULL_OUTER:
+            lidx, ridx, pairs = join_pairs(rkey, lkey, transfers,
+                                           mode="full")
+            cols = gather_columns(lb.columns, lidx, transfers,
+                                  nullable=True) + \
+                gather_columns(rb.columns, ridx, transfers, nullable=True)
+            if self.coalesce_keys:
+                self._coalesce(cols, lb, rb, lidx, ridx, pairs, transfers)
+            return ColumnarBatch(cols, lidx.shape[0], self.schema.names)
         outer = self.how == LEFT_OUTER
         if outer:
             lidx, ridx = join_pairs(rkey, lkey, transfers, outer=True)
@@ -220,6 +265,24 @@ class TorchHashJoinExec(_JoinExec):
         cols = gather_columns(lb.columns, lidx, transfers) + \
             gather_columns(rb.columns, ridx, transfers, nullable=outer)
         return ColumnarBatch(cols, lidx.shape[0], self.schema.names)
+
+
+    def _coalesce(self, cols, lb, rb, lidx, ridx, pairs: int,
+                  transfers) -> None:
+        """Each left key column of ``cols``: the left key of the first
+        ``pairs`` rows (K7), then the right key of the unmatched right rows
+        after them (K7), joined by K7c."""
+        from spark_rapids_tpu_torch.ops.batch_ops import concat_batches
+        lk = [lb.columns[k.ordinal] for k in self.left_keys]
+        rk = [rb.columns[k.ordinal] for k in self.right_keys]
+        head = gather_columns(lk, lidx[:pairs], transfers)
+        tail = gather_columns(rk, ridx[pairs:], transfers)
+        names = [f"_k{j}" for j in range(len(lk))]
+        joined = concat_batches([
+            ColumnarBatch(head, pairs, names),
+            ColumnarBatch(tail, lidx.shape[0] - pairs, names)])
+        for k, c in zip(self.left_keys, joined.columns):
+            cols[k.ordinal] = c
 
 
 class TorchBroadcastNestedLoopJoinExec(_JoinExec):

@@ -15,12 +15,22 @@ come out sorted by the partition keys (and the order keys), as the JAX
 program gives them.  Order keys that compute (q36's ratio of two sums)
 go through K6 with the partition keys.
 
-The port runs the whole-partition frame (no ORDER BY) of sum, count and
-avg, and row_number, rank and dense_rank over an ORDER BY (Spark's
-default frame).  It refuses, by name, sum, count and avg with an ORDER BY
-(running frames), a frame other than these (bounded ROWS), a ranking
-function without an ORDER BY, any other function (ntile, lag, lead, min,
-max)."""
+Each function lowers as the JAX lowering does (``:48-108``):
+row_number, rank and dense_rank over an ORDER BY (K14's ranking pass);
+ntile (K14o); lag and lead (K14o's source rows, K7's gather, a scalar
+default of a fixed-width type filled by K14o); and sum, count, avg, min
+and max over a frame (ROWS or the default RANGE frame): the whole
+partition (K14's reduction; K14s for min and max), a frame with an
+unbounded end (K14s), or a ROWS frame with two finite bounds (K14b).  It
+refuses, by name, what the JAX package refuses: a bounded RANGE frame
+(``:83-87``), a lag/lead default that is not a literal, is over a
+string, or is of another type than the column (``:60-72``), and a min or
+max frame its device program does not run (``ops/window_ops.py:352``:
+one end unbounded, the other neither the current row nor unbounded);
+and what the port cannot run yet: a ranking function without an ORDER
+BY or over a frame, and a min or max of a string or boolean (the JAX
+program runs those on its CPU engine).
+"""
 
 from __future__ import annotations
 
@@ -40,11 +50,13 @@ _RANKING = {WE.RowNumber: W.WIN_ROW_NUMBER, WE.Rank: W.WIN_RANK,
             WE.DenseRank: W.WIN_DENSE_RANK}
 
 
-def lower_window_expr(wexpr) -> Tuple[int, Optional[Expression]]:
-    """``(K14 kind, input expression or None)`` of one window expression,
-    or NotImplementedError naming what the port cannot run yet."""
-    from spark_rapids_tpu_torch.expressions.aggregates import (Average,
-                                                               Count, Sum)
+def lower_window_expr(wexpr) -> Tuple[object, Optional[Expression]]:
+    """``(K14 kind, input expression or None)`` of one window expression:
+    a ranking kind (an int), or an ``ops/window_ops.py`` ``FrameAgg``,
+    ``NTileFn`` or ``OffsetFn``; NotImplementedError naming what the port
+    does not run."""
+    from spark_rapids_tpu_torch.expressions.aggregates import (
+        AggregateFunction, Average, Count, Max, Min, Sum)
     from spark_rapids_tpu_torch.expressions.cast import Cast
     spec = wexpr.spec
     f = wexpr.function
@@ -57,32 +69,76 @@ def lower_window_expr(wexpr) -> Tuple[int, Optional[Expression]]:
                 f"{wexpr.sql()}: a ranking function over the frame "
                 f"{spec.frame.desc()} is not in the port yet")
         return _RANKING[type(f)], None
-    if spec.order_specs:
-        raise NotImplementedError(
-            f"a window with ORDER BY ({wexpr.sql()}; a running frame) is "
-            "not in the port yet (row_number, rank and dense_rank are)")
+    if isinstance(f, WE.NTile):
+        return W.NTileFn(f.n), None
+    if isinstance(f, (WE.Lag, WE.Lead)):
+        child = f.children[0]
+        default = None
+        if f.default is not None:
+            if not isinstance(f.default, Literal) or \
+                    isinstance(child.data_type, T.StringType):
+                raise NotImplementedError(
+                    "lag/lead default must be a scalar literal over a "
+                    "non-string column")
+            if f.default.data_type != child.data_type:
+                raise TypeError(
+                    f"lag/lead default type {f.default.data_type} does not "
+                    f"match column type {child.data_type}; cast the "
+                    "default explicitly")
+            default = f.default.value
+        return W.OffsetFn(f.offset * f.direction, default), child
+    if not isinstance(f, AggregateFunction):
+        raise NotImplementedError(f"window function {type(f).__name__}")
     frame = spec.effective_frame()
-    if not (frame.lo_unbounded and frame.hi_unbounded):
+    lo = None if frame.lo_unbounded else int(frame.lo)
+    hi = None if frame.hi_unbounded else int(frame.hi)
+    if frame.kind == "range" and not (lo is None and hi in (None, 0)):
         raise NotImplementedError(
-            f"the window frame {frame.desc()} is not in the port yet (the "
-            "whole partition is)")
-    if not isinstance(f, (Sum, Count, Average)):
+            f"the bounded RANGE frame {frame.desc()} is not supported; use "
+            "ROWS BETWEEN (Spark's value-based RANGE frames need a single "
+            "numeric order key)")
+
+    def over(kind, value=None):
+        return W.FrameAgg(kind, frame.kind, lo, hi), value
+    if not isinstance(f, (Sum, Count, Average, Min, Max)):
         raise NotImplementedError(
             f"window function {type(f).__name__} is not in the port yet "
-            "(sum, count and avg over the whole partition, row_number, "
-            "rank and dense_rank are)")
+            "(sum, count, avg, min, max, row_number, rank, dense_rank, "
+            "ntile, lag and lead are)")
     child = f.children[0]
     if isinstance(f, Count):
         if isinstance(child, Literal) and child.value is not None:
-            return W.WIN_COUNT_ALL, None
-        return W.WIN_COUNT, child
+            return over(W.WIN_COUNT_ALL)
+        return over(W.WIN_COUNT, child)
+    if isinstance(f, (Min, Max)):
+        if child.data_type not in W.MINMAX_TYPES:
+            raise NotImplementedError(
+                f"{f.sql()} of {child.data_type} over a window is not in "
+                "the port yet (int, date, long and double are)")
+        low = over(W.WIN_MAX if isinstance(f, Max) else W.WIN_MIN, child)
+        _check_minmax_frame(wexpr, low[0])
+        return low
     if not child.data_type.is_numeric:
         raise NotImplementedError(f"{f.sql()} of {child.data_type}")
     want = T.DOUBLE if isinstance(f, Average) else f.data_type
     value = child if child.data_type == want else Cast(child, want)
     if isinstance(f, Average):
-        return W.WIN_MEAN, value
-    return (W.WIN_SUM_F64 if want.is_floating else W.WIN_SUM_I64), value
+        return over(W.WIN_MEAN, value)
+    return over(W.WIN_SUM_F64 if want.is_floating else W.WIN_SUM_I64,
+                value)
+
+
+def _check_minmax_frame(wexpr, func) -> None:
+    """The min and max frames the JAX device program runs: bounded ROWS,
+    running to the current row or its last peer, the whole partition,
+    and CURRENT ROW..UNBOUNDED FOLLOWING."""
+    if func.bounded or (func.lo is None and func.hi in (None, 0)) or \
+            (func.lo == 0 and func.hi is None):
+        return
+    raise NotImplementedError(
+        f"{wexpr.sql()}: min/max over this frame is not supported (the "
+        "JAX program's _one_func refuses it: one end unbounded, the other "
+        "neither the current row nor unbounded)")
 
 
 class TorchWindowExec(UnaryExec):
@@ -109,9 +165,12 @@ class TorchWindowExec(UnaryExec):
         self.program = StageProgram([("project", exprs)], child.schema,
                                     0) if exprs else None
         self._schema = T.StructType(list(child.schema.fields) + [
-            T.StructField(name, W.result_type(kind), True)
-            for (name, _w), (kind, _e) in zip(self.window_cols,
-                                              self.lowered)])
+            T.StructField(name, W.result_type(kind) if isinstance(kind, int)
+                          else W.frame_result_type(
+                              kind, None if e is None else e.data_type),
+                          True)
+            for (name, _w), (kind, e) in zip(self.window_cols,
+                                             self.lowered)])
 
     @property
     def schema(self):

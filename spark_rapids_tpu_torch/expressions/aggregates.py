@@ -129,6 +129,31 @@ class Average(AggregateFunction):
                   Literal(None, T.DOUBLE))
 
 
+class Min(AggregateFunction):
+    """``min`` (JAX ``:124``); in the port a window function only (K14s,
+    K14b): a group-by ``min`` is still refused by name."""
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type
+
+    def buffers(self):
+        return [BufferSpec("min", self.data_type, "min", "min")]
+
+    def evaluate(self, refs):
+        return refs[0]
+
+
+class Max(Min):
+    """``max`` (JAX ``:139``); a window function only, as ``Min``."""
+
+    def buffers(self):
+        return [BufferSpec("max", self.data_type, "max", "max")]
+
+
 class CountDistinct(AggregateFunction):
     """count(DISTINCT x): the distinct non-null values; LONG, never null
     (0 for an empty or all-null group)."""

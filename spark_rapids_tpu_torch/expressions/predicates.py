@@ -9,7 +9,9 @@ byte for byte: columns, substrings of columns or literals.  ``<>`` is NOT
 ``=``, so ``NaN <> NaN`` is false.  ``And`` (``:258``) and ``Or``
 (``:295``) follow Spark's three-valued logic: ``null AND false`` is false
 and ``null OR true`` is true; otherwise a null operand gives null.
-``Not`` (``:330``) negates, and NOT null is null.  ``In`` (``:413``) is
+``Not`` (``:330``) negates, and NOT null is null.  ``IsNull`` and
+``IsNotNull`` (``:348``, ``:370``) read only their operand's validity and
+are never null.  ``In`` (``:413``) is
 the OR chain of ``value = option`` over its literal options, so a null
 value gives null, NaN matches a NaN option, and a null option makes a
 miss null."""
@@ -177,6 +179,39 @@ class Not(Expression):
             raise TypeError(f"NOT of {c.data_type}")
         v = c.eval(ctx)
         return Col(~v.data, v.valid)
+
+
+class IsNull(Expression):
+    """``e IS NULL``: true where the operand is null; never null."""
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def data_type(self):
+        return T.BOOLEAN
+
+    @property
+    def nullable(self) -> bool:
+        return False
+
+    def sql(self):
+        return f"({self.children[0].sql()} IS NULL)"
+
+    def eval(self, ctx: EvalContext) -> Col:
+        v = self.children[0].eval(ctx)
+        return Col(~v.valid, torch.ones_like(v.valid))
+
+
+class IsNotNull(IsNull):
+    """``e IS NOT NULL``: true where the operand is present; never null."""
+
+    def sql(self):
+        return f"({self.children[0].sql()} IS NOT NULL)"
+
+    def eval(self, ctx: EvalContext) -> Col:
+        v = self.children[0].eval(ctx)
+        return Col(v.valid.clone(), torch.ones_like(v.valid))
 
 
 class _Logic(BinaryExpr):

@@ -1,16 +1,15 @@
 """Window specs and window expressions (the analog of ``spark_rapids_tpu/
 expressions/window_exprs.py``: ``WindowFrame`` ``:27``, ``WHOLE_PARTITION``
-``:61``, ``WindowSpecDef`` ``:66``, ``WindowExpression`` ``:93`` and the
+``:61``, ``WindowSpecDef`` ``:66``, ``WindowExpression`` ``:93``, the
 ranking functions ``RowNumber`` ``:150``, ``Rank`` ``:163`` and
-``DenseRank`` ``:176``).
+``DenseRank`` ``:176``, ``NTile`` ``:189`` and the offset functions
+``Lag`` and ``Lead`` ``:204-230``).
 
 An aggregate function or a ranking function ``.over(spec)`` is a
 ``WindowExpression``.  A ``select`` extracts these into one logical
 ``Window`` node per (partition, order) group and reads their columns
-(``session.py``).  The port runs the whole-partition frame (no ORDER BY)
-of sum, count and avg, and row_number, rank and dense_rank over an ORDER
-BY (``exec/window.py``); other frames and functions are refused there, by
-name."""
+(``session.py``).  ``exec/window.py lower_window_expr`` lowers each to a
+K14 kind, and refuses by name what the JAX lowering refuses."""
 
 from __future__ import annotations
 
@@ -178,3 +177,52 @@ class Rank(WindowFunction):
 class DenseRank(WindowFunction):
     """The number of peer groups of the partition up to the row's."""
     fn_name = "dense_rank"
+
+
+class NTile(WindowFunction):
+    """``ntile(n)``: the row's tile of ``n`` near-equal tiles of its
+    partition, from 1 (``:189``)."""
+    fn_name = "ntile"
+
+    def __init__(self, n: int):
+        super().__init__()
+        if int(n) < 1:
+            raise ValueError(f"ntile() requires n >= 1, got {n}")
+        self.n = int(n)
+
+    def sql(self):
+        return f"ntile({self.n})"
+
+
+class _OffsetFunction(WindowFunction):
+    """lag/lead: the value ``offset`` rows before (lag) or after (lead)
+    the row in its partition; outside it the ``default`` (a literal), else
+    null (``:204``)."""
+
+    direction = 0
+
+    def __init__(self, child: Expression, offset: int = 1,
+                 default: Optional[Expression] = None):
+        Expression.__init__(self, [child])
+        self.offset = int(offset)
+        self.default = default
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type
+
+    @property
+    def nullable(self) -> bool:
+        return True
+
+    def sql(self):
+        return (f"{type(self).__name__.lower()}({self.children[0].sql()}, "
+                f"{self.offset})")
+
+
+class Lag(_OffsetFunction):
+    direction = -1
+
+
+class Lead(_OffsetFunction):
+    direction = 1

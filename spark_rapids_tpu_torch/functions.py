@@ -6,10 +6,11 @@ from __future__ import annotations
 from spark_rapids_tpu_torch.expressions import window_exprs as W
 from spark_rapids_tpu_torch.expressions.base import Expression, col, lit
 
-__all__ = ["col", "lit", "sum", "count", "count_distinct", "avg",
-           "stddev", "stddev_samp", "stddev_pop", "var_samp", "var_pop",
-           "asc", "desc", "substring", "when", "grouping", "row_number",
-           "rank", "dense_rank", "Window", "WindowBuilder"]
+__all__ = ["col", "lit", "sum", "count", "count_distinct", "avg", "min",
+           "max", "stddev", "stddev_samp", "stddev_pop", "var_samp",
+           "var_pop", "asc", "desc", "substring", "when", "grouping",
+           "row_number", "rank", "dense_rank", "ntile", "lag", "lead",
+           "Window", "WindowBuilder"]
 
 
 def _expr(e) -> Expression:
@@ -24,6 +25,19 @@ def sum(e):  # noqa: A001 - mirrors pyspark.sql.functions naming
 def avg(e):
     from spark_rapids_tpu_torch.expressions.aggregates import Average
     return Average(_expr(e))
+
+
+def min(e):  # noqa: A001 - mirrors pyspark.sql.functions naming
+    """``min`` over a window (K14s, K14b); a group-by ``min`` is not in the
+    port yet."""
+    from spark_rapids_tpu_torch.expressions.aggregates import Min
+    return Min(_expr(e))
+
+
+def max(e):  # noqa: A001
+    """``max`` over a window (K14s, K14b), as ``min``."""
+    from spark_rapids_tpu_torch.expressions.aggregates import Max
+    return Max(_expr(e))
 
 
 def count(e="*"):
@@ -113,12 +127,39 @@ def dense_rank():
     return DenseRank()
 
 
+def ntile(n: int):
+    from spark_rapids_tpu_torch.expressions.window_exprs import NTile
+    return NTile(n)
+
+
+def _default(default):
+    from spark_rapids_tpu_torch.expressions.base import Expression as E
+    return default if default is None or isinstance(default, E) \
+        else lit(default)
+
+
+def lag(e, offset: int = 1, default=None):
+    """The value ``offset`` rows before the row in its window partition
+    (K14o, then K7), else ``default``, else null."""
+    from spark_rapids_tpu_torch.expressions.window_exprs import Lag
+    return Lag(_expr(e), offset, _default(default))
+
+
+def lead(e, offset: int = 1, default=None):
+    """The value ``offset`` rows after the row, as ``lag``."""
+    from spark_rapids_tpu_torch.expressions.window_exprs import Lead
+    return Lead(_expr(e), offset, _default(default))
+
+
 # -- windows (``functions.py:125 WindowBuilder``, ``:174 _WindowNamespace``) --
 
 class WindowBuilder:
     """pyspark's ``Window``: ``Window.partition_by("k")``, then optionally
-    ``.order_by(...)`` and ``.rows_between(a, b)`` (which the port refuses
-    at planning, by name)."""
+    ``.order_by(...)`` and ``.rows_between(a, b)`` (row offsets, or the
+    sentinels ``Window.unboundedPreceding``, ``currentRow`` and
+    ``unboundedFollowing``) or ``.range_between(a, b)`` (which the port
+    refuses at planning, by name, unless it is the default RANGE frame, as
+    the JAX package does)."""
 
     def __init__(self, spec=None):
         self.spec = spec or W.WindowSpecDef([], [], None)
@@ -143,9 +184,18 @@ class WindowBuilder:
     def rows_between(self, start: int, end: int) -> "WindowBuilder":
         return self._with(frame=W.WindowFrame("rows", int(start), int(end)))
 
+    def range_between(self, start: int, end: int) -> "WindowBuilder":
+        return self._with(frame=W.WindowFrame("range", int(start),
+                                              int(end)))
+
 
 class _WindowNamespace:
-    """``Window.partition_by(...)``, ``Window.order_by(...)``."""
+    """``Window.partition_by(...)``, ``Window.order_by(...)`` and the frame
+    sentinels (JAX ``functions.py:179-192``)."""
+
+    unboundedPreceding = W.UNBOUNDED_PRECEDING
+    unboundedFollowing = W.UNBOUNDED_FOLLOWING
+    currentRow = W.CURRENT_ROW
 
     def partition_by(self, *cols) -> WindowBuilder:
         return WindowBuilder().partition_by(*cols)

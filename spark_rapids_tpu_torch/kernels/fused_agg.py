@@ -381,6 +381,17 @@ def _not(em, e, cols):
     return em.let(f"~{v}"), valid
 
 
+@emits(P.IsNull, P.IsNotNull)
+def _is_null(em, e, cols):
+    """The operand's validity (its negation for IS NULL); never null."""
+    _v, valid = em.emit(e.children[0], cols)
+    if isinstance(e, P.IsNotNull):
+        return valid, em.TRUE
+    if valid in (em.TRUE, em.FALSE):
+        return em.FALSE if valid == em.TRUE else em.TRUE, em.TRUE
+    return em.let(f"~{valid}"), em.TRUE
+
+
 @emits(P.In)
 def _in(em, e, cols):
     """The OR of ``value = option`` over the non-null options; a null

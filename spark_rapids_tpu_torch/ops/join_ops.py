@@ -25,7 +25,15 @@ package's ``matched_flags`` and ``unmatched_positions`` in that role,
 driven from ``exec/joins.py:433-513``) it returns only the kept probe
 rows, in probe order: semi keeps a row with a match, once whatever the
 build side's duplicates, and anti a row with none, a null key included
-(the JAX package's plain anti join, ``sql/analyzer.py:24-26``).  On
+(the JAX package's plain anti join, ``sql/analyzer.py:24-26``).  With
+``mode="full"`` (K10f: a full outer join, the JAX package's
+``matched_flags`` on the build side, ``unmatched_positions`` and
+``concat_matched_unmatched`` as its ``exec/joins.py:499-502, :544-551``
+drive them) it returns the outer mode's pairs, then one pair ``(-1,
+row)`` per build row no probe row matched (a null key included), in
+build order, and the number of pairs before those; both counts come
+back in the join's one read.  A right outer join is the outer mode with
+the sides swapped (``exec/joins.py``).  On
 CUDA columns it launches ``csrc/hash_join.cu`` (build, count, then write
 after one sync that sizes the output exactly: the JAX package's
 speculative sizing, ``ops/speculation.py``, is not carried over); on CPU
@@ -51,15 +59,16 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 
-#: launches of K10 and of K10x, the cross join (wrapper calls that launch
-#: them)
+#: launches of K10, of K10f (its full mode, counted apart) and of K10x,
+#: the cross join (wrapper calls that launch them)
 LAUNCHES = 0
+FULL_LAUNCHES = 0
 CROSS_LAUNCHES = 0
 
 #: probe rows one tile covers (csrc/common.cuh kScanTile)
 SCAN_TILE = 1024
 #: csrc/hash_join.cu Mode of each join type
-MODES = {"inner": 0, "outer": 1, "semi": 2, "anti": 3}
+MODES = {"inner": 0, "outer": 1, "semi": 2, "anti": 3, "full": 4}
 KEY_TYPES = (T.IntegerType, T.LongType, T.DateType, T.StringType)
 #: key columns one join takes (csrc/keys.cuh kMaxKeys)
 MAX_KEYS = 8
@@ -68,8 +77,10 @@ STRING_KEY = 3
 
 _SIGNATURES = {
     "srt_join_build": "ipppppqppqp",
-    "srt_join_count": "ipppppqpppppqppqipp",
+    "srt_join_count": "ipppppqpppppqppqippp",
     "srt_join_write": "ipppppqpppppqppqipppp",
+    "srt_join_unmatched": "pqppp",
+    "srt_join_unmatched_write": "pqpqppp",
 }
 _CROSS_SIGNATURES = {"srt_cross_pairs": "qqppp"}
 
@@ -131,18 +142,19 @@ def _check(build: List[DeviceColumn], probe: List[DeviceColumn]) -> None:
 def _mode(outer: bool, mode: Optional[str]) -> str:
     if mode is None:
         return "outer" if outer else "inner"
-    if mode not in ("semi", "anti") or outer:
+    if mode not in ("semi", "anti", "full") or outer:
         raise ValueError(f"join mode {mode!r} with outer={outer}")
     return mode
 
 
 def join_pairs(build: Keys, probe: Keys, transfers, outer: bool = False,
-               mode: Optional[str] = None
-               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+               mode: Optional[str] = None):
     """K10's wrapper: ``(probe_rows, build_rows)``, int64, one entry per
     matching pair (and with ``outer``, one ``(row, -1)`` per probe row
     with no match); with ``mode`` ``"semi"`` or ``"anti"``, ``(kept probe
-    rows, None)``."""
+    rows, None)``; with ``mode="full"`` (K10f), ``(probe_rows,
+    build_rows, pairs)``: the outer pairs, then ``(-1, row)`` for each
+    unmatched build row, and the number of pairs before those."""
     build, probe = key_list(build), key_list(probe)
     _check(build, probe)
     kind = _mode(outer, mode)
@@ -181,6 +193,9 @@ def join_pairs(build: Keys, probe: Keys, transfers, outer: bool = False,
         slot_tag = torch.empty(size, dtype=torch.int64, device=device)
         tile_offsets = torch.empty(tiles + 1, dtype=torch.int64,
                                    device=device)
+        full = kind == "full"
+        flags = torch.empty(max(nb, 1), dtype=torch.uint8, device=device) \
+            if full else None
         table = (slots.data_ptr(), slot_tag.data_ptr(), size)
         bargs = (btypes, boff64, pointers(bdata), pointers(bvalid),
                  pointers(boffsets), nb)
@@ -189,18 +204,41 @@ def join_pairs(build: Keys, probe: Keys, transfers, outer: bool = False,
         probe_args = (len(build), *bargs, ptypes, poff64, pointers(pdata),
                       pointers(pvalid), pointers(poffsets), n, *table,
                       MODES[kind])
-        check_launch(lib.srt_join_count(*probe_args, tile_offsets.data_ptr(),
-                                        stream), "K10 count")
-        total, = transfers.read_counts([tile_offsets[tiles]])
-        out_probe = torch.empty(total, dtype=torch.int64, device=device)
-        out_build = None if mode else \
-            torch.empty(total, dtype=torch.int64, device=device)
+        check_launch(lib.srt_join_count(
+            *probe_args, None if flags is None else flags.data_ptr(),
+            tile_offsets.data_ptr(), stream), "K10 count")
+        counts = [tile_offsets[tiles]]
+        if full:
+            # K10f: the unmatched build rows' offsets, counted in the same
+            # read as the pairs
+            unmatched = torch.empty(nb + 1, dtype=torch.int64,
+                                    device=device)
+            scratch = torch.empty(max(-(-nb // SCAN_TILE), 1),
+                                  dtype=torch.int64, device=device)
+            check_launch(lib.srt_join_unmatched(
+                flags.data_ptr(), nb, unmatched.data_ptr(),
+                scratch.data_ptr(), stream), "K10f unmatched")
+            counts.append(unmatched[nb])
+        got = transfers.read_counts(counts)
+        total, extra = got[0], (got[1] if full else 0)
+        out_probe = torch.empty(total + extra, dtype=torch.int64,
+                                device=device)
+        out_build = None if mode in ("semi", "anti") else \
+            torch.empty(total + extra, dtype=torch.int64, device=device)
         if total:
             check_launch(lib.srt_join_write(
                 *probe_args, tile_offsets.data_ptr(), out_probe.data_ptr(),
                 None if out_build is None else out_build.data_ptr(),
                 stream), "K10 write")
-    global LAUNCHES
+        if extra:
+            check_launch(lib.srt_join_unmatched_write(
+                flags.data_ptr(), nb, unmatched.data_ptr(), total,
+                out_probe.data_ptr(), out_build.data_ptr(), stream),
+                "K10f unmatched write")
+    global LAUNCHES, FULL_LAUNCHES
+    if full:
+        FULL_LAUNCHES += 1
+        return out_probe, out_build, total
     LAUNCHES += 1
     return out_probe, out_build
 
@@ -245,13 +283,13 @@ def _key_ids(build: List[DeviceColumn], probe: List[DeviceColumn]):
 
 
 def join_pairs_plain(build: Keys, probe: Keys, transfers,
-                     outer: bool = False, mode: Optional[str] = None
-                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                     outer: bool = False, mode: Optional[str] = None):
     """The plain PyTorch version of K10: the build side's present keys
     sorted stably, each probe key's range of equals found by binary
     search, the ranges expanded into pairs (an empty range into one pair
-    with build row -1 when ``outer``); in semi and anti modes the probe
-    rows whose range is not empty, or is."""
+    with build row -1 when ``outer`` or in full mode); in semi and anti
+    modes the probe rows whose range is not empty, or is; in full mode
+    then the build rows no pair holds, with probe row -1."""
     build, probe = key_list(build), key_list(probe)
     _check(build, probe)
     _mode(outer, mode)
@@ -263,11 +301,29 @@ def join_pairs_plain(build: Keys, probe: Keys, transfers,
     lo = torch.searchsorted(keys, pk, right=False)
     hi = torch.searchsorted(keys, pk, right=True)
     count = torch.where(pvalid, hi - lo, 0)
-    if mode:
+    if mode in ("semi", "anti"):
         keep = (count > 0) if mode == "semi" else (count == 0)
         transfers.read_counts([keep.sum()])
         return torch.nonzero(keep).flatten(), None
-    emit = count.clamp(min=1) if outer else count
+    full = mode == "full"
+    emit = count.clamp(min=1) if outer or full else count
+    if full:
+        # the build rows in some probe row's range of equals
+        hit = torch.zeros(rows.numel() + 1, dtype=torch.int64,
+                          device=device)
+        hit.index_add_(0, torch.where(count > 0, lo, rows.numel()),
+                       torch.ones_like(lo))
+        hit.index_add_(0, torch.where(count > 0, hi, rows.numel()),
+                       -torch.ones_like(lo))
+        matched = torch.zeros(build[0].row_count, dtype=torch.bool,
+                              device=device)
+        matched[rows] = torch.cumsum(hit, 0)[:-1] > 0
+        unmatched = torch.nonzero(~matched).flatten()
+        total, _extra = transfers.read_counts([emit.sum(),
+                                               (~matched).sum()])
+        pairs = join_pairs_plain(build, probe, _NoSync(), outer=True)
+        return (torch.cat([pairs[0], torch.full_like(unmatched, -1)]),
+                torch.cat([pairs[1], unmatched]), total)
     total, = transfers.read_counts([emit.sum()])
     n = probe[0].row_count
     out_probe = torch.repeat_interleave(
@@ -283,6 +339,15 @@ def join_pairs_plain(build: Keys, probe: Keys, transfers,
     out_build = torch.where(matched, rows[at.clamp(max=rows.numel() - 1)],
                             -1)
     return out_probe, out_build
+
+
+class _NoSync:
+    """A stand-in gateway for a plain version's inner call, whose counts
+    its caller has already read."""
+
+    @staticmethod
+    def read_counts(counts):
+        return [int(c) for c in counts]
 
 
 def _check_cross(n_probe: int, n_build: int) -> None:

@@ -37,6 +37,7 @@ cumulative sum of the peer starts).  No sync."""
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -319,6 +320,639 @@ def window_rank_plain(keys: Sequence[DeviceColumn],
                          T.INT, True) for k in kinds]
 
 
+# -- frames: K14s (running), K14b (bounded ROWS), K14o (offset, ntile) --
+
+#: the min and max kinds of a frame (csrc/window.cu FrameKind kMin, kMax)
+WIN_MIN, WIN_MAX = 8, 9
+_C_KIND = {WIN_SUM_I64: 0, WIN_SUM_F64: 1, WIN_COUNT: 2, WIN_COUNT_ALL: 3,
+           WIN_MEAN: 4, WIN_MIN: 5, WIN_MAX: 6}
+#: csrc/window.cu ValueType of a min or max input
+_VTYPE = {T.INT: 0, T.DATE: 0, T.LONG: 1, T.DOUBLE: 2}
+MINMAX_TYPES = tuple(_VTYPE)
+#: csrc/window.cu Take
+TAKE_ROWS, TAKE_PEERS, TAKE_PARTITION = range(3)
+#: bytes of one running state in K14s's scratch (csrc/window.cu
+#: kStateBytes)
+STATE_BYTES = 32
+#: launches of K14s, K14b and K14o (wrapper calls that launch them;
+#: K14o's offset, fill and ntile wrappers all count in OFFSET_LAUNCHES)
+FRAME_LAUNCHES = 0
+BOUNDED_LAUNCHES = 0
+OFFSET_LAUNCHES = 0
+
+_FRAME_SIGNATURES = {
+    "srt_window_bounds": "iipppppqpppppp",
+    "srt_window_running": "iippqppppiiqppppppp",
+    "srt_window_bounded": "iippqppqqppp",
+    "srt_window_offset": "qppqpp",
+    "srt_window_ntile": "qppqpp",
+    "srt_window_fill": "pqppiqp",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class FrameAgg:
+    """An aggregate over a frame: ``kind`` (a sum, count, mean, min or max
+    kind) over ``frame`` ("rows" or "range") from ``lo`` to ``hi`` (row
+    offsets; None is UNBOUNDED PRECEDING for ``lo``, UNBOUNDED FOLLOWING
+    for ``hi``).  A RANGE frame is Spark's default, ``lo`` None and ``hi``
+    0 (the row's last peer) or None."""
+    kind: int
+    frame: str = "rows"
+    lo: Optional[int] = None
+    hi: Optional[int] = 0
+
+    @property
+    def bounded(self) -> bool:
+        return self.frame == "rows" and self.lo is not None and \
+            self.hi is not None
+
+    def running_form(self) -> Tuple[int, int, int]:
+        """``(reverse, take, offset)`` of K14s for an unbounded frame."""
+        if self.lo is None and self.hi is None:
+            return 0, TAKE_PARTITION, 0
+        if self.frame == "range":
+            return 0, TAKE_PEERS, 0
+        if self.lo is None:
+            return 0, TAKE_ROWS, self.hi
+        return 1, TAKE_ROWS, self.lo
+
+
+@dataclasses.dataclass(frozen=True)
+class NTileFn:
+    """``ntile(n)``."""
+    n: int
+
+
+@dataclasses.dataclass(frozen=True)
+class OffsetFn:
+    """lag (a negative ``offset``) or lead (a positive one), with a scalar
+    ``default`` for the rows whose source lies outside the partition."""
+    offset: int
+    default: object = None
+
+
+def frame_result_type(func, value_type: Optional[T.DataType]
+                      ) -> T.DataType:
+    """The result type of a frame function over a ``value_type`` input."""
+    if isinstance(func, NTileFn):
+        return T.INT
+    if isinstance(func, OffsetFn) or func.kind in (WIN_MIN, WIN_MAX):
+        return value_type
+    return result_type(func.kind)
+
+
+def load_frame_library():
+    """Builds (first call) and binds the frame kinds of ``csrc/
+    window.cu``."""
+    from spark_rapids_tpu_torch.exec.stage_compiler import get_or_build
+    from spark_rapids_tpu_torch.kernels.build import load_cuda
+    return get_or_build("window.frame.kinds", "csrc/window.cu",
+                        lambda: load_cuda("window.cu", _FRAME_SIGNATURES))
+
+
+def _check_frame_funcs(funcs, values, n, device) -> None:
+    if len(values) != len(funcs):
+        raise ValueError("one input per function")
+    want = {WIN_SUM_I64: T.LONG, WIN_SUM_F64: T.DOUBLE, WIN_MEAN: T.DOUBLE}
+    for f, c in zip(funcs, values):
+        if f.kind not in _C_KIND:
+            raise ValueError(f"unknown frame function kind {f.kind}")
+        if f.frame not in ("rows", "range"):
+            raise ValueError(f"unknown frame {f.frame}")
+        if f.frame == "range" and not (f.lo is None and f.hi in (None, 0)):
+            raise NotImplementedError(
+                "bounded RANGE frames are not in the port (ROWS frames are)")
+        if f.bounded and f.lo > f.hi:
+            raise ValueError(f"an empty frame {f.lo}..{f.hi}")
+        if f.kind in (WIN_MIN, WIN_MAX) and not f.bounded and \
+                not (f.lo is None and f.hi in (None, 0)) and \
+                not (f.lo == 0 and f.hi is None):
+            raise NotImplementedError(
+                f"min/max over the frame {f.frame} {f.lo} {f.hi} (the JAX "
+                "program's _one_func refuses it too)")
+        if f.kind == WIN_COUNT_ALL:
+            continue
+        if c is None or c.row_count != n or c.device != device:
+            raise ValueError("a function input of the keys' rows and "
+                             "device is needed")
+        if f.kind in want and c.data_type != want[f.kind]:
+            raise TypeError(f"frame kind {f.kind} takes a {want[f.kind]} "
+                            f"input, got {c.data_type}")
+        if f.kind in (WIN_MIN, WIN_MAX) and c.data_type not in _VTYPE:
+            raise NotImplementedError(
+                f"min/max of {c.data_type} over a window frame is not in "
+                "the port (int, date, long and double are)")
+
+
+def _frame_outputs(funcs, values, n, device) -> List[DeviceColumn]:
+    outs = []
+    for f, c in zip(funcs, values):
+        rt = frame_result_type(f, None if c is None else c.data_type)
+        outs.append(DeviceColumn(
+            torch.empty(n, dtype=rt.torch_dtype, device=device),
+            torch.empty(n, dtype=torch.bool, device=device), rt))
+    return outs
+
+
+class _CardBounds:
+    """The ranks and first positions of ``srt_window_bounds`` (peers too
+    when ``peers``), held until the launches that read them are queued."""
+
+    def __init__(self, lib, keys, order_keys, n: int, device, peers: bool):
+        from spark_rapids_tpu_torch.kernels.build import (check_launch,
+                                                          int32s, pointers)
+        every = list(keys) + list(order_keys)
+
+        def empty(count):
+            return torch.empty(count, dtype=torch.int64, device=device)
+        self.kdata = [k.data.contiguous() for k in every]
+        self.kvalid = [None if k.all_valid else
+                       k.validity.contiguous().view(torch.uint8)
+                       for k in every]
+        self.part_rank, self.part_first = empty(n + 1), empty(max(n, 1))
+        self.peer_rank = empty(n + 1) if peers else None
+        self.peer_first = empty(max(n, 1)) if peers else None
+        scratch = empty(max(-(-n // SCAN_TILE), 1))
+        stream = torch.cuda.current_stream(device).cuda_stream
+        check_launch(lib.srt_window_bounds(
+            len(keys), len(every) if peers else len(keys),
+            int32s([KEY_CODES[k.data_type] for k in every]),
+            int32s([int(k.is_string and k.offsets.dtype == torch.int64)
+                    for k in every]),
+            pointers(self.kdata), pointers(self.kvalid),
+            pointers([k.offsets for k in every]), n,
+            self.part_rank.data_ptr(),
+            None if self.peer_rank is None else self.peer_rank.data_ptr(),
+            scratch.data_ptr(), self.part_first.data_ptr(),
+            None if self.peer_first is None else self.peer_first.data_ptr(),
+            stream), "K14 bounds")
+        self.scratch = scratch
+
+    def part(self):
+        return self.part_rank.data_ptr(), self.part_first.data_ptr()
+
+    def peer(self):
+        if self.peer_rank is None:
+            return None, None
+        return self.peer_rank.data_ptr(), self.peer_first.data_ptr()
+
+
+def _value_args(f, c):
+    """(value type code, data, validity) of a frame function's input, held
+    by the caller until its launch is queued."""
+    if f.kind == WIN_COUNT_ALL or c is None:
+        return 0, None, None
+    vtype = _VTYPE.get(c.data_type, 0)
+    data = None if f.kind == WIN_COUNT else c.data.contiguous()
+    valid = None if c.all_valid else c.validity.contiguous().view(
+        torch.uint8)
+    return vtype, data, valid
+
+
+def window_running(keys: Sequence[DeviceColumn],
+                   order_keys: Sequence[DeviceColumn], funcs,
+                   values: Sequence[Optional[DeviceColumn]], n: int,
+                   device: torch.device) -> List[DeviceColumn]:
+    """K14s's wrapper: for ``n`` rows on ``device`` sorted by the partition
+    ``keys`` and then the ``order_keys``, each ``FrameAgg`` of an
+    unbounded frame (running, the default RANGE frame, the whole
+    partition, or one ending at UNBOUNDED FOLLOWING) over its input."""
+    _check_rank(keys, order_keys, (), n, device)
+    _check_frame_funcs(funcs, values, n, device)
+    if any(f.bounded for f in funcs):
+        raise ValueError("a bounded ROWS frame is K14b's (window_bounded)")
+    if device.type == "cpu":
+        return window_running_plain(keys, order_keys, funcs, values, n,
+                                    device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    outs = _frame_outputs(funcs, values, n, device)
+    if n == 0 or not funcs:
+        return outs
+    from spark_rapids_tpu_torch.kernels.build import check_launch
+    lib = load_frame_library()
+    tiles = -(-n // TILE)
+    peers = any(f.running_form()[1] == TAKE_PEERS for f in funcs)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        b = _CardBounds(lib, keys, order_keys, n, device, peers)
+        run = torch.empty(n * STATE_BYTES, dtype=torch.uint8, device=device)
+        run_start = torch.empty(n, dtype=torch.uint8, device=device)
+        tile_piece = torch.empty(tiles * STATE_BYTES, dtype=torch.uint8,
+                                 device=device)
+        carry = torch.empty(tiles * STATE_BYTES, dtype=torch.uint8,
+                            device=device)
+        for f, c, out in zip(funcs, values, outs):
+            vtype, data, valid = _value_args(f, c)
+            rev, take, off = f.running_form()
+            check_launch(lib.srt_window_running(
+                _C_KIND[f.kind], vtype,
+                None if data is None else data.data_ptr(),
+                None if valid is None else valid.data_ptr(), n, *b.part(),
+                *b.peer(), rev, take, off, out.data.data_ptr(),
+                out.validity.view(torch.uint8).data_ptr(), run.data_ptr(),
+                run_start.data_ptr(), tile_piece.data_ptr(),
+                carry.data_ptr(), stream), "K14s running frame")
+    global FRAME_LAUNCHES
+    FRAME_LAUNCHES += 1
+    return outs
+
+
+def window_bounded(keys: Sequence[DeviceColumn], funcs,
+                   values: Sequence[Optional[DeviceColumn]], n: int,
+                   device: torch.device) -> List[DeviceColumn]:
+    """K14b's wrapper: each ``FrameAgg`` of a ROWS frame with two finite
+    bounds, over ``n`` rows sorted by the partition ``keys`` (and their
+    order keys)."""
+    _check_rank(keys, (), (), n, device)
+    _check_frame_funcs(funcs, values, n, device)
+    if not all(f.bounded for f in funcs):
+        raise ValueError("K14b takes ROWS frames with two finite bounds")
+    if device.type == "cpu":
+        return window_bounded_plain(keys, funcs, values, n, device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    outs = _frame_outputs(funcs, values, n, device)
+    if n == 0 or not funcs:
+        return outs
+    from spark_rapids_tpu_torch.kernels.build import check_launch
+    lib = load_frame_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        b = _CardBounds(lib, keys, (), n, device, False)
+        for f, c, out in zip(funcs, values, outs):
+            vtype, data, valid = _value_args(f, c)
+            check_launch(lib.srt_window_bounded(
+                _C_KIND[f.kind], vtype,
+                None if data is None else data.data_ptr(),
+                None if valid is None else valid.data_ptr(), n, *b.part(),
+                f.lo, f.hi, out.data.data_ptr(),
+                out.validity.view(torch.uint8).data_ptr(), stream),
+                "K14b bounded frame")
+    global BOUNDED_LAUNCHES
+    BOUNDED_LAUNCHES += 1
+    return outs
+
+
+def window_offset(keys: Sequence[DeviceColumn], offsets: Sequence[int],
+                  n: int, device: torch.device) -> List[torch.Tensor]:
+    """K14o's lag/lead: for each offset, each row's source row ``i +
+    offset`` where it lies in the row's partition, else -1 (int64)."""
+    _check_rank(keys, (), (), n, device)
+    if device.type == "cpu":
+        return window_offset_plain(keys, offsets, n, device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    maps = [torch.empty(n, dtype=torch.int64, device=device)
+            for _o in offsets]
+    if n == 0 or not offsets:
+        return maps
+    from spark_rapids_tpu_torch.kernels.build import check_launch
+    lib = load_frame_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        b = _CardBounds(lib, keys, (), n, device, False)
+        for off, m in zip(offsets, maps):
+            check_launch(lib.srt_window_offset(n, *b.part(), int(off),
+                                               m.data_ptr(), stream),
+                         "K14o offset")
+    global OFFSET_LAUNCHES
+    OFFSET_LAUNCHES += 1
+    return maps
+
+
+def _check_fill(column: DeviceColumn, source: torch.Tensor) -> None:
+    if column.is_string or column.data_type not in _VTYPE:
+        raise NotImplementedError(
+            f"a lag/lead default over {column.data_type} is not in the port "
+            "(int, date, long and double are; the JAX program refuses a "
+            "string one)")
+    if source.shape[0] != column.row_count or \
+            source.device != column.device:
+        raise ValueError("a source map of the column's rows and device")
+
+
+def _default_bits(value, dtype: T.DataType) -> int:
+    import struct
+    if dtype.is_floating:
+        return struct.unpack("<q", struct.pack("<d", float(value)))[0]
+    return int(value)
+
+
+def window_fill(column: DeviceColumn, source: torch.Tensor, default
+                ) -> DeviceColumn:
+    """K14o's default: ``column`` (K7's gather through ``source``, a -1
+    row null) with ``default`` in the rows whose source is -1."""
+    _check_fill(column, source)
+    if column.device.type == "cpu":
+        return window_fill_plain(column, source, default)
+    if column.device.type != "cuda":
+        raise ValueError(f"unsupported device {column.device}")
+    n = column.row_count
+    out = DeviceColumn(column.data.clone(), column.validity.clone(),
+                       column.data_type)
+    if n == 0:
+        return out
+    from spark_rapids_tpu_torch.kernels.build import check_launch
+    lib = load_frame_library()
+    src = source.contiguous()
+    with torch.cuda.device(column.device):
+        stream = torch.cuda.current_stream(column.device).cuda_stream
+        check_launch(lib.srt_window_fill(
+            src.data_ptr(), n, out.data.data_ptr(),
+            out.validity.view(torch.uint8).data_ptr(),
+            out.data.element_size(),
+            _default_bits(default, column.data_type), stream),
+            "K14o default")
+    global OFFSET_LAUNCHES
+    OFFSET_LAUNCHES += 1
+    return out
+
+
+def window_ntile(keys: Sequence[DeviceColumn], tiles: Sequence[int], n: int,
+                 device: torch.device) -> List[DeviceColumn]:
+    """K14o's ntile: for each tile count, each row's tile (int32, from 1;
+    the first ``cnt % tiles`` tiles of a partition one row more)."""
+    _check_rank(keys, (), (), n, device)
+    if any(int(t) < 1 for t in tiles):
+        raise ValueError(f"ntile needs n >= 1, got {list(tiles)}")
+    if device.type == "cpu":
+        return window_ntile_plain(keys, tiles, n, device)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    outs = [DeviceColumn(torch.empty(n, dtype=torch.int32, device=device),
+                         torch.ones(n, dtype=torch.bool, device=device),
+                         T.INT, True) for _t in tiles]
+    if n == 0 or not tiles:
+        return outs
+    from spark_rapids_tpu_torch.kernels.build import check_launch
+    lib = load_frame_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        b = _CardBounds(lib, keys, (), n, device, False)
+        for t, out in zip(tiles, outs):
+            check_launch(lib.srt_window_ntile(n, *b.part(), int(t),
+                                              out.data.data_ptr(), stream),
+                         "K14o ntile")
+    global OFFSET_LAUNCHES
+    OFFSET_LAUNCHES += 1
+    return outs
+
+
+# -- the plain versions of K14s, K14b and K14o --
+
+def _bounds_plain(keys, order_keys, n: int, device):
+    """Each row's partition start and end, and its peer group's end."""
+    pos = torch.arange(n, dtype=torch.int64, device=device)
+    if n == 0:
+        return pos, pos, pos
+
+    def first_last(starts):
+        first = torch.cummax(torch.where(starts, pos, 0), 0)[0]
+        ends = torch.ones_like(starts)
+        ends[:-1] = starts[1:]
+        last = torch.flip(torch.cummin(torch.flip(
+            torch.where(ends, pos, n - 1), [0]), 0)[0], [0])
+        return first, last
+    pstart, pend = first_last(partition_starts_plain(keys, n, device))
+    qend = pend if not order_keys else first_last(partition_starts_plain(
+        list(keys) + list(order_keys), n, device))[1]
+    return pstart, pend, qend
+
+
+def _present(f, c, n, device):
+    if f.kind == WIN_COUNT_ALL:
+        return torch.ones(n, dtype=torch.bool, device=device)
+    return c.validity
+
+
+def _finish(f, c, cnt, total, best, has, nan, real, device):
+    """A frame function's column from its frame's count of present values
+    and sum (sums, counts, means), or its best value and the presence of a
+    value, a NaN and a non-NaN value (min, max)."""
+    rt = frame_result_type(f, None if c is None else c.data_type)
+    if f.kind in (WIN_COUNT, WIN_COUNT_ALL):
+        return DeviceColumn(cnt, torch.ones_like(cnt, dtype=torch.bool),
+                            T.LONG)
+    if f.kind in (WIN_MIN, WIN_MAX):
+        out = best
+        if rt.is_floating:
+            bad = nan if f.kind == WIN_MAX else ~real
+            out = torch.where(bad, float("nan"), best)
+        return DeviceColumn(torch.where(has, out, torch.zeros((), dtype=
+                                                              out.dtype)),
+                            has, rt)
+    ok = cnt > 0
+    zero = torch.zeros((), dtype=total.dtype, device=device)
+    if f.kind == WIN_MEAN:
+        total = torch.where(ok, total / cnt.clamp(min=1), zero)
+    return DeviceColumn(torch.where(ok, total, zero), ok, rt)
+
+
+def _extreme_fold(f, x, present, acc, got, nan, real, take):
+    """One step of a min or max fold over the rows ``take`` selects."""
+    isnan = torch.isnan(x) if x.dtype.is_floating_point else \
+        torch.zeros_like(present)
+    use = take & present & ~isnan
+    better = (x > acc) if f.kind == WIN_MAX else (x < acc)
+    acc = torch.where(use & (~real | better), x, acc)
+    return (acc, got | (take & present), nan | (take & present & isnan),
+            real | use)
+
+
+def window_bounded_plain(keys, funcs, values, n: int, device
+                         ) -> List[DeviceColumn]:
+    """The plain PyTorch version of K14b: each offset of the frame in turn
+    (the JAX program's unrolled gather, :305-321), folded in row order."""
+    _check_rank(keys, (), (), n, device)
+    _check_frame_funcs(funcs, values, n, device)
+    pstart, pend, _q = _bounds_plain(keys, (), n, device)
+    pos = torch.arange(n, dtype=torch.int64, device=device)
+    outs = []
+    for f, c in zip(funcs, values):
+        present = _present(f, c, n, device)
+        lo = torch.maximum(pos + f.lo, pstart)
+        hi = torch.minimum(pos + f.hi, pend)
+        x = None if c is None or f.kind in (WIN_COUNT, WIN_COUNT_ALL) else \
+            (c.data.to(torch.int64) if f.kind == WIN_SUM_I64 else c.data)
+        cnt = torch.zeros(n, dtype=torch.int64, device=device)
+        total = torch.zeros(n, dtype=torch.float64 if x is not None and
+                            x.dtype.is_floating_point else torch.int64,
+                            device=device)
+        best = None if x is None else torch.zeros_like(x)
+        got, nan, real = (torch.zeros(n, dtype=torch.bool, device=device)
+                          for _ in range(3))
+        for d in range(f.lo, f.hi + 1):
+            j = pos + d
+            take = (j >= lo) & (j <= hi)
+            js = j.clamp(0, max(n - 1, 0))
+            pj = present[js] & take
+            cnt = cnt + pj.to(torch.int64)
+            if x is None:
+                continue
+            xj = x[js]
+            if f.kind in (WIN_MIN, WIN_MAX):
+                best, got, nan, real = _extreme_fold(
+                    f, xj, present[js], best, got, nan, real, take)
+            else:
+                total = total + torch.where(pj, xj, 0).to(total.dtype)
+        outs.append(_finish(f, c, cnt, total, best, got, nan, real, device))
+    return outs
+
+
+def _segment_scan_sum(x, starts):
+    """The running sum of ``x`` restarted at each start (a cumulative sum
+    less its value before the partition's start)."""
+    cs = torch.cumsum(x, 0)
+    before = cs - x
+    pos = torch.arange(x.shape[0], device=x.device)
+    first = torch.cummax(torch.where(starts, pos, 0), 0)[0]
+    return cs - before[first]
+
+
+def _segment_scan_doubling(x, starts):
+    """The running sum of ``x`` restarted at each start, by doubling:
+    step d adds the partial sum d rows back where that row lies in the
+    partition, so each sum is a tree of the partition's own values (no
+    prefix over earlier partitions, whose size would cost precision) and
+    NaN and +-inf arise as IEEE adds give them."""
+    n = x.shape[0]
+    pos = torch.arange(n, device=x.device)
+    first = torch.cummax(torch.where(starts, pos, 0), 0)[0]
+    s, d = x, 1
+    while d < n:
+        back = pos - d
+        s = torch.where(back >= first, s + s[back.clamp(min=0)], s)
+        d *= 2
+    return s
+
+
+def _running_state(f, c, starts, n, device):
+    """The running state of every row (restarted at ``starts``): count of
+    present values and sum (a doubling scan of the partition's values),
+    or best value, value, NaN and non-NaN presence."""
+    present = _present(f, c, n, device)
+    cnt = _segment_scan_sum(present.to(torch.int64), starts)
+    if f.kind in (WIN_COUNT, WIN_COUNT_ALL):
+        return cnt, None, None, None, None, None
+    if f.kind in (WIN_MIN, WIN_MAX):
+        x = c.data
+        isnan = torch.isnan(x) if x.dtype.is_floating_point else \
+            torch.zeros_like(present)
+        real = present & ~isnan
+        values, inv = torch.unique(torch.where(real, x, 0),
+                                   return_inverse=True)
+        u = values.shape[0]
+        # a value's score orders it (higher is better); 0 is no value
+        score = torch.where(real, (inv + 1) if f.kind == WIN_MAX
+                            else (u - inv), 0)
+        gid = torch.cumsum(starts.to(torch.int64), 0)
+        top = torch.cummax(gid * (u + 1) + score, 0)[0] - gid * (u + 1)
+        best = values[(top - 1 if f.kind == WIN_MAX else u - top)
+                      .clamp(0, max(u - 1, 0))]
+        has = _segment_scan_sum(present.to(torch.int64), starts) > 0
+        nan = _segment_scan_sum((present & isnan).to(torch.int64),
+                                starts) > 0
+        return cnt, None, best, has, nan, top > 0
+    x = c.data
+    if x.dtype.is_floating_point:
+        total = _segment_scan_doubling(torch.where(present, x, 0.0), starts)
+    else:   # wrapping int64 sums are exact in any order
+        total = _segment_scan_sum(torch.where(present, x, 0), starts)
+    return cnt, total, None, None, None, None
+
+
+def window_running_plain(keys, order_keys, funcs, values, n: int, device
+                         ) -> List[DeviceColumn]:
+    """The plain PyTorch version of K14s: each row's running state from
+    cumulative sums rebased at its partition's start (a doubling scan for
+    double sums; cumulative maxima of value ranks offset by the partition
+    id for min and max),
+    over the rows in reverse for a frame ending at UNBOUNDED FOLLOWING,
+    gathered at the row the frame ends on."""
+    _check_rank(keys, order_keys, (), n, device)
+    _check_frame_funcs(funcs, values, n, device)
+    pstart, pend, qend = _bounds_plain(keys, order_keys, n, device)
+    pos = torch.arange(n, dtype=torch.int64, device=device)
+    starts = pos == pstart
+    outs = []
+    for f, c in zip(funcs, values):
+        rev, take, off = f.running_form()
+        if n == 0:
+            outs.append(_frame_outputs([f], [c], 0, device)[0])
+            continue
+        if rev:
+            flip = (lambda t: None if t is None else torch.flip(t, [0]))
+            rc = None if c is None else DeviceColumn(
+                torch.flip(c.data, [0]), torch.flip(c.validity, [0]),
+                c.data_type)
+            state = [flip(t) for t in _running_state(
+                f, rc, torch.flip(pos == pend, [0]), n, device)]
+        else:
+            state = list(_running_state(f, c, starts, n, device))
+        empty = torch.zeros(n, dtype=torch.bool, device=device)
+        if take == TAKE_PARTITION:
+            at = pstart if rev else pend
+        elif take == TAKE_PEERS:
+            at = qend
+        elif rev:
+            empty = pos + off > pend
+            at = torch.maximum(pos + off, pstart)
+        else:
+            empty = pos + off < pstart
+            at = torch.minimum(pos + off, pend)
+        at = at.clamp(0, n - 1)
+        cnt, total, best, has, nan, real = (
+            None if t is None else t[at] for t in state)
+        cnt = torch.where(empty, 0, cnt)
+        if has is not None:
+            has, nan, real = has & ~empty, nan & ~empty, real & ~empty
+        outs.append(_finish(f, c, cnt, total, best, has, nan, real, device))
+    return outs
+
+
+def window_offset_plain(keys, offsets, n: int, device) -> List[torch.Tensor]:
+    """The plain PyTorch version of K14o's lag/lead maps."""
+    _check_rank(keys, (), (), n, device)
+    pstart, pend, _q = _bounds_plain(keys, (), n, device)
+    pos = torch.arange(n, dtype=torch.int64, device=device)
+    return [torch.where((pos + o >= pstart) & (pos + o <= pend), pos + o, -1)
+            for o in offsets]
+
+
+def window_fill_plain(column: DeviceColumn, source: torch.Tensor, default
+                      ) -> DeviceColumn:
+    """The plain PyTorch version of K14o's default."""
+    _check_fill(column, source)
+    out = source < 0
+    value = torch.tensor(default, dtype=column.data.dtype,
+                         device=column.device)
+    return DeviceColumn(torch.where(out, value, column.data),
+                        column.validity | out, column.data_type)
+
+
+def window_ntile_plain(keys, tiles, n: int, device) -> List[DeviceColumn]:
+    """The plain PyTorch version of K14o's ntile (JAX ``:189-198``)."""
+    _check_rank(keys, (), (), n, device)
+    pstart, pend, _q = _bounds_plain(keys, (), n, device)
+    pos = torch.arange(n, dtype=torch.int64, device=device) - pstart
+    cnt = pend - pstart + 1
+    outs = []
+    for t in tiles:
+        base = torch.div(cnt, t, rounding_mode="floor")
+        rem = cnt - base * t
+        big = rem * (base + 1)
+        tile = torch.where(
+            pos < big, torch.div(pos, base + 1, rounding_mode="floor"),
+            rem + torch.div(pos - big, base.clamp(min=1),
+                            rounding_mode="floor"))
+        outs.append(DeviceColumn((tile + 1).to(torch.int32),
+                                 torch.ones(n, dtype=torch.bool,
+                                            device=device), T.INT, True))
+    return outs
+
+
 def compute_windows(payload: Sequence[DeviceColumn],
                     keys: Sequence[DeviceColumn],
                     values: Sequence[Optional[DeviceColumn]], kinds,
@@ -327,10 +961,14 @@ def compute_windows(payload: Sequence[DeviceColumn],
                     orders: Sequence[Tuple[bool, bool]] = ()
                     ) -> Tuple[List[DeviceColumn], List[DeviceColumn]]:
     """``(payload sorted by the keys, one column per function)`` of ``n``
-    rows on ``device``: K8 and K7 when there are keys, then K14's
-    reduction, or its ranking pass when ``kinds`` are ranking kinds (over
-    ``order_keys``, each with the ``(ascending, nulls_first)`` of
-    ``orders``)."""
+    rows on ``device``: K8 and K7 when there are keys, then, by kind, K14's
+    reduction (an int kind of ``WIN_SUM_I64``..``WIN_MEAN``, the whole
+    partition), its ranking pass (a ranking kind, over ``order_keys``, each
+    with the ``(ascending, nulls_first)`` of ``orders``), K14s (a
+    ``FrameAgg`` of an unbounded frame; its whole-partition sums, counts
+    and means go to K14's reduction), K14b (a ``FrameAgg`` of a bounded
+    ROWS frame), or K14o (``OffsetFn``: the source rows, K7's gather of
+    the input, its default; ``NTileFn``)."""
     every = list(keys) + list(order_keys)
     if every and n > 1:
         perm = sort_ops.sort_permutation(
@@ -352,11 +990,47 @@ def compute_windows(payload: Sequence[DeviceColumn],
         keys = [sorted_(c) for c in keys]
         order_keys = [sorted_(c) for c in order_keys]
         values = [sorted_(c) for c in values]
-    if kinds and all(k in RANKING for k in kinds):
-        return list(payload), window_rank(keys, order_keys, kinds, n,
-                                          device)
-    if order_keys:
-        raise NotImplementedError(
-            "a window aggregate with ORDER BY (a running frame) is not in "
-            "the port yet")
-    return list(payload), window_reduce(keys, values, kinds, n, device)
+    # each wrapper once, over the functions it takes, in their order
+    groups = {}
+    for j, (k, c) in enumerate(zip(kinds, values)):
+        if isinstance(k, FrameAgg) and k.lo is None and k.hi is None and \
+                k.kind in range(5):
+            k = k.kind   # the whole partition: K14's reduction
+        if isinstance(k, int):
+            route = "rank" if k in RANKING else "reduce"
+        elif isinstance(k, FrameAgg):
+            route = "bounded" if k.bounded else "running"
+        elif isinstance(k, OffsetFn):
+            route = "offset"
+        elif isinstance(k, NTileFn):
+            route = "ntile"
+        else:
+            raise ValueError(f"unknown window function {k!r}")
+        groups.setdefault(route, []).append((j, k, c))
+    outs: List[Optional[DeviceColumn]] = [None] * len(kinds)
+
+    def place(members, columns):
+        for (j, _k, _c), col in zip(members, columns):
+            outs[j] = col
+    for route, members in groups.items():
+        fs = [k for _j, k, _c in members]
+        vs = [c for _j, _k, c in members]
+        if route == "rank":
+            place(members, window_rank(keys, order_keys, fs, n, device))
+        elif route == "reduce":
+            place(members, window_reduce(keys, vs, fs, n, device))
+        elif route == "running":
+            place(members, window_running(keys, order_keys, fs, vs, n,
+                                          device))
+        elif route == "bounded":
+            place(members, window_bounded(keys, fs, vs, n, device))
+        elif route == "ntile":
+            place(members, window_ntile(keys, [f.n for f in fs], n, device))
+        else:
+            maps = window_offset(keys, [f.offset for f in fs], n, device)
+            for (j, f, c), m in zip(members, maps):
+                col, = batch_ops.gather_columns([c], m, transfers,
+                                                nullable=True)
+                outs[j] = col if f.default is None else \
+                    window_fill(col, m, f.default)
+    return list(payload), outs

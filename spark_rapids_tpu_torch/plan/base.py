@@ -189,30 +189,37 @@ class Exchange(LogicalPlan):
 
 def join_schema(left: T.StructType, right: T.StructType,
                 how: str) -> T.StructType:
-    """A join's columns: the left ones, then the right ones; a left outer
-    join makes the right ones nullable; a left semi or anti join has the
-    left ones alone (JAX ``plan/base.py:184``)."""
+    """A join's columns: the left ones, then the right ones; a left or
+    full outer join makes the right ones nullable, a right or full outer
+    join the left ones; a left semi or anti join has the left ones alone
+    (JAX ``exec/joins.py:122-133``)."""
     if how in ("left_semi", "left_anti"):
         return left
-    fields = list(right.fields)
-    if how == "left_outer":
-        fields = [T.StructField(f.name, f.data_type, True) for f in fields]
-    return T.StructType(list(left.fields) + fields)
+
+    def side(schema, null):
+        return [T.StructField(f.name, f.data_type, True) if null else f
+                for f in schema.fields]
+    return T.StructType(side(left, how in ("right_outer", "full_outer")) +
+                        side(right, how in ("left_outer", "full_outer")))
 
 
 class Join(LogicalPlan):
-    """An equi-join (``how`` is ``inner``, ``left_outer``, ``left_semi``
-    or ``left_anti``), or a cross join with no keys (``cross``); its
-    output is the left columns, then the right (the left alone for semi
-    and anti)."""
+    """An equi-join (``how`` is ``inner``, ``left_outer``,
+    ``right_outer``, ``full_outer``, ``left_semi`` or ``left_anti``), or a
+    cross join with no keys (``cross``); its output is the left columns,
+    then the right (the left alone for semi and anti).  With
+    ``coalesce_keys`` (a full outer join with USING keys) the left key
+    columns hold the coalesce of the two sides' keys."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: Sequence[Expression],
-                 right_keys: Sequence[Expression], how: str):
+                 right_keys: Sequence[Expression], how: str,
+                 coalesce_keys: bool = False):
         super().__init__([left, right])
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
         self.how = how
+        self.coalesce_keys = coalesce_keys
 
     @property
     def schema(self):

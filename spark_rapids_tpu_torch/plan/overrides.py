@@ -50,7 +50,7 @@ class TorchOverrides:
             return TorchHashJoinExec(node.left_keys, node.right_keys,
                                      self._convert(node.children[0]),
                                      self._convert(node.children[1]),
-                                     node.how)
+                                     node.how, node.coalesce_keys)
         child = self._convert(node.children[0])
         if isinstance(node, L.Filter):
             return TorchFilterExec(node.condition, child)

@@ -2,8 +2,8 @@
 ``spark_rapids_tpu/session.py``, for the recipes the port runs: in-memory
 tables, ``filter``, ``select`` and ``with_column`` (``:460``; with window
 expressions, extracted as ``_plan_windows`` ``:392`` does), ``join``
-(``:637``; inner, left outer, left semi and left anti, on one or several
-key columns, and cross), ``group_by`` (``:729``), ``rollup`` (``:736``;
+(``:637``; inner, left, right and full outer, left semi and left anti, on
+one or several key columns, and cross), ``group_by`` (``:729``), ``rollup`` (``:736``;
 lowered to an Expand and a group-by, ``_expand_for_grouping_sets``
 ``:973``) and ``agg`` (``grouping()`` after a rollup), ``distinct``
 (``:771``), ``order_by`` (``:602``), ``limit`` (``:515``), ``collect``
@@ -174,15 +174,20 @@ class DataFrame:
     def join(self, other: "DataFrame", on=None, how: str = "inner",
              condition=None) -> "DataFrame":
         """Equi-join on column names with USING semantics, as the JAX
-        package's ``join``: the key columns once (the left side's), then
-        the other left columns, then the other right columns.  ``how`` is
-        ``inner``, ``left_outer`` (``left``, ``leftouter``), ``semi``
-        (``leftsemi``, ``left_semi``) or ``anti`` (``leftanti``,
-        ``left_anti``); a semi or anti join gives the left columns alone,
-        a row each time its key has a match (semi) or none (anti; a null
-        key has none, as the JAX package plans ``NOT IN``).  ``how="cross"``
-        takes no keys: every left row with every right row, the left
-        columns then the right ones (``from a, b``)."""
+        package's ``join``: the key columns once (the left side's; the
+        right side's for a right outer join, their coalesce for a full
+        one), then the other left columns, then the other right columns.
+        ``how`` is ``inner``, ``left_outer`` (``left``, ``leftouter``),
+        ``right_outer`` (``right``, ``rightouter``), ``full_outer``
+        (``full``, ``fullouter``, ``outer``), ``semi`` (``leftsemi``,
+        ``left_semi``) or ``anti`` (``leftanti``, ``left_anti``); a semi or
+        anti join gives the left columns alone, a row each time its key
+        has a match (semi) or none (anti; a null key has none, as the JAX
+        package plans ``NOT IN``).  ``on`` may also be ``(left name, right
+        name)`` pairs: SQL's ``ON l1 = r1 AND ...``, every left column
+        then every right column, whose names must differ.
+        ``how="cross"`` takes no keys: every left row with every right
+        row, the left columns then the right ones (``from a, b``)."""
         from spark_rapids_tpu_torch.exec.joins import (CROSS, hash_as_long,
                                                        normalize_how)
         from spark_rapids_tpu_torch.plan.partitioning import \
@@ -202,17 +207,36 @@ class DataFrame:
                 f"a {how} join without keys is not in the port yet (a "
                 "cross join is)")
         names = [on] if isinstance(on, str) else list(on)
+        pairs = all(isinstance(n, tuple) for n in names)
+        if pairs != any(isinstance(n, tuple) for n in names):
+            raise ValueError("join keys are all names or all pairs")
+        if pairs:
+            lnames = [a for a, _b in names]
+            rnames = [b for _a, b in names]
+            clash = set(self.columns) & set(other.columns)
+            if clash and how not in ("left_semi", "left_anti"):
+                raise ValueError(f"a join ON key pairs keeps both sides' "
+                                 f"columns: rename {sorted(clash)}")
+        else:
+            lnames = rnames = names
         lschema, rschema = self.schema, other.schema
-        lkeys = [bind_references(col(n), lschema) for n in names]
-        rkeys = [bind_references(col(n), rschema) for n in names]
+        lkeys = [bind_references(col(n), lschema) for n in lnames]
+        rkeys = [bind_references(col(n), rschema) for n in rnames]
+        coalesce = how == "full_outer" and not pairs
+        if how in ("right_outer", "full_outer") and not pairs:
+            for n, a, b in zip(names, lkeys, rkeys):
+                if a.data_type != b.data_type:
+                    raise TypeError(
+                        f"join key type mismatch on {n}: {a.data_type} vs "
+                        f"{b.data_type}; add explicit casts")
         lplan, rplan = self._plan, other._plan
         nparts = max(lplan.num_partitions, rplan.num_partitions)
         if nparts > 1:
             wide = hash_as_long(lkeys, rkeys)
             lplan = L.Exchange(HashPartitioning(lkeys, nparts, wide), lplan)
             rplan = L.Exchange(HashPartitioning(rkeys, nparts, wide), rplan)
-        plan = L.Join(lplan, rplan, lkeys, rkeys, how)
-        if how in ("left_semi", "left_anti"):
+        plan = L.Join(lplan, rplan, lkeys, rkeys, how, coalesce)
+        if how in ("left_semi", "left_anti") or pairs:
             return DataFrame(plan, self._session)
         out = plan.schema
         nl = len(lschema)
@@ -224,7 +248,11 @@ class DataFrame:
 
         key_l = {lschema.field_index(n) for n in names}
         key_r = {rschema.field_index(n) for n in names}
-        exprs = [ref(lschema.field_index(n), n) for n in names]
+        # a right outer join's keys are the right side's; a full one's are
+        # the coalesce its join exec writes into the left key columns
+        exprs = [ref(nl + rschema.field_index(n), n)
+                 if how == "right_outer" else ref(lschema.field_index(n), n)
+                 for n in names]
         exprs += [ref(i, f.name) for i, f in enumerate(lschema.fields)
                   if i not in key_l]
         exprs += [ref(nl + i, f.name) for i, f in enumerate(rschema.fields)

@@ -1964,3 +1964,283 @@ def q36_numpy(tables: Dict[str, dict], year=2001, state="TN",
                 r["rank_within_parent"])
     out.sort(key=order)
     return out if limit is None else out[:limit]
+
+
+#: TPC-DS q51 as the specification writes it (the text the JAX package's
+#: ``sql`` runs; ``tests/test_torch_tpcds_q51.py`` holds the recipe
+#: against it)
+Q51_SQL = """
+WITH web_v1 as (
+select
+  ws_item_sk item_sk, d_date,
+  sum(sum(ws_sales_price))
+      over (partition by ws_item_sk order by d_date rows between unbounded preceding and current row) cume_sales
+from web_sales
+    ,date_dim
+where ws_sold_date_sk=d_date_sk
+  and d_month_seq between 1200 and 1200+11
+  and ws_item_sk is not NULL
+group by ws_item_sk, d_date),
+store_v1 as (
+select
+  ss_item_sk item_sk, d_date,
+  sum(sum(ss_sales_price))
+      over (partition by ss_item_sk order by d_date rows between unbounded preceding and current row) cume_sales
+from store_sales
+    ,date_dim
+where ss_sold_date_sk=d_date_sk
+  and d_month_seq between 1200 and 1200+11
+  and ss_item_sk is not NULL
+group by ss_item_sk, d_date)
+ select  *
+from (select item_sk
+     ,d_date
+     ,web_sales
+     ,store_sales
+     ,max(web_sales)
+         over (partition by item_sk order by d_date rows between unbounded preceding and current row) web_cumulative
+     ,max(store_sales)
+         over (partition by item_sk order by d_date rows between unbounded preceding and current row) store_cumulative
+     from (select case when web.item_sk is not null then web.item_sk else store.item_sk end item_sk
+                 ,case when web.d_date is not null then web.d_date else store.d_date end d_date
+                 ,web.cume_sales web_sales
+                 ,store.cume_sales store_sales
+           from web_v1 web full outer join store_v1 store on (web.item_sk = store.item_sk
+                                                          and web.d_date = store.d_date)
+          )x )y
+where web_cumulative > store_cumulative
+order by item_sk
+        ,d_date
+limit 100
+"""
+
+#: the columns of each table that TPC-DS q51 reads
+Q51_COLUMNS = {
+    "web_sales": ["ws_sold_date_sk", "ws_item_sk", "ws_sales_price"],
+    "store_sales": ["ss_sold_date_sk", "ss_item_sk", "ss_sales_price"],
+    "date_dim": ["d_date_sk", "d_date", "d_month_seq"],
+}
+
+
+def q51_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q51 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q51_COLUMNS.items()}
+
+
+def q51(web_sales, store_sales, date_dim, month_seq=1200, limit=100):
+    """TPC-DS q51 through the port's DataFrame API, over DataFrames of the
+    ``Q51_COLUMNS`` of each table, as ``Q51_SQL`` reads: for web and store
+    sales (``web_v1``, ``store_v1``) the year's dates joined in, ``item_sk
+    IS NOT NULL`` (K5), the sum by (item, date) (K9), and its running sum
+    by item over the dates, ``ROWS BETWEEN UNBOUNDED PRECEDING AND CURRENT
+    ROW`` (K8, K7, **K14s**); then the **full outer join** of the two on
+    (item, date) (**K10f**, K7), ``CASE WHEN web.x IS NOT NULL THEN web.x
+    ELSE store.x END`` for the item (an int) and the date (K6), the two
+    running ``max`` windows over the nullable cumulative sums (one K14s
+    call), ``web_cumulative > store_cumulative`` (K5) and ``ORDER BY
+    item_sk, d_date LIMIT 100`` (K8, K7).  Returns ``(result, parts)``
+    (``web``, ``store``, ``joined``, ``windowed``)."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import (
+        And, GreaterThan, GreaterThanOrEqual, IsNotNull, LessThanOrEqual)
+    running = (F.Window.unboundedPreceding, F.Window.currentRow)
+    dates = date_dim.filter(And(
+        GreaterThanOrEqual(col("d_month_seq"), lit(month_seq)),
+        LessThanOrEqual(col("d_month_seq"), lit(month_seq + 11))))
+
+    def cumulative(sales, p, name):
+        dt = dates.select(Alias(col("d_date_sk"), f"{p}_sold_date_sk"),
+                          col("d_date"))
+        by_day = (sales.filter(IsNotNull(col(f"{p}_item_sk")))
+                  .join(dt, on=f"{p}_sold_date_sk")
+                  .group_by(f"{p}_item_sk", "d_date")
+                  .agg(F.sum(f"{p}_sales_price").alias("_day_sales")))
+        w = F.Window.partition_by(f"{p}_item_sk").order_by("d_date") \
+            .rows_between(*running)
+        return by_day.select(
+            Alias(col(f"{p}_item_sk"), f"{name}_item_sk"),
+            Alias(col("d_date"), f"{name}_d_date"),
+            F.sum("_day_sales").over(w).alias(f"{name}_cume"))
+    web = cumulative(web_sales, "ws", "web")
+    store = cumulative(store_sales, "ss", "store")
+    joined = web.join(store, on=[("web_item_sk", "store_item_sk"),
+                                 ("web_d_date", "store_d_date")],
+                      how="full")
+
+    def either(c):
+        return F.when(IsNotNull(col(f"web_{c}")), col(f"web_{c}")) \
+            .otherwise(col(f"store_{c}")).alias(c)
+    x = joined.select(either("item_sk"), either("d_date"),
+                      Alias(col("web_cume"), "web_sales"),
+                      Alias(col("store_cume"), "store_sales"))
+    w = F.Window.partition_by("item_sk").order_by("d_date") \
+        .rows_between(*running)
+    windowed = x.select(col("item_sk"), col("d_date"), col("web_sales"),
+                        col("store_sales"),
+                        F.max("web_sales").over(w).alias("web_cumulative"),
+                        F.max("store_sales").over(w)
+                        .alias("store_cumulative"))
+    ordered = windowed.filter(GreaterThan(col("web_cumulative"),
+                                          col("store_cumulative"))) \
+        .order_by("item_sk", "d_date")
+    out = ordered if limit is None else ordered.limit(limit)
+    return out, {"web": web, "store": store, "joined": joined,
+                 "windowed": windowed}
+
+
+def q51_numpy(tables: Dict[str, dict], month_seq=1200, limit=100) -> list:
+    """TPC-DS q51 in numpy over ``q51_tables`` output: the rows as dicts.
+    Items are walked in order, each one's days in order (the query's sort
+    order), so a limit stops the walk early."""
+    d = tables["date_dim"]
+    keep = (d["d_month_seq"] >= month_seq) & \
+        (d["d_month_seq"] <= month_seq + 11)
+    day_of = dict(zip(d["d_date_sk"][keep].tolist(),
+                      d["d_date"][keep].astype("datetime64[D]")
+                      .astype(np.int64).tolist()))
+    sk = np.fromiter(day_of, np.int64)
+    day = np.fromiter(day_of.values(), np.int64)
+    days = int(day.max() - day.min() + 1) if len(day) else 1
+    first_day = int(day.min()) if len(day) else 0
+
+    def by_day(p):
+        """(sorted (item, day) codes, their sums) of one sales table."""
+        s = tables["web_sales" if p == "ws" else "store_sales"]
+        date_sk, item = s[f"{p}_sold_date_sk"], s[f"{p}_item_sk"]
+        found = np.isin(date_sk, sk)
+        order = np.argsort(sk)
+        at = order[np.searchsorted(sk[order], date_sk[found])]
+        codes = item[found].astype(np.int64) * days + (day[at] - first_day)
+        uniq, inv = np.unique(codes, return_inverse=True)
+        return uniq, np.bincount(inv.ravel(), weights=s[f"{p}_sales_price"]
+                                 [found].astype(np.float64),
+                                 minlength=len(uniq))
+    web, store = by_day("ws"), by_day("ss")
+    keys = np.union1d(web[0], store[0])
+    items = keys // days
+    starts = np.r_[0, np.nonzero(np.diff(items))[0] + 1, len(keys)]
+    out = []
+    for a, b in zip(starts[:-1], starts[1:]):
+        codes = keys[a:b]
+        cols = []
+        for codes_t, sums in (web, store):
+            lo, hi = np.searchsorted(codes_t, [codes[0], codes[-1] + 1])
+            cume = dict(zip(codes_t[lo:hi].tolist(),
+                            np.cumsum(sums[lo:hi]).tolist()))
+            cols.append([cume.get(c) for c in codes.tolist()])
+        best = [None, None]
+        for j, c in enumerate(codes.tolist()):
+            pair = [cols[0][j], cols[1][j]]
+            best = [v if m is None or (v is not None and v > m) else m
+                    for m, v in zip(best, pair)]
+            if best[0] is not None and best[1] is not None and \
+                    best[0] > best[1]:
+                out.append({
+                    "item_sk": c // days,
+                    "d_date": (np.datetime64(first_day + c % days, "D")
+                               .astype(datetime.date)),
+                    "web_sales": pair[0], "store_sales": pair[1],
+                    "web_cumulative": best[0],
+                    "store_cumulative": best[1]})
+        if limit is not None and len(out) >= limit:
+            break
+    return out if limit is None else out[:limit]
+
+
+#: the columns of each table that ``q51w`` reads (q51's store half)
+Q51W_COLUMNS = {
+    "store_sales": ["ss_sold_date_sk", "ss_item_sk", "ss_sales_price"],
+    "date_dim": ["d_date_sk", "d_date", "d_month_seq"],
+}
+
+
+def q51w_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The ``q51w`` columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q51W_COLUMNS.items()}
+
+
+def q51w(store_sales, date_dim, month_seq=1200, limit=100):
+    """q51's ``store_v1`` (each item's sales by day over the year's 12
+    months, unique by item and day) with the bounded and offset window
+    kinds q51 itself does not run, by item over the days: the 7-day
+    moving average (``avg`` over ``ROWS BETWEEN 6 PRECEDING AND CURRENT
+    ROW``: K14b), the day before's sales (``lag(x, 1, 0.0)``: K14o's
+    source rows, K7, K14o's default), the next day's (``lead(x)``) and the
+    item's quartile of days (``ntile(4)``: K14o), then the sums of the
+    moving averages, of the days before and of the quartiles, and the
+    counts of next days and of days, over every row (K1 and K3: a
+    group-by of the four quartiles would fold each on one K9 thread).
+    Returns ``(result, parts)`` (``by_day``, ``windowed``)."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import (
+        And, GreaterThanOrEqual, IsNotNull, LessThanOrEqual)
+    dt = date_dim.filter(And(
+        GreaterThanOrEqual(col("d_month_seq"), lit(month_seq)),
+        LessThanOrEqual(col("d_month_seq"), lit(month_seq + 11)))) \
+        .select(Alias(col("d_date_sk"), "ss_sold_date_sk"), col("d_date"))
+    by_day = (store_sales.filter(IsNotNull(col("ss_item_sk")))
+              .join(dt, on="ss_sold_date_sk")
+              .group_by("ss_item_sk", "d_date")
+              .agg(F.sum("ss_sales_price").alias("sales")))
+    w = F.Window.partition_by("ss_item_sk").order_by("d_date")
+    windowed = by_day.select(
+        col("ss_item_sk"), col("d_date"), col("sales"),
+        F.avg("sales").over(w.rows_between(-6, 0)).alias("ma7"),
+        F.lag("sales", 1, 0.0).over(w).alias("before"),
+        F.lead("sales", 1).over(w).alias("after"),
+        F.ntile(4).over(w).alias("quartile"))
+    out = windowed.agg(F.sum("ma7").alias("sum_ma7"),
+                       F.sum("before").alias("sum_before"),
+                       F.sum("quartile").alias("sum_quartile"),
+                       F.count("after").alias("next_days"),
+                       F.count().alias("days"))
+    return (out if limit is None else out.limit(limit)), \
+        {"by_day": by_day, "windowed": windowed}
+
+
+def q51w_numpy(tables: Dict[str, dict], month_seq=1200, limit=100) -> list:
+    """``q51w`` in numpy over ``q51w_tables`` output: the rows as dicts."""
+    d, s = tables["date_dim"], tables["store_sales"]
+    keep = (d["d_month_seq"] >= month_seq) & \
+        (d["d_month_seq"] <= month_seq + 11)
+    sk = d["d_date_sk"][keep]
+    day = d["d_date"][keep].astype("datetime64[D]").astype(np.int64)
+    found = np.isin(s["ss_sold_date_sk"], sk)
+    order = np.argsort(sk)
+    at = order[np.searchsorted(sk[order], s["ss_sold_date_sk"][found])]
+    span = int(day.max() - day.min() + 1) if len(day) else 1
+    codes = s["ss_item_sk"][found].astype(np.int64) * span + \
+        (day[at] - (day.min() if len(day) else 0))
+    uniq, inv = np.unique(codes, return_inverse=True)
+    sales = np.bincount(inv.ravel(), weights=s["ss_sales_price"][found]
+                        .astype(np.float64), minlength=len(uniq))
+    n = len(uniq)
+    item = uniq // span
+    pos = np.arange(n)
+    start = np.r_[True, item[1:] != item[:-1]] if n else np.zeros(0, bool)
+    pstart = np.maximum.accumulate(np.where(start, pos, 0)) if n else pos
+    last = np.r_[item[1:] != item[:-1], True] if n else np.zeros(0, bool)
+    pend = np.minimum.accumulate(np.where(last, pos, n)[::-1])[::-1] \
+        if n else pos
+    total, count = np.zeros(n), np.zeros(n)
+    for k in range(7):
+        ok = pos - k >= pstart
+        total += np.where(ok, sales[np.maximum(pos - k, 0)], 0.0)
+        count += ok
+    ma7 = total / count
+    before = np.where(pos - 1 >= pstart, sales[np.maximum(pos - 1, 0)], 0.0)
+    has_after = pos + 1 <= pend
+    size, within = pend - pstart + 1, pos - pstart
+    base, rem = size // 4, size % 4
+    big = rem * (base + 1)
+    quartile = np.where(within < big, within // np.maximum(base + 1, 1),
+                        rem + (within - big) // np.maximum(base, 1)) + 1
+    out = [{"sum_ma7": float(ma7.sum()) if n else None,
+            "sum_before": float(before.sum()) if n else None,
+            "sum_quartile": int(quartile.sum()) if n else None,
+            "next_days": int(has_after.sum()), "days": n}]
+    return out if limit is None else out[:limit]

@@ -187,14 +187,20 @@ def test_double_date_and_null_keys_and_wrapping_sums(jax_session):
 def test_window_refused_by_name():
     s = TorchSession(device="cpu")
     df = s.create_dataframe(_data())
-    running = df.select(Alias(F.sum("v").over(
-        F.Window.partition_by("g").order_by("o")), "r"))
-    with pytest.raises(NotImplementedError, match="ORDER BY"):
-        running.collect()
-    bounded = df.select(Alias(F.sum("v").over(
-        F.Window.partition_by("g").rows_between(-1, 1)), "r"))
-    with pytest.raises(NotImplementedError, match="ROWS BETWEEN 1 PRECEDING"):
-        bounded.collect()
+    # running and bounded ROWS frames run (tests/test_torch_window_frames
+    # .py); a bounded RANGE frame and a min/max frame the JAX program does
+    # not run are refused
+    ranged = df.select(Alias(F.sum("v").over(
+        F.Window.partition_by("g").order_by("o").range_between(-1, 1)),
+        "r"))
+    with pytest.raises(NotImplementedError,
+                       match="RANGE BETWEEN 1 PRECEDING"):
+        ranged.collect()
+    reverse = df.select(Alias(F.max("v").over(
+        F.Window.partition_by("g").order_by("o").rows_between(
+            -1, F.Window.unboundedFollowing)), "r"))
+    with pytest.raises(NotImplementedError, match="min/max"):
+        reverse.collect()
     with pytest.raises(ValueError, match="filter"):
         df.filter(F.sum("v").over(F.Window.partition_by("g")))
     # over several partitions a hash exchange on the keys comes first
