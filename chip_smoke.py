@@ -7,14 +7,15 @@ Needs one CUDA card; it exits non-zero, printing no result, without one.
 It builds every kernel from the sources in the checkout, into the
 git-ignored build/ directory: kernel 1, K5 and K6 (Triton, emitted by
 kernels/fused_agg.py and kernels/fused_stage.py) and kernel 2, K7, K7c,
-K8, K9, K10 (with its full outer mode K10f), K10x, K14 (with its ranking
-pass K14r and its frame kinds K14s, K14b and K14o), K15d, and K11h, K11r
-and K7s (csrc/*.cu, one nvcc each, all started together).  It holds each
-kernel against its plain PyTorch version on the card (phase 2h: the
-exchange's kernels and K9's merge kinds; phase 2i: the window frames and
-the full outer join), then drives eight paths through ``TorchSession()``,
-each query with the launch counters set to 0 just before it and read
-just after:
+K8, K9, K10 (with its full outer mode K10f and its null-safe mode K10n),
+K10x, K14 (with its ranking pass K14r and its frame kinds K14s, K14b and
+K14o), K15d, K11h, K11r and K7s, and K13 (computed strings) (csrc/*.cu,
+one nvcc each, all started together).  It holds each kernel against its
+plain PyTorch version on the card (phase 2h: the exchange's kernels and
+K9's merge kinds; phase 2i: the window frames and the full outer join;
+phase 2j: K13 and K10's null-safe mode), then drives ten paths through
+``TorchSession()``, each query with the launch counters set to 0 just
+before it and read just after:
 
 - bench.py's recipe -- filter(w > t), project k+1, v*2.0 and
   murmur3(k, w), sum all three, collect -- on 128M rows in 4 partitions,
@@ -44,17 +45,24 @@ just after:
   join: K10f; CASE over an int and a date) and q51w (q51's store half
   with a 7-day moving average, lag, lead and ntile: K14b, K14o) over the
   same tables, checked and timed alike;
-- phase 10: q3, q1, q7, q12, q16, q17 without its item conjunct, q18 and
-  q51 over the same tables cut into ``--parts`` partitions (the JAX package's
-  register_tables rule): every group-by, join, sort and window behind a
-  hash or range exchange (K11h, K11r, K7s), PARTIAL/FINAL group-bys
-  through K9's merge kinds, each query's rows held against its
+- phase 9c: TPC-DS q8 (an INTERSECT: a null-safe semi join, K10n; the
+  zips' substrings written by K13 as the INTERSECT's columns and both
+  join keys; a 128-zip IN in K5) over the same tables, checked and timed
+  alike;
+- phase 9d: TPC-DS q5 (UNION ALLs, ``'store' || s_store_id`` and the
+  channel names written by K13, a rollup) at sf 10 (``OWN_SF``: its web
+  join grows with sf squared), checked against numpy at sf 10 and the
+  CPU run at sf 1, timed alike;
+- phase 10: q3, q1, q7, q12, q16, q17 without its item conjunct, q18,
+  q51 and q8 over the same tables cut into ``--parts`` partitions (the
+  JAX package's register_tables rule): every group-by, join, sort and
+  window behind a hash or range exchange (K11h, K11r, K7s), PARTIAL/FINAL
+  group-bys through K9's merge kinds, each query's rows held against its
   one-partition run and numpy, timed and profiled alike.
 
 The CPU run of each query of phases 4 to 9 is held against a card run
-over tables at a tenth of the scale (sf 100), to keep the script inside
-its time (q6, q28 and q36 were held against it at full size up to PR
-7).  Each phase prints its seconds.
+over tables at a tenth of the scale (sf 100; q5's at sf 1), to keep the
+script inside its time.  Each phase prints its seconds.
 
 Every check that fails ends the run with a non-zero exit.  The last two
 lines of standard output are a JSON object describing each kernel on
@@ -79,10 +87,10 @@ import numpy as np
 
 INT64_MAX = 2 ** 63 - 1
 #: the CUDA sources of the kernels (kernel 2, K7, K8, K9, K10, K14 and
-#: its ranking pass K14r, K15d, K7c, K10x, and K11h, K11r and K7s)
+#: its ranking pass K14r, K15d, K7c, K10x, K11h, K11r and K7s, and K13)
 CUDA_SOURCES = ("global_reduce.cu", "gather.cu", "sort.cu", "keyed_agg.cu",
                 "hash_join.cu", "window.cu", "distinct.cu", "concat.cu",
-                "cross_join.cu", "partition.cu")
+                "cross_join.cu", "partition.cu", "strings.cu")
 #: the TPC-DS kernels: name, route, source, the JAX program each replaces
 TPCDS_KERNELS = {
     "K1": ("fused_agg_update", "triton",
@@ -137,6 +145,12 @@ TPCDS_KERNELS = {
     "K10f": ("full_outer_join", "cuda",
              "spark_rapids_tpu_torch/csrc/hash_join.cu",
              "spark_rapids_tpu/ops/join_ops.py:275"),
+    "K10n": ("null_safe_join", "cuda",
+             "spark_rapids_tpu_torch/csrc/hash_join.cu",
+             "spark_rapids_tpu/ops/join_ops.py:191"),
+    "K13": ("string_column", "cuda",
+            "spark_rapids_tpu_torch/csrc/strings.cu",
+            "spark_rapids_tpu/expressions/strings.py:179"),
 }
 #: each TPC-DS kernel's launch counter: module and attribute
 COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
@@ -158,7 +172,9 @@ COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
             "K14s": ("ops.window_ops", "FRAME_LAUNCHES"),
             "K14b": ("ops.window_ops", "BOUNDED_LAUNCHES"),
             "K14o": ("ops.window_ops", "OFFSET_LAUNCHES"),
-            "K10f": ("ops.join_ops", "FULL_LAUNCHES")}
+            "K10f": ("ops.join_ops", "FULL_LAUNCHES"),
+            "K10n": ("ops.join_ops", "NULL_SAFE_LAUNCHES"),
+            "K13": ("ops.string_ops", "LAUNCHES")}
 #: K14o's three wrappers, recorded apart: ntile and the lag/lead default
 K14O_PARTS = {"K14on": "K14o", "K14of": "K14o"}
 #: the kernels each query's main path launches
@@ -182,11 +198,15 @@ QUERY_KERNELS = {"q3": ("K5", "K7", "K8", "K9", "K10"),
                          "K14r"),
                  "q51": ("K5", "K6", "K7", "K8", "K9", "K10", "K10f",
                          "K14s"),
-                 "q51w": ("K5", "K7", "K8", "K9", "K10", "K14b", "K14o")}
+                 "q51w": ("K5", "K7", "K8", "K9", "K10", "K14b", "K14o"),
+                 "q8": ("K5", "K7", "K8", "K9", "K10", "K10n", "K13"),
+                 "q5": ("K6", "K7", "K7c", "K7s", "K8", "K9", "K10",
+                        "K11h", "K11r", "K13")}
 #: phase 10: the queries run over tables at 4 partitions, and the kernels
 #: each launches beside its one-partition ones (q16 sorts its one-row
 #: global aggregate: no range exchange)
-PARTS_QUERIES = ("q3", "q1", "q7", "q12", "q16", "q17v", "q18", "q51")
+PARTS_QUERIES = ("q3", "q1", "q7", "q12", "q16", "q17v", "q18", "q51",
+                 "q8")
 PARTS_KERNELS = {"q16": ("K7c", "K11h", "K7s")}
 PARTS_DEFAULT_KERNELS = ("K7c", "K11h", "K11r", "K7s")
 #: the histogram the exchange's one read brings to the host (exec/
@@ -214,6 +234,12 @@ MULTIKEY_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:96"]
 #: first positions K14r replaces beside the ranking kinds (q36)
 STRING_KEY_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:71"]
 RANK_REPLACES = ["spark_rapids_tpu/ops/window_ops.py:122"]
+#: the JAX programs K13 replaces beside Substring's device form (Concat's,
+#: q5) and K10's null-safe mode beside the pair verification (the
+#: null-safe keys of INTERSECT, ``session.py:495``)
+CONCAT_REPLACES = ["spark_rapids_tpu/expressions/strings.py:115"]
+NULL_SAFE_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:234",
+                      "spark_rapids_tpu/session.py:495"]
 #: the JAX programs beside each frame kind: the min/max half of the agg
 #: kind (K14s, K14b), ntile beside the offset kind (K14o), and the
 #: unmatched positions and the maps' concatenation beside the build
@@ -233,9 +259,13 @@ F64_SUM_RTOL = 1e-10
 #: sum by a few units in the last place; M2_RTOL of m2 covers the rest
 M2_RTOL = 1e-9
 M2_MEAN_RTOL = 1e-12
-#: timed queries of each TPC-DS query after its main path's run (10 up to
-#: PR 7; 5 since phase 10 came in, to keep the run inside its time)
-TPCDS_REPS = 5
+#: timed queries of each older TPC-DS query after its main path's run
+#: (fewer each time a phase came in, to keep the run inside its time)
+TPCDS_REPS = 3
+#: the newest queries, timed NEW_REPS times (q5: 2 when one run takes
+#: over 2 s)
+NEW_QUERIES = ("q8", "q5")
+NEW_REPS = 5
 #: timed queries of each phase-10 query
 PARTS_REPS = 3
 
@@ -2052,6 +2082,107 @@ def check_slice9(session, rng, rate: float):
     return err, timed
 
 
+#: strings of phase 2j: 0, 1, 7, 8, 15 and 40 bytes, and bytes >= 0x80
+K13_STEMS = ["", "a", "abcdefg", "abcdefgh", "abcdefghijklmno", "x" * 40,
+             "ÿé", "日本語x"]
+#: phase 2j's substrings: positive, zero, negative and past-the-end pos,
+#: with and without a length
+K13_SUBSTRINGS = ((1, 5), (2, 3), (0, 2), (-1, None), (-3, 2), (-50, 4),
+                  (41, None), (3, None), (1, 0))
+
+
+def check_slice10(session, rng, rate: float):
+    """Phase 2j: K13 (substring at every pos class, with and without a
+    length; a concat of a literal, a column and a literal; two columns;
+    a literal alone; with nulls in either column; every call also through
+    a row map) over 1M and 2**20 + 3 rows of 0- to 40-byte strings with
+    10% nulls, and K10's null-safe mode (an int and a string key, 10%
+    null keys on both sides: semi and anti with 64k build rows against
+    1M probes, inner, outer and full with 6,554 against 100k) against
+    their plain versions.  Then each timed: K13's substring
+    and concat over 2**20 + 3 rows, K10n's semi join over 1M probes.
+    Returns the max |d| of each and the timings (no single PyTorch call
+    computes either: library None)."""
+    import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import HostColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops import join_ops as J
+    from spark_rapids_tpu_torch.ops import string_ops as SO
+    tr, dev = session.transfers, session.device
+    err = {"K13": 0.0, "K10n": 0.0}
+    timed = {}
+    for n in (1_000_000, SLICE3_SIZES[-1]):
+        cols = [string_column(rng, n, K13_STEMS, 0.1) for _ in range(2)]
+        a, b = tr.upload_batch(HostColumnarBatch(cols, n, ["a", "b"])
+                               ).columns
+        rows = torch.from_numpy(rng.integers(0, n, n // 3)).to(dev)
+        calls = [((SO.SUBSTRING, [a]), {"pos": p, "length": ln})
+                 for p, ln in K13_SUBSTRINGS]
+        calls += [((SO.CONCAT, [b"store", a, b"#"]), {}),
+                  ((SO.CONCAT, [a, b]), {}),
+                  ((SO.CONCAT, [b"web channel"]), {})]
+        for (op, parts), kw in calls:
+            for r in (None, rows):
+                m = n if r is None else r.shape[0]
+                got = SO.string_column(op, parts, m, dev, tr, rows=r, **kw)
+                torch.cuda.synchronize()
+                err["K13"] = max(err["K13"], same_columns(
+                    [got], [SO.string_column_plain(op, parts, m, dev, tr,
+                                                   rows=r, **kw)],
+                    f"K13 op {op} {kw}, {m} rows"))
+    n = SLICE3_SIZES[-1]
+    for what, (op, parts), kw in (
+            ("substring", (SO.SUBSTRING, [a]), {"pos": 1, "length": 5}),
+            ("concat", (SO.CONCAT, [b"store", a, b"#"]), {})):
+        got = SO.string_column(op, parts, n, dev, tr, **kw)
+        timed[f"K13 {what}"] = (
+            time_ms(lambda: SO.string_column(op, parts, n, dev, tr, **kw),
+                    10),
+            time_ms(lambda: SO.string_column_plain(op, parts, n, dev, tr,
+                                                   **kw), 2, 1),
+            k13_bytes((op, parts, n), kw, got) / rate * 1e3, None)
+        print(f"K13 {what}, {n} rows: {int(got.offsets[-1])} chars written")
+
+    # K10n: 64k build rows, 1M probes, 10% null keys on both sides
+    def keys(rows_, card_):
+        k = rng.integers(0, card_, rows_)
+        valid = torch.from_numpy(rng.random(rows_) >= 0.1).to(dev)
+        kcol = DeviceColumn(torch.from_numpy(k).to(dev), valid, T.LONG)
+        scol = string_column(rng, rows_, [f"k{x}" for x in range(2000)],
+                             0.1)
+        return kcol, tr.upload_column(scol)
+    build, probe = keys(65536, 3 * 65536), keys(SLICE8_ROWS, 3 * 65536)
+    # semi and anti (INTERSECT's and EXCEPT's modes) at that shape; the
+    # modes that pair every null probe key with every null build key
+    # (6,554 x 100,000 null pairs there) at a tenth of each side
+    small = keys(6554, 3 * 6554), keys(SLICE8_ROWS // 10, 3 * 6554)
+    for j in (0, 1):
+        for kw, (b, p) in (({"mode": "semi"}, (build, probe)),
+                           ({"mode": "anti"}, (build, probe)),
+                           ({}, small), ({"outer": True}, small),
+                           ({"mode": "full"}, small)):
+            got = J.join_pairs(b[j], p[j], tr, null_safe=True, **kw)
+            torch.cuda.synchronize()
+            err["K10n"] = max(err["K10n"], same_output(
+                "K10f" if kw.get("mode") == "full" else "K10n",
+                (b[j], p[j]), kw, got,
+                J.join_pairs_plain(b[j], p[j], tr, null_safe=True, **kw),
+                tr, f"K10n {kw} key {j}, {b[j].row_count} x "
+                f"{p[j].row_count}"))
+    got = J.join_pairs(build[0], probe[0], tr, null_safe=True, mode="semi")
+    timed["K10n semi"] = (
+        time_ms(lambda: J.join_pairs(build[0], probe[0], tr, null_safe=True,
+                                     mode="semi"), 10),
+        time_ms(lambda: J.join_pairs_plain(build[0], probe[0], tr,
+                                           null_safe=True, mode="semi"),
+                2, 1),
+        (9 * 65536 + 9 * SLICE8_ROWS + 8 * got[0].shape[0]) / rate * 1e3,
+        None)
+    print(f"K10n semi 65536 x {SLICE8_ROWS}: {got[0].shape[0]} kept rows")
+    return err, timed
+
+
 def rows_match(expected, actual, what: str) -> None:
     """In order; doubles within 1e-6 relative (the comparator the JAX
     package's TPC-DS oracle uses, rowcompare.val_eq), the rest exact."""
@@ -2088,7 +2219,7 @@ class Recorder:
         from spark_rapids_tpu_torch.exec import fused, joins
         from spark_rapids_tpu_torch.ops import (agg_ops, batch_ops,
                                                 partition_ops, sort_ops,
-                                                window_ops)
+                                                string_ops, window_ops)
         self.calls = []
         self._patches = [
             (fused, "fused_agg_update", "K1"),
@@ -2112,7 +2243,8 @@ class Recorder:
             (window_ops, "window_bounded", "K14b"),
             (window_ops, "window_offset", "K14o"),
             (window_ops, "window_ntile", "K14on"),
-            (window_ops, "window_fill", "K14of")]
+            (window_ops, "window_fill", "K14of"),
+            (string_ops, "string_column", "K13")]
         self._saved = []
 
     def __enter__(self):
@@ -2121,8 +2253,8 @@ class Recorder:
             self._saved.append((mod, name, fn))
 
             def wrapped(*a, _fn=fn, _k=kernel, **kw):
-                if _k == "K10" and kw.get("mode") == "full":
-                    _k = "K10f"
+                if _k == "K10":
+                    _k = k10_name(kw)
                 counter = counter_of(K14O_PARTS.get(_k, _k))
                 before = getattr(*counter)
                 if self.mark:
@@ -2143,6 +2275,16 @@ class Recorder:
             setattr(mod, name, fn)
 
 
+def k10_name(kw) -> str:
+    """The record name of a K10 call: K10f for its full mode, K10n for
+    its null-safe mode in the others, else K10 (each has its counter)."""
+    if kw.get("mode") == "full":
+        return "K10f"
+    safe = kw.get("null_safe")
+    flags = safe if isinstance(safe, (list, tuple)) else [safe]
+    return "K10n" if any(flags) else "K10"
+
+
 def column_bytes(c, rows=None) -> int:
     """Bytes of a column's planes (of ``rows`` rows of a fixed-width one)."""
     n = c.row_count if rows is None else rows
@@ -2160,6 +2302,8 @@ def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
                    same_columns(got[1], ref[1], what))
     if name in ("K6", "K7"):
         return same_columns(got, ref, what)
+    if name == "K13":
+        return same_columns([got], [ref], what)
     if name == "K7c":
         check(got.row_count == ref.row_count, f"{what}: row count")
         return same_columns(got.columns, ref.columns, what)
@@ -2208,6 +2352,24 @@ def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
         return same_indices(got[0], ref[0], f"{what}: kept rows")
     return max(same_indices(g, r, f"{what}: {side} rows")
                for g, r, side in zip(got, ref, ("probe", "build")))
+
+
+def k13_bytes(args, kw, got) -> int:
+    """Bytes K13 must move for one call: each column part's offsets of the
+    rows it reads, its validity and the chars the output copies from it,
+    the row map, and the output's offsets, validity and chars."""
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    parts = args[1]
+    rows = kw.get("rows", args[7] if len(args) > 7 else None)
+    n = got.row_count
+    out = 8 * (n + 1) + n + int(got.offsets[-1])
+    read = 0 if rows is None else 8 * n
+    for p in parts:
+        if isinstance(p, DeviceColumn):
+            read += p.offsets.element_size() * (n + 1) + \
+                (0 if p.all_valid else n)
+    # the copied chars: every output byte was read once from a part
+    return read + out + int(got.offsets[-1])
 
 
 def same_kernel1(args, got, ref, what: str) -> float:
@@ -2371,6 +2533,7 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
     from spark_rapids_tpu_torch.ops import join_ops as J
     from spark_rapids_tpu_torch.ops import partition_ops as PO
     from spark_rapids_tpu_torch.ops import sort_ops as S
+    from spark_rapids_tpu_torch.ops import string_ops as SO
     from spark_rapids_tpu_torch.ops import window_ops as W
     tr = session.transfers
     plain = {"K1": FU.fused_agg_update_plain, "K3": G.global_reduce_plain,
@@ -2385,7 +2548,8 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
              "K7s": PO.split_columns_plain,
              "K14s": W.window_running_plain, "K14b": W.window_bounded_plain,
              "K14o": W.window_offset_plain, "K14on": W.window_ntile_plain,
-             "K14of": W.window_fill_plain, "K10f": J.join_pairs_plain}
+             "K14of": W.window_fill_plain, "K10f": J.join_pairs_plain,
+             "K10n": J.join_pairs_plain, "K13": SO.string_column_plain}
     kernel = {"K1": FU.fused_agg_update, "K3": G.global_reduce,
               "K15d": G.count_distinct,
               "K5": FU.fused_stage_compact, "K6": FU.fused_project,
@@ -2397,7 +2561,8 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
               "K11r": PO.range_partition, "K7s": PO.split_columns,
               "K14s": W.window_running, "K14b": W.window_bounded,
               "K14o": W.window_offset, "K14on": W.window_ntile,
-              "K14of": W.window_fill, "K10f": J.join_pairs}
+              "K14of": W.window_fill, "K10f": J.join_pairs,
+              "K10n": J.join_pairs, "K13": SO.string_column}
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "library_ms": 0.0,
                "shapes": [], "max_abs_err": 0.0} for k in kernels}
     for i, (name, args, kw) in enumerate(calls):
@@ -2569,6 +2734,12 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
             o["bytes"] += 2 * column_bytes(c) + 8 * src.shape[0]
             o["shapes"].append(f"default into {src.shape[0]} rows: "
                                f"{ms:.4f} ms")
+        elif name == "K13":
+            n = got.row_count
+            o["bytes"] += k13_bytes(args, kw, got)
+            o["shapes"].append(f"{n} rows -> {int(got.offsets[-1])} chars "
+                               f"({'substring' if args[0] == 0 else 'concat'}"
+                               f" of {len(args[1])} parts): {ms:.4f} ms")
         elif name == "K10x":
             n_probe, n_build = args[:2]
             o["bytes"] += 16 * n_probe * n_build
@@ -2702,6 +2873,11 @@ QUERIES = {
             "store_sales"),
     "q51": ("q51", ("web_sales", "store_sales", "date_dim"), "store_sales"),
     "q51w": ("q51w", ("store_sales", "date_dim"), "store_sales"),
+    "q8": ("q8", ("store_sales", "date_dim", "store", "customer_address",
+                  "customer"), "store_sales"),
+    "q5": ("q5", ("store_sales", "store_returns", "catalog_sales",
+                  "catalog_returns", "web_sales", "web_returns", "date_dim",
+                  "store", "catalog_page", "web_site"), "store_sales"),
 }
 #: the queries that must join on a string key (K10)
 STRING_JOIN_QUERIES = ("q6",)
@@ -2713,14 +2889,16 @@ QUERY_KW = {"q17v": {"same_item": False}}
 QUERY_ROWS = {"q3": 10, "q1": 100, "q7": 100, "q15": 40, "q12": 100,
               "q20": 100, "q13": 1, "q19": 100, "q16": 1, "q17": None,
               "q17v": 100, "q10": 100, "q18": 100, "q6": 10, "q28": 1,
-              "q36": 100, "q51": 100, "q51w": 1}
-#: phases 4 to 9, in bench.py's TPC-DS order within each slice
+              "q36": 100, "q51": 100, "q51w": 1, "q8": 9, "q5": 100}
+#: phases 4 to 9d, in bench.py's TPC-DS order within each slice
 TPCDS_ORDER = ("q3", "q1", "q7", "q15", "q12", "q20", "q13", "q19", "q16",
                "q17", "q17v", "q10", "q18", "q6", "q28", "q36", "q51",
-               "q51w")
-#: the queries whose CPU run is held against the card at full size; the
-#: others' CPU run is held against a card run at a tenth of the scale
-FULL_CPU_CHECK = ("q6", "q28", "q36")
+               "q51w", "q8", "q5")
+#: the queries run at a scale of their own (at most ``--sf``), their CPU
+#: run held against a card run at a tenth of it: q5's web returns join
+#: web_sales on a page drawn from 60 values on both sides, about
+#: 1.07e5 * sf^2 rows, so sf 1000 would give 1.07e11 rows
+OWN_SF = {"q5": 10.0}
 
 
 #: each generated column's host form, by the id of its numpy array (the
@@ -2839,7 +3017,12 @@ def run_query(session, query: str, tables, rate: float,
     stage = {"host tables": t_tables,
              "first and main": time.perf_counter() - t0 + first_s}
     t_stage = time.perf_counter()
-    reps = TPCDS_REPS if parts == 1 else PARTS_REPS
+    reps = PARTS_REPS if parts > 1 else \
+        TPCDS_REPS if query not in NEW_QUERIES else \
+        2 if main_s > 2 else NEW_REPS
+    if query in NEW_QUERIES and main_s > 2:
+        print(f"{label}: one run took {main_s:.3f} s (over 2 s): "
+              f"{reps} timed runs")
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -3122,6 +3305,20 @@ def main() -> int:
         print(f"{what} ({shapes[what]}): {ms_:.4f} ms, plain "
               f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
 
+    # -- phase 2j: the slice-10 kernels against their plain versions --------
+    t0 = time.perf_counter()
+    errs10, slice10_one = check_slice10(session, rng, rate)
+    print(f"K13 (substring, concat), K10n (null-safe, every mode) vs plain: "
+          f"pass ({time.perf_counter() - t0:.1f} s), max |d| {errs10}")
+    shapes = {"K13 substring": f"substr(s, 1, 5) of {SLICE3_SIZES[-1]} "
+                               "rows",
+              "K13 concat": f"'store' || s || '#' of {SLICE3_SIZES[-1]} "
+                            "rows",
+              "K10n semi": f"65536 build x {SLICE8_ROWS} probe rows"}
+    for what, (ms_, plain_, bound_, lib_) in slice10_one.items():
+        print(f"{what} ({shapes[what]}): {ms_:.4f} ms, plain "
+              f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
+
     phase("kernels checked")
 
     # -- phase 3: the bench recipe at full size -----------------------------
@@ -3290,14 +3487,21 @@ def main() -> int:
     t0 = time.perf_counter()
     generated = tpcds.generate_tables(args.sf)
     cuts = {q: getattr(tpcds, f"{QUERIES[q][0]}_tables")(generated)
-            for q in TPCDS_ORDER}
+            for q in TPCDS_ORDER if q not in OWN_SF}
     del generated   # the cuts keep the arrays the queries read
     small = tpcds.generate_tables(args.sf / 10)
     small_cuts = {q: getattr(tpcds, f"{QUERIES[q][0]}_tables")(small)
-                  for q in TPCDS_ORDER if q not in FULL_CPU_CHECK}
+                  for q in TPCDS_ORDER if q not in OWN_SF}
     del small
-    print(f"TPC-DS sf {args.sf} and sf {args.sf / 10} generated in "
-          f"{time.perf_counter() - t0:.1f} s")
+    own_sf = {}
+    for q, sf in OWN_SF.items():
+        own_sf[q] = min(sf, args.sf)
+        cuts[q] = getattr(tpcds, f"{q}_tables")(
+            tpcds.generate_tables(own_sf[q]))
+        small_cuts[q] = getattr(tpcds, f"{q}_tables")(
+            tpcds.generate_tables(own_sf[q] / 10))
+    print(f"TPC-DS sf {args.sf} and sf {args.sf / 10} generated (and "
+          f"{own_sf}, a tenth of each) in {time.perf_counter() - t0:.1f} s")
     # phase 6: q15, q12 and q20; phase 7: q13, q19 and q16; phase 8: q17
     # (as written and q17v), q10 and q18; phase 9: q6, q28 and q36, over
     # the same tables
@@ -3311,7 +3515,8 @@ def main() -> int:
             if q in PARTS_QUERIES:
                 parts_cuts[q] = tables_
             launches, timed, got = run_query(
-                session, q, tables_, rate, args.sf == 1000,
+                session, q, tables_, rate,
+                args.sf == 1000 or own_sf.get(q) == OWN_SF.get(q),
                 small_cuts.pop(q, None))
             one_part[q] = got
             del tables_
@@ -3336,7 +3541,7 @@ def main() -> int:
                                    errs4.get(k, 0.0), errs5.get(k, 0.0),
                                    errs6.get(k, 0.0), errs7.get(k, 0.0),
                                    errs8.get(k, 0.0), errs9.get(k, 0.0),
-                                   o["max_abs_err"]),
+                                   errs10.get(k, 0.0), o["max_abs_err"]),
                 "ms": o["ms"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound_ms"], "bound_by": "bytes",
                 "library_ms": o["library_ms"], "device_ms": o["device_ms"],
@@ -3415,6 +3620,19 @@ def main() -> int:
                     entry[f"phase_2i_{key}_plain_ms"] = plain_
                     entry[f"phase_2i_{key}_bound_ms"] = bound_
                     entry[f"phase_2i_{key}_library_ms"] = lib_
+            if k in ("K13", "K10n"):
+                if k == "K10n":
+                    entry["also_replaces"] = NULL_SAFE_REPLACES
+                elif q == "q5":
+                    entry["also_replaces"] = CONCAT_REPLACES
+                for what, (ms_, plain_, bound_, lib_) in slice10_one.items():
+                    if what.split(" ")[0] != k:
+                        continue
+                    key = what.replace(" ", "_").lower()
+                    entry[f"phase_2j_{key}_ms"] = ms_
+                    entry[f"phase_2j_{key}_plain_ms"] = plain_
+                    entry[f"phase_2j_{key}_bound_ms"] = bound_
+                    entry[f"phase_2j_{key}_library_ms"] = lib_
             kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -63,6 +63,14 @@
 //             swapped.
 // Semi and anti write only the kept probe rows, in probe order.
 //
+// Null-safe keys (null_safe, a bit per key column; the JAX package's
+// _expand_verify null_safe, :192, :234, which INTERSECT and EXCEPT use,
+// session.py:495): a null in such a column is a value, so a build row
+// holding one is inserted, not dropped, and equals a probe row with a null
+// there (row_hash hashes a null as one word, keys_equal equates two
+// nulls).  Every mode takes them.  A one-column null-safe key is tagged by
+// its hash, not its word (the word under a null is not read).
+//
 // One key column is the case n_keys = 1 of the same code; one fixed-width
 // key differs only in its tag (the key word, not the hash).
 //
@@ -94,9 +102,10 @@ struct Table {
   uint64_t mask;
 };
 
-// one fixed-width key column: the key's word is the slot's tag
+// one fixed-width key column, not null-safe: the key's word is the
+// slot's tag
 __device__ __forceinline__ bool word_tagged(const Keys& k) {
-  return k.n == 1 && k.type[0] != srt::kKeyString;
+  return k.n == 1 && k.type[0] != srt::kKeyString && k.null_safe == 0;
 }
 
 // the tag a slot keeps for a row of hash h: the key's word for one
@@ -287,10 +296,12 @@ bool same_kinds(int32_t n_keys, const int32_t* btype, const int32_t* ptype) {
   return true;
 }
 
-Side side(int32_t n_keys, const int32_t* type, const int32_t* off64,
-          const void* const* data, const void* const* valid,
-          const void* const* offsets, int64_t n) {
-  return Side{srt::make_keys(n_keys, type, off64, data, valid, offsets), n};
+Side side(int32_t n_keys, int32_t null_safe, const int32_t* type,
+          const int32_t* off64, const void* const* data,
+          const void* const* valid, const void* const* offsets, int64_t n) {
+  Keys k = srt::make_keys(n_keys, type, off64, data, valid, offsets);
+  k.null_safe = static_cast<uint32_t>(null_safe);
+  return Side{k, n};
 }
 
 Table table(const void* slots, const void* slot_tag, int64_t size) {
@@ -304,9 +315,11 @@ Table table(const void* slots, const void* slot_tag, int64_t size) {
 // Each side's keys: n_keys columns, type[c] a keys.cuh KeyType (int32,
 // int64 or string), data[c] the column's values (a string's chars),
 // valid[c] its validity bytes (null: all present), and for a string
-// offsets[c] (int64 where off64[c], else int32).  slots, slot_tag:
-// table_size int64 each (a power of two >= 2 * build rows).
-extern "C" int srt_join_build(int32_t n_keys, const int32_t* type,
+// offsets[c] (int64 where off64[c], else int32); null_safe: bit c marks
+// key column c null-safe (the same on every call of one join).  slots,
+// slot_tag: table_size int64 each (a power of two >= 2 * build rows).
+extern "C" int srt_join_build(int32_t n_keys, int32_t null_safe,
+                              const int32_t* type,
                               const int32_t* off64, const void* const* data,
                               const void* const* valid,
                               const void* const* offsets, int64_t n,
@@ -320,7 +333,7 @@ extern "C" int srt_join_build(int32_t n_keys, const int32_t* type,
   table_clear<<<srt::grid_for(table_size), kThreads, 0, s>>>(sl, table_size);
   if (n > 0)
     table_build<<<srt::grid_for(n), kThreads, 0, s>>>(
-        side(n_keys, type, off64, data, valid, offsets, n), sl,
+        side(n_keys, null_safe, type, off64, data, valid, offsets, n), sl,
         static_cast<uint64_t*>(slot_tag),
         static_cast<uint64_t>(table_size - 1));
   return static_cast<int>(cudaGetLastError());
@@ -330,7 +343,8 @@ extern "C" int srt_join_build(int32_t n_keys, const int32_t* type,
 // matched build row's set), else null.  tile_offsets: srt::tiles_for(n) +
 // 1 int64; after the call tile_offsets[tiles] holds the number of pairs
 // (kept rows in semi and anti modes).
-extern "C" int srt_join_count(int32_t n_keys, const int32_t* btype,
+extern "C" int srt_join_count(int32_t n_keys, int32_t null_safe,
+                              const int32_t* btype,
                               const int32_t* boff64, const void* const* bdata,
                               const void* const* bvalid,
                               const void* const* boffsets, int64_t nb,
@@ -357,15 +371,16 @@ extern "C" int srt_join_count(int32_t n_keys, const int32_t* btype,
     return static_cast<int>(cudaMemsetAsync(offs, 0, sizeof(int64_t), s));
   const unsigned tiles = srt::tiles_for(n);
   probe_count<<<tiles, kThreads, 0, s>>>(
-      side(n_keys, btype, boff64, bdata, bvalid, boffsets, nb),
-      side(n_keys, ptype, poff64, pdata, pvalid, poffsets, n),
+      side(n_keys, null_safe, btype, boff64, bdata, bvalid, boffsets, nb),
+      side(n_keys, null_safe, ptype, poff64, pdata, pvalid, poffsets, n),
       table(slots, slot_tag, table_size), mode, fl, offs);
   srt::scan_tile_offsets<<<1, kThreads, 0, s>>>(offs, tiles, offs + tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
 // out_build is not written in semi and anti modes (it may be null).
-extern "C" int srt_join_write(int32_t n_keys, const int32_t* btype,
+extern "C" int srt_join_write(int32_t n_keys, int32_t null_safe,
+                              const int32_t* btype,
                               const int32_t* boff64, const void* const* bdata,
                               const void* const* bvalid,
                               const void* const* boffsets, int64_t nb,
@@ -383,8 +398,8 @@ extern "C" int srt_join_write(int32_t n_keys, const int32_t* btype,
   if (n == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   probe_write<<<srt::tiles_for(n), kThreads, 0, s>>>(
-      side(n_keys, btype, boff64, bdata, bvalid, boffsets, nb),
-      side(n_keys, ptype, poff64, pdata, pvalid, poffsets, n),
+      side(n_keys, null_safe, btype, boff64, bdata, bvalid, boffsets, nb),
+      side(n_keys, null_safe, ptype, poff64, pdata, pvalid, poffsets, n),
       table(slots, slot_tag, table_size), mode,
       static_cast<const int64_t*>(tile_offsets),
       static_cast<long long*>(out_probe), static_cast<long long*>(out_build));

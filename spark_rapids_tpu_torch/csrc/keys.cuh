@@ -8,6 +8,12 @@
 // (ops/sort_ops.py:92): a null equals a null and nothing else (the data
 // under it is not read); doubles compare by their normalised bits, so -0.0
 // equals 0.0 and every NaN equals every NaN; strings compare byte for byte.
+// A join compares keys only where all_present holds: a null in a key
+// column drops the row unless bit c of null_safe marks column c null-safe
+// (SQL's <=>, the JAX package's _expand_verify null_safe,
+// spark_rapids_tpu/ops/join_ops.py:192, :234), where it is a value that
+// equals a null alone.  K9 and K14 group nulls together and leave
+// null_safe 0.
 // row_hash hashes the same normalised words (murmur3's fmix64 chained over
 // the columns, a string's bytes folded by FNV-1a first), so equal keys hash
 // alike.
@@ -26,6 +32,7 @@ enum KeyType : int32_t { kKeyInt32 = 0, kKeyInt64 = 1, kKeyFloat64 = 2,
 
 struct Keys {
   int32_t n;
+  uint32_t null_safe;  // bit c: a null in column c is a join key value
   int32_t type[kMaxKeys];
   int32_t off64[kMaxKeys];
   const void* data[kMaxKeys];
@@ -42,6 +49,7 @@ inline Keys make_keys(int32_t n_keys, const int32_t* type,
                       const void* const* valid, const void* const* offsets) {
   Keys k;
   k.n = n_keys;
+  k.null_safe = 0;
   for (int c = 0; c < n_keys; ++c) {
     k.type[c] = type[c];
     k.off64[c] = off64[c];
@@ -137,11 +145,11 @@ __device__ __forceinline__ bool keys_equal(const Keys& k, int64_t a,
   return keys_equal(k, a, k, b);
 }
 
-// every key column of row i is present (a join key with a null never
-// matches)
+// every key column of row i is present, or null in a null-safe column
+// (a join key with any other null never matches)
 __device__ __forceinline__ bool all_present(const Keys& k, int64_t i) {
   for (int c = 0; c < k.n; ++c)
-    if (!key_present(k, c, i)) return false;
+    if (!key_present(k, c, i) && !((k.null_safe >> c) & 1u)) return false;
   return true;
 }
 

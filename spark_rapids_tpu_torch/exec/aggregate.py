@@ -15,9 +15,12 @@ columns from each group's first row.  An average folds a double sum and a
 count, the variance family a count and m2, and K6 (exec/fused.py)
 evaluates their final expressions over the groups.  Groups come out in
 order of first appearance.  The batches of one partition (an Expand's)
-are concatenated first (K7c).  Over several partitions it runs PARTIAL
-(the buffers, unfinished), then, behind a hash exchange on the keys,
-FINAL (K9's merge kinds over the buffers, then the finish)."""
+are concatenated first (K7c).  A key that is an expression is computed
+first, beside the columns, as the JAX package's ``keyed_inputs`` does:
+a numeric one by K6, a string one (a substring, a concat) by K13.  Over
+several partitions it runs PARTIAL (the buffers, unfinished), then,
+behind a hash exchange on the keys, FINAL (K9's merge kinds over the
+buffers, then the finish)."""
 
 from __future__ import annotations
 
@@ -212,10 +215,6 @@ def keyed_inputs(layout: _AggLayout, partial: bool = False):
     from spark_rapids_tpu_torch.expressions.base import Literal
     from spark_rapids_tpu_torch.ops import agg_ops as G
     for k in layout.grouping:
-        if not isinstance(k, BoundReference):
-            raise NotImplementedError(
-                f"a grouping key that is an expression ({k.sql()}) is not "
-                "in the port yet")
         if k.data_type not in G.KEYED_KEY_TYPES:
             raise NotImplementedError(
                 f"a grouping key of {k.data_type} is not in the port yet "
@@ -346,6 +345,13 @@ class TorchKeyedAggregateExec(UnaryExec):
             folded, outs = self._partial_outputs(per_agg) \
                 if mode == PARTIAL else self._complete_outputs(per_agg)
         self._folded = folded
+        #: K6 and K13's program of the keys when one is an expression (a
+        #: numeric one K6's, a string one K13's; JAX ``keyed_inputs``)
+        self.keys = None
+        if mode != FINAL and any(not isinstance(k, BoundReference)
+                                 for k in layout.grouping):
+            self.keys = StageProgram([("project", layout.grouping)],
+                                     child.schema, 0)
         #: the slots the output reads when it computes nothing (a
         #: selection), else K6's program
         self.picked = [bare_ordinal(e) for e in outs]
@@ -449,7 +455,10 @@ class TorchKeyedAggregateExec(UnaryExec):
                      for j, (v, ok) in enumerate(results)]
             folded = ColumnarBatch(cols, n_groups, self._folded.names)
         else:
-            keys = [batch.columns[k.ordinal] for k in self.layout.grouping]
+            keys = [batch.columns[k.ordinal] for k in self.layout.grouping] \
+                if self.keys is None else project_batch(
+                    self.keys, batch, LiteralArgs([]),
+                    [f"_key{j}" for j in range(nk)], transfers).columns
             scalar = [(o, kind) for o, kind, _dt in self.inputs
                       if kind != DISTINCT]
             distinct = len(scalar) < len(self.inputs)
@@ -474,7 +483,8 @@ class TorchKeyedAggregateExec(UnaryExec):
         names = self.schema.names
         if self.picked is not None:
             return folded.select(self.picked, names)
-        return project_batch(self.finish, folded, LiteralArgs([]), names)
+        return project_batch(self.finish, folded, LiteralArgs([]), names,
+                             transfers)
 
     def execute(self, ctx: ExecContext) -> Partitions:
         from spark_rapids_tpu_torch.ops.batch_ops import concat_batches

@@ -14,16 +14,19 @@ with no launch, when it only picks columns, and else a
 as views, and over several partitions streams them in order until it
 has its rows (``TpuGlobalLimitExec``, ``:566``), joined into one batch
 (K7c).  ``TorchCteCacheExec`` (``TpuCteCacheExec``,
-``:496``) runs a plan that two branches use once per action."""
+``:496``) runs a plan that two branches use once per action.
+``TorchUnionExec`` (``TpuUnionExec``, ``:641``) hands on its children's
+partitions, with no device work."""
 
 from __future__ import annotations
 
 from typing import Sequence
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.expressions.base import Expression, output_name
 from spark_rapids_tpu_torch.ops.batch_ops import take_front
-from spark_rapids_tpu_torch.plan.base import (ExecContext, LeafExec,
+from spark_rapids_tpu_torch.plan.base import (Exec, ExecContext, LeafExec,
                                               Partitions, Scan, UnaryExec)
 
 
@@ -132,7 +135,8 @@ class TorchFusedProjectExec(UnaryExec):
                                                        project_batch)
         lits = LiteralArgs.upload(self.promoted, ctx.transfers)
         names = self._schema.names
-        return [[project_batch(self.program, b, lits, names) for b in part]
+        return [[project_batch(self.program, b, lits, names, ctx.transfers)
+                 for b in part]
                 for part in self.child.execute(ctx)]
 
 
@@ -158,6 +162,32 @@ class TorchCteCacheExec(UnaryExec):
             self._ctx = ctx
             self.runs += 1
         return self._result
+
+
+class TorchUnionExec(Exec):
+    """UNION ALL (``CpuUnionExec``/``TpuUnionExec``, ``:614``, ``:641``):
+    the children's partitions in order, their batches as they are; no
+    launch.  ``num_partitions`` is the sum of the children's."""
+
+    def __init__(self, children, schema: T.StructType):
+        super().__init__(children)
+        self._schema = schema
+
+    @property
+    def schema(self):
+        return self._schema
+
+    @property
+    def num_partitions(self):
+        return sum(c.num_partitions for c in self.children)
+
+    def node_string(self):
+        return f"TorchUnion[{len(self.children)}]"
+
+    def execute(self, ctx: ExecContext) -> Partitions:
+        names = self._schema.names
+        return [[ColumnarBatch(b.columns, b.row_count, names) for b in part]
+                for c in self.children for part in c.execute(ctx)]
 
 
 class TorchLimitExec(UnaryExec):

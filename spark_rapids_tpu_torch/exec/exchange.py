@@ -130,13 +130,14 @@ class TorchShuffleExchangeExec(UnaryExec):
             return [[whole]]
         strings = [c for c in whole.columns if c.is_string]
         if isinstance(part, RangePartitioning):
-            keys = part.key_columns(whole)
+            keys = part.key_columns(whole, ctx.transfers)
             bounds = compute_bounds(part, keys,
                                     [b.row_count for b in batches],
                                     ctx.transfers)
             pids, counts = part.partition_ids(whole, bounds, strings, keys)
         else:
-            pids, counts = part.partition_ids(whole, strings)
+            pids, counts = part.partition_ids(whole, strings,
+                                              ctx.transfers)
         host = ctx.transfers.read_counts(counts)
         rows = host[:n]
         chars = [host[(1 + s) * n:(2 + s) * n] for s in range(len(strings))]

@@ -436,22 +436,62 @@ def over_outputs(e, outputs):
 
 class StageProgram:
     """One chain over one input schema: its predicates, its outputs (bare
-    ordinals or computed expressions) and the key of its kernels, one per
-    set of input columns that may hold nulls.  A chain with predicates
-    is K5's (``fused.stage``), one without K6's (``expr.project``)."""
+    ordinals, K13's string forms or computed expressions) and the key of
+    its kernels, one per set of input columns that may hold nulls.  A
+    chain with predicates is K5's (``fused.stage``), one without K6's
+    (``expr.project``); a computed string that K13 writes
+    (``expressions/strings.py k13_form``) is left out of both and
+    written after them from the chain's input columns (for K5's
+    survivors alone)."""
 
     def __init__(self, ops, schema: T.StructType, n_literals: int):
-        from spark_rapids_tpu_torch.kernels import fused_stage as S
+        from spark_rapids_tpu_torch.expressions.strings import k13_form
+        from spark_rapids_tpu_torch.kernels.fused_stage import \
+            string_view_ordinal
         self.input_types = list(schema.types)
         self.conditions, outputs = flatten_chain(ops, schema)
         self.bare = [bare_ordinal(e) for e in outputs]
-        self.computed = [e for e, b in zip(outputs, self.bare) if b is None]
+        #: K13's form of each output it writes, else None
+        self.strings = [None if b is not None else k13_form(e)
+                        for e, b in zip(outputs, self.bare)]
+        self.computed = [e for e, b, f in zip(outputs, self.bare,
+                                              self.strings)
+                         if b is None and f is None]
+        for e in self.computed:
+            if isinstance(e.data_type, T.StringType):
+                string_view_ordinal(e)   # a CASE view, or refused by name
         self.used = K.referenced_columns(self.conditions + self.computed)
         self.n_literals = n_literals
         self.key = (_ops_signature(ops),
                     tuple(str(t) for t in self.input_types), n_literals)
         # emitting checks that every expression has a kernel form
         self.kernel_for((True,) * len(self.input_types))
+
+    @property
+    def computes(self) -> bool:
+        """An output is computed (by K6 or K13), not a column as it is."""
+        return any(b is None for b in self.bare)
+
+    def assemble(self, bare, kernel_outs, inputs, n: int, transfers,
+                 rows: Optional[torch.Tensor] = None) -> List[DeviceColumn]:
+        """The ``n`` output rows' columns in order: a bare one from
+        ``bare`` (by input ordinal), a kernel-computed one from
+        ``kernel_outs`` (K5's or K6's, in order), a string one written by
+        K13 from the ``inputs`` columns (``rows``: the input row of each
+        output row)."""
+        it = iter(kernel_outs)
+        out = []
+        for b, form in zip(self.bare, self.strings):
+            if b is not None:
+                out.append(bare[b])
+            elif form is None:
+                out.append(next(it))
+            elif transfers is None:
+                raise ValueError("K13 needs the transfer gateway")
+            else:
+                out.append(form.run(inputs, n, inputs[0].device, transfers,
+                                    rows))
+        return out
 
     def kernel_for(self, nullable: Tuple[bool, ...]) -> FusedKernel:
         from spark_rapids_tpu_torch.kernels import fused_stage as S
@@ -593,9 +633,9 @@ class TorchFusedStageExec(UnaryExec):
         moved = dict(zip(wanted, gather_columns(
             [batch.columns[b] for b in wanted], idx, transfers,
             unique=True))) if wanted else {}
-        it = iter(computed)
-        cols = [next(it) if b is None else moved[b]
-                for b in self.program.bare]
+        # K13 reads the input columns at the survivors' rows
+        cols = self.program.assemble(moved, computed, batch.columns,
+                                     idx.shape[0], transfers, idx)
         return ColumnarBatch(cols, idx.shape[0], self.schema.names)
 
     def execute(self, ctx: ExecContext) -> Partitions:
@@ -614,7 +654,9 @@ class TorchFusedStageExec(UnaryExec):
 # expressions (``exec/aggregate.py``, as ``exec/fused.py:653`` runs them).
 # ``fused_project`` is K6's wrapper: one launch of the ``stage_project``
 # kernel ``kernels/fused_stage.py`` emits, which writes each computed
-# output for every row; bare outputs pass through as the input columns.
+# output for every row; bare outputs pass through as the input columns,
+# and a substring, a concat or a string literal is K13's
+# (``ops/string_ops.py``), written by ``project_batch`` after K6.
 #
 # Bound: device memory bytes.  It reads the planes of the columns the
 # outputs read once and writes each output's data and validity once; a
@@ -692,10 +734,11 @@ def fused_project_plain(program: StageProgram, batch: ColumnarBatch,
 
 
 def project_batch(program: StageProgram, batch: ColumnarBatch,
-                  lits: LiteralArgs, names: Sequence[str]) -> ColumnarBatch:
-    """The projection of ``batch``: K6's outputs, and the bare outputs as
-    the input columns."""
-    it = iter(fused_project(program, batch, lits))
-    cols = [next(it) if b is None else batch.columns[b]
-            for b in program.bare]
+                  lits: LiteralArgs, names: Sequence[str],
+                  transfers=None) -> ColumnarBatch:
+    """The projection of ``batch``: K6's outputs, K13's strings (which
+    need ``transfers``), and the bare outputs as the input columns."""
+    cols = program.assemble(batch.columns,
+                            fused_project(program, batch, lits),
+                            batch.columns, batch.row_count, transfers)
     return ColumnarBatch(cols, batch.row_count, names)

@@ -40,7 +40,10 @@ join would drop it).
 Keys are one to eight column pairs of int, date, long or string (q17
 joins store_sales to store_returns on customer, item and ticket; q6 joins
 its facts to the average price by ``i_category``); a string key meets a
-string key; a row with a null in any of its key columns never matches.
+string key; a row with a null in any of its key columns never matches,
+unless the join is null-safe (``null_safe``, SQL's ``<=>``, as the JAX
+package's INTERSECT plans it, ``session.py:495``): a null is then a value
+that equals a null, in every mode (K10's null-safe mode).
 
 A cross join (``TorchBroadcastNestedLoopJoinExec``, the JAX package's
 ``TpuBroadcastNestedLoopJoinExec`` ``:714`` with no condition, driven from
@@ -74,7 +77,8 @@ from spark_rapids_tpu_torch.expressions.base import (BoundReference,
                                                      Expression)
 from spark_rapids_tpu_torch.ops.batch_ops import gather_columns
 from spark_rapids_tpu_torch.ops.join_ops import (KEY_TYPES, MAX_KEYS,
-                                                 cross_pairs, join_pairs)
+                                                 cross_pairs, join_pairs,
+                                                 null_safe_flags)
 from spark_rapids_tpu_torch.plan.base import (Exec, ExecContext, Partitions,
                                               join_schema)
 
@@ -213,11 +217,14 @@ class TorchHashJoinExec(_JoinExec):
 
     def __init__(self, left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression], left, right,
-                 how: str = INNER, coalesce_keys: bool = False):
+                 how: str = INNER, coalesce_keys: bool = False,
+                 null_safe=False):
         check_join(how, left_keys, right_keys, left, right)
         super().__init__(left, right, normalize_how(how))
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
+        #: per key pair, whether a null equals a null (``<=>``)
+        self.null_safe = null_safe_flags(null_safe, len(self.left_keys))
         if coalesce_keys and (self.how != FULL_OUTER or any(
                 a.data_type != b.data_type
                 for a, b in zip(self.left_keys, self.right_keys))):
@@ -226,29 +233,35 @@ class TorchHashJoinExec(_JoinExec):
         self.coalesce_keys = coalesce_keys
 
     def node_string(self):
-        keys = ", ".join(f"{a.sql()} = {b.sql()}"
-                         for a, b in zip(self.left_keys, self.right_keys))
+        keys = ", ".join(f"{a.sql()} {'<=>' if safe else '='} {b.sql()}"
+                         for a, b, safe in zip(self.left_keys,
+                                               self.right_keys,
+                                               self.null_safe))
         return f"TorchHashJoin[{self.how}, {keys}]"
 
     def join_batches(self, lb: ColumnarBatch, rb: ColumnarBatch,
                      transfers) -> ColumnarBatch:
         lkey, rkey = _keys_of(lb, self.left_keys), _keys_of(rb,
                                                           self.right_keys)
+        # K10's null-safe mode only where a key asks for it
+        safe = {"null_safe": self.null_safe} if any(self.null_safe) else {}
         if self.how in _EXISTENCE:
             lidx, _none = join_pairs(rkey, lkey, transfers,
-                                     mode=_EXISTENCE[self.how])
+                                     mode=_EXISTENCE[self.how],
+                                     **safe)
             cols = gather_columns(lb.columns, lidx, transfers, unique=True)
             return ColumnarBatch(cols, lidx.shape[0], self.schema.names)
         if self.how == RIGHT_OUTER:
             # the left outer join with the sides swapped
-            ridx, lidx = join_pairs(lkey, rkey, transfers, outer=True)
+            ridx, lidx = join_pairs(lkey, rkey, transfers, outer=True,
+                                    **safe)
             cols = gather_columns(lb.columns, lidx, transfers,
                                   nullable=True) + \
                 gather_columns(rb.columns, ridx, transfers)
             return ColumnarBatch(cols, lidx.shape[0], self.schema.names)
         if self.how == FULL_OUTER:
             lidx, ridx, pairs = join_pairs(rkey, lkey, transfers,
-                                           mode="full")
+                                           mode="full", **safe)
             cols = gather_columns(lb.columns, lidx, transfers,
                                   nullable=True) + \
                 gather_columns(rb.columns, ridx, transfers, nullable=True)
@@ -257,11 +270,12 @@ class TorchHashJoinExec(_JoinExec):
             return ColumnarBatch(cols, lidx.shape[0], self.schema.names)
         outer = self.how == LEFT_OUTER
         if outer:
-            lidx, ridx = join_pairs(rkey, lkey, transfers, outer=True)
+            lidx, ridx = join_pairs(rkey, lkey, transfers, outer=True,
+                                    **safe)
         elif lb.row_count < rb.row_count:
-            ridx, lidx = join_pairs(lkey, rkey, transfers)
+            ridx, lidx = join_pairs(lkey, rkey, transfers, **safe)
         else:
-            lidx, ridx = join_pairs(rkey, lkey, transfers)
+            lidx, ridx = join_pairs(rkey, lkey, transfers, **safe)
         cols = gather_columns(lb.columns, lidx, transfers) + \
             gather_columns(rb.columns, ridx, transfers, nullable=outer)
         return ColumnarBatch(cols, lidx.shape[0], self.schema.names)

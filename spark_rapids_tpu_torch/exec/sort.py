@@ -73,7 +73,8 @@ class TorchSortExec(UnaryExec):
         if batch.row_count == 0:
             return batch
         keys = project_batch(self.keys, batch, LiteralArgs([]),
-                             [f"_ord{j}" for j in range(len(self.specs))])
+                             [f"_ord{j}" for j in range(len(self.specs))],
+                             transfers)
         perm = sort_ops.sort_permutation(keys.columns, self.orders,
                                          transfers)
         return gather_batch(batch, perm, transfers, unique=True)

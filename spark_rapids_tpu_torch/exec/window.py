@@ -186,10 +186,10 @@ class TorchWindowExec(UnaryExec):
                                                        project_batch)
         program = self.program
         evaluated: List = []
-        if program is not None and program.computed:
+        if program is not None and program.computes:
             names = [f"_e{j}" for j in range(len(program.bare))]
             evaluated = project_batch(program, batch, LiteralArgs([]),
-                                      names).columns
+                                      names, transfers).columns
         elif program is not None:
             evaluated = [batch.columns[b] for b in program.bare]
         nk, no = len(self.partition_exprs), len(self.order_exprs)

@@ -1,25 +1,34 @@
 """String functions (the analog of ``spark_rapids_tpu/expressions/
-strings.py``): ``Substring`` (``:157``) so far.
+strings.py``): ``Substring`` (``:157``) and ``Concat`` (``:105``).
 
 ``Substring`` works on bytes, as the JAX package's device form does: a
 1-based ``pos`` (0 acts as 1, a negative one counts from the end) and an
-optional ``len``.  Its plain ``eval`` builds the result's offsets and chars;
-its kernel form (``kernels/fused_agg.py``) is a byte view ``(start,
-length)`` into the value's own chars that ``=`` and ``IN`` read, so no
-string is written.  ``pos`` and ``len`` are integer literals."""
+optional ``len``.  ``pos`` and ``len`` are integer literals.  ``Concat``
+is NULL if any input is NULL; its inputs are string columns and string
+literals.
+
+Their plain ``eval`` builds the result's offsets and chars
+(``ops/string_ops.py``, K13's plain form).  On the kernel path a
+``Substring`` that ``=`` or ``IN`` compares stays a byte view ``(start,
+length)`` into the value's own chars (``kernels/fused_agg.py``), so no
+string is written; every other consumer gets a string column that K13
+writes (``k13_form``: a substring of a string column, a concat of string
+columns and literals, a string literal)."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional
 
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.expressions.base import (Col, EvalContext,
+from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
+                                                     Col, EvalContext,
                                                      Expression, Literal)
+from spark_rapids_tpu_torch.ops import string_ops as SO
 
 #: the length of a substring with no ``len`` (the JAX package's 2**30)
-NO_LENGTH = 2 ** 30
+NO_LENGTH = SO.NO_LENGTH
 
 
 def _int_literal(x, what: str) -> Literal:
@@ -29,6 +38,22 @@ def _int_literal(x, what: str) -> Literal:
             f"substring's {what} must be an integer literal in the port, "
             f"got {x!r}")
     return Literal(int(value), T.INT)
+
+
+def _eval_plain(op: int, children, ctx: EvalContext, **kw) -> Col:
+    """K13's plain form over evaluated children (a string literal is its
+    bytes, a null one None)."""
+    parts = []
+    for c in children:
+        if isinstance(c, Literal):
+            parts.append(None if c.value is None else
+                         c.value.encode("utf-8"))
+            continue
+        v = c.eval(ctx)
+        parts.append((v.data, v.offsets, v.valid))
+    chars, offsets, valid = SO.compute_plain(
+        op, parts, ctx.row_count, ctx.device, int, **kw)
+    return Col(chars, valid, offsets)
 
 
 class Substring(Expression):
@@ -54,30 +79,94 @@ class Substring(Expression):
         args = ", ".join(c.sql() for c in self.children)
         return f"substring({args})"
 
-    def bounds(self, lens: torch.Tensor) -> Tuple[torch.Tensor,
-                                                   torch.Tensor]:
-        """``(start within the value, byte length)`` of each row's
-        substring, for values of ``lens`` bytes."""
-        pos = self.pos
-        if pos > 0:
-            start = torch.clamp(lens, max=pos - 1)
-        elif pos < 0:
-            start = torch.clamp(lens + pos, min=0)
-        else:
-            start = torch.zeros_like(lens)
-        slen = NO_LENGTH if self.length is None else self.length
-        return start, torch.clamp(torch.clamp(lens - start, max=slen), min=0)
+    def eval(self, ctx: EvalContext) -> Col:
+        return _eval_plain(SO.SUBSTRING, self.children[:1], ctx,
+                           pos=self.pos, length=self.length)
+
+
+class Concat(Expression):
+    """``concat(...)``: NULL if any input is NULL (Spark's rule)."""
+
+    def __init__(self, *exprs: Expression):
+        if not exprs:
+            raise ValueError("concat needs at least one input")
+        super().__init__(list(exprs))
+
+    @property
+    def data_type(self):
+        return T.STRING
+
+    def sql(self):
+        return f"concat({', '.join(c.sql() for c in self.children)})"
 
     def eval(self, ctx: EvalContext) -> Col:
-        c = self.children[0].eval(ctx)
-        off = c.offsets.to(torch.int64)
-        lens = off[1:] - off[:-1]
-        start, out_len = self.bounds(lens)
-        offsets = torch.zeros(lens.shape[0] + 1, dtype=torch.int64,
-                              device=off.device)
-        torch.cumsum(out_len, 0, out=offsets[1:])
-        total = int(offsets[-1])
-        at = torch.repeat_interleave(off[:-1] + start - offsets[:-1],
-                                     out_len, output_size=total) + \
-            torch.arange(total, dtype=torch.int64, device=off.device)
-        return Col(c.data[at], c.valid, offsets)
+        for c in self.children:
+            if not isinstance(c.data_type, (T.StringType, T.NullType)):
+                raise NotImplementedError(
+                    f"{self.sql()}: concat of {c.data_type} is not in the "
+                    "port yet (of strings is)")
+        return _eval_plain(SO.CONCAT, self.children, ctx)
+
+
+class StringForm:
+    """What K13 writes for one computed string output: ``op``
+    (``SUBSTRING`` or ``CONCAT``), its parts (an input column's ordinal,
+    or a literal's bytes or None) and a substring's ``pos`` and
+    ``length``."""
+
+    def __init__(self, op: int, parts: List, pos: int = 1,
+                 length: Optional[int] = None):
+        self.op = op
+        self.parts = parts
+        self.pos = pos
+        self.length = length
+
+    def run(self, columns, n: int, device, transfers,
+            rows: Optional[torch.Tensor] = None):
+        """K13 over ``columns`` (the stage's input columns), ``n`` output
+        rows (``rows``: the input row of each)."""
+        parts = [columns[p] if isinstance(p, int) else p
+                 for p in self.parts]
+        return SO.string_column(self.op, parts, n, device, transfers,
+                                self.pos, self.length, rows)
+
+
+def _unalias(e: Expression) -> Expression:
+    while isinstance(e, Alias):
+        e = e.children[0]
+    return e
+
+
+#: what ``_string_part`` gives for an input K13 cannot read
+_NOT_A_PART = object()
+
+
+def _string_part(e: Expression):
+    """A string column's ordinal, a string literal's bytes (None for a
+    null one), else ``_NOT_A_PART``."""
+    e = _unalias(e)
+    if isinstance(e, BoundReference) and isinstance(e.data_type,
+                                                    T.StringType):
+        return e.ordinal
+    if type(e) is Literal and (e.value is None or isinstance(e.value, str)):
+        return None if e.value is None else e.value.encode("utf-8")
+    return _NOT_A_PART
+
+
+def k13_form(e: Expression) -> Optional[StringForm]:
+    """The K13 form of a computed string output over input columns: a
+    substring of a string column, a concat of string columns and
+    literals (at most ``ops/string_ops.py MAX_PARTS``), or a string
+    literal (a concat of one literal); None for any other expression."""
+    e = _unalias(e)
+    if isinstance(e, Substring):
+        part = _string_part(e.children[0])
+        return StringForm(SO.SUBSTRING, [part], e.pos, e.length) \
+            if isinstance(part, int) else None
+    if isinstance(e, Concat) and len(e.children) <= SO.MAX_PARTS:
+        parts = [_string_part(c) for c in e.children]
+        return None if any(p is _NOT_A_PART for p in parts) else \
+            StringForm(SO.CONCAT, parts)
+    if type(e) is Literal and isinstance(e.data_type, T.StringType):
+        return StringForm(SO.CONCAT, [_string_part(e)])
+    return None

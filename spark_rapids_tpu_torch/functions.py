@@ -8,7 +8,8 @@ from spark_rapids_tpu_torch.expressions.base import Expression, col, lit
 
 __all__ = ["col", "lit", "sum", "count", "count_distinct", "avg", "min",
            "max", "stddev", "stddev_samp", "stddev_pop", "var_samp",
-           "var_pop", "asc", "desc", "substring", "when", "grouping",
+           "var_pop", "asc", "desc", "substring", "concat", "when",
+           "grouping",
            "row_number", "rank", "dense_rank", "ntile", "lag", "lead",
            "Window", "WindowBuilder"]
 
@@ -94,6 +95,14 @@ def substring(e, pos: int, length_: int):
     """``substring(e, pos, len)`` over bytes (``expressions/strings.py``)."""
     from spark_rapids_tpu_torch.expressions.strings import Substring
     return Substring(_expr(e), pos, length_)
+
+
+def concat(*cols):
+    """``concat(c1, c2, ...)`` of string columns and literals (a ``lit``;
+    a bare name is a column), NULL if any input is NULL; K13 writes it
+    (``expressions/strings.py Concat``)."""
+    from spark_rapids_tpu_torch.expressions.strings import Concat
+    return Concat(*[_expr(c) for c in cols])
 
 
 def when(condition, value):

@@ -31,9 +31,10 @@ A string column is read through its chars and offsets (``in{i}``,
 ``Substring`` view of it, with a literal's bytes, and ``=`` and ``<>``
 compare two such views (two columns' chars buffers: the lengths first,
 then a byte loop bounded by the tile's longest equal length).  A computed
-string output is refused, by its expression, but for K6's string ``CASE
-WHEN`` over one column and nulls: a view of that column, whose validity
-plane alone K6 writes.
+string output is K13's (``ops/string_ops.py``: a substring, a concat, a
+string literal), written after these kernels, or, for K6's string ``CASE
+WHEN`` over one column and nulls, a view of that column, whose validity
+plane alone K6 writes; any other is refused, by its expression.
 
 Outputs that are input columns as they are (bare references) are not
 written here: K5's caller gathers them through the row indices (K7), and
@@ -141,13 +142,16 @@ def stage_source(input_types: Sequence[T.DataType],
 def string_view_ordinal(e: Expression) -> int:
     """The input column a computed string output is a view of (a string
     ``CASE WHEN``, ``CaseWhen.view_column``); K6 writes its validity
-    alone.  Any other computed string is refused, by its expression."""
+    alone.  A substring or a concat K13 writes (``exec/fused.py
+    StageProgram``) never comes here; any other computed string is
+    refused, by its expression."""
     while isinstance(e, Alias):
         e = e.children[0]
     if not isinstance(e, CaseWhen):
         raise NotImplementedError(
             f"a computed {e.data_type} output ({e.sql()}) has no kernel "
-            "form yet")
+            "form yet (K13 writes a substring of a string column and a "
+            "concat of string columns and literals)")
     return e.view_column().ordinal
 
 

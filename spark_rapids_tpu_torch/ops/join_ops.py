@@ -44,6 +44,14 @@ the gateway just as the kernel does.  Double keys are still to port
 (ROADMAP queue 2, K10: Spark's NaN and -0.0 rules for joins are not
 checked yet).
 
+With ``null_safe`` (one flag, or a flag a key column: SQL's ``<=>``, the
+JAX package's ``_expand_verify`` ``null_safe`` ``:192``, ``:234``) a null
+in that key column is a value that equals a null: K10's null-safe mode
+(``csrc/keys.cuh all_present``), which inserts a build row with such a
+null and matches it in every mode; its launches outside the full mode
+are counted apart (``NULL_SAFE_LAUNCHES``).  The plain version then keys
+each null-safe column by its validity and its value under it.
+
 ``cross_pairs`` is the wrapper of K10x (``csrc/cross_join.cu``, the JAX
 package's ``cross_pairs`` ``:251``, kind ``join.cross_pairs``): the
 probe-major pairs ``(r // m, r % m)`` of an ``n x m`` cross join, sized on
@@ -59,10 +67,12 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 
-#: launches of K10, of K10f (its full mode, counted apart) and of K10x,
-#: the cross join (wrapper calls that launch them)
+#: launches of K10, of K10f (its full mode, counted apart), of K10's
+#: null-safe mode in the other modes (counted apart) and of K10x, the
+#: cross join (wrapper calls that launch them)
 LAUNCHES = 0
 FULL_LAUNCHES = 0
+NULL_SAFE_LAUNCHES = 0
 CROSS_LAUNCHES = 0
 
 #: probe rows one tile covers (csrc/common.cuh kScanTile)
@@ -76,9 +86,9 @@ MAX_KEYS = 8
 STRING_KEY = 3
 
 _SIGNATURES = {
-    "srt_join_build": "ipppppqppqp",
-    "srt_join_count": "ipppppqpppppqppqippp",
-    "srt_join_write": "ipppppqpppppqppqipppp",
+    "srt_join_build": "iipppppqppqp",
+    "srt_join_count": "iipppppqpppppqppqippp",
+    "srt_join_write": "iipppppqpppppqppqipppp",
     "srt_join_unmatched": "pqppp",
     "srt_join_unmatched_write": "pqpqppp",
 }
@@ -139,6 +149,17 @@ def _check(build: List[DeviceColumn], probe: List[DeviceColumn]) -> None:
                             f"{p.data_type} key")
 
 
+def null_safe_flags(null_safe, n_keys: int) -> List[bool]:
+    """Per key column, whether a null in it is a value that equals a null
+    (``<=>``): one flag for every column, or a flag a column."""
+    if null_safe is None or isinstance(null_safe, bool):
+        return [bool(null_safe)] * n_keys
+    flags = [bool(f) for f in null_safe]
+    if len(flags) != n_keys:
+        raise ValueError(f"{len(flags)} null-safe flags for {n_keys} keys")
+    return flags
+
+
 def _mode(outer: bool, mode: Optional[str]) -> str:
     if mode is None:
         return "outer" if outer else "inner"
@@ -148,19 +169,22 @@ def _mode(outer: bool, mode: Optional[str]) -> str:
 
 
 def join_pairs(build: Keys, probe: Keys, transfers, outer: bool = False,
-               mode: Optional[str] = None):
+               mode: Optional[str] = None, null_safe=None):
     """K10's wrapper: ``(probe_rows, build_rows)``, int64, one entry per
     matching pair (and with ``outer``, one ``(row, -1)`` per probe row
     with no match); with ``mode`` ``"semi"`` or ``"anti"``, ``(kept probe
     rows, None)``; with ``mode="full"`` (K10f), ``(probe_rows,
     build_rows, pairs)``: the outer pairs, then ``(-1, row)`` for each
-    unmatched build row, and the number of pairs before those."""
+    unmatched build row, and the number of pairs before those.
+    ``null_safe`` (a flag, or one a key column) makes a null in a key
+    column a value equal to a null (``<=>``)."""
     build, probe = key_list(build), key_list(probe)
     _check(build, probe)
     kind = _mode(outer, mode)
+    safe = null_safe_flags(null_safe, len(build))
     device = probe[0].device
     if device.type == "cpu":
-        return join_pairs_plain(build, probe, transfers, outer, mode)
+        return join_pairs_plain(build, probe, transfers, outer, mode, safe)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     from spark_rapids_tpu_torch.kernels.build import (check_launch, int32s,
@@ -185,6 +209,7 @@ def join_pairs(build: Keys, probe: Keys, transfers, outer: bool = False,
                         for o in offsets])
         return types, off64, data, valid, offsets
 
+    mask = sum(1 << c for c, f in enumerate(safe) if f)
     btypes, boff64, bdata, bvalid, boffsets = keys(build)
     ptypes, poff64, pdata, pvalid, poffsets = keys(probe)
     with torch.cuda.device(device):
@@ -199,9 +224,10 @@ def join_pairs(build: Keys, probe: Keys, transfers, outer: bool = False,
         table = (slots.data_ptr(), slot_tag.data_ptr(), size)
         bargs = (btypes, boff64, pointers(bdata), pointers(bvalid),
                  pointers(boffsets), nb)
-        check_launch(lib.srt_join_build(len(build), *bargs, *table, stream),
-                     "K10 build")
-        probe_args = (len(build), *bargs, ptypes, poff64, pointers(pdata),
+        check_launch(lib.srt_join_build(len(build), mask, *bargs, *table,
+                                        stream), "K10 build")
+        probe_args = (len(build), mask, *bargs, ptypes, poff64,
+                      pointers(pdata),
                       pointers(pvalid), pointers(poffsets), n, *table,
                       MODES[kind])
         check_launch(lib.srt_join_count(
@@ -235,11 +261,14 @@ def join_pairs(build: Keys, probe: Keys, transfers, outer: bool = False,
                 flags.data_ptr(), nb, unmatched.data_ptr(), total,
                 out_probe.data_ptr(), out_build.data_ptr(), stream),
                 "K10f unmatched write")
-    global LAUNCHES, FULL_LAUNCHES
+    global LAUNCHES, FULL_LAUNCHES, NULL_SAFE_LAUNCHES
     if full:
         FULL_LAUNCHES += 1
         return out_probe, out_build, total
-    LAUNCHES += 1
+    if mask:
+        NULL_SAFE_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out_probe, out_build
 
 
@@ -258,22 +287,35 @@ def _string_ids(b: DeviceColumn, p: DeviceColumn):
     return ids[:b.row_count], ids[b.row_count:]
 
 
-def _key_ids(build: List[DeviceColumn], probe: List[DeviceColumn]):
-    """One int64 key per row of each side and whether every key column of
-    the row is present: the column itself for one int, date or long key,
-    else the index of the row's key tuple among the distinct tuples of
-    both sides (an int key widened to long, so it equals a long of the
-    same value; a string as its id among both sides' strings)."""
+def _key_ids(build: List[DeviceColumn], probe: List[DeviceColumn],
+             null_safe: Sequence[bool]):
+    """One int64 key per row of each side and whether the row may match
+    (every key column present, or null in a null-safe one): the column
+    itself for one int, date or long key that is not null-safe, else the
+    index of the row's key tuple among the distinct tuples of both sides
+    (an int key widened to long, so it equals a long of the same value; a
+    string as its id among both sides' strings; a null-safe column as
+    its validity and its value under it, 0 under a null)."""
     def valid(cols):
-        v = cols[0].validity
-        for c in cols[1:]:
-            v = v & c.validity
+        v = torch.ones(cols[0].row_count, dtype=torch.bool,
+                       device=cols[0].device)
+        for c, safe in zip(cols, null_safe):
+            if not safe:
+                v = v & c.validity
         return v
 
-    words = [_string_ids(b, p) if b.is_string else
-             (b.data.to(torch.int64), p.data.to(torch.int64))
-             for b, p in zip(build, probe)]
-    if len(build) == 1:
+    words = []
+    for b, p, safe in zip(build, probe, null_safe):
+        w = _string_ids(b, p) if b.is_string else \
+            (b.data.to(torch.int64), p.data.to(torch.int64))
+        if safe:
+            words += [(b.validity.to(torch.int64),
+                       p.validity.to(torch.int64)),
+                      (torch.where(b.validity, w[0], 0),
+                       torch.where(p.validity, w[1], 0))]
+        else:
+            words.append(w)
+    if len(words) == 1:
         return words[0][0], valid(build), words[0][1], valid(probe)
     words = torch.cat([torch.stack([w[side] for w in words], 1)
                        for side in (0, 1)])
@@ -283,7 +325,8 @@ def _key_ids(build: List[DeviceColumn], probe: List[DeviceColumn]):
 
 
 def join_pairs_plain(build: Keys, probe: Keys, transfers,
-                     outer: bool = False, mode: Optional[str] = None):
+                     outer: bool = False, mode: Optional[str] = None,
+                     null_safe=None):
     """The plain PyTorch version of K10: the build side's present keys
     sorted stably, each probe key's range of equals found by binary
     search, the ranges expanded into pairs (an empty range into one pair
@@ -293,8 +336,9 @@ def join_pairs_plain(build: Keys, probe: Keys, transfers,
     build, probe = key_list(build), key_list(probe)
     _check(build, probe)
     _mode(outer, mode)
+    safe = null_safe_flags(null_safe, len(build))
     device = probe[0].device
-    bk, bvalid, pk, pvalid = _key_ids(build, probe)
+    bk, bvalid, pk, pvalid = _key_ids(build, probe, safe)
     rows = torch.nonzero(bvalid).flatten()
     keys, order = torch.sort(bk[rows], stable=True)
     rows = rows[order]
@@ -321,7 +365,8 @@ def join_pairs_plain(build: Keys, probe: Keys, transfers,
         unmatched = torch.nonzero(~matched).flatten()
         total, _extra = transfers.read_counts([emit.sum(),
                                                (~matched).sum()])
-        pairs = join_pairs_plain(build, probe, _NoSync(), outer=True)
+        pairs = join_pairs_plain(build, probe, _NoSync(), outer=True,
+                                 null_safe=safe)
         return (torch.cat([pairs[0], torch.full_like(unmatched, -1)]),
                 torch.cat([pairs[1], unmatched]), total)
     total, = transfers.read_counts([emit.sum()])

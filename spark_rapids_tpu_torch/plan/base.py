@@ -1,8 +1,8 @@
 """Plan nodes (the analog of ``spark_rapids_tpu/plan/base.py``).
 
 Two trees: the logical plan a DataFrame builds (``Scan``, ``Filter``,
-``Project``, ``Aggregate``, ``Exchange``, ``Join``, ``Sort``, ``Limit``,
-``CteCache``, ``Window``, ``Expand``),
+``Project``, ``Aggregate``, ``Exchange``, ``Join``, ``Union``, ``Sort``,
+``Limit``, ``CteCache``, ``Window``, ``Expand``),
 and the physical ``Exec`` tree
 the planner (``plan/overrides.py``) turns it into.  An exec's ``execute``
 returns its output partitions, each a list of device batches."""
@@ -209,17 +209,19 @@ class Join(LogicalPlan):
     cross join with no keys (``cross``); its output is the left columns,
     then the right (the left alone for semi and anti).  With
     ``coalesce_keys`` (a full outer join with USING keys) the left key
-    columns hold the coalesce of the two sides' keys."""
+    columns hold the coalesce of the two sides' keys.  With ``null_safe``
+    a null key equals a null key (``<=>``)."""
 
     def __init__(self, left: LogicalPlan, right: LogicalPlan,
                  left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression], how: str,
-                 coalesce_keys: bool = False):
+                 coalesce_keys: bool = False, null_safe: bool = False):
         super().__init__([left, right])
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
         self.how = how
         self.coalesce_keys = coalesce_keys
+        self.null_safe = null_safe
 
     @property
     def schema(self):
@@ -231,9 +233,31 @@ class Join(LogicalPlan):
         return max(c.num_partitions for c in self.children)
 
     def node_string(self):
-        keys = ", ".join(f"{a.sql()} = {b.sql()}"
+        op = "<=>" if self.null_safe else "="
+        keys = ", ".join(f"{a.sql()} {op} {b.sql()}"
                          for a, b in zip(self.left_keys, self.right_keys))
         return f"Join[{self.how}, {keys}]"
+
+
+class Union(LogicalPlan):
+    """UNION ALL: the children's partitions one after another, the first
+    child's schema (a column is nullable if it is in any child)."""
+
+    @property
+    def schema(self):
+        first = self.children[0].schema
+        return T.StructType([
+            T.StructField(f.name, f.data_type,
+                          any(c.schema.fields[j].nullable
+                              for c in self.children))
+            for j, f in enumerate(first.fields)])
+
+    @property
+    def num_partitions(self):
+        return sum(c.num_partitions for c in self.children)
+
+    def node_string(self):
+        return f"Union[{len(self.children)}]"
 
 
 class Sort(LogicalPlan):

@@ -11,7 +11,8 @@ from spark_rapids_tpu_torch.exec.basic import (TorchCteCacheExec,
                                                TorchFilterExec,
                                                TorchInMemoryScanExec,
                                                TorchLimitExec,
-                                               TorchProjectExec)
+                                               TorchProjectExec,
+                                               TorchUnionExec)
 from spark_rapids_tpu_torch.exec.exchange import TorchShuffleExchangeExec
 from spark_rapids_tpu_torch.exec.expand import TorchExpandExec
 from spark_rapids_tpu_torch.exec.joins import (
@@ -50,7 +51,11 @@ class TorchOverrides:
             return TorchHashJoinExec(node.left_keys, node.right_keys,
                                      self._convert(node.children[0]),
                                      self._convert(node.children[1]),
-                                     node.how, node.coalesce_keys)
+                                     node.how, node.coalesce_keys,
+                                     node.null_safe)
+        if isinstance(node, L.Union):
+            return TorchUnionExec([self._convert(c) for c in node.children],
+                                  node.schema)
         child = self._convert(node.children[0])
         if isinstance(node, L.Filter):
             return TorchFilterExec(node.condition, child)

@@ -53,9 +53,10 @@ class _KeyedPartitioning(Partitioning):
         self.num_partitions = n
         self._program = None
 
-    def key_columns(self, batch: ColumnarBatch) -> List[DeviceColumn]:
+    def key_columns(self, batch: ColumnarBatch,
+                    transfers=None) -> List[DeviceColumn]:
         """The key columns of ``batch``: K6 computes those that are not
-        columns."""
+        columns (K13 a string one, which needs ``transfers``)."""
         from spark_rapids_tpu_torch.exec.fused import (LiteralArgs,
                                                        StageProgram,
                                                        project_batch)
@@ -64,7 +65,7 @@ class _KeyedPartitioning(Partitioning):
                                          batch.schema, 0)
         names = [f"_k{j}" for j in range(len(self.key_exprs))]
         return project_batch(self._program, batch, LiteralArgs([]),
-                             names).columns
+                             names, transfers).columns
 
 
 class HashPartitioning(_KeyedPartitioning):
@@ -75,12 +76,12 @@ class HashPartitioning(_KeyedPartitioning):
             else [False] * len(self.key_exprs)
 
     def partition_ids(self, batch: ColumnarBatch,
-                      strings: Sequence[DeviceColumn] = ()
+                      strings: Sequence[DeviceColumn] = (), transfers=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """K11h: ``(pids, counts)`` (``ops/partition_ops.py``)."""
         from spark_rapids_tpu_torch.ops.partition_ops import hash_partition
-        return hash_partition(self.key_columns(batch), self.num_partitions,
-                              strings, self.as_long)
+        return hash_partition(self.key_columns(batch, transfers),
+                              self.num_partitions, strings, self.as_long)
 
     def desc(self):
         ks = ", ".join(e.sql() + (" AS BIGINT" if wide else "")
@@ -102,14 +103,14 @@ class RangePartitioning(_KeyedPartitioning):
     def partition_ids(self, batch: ColumnarBatch,
                       bounds: Sequence[DeviceColumn],
                       strings: Sequence[DeviceColumn] = (),
-                      keys: Optional[Sequence[DeviceColumn]] = None
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      keys: Optional[Sequence[DeviceColumn]] = None,
+                      transfers=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """K11r: ``(pids, counts)`` against ``bounds``, the sorted bound
         rows' key columns on the device (``keys``: the key columns, when
         the caller has computed them)."""
         from spark_rapids_tpu_torch.ops.partition_ops import range_partition
         if keys is None:
-            keys = self.key_columns(batch)
+            keys = self.key_columns(batch, transfers)
         return range_partition(keys, bounds, self.orders,
                                self.num_partitions, strings)
 

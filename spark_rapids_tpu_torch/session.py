@@ -6,7 +6,8 @@ expressions, extracted as ``_plan_windows`` ``:392`` does), ``join``
 one or several key columns, and cross), ``group_by`` (``:729``), ``rollup`` (``:736``;
 lowered to an Expand and a group-by, ``_expand_for_grouping_sets``
 ``:973``) and ``agg`` (``grouping()`` after a rollup), ``distinct``
-(``:771``), ``order_by`` (``:602``), ``limit`` (``:515``), ``collect``
+(``:771``), ``order_by`` (``:602``), ``limit`` (``:515``), ``union``
+(``:539``), ``intersect`` (``:495``; a null-safe semi join), ``collect``
 and ``scalar``).
 
 Over several partitions each operator is planned behind an exchange
@@ -172,7 +173,7 @@ class DataFrame:
     drop_duplicates = distinct
 
     def join(self, other: "DataFrame", on=None, how: str = "inner",
-             condition=None) -> "DataFrame":
+             condition=None, null_safe: bool = False) -> "DataFrame":
         """Equi-join on column names with USING semantics, as the JAX
         package's ``join``: the key columns once (the left side's; the
         right side's for a right outer join, their coalesce for a full
@@ -187,7 +188,9 @@ class DataFrame:
         name)`` pairs: SQL's ``ON l1 = r1 AND ...``, every left column
         then every right column, whose names must differ.
         ``how="cross"`` takes no keys: every left row with every right
-        row, the left columns then the right ones (``from a, b``)."""
+        row, the left columns then the right ones (``from a, b``).  With
+        ``null_safe`` every key compares with ``<=>``: a null equals a
+        null (K10's null-safe mode)."""
         from spark_rapids_tpu_torch.exec.joins import (CROSS, hash_as_long,
                                                        normalize_how)
         from spark_rapids_tpu_torch.plan.partitioning import \
@@ -235,7 +238,8 @@ class DataFrame:
             wide = hash_as_long(lkeys, rkeys)
             lplan = L.Exchange(HashPartitioning(lkeys, nparts, wide), lplan)
             rplan = L.Exchange(HashPartitioning(rkeys, nparts, wide), rplan)
-        plan = L.Join(lplan, rplan, lkeys, rkeys, how, coalesce)
+        plan = L.Join(lplan, rplan, lkeys, rkeys, how, coalesce,
+                      bool(null_safe))
         if how in ("left_semi", "left_anti") or pairs:
             return DataFrame(plan, self._session)
         out = plan.schema
@@ -258,6 +262,25 @@ class DataFrame:
         exprs += [ref(nl + i, f.name) for i, f in enumerate(rschema.fields)
                   if i not in key_r]
         return DataFrame(L.Project(exprs, plan), self._session)
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL (the JAX package's ``union``, ``:539``): the rows of
+        both, ``self``'s partitions then ``other``'s, with ``self``'s
+        column names; the columns match by position and type.  No device
+        work (``exec/basic.py TorchUnionExec``)."""
+        if [f.data_type for f in self.schema.fields] != \
+                [f.data_type for f in other.schema.fields]:
+            raise TypeError(f"a union of {self.schema.types} and "
+                            f"{other.schema.types}: add explicit casts")
+        return DataFrame(L.Union([self._plan, other._plan]), self._session)
+
+    def intersect(self, other: "DataFrame") -> "DataFrame":
+        """INTERSECT (DISTINCT), as the JAX package plans it (``:495``):
+        the distinct rows of ``self``, then a null-safe left semi join
+        with ``other`` on every column by name (K9, K7, then K10's
+        null-safe semi mode)."""
+        return self.distinct().join(other, on=list(self.columns),
+                                    how="left_semi", null_safe=True)
 
     def order_by(self, *cols, ascending: bool = True) -> "DataFrame":
         """A global sort: names or expressions (``ascending`` applies), or

@@ -17,7 +17,9 @@ column pruning), sharing its arrays.  ``q3``, ``q1``, ``q7``, ``q15``,
 ``q12`` (q20 is ``q12(..., prefix="cs")``), ``q13``, ``q19`` and ``q16``
 are the queries of ``spark_rapids_tpu/testing/tpcds_queries.py`` as
 DataFrame recipes (the port has no SQL front end), and ``q3_numpy`` to
-``q16_numpy`` the same queries in numpy."""
+``q16_numpy`` the same queries in numpy; later slices add more, each with
+its ``_COLUMNS``, ``_tables`` and ``_numpy`` (q17, q10, q18, q6, q28,
+q36, q51, q51w, q8 and q5)."""
 
 from __future__ import annotations
 
@@ -2244,3 +2246,322 @@ def q51w_numpy(tables: Dict[str, dict], month_seq=1200, limit=100) -> list:
             "sum_quartile": int(quartile.sum()) if n else None,
             "next_days": int(has_after.sum()), "days": n}]
     return out if limit is None else out[:limit]
+
+
+#: the columns of each table that TPC-DS q8 reads
+Q8_COLUMNS = {
+    "store_sales": ["ss_sold_date_sk", "ss_store_sk", "ss_net_profit"],
+    "date_dim": ["d_date_sk", "d_year", "d_qoy"],
+    "store": ["s_store_sk", "s_store_name", "s_zip"],
+    "customer_address": ["ca_address_sk", "ca_zip"],
+    "customer": ["c_current_addr_sk", "c_preferred_cust_flag"],
+}
+#: q8's IN list of zips, as the query writes it (128 literals, '19849'
+#: twice)
+Q8_ZIPS = (
+    "24128", "76232", "65084", "87816", "83926", "77556", "20548", "26231",
+    "43848", "15126", "91137", "61265", "98294", "25782", "17920", "18426",
+    "98235", "40081", "84093", "28577", "55565", "17183", "54601", "67897",
+    "22752", "86284", "18376", "38607", "45200", "21756", "29741", "96765",
+    "23932", "89360", "29839", "25989", "28898", "91068", "72550", "10390",
+    "18845", "47770", "82636", "41367", "76638", "86198", "81312", "37126",
+    "39192", "88424", "72175", "81426", "53672", "10445", "42666", "66864",
+    "66708", "41248", "48583", "82276", "18842", "78890", "49448", "14089",
+    "38122", "34425", "79077", "19849", "43285", "39861", "66162", "77610",
+    "13695", "99543", "83444", "83041", "12305", "57665", "68341", "25003",
+    "57834", "62878", "49130", "81096", "18840", "27700", "23470", "50412",
+    "21195", "16021", "76107", "71954", "68309", "18119", "98359", "64544",
+    "10336", "86379", "27068", "39736", "98569", "28915", "24206", "56529",
+    "57647", "54917", "42961", "91110", "63981", "14922", "36420", "23006",
+    "67467", "32754", "30903", "20260", "31671", "51373", "33998", "71137",
+    "30984", "84387", "28246", "18030", "60576", "19849", "40429", "30389")
+
+
+def q8_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q8 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q8_COLUMNS.items()}
+
+
+def q8(store_sales, date_dim, store, customer_address, customer,
+       year=1998, qoy=2, zips=Q8_ZIPS, limit=100):
+    """TPC-DS q8 through the port's DataFrame API, over DataFrames of the
+    ``Q8_COLUMNS`` of each table, as the JAX plan runs it:
+
+    - ``v1`` is an INTERSECT (``DataFrame.intersect``: a distinct, then a
+      null-safe left semi join on ``ca_zip``) of the addresses' 5-byte zip
+      prefixes in the 128-zip list (K5's ``IN`` over a substring view;
+      K13 writes ``substr(ca_zip, 1, 5)`` for the survivors; K9 the
+      distinct) and the zips of more than two preferred customers (a
+      count by ``ca_zip``, the column, as Spark resolves the GROUP BY
+      name, then ``substr(ca_zip, 1, 5)`` of each group, K13);
+    - store_sales joined with the quarter's dates and the stores, then
+      inner joined with ``v1`` on ``substr(s_zip, 1, 2) =
+      substr(v1.ca_zip, 1, 2)``: both keys are string columns K13 writes
+      (a store meets each v1 zip of its prefix, as the SQL's join does);
+    - ``sum(ss_net_profit)`` by ``s_store_name`` (named ``col1``, as the
+      JAX analyzer names an unaliased select item), ordered by the name.
+
+    Returns ``(result, parts)`` (``v1``, ``joined``)."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import (
+        And, EqualTo, GreaterThan, In)
+    zip5 = F.substring("ca_zip", 1, 5)
+    listed = customer_address.filter(In(zip5, [lit(z) for z in zips])) \
+        .select(Alias(zip5, "ca_zip"))
+    preferred = customer.filter(EqualTo(col("c_preferred_cust_flag"),
+                                        lit("Y"))) \
+        .select(Alias(col("c_current_addr_sk"), "ca_address_sk"))
+    crowded = (customer_address.join(preferred, on="ca_address_sk")
+               .group_by("ca_zip").agg(F.count().alias("cnt"))
+               .filter(GreaterThan(col("cnt"), lit(2)))
+               .select(Alias(F.substring("ca_zip", 1, 5), "ca_zip")))
+    v1 = listed.intersect(crowded)
+    dt = date_dim.filter(And(EqualTo(col("d_qoy"), lit(qoy)),
+                             EqualTo(col("d_year"), lit(year)))) \
+        .select(Alias(col("d_date_sk"), "ss_sold_date_sk"))
+    st = store.select(Alias(col("s_store_sk"), "ss_store_sk"),
+                      col("s_store_name"),
+                      Alias(F.substring("s_zip", 1, 2), "s_zip2"))
+    v1_keys = v1.select(Alias(F.substring("ca_zip", 1, 2), "ca_zip2"))
+    joined = (store_sales.join(dt, on="ss_sold_date_sk")
+              .join(st, on="ss_store_sk")
+              .join(v1_keys, on=[("s_zip2", "ca_zip2")]))
+    ordered = joined.group_by("s_store_name").agg(
+        F.sum("ss_net_profit").alias("col1")).order_by("s_store_name")
+    out = ordered if limit is None else ordered.limit(limit)
+    return out, {"v1": v1, "joined": joined}
+
+
+def _utf8_prefix(values, n: int) -> np.ndarray:
+    """The first ``n`` bytes of each string (None stays None): the JAX
+    device form's byte rule, for the ASCII columns of this generator."""
+    return np.array([None if v is None else
+                     v.encode("utf-8")[:n].decode("utf-8", "replace")
+                     for v in values], dtype=object)
+
+
+def q8_numpy(tables: Dict[str, dict], year=1998, qoy=2, zips=Q8_ZIPS,
+             limit=100) -> list:
+    """TPC-DS q8 in numpy over ``q8_tables`` output: the rows as dicts."""
+    ss, d, s = tables["store_sales"], tables["date_dim"], tables["store"]
+    ca, c = tables["customer_address"], tables["customer"]
+    zip5 = _utf8_prefix(ca["ca_zip"], 5)
+    listed = set(zip5[np.isin(zip5, np.array(zips, dtype=object))]
+                 .tolist())
+    addr = c["c_current_addr_sk"][c["c_preferred_cust_flag"] == "Y"]
+    found, at = _lookup(ca["ca_address_sk"], addr)
+    zips_of, cnt = np.unique(ca["ca_zip"][at[found]].astype(str),
+                             return_counts=True)
+    crowded = set(_utf8_prefix(zips_of[cnt > 2].tolist(), 5).tolist())
+    v1_zip2 = [z.encode("utf-8")[:2] for z in listed & crowded]
+    dates = d["d_date_sk"][(d["d_year"] == year) & (d["d_qoy"] == qoy)]
+    rows = np.isin(ss["ss_sold_date_sk"], dates)
+    found, s_at = _lookup(s["s_store_sk"], ss["ss_store_sk"][rows])
+    profit = ss["ss_net_profit"][rows][found]
+    s_at = s_at[found]
+    # each store row meets every v1 zip of its 2-byte prefix
+    times = np.array([sum(z == str(v).encode("utf-8")[:2] for z in v1_zip2)
+                      for v in s["s_zip"]], dtype=np.int64)
+    names = s["s_store_name"]
+    total: Dict[str, float] = {}
+    for name, p, k in zip(names[s_at].tolist(), profit.tolist(),
+                          times[s_at].tolist()):
+        for _ in range(k):
+            total[name] = total.get(name, 0.0) + p
+    out = [{"s_store_name": n, "col1": v} for n, v in sorted(total.items())]
+    return out if limit is None else out[:limit]
+
+
+#: the columns of each table that TPC-DS q5 reads
+Q5_COLUMNS = {
+    "store_sales": ["ss_store_sk", "ss_sold_date_sk", "ss_ext_sales_price",
+                    "ss_net_profit"],
+    "store_returns": ["sr_store_sk", "sr_returned_date_sk",
+                      "sr_return_amt", "sr_net_loss"],
+    "catalog_sales": ["cs_catalog_page_sk", "cs_sold_date_sk",
+                      "cs_ext_sales_price", "cs_net_profit"],
+    "catalog_returns": ["cr_catalog_page_sk", "cr_returned_date_sk",
+                        "cr_return_amount", "cr_net_loss"],
+    "web_sales": ["ws_web_site_sk", "ws_sold_date_sk", "ws_ext_sales_price",
+                  "ws_net_profit", "ws_web_page_sk"],
+    "web_returns": ["wr_web_page_sk", "wr_returned_date_sk",
+                    "wr_return_amt", "wr_net_loss"],
+    "date_dim": ["d_date_sk", "d_date"],
+    "store": ["s_store_sk", "s_store_id"],
+    "catalog_page": ["cp_catalog_page_sk", "cp_catalog_page_id"],
+    "web_site": ["web_site_sk", "web_site_id"],
+}
+#: q5's dates: ``cast('2000-08-23' as date)`` and ``+ interval 14 day``
+#: folded to a literal, as Spark's optimizer folds it
+Q5_DATES = (datetime.date(2000, 8, 23), datetime.date(2000, 9, 6))
+#: q5's channels: (name, the id's literal prefix, the dimension, its key
+#: and id columns)
+Q5_CHANNELS = (("store channel", "store", "store", "s_store_sk",
+                "s_store_id"),
+               ("catalog channel", "catalog_page", "catalog_page",
+                "cp_catalog_page_sk", "cp_catalog_page_id"),
+               ("web channel", "web_site", "web_site", "web_site_sk",
+                "web_site_id"))
+
+
+def q5_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q5 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q5_COLUMNS.items()}
+
+
+def q5(store_sales, store_returns, catalog_sales, catalog_returns,
+       web_sales, web_returns, date_dim, store, catalog_page, web_site,
+       dates=Q5_DATES, limit=100):
+    """TPC-DS q5 through the port's DataFrame API, over DataFrames of the
+    ``Q5_COLUMNS`` of each table, as the JAX plan runs it.  For each
+    channel a UNION ALL (``DataFrame.union``, no device work) of its
+    sales (returns as 0.0) and its returns (sales as 0.0; the web
+    returns left outer joined with web_sales on the page, whose site they
+    take: about 1,333 web_sales rows a page at sf 10), joined with the
+    dates and the dimension, summed by the dimension's id; then ``'store
+    channel' AS channel``, ``'store' || s_store_id AS id`` (K13 writes
+    both: a literal and a concat) and ``profit - profit_loss`` (K6); the
+    three channels' UNION ALL, ``ROLLUP(channel, id)`` of three sums,
+    ordered by channel and id.  The SQL's ``cast('2000-08-23' as date) +
+    interval 14 day`` is the folded date literal 2000-09-06, as Spark's
+    optimizer folds it (``Q5_DATES``).  A union's partitions are its
+    children's, so every join and group-by above one runs behind
+    exchanges even when each table is one partition, as in the JAX plan.
+    Returns ``(result, parts)`` (``channels``: each channel's sums)."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.arithmetic import Subtract
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import (
+        And, GreaterThanOrEqual, LessThanOrEqual)
+    lo, hi = dates
+    dt = date_dim.filter(And(GreaterThanOrEqual(col("d_date"), lit(lo)),
+                             LessThanOrEqual(col("d_date"), lit(hi)))) \
+        .select(Alias(col("d_date_sk"), "date_sk"))
+    zero = lit(0.0)
+
+    def rows(df, key, date, sales, profit, amt, loss):
+        return df.select(
+            Alias(col(key), "key_sk"), Alias(col(date), "date_sk"),
+            Alias(col(sales) if sales else zero, "sales_price"),
+            Alias(col(profit) if profit else zero, "profit"),
+            Alias(col(amt) if amt else zero, "return_amt"),
+            Alias(col(loss) if loss else zero, "net_loss"))
+
+    web_returns = web_returns.join(
+        web_sales.select(col("ws_web_page_sk"), col("ws_web_site_sk")),
+        on=[("wr_web_page_sk", "ws_web_page_sk")], how="left")
+    pairs = (
+        (rows(store_sales, "ss_store_sk", "ss_sold_date_sk",
+              "ss_ext_sales_price", "ss_net_profit", None, None),
+         rows(store_returns, "sr_store_sk", "sr_returned_date_sk", None,
+              None, "sr_return_amt", "sr_net_loss"), store),
+        (rows(catalog_sales, "cs_catalog_page_sk", "cs_sold_date_sk",
+              "cs_ext_sales_price", "cs_net_profit", None, None),
+         rows(catalog_returns, "cr_catalog_page_sk", "cr_returned_date_sk",
+              None, None, "cr_return_amount", "cr_net_loss"), catalog_page),
+        (rows(web_sales, "ws_web_site_sk", "ws_sold_date_sk",
+              "ws_ext_sales_price", "ws_net_profit", None, None),
+         rows(web_returns, "ws_web_site_sk", "wr_returned_date_sk", None,
+              None, "wr_return_amt", "wr_net_loss"), web_site))
+    channels, parts = [], []
+    for (sales, returns, dim), (name, prefix, _t, key, ident) in zip(
+            pairs, Q5_CHANNELS):
+        dim = dim.select(Alias(col(key), "key_sk"), col(ident))
+        sums = (sales.union(returns).join(dt, on="date_sk")
+                .join(dim, on="key_sk")
+                .group_by(ident).agg(
+                    F.sum("sales_price").alias("sales"),
+                    F.sum("profit").alias("profit"),
+                    F.sum("return_amt").alias("returns_amt"),
+                    F.sum("net_loss").alias("profit_loss")))
+        parts.append(sums)
+        channels.append(sums.select(
+            Alias(lit(name), "channel"),
+            Alias(F.concat(lit(prefix), col(ident)), "id"),
+            col("sales"), col("returns_amt"),
+            Alias(Subtract(col("profit"), col("profit_loss")), "profit")))
+    x = channels[0].union(channels[1]).union(channels[2])
+    ordered = x.rollup("channel", "id").agg(
+        F.sum("sales").alias("sales"),
+        F.sum("returns_amt").alias("returns_amt"),
+        F.sum("profit").alias("profit")).order_by("channel", "id")
+    out = ordered if limit is None else ordered.limit(limit)
+    return out, {"channels": parts}
+
+
+def q5_numpy(tables: Dict[str, dict], dates=Q5_DATES, limit=100) -> list:
+    """TPC-DS q5 in numpy over ``q5_tables`` output: the rows as dicts
+    (sums in row order, so they match the engines within 1e-6
+    relative)."""
+    d = tables["date_dim"]
+    lo, hi = (np.datetime64(x, "D") for x in dates)
+    in_range = d["d_date_sk"][(d["d_date"] >= lo) & (d["d_date"] <= hi)]
+    ws, wr = tables["web_sales"], tables["web_returns"]
+    # the web returns' left outer join with web_sales on the page (site -1
+    # where no web_sales row has the page)
+    order = np.argsort(ws["ws_web_page_sk"], kind="stable")
+    pages = ws["ws_web_page_sk"][order]
+    first = np.searchsorted(pages, wr["wr_web_page_sk"], "left")
+    cnt = np.searchsorted(pages, wr["wr_web_page_sk"], "right") - first
+    emit = np.maximum(cnt, 1)
+    wr_at = np.repeat(np.arange(len(emit)), emit)
+    within = np.arange(int(emit.sum())) - np.repeat(np.cumsum(emit) - emit,
+                                                     emit)
+    at = np.minimum(np.repeat(first, emit) + within, max(len(order) - 1, 0))
+    wr_site = np.where(np.repeat(cnt > 0, emit),
+                       ws["ws_web_site_sk"][order][at], -1) \
+        if len(order) else np.full(len(wr_at), -1)
+    facts = (
+        (tables["store_sales"], "ss_store_sk", "ss_sold_date_sk",
+         "ss_ext_sales_price", "ss_net_profit", None, None),
+        (tables["store_returns"], "sr_store_sk", "sr_returned_date_sk",
+         None, None, "sr_return_amt", "sr_net_loss"),
+        (tables["catalog_sales"], "cs_catalog_page_sk", "cs_sold_date_sk",
+         "cs_ext_sales_price", "cs_net_profit", None, None),
+        (tables["catalog_returns"], "cr_catalog_page_sk",
+         "cr_returned_date_sk", None, None, "cr_return_amount",
+         "cr_net_loss"),
+        (tables["web_sales"], "ws_web_site_sk", "ws_sold_date_sk",
+         "ws_ext_sales_price", "ws_net_profit", None, None),
+        ({"key": wr_site,
+          "date": wr["wr_returned_date_sk"][wr_at],
+          "amt": wr["wr_return_amt"][wr_at],
+          "loss": wr["wr_net_loss"][wr_at]}, "key", "date", None, None,
+         "amt", "loss"))
+    out = []
+    for c, (name, prefix, dim_name, key, ident) in enumerate(Q5_CHANNELS):
+        dim = tables[dim_name]
+        id_of = dict(zip(dim[key].tolist(), dim[ident].tolist()))
+        sums: Dict[str, list] = {}
+        for t, k, dcol, sales, profit, amt, loss in facts[2 * c:2 * c + 2]:
+            n = len(t[k])
+            keep = np.isin(t[dcol], in_range)
+            cols = [(t[x] if x else np.zeros(n))[keep].tolist()
+                    for x in (sales, profit, amt, loss)]
+            for i, key_ in enumerate(t[k][keep].tolist()):
+                ident_ = id_of.get(key_)
+                if ident_ is None:
+                    continue
+                acc = sums.setdefault(ident_, [0.0] * 4)
+                for j in range(4):
+                    acc[j] += cols[j][i]
+        for ident_, (sa, pr, am, lo_) in sums.items():
+            out.append((name, prefix + ident_, sa, am, pr - lo_))
+    rows = []
+    for level in (2, 1, 0):
+        groups: Dict[tuple, list] = {}
+        for r in out:
+            g = r[:2] if level == 2 else (r[0], None) if level == 1 \
+                else (None, None)
+            acc = groups.setdefault(g, [0.0] * 3)
+            for j in range(3):
+                acc[j] += r[2 + j]
+        rows += [{"channel": g[0], "id": g[1], "sales": v[0],
+                  "returns_amt": v[1], "profit": v[2]}
+                 for g, v in groups.items()]
+    rows.sort(key=lambda r: (r["channel"] is not None, r["channel"] or "",
+                             r["id"] is not None, r["id"] or ""))
+    return rows if limit is None else rows[:limit]

@@ -11,10 +11,11 @@ K14's ranking pass, K10x (the cross join's pairs), K10 on string keys,
 K6's div, % and CASE WHEN, K11h, K11r, K7s (and their launch counts),
 K9's merge kinds, K14s (running frames), K14b (bounded ROWS frames),
 K14o (lag/lead source rows, their default, ntile), K10f (the full outer
-join) and IS NULL / IS NOT NULL in K5 and K6, and TPC-DS q3, q1, q7,
-q15, q12, q20, q13, q19, q16, q17, q10, q18, q6, q28, q36 and q51 end to
-end against the CPU run (q3, q18 and q51 also over four partitions
-against one).
+join), IS NULL / IS NOT NULL in K5 and K6, K13 (computed strings:
+substring and concat), K10's null-safe mode and K5's packed-word IN, and
+TPC-DS q3, q1, q7, q15, q12, q20, q13, q19, q16, q17, q10, q18, q6, q28,
+q36, q51, q8 and q5 end to end against the CPU run (q3, q18, q51, q8 and
+q5 also over four partitions).
 
 Every test needs a CUDA card and skips without one.  This file imports
 nothing of JAX, so it runs where JAX is not installed:
@@ -1209,3 +1210,116 @@ def test_q51_matches_the_cpu_run(card, parts):
                 assert abs(g[k] - r[k]) <= 1e-9 * abs(r[k])
             else:
                 assert g[k] == r[k]
+
+
+def _strings(rng, n, null_frac=0.1):
+    stems = ["", "a", "abcdefg", "abcdefgh", "abcdefghijklmno", "x" * 40,
+             "ÿé", "日本語x"]
+    return [None if rng.random() < null_frac else
+            stems[int(rng.integers(0, len(stems)))] for _ in range(n)]
+
+
+def test_k13_matches_plain(card):
+    """K13 (substring at every pos class, with and without a length;
+    concat of literals and columns with nulls on either side; with a row
+    map) against its plain version: offsets, chars and validity equal,
+    one launch per call, none for 0 rows."""
+    from spark_rapids_tpu_torch.ops import string_ops as SO
+    rng = np.random.default_rng(63)
+    tr = card.transfers
+    dev = card.device
+    for n in (0, 1, 1000, (1 << 20) + 3):
+        b = tr.upload_batch(batch_from_pydict(
+            {"a": _strings(rng, n), "b": _strings(rng, n, 0.2)},
+            T.StructType([T.StructField("a", T.STRING),
+                          T.StructField("b", T.STRING)])))
+        a, c = b.columns
+        rows = torch.from_numpy(rng.integers(0, max(n, 1), n // 2)).to(dev) \
+            if n else None
+        calls = [((SO.SUBSTRING, [a]), {"pos": p, "length": ln})
+                 for p, ln in ((1, 5), (2, 3), (0, 2), (-1, None),
+                               (-3, 2), (-50, 4), (41, None), (1, 0))]
+        calls += [((SO.CONCAT, [b"store", a, b"#"]), {}),
+                  ((SO.CONCAT, [a, c]), {}), ((SO.CONCAT, [b"web"]), {}),
+                  ((SO.CONCAT, [c, None]), {})]
+        for (op, parts), kw in calls:
+            for r in ((None, rows) if n else (None,)):
+                m = n if r is None else r.shape[0]
+                before = SO.LAUNCHES
+                got = SO.string_column(op, parts, m, dev, tr, rows=r, **kw)
+                assert SO.LAUNCHES == before + (1 if m else 0)
+                ref = SO.string_column_plain(op, parts, m, dev, tr, rows=r,
+                                             **kw)
+                assert torch.equal(got.offsets, ref.offsets)
+                assert torch.equal(got.validity, ref.validity)
+                assert torch.equal(got.data, ref.data)
+
+
+@pytest.mark.parametrize("how", ["inner", "outer", "semi", "anti", "full"])
+def test_null_safe_join_matches_plain(card, how):
+    """K10's null-safe mode against its plain version in every mode, on
+    an int key, a string key and two keys, 10% null keys on both sides."""
+    rng = np.random.default_rng(67)
+    tr = card.transfers
+
+    def side(n, card_):
+        d = {"k": [None if rng.random() < 0.1 else int(x)
+                   for x in rng.integers(0, card_, n)],
+             "s": [None if rng.random() < 0.1 else f"k{x}"
+                   for x in rng.integers(0, card_, n)]}
+        return tr.upload_batch(batch_from_pydict(d, T.StructType([
+            T.StructField("k", T.LONG), T.StructField("s", T.STRING)])))
+    build, probe = side(64_000, 90_000), side(200_000, 90_000)
+    kw = {"outer": True} if how == "outer" else \
+        {} if how == "inner" else {"mode": how}
+    for keys in ((build.columns[0], probe.columns[0]),
+                 (build.columns[1], probe.columns[1]),
+                 (build.columns, probe.columns)):
+        got = J.join_pairs(*keys, tr, null_safe=True, **kw)
+        ref = J.join_pairs_plain(*keys, tr, null_safe=True, **kw)
+        for g, r in zip(got, ref):
+            if isinstance(g, torch.Tensor):
+                assert torch.equal(g, r)
+            else:
+                assert g == r
+
+
+def test_long_string_in_matches_the_cpu_run(card):
+    """K5's packed-word IN over 128 five-byte literals (q8's list) and a
+    substring view, against the CPU run."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.base import lit
+    from spark_rapids_tpu_torch.expressions.predicates import In
+    from spark_rapids_tpu_torch.testing.tpcds import Q8_ZIPS
+    rng = np.random.default_rng(71)
+    pool = list(Q8_ZIPS[:40]) + ["30411", "12345", "ÿÿÿ", "2412", ""]
+    d = {"z": [None if rng.random() < 0.1 else
+               str(rng.choice(pool)) + str(rng.choice(["", "-1234"]))
+               for _ in range(100_000)]}
+
+    def rows(s):
+        df = s.create_dataframe(d)
+        return df.filter(In(F.substring("z", 1, 5),
+                            [lit(z) for z in Q8_ZIPS])).collect()
+    got = rows(card)
+    assert got == rows(TorchSession(device="cpu")) and got
+
+
+@pytest.mark.parametrize("query", ["q8", "q5"])
+def test_q8_q5_match_the_cpu_run(card, query):
+    from spark_rapids_tpu_torch.testing import tpcds
+    names = tuple(getattr(tpcds, f"Q{query[1:]}_COLUMNS"))
+    t = getattr(tpcds, f"{query}_tables")(tpcds.generate_tables(2))
+    for parts in (1, 4):
+        got = getattr(tpcds, query)(*tpcds.partitioned_frames(
+            card, t, names, parts))[0].collect()
+        cpu = TorchSession(device="cpu")
+        ref = getattr(tpcds, query)(*[cpu.create_dataframe(t[n])
+                                      for n in names])[0].collect()
+        assert len(got) == len(ref) > 0
+        for g, r in zip(got, ref):
+            for k in g:
+                if isinstance(r[k], float):
+                    assert abs(g[k] - r[k]) <= 1e-9 * max(abs(r[k]), 1.0)
+                else:
+                    assert g[k] == r[k]

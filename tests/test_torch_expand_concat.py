@@ -15,6 +15,7 @@ import gc
 
 import numpy as np
 import pytest
+import torch
 
 from spark_rapids_tpu.columnar.batch import batch_from_pydict as jax_batch
 from spark_rapids_tpu.ops import batch_ops as JB
@@ -39,6 +40,19 @@ def _collect_outside_reference_locks():
     yield
     gc.enable()
     gc.collect()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small tensor ops; a pool of intra-op
+    threads in each pytest worker makes them contend for the cores (the
+    port's test files took 125 s at -n 6 with torch's default threads and
+    61 s on one thread each, on an 8-core machine under load).  This
+    module runs on one thread and restores the count after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 SCHEMA = T.StructType([T.StructField("s", T.STRING), T.StructField("k", T.INT),

@@ -22,6 +22,7 @@ import importlib
 
 import numpy as np
 import pytest
+import torch
 
 from spark_rapids_tpu.columnar.batch import batch_from_pydict as jax_batch
 from spark_rapids_tpu.expressions.evaluator import eval_exprs_tpu
@@ -47,6 +48,19 @@ def _collect_outside_reference_locks():
     yield
     gc.enable()
     gc.collect()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small tensor ops; a pool of intra-op
+    threads in each pytest worker makes them contend for the cores (the
+    port's test files took 125 s at -n 6 with torch's default threads and
+    61 s on one thread each, on an 8-core machine under load).  This
+    module runs on one thread and restores the count after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 SCHEMA = T.StructType([T.StructField("a", T.DOUBLE),
@@ -212,12 +226,15 @@ def test_k5_and_k6_sources_emit_every_case(case):
 
 
 def test_computed_string_output_is_refused_by_name():
+    """K13 writes a substring of a column and a concat of columns and
+    literals; a concat over a substring is still refused, by name."""
     from spark_rapids_tpu_torch import functions as F
-    from spark_rapids_tpu_torch.expressions.base import Alias
+    from spark_rapids_tpu_torch.expressions.base import Alias, lit
     df = TorchSession(device="cpu").create_dataframe(data(10, 1),
                                                      schema=SCHEMA)
     with pytest.raises(NotImplementedError, match=r"substring\(s, 1, 2\)"):
-        df.select(Alias(F.substring("s", 1, 2), "z")).collect()
+        df.select(Alias(F.concat(F.substring("s", 1, 2), lit("x")),
+                        "z")).collect()
 
 
 def test_substring_plain_matches_jax_over_ascii():

@@ -11,6 +11,7 @@ import gc
 
 import numpy as np
 import pytest
+import torch
 
 from spark_rapids_tpu.session import TpuSession
 from spark_rapids_tpu.testing.rowcompare import rows_equal
@@ -33,6 +34,19 @@ def _collect_outside_reference_locks():
     yield
     gc.enable()
     gc.collect()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions run many small tensor ops; a pool of intra-op
+    threads in each pytest worker makes them contend for the cores (the
+    port's test files took 125 s at -n 6 with torch's default threads and
+    61 s on one thread each, on an 8-core machine under load).  This
+    module runs on one thread and restores the count after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 SCHEMA = T.StructType([T.StructField("i", T.INT), T.StructField("k", T.LONG),
@@ -128,8 +142,15 @@ def test_emitted_source_reads_only_the_columns_it_uses():
 
 
 def test_computed_string_outputs_are_refused():
+    """A string literal output is K13's (a concat of one literal); a
+    substring of a concat is still refused."""
+    from spark_rapids_tpu_torch import functions as F
     from spark_rapids_tpu_torch.expressions.base import Literal
     s = TorchSession(device="cpu")
     df = s.create_dataframe(data(5, seed=1), schema=SCHEMA)
+    assert [r["x"] for r in df.select(
+        Literal("x", T.STRING).alias("x")).collect()] == ["x"] * 5
     with pytest.raises(NotImplementedError, match="StringType"):
-        df.select(Literal("x", T.STRING)).collect()
+        df.select(F.substring(F.concat(Literal("x", T.STRING),
+                                       Literal("y", T.STRING)), 1, 1)
+                  ).collect()
