@@ -9,13 +9,14 @@ git-ignored build/ directory: kernel 1, K5 and K6 (Triton, emitted by
 kernels/fused_agg.py and kernels/fused_stage.py) and kernel 2, K7, K7c,
 K8, K9, K10 (with its full outer mode K10f and its null-safe mode K10n),
 K10x, K14 (with its ranking pass K14r and its frame kinds K14s, K14b and
-K14o), K15d, K11h, K11r and K7s, and K13 (computed strings) (csrc/*.cu,
-one nvcc each, all started together).  It holds each kernel against its
-plain PyTorch version on the card (phase 2h: the exchange's kernels and
-K9's merge kinds; phase 2i: the window frames and the full outer join;
-phase 2j: K13 and K10's null-safe mode), then drives ten paths through
-``TorchSession()``, each query with the launch counters set to 0 just
-before it and read just after:
+K14o), K15d, K11h, K11r and K7s, K13 (computed strings) and K16 (the
+decode of dictionary and RLE columns) (csrc/*.cu, one nvcc each, all
+started together).  It holds each kernel against its plain PyTorch
+version on the card (phase 2h: the exchange's kernels and K9's merge
+kinds; phase 2i: the window frames and the full outer join; phase 2j: K13
+and K10's null-safe mode; phase 2k: K16 and K5's code-space mode), then
+drives eleven paths through ``TorchSession()``, each query with the
+launch counters set to 0 just before it and read just after:
 
 - bench.py's recipe -- filter(w > t), project k+1, v*2.0 and
   murmur3(k, w), sum all three, collect -- on 128M rows in 4 partitions,
@@ -53,6 +54,14 @@ before it and read just after:
   channel names written by K13, a rollup) at sf 10 (``OWN_SF``: its web
   join grows with sf squared), checked against numpy at sf 10 and the
   CPU run at sf 1, timed alike;
+- phase 9e: TPC-DS q3, q7 and q19 from parquet files of the same tables
+  (the columns they read, written under build/ with pyarrow's default
+  row groups, deleted after; the scan cache on): string columns reach
+  the card as dictionary codes, q7's five string filters run in K5's
+  code-space mode and never decode, q3's and q19's string payloads
+  decode through K16; each held against its in-memory run and numpy,
+  with the host read and the upload timed apart and the encoding
+  counters printed, then timed and profiled alike;
 - phase 10: q3, q1, q7, q12, q16, q17 without its item conjunct, q18,
   q51 and q8 over the same tables cut into ``--parts`` partitions (the
   JAX package's register_tables rule): every group-by, join, sort and
@@ -87,10 +96,11 @@ import numpy as np
 
 INT64_MAX = 2 ** 63 - 1
 #: the CUDA sources of the kernels (kernel 2, K7, K8, K9, K10, K14 and
-#: its ranking pass K14r, K15d, K7c, K10x, K11h, K11r and K7s, and K13)
+#: its ranking pass K14r, K15d, K7c, K10x, K11h, K11r and K7s, K13 and
+#: K16)
 CUDA_SOURCES = ("global_reduce.cu", "gather.cu", "sort.cu", "keyed_agg.cu",
                 "hash_join.cu", "window.cu", "distinct.cu", "concat.cu",
-                "cross_join.cu", "partition.cu", "strings.cu")
+                "cross_join.cu", "partition.cu", "strings.cu", "decode.cu")
 #: the TPC-DS kernels: name, route, source, the JAX program each replaces
 TPCDS_KERNELS = {
     "K1": ("fused_agg_update", "triton",
@@ -151,6 +161,14 @@ TPCDS_KERNELS = {
     "K13": ("string_column", "cuda",
             "spark_rapids_tpu_torch/csrc/strings.cu",
             "spark_rapids_tpu/expressions/strings.py:179"),
+    "K16": ("decode_dictionary", "cuda",
+            "spark_rapids_tpu_torch/csrc/decode.cu",
+            "spark_rapids_tpu/columnar/encoding.py:402"),
+    "K16r": ("decode_rle", "cuda", "spark_rapids_tpu_torch/csrc/decode.cu",
+             "spark_rapids_tpu/columnar/encoding.py:416"),
+    "K5d": ("fused_stage_codes", "triton",
+            "spark_rapids_tpu_torch/kernels/fused_stage.py",
+            "spark_rapids_tpu/columnar/encoding.py:575"),
 }
 #: each TPC-DS kernel's launch counter: module and attribute
 COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
@@ -174,7 +192,10 @@ COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
             "K14o": ("ops.window_ops", "OFFSET_LAUNCHES"),
             "K10f": ("ops.join_ops", "FULL_LAUNCHES"),
             "K10n": ("ops.join_ops", "NULL_SAFE_LAUNCHES"),
-            "K13": ("ops.string_ops", "LAUNCHES")}
+            "K13": ("ops.string_ops", "LAUNCHES"),
+            "K16": ("ops.decode_ops", "DICT_LAUNCHES"),
+            "K16r": ("ops.decode_ops", "RLE_LAUNCHES"),
+            "K5d": ("exec.fused", "CODE_SPACE_LAUNCHES")}
 #: K14o's three wrappers, recorded apart: ntile and the lag/lead default
 K14O_PARTS = {"K14on": "K14o", "K14of": "K14o"}
 #: the kernels each query's main path launches
@@ -202,6 +223,19 @@ QUERY_KERNELS = {"q3": ("K5", "K7", "K8", "K9", "K10"),
                  "q8": ("K5", "K7", "K8", "K9", "K10", "K10n", "K13"),
                  "q5": ("K6", "K7", "K7c", "K7s", "K8", "K9", "K10",
                         "K11h", "K11r", "K13")}
+#: phase 9e: the queries run from parquet, and the kernels each launches
+#: (q7's filters on five dictionary columns run in code space, K5d, and
+#: decode none; q3's and q19's string payloads decode through K16 ahead
+#: of their joins; at sf 1000 the batches of a table's row groups also
+#: meet in K7c)
+PARQUET_QUERIES = ("q3", "q7", "q19")
+PARQUET_KERNELS = {"q3": ("K5", "K7", "K8", "K9", "K10", "K16"),
+                   "q7": ("K5", "K5d", "K6", "K7", "K8", "K9", "K10"),
+                   "q19": ("K5", "K7", "K8", "K9", "K10", "K16")}
+#: q7's filtered dictionary columns, which must never decode
+Q7_CODE_SPACE_COLUMNS = ("cd_gender", "cd_marital_status",
+                         "cd_education_status", "p_channel_email",
+                         "p_channel_event")
 #: phase 10: the queries run over tables at 4 partitions, and the kernels
 #: each launches beside its one-partition ones (q16 sorts its one-row
 #: global aggregate: no range exchange)
@@ -2183,6 +2217,194 @@ def check_slice10(session, rng, rate: float):
     return err, timed
 
 
+#: phase 2k: the dictionary sizes (codes cross as int8, int8, int16 and
+#: int32) and the byte lengths of K16's string values
+K16_DICT_SIZES = (1, 7, 300, 65536)
+K16_STRING_LENGTHS = (0, 1, 7, 8, 15, 40)
+
+
+def k16_values(session, rng, dt, size: int, nulls: bool):
+    """A dictionary of ``size`` values of type ``dt`` on the card (strings
+    of 0 to 40 bytes, every byte at or above 0x80 in a third of them;
+    with ``nulls``, 10% null values)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    valid = None if not nulls else rng.random(size) >= 0.1
+    if isinstance(dt, T.StringType):
+        lens = np.array(K16_STRING_LENGTHS)[np.arange(size) %
+                                            len(K16_STRING_LENGTHS)]
+        offsets = np.zeros(size + 1, dtype=np.int32)
+        np.cumsum(lens, out=offsets[1:])
+        chars = rng.integers(0, 256, int(offsets[-1])).astype(np.uint8)
+        high = np.repeat(np.arange(size) % 3 == 0, lens)
+        chars[high] |= 0x80
+        return session.transfers.upload_column(
+            HostColumn(chars, valid, T.STRING, offsets))
+    if isinstance(dt, T.BooleanType):
+        data = rng.random(size) < 0.5
+    elif isinstance(dt, T.DoubleType):
+        data = rng.normal(0, 1e6, size)
+    else:
+        data = rng.integers(-2 ** 31, 2 ** 31, size).astype(dt.np_dtype) \
+            if isinstance(dt, T.LongType) else \
+            rng.integers(-10 ** 6, 10 ** 6, size).astype(dt.np_dtype)
+    return session.transfers.upload_column(HostColumn(data, valid, dt))
+
+
+def check_slice11(session, rng, rate: float):
+    """Phase 2k: K16 against its plain version over 1M and 2**20 + 3
+    rows: codes sent as int8, int16 and int32 (dictionaries of 1, 7, 300
+    and 65,536 values), every fixed type and strings of 0 to 40 bytes
+    with bytes >= 0x80, 10% null rows and a column of null rows alone,
+    null values; RLE runs of 1 to 1,000 rows of every fixed type, 10% of
+    them null, the last run ending the column or rows past it; then
+    K5's code-space mode (``=``, ``IN``, ``<>``, ``IS NULL``) against the
+    same stage over the decoded column (K5 on strings) and its plain
+    version.  Timed over 2**20 + 3 rows: K16 on strings (a dictionary of
+    300), on longs (65,536; ``torch.index_select`` as the library), K16's
+    RLE form (runs of 1 to 1,000 longs; ``torch.repeat_interleave``), and
+    the ``=`` stage in code space against the stage over the decoded
+    strings."""
+    import pyarrow as pa
+    import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import encoding as ENC
+    from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch,
+                                                       HostColumnarBatch)
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.expressions.base import (bind_references,
+                                                         col, lit)
+    from spark_rapids_tpu_torch.expressions import predicates as P
+    from spark_rapids_tpu_torch.ops import decode_ops as D
+    tr, dev = session.transfers, session.device
+    err = {"K16": 0.0, "K16r": 0.0, "K5d": 0.0}
+    timed = {}
+    types = (T.STRING, T.BOOLEAN, T.INT, T.DATE, T.LONG, T.DOUBLE)
+    for n in (1_000_000, SLICE3_SIZES[-1]):
+        for size in K16_DICT_SIZES:
+            narrow = ENC._narrow_code_dtype(size)
+            codes = tr.to_device(rng.integers(0, size, n).astype(narrow)
+                                 ).to(torch.int32)
+            masks = {"no nulls": None,
+                     "10% null": torch.from_numpy(
+                         rng.random(n) >= 0.1).to(dev),
+                     "all null": torch.zeros(n, dtype=torch.bool,
+                                             device=dev)}
+            for dt in types:
+                for nulls in (False, True):
+                    values = k16_values(session, rng, dt, size, nulls)
+                    for what, valid in masks.items():
+                        got = D.decode_dictionary(codes, valid, values, tr)
+                        torch.cuda.synchronize()
+                        err["K16"] = max(err["K16"], same_columns(
+                            [got], [D.decode_dictionary_plain(
+                                codes, valid, values, tr)],
+                            f"K16 {dt} ({narrow} codes, {size} values"
+                            f"{', null values' if nulls else ''}), {what}, "
+                            f"{n} rows"))
+        for dt in types[1:]:
+            lens = rng.integers(1, 1001, n // 250 + 2)
+            ends = np.cumsum(lens)
+            ends = ends[:np.searchsorted(ends, n) + 1]
+            ends[-1] = n
+            for past in (0, 777):   # rows past the last run are null
+                m = n + past
+                vals = k16_values(session, rng, dt, len(ends), False).data
+                rvalid = torch.from_numpy(rng.random(len(ends)) >= 0.1).to(
+                    dev)
+                dends = tr.to_device(ends.astype(np.int32))
+                got = D.decode_rle(vals, rvalid, dends, m, dt)
+                torch.cuda.synchronize()
+                err["K16r"] = max(err["K16r"], same_columns(
+                    [got], [D.decode_rle_plain(vals, rvalid, dends, m, dt)],
+                    f"K16 RLE {dt}, {len(ends)} runs, {m} rows"))
+
+    n = SLICE3_SIZES[-1]
+    codes = tr.to_device(rng.integers(0, 300, n).astype(np.int16)).to(
+        torch.int32)
+    valid = torch.from_numpy(rng.random(n) >= 0.1).to(dev)
+    for what, values in (
+            ("K16 strings", k16_values(session, rng, T.STRING, 300, False)),
+            ("K16 longs", k16_values(session, rng, T.LONG, 65536, False))):
+        c = codes if what == "K16 strings" else tr.to_device(
+            rng.integers(0, 65536, n).astype(np.int32))
+        got = D.decode_dictionary(c, valid, values, tr)
+        timed[what] = (
+            time_ms(lambda: D.decode_dictionary(c, valid, values, tr), 10),
+            time_ms(lambda: D.decode_dictionary_plain(c, valid, values, tr),
+                    2, 1),
+            k16_bytes((c, valid, values, tr), got) / rate * 1e3,
+            None if got.is_string else
+            time_ms(lambda: torch.index_select(values.data, 0, c), 10))
+    lens = rng.integers(1, 1001, n // 250 + 2)
+    ends = np.cumsum(lens)
+    ends = ends[:np.searchsorted(ends, n) + 1]
+    ends[-1] = n
+    vals = tr.to_device(rng.integers(0, 2 ** 40, len(ends)))
+    rvalid = torch.ones(len(ends), dtype=torch.bool, device=dev)
+    dends = tr.to_device(ends.astype(np.int32))
+    counts = tr.to_device(np.diff(ends, prepend=0))
+    got = D.decode_rle(vals, rvalid, dends, n, T.LONG)
+    timed["K16r"] = (
+        time_ms(lambda: D.decode_rle(vals, rvalid, dends, n, T.LONG), 10),
+        time_ms(lambda: D.decode_rle_plain(vals, rvalid, dends, n, T.LONG),
+                2, 1),
+        k16_bytes((vals, rvalid, dends, n, T.LONG), got) / rate * 1e3,
+        time_ms(lambda: torch.repeat_interleave(vals, counts,
+                                                output_size=n), 10))
+
+    # K5's code-space mode against the stage over the decoded strings
+    names = [f"v{i}\u00e9{'x' * (i % 9)}" for i in range(300)]
+    settings = ENC.EncodingSettings()
+    for m in (1_000_000, SLICE3_SIZES[-1]):
+        idx = rng.integers(0, 300, m).astype(np.int32)
+        nulls = rng.random(m) < 0.1
+        arr = pa.DictionaryArray.from_arrays(
+            pa.array(idx, mask=nulls), pa.array(names))
+        hb = HostColumnarBatch([ENC.HostDictionaryColumn(arr),
+                                HostColumn(np.arange(m, dtype=np.int64),
+                                           None, T.LONG)], m, ["s", "k"])
+        batch = tr.upload_batch(hb, settings)
+        check(isinstance(batch.columns[0], ENC.DictionaryColumn),
+              "the dictionary column arrived as codes")
+        decoded = ENC.materialize_batch(batch, tr)
+        schema = batch.schema
+        conds = {"=": P.EqualTo(col("s"), lit(names[3])),
+                 "IN": P.In(col("s"), [names[1], names[7], "absent"]),
+                 "<>": P.NotEqual(col("s"), lit(names[5])),
+                 "IS NULL": P.IsNull(col("s"))}
+        for what, cond in conds.items():
+            ops = [("filter", bind_references(cond, schema)),
+                   ("project", [bind_references(col("s"), schema),
+                                bind_references(col("k"), schema)])]
+            program = FU.StageProgram(ops, schema, 0)
+            lits = FU.LiteralArgs([])
+            coded, cb, clits, _kept = program.for_batch(batch, lits, tr)
+            check(coded.n_tables == 1, f"{what} runs in code space")
+            got = FU.fused_stage_compact(coded, cb, clits, tr)
+            plain = FU.fused_stage_compact_plain(coded, cb, clits, tr)
+            over = FU.fused_stage_compact(program, decoded, lits, tr)
+            torch.cuda.synchronize()
+            err["K5d"] = max(err["K5d"], same_indices(
+                got[0], plain[0], f"K5d {what}, {m} rows vs plain"),
+                same_indices(got[0], over[0], f"K5d {what}, {m} rows vs "
+                             "K5 over the decoded strings"))
+            if what == "=" and m == SLICE3_SIZES[-1]:
+                timed["K5d ="] = (
+                    time_ms(lambda: FU.fused_stage_compact(
+                        coded, cb, clits, tr), 10),
+                    time_ms(lambda: FU.fused_stage_compact_plain(
+                        coded, cb, clits, tr), 2, 1),
+                    (5 * m + 301 + 8 * got[0].shape[0]) / rate * 1e3,
+                    None)
+                timed["K5 = over the decoded strings"] = (
+                    time_ms(lambda: FU.fused_stage_compact(
+                        program, decoded, lits, tr), 10),
+                    None, None, None)
+    return err, timed
+
+
 def rows_match(expected, actual, what: str) -> None:
     """In order; doubles within 1e-6 relative (the comparator the JAX
     package's TPC-DS oracle uses, rowcompare.val_eq), the rest exact."""
@@ -2218,8 +2440,9 @@ class Recorder:
         self.mark = mark
         from spark_rapids_tpu_torch.exec import fused, joins
         from spark_rapids_tpu_torch.ops import (agg_ops, batch_ops,
-                                                partition_ops, sort_ops,
-                                                string_ops, window_ops)
+                                                decode_ops, partition_ops,
+                                                sort_ops, string_ops,
+                                                window_ops)
         self.calls = []
         self._patches = [
             (fused, "fused_agg_update", "K1"),
@@ -2244,7 +2467,9 @@ class Recorder:
             (window_ops, "window_offset", "K14o"),
             (window_ops, "window_ntile", "K14on"),
             (window_ops, "window_fill", "K14of"),
-            (string_ops, "string_column", "K13")]
+            (string_ops, "string_column", "K13"),
+            (decode_ops, "decode_dictionary", "K16"),
+            (decode_ops, "decode_rle", "K16r")]
         self._saved = []
 
     def __enter__(self):
@@ -2255,6 +2480,8 @@ class Recorder:
             def wrapped(*a, _fn=fn, _k=kernel, **kw):
                 if _k == "K10":
                     _k = k10_name(kw)
+                if _k == "K5" and a[0].n_tables:
+                    _k = "K5d"   # the stage's code-space mode
                 counter = counter_of(K14O_PARTS.get(_k, _k))
                 before = getattr(*counter)
                 if self.mark:
@@ -2297,12 +2524,12 @@ def column_bytes(c, rows=None) -> int:
 def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
     """A TPC-DS kernel's output on one recorded call against its plain
     version's, by phase 2b's comparators; returns the measured max |d|."""
-    if name == "K5":
+    if name in ("K5", "K5d"):
         return max(same_indices(got[0], ref[0], f"{what}: survivors"),
                    same_columns(got[1], ref[1], what))
     if name in ("K6", "K7"):
         return same_columns(got, ref, what)
-    if name == "K13":
+    if name in ("K13", "K16", "K16r"):
         return same_columns([got], [ref], what)
     if name == "K7c":
         check(got.row_count == ref.row_count, f"{what}: row count")
@@ -2354,6 +2581,21 @@ def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
                for g, r, side in zip(got, ref, ("probe", "build")))
 
 
+def k16_bytes(args, got) -> int:
+    """Bytes K16 must move for one call: the codes (int32) and their
+    validity, or the runs and their ends, read; the dictionary's values
+    read once; the output written."""
+    if isinstance(args[3], int):    # RLE: values, validity, ends, n
+        vals, rvalid, ends = args[:3]
+        read = vals.numel() * vals.element_size() + 4 * ends.numel() + \
+            (0 if rvalid is None else rvalid.numel())
+    else:
+        codes, valid, values = args[:3]
+        read = 4 * codes.numel() + (0 if valid is None else valid.numel()) \
+            + column_bytes(values)
+    return read + column_bytes(got)
+
+
 def k13_bytes(args, kw, got) -> int:
     """Bytes K13 must move for one call: each column part's offsets of the
     rows it reads, its validity and the chars the output copies from it,
@@ -2380,17 +2622,19 @@ def same_kernel1(args, got, ref, what: str) -> float:
     import torch
     from spark_rapids_tpu_torch.expressions.base import EvalContext
     from spark_rapids_tpu_torch.expressions.evaluator import batch_cols
-    from spark_rapids_tpu_torch.exec import fused as FU
     from spark_rapids_tpu_torch.ops import agg_ops as G
     program, batch, lits = args[:3]
+    # the chain flattened over the input columns, as the kernel reads it
     ctx = EvalContext(batch_cols(batch), batch.row_count, batch.device,
-                      lits.values)
-    cols, sel = FU.trace_chain(program.ops, ctx)
-    upd = EvalContext(cols, batch.row_count, batch.device, lits.values)
+                      lits.values, lits.tables)
+    sel = torch.ones(batch.row_count, dtype=torch.bool, device=batch.device)
+    for cond in program.conditions:
+        p = cond.eval(ctx)
+        sel = sel & p.valid & p.data
     abs_sum = 0.0
     for ordinal, kind, _cv, dtype in program.update_specs:
         if kind == "sum" and dtype.is_floating:
-            c = program.update_exprs[ordinal].eval(upd)
+            c = program.update_inputs[ordinal].eval(ctx)
             x = c.data.to(torch.float64)
             abs_sum = max(abs_sum, float(torch.where(
                 sel & c.valid & torch.isfinite(x), x.abs(), 0.0).sum()))
@@ -2530,6 +2774,7 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
     from spark_rapids_tpu_torch.exec import fused as FU
     from spark_rapids_tpu_torch.ops import agg_ops as G
     from spark_rapids_tpu_torch.ops import batch_ops as BO
+    from spark_rapids_tpu_torch.ops import decode_ops as D
     from spark_rapids_tpu_torch.ops import join_ops as J
     from spark_rapids_tpu_torch.ops import partition_ops as PO
     from spark_rapids_tpu_torch.ops import sort_ops as S
@@ -2549,7 +2794,9 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
              "K14s": W.window_running_plain, "K14b": W.window_bounded_plain,
              "K14o": W.window_offset_plain, "K14on": W.window_ntile_plain,
              "K14of": W.window_fill_plain, "K10f": J.join_pairs_plain,
-             "K10n": J.join_pairs_plain, "K13": SO.string_column_plain}
+             "K10n": J.join_pairs_plain, "K13": SO.string_column_plain,
+             "K16": D.decode_dictionary_plain, "K16r": D.decode_rle_plain,
+             "K5d": FU.fused_stage_compact_plain}
     kernel = {"K1": FU.fused_agg_update, "K3": G.global_reduce,
               "K15d": G.count_distinct,
               "K5": FU.fused_stage_compact, "K6": FU.fused_project,
@@ -2562,7 +2809,9 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
               "K14s": W.window_running, "K14b": W.window_bounded,
               "K14o": W.window_offset, "K14on": W.window_ntile,
               "K14of": W.window_fill, "K10f": J.join_pairs,
-              "K10n": J.join_pairs, "K13": SO.string_column}
+              "K10n": J.join_pairs, "K13": SO.string_column,
+              "K16": D.decode_dictionary, "K16r": D.decode_rle,
+              "K5d": FU.fused_stage_compact}
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "library_ms": 0.0,
                "shapes": [], "max_abs_err": 0.0} for k in kernels}
     for i, (name, args, kw) in enumerate(calls):
@@ -2598,12 +2847,13 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
             if gid is None:
                 def library(v=values):
                     return torch.unique(v.data[v.validity]).numel()
-        elif name == "K5":
+        elif name in ("K5", "K5d"):
             program, batch, lits, _tr = args
             idx = got[0]
             used = [batch.columns[i] for i in program.used]
+            # K5d also reads its lookup tables
             o["bytes"] += sum(column_bytes(c) for c in used) + \
-                8 * idx.shape[0]
+                8 * idx.shape[0] + sum(t.numel() for t in lits.tables)
             o["shapes"].append(f"{batch.row_count}->{idx.shape[0]}: "
                                f"{ms:.4f} ms")
             library = k5_library(program, batch, lits)
@@ -2740,6 +2990,19 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
             o["shapes"].append(f"{n} rows -> {int(got.offsets[-1])} chars "
                                f"({'substring' if args[0] == 0 else 'concat'}"
                                f" of {len(args[1])} parts): {ms:.4f} ms")
+        elif name == "K16":
+            o["bytes"] += k16_bytes(args, got)
+            o["shapes"].append(f"{got.row_count} rows from "
+                               f"{args[2].row_count} values"
+                               f"{' (strings)' if got.is_string else ''}: "
+                               f"{ms:.4f} ms")
+            if not got.is_string:
+                def library(v=args[2].data, c=args[0]):
+                    return torch.index_select(v, 0, c)
+        elif name == "K16r":
+            o["bytes"] += k16_bytes(args, got)
+            o["shapes"].append(f"{got.row_count} rows from "
+                               f"{args[0].shape[0]} runs: {ms:.4f} ms")
         elif name == "K10x":
             n_probe, n_build = args[:2]
             o["bytes"] += 16 * n_probe * n_build
@@ -2937,7 +3200,7 @@ def recipe_of(tpcds, name: str):
 
 def run_query(session, query: str, tables, rate: float,
               full_size: bool = True, cross_tables=None, parts: int = 1,
-              reference=None):
+              reference=None, parquet_root=None):
     """Phases 4 to 10: one TPC-DS query over ``tables`` (the generator's
     output, cut to the query's columns) through TorchSession(); checks it
     against numpy and the CPU run, and times its kernels.  With
@@ -2946,8 +3209,12 @@ def run_query(session, query: str, tables, rate: float,
     ``parts`` > 1 (phase 10) the tables are cut into that many partitions
     (``testing/tpcds.py partitioned_frames``) and the rows are held
     against ``reference``, the one-partition card run's rows and numpy's.
-    Returns the launches, the kernels' timings and the rows."""
+    With ``parquet_root`` (phase 9e) the tables are read from the files
+    there (``testing/tpcds.py parquet_frames``, the scan cache on), the
+    rows held against ``reference``, the in-memory run's rows and
+    numpy's.  Returns the launches, the kernels' timings and the rows."""
     import torch
+    from spark_rapids_tpu_torch.columnar import encoding as ENC
     from spark_rapids_tpu_torch.exec.stage_compiler import stats as kstats
     from spark_rapids_tpu_torch.testing import tpcds
     recipe_name, names, fact = QUERIES[query]
@@ -2960,37 +3227,48 @@ def run_query(session, query: str, tables, rate: float,
         return getattr(tpcds, f"{recipe_name}_numpy")(raw, **numpy_kw)
     rows = {t: len(next(iter(tables[t].values()))) for t in names}
     t_tables = time.perf_counter()
-    tables = host_tables({t: tables[t] for t in names})
+    if parquet_root is None:
+        tables = host_tables({t: tables[t] for t in names})
     t_tables = time.perf_counter() - t_tables
     torch.cuda.reset_peak_memory_stats()
     label = query if parts == 1 else f"{query} at {parts} partitions"
-    dfs = tpcds.partitioned_frames(session, tables, names, parts) \
-        if parts > 1 else [session.create_dataframe(tables[t])
-                           for t in names]
+    if parquet_root is not None:
+        label = f"{query} from parquet"
+        dfs = tpcds.parquet_frames(session, parquet_root,
+                                   {t: list(tables[t]) for t in names})
+        device_bytes = scan_and_upload(session, dfs, label)
+    else:
+        dfs = tpcds.partitioned_frames(session, tables, names, parts) \
+            if parts > 1 else [session.create_dataframe(tables[t])
+                               for t in names]
 
     def run():
         return recipe(*dfs)[0].collect()
     t0 = time.perf_counter()
     first = run()
     first_s = time.perf_counter() - t0
-    device_bytes = sum(column_bytes(c) for df in dfs for part in
-                       df._plan.device_cache[str(session.device)]
-                       for b in part for c in b.columns)
+    if parquet_root is None:
+        device_bytes = sum(column_bytes(c) for df in dfs for part in
+                           df._plan.device_cache[str(session.device)]
+                           for b in part for c in b.columns)
     print(f"{label}: rows {rows}; {device_bytes} B of device columns; "
           f"first action (upload, builds, query) {first_s:.3f} s")
 
     counters = [(*counter_of(k), k) for k in COUNTERS]
     for mod, attr, _k in counters:
         setattr(mod, attr, 0)
-    tr0, ks0 = session.transfers.stats(), kstats()
+    tr0, ks0, enc0 = session.transfers.stats(), kstats(), \
+        ENC.encoding_stats()
     t0 = time.perf_counter()
     result = run()
     main_s = time.perf_counter() - t0
     launched = {k: getattr(mod, attr) for mod, attr, k in counters}
+    enc1 = ENC.encoding_stats()
     # the kernels the query must launch, and any other it did launch
-    required = QUERY_KERNELS[query] + (() if parts == 1 else tuple(
-        k for k in PARTS_KERNELS.get(query, PARTS_DEFAULT_KERNELS)
-        if k not in QUERY_KERNELS[query]))
+    required = PARQUET_KERNELS[query] if parquet_root is not None else \
+        QUERY_KERNELS[query] + (() if parts == 1 else tuple(
+            k for k in PARTS_KERNELS.get(query, PARTS_DEFAULT_KERNELS)
+            if k not in QUERY_KERNELS[query]))
     kernels = required + tuple(
         k for k in COUNTERS if k not in required and launched[k])
     launches = {k: launched[k] for k in kernels}
@@ -3002,6 +3280,17 @@ def run_query(session, query: str, tables, rate: float,
           f"{({k: tr1[k] - tr0[k] for k in tr1})}, builds {builds}")
     for k, n in launches.items():
         check(n > 0, f"{label} launched {k}: {launches}")
+    if parquet_root is not None:
+        decoded = {c: n - enc0["decoded_columns"].get(c, 0)
+                   for c, n in enc1["decoded_columns"].items()
+                   if n != enc0["decoded_columns"].get(c, 0)}
+        print(f"{label} encoding counters of the main run: decoded bytes "
+              f"{enc1['decoded_bytes'] - enc0['decoded_bytes']}, K16 "
+              f"launches {launches.get('K16', 0)}, K5 code-space launches "
+              f"{launches.get('K5d', 0)}, columns decoded {decoded}")
+        if query == "q7":
+            check(not set(decoded) & set(Q7_CODE_SPACE_COLUMNS),
+                  f"q7's filtered columns never decode: {decoded}")
     check(builds == 0, f"a repeated {label} builds nothing")
     check(result == first, f"a repeated {label} gives the same rows")
     want = QUERY_ROWS[query]
@@ -3031,11 +3320,12 @@ def run_query(session, query: str, tables, rate: float,
     best, median = min(times), float(np.median(times))
 
     if reference is not None:
+        against = "the in-memory card run" if parquet_root is not None \
+            else "its one-partition card run"
         rows_match(reference["numpy"], result, f"{label} vs numpy")
-        rows_match(reference["rows"], result,
-                   f"{label} vs its one-partition card run")
-        print(f"{label} matches numpy and the one-partition card run; "
-              f"first rows {result[:2]}")
+        rows_match(reference["rows"], result, f"{label} vs {against}")
+        print(f"{label} matches numpy and {against}; first rows "
+              f"{result[:2]}")
         numpy_rows = reference["numpy"]
     else:
         numpy_rows = check_against_cpu(query, recipe, names, tables,
@@ -3080,6 +3370,79 @@ def run_query(session, query: str, tables, rate: float,
           f"alone, syncs inside), rest {best * 1e3 - kernel_ms:.4f} ms of "
           f"{best * 1e3:.4f} ms")
     return launches, timed, {"rows": result, "numpy": numpy_rows}
+
+
+def scan_and_upload(session, dfs, label: str) -> int:
+    """Phase 9e: each table's parquet read on the host, then its upload
+    (the scan cache on, so the query's runs find both), timed apart, with
+    the encoding counters of the upload; returns the device bytes of the
+    uploaded columns (codes for a dictionary column)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar import encoding as ENC
+    from spark_rapids_tpu_torch.plan.base import ExecContext
+    enc0 = ENC.encoding_stats()
+    t0 = time.perf_counter()
+    for df in dfs:
+        scan = df._plan.scan
+        for p in range(scan.num_partitions):
+            list(scan.execute_partition(
+                p, ENC.EncodingSettings.of(session.conf)))
+    host_s = time.perf_counter() - t0
+    tr0 = session.transfers.stats()
+    t0 = time.perf_counter()
+    ctx = ExecContext(session.device, session.transfers)
+    batches = [b for df in dfs for part in df.executed_plan().execute(ctx)
+               for b in part]
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    tr1, enc1 = session.transfers.stats(), ENC.encoding_stats()
+    delta = {k: enc1[k] - enc0[k] for k in enc1
+             if isinstance(enc1[k], int)}
+    print(f"{label}: parquet read on the host {host_s * 1e3:.3f} ms, "
+          f"upload {upload_s * 1e3:.3f} ms ({len(batches)} batches, "
+          f"{tr1['h2d_bytes'] - tr0['h2d_bytes']} B over "
+          f"{tr1['h2d_copies'] - tr0['h2d_copies']} copies); encoded "
+          f"columns {delta['encoded_columns']}, bytes of codes and "
+          f"dictionaries sent {delta['encoded_bytes_in']} against plain "
+          f"bytes avoided {delta['decode_avoided_bytes']}, dictionary "
+          f"fallbacks {delta['dict_fallbacks']} "
+          f"{enc1['fallback_reasons']}")
+    return sum(column_bytes(c) for b in batches for c in b.columns)
+
+
+def write_parquet(tpcds, cuts, sf: float) -> str:
+    """Phase 9e: the columns the parquet queries read, of the tables the
+    in-memory queries ran over, written as the JAX package's
+    ``register_tables(storage="parquet")`` writes them (one part a
+    table at one partition, pyarrow's default row groups) under the
+    git-ignored ``build/``; the scan cache goes on."""
+    import shutil
+    from spark_rapids_tpu_torch.io import multifile
+    from spark_rapids_tpu_torch.kernels.build import build_dir
+    root = str(build_dir(f"parquet_sf{sf:g}"))
+    shutil.rmtree(root)
+    merged = {}
+    for cut in cuts.values():
+        for t, cols in cut.items():
+            merged.setdefault(t, {}).update(cols)
+    t0 = time.perf_counter()
+    tpcds.write_parquet_tables(merged, root, 1)
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _s, fs in os.walk(root) for f in fs)
+    print(f"phase 9e: {sum(len(c) for c in merged.values())} columns of "
+          f"{len(merged)} tables written to parquet in "
+          f"{time.perf_counter() - t0:.1f} s ({size} B)")
+    multifile.enable_scan_cache(True)
+    return root
+
+
+def drop_parquet(root: str) -> None:
+    """Phase 9e's end: the scan cache off (what it held dropped) and the
+    files deleted."""
+    import shutil
+    from spark_rapids_tpu_torch.io import multifile
+    multifile.enable_scan_cache(False)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def check_against_cpu(query, recipe, names, tables, cross_tables, session,
@@ -3319,6 +3682,27 @@ def main() -> int:
         print(f"{what} ({shapes[what]}): {ms_:.4f} ms, plain "
               f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
 
+    # -- phase 2k: the slice-11 kernels against their plain versions --------
+    t0 = time.perf_counter()
+    errs11, slice11_one = check_slice11(session, rng, rate)
+    print(f"K16 (dictionary: every fixed type and strings, int8 to int32 "
+          f"codes; RLE), K5 in code space (=, IN, <>, IS NULL) vs plain and "
+          f"vs K5 over the decoded column: pass "
+          f"({time.perf_counter() - t0:.1f} s), max |d| {errs11}")
+    shapes = {"K16 strings": f"{SLICE3_SIZES[-1]} rows, 300 values of 0 "
+                             "to 40 bytes, 10% null rows",
+              "K16 longs": f"{SLICE3_SIZES[-1]} rows, 65536 values, 10% "
+                           "null rows",
+              "K16r": f"{SLICE3_SIZES[-1]} rows of longs in runs of 1 to "
+                      "1000",
+              "K5d =": f"{SLICE3_SIZES[-1]} rows, s = literal over 300 "
+                       "string values, in code space",
+              "K5 = over the decoded strings": f"{SLICE3_SIZES[-1]} rows, "
+                                               "the same stage on strings"}
+    for what, (ms_, plain_, bound_, lib_) in slice11_one.items():
+        print(f"{what} ({shapes[what]}): {ms_:.4f} ms, plain {plain_} ms, "
+              f"bound {bound_} ms, library {lib_}")
+
     phase("kernels checked")
 
     # -- phase 3: the bench recipe at full size -----------------------------
@@ -3505,15 +3889,28 @@ def main() -> int:
     # phase 6: q15, q12 and q20; phase 7: q13, q19 and q16; phase 8: q17
     # (as written and q17v), q10 and q18; phase 9: q6, q28 and q36, over
     # the same tables
-    parts_cuts, one_part = {}, {}
-    runs = [(q, 1) for q in TPCDS_ORDER] + [(q, args.parts)
-                                            for q in PARTS_QUERIES]
-    for q, parts in runs:
+    parts_cuts, parquet_cuts, one_part = {}, {}, {}
+    parquet_root = None
+    runs = [(q, 1, False) for q in TPCDS_ORDER] + \
+        [(q, 1, True) for q in PARQUET_QUERIES] + \
+        [(q, args.parts, False) for q in PARTS_QUERIES]
+    for q, parts, parquet in runs:
         q0 = time.perf_counter()
-        if parts == 1:
+        if parquet:
+            # phase 9e: the query from parquet files of the same tables
+            if parquet_root is None:
+                parquet_root = write_parquet(tpcds, parquet_cuts, args.sf)
+            launches, timed, _got = run_query(
+                session, q, parquet_cuts.pop(q), rate, args.sf == 1000,
+                reference=one_part[q], parquet_root=parquet_root)
+            if not parquet_cuts:
+                drop_parquet(parquet_root)
+        elif parts == 1:
             tables_ = cuts.pop(q)
             if q in PARTS_QUERIES:
                 parts_cuts[q] = tables_
+            if q in PARQUET_QUERIES:
+                parquet_cuts[q] = tables_
             launches, timed, got = run_query(
                 session, q, tables_, rate,
                 args.sf == 1000 or own_sf.get(q) == OWN_SF.get(q),
@@ -3525,23 +3922,26 @@ def main() -> int:
             launches, timed, _got = run_query(
                 session, q, parts_cuts.pop(q), rate, args.sf == 1000,
                 parts=parts, reference=one_part[q])
-        where = "" if parts == 1 else f" at {parts} partitions"
+        where = " from parquet" if parquet else "" if parts == 1 \
+            else f" at {parts} partitions"
         phase(f"{q}{where} run, checked and timed "
               f"({time.perf_counter() - q0:.1f} s)")
         for k in launches:
             name_, route, source, replaces = TPCDS_KERNELS[k]
             o = timed[k]
-            tag = q if parts == 1 else f"{q}.p{parts}"
+            tag = f"{q}.parquet" if parquet else q if parts == 1 \
+                else f"{q}.p{parts}"
             entry = {
                 "name": name_ if tag == "q3" else f"{name_}.{tag}",
-                "path": q if parts == 1 else f"{q} at {parts} partitions",
+                "path": f"{q}{where}",
                 "route": route, "source": source,
                 "replaces": replaces, "launches": launches[k],
                 "max_abs_err": max(errs.get(k, 0.0), errs3.get(k, 0.0),
                                    errs4.get(k, 0.0), errs5.get(k, 0.0),
                                    errs6.get(k, 0.0), errs7.get(k, 0.0),
                                    errs8.get(k, 0.0), errs9.get(k, 0.0),
-                                   errs10.get(k, 0.0), o["max_abs_err"]),
+                                   errs10.get(k, 0.0), errs11.get(k, 0.0),
+                                   o["max_abs_err"]),
                 "ms": o["ms"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound_ms"], "bound_by": "bytes",
                 "library_ms": o["library_ms"], "device_ms": o["device_ms"],
@@ -3633,7 +4033,31 @@ def main() -> int:
                     entry[f"phase_2j_{key}_plain_ms"] = plain_
                     entry[f"phase_2j_{key}_bound_ms"] = bound_
                     entry[f"phase_2j_{key}_library_ms"] = lib_
+            if k in ("K16", "K5d"):
+                for what, (ms_, plain_, bound_, lib_) in slice11_one.items():
+                    if what.split(" ")[0] != k:
+                        continue
+                    key = what.replace(" ", "_").replace("=", "eq").lower()
+                    entry[f"phase_2k_{key}_ms"] = ms_
+                    entry[f"phase_2k_{key}_plain_ms"] = plain_
+                    entry[f"phase_2k_{key}_bound_ms"] = bound_
+                    entry[f"phase_2k_{key}_library_ms"] = lib_
+                if k == "K5d":
+                    entry["phase_2k_stage_over_decoded_strings_ms"] = \
+                        slice11_one["K5 = over the decoded strings"][0]
             kernels.append(entry)
+    # K16's forms that no query path runs: the fixed-width dictionary and
+    # RLE (off by default, as in the JAX package), held and timed in 2k
+    for k, what, name_ in (("K16", "K16 longs", "decode_dictionary.fixed"),
+                           ("K16r", "K16r", "decode_rle")):
+        _name, route, source, replaces = TPCDS_KERNELS[k]
+        ms_, plain_, bound_, lib_ = slice11_one[what]
+        kernels.append({
+            "name": name_, "path": "phase 2k (no query path)",
+            "route": route, "source": source, "replaces": replaces,
+            "launches": 0, "max_abs_err": errs11[k], "ms": ms_,
+            "plain_ms": plain_, "bound_ms": bound_, "bound_by": "bytes",
+            "library_ms": lib_, "per": "launch", "passed": True})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

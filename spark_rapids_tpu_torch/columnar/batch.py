@@ -6,7 +6,9 @@ per column the ``(data, validity)`` numpy planes that the JAX package's
 engines.  ``batch_from_pydict`` takes what the JAX package's
 ``create_dataframe`` takes: numpy arrays (``datetime64[D]`` is a date
 column), object arrays of ``str`` and ``None``, and lists (of
-``datetime.date`` for a date column)."""
+``datetime.date`` for a date column).  ``batch_from_arrow`` takes what a
+parquet scan reads; a host batch's column is then a ``HostColumn`` or,
+kept encoded, a ``columnar/encoding.py HostDictionaryColumn``."""
 
 from __future__ import annotations
 
@@ -148,3 +150,24 @@ def batch_from_numpy(columns: Sequence[Tuple[np.ndarray,
             cols.append(HostColumn(data, validity, f.data_type))
     n = len(cols[0]) if cols else 0
     return HostColumnarBatch(cols, n, schema.names)
+
+
+def batch_from_arrow(table) -> HostColumnarBatch:
+    """A host batch of a pyarrow Table or RecordBatch (the JAX package's
+    ``batch_from_arrow``): a dictionary-typed column stays encoded as a
+    ``columnar/encoding.py HostDictionaryColumn``; every other column
+    becomes numpy planes."""
+    from spark_rapids_tpu_torch.columnar.encoding import (
+        HostDictionaryColumn, host_column_from_arrow)
+    import pyarrow as pa
+    cols = []
+    for name in table.column_names:
+        arr = table.column(name)
+        if isinstance(arr, pa.ChunkedArray):
+            arr = arr.combine_chunks() if arr.num_chunks != 1 \
+                else arr.chunk(0)
+        if pa.types.is_dictionary(arr.type):
+            cols.append(HostDictionaryColumn(arr))
+        else:
+            cols.append(host_column_from_arrow(arr))
+    return HostColumnarBatch(cols, table.num_rows, table.column_names)

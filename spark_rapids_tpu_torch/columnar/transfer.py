@@ -5,8 +5,9 @@
 Every column moves on its own: host planes are staged in pinned memory and
 copied with ``non_blocking=True`` on the current stream, and a download
 ends in exactly one blocking sync.  A string column moves as its offsets
-and chars planes.  ``read_counts`` is the one way a size computed on the
-device reaches the host (a join's pair count, a compaction's survivors, a
+and chars planes, an encoded column as its codes (or runs) with its
+dictionary once a device (``columnar/encoding.py``).  ``read_counts`` is
+the one way a size computed on the device reaches the host (a join's pair count, a compaction's survivors, a
 gather's chars total, an exchange's histogram): one D2H copy of a few words and one sync, so every
 such wait is counted.  The JAX package's one-buffer transfers
 (``upload_host_batch`` grouping planes by width into at most four uploads,
@@ -60,7 +61,19 @@ class TransferGateway:
         # has run, so it may be dropped here
         return pinned.to(self.device, non_blocking=True)
 
-    def upload_column(self, column: HostColumn) -> DeviceColumn:
+    def upload_column(self, column: HostColumn, encoding=None
+                      ) -> DeviceColumn:
+        """One host column on the device.  With ``encoding`` (a session's
+        ``columnar/encoding.py EncodingSettings``) a dictionary column
+        goes up as its codes (its dictionary once a device) and, with RLE
+        on, a column of few runs as runs; a dictionary column that stays
+        plain is decoded on the host first."""
+        from spark_rapids_tpu_torch.columnar import encoding as ENC
+        if encoding is not None:
+            encoded = ENC.upload_encoded(column, encoding, self)
+            if encoded is not None:
+                return encoded
+        column = ENC.decoded_host_column(column)
         data = self.to_device(column.data)
         offsets = None if column.offsets is None else \
             self.to_device(column.offsets)
@@ -72,8 +85,10 @@ class TransferGateway:
         return DeviceColumn(data, self.to_device(column.validity),
                             column.data_type, offsets=offsets)
 
-    def upload_batch(self, batch: HostColumnarBatch) -> ColumnarBatch:
-        return ColumnarBatch([self.upload_column(c) for c in batch.columns],
+    def upload_batch(self, batch: HostColumnarBatch,
+                     encoding=None) -> ColumnarBatch:
+        return ColumnarBatch([self.upload_column(c, encoding)
+                              for c in batch.columns],
                              batch.row_count, batch.names)
 
     def _to_host_async(self, tensor: torch.Tensor) -> torch.Tensor:
@@ -107,14 +122,22 @@ class TransferGateway:
         return [int(x) for x in host.tolist()]
 
     def download_batch(self, batch: ColumnarBatch) -> HostColumnarBatch:
-        """Copies every plane to pinned host memory, then syncs once."""
+        """Copies every plane to pinned host memory, then syncs once.  A
+        dictionary column comes back as its codes and is reassembled
+        against its host dictionary, with no decode kernel; runs are
+        expanded (K16) first."""
+        from spark_rapids_tpu_torch.columnar import encoding as ENC
+        batch = ENC.materialize_rle_batch(batch, self)
         planes: List = [(self._to_host_async(c.data),
                          self._to_host_async(c.validity), c.data_type,
                          None if c.offsets is None
-                         else self._to_host_async(c.offsets))
+                         else self._to_host_async(c.offsets),
+                         getattr(c, "dictionary", None))
                         for c in batch.columns]
         self.sync()
         cols = [HostColumn(d.numpy(), v.numpy(), dt,
                            None if o is None else o.numpy())
-                for d, v, dt, o in planes]
+                if dic is None else ENC.reassemble_host_dictionary(
+                    d.numpy(), v.numpy(), dic, dt)
+                for d, v, dt, o, dic in planes]
         return HostColumnarBatch(cols, batch.row_count, batch.names)

@@ -16,7 +16,9 @@ has its rows (``TpuGlobalLimitExec``, ``:566``), joined into one batch
 (K7c).  ``TorchCteCacheExec`` (``TpuCteCacheExec``,
 ``:496``) runs a plan that two branches use once per action.
 ``TorchUnionExec`` (``TpuUnionExec``, ``:641``) hands on its children's
-partitions, with no device work."""
+partitions, with no device work.  ``TorchMaterializeEncodedExec``
+(``:793``) decodes encoded columns (K16) where ``plan/encoding.py`` puts
+it."""
 
 from __future__ import annotations
 
@@ -54,6 +56,22 @@ class TorchInMemoryScanExec(LeafExec):
                       for part in self.source.partitions]
             self.source.device_cache[key] = cached
         return cached
+
+
+class TorchMaterializeEncodedExec(UnaryExec):
+    """Decodes every encoded column of its input with K16
+    (``TpuMaterializeEncodedExec``, JAX ``exec/basic.py:793``): the
+    boundary ``plan/encoding.py`` puts in front of an exec that needs
+    values."""
+
+    def node_string(self):
+        return "TorchMaterializeEncoded"
+
+    def execute(self, ctx: ExecContext) -> Partitions:
+        from spark_rapids_tpu_torch.columnar.encoding import \
+            materialize_batch
+        return [[materialize_batch(b, ctx.transfers) for b in part]
+                for part in self.child.execute(ctx)]
 
 
 class _FusedOnly:

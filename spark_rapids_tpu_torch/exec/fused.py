@@ -27,10 +27,16 @@ them once, instead of once per tile.
 
 The compacting stage, K5 (``TpuFusedStageExec``, kind ``fused.stage``),
 is the second part of this module, and the computing projection, K6
-(``eval_exprs_tpu``, kind ``expr.project``), the third."""
+(``eval_exprs_tpu``, kind ``expr.project``), the third.  K1 and K5 also
+take batches whose string columns are dictionary codes
+(``columnar/encoding.py``): ``for_batch`` gives the chain's variant over
+the codes (``code_space_variant``), each conjunct over one such column a
+lookup in a table of the dictionary's values, the other reads decoded
+by K16 first."""
 
 from __future__ import annotations
 
+import copy
 import functools
 import hashlib
 import threading
@@ -44,7 +50,7 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.exec.stage_compiler import get_or_build
 from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
-                                                     Col, EvalContext,
+                                                     EvalContext,
                                                      output_name)
 from spark_rapids_tpu_torch.expressions.evaluator import batch_cols
 from spark_rapids_tpu_torch.kernels import fused_agg as K
@@ -99,6 +105,7 @@ class FusedAggProgram:
         self.update_exprs = layout.update_input_exprs()
         self.update_specs = layout.update_specs()
         self.n_literals = n_literals
+        self.n_tables = 0
         if layout.num_keys:
             raise NotImplementedError(
                 "grouped aggregation is not in this slice of the port")
@@ -107,8 +114,6 @@ class FusedAggProgram:
         self.conditions, outputs = flatten_chain(self.ops, schema)
         self.update_inputs = [over_outputs(e, outputs)
                               for e in self.update_exprs]
-        self.used = K.referenced_columns(self.conditions +
-                                         self.update_inputs)
         self.key = (_ops_signature(self.ops),
                     tuple(str(t) for t in self.input_types),
                     tuple((e.sql(), str(e.data_type))
@@ -116,15 +121,37 @@ class FusedAggProgram:
                     tuple((o, k, cv, str(dt))
                           for o, k, cv, dt in self.update_specs),
                     n_literals)
-        # the kernel for columns that all may hold nulls; emitting it
-        # checks that every expression has a kernel form
-        self.compiled = self.kernel_for((True,) * len(self.input_types))
         #: kernel 2 kinds that fold partial rows: sums add, counts add
         self.fold_kinds = [
             agg_ops.SUM_F64 if kind == "sum" and dt.is_floating
             else agg_ops.SUM_I64
             for _o, kind, _cv, dt in self.update_specs]
         self.buffer_types = [dt for _o, _k, _cv, dt in self.update_specs]
+        self._encoded = {}
+        self._setup()
+
+    def _setup(self) -> None:
+        self.used = K.referenced_columns(self.conditions +
+                                         self.update_inputs)
+        # the kernel for columns that all may hold nulls; emitting it
+        # checks that every expression has a kernel form
+        self.compiled = self.kernel_for((True,) * len(self.input_types))
+
+    def for_batch(self, batch: ColumnarBatch, lits: "LiteralArgs",
+                  transfers):
+        """``(program, batch, lits)`` for a batch that may hold encoded
+        columns: the chain with its code-space conjuncts over the
+        dictionary columns' codes, their tables in ``lits``, and the
+        columns an update input reads decoded (K16)."""
+        from spark_rapids_tpu_torch.columnar import encoding as ENC
+        plan = ENC.plan_code_space(self.conditions, self.update_inputs,
+                                   batch)
+        if plan is None:
+            return self, batch, lits
+        batch, tables = ENC.encoded_inputs(plan, batch, lits.values,
+                                           transfers)
+        return code_space_variant(self, plan), batch, \
+            lits.with_tables(tables)
 
     def kernel_for(self, nullable: Tuple[bool, ...]) -> "FusedKernel":
         """The kernel that reads the validity planes of the columns marked
@@ -133,7 +160,26 @@ class FusedAggProgram:
             "fused.agg_update", self.key + (nullable,),
             lambda: FusedKernel(K.kernel_source(
                 self.input_types, nullable, self.conditions,
-                self.update_inputs, self.update_specs, self.n_literals)))
+                self.update_inputs, self.update_specs, self.n_literals,
+                self.n_tables)))
+
+
+def code_space_variant(program, plan):
+    """``program`` (a ``FusedAggProgram`` or a ``StageProgram``) over a
+    batch that ``plan`` (``columnar/encoding.py plan_code_space``) reads:
+    each kept dictionary column an INT column of codes, the conditions
+    with their lookups; built once a plan signature."""
+    variant = program._encoded.get(plan.signature)
+    if variant is None:
+        variant = copy.copy(program)
+        variant.input_types = [T.INT if i in plan.kept else t
+                               for i, t in enumerate(program.input_types)]
+        variant.conditions = plan.conditions
+        variant.n_tables = len(plan.slots)
+        variant.key = program.key + ("codes",) + plan.signature
+        variant._setup()
+        program._encoded[plan.signature] = variant
+    return variant
 
 
 class FusedKernel:
@@ -160,12 +206,19 @@ class FusedKernel:
 
 class LiteralArgs:
     """Promoted literal values: ``values`` for the plain version, ``words``
-    (an int64 tensor on the batch's device) for the kernel."""
+    (an int64 tensor on the batch's device) for the kernel; ``tables``,
+    the device lookup tables of a batch's code-space conjuncts
+    (``columnar/encoding.py DictContains``), for both."""
 
     def __init__(self, values: Sequence,
-                 words: Optional[torch.Tensor] = None):
+                 words: Optional[torch.Tensor] = None,
+                 tables: Sequence[torch.Tensor] = ()):
         self.values = list(values)
         self.words = words
+        self.tables = list(tables)
+
+    def with_tables(self, tables: Sequence[torch.Tensor]) -> "LiteralArgs":
+        return LiteralArgs(self.values, self.words, tables)
 
     @staticmethod
     def upload(promoted, transfers) -> "LiteralArgs":
@@ -232,36 +285,23 @@ def fused_agg_update(program: FusedAggProgram, batch: ColumnarBatch,
     return out, out_valid
 
 
-def trace_chain(ops, ctx: EvalContext) -> Tuple[List[Col], torch.Tensor]:
-    """Applies the filter/project chain in plain PyTorch: (columns,
-    selection mask)."""
-    cols = ctx.cols
-    sel = torch.ones(ctx.row_count, dtype=torch.bool, device=ctx.device)
-    for kind, payload in ops:
-        step = EvalContext(cols, ctx.row_count, ctx.device,
-                           ctx.literal_args)
-        if kind == "filter":
-            pred = payload.eval(step)
-            sel = sel & pred.valid & pred.data
-        else:
-            cols = [e.eval(step) for e in payload]
-    return cols, sel
-
-
 def fused_agg_update_plain(program: FusedAggProgram, batch: ColumnarBatch,
                            lits: LiteralArgs
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of kernel 1: the whole batch as one
-    program, so the tables have one row."""
+    program, so the tables have one row; the chain flattened, as the
+    kernel reads it."""
     _check_batch(program, batch)
     dev = batch.device
     ctx = EvalContext(batch_cols(batch), batch.row_count, dev,
-                      lits.values)
-    cols, sel = trace_chain(program.ops, ctx)
-    upd_ctx = EvalContext(cols, batch.row_count, dev, lits.values)
+                      lits.values, lits.tables)
+    sel = torch.ones(batch.row_count, dtype=torch.bool, device=dev)
+    for cond in program.conditions:
+        p = cond.eval(ctx)
+        sel = sel & p.valid & p.data
     words, oks = [], []
     for ordinal, kind, count_valid_only, dtype in program.update_specs:
-        c = program.update_exprs[ordinal].eval(upd_ctx)
+        c = program.update_inputs[ordinal].eval(ctx)
         present = sel if kind == "count" and not count_valid_only \
             else sel & c.valid
         if kind == "count":
@@ -328,10 +368,14 @@ class TorchFusedAggExec(UnaryExec):
                 f"keys={self.layout.num_keys}{distinct}]" +
                 chain_string(self.ops, self.promoted))
 
-    def update_batch(self, batch: ColumnarBatch, lits: LiteralArgs
-                     ) -> ColumnarBatch:
-        """One buffer row for ``batch``: kernel 1, then kernel 2's fold."""
-        words, valid = fused_agg_update(self.program, batch, lits)
+    def update_batch(self, batch: ColumnarBatch, lits: LiteralArgs,
+                     transfers=None) -> ColumnarBatch:
+        """One buffer row for ``batch``: kernel 1 (its code-space
+        conjuncts over a dictionary column's codes), then kernel 2's
+        fold."""
+        program, batch, lits = self.program.for_batch(batch, lits,
+                                                      transfers)
+        words, valid = fused_agg_update(program, batch, lits)
         row, row_valid = agg_ops.global_reduce(words, valid,
                                                self.program.fold_kinds)
         return agg_ops.unpack_row(row, row_valid, self.program.buffer_types,
@@ -353,7 +397,8 @@ class TorchFusedAggExec(UnaryExec):
         if self.program is not None:
             lits = LiteralArgs.upload(self.promoted, ctx.transfers)
             scalar = iter(finish(self.scalar, merge_partials(
-                self.scalar, [self.update_batch(batch, lits)])).columns)
+                self.scalar, [self.update_batch(batch, lits,
+                                                ctx.transfers)])).columns)
         cols = []
         for i in range(len(self.layout.aggs)):
             if i not in self.distinct:
@@ -373,7 +418,7 @@ class TorchFusedAggExec(UnaryExec):
         lits = LiteralArgs.upload(self.promoted, ctx.transfers)
         out = []
         for part in self.child.execute(ctx):
-            rows = [self.update_batch(b, lits) for b in part]
+            rows = [self.update_batch(b, lits, ctx.transfers) for b in part]
             if self.mode == PARTIAL:
                 out.append(rows)
             elif rows:
@@ -395,8 +440,11 @@ class TorchFusedAggExec(UnaryExec):
 # of bare column references with no filter is a column selection and
 # launches nothing (``exec/basic.py TorchSelectExec``).
 
-#: launches of K5 (wrapper calls that launch it)
+#: launches of K5 (wrapper calls that launch it), and of K5 in its
+#: code-space mode (a stage with lookup tables of dictionary conjuncts,
+#: ``columnar/encoding.py DictContains``), counted apart
 STAGE_LAUNCHES = 0
+CODE_SPACE_LAUNCHES = 0
 #: rows per tile, warps per program of K5's count and write kernels
 STAGE_BLOCK = 1024
 STAGE_WARPS = 4
@@ -450,6 +498,7 @@ class StageProgram:
             string_view_ordinal
         self.input_types = list(schema.types)
         self.conditions, outputs = flatten_chain(ops, schema)
+        self.outputs = outputs
         self.bare = [bare_ordinal(e) for e in outputs]
         #: K13's form of each output it writes, else None
         self.strings = [None if b is not None else k13_form(e)
@@ -460,12 +509,35 @@ class StageProgram:
         for e in self.computed:
             if isinstance(e.data_type, T.StringType):
                 string_view_ordinal(e)   # a CASE view, or refused by name
-        self.used = K.referenced_columns(self.conditions + self.computed)
         self.n_literals = n_literals
+        self.n_tables = 0
         self.key = (_ops_signature(ops),
                     tuple(str(t) for t in self.input_types), n_literals)
+        self._encoded = {}
+        self._setup()
+
+    def _setup(self) -> None:
+        self.used = K.referenced_columns(self.conditions + self.computed)
         # emitting checks that every expression has a kernel form
         self.kernel_for((True,) * len(self.input_types))
+
+    def for_batch(self, batch: ColumnarBatch, lits: LiteralArgs, transfers):
+        """``(program, batch, lits, kept)`` for a batch that may hold
+        encoded columns: the chain with its code-space conjuncts over the
+        dictionary columns' codes (their tables in ``lits``), the columns
+        a computed output or another predicate reads decoded (K16), and
+        ``kept``, the dictionary columns read as codes, whose bare outputs
+        the caller rewraps."""
+        from spark_rapids_tpu_torch.columnar import encoding as ENC
+        plan = ENC.plan_code_space(
+            self.conditions, [e for e, b in zip(self.outputs, self.bare)
+                              if b is None], batch)
+        if plan is None:
+            return self, batch, lits, ()
+        encoded, tables = ENC.encoded_inputs(plan, batch, lits.values,
+                                             transfers)
+        return code_space_variant(self, plan), encoded, \
+            lits.with_tables(tables), plan.kept
 
     @property
     def computes(self) -> bool:
@@ -505,7 +577,7 @@ class StageProgram:
             "fused.stage", self.key + (nullable,),
             lambda: FusedKernel(S.stage_source(
                 self.input_types, nullable, self.conditions, self.computed,
-                self.n_literals), prefix="fused_stage_"))
+                self.n_literals, self.n_tables), prefix="fused_stage_"))
 
 
 def _column_args(program, batch: ColumnarBatch, lits: LiteralArgs) -> List:
@@ -525,6 +597,8 @@ def _column_args(program, batch: ColumnarBatch, lits: LiteralArgs) -> List:
             args.append(c.validity.contiguous().view(torch.uint8))
     if program.n_literals:
         args.append(lits.words)
+    if program.n_tables:
+        args += lits.tables
     return args
 
 
@@ -575,8 +649,11 @@ def fused_stage_compact(program: StageProgram, batch: ColumnarBatch,
             fk.kernel(S.WRITE_KERNEL)[(n_tiles,)](
                 *args, counts, idx, *planes, n, BLOCK=STAGE_BLOCK,
                 num_warps=STAGE_WARPS)
-    global STAGE_LAUNCHES
-    STAGE_LAUNCHES += 1
+    global STAGE_LAUNCHES, CODE_SPACE_LAUNCHES
+    if program.n_tables:
+        CODE_SPACE_LAUNCHES += 1
+    else:
+        STAGE_LAUNCHES += 1
     return idx, outs
 
 
@@ -586,7 +663,8 @@ def fused_stage_compact_plain(program: StageProgram, batch: ColumnarBatch,
     """The plain PyTorch version of K5 (it reads the survivors' count
     through the gateway, as the kernel does)."""
     dev = batch.device
-    ctx = EvalContext(batch_cols(batch), batch.row_count, dev, lits.values)
+    ctx = EvalContext(batch_cols(batch), batch.row_count, dev, lits.values,
+                      lits.tables)
     sel = torch.ones(batch.row_count, dtype=torch.bool, device=dev)
     for cond in program.conditions:
         p = cond.eval(ctx)
@@ -626,16 +704,24 @@ class TorchFusedStageExec(UnaryExec):
 
     def stage_batch(self, batch: ColumnarBatch, lits: LiteralArgs,
                     transfers) -> ColumnarBatch:
+        """K5 over one batch; a dictionary column kept as codes (its
+        conjuncts looked up in code space) leaves as the survivors'
+        codes, still encoded."""
         from spark_rapids_tpu_torch.ops.batch_ops import gather_columns
-        idx, computed = fused_stage_compact(self.program, batch, lits,
+        original = batch
+        program, batch, lits, kept = self.program.for_batch(batch, lits,
+                                                            transfers)
+        idx, computed = fused_stage_compact(program, batch, lits,
                                             transfers)
-        wanted = sorted({b for b in self.program.bare if b is not None})
+        wanted = sorted({b for b in program.bare if b is not None})
         moved = dict(zip(wanted, gather_columns(
             [batch.columns[b] for b in wanted], idx, transfers,
             unique=True))) if wanted else {}
+        for b in set(kept) & set(moved):
+            moved[b] = original.columns[b].with_codes(moved[b])
         # K13 reads the input columns at the survivors' rows
-        cols = self.program.assemble(moved, computed, batch.columns,
-                                     idx.shape[0], transfers, idx)
+        cols = program.assemble(moved, computed, batch.columns,
+                                idx.shape[0], transfers, idx)
         return ColumnarBatch(cols, idx.shape[0], self.schema.names)
 
     def execute(self, ctx: ExecContext) -> Partitions:

@@ -32,14 +32,17 @@ class Col:
 class EvalContext:
     """Input columns of one evaluation.  ``literal_args`` holds the values
     of promoted literal slots (plan/stages.py), when a chain runs with
-    runtime literals."""
+    runtime literals; ``tables`` the lookup tables of its code-space
+    conjuncts (``columnar/encoding.py DictContains``)."""
 
     def __init__(self, cols: Sequence[Col], row_count: int,
-                 device: torch.device, literal_args: Optional[list] = None):
+                 device: torch.device, literal_args: Optional[list] = None,
+                 tables: Optional[list] = None):
         self.cols = list(cols)
         self.row_count = int(row_count)
         self.device = device
         self.literal_args = literal_args
+        self.tables = tables
 
     def full(self, value, dtype: T.DataType) -> Col:
         n = self.row_count

@@ -1,5 +1,6 @@
 """String functions (the analog of ``spark_rapids_tpu/expressions/
-strings.py``): ``Substring`` (``:157``) and ``Concat`` (``:105``).
+strings.py``): ``Substring`` (``:157``), ``Concat`` (``:105``) and, with a
+plain form only, ``Like`` (``:313``).
 
 ``Substring`` works on bytes, as the JAX package's device form does: a
 1-based ``pos`` (0 acts as 1, a negative one counts from the end) and an
@@ -170,3 +171,53 @@ def k13_form(e: Expression) -> Optional[StringForm]:
     if type(e) is Literal and isinstance(e.data_type, T.StringType):
         return StringForm(SO.CONCAT, [_string_part(e)])
     return None
+
+
+class Like(Expression):
+    """``s LIKE pattern`` (the JAX package's ``Like``, ``expressions/
+    strings.py:313``): ``%`` any run of characters, ``_`` one character,
+    ``\\`` escapes the next one; the pattern is a string literal.  It has
+    a plain ``eval`` only (host regex matching, as the JAX package's
+    ``eval_cpu``): it runs where a conjunct over a dictionary column is
+    evaluated once over the dictionary's values (``columnar/encoding.py
+    lookup_table``); inside a kernel it is refused by name."""
+
+    def __init__(self, child: Expression, pattern):
+        value = pattern.value if isinstance(pattern, Literal) else pattern
+        if not isinstance(value, str):
+            raise NotImplementedError(
+                f"LIKE takes a string literal pattern in the port, got "
+                f"{pattern!r}")
+        super().__init__([child])
+        self.pattern = value
+
+    @property
+    def data_type(self):
+        return T.BOOLEAN
+
+    def sql(self):
+        return f"({self.children[0].sql()} LIKE {self.pattern!r})"
+
+    def regex(self):
+        import re
+        out, i, p = "^", 0, self.pattern
+        while i < len(p):
+            ch = p[i]
+            if ch == "\\" and i + 1 < len(p):
+                out += re.escape(p[i + 1])
+                i += 2
+                continue
+            out += ".*" if ch == "%" else "." if ch == "_" else re.escape(ch)
+            i += 1
+        return re.compile(out + "$", flags=re.DOTALL)
+
+    def eval(self, ctx: EvalContext) -> Col:
+        c = self.children[0].eval(ctx)
+        rx = self.regex()
+        raw = c.data.cpu().numpy().tobytes()
+        offs = c.offsets.cpu().tolist()
+        valid = c.valid.cpu().tolist()
+        hits = [ok and rx.match(raw[offs[i]:offs[i + 1]].decode("utf-8"))
+                is not None for i, ok in enumerate(valid)]
+        return Col(torch.tensor(hits, dtype=torch.bool, device=ctx.device),
+                   c.valid)

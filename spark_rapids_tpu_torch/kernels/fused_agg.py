@@ -42,6 +42,7 @@ import struct
 from typing import Callable, Dict, List, Sequence, Tuple
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.encoding import DictContains
 from spark_rapids_tpu_torch.expressions import arithmetic as A
 from spark_rapids_tpu_torch.expressions import cast as CA
 from spark_rapids_tpu_torch.expressions import conditional as CO
@@ -248,6 +249,18 @@ class ChainEmitter:
 @emits(BoundReference)
 def _bound_reference(em, e, cols):
     return cols[e.ordinal]
+
+
+@emits(DictContains)
+def _dict_contains(em, e, cols):
+    """A code-space conjunct: its runtime table ``tab{slot}`` (uint8: the
+    null verdict, then one flag a dictionary value) at ``code + 1``, or
+    at 0 for a null row; never null."""
+    code, valid = em.emit(e.children[0], cols)
+    idx = em.let(f"{code}.to(tl.int64) + 1") if valid == em.TRUE else \
+        em.let(f"tl.where({valid}, {code}.to(tl.int64) + 1, 0)")
+    return em.let(f"tl.load(tab{e.slot} + {idx}, mask=inb, other=0) != 0"), \
+        em.TRUE
 
 
 @emits(Alias)
@@ -661,17 +674,25 @@ def load_columns(input_types, nullable, used, conditions, em: ChainEmitter
     return params, cols, sel
 
 
+def table_params(n_tables: int) -> List[str]:
+    """The parameters of a chain's code-space tables, after its literal
+    table (``DictContains``)."""
+    return [f"tab{s}" for s in range(n_tables)]
+
+
 def kernel_source(input_types: Sequence[T.DataType], nullable: Sequence[bool],
                   conditions: Sequence[Expression],
                   update_exprs: Sequence[Expression], update_specs,
-                  n_literals: int) -> str:
+                  n_literals: int, n_tables: int = 0) -> str:
     """Source of a module whose ``fused_agg_update`` kernel evaluates the
     chain's ``conditions`` and ``update_exprs`` (both over the input
     columns: the chain flattened, ``exec/fused.py flatten_chain``) and
     writes one partial row per program.
 
     The kernel takes the columns the expressions read (``load_columns``),
-    then the literal table.  ``update_specs`` are ``(ordinal, kind,
+    then the literal table, then the tables of its code-space conjuncts
+    (``n_tables``; a dictionary column's codes are read as an INT
+    column).  ``update_specs`` are ``(ordinal, kind,
     count_valid_only, dtype)`` over ``update_exprs``; kinds ``sum`` and
     ``count`` have kernel forms."""
     em = ChainEmitter()
@@ -680,6 +701,7 @@ def kernel_source(input_types: Sequence[T.DataType], nullable: Sequence[bool],
                                      conditions, em)
     if n_literals:
         params.append("lits")
+    params += table_params(n_tables)
     n_buffers = len(update_specs)
     inits, stores = [], []
     counts: Dict[str, str] = {}   # presence mask -> its count accumulator

@@ -53,7 +53,8 @@ from spark_rapids_tpu_torch.expressions.conditional import CaseWhen
 from spark_rapids_tpu_torch.kernels.fused_agg import (_PREAMBLE, _TL,
                                                       ChainEmitter,
                                                       load_columns,
-                                                      referenced_columns)
+                                                      referenced_columns,
+                                                      table_params)
 
 PROJECT_KERNEL = "stage_project"
 COUNT_KERNEL = "stage_count"
@@ -103,13 +104,16 @@ def _kernel(name: str, params: List[str], em: ChainEmitter,
 def stage_source(input_types: Sequence[T.DataType],
                  nullable: Sequence[bool],
                  conditions: Sequence[Expression],
-                 computed: Sequence[Expression], n_literals: int) -> str:
+                 computed: Sequence[Expression], n_literals: int,
+                 n_tables: int = 0) -> str:
     """Source of a module with the three kernels of one stage.
 
     ``conditions`` and ``computed`` are expressions over the input columns;
-    a column marked in ``nullable`` is read with its validity plane."""
+    a column marked in ``nullable`` is read with its validity plane.  The
+    kernels take the columns, the literal table, then the ``n_tables``
+    tables of the code-space conjuncts (``DictContains``)."""
     used = referenced_columns(list(conditions) + list(computed))
-    lits = ["lits"] if n_literals else []
+    lits = (["lits"] if n_literals else []) + table_params(n_tables)
 
     em = ChainEmitter()
     params, _cols, sel = load_columns(input_types, nullable, used,

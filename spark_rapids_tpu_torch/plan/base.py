@@ -1,6 +1,7 @@
 """Plan nodes (the analog of ``spark_rapids_tpu/plan/base.py``).
 
-Two trees: the logical plan a DataFrame builds (``Scan``, ``Filter``,
+Two trees: the logical plan a DataFrame builds (``Scan``, ``FileScan``,
+``Filter``,
 ``Project``, ``Aggregate``, ``Exchange``, ``Join``, ``Union``, ``Sort``,
 ``Limit``, ``CteCache``, ``Window``, ``Expand``),
 and the physical ``Exec`` tree
@@ -121,6 +122,27 @@ class Scan(LogicalPlan):
     def node_string(self):
         rows = sum(b.row_count for p in self.partitions for b in p)
         return f"Scan[{self.num_partitions}p, {rows} rows]"
+
+
+class FileScan(LogicalPlan):
+    """A scan of files: ``scan`` is the host reader
+    (``io/multifile.py MultiFileScanBase``, e.g. ``io/parquet.py
+    CpuParquetScan``), whose strategy fixes the partitions."""
+
+    def __init__(self, scan):
+        super().__init__()
+        self.scan = scan
+
+    @property
+    def schema(self):
+        return self.scan.schema
+
+    @property
+    def num_partitions(self):
+        return self.scan.num_partitions
+
+    def node_string(self):
+        return f"FileScan[{self.scan.node_desc()}]"
 
 
 class Filter(LogicalPlan):

@@ -1,7 +1,9 @@
 """The planner (the analog of ``spark_rapids_tpu/plan/overrides.py``): turns
-the logical plan a DataFrame builds into port execs, fuses each
-filter/project chain into a kernel (``plan/stages.py``), and refuses
-whatever the port cannot run yet, naming it."""
+the logical plan a DataFrame builds into port execs, pushes a filter down
+to the file scan under it, fuses each filter/project chain into a kernel
+(``plan/stages.py``), puts the decode of encoded columns where an
+operator needs values (``plan/encoding.py``), and refuses whatever the
+port cannot run yet, naming it."""
 
 from __future__ import annotations
 
@@ -30,9 +32,30 @@ _SUPPORTED_AGGREGATES = (Sum, Count, Average, CountDistinct, _CentralMoment)
 
 
 class TorchOverrides:
+    def __init__(self, conf=None):
+        from spark_rapids_tpu_torch.columnar.encoding import EncodingSettings
+        from spark_rapids_tpu_torch.config import TorchConf
+        self.conf = conf if conf is not None else TorchConf()
+        self.encoding = EncodingSettings.of(self.conf)
+
     def apply(self, logical: L.LogicalPlan) -> L.Exec:
+        from spark_rapids_tpu_torch.plan.encoding import \
+            insert_materialize_boundaries
         self._ctes = {}
-        return fuse_device_stages(self._convert(logical))
+        return insert_materialize_boundaries(
+            fuse_device_stages(self._convert(logical)), self.encoding)
+
+    def _file_scan(self, node: L.FileScan, predicate=None) -> L.Exec:
+        """The device scan; a filter right above it is pushed down to the
+        reader (``push_scan_predicates``, JAX ``plan/overrides.py:345``),
+        and stays above it, so the rows are exact either way."""
+        import copy
+        from spark_rapids_tpu_torch.io.parquet import TorchParquetScanExec
+        scan = node.scan
+        if predicate is not None and getattr(scan, "predicate", 1) is None:
+            scan = copy.copy(scan)
+            scan.predicate = predicate
+        return TorchParquetScanExec(scan, self.encoding)
 
     def _convert(self, node: L.LogicalPlan) -> L.Exec:
         if isinstance(node, L.CteCache):
@@ -43,6 +66,12 @@ class TorchOverrides:
             return self._ctes[id(node)][1]
         if isinstance(node, L.Scan):
             return TorchInMemoryScanExec(node)
+        if isinstance(node, L.FileScan):
+            return self._file_scan(node)
+        if isinstance(node, L.Filter) and \
+                isinstance(node.children[0], L.FileScan):
+            return TorchFilterExec(node.condition, self._file_scan(
+                node.children[0], node.condition))
         if isinstance(node, L.Join) and node.how == CROSS:
             return TorchBroadcastNestedLoopJoinExec(
                 self._convert(node.children[0]),

@@ -1,6 +1,7 @@
 """Session, DataFrame and GroupedData (the analog of
 ``spark_rapids_tpu/session.py``, for the recipes the port runs: in-memory
-tables, ``filter``, ``select`` and ``with_column`` (``:460``; with window
+tables and parquet files (``read.parquet``, ``:217``), ``filter``,
+``select`` and ``with_column`` (``:460``; with window
 expressions, extracted as ``_plan_windows`` ``:392`` does), ``join``
 (``:637``; inner, left, right and full outer, left semi and left anti, on
 one or several key columns, and cross), ``group_by`` (``:729``), ``rollup`` (``:736``;
@@ -55,6 +56,11 @@ class TorchSession:
         self.device: torch.device = resolve_device(device)
         self.transfers = TransferGateway(self.device)
 
+    @property
+    def read(self) -> "_Reader":
+        """File readers: ``session.read.parquet(*paths, columns=None)``."""
+        return _Reader(self)
+
     def create_dataframe(self, data, num_partitions: int = 1,
                          schema: Optional[T.StructType] = None
                          ) -> "DataFrame":
@@ -71,6 +77,27 @@ class TorchSession:
         parts = [[hb.slice(i * per, min(per, n - i * per))]
                  for i in range(num_partitions) if i * per < n] or [[hb]]
         return DataFrame(L.Scan(parts, hb.schema), self)
+
+
+class _Reader:
+    """``TorchSession.read`` (the JAX package's ``session.py:217``)."""
+
+    def __init__(self, session: TorchSession):
+        self._s = session
+
+    def parquet(self, *paths, columns=None) -> "DataFrame":
+        """Parquet files, directories or globs, read by the strategy of
+        ``spark.rapids.sql.format.parquet.reader.type``; ``columns``
+        prunes the read.  With ``spark.rapids.sql.encoding.enabled`` their
+        string columns reach the card as dictionary codes."""
+        from spark_rapids_tpu_torch.io.parquet import CpuParquetScan
+        conf = self._s.conf
+        scan = CpuParquetScan(
+            list(paths), columns,
+            batch_rows=conf.get_int(C.MAX_READER_BATCH_SIZE_ROWS),
+            reader_type=conf.get(C.READER_TYPE),
+            num_threads=conf.get_int(C.MULTITHREADED_READ_NUM_THREADS))
+        return DataFrame(L.FileScan(scan), self._s)
 
 
 class DataFrame:
@@ -310,7 +337,7 @@ class DataFrame:
 
     def executed_plan(self) -> L.Exec:
         from spark_rapids_tpu_torch.plan.overrides import TorchOverrides
-        return TorchOverrides().apply(self._plan)
+        return TorchOverrides(self._session.conf).apply(self._plan)
 
     def explain(self) -> str:
         return "== Logical ==\n" + self._plan.tree_string() + \
@@ -321,12 +348,19 @@ class DataFrame:
         (K7c) and downloaded once."""
         from spark_rapids_tpu_torch.ops.batch_ops import (concat_batches,
                                                           empty_batch)
+        from spark_rapids_tpu_torch.columnar import encoding as ENC
         s = self._session
         ctx = L.ExecContext(s.device, s.transfers)
         batches = [b for part in self.executed_plan().execute(ctx)
                    for b in part]
-        whole = concat_batches(batches) if batches else \
-            empty_batch(self.schema, s.device)
+        if any(ENC.batch_has_encoded(b) for b in batches):
+            # dictionary columns come back as codes (late
+            # materialization up to the result)
+            whole = ENC.concat_encoded(batches, s.transfers) \
+                if len(batches) > 1 else batches[0]
+        else:
+            whole = concat_batches(batches) if batches else \
+                empty_batch(self.schema, s.device)
         return s.transfers.download_batch(whole)
 
     def collect(self) -> List[dict]:

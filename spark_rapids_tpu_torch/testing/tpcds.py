@@ -2565,3 +2565,66 @@ def q5_numpy(tables: Dict[str, dict], dates=Q5_DATES, limit=100) -> list:
     rows.sort(key=lambda r: (r["channel"] is not None, r["channel"] or "",
                              r["id"] is not None, r["id"] or ""))
     return rows if limit is None else rows[:limit]
+
+
+#: the version the ``_DONE`` marker of a written table set holds (the JAX
+#: package's ``_DATAGEN_VERSION``)
+DATAGEN_VERSION = 3
+
+
+def write_parquet_tables(tables: Dict[str, dict], root: str,
+                         num_partitions: int = 1, columns=None) -> str:
+    """Writes each table of ``tables`` (``generate_tables`` output) as the
+    JAX package's ``_register_tables_parquet`` writes it
+    (``spark_rapids_tpu/testing/tpcds.py:437``): a directory a table
+    under ``root``, ``part-{i}.parquet`` files cut by the
+    ``register_tables`` rule (``num_partitions`` parts of 1000 rows or
+    more, else one), pyarrow's default row groups, and a ``_DONE`` marker
+    with the generator's version.  ``columns`` ({table: names}, e.g. a
+    query's ``Q*_COLUMNS``) writes only those.  Returns ``root``."""
+    import os
+
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    os.makedirs(root, exist_ok=True)
+    for name, cols in tables.items():
+        if columns is not None and name not in columns:
+            continue
+        keep = cols if columns is None else \
+            {c: cols[c] for c in columns[name]}
+        tdir = os.path.join(root, name)
+        os.makedirs(tdir, exist_ok=True)
+        tbl = pa.table({k: pa.array(v) for k, v in keep.items()})
+        nrows = tbl.num_rows
+        parts = num_partitions if nrows >= 1000 else 1
+        per = max(1, (nrows + parts - 1) // parts)
+        for i in range(parts):
+            piece = tbl.slice(i * per, per)
+            if piece.num_rows or i == 0:
+                pq.write_table(piece,
+                               os.path.join(tdir, f"part-{i}.parquet"))
+    with open(os.path.join(root, "_DONE"), "w") as f:
+        f.write(str(DATAGEN_VERSION))
+    return root
+
+
+def merge_columns(*column_sets) -> Dict[str, list]:
+    """The union of several queries' ``Q*_COLUMNS``, in first-seen
+    order (one table set written for all of them)."""
+    out: Dict[str, list] = {}
+    for cs in column_sets:
+        for t, names in cs.items():
+            have = out.setdefault(t, [])
+            have += [c for c in names if c not in have]
+    return out
+
+
+def parquet_frames(session, root: str, columns: Dict[str, list]) -> list:
+    """A DataFrame a table of ``columns`` (a query's ``Q*_COLUMNS``, whose
+    order is its recipe's arguments), read from ``root`` (as
+    ``write_parquet_tables`` writes it) with ``read.parquet(...,
+    columns=)``: the columns the query reads, as the JAX planner prunes
+    them."""
+    import os
+    return [session.read.parquet(os.path.join(root, t), columns=list(cs))
+            for t, cs in columns.items()]

@@ -18,6 +18,7 @@ __all__ = [
     "DoubleType", "StringType", "DateType", "StructField", "StructType",
     "NULL", "BOOLEAN", "INT", "LONG", "DOUBLE", "STRING", "DATE",
     "from_numpy_dtype", "common_type", "date_days", "days_date",
+    "from_arrow", "to_arrow",
 ]
 
 
@@ -130,6 +131,44 @@ def from_numpy_dtype(dt) -> DataType:
         raise NotImplementedError(
             f"numpy dtype {dt} has no type in this port yet")
     return _FROM_NUMPY[dt]
+
+
+def from_arrow(at) -> DataType:
+    """The port's type of an Arrow type (a parquet column's, as pyarrow
+    reads it): the value type of a dictionary; int8, int16 and int32 are
+    INT, float32 and float64 DOUBLE (the port has no byte, short or
+    float type); a type the port has no column for is refused by
+    name."""
+    import pyarrow as pa
+    if pa.types.is_dictionary(at):
+        at = at.value_type
+    if pa.types.is_boolean(at):
+        return BOOLEAN
+    if pa.types.is_int8(at) or pa.types.is_int16(at) or \
+            pa.types.is_int32(at):
+        return INT
+    if pa.types.is_int64(at):
+        return LONG
+    if pa.types.is_float32(at) or pa.types.is_float64(at):
+        return DOUBLE
+    if pa.types.is_string(at) or pa.types.is_large_string(at):
+        return STRING
+    if pa.types.is_date32(at):
+        return DATE
+    if pa.types.is_null(at):
+        return NULL
+    raise NotImplementedError(f"an Arrow {at} column is not in the port "
+                              "yet")
+
+
+def to_arrow(dt: DataType):
+    """The Arrow type of a port type (the parquet writer's)."""
+    import pyarrow as pa
+    arrow = {BooleanType: pa.bool_(), IntegerType: pa.int32(),
+             LongType: pa.int64(), DoubleType: pa.float64(),
+             StringType: pa.string(), DateType: pa.date32(),
+             NullType: pa.null()}
+    return arrow[type(dt)]
 
 
 def common_type(a: DataType, b: DataType) -> DataType:

@@ -12,10 +12,11 @@ K6's div, % and CASE WHEN, K11h, K11r, K7s (and their launch counts),
 K9's merge kinds, K14s (running frames), K14b (bounded ROWS frames),
 K14o (lag/lead source rows, their default, ntile), K10f (the full outer
 join), IS NULL / IS NOT NULL in K5 and K6, K13 (computed strings:
-substring and concat), K10's null-safe mode and K5's packed-word IN, and
-TPC-DS q3, q1, q7, q15, q12, q20, q13, q19, q16, q17, q10, q18, q6, q28,
-q36, q51, q8 and q5 end to end against the CPU run (q3, q18, q51, q8 and
-q5 also over four partitions).
+substring and concat), K10's null-safe mode and K5's packed-word IN, K16
+(dictionary decode of every type, RLE expansion), K5's code-space mode,
+and TPC-DS q3, q1, q7, q15, q12, q20, q13, q19, q16, q17, q10, q18, q6,
+q28, q36, q51, q8 and q5 end to end against the CPU run (q3, q18, q51, q8
+and q5 also over four partitions; q3, q7 and q19 also from parquet).
 
 Every test needs a CUDA card and skips without one.  This file imports
 nothing of JAX, so it runs where JAX is not installed:
@@ -1323,3 +1324,150 @@ def test_q8_q5_match_the_cpu_run(card, query):
                     assert abs(g[k] - r[k]) <= 1e-9 * max(abs(r[k]), 1.0)
                 else:
                     assert g[k] == r[k]
+
+
+def _dictionary(session, rng, dt, size):
+    """``size`` values of ``dt`` on the card, 10% of them null."""
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    valid = rng.random(size) >= 0.1
+    if dt == T.STRING:
+        words = ["", "x", "abcdefg", "abcdefgh", "日本語です", "é" * 20]
+        return session.transfers.upload_column(HostColumn.from_strings(
+            [None if not ok else words[i % 6] + str(i)
+             for i, ok in enumerate(valid)]))
+    data = rng.integers(-10 ** 6, 10 ** 6, size)
+    if dt == T.BOOLEAN:
+        data = data % 2 == 0
+    return session.transfers.upload_column(HostColumn(
+        data.astype(dt.np_dtype), valid, dt))
+
+
+@pytest.mark.parametrize("dt", [T.STRING, T.BOOLEAN, T.INT, T.DATE, T.LONG,
+                                T.DOUBLE])
+@pytest.mark.parametrize("size", [0, 1, 7, 70000])
+def test_k16_dictionary_matches_plain(card, dt, size):
+    """K16's dictionary forms against the plain version: 10% null codes,
+    null values, an empty dictionary (every row null); counted once a
+    launch."""
+    from spark_rapids_tpu_torch.ops import decode_ops as D
+    rng = np.random.default_rng(size)
+    tr = card.transfers
+    values = _dictionary(card, rng, dt, size)
+    n = 100_003
+    codes = torch.from_numpy(rng.integers(0, max(size, 1), n).astype(
+        np.int32)).cuda()
+    valid = torch.from_numpy(rng.random(n) >= 0.1).cuda()
+    for mask in (None, valid):
+        before = D.DICT_LAUNCHES
+        got = D.decode_dictionary(codes, mask, values, tr)
+        assert D.DICT_LAUNCHES == before + 1
+        same([got], [D.decode_dictionary_plain(codes, mask, values, tr)])
+
+
+@pytest.mark.parametrize("dt", [T.BOOLEAN, T.INT, T.LONG, T.DOUBLE])
+def test_k16_rle_matches_plain(card, dt):
+    from spark_rapids_tpu_torch.ops import decode_ops as D
+    rng = np.random.default_rng(3)
+    ends = np.cumsum(rng.integers(1, 1001, 300))
+    n = int(ends[-1])
+    vals = _dictionary(card, rng, dt, 300)
+    dends = torch.from_numpy(ends.astype(np.int32)).cuda()
+    for m in (n, n + 17):
+        got = D.decode_rle(vals.data, vals.validity, dends, m, dt)
+        same([got], [D.decode_rle_plain(vals.data, vals.validity, dends, m,
+                                        dt)])
+
+
+@pytest.mark.parametrize("what", ["=", "IN", "<>", "IS NULL", "OR"])
+def test_code_space_stage_matches_decoded_stage(card, what):
+    """K5's code-space mode against K5 over the decoded strings and the
+    plain version."""
+    import pyarrow as pa
+    from spark_rapids_tpu_torch.columnar import encoding as ENC
+    from spark_rapids_tpu_torch.columnar.batch import HostColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.expressions import predicates as P
+    from spark_rapids_tpu_torch.expressions.base import (bind_references,
+                                                         col, lit)
+    rng = np.random.default_rng(5)
+    n = 200_001
+    names = [f"v{i}é" for i in range(300)]
+    arr = pa.DictionaryArray.from_arrays(
+        pa.array(rng.integers(0, 300, n).astype(np.int32),
+                 mask=rng.random(n) < 0.1), pa.array(names))
+    hb = HostColumnarBatch([ENC.HostDictionaryColumn(arr),
+                            HostColumn(np.arange(n, dtype=np.int64), None,
+                                       T.LONG)], n, ["s", "k"])
+    tr = card.transfers
+    b = tr.upload_batch(hb, ENC.EncodingSettings())
+    assert isinstance(b.columns[0], ENC.DictionaryColumn)
+    cond = {"=": P.EqualTo(col("s"), lit("v3é")),
+            "IN": P.In(col("s"), ["v1é", "v9é", "none"]),
+            "<>": P.NotEqual(col("s"), lit("v5é")),
+            "IS NULL": P.IsNull(col("s")),
+            "OR": P.Or(P.EqualTo(col("s"), lit("v3é")),
+                       P.GreaterThan(col("k"), lit(n - 100, T.LONG)))}[what]
+    ops = [("filter", bind_references(cond, b.schema)),
+           ("project", [bind_references(col("s"), b.schema)])]
+    program = FU.StageProgram(ops, b.schema, 0)
+    lits = FU.LiteralArgs([])
+    coded, cb, clits, kept = program.for_batch(b, lits, tr)
+    assert coded.n_tables == 1 and kept == (0,)
+    before = FU.CODE_SPACE_LAUNCHES
+    got = FU.fused_stage_compact(coded, cb, clits, tr)
+    assert FU.CODE_SPACE_LAUNCHES == before + 1
+    plain = FU.fused_stage_compact_plain(coded, cb, clits, tr)
+    over = FU.fused_stage_compact(program, ENC.materialize_batch(b, tr),
+                                  lits, tr)
+    assert torch.equal(got[0], plain[0])
+    assert torch.equal(got[0], over[0])
+
+
+@pytest.mark.parametrize("query", ["q3", "q7", "q19"])
+def test_parquet_queries_match_memory(card, query, tmp_path):
+    """q3, q7 and q19 from parquet on the card equal the in-memory run on
+    the card and the parquet run on the CPU."""
+    from spark_rapids_tpu_torch.testing import tpcds
+    tables = tpcds.generate_tables(1)
+    columns = getattr(tpcds, f"{query.upper()}_COLUMNS")
+    root = tpcds.write_parquet_tables(tables, str(tmp_path), 1, columns)
+    recipe = getattr(tpcds, query)
+    cpu = TorchSession(device="cpu")
+    got = recipe(*tpcds.parquet_frames(card, root, columns))[0].collect()
+    assert got == recipe(*tpcds.parquet_frames(cpu, root, columns))[0] \
+        .collect()
+    cut = getattr(tpcds, f"{query}_tables")(tables)
+    assert got == recipe(*[card.create_dataframe(cut[t])
+                           for t in columns])[0].collect()
+    assert len(got) == {"q3": 11, "q7": 100, "q19": 4}[query]
+
+
+def test_code_space_fused_aggregate_matches_the_cpu_run(card, tmp_path):
+    """Kernel 1 with a conjunct over a dictionary column in code space
+    (its lookup table a runtime argument) against the CPU run."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.expressions.base import col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import EqualTo, Or
+    rng = np.random.default_rng(9)
+    n = 300_000
+    words = np.array([f"w{i}é" for i in range(50)], dtype=object)
+    pq.write_table(pa.table({
+        "s": pa.array(words[rng.integers(0, 50, n)],
+                      mask=rng.random(n) < 0.1),
+        "k": rng.integers(0, 1000, n)}), tmp_path / "t.parquet",
+        row_group_size=100_000)
+
+    def run(session):
+        return session.read.parquet(str(tmp_path / "t.parquet")).filter(
+            Or(EqualTo(col("s"), lit("w3é")), EqualTo(col("s"),
+                                                       lit("w7é")))) \
+            .agg(F.count("k").alias("n"), F.sum("k").alias("sk")).collect()
+    before = FU.LAUNCHES
+    got = run(card)
+    assert FU.LAUNCHES == before + 3    # one a row group
+    assert got == run(TorchSession(device="cpu"))
+    assert got[0]["n"] > 0
