@@ -9,13 +9,15 @@ git-ignored build/ directory: kernel 1, K5 and K6 (Triton, emitted by
 kernels/fused_agg.py and kernels/fused_stage.py) and kernel 2, K7, K7c,
 K8, K9, K10 (with its full outer mode K10f and its null-safe mode K10n),
 K10x, K14 (with its ranking pass K14r and its frame kinds K14s, K14b and
-K14o), K15d, K11h, K11r and K7s, K13 (computed strings) and K16 (the
-decode of dictionary and RLE columns) (csrc/*.cu, one nvcc each, all
-started together).  It holds each kernel against its plain PyTorch
-version on the card (phase 2h: the exchange's kernels and K9's merge
-kinds; phase 2i: the window frames and the full outer join; phase 2j: K13
-and K10's null-safe mode; phase 2k: K16 and K5's code-space mode), then
-drives eleven paths through ``TorchSession()``, each query with the
+K14o), K15d, K11h, K11r and K7s, K13 (computed strings), K16 (the
+decode of dictionary and RLE columns) and K14c (the running window's
+carry between chunks) (csrc/*.cu, one nvcc each, all started together).
+It holds each kernel against its plain PyTorch version on the card
+(phase 2h: the exchange's kernels and K9's merge kinds; phase 2i: the
+window frames and the full outer join; phase 2j: K13 and K10's
+null-safe mode; phase 2k: K16 and K5's code-space mode; phase 2l: K14c
+chunk by chunk, and the chunked bounded window path against one batch),
+then drives twelve paths through ``TorchSession()``, each query with the
 launch counters set to 0 just before it and read just after:
 
 - bench.py's recipe -- filter(w > t), project k+1, v*2.0 and
@@ -46,6 +48,15 @@ launch counters set to 0 just before it and read just after:
   join: K10f; CASE over an int and a date) and q51w (q51's store half
   with a 7-day moving average, lag, lead and ntile: K14b, K14o) over the
   same tables, checked and timed alike;
+- phase 9f: q51 again over the same tables under a 128 MiB device pool
+  (``spark.rapids.tpu.memory.pool.size``; the memory runtime shut down
+  and shaped anew, then back to the default pool): every window takes
+  the chunked running path over the external sort, K14c carrying each
+  chunk, the catalog spills to the host; at 4 partitions the FINAL
+  group-bys re-partition on the host; held against phase 9b's rows and
+  numpy, with the out-of-core counters, K14c's main-path calls held
+  against its plain version, best and median of 3 at one partition;
+  every other query checks that those counters read 0;
 - phase 9c: TPC-DS q8 (an INTERSECT: a null-safe semi join, K10n; the
   zips' substrings written by K13 as the INTERSECT's columns and both
   join keys; a 128-zip IN in K5) over the same tables, checked and timed
@@ -100,7 +111,8 @@ INT64_MAX = 2 ** 63 - 1
 #: K16)
 CUDA_SOURCES = ("global_reduce.cu", "gather.cu", "sort.cu", "keyed_agg.cu",
                 "hash_join.cu", "window.cu", "distinct.cu", "concat.cu",
-                "cross_join.cu", "partition.cu", "strings.cu", "decode.cu")
+                "cross_join.cu", "partition.cu", "strings.cu", "decode.cu",
+                "window_carry.cu")
 #: the TPC-DS kernels: name, route, source, the JAX program each replaces
 TPCDS_KERNELS = {
     "K1": ("fused_agg_update", "triton",
@@ -169,6 +181,9 @@ TPCDS_KERNELS = {
     "K5d": ("fused_stage_codes", "triton",
             "spark_rapids_tpu_torch/kernels/fused_stage.py",
             "spark_rapids_tpu/columnar/encoding.py:575"),
+    "K14c": ("running_fixup", "cuda",
+             "spark_rapids_tpu_torch/csrc/window_carry.cu",
+             "spark_rapids_tpu/exec/window.py:637"),
 }
 #: each TPC-DS kernel's launch counter: module and attribute
 COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
@@ -195,7 +210,15 @@ COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
             "K13": ("ops.string_ops", "LAUNCHES"),
             "K16": ("ops.decode_ops", "DICT_LAUNCHES"),
             "K16r": ("ops.decode_ops", "RLE_LAUNCHES"),
-            "K5d": ("exec.fused", "CODE_SPACE_LAUNCHES")}
+            "K5d": ("exec.fused", "CODE_SPACE_LAUNCHES"),
+            "K14c": ("ops.window_ops", "FIXUP_LAUNCHES")}
+#: the out-of-core paths' counters, which read 0 on every default-pool
+#: query (module, attribute)
+OOC_COUNTERS = (("exec.sort", "EXTERNAL_SORT_EVENTS"),
+                ("exec.window", "RUNNING_WINDOW_EVENTS"),
+                ("exec.window", "BOUNDED_WINDOW_EVENTS"),
+                ("exec.aggregate", "REPARTITION_EVENTS"),
+                ("ops.window_ops", "FIXUP_LAUNCHES"))
 #: K14o's three wrappers, recorded apart: ntile and the lag/lead default
 K14O_PARTS = {"K14on": "K14o", "K14of": "K14o"}
 #: the kernels each query's main path launches
@@ -2405,6 +2428,320 @@ def check_slice11(session, rng, rate: float):
     return err, timed
 
 
+#: phase 2l: the rows of the chunked bounded path's frame test and its
+#: chunks (the external sort's merge batches)
+BOUNDED_ROWS = (1 << 20) + 3
+BOUNDED_CHUNK = 1 << 18
+
+
+def column_planes_bytes(cols) -> int:
+    """Bytes of the columns' planes (each read once)."""
+    return sum(column_bytes(c) for c in cols)
+
+
+def check_slice12(session, rng, rate: float):
+    """Phase 2l: K14c (the running window's carry) against its plain
+    version chunk by chunk over one sorted stream in chunks of 0, 1, 1000,
+    2**20 + 3 and 1000 rows (``testing/fixup_cases.py``: the first form, a
+    chunk continuing the carry whole, a group boundary at row 0, a group
+    and a peer run across a boundary; int, 0-40-byte string and long
+    partition keys with nulls, a double order key with NaN, +-inf, -0.0
+    and nulls; row_number, rank, dense_rank, sums, counts, minima and
+    maxima of doubles, longs and ints with nulls), then timed on the
+    2**20 + 3-row chunk against its bound and a torch.where over the
+    prefix (the double sum's library form); and the chunked bounded path
+    (forceBoundedBatched, forceOutOfCore, merge batches of 2**18 rows) of
+    a 7-row moving average, lag 1 and lead 1 over 2**20 + 3 rows against
+    the one-batch K14b and K14o run."""
+    import torch
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.exec import sort as SX
+    from spark_rapids_tpu_torch.exec import window as WX
+    from spark_rapids_tpu_torch.ops import window_ops as W
+    from spark_rapids_tpu_torch.testing import fixup_cases as FC
+    tr, dev = session.transfers, session.device
+    err = {"K14c": 0.0, "bounded": 0.0}
+    timed = {}
+    sizes = FC.SIZES
+    pk, ok, outs_a, outs_b = FC.stream(rng, dev, tr, sizes)
+    big = sizes.index(max(sizes))
+    for kinds, outs in ((FC.KINDS_A, outs_a), (FC.KINDS_B, outs_b)):
+        # the plain version first: the kernel fixes the columns in place
+        ref = FC.run_stream(W.running_fixup_plain, pk, ok, kinds, outs, tr,
+                            sizes)
+        before = W.FIXUP_LAUNCHES
+        got = FC.run_stream(W.running_fixup, pk, ok, kinds, outs, tr,
+                            sizes)
+        torch.cuda.synchronize()
+        check(W.FIXUP_LAUNCHES - before == sum(k > 0 for k in sizes),
+              "K14c launched once a chunk of rows")
+        for c, ((gf, gc), (rf, rc)) in enumerate(zip(got, ref)):
+            what = f"K14c, chunk {c} of {sizes[c]} rows"
+            err["K14c"] = max(err["K14c"], same_frames(
+                gf, rf, [None] * len(gf), what))
+            check((gc is None) == (rc is None), f"{what}: carry")
+            if gc is None:
+                continue
+            err["K14c"] = max(err["K14c"], same_columns(
+                gc.keys, rc.keys, f"{what}: carried key row"))
+            check(bool(torch.equal(gc.state, rc.state)),
+                  f"{what}: carried rows, rank, dense rank "
+                  f"{gc.state.tolist()} vs {rc.state.tolist()}")
+            for g, r in zip(gc.values, rc.values):
+                if g is not None:
+                    check(bool(torch.equal(g[1], r[1])) and (
+                        not bool(r[1][0]) or bool(torch.equal(g[0], r[0]))
+                        or bool(torch.isnan(g[0]).all() and
+                                torch.isnan(r[0]).all())),
+                          f"{what}: carried aggregate")
+        states = [None if c is None else c.state.tolist() for _f, c in got]
+        print(f"K14c stream carries (rows, rank, dense rank): {states}")
+    # timing: the 2**20 + 3-row chunk, carried from the chunk before it
+    chunks_k = FC.chunks(list(pk) + list(ok), tr, sizes)
+    chunks_w = FC.chunks(outs_a, tr, sizes)
+    n = sizes[big]
+    carry = FC.run_stream(W.running_fixup, pk, ok, FC.KINDS_A, outs_a, tr,
+                          sizes)[big - 1][1]
+    keys, win = chunks_k[big], chunks_w[big]
+    args = (keys[:3], keys[3:], FC.KINDS_A, win, n, carry, tr)
+    bound = k14c_bound(keys[:3], keys[3:], win, n, carry, rate)
+    s = win[3]   # the double sum
+    acc = carry.values[3][0]
+    prefix = W.carried_prefix(keys[:3], carry, n, dev)
+    timed["K14c"] = (
+        time_ms(lambda: W.running_fixup(*args), 10),
+        time_ms(lambda: W.running_fixup_plain(*args), 2, 1), bound,
+        time_ms(lambda: torch.where(prefix, s.data + acc, s.data), 10))
+    print(f"K14c on a chunk of {n} rows (4 keys, 7 window columns): "
+          f"{timed['K14c'][0]:.4f} ms, plain {timed['K14c'][1]:.4f}, bound "
+          f"{bound:.6f}, torch.where over the prefix {timed['K14c'][3]:.4f}")
+    # the chunked bounded path against the one-batch K14b and K14o run
+    m = BOUNDED_ROWS
+    d = {"g": (np.arange(m) * 3 // m).astype(np.int64),
+         "o": np.arange(m, dtype=np.int64),
+         "v": rng.normal(size=m)}
+    w = F.Window.partition_by("g").order_by("o")
+
+    def q(sess):
+        return sess.create_dataframe(d).select(
+            F.col("g"), F.col("o"),
+            F.avg("v").over(w.rows_between(-6, 0)).alias("ma"),
+            F.lag("v", 1).over(w).alias("lg"),
+            F.lead("v", 1).over(w).alias("ld")).collect_batch()
+    one = q(session)
+    prev = SX._MERGE_OUT_ROWS
+    SX._MERGE_OUT_ROWS = BOUNDED_CHUNK
+    ev = (WX.BOUNDED_WINDOW_EVENTS, SX.EXTERNAL_SORT_EVENTS)
+    try:
+        chunked = q(TorchSession({
+            "spark.rapids.sql.test.window.forceBoundedBatched": "true",
+            "spark.rapids.sql.test.sort.forceOutOfCore": "true"}))
+    finally:
+        SX._MERGE_OUT_ROWS = prev
+    check(WX.BOUNDED_WINDOW_EVENTS > ev[0] and
+          SX.EXTERNAL_SORT_EVENTS > ev[1], "the chunked bounded path ran")
+    check(chunked.row_count == one.row_count == m, "bounded path rows")
+    for a, b, name in zip(one.columns, chunked.columns, one.names):
+        va = np.ones(m, bool) if a.validity is None else a.validity
+        vb = np.ones(m, bool) if b.validity is None else b.validity
+        check(bool(np.array_equal(va, vb)), f"bounded path: {name} validity")
+        x, y = a.data[va], b.data[va]
+        diff = float(np.abs(x - y).max()) if len(x) else 0.0
+        check(diff <= 1e-12 * max(1.0, float(np.abs(x).max())),
+              f"bounded path: {name} values ({diff})")
+        err["bounded"] = max(err["bounded"], diff)
+    print(f"chunked bounded path: {m} rows in chunks of {BOUNDED_CHUNK}, a "
+          f"7-row moving average, lag 1, lead 1: equal to the one-batch "
+          f"K14b/K14o run (max |d| {err['bounded']!r})")
+    return err, timed
+
+
+#: phase 9f: the device pool of q51 out of core
+OOC_POOL = "128m"
+
+
+def k14c_bound(pk, ok, outs, n: int, carry, rate: float) -> float:
+    """K14c's bound in ms: the key planes read once (the partition keys
+    only in the first form), each window column's rows [0, L) read and
+    written and its row n - 1 read (L: the rows continuing the carry)."""
+    from spark_rapids_tpu_torch.ops import window_ops as W
+    if n == 0:
+        return 0.0
+    L = int(W.carried_prefix(pk, carry, n, outs[0].device).sum())
+    keys = list(pk) if carry is None else list(pk) + list(ok)
+    row = column_planes_bytes(outs) / n
+    return (column_planes_bytes(keys) + row * (2 * L + (L < n))) / rate \
+        * 1e3
+
+
+def k14c_calls(calls, rate: float):
+    """K14c's recorded main-path calls, each held against its plain
+    version on the same inputs (the chunk's keys, its window columns as
+    K14 wrote them, which the Recorder keeps on the host because the
+    kernel fixes them in place, and the carry the call got), then timed:
+    ``(max |d|, ms, plain ms, bound ms, library ms)`` summed over the
+    calls (library: a torch.where over the carried prefix of the first
+    window column)."""
+    import torch
+    from spark_rapids_tpu_torch.columnar.batch import DeviceColumn
+    from spark_rapids_tpu_torch.ops import window_ops as W
+    err = ms = plain_ms = bound = lib_ms = 0.0
+    for a, kw in calls:
+        pk, ok, kinds, saved, n, carry = a[:6]
+        dev = (list(pk) + list(ok))[0].device
+
+        def outs():
+            return [DeviceColumn(d.to(dev), v.to(dev), t, av)
+                    for d, v, t, av in saved]
+        ref = W.running_fixup_plain(pk, ok, kinds, outs(), n, carry,
+                                    *a[6:], **kw)
+        got = W.running_fixup(pk, ok, kinds, outs(), n, carry, *a[6:], **kw)
+        torch.cuda.synchronize()
+        err = max(err, same_frames(got[0], ref[0], [None] * len(got[0]),
+                                   f"K14c on a q51 chunk of {n} rows"))
+        check(bool(torch.equal(got[1].state, ref[1].state)),
+              "K14c's carry on a q51 chunk")
+        cols = outs()
+        args = (pk, ok, kinds, cols, n, carry, *a[6:])
+        ms += time_ms(lambda: W.running_fixup(*args, **kw), 5)
+        plain_ms += time_ms(lambda: W.running_fixup_plain(*args, **kw), 1, 1)
+        bound += k14c_bound(pk, ok, cols, n, carry, rate)
+        c = cols[0]
+        acc = torch.zeros(1, dtype=c.data.dtype, device=dev) \
+            if carry is None or carry.values[0] is None \
+            else carry.values[0][0]
+        prefix = W.carried_prefix(pk, carry, n, dev)
+        lib_ms += time_ms(lambda: torch.where(prefix, c.data + acc, c.data),
+                          5)
+    return err, ms, plain_ms, bound, lib_ms
+
+
+def run_q51_out_of_core(main_session, tables, rate: float, reference,
+                        peak_9b: float, parts_list=(1, 4)):
+    """Phase 9f: q51 at sf 1000 under a 128 MiB pool (the runtime shut
+    down and shaped anew): every window takes the chunked running path
+    over the external sort (K14c carries each chunk), at 4 partitions
+    the FINAL group-bys re-partition; the rows are held against phase
+    9b's and numpy's.  At one partition it times best and median of 3,
+    prints syncs, the spill bytes by tier, retries and split retries,
+    the peak device memory against 9b's and K14c's device ms from the
+    profiler.  Returns K14c's launches and device ms, and the chunks."""
+    import torch
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.exec import aggregate as A
+    from spark_rapids_tpu_torch.exec import sort as SX
+    from spark_rapids_tpu_torch.exec import window as WX
+    from spark_rapids_tpu_torch.memory import device_manager as DM
+    from spark_rapids_tpu_torch.memory import retry as R
+    from spark_rapids_tpu_torch.ops import window_ops as W
+    from spark_rapids_tpu_torch.testing import tpcds
+    _r, names, _f = QUERIES["q51"]
+    host = host_tables({t: tables[t] for t in names})
+    DM.shutdown()
+    session = TorchSession({"spark.rapids.tpu.memory.pool.size": OOC_POOL})
+    check(DM.get_runtime().catalog.device_limit == 128 << 20,
+          "the 128 MiB pool")
+    chunks = [0]
+    sorted_chunks = WX.TorchWindowExec._sorted_chunks
+
+    def counting(self, batches, transfers):
+        for c in sorted_chunks(self, batches, transfers):
+            chunks[0] += 1
+            yield c
+    out = {}
+    WX.TorchWindowExec._sorted_chunks = counting
+    try:
+        for parts in parts_list:
+            dfs = tpcds.partitioned_frames(session, host, names, parts) \
+                if parts > 1 else [session.create_dataframe(host[t])
+                                   for t in names]
+
+            def run():
+                return tpcds.q51(*dfs)[0].collect()
+            label = f"q51 out of core at {parts} partition" + \
+                ("s" if parts > 1 else "")
+            for mod, attr, _k in [(*counter_of(k), k) for k in COUNTERS]:
+                setattr(mod, attr, 0)
+            WX.RUNNING_WINDOW_EVENTS = SX.EXTERNAL_SORT_EVENTS = 0
+            A.REPARTITION_EVENTS = W.FIXUP_LAUNCHES = chunks[0] = 0
+            R.RETRY_COUNT = R.SPLIT_RETRY_COUNT = 0
+            m0 = DM.memory_stats()
+            tr0 = session.transfers.stats()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with Recorder() as rec:
+                got = run()
+            main_s = time.perf_counter() - t0
+            m1 = DM.memory_stats()
+            tr1 = session.transfers.stats()
+            ev = {"RUNNING_WINDOW_EVENTS": WX.RUNNING_WINDOW_EVENTS,
+                  "EXTERNAL_SORT_EVENTS": SX.EXTERNAL_SORT_EVENTS,
+                  "FIXUP_LAUNCHES": W.FIXUP_LAUNCHES,
+                  "REPARTITION_EVENTS": A.REPARTITION_EVENTS,
+                  "chunks": chunks[0]}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            spill = {k: m1[k] - m0[k] for k in (
+                "device_to_host", "device_to_host_bytes", "host_to_disk",
+                "host_to_disk_bytes", "unspills", "unspill_bytes")}
+            spill_syncs = m1["transfers"]["syncs"] - m0["transfers"]["syncs"]
+            syncs = tr1["syncs"] - tr0["syncs"] + spill_syncs
+            print(f"{label}: {main_s * 1e3:.3f} ms, {len(got)} rows, "
+                  f"counters {ev}; spills {spill}; retries "
+                  f"{m1['retry']}, split retries {m1['splitRetry']}; "
+                  f"syncs {syncs} (session {tr1['syncs'] - tr0['syncs']}, "
+                  f"spills {spill_syncs})"
+                  f"; peak device memory {peak:.3f} GiB (9b in memory "
+                  f"{peak_9b:.3f})")
+            check(ev["RUNNING_WINDOW_EVENTS"] >= 3,
+                  f"{label}: every window ran the running path: {ev}")
+            check(ev["EXTERNAL_SORT_EVENTS"] >= 3,
+                  f"{label}: the external sort ran: {ev}")
+            check(ev["FIXUP_LAUNCHES"] == ev["chunks"] > 0,
+                  f"{label}: K14c once a chunk: {ev}")
+            if parts == 1:
+                check(spill["device_to_host"] > 0,
+                      f"{label}: a device-to-host spill: {spill}")
+            else:
+                check(ev["REPARTITION_EVENTS"] > 0,
+                      f"{label}: the FINAL merge re-partitioned: {ev}")
+            rows_match(reference["numpy"], got, f"{label} vs numpy")
+            rows_match(reference["rows"], got, f"{label} vs phase 9b")
+            print(f"{label} matches phase 9b's rows and numpy")
+            calls = [(a, kw) for k, a, kw in rec.calls if k == "K14c"]
+            check(len(calls) == ev["FIXUP_LAUNCHES"],
+                  f"{label}: every K14c launch recorded")
+            del rec
+            err, ms, plain_ms, bound, lib_ms = k14c_calls(calls, rate)
+            del calls
+            print(f"{label}: K14c over its {ev['FIXUP_LAUNCHES']} main-path "
+                  f"calls vs plain: pass, max |d| {err!r}; {ms:.4f} ms per "
+                  f"query, plain {plain_ms:.4f}, bound {bound:.6f}, "
+                  f"torch.where over the prefix {lib_ms:.4f}")
+            out[parts] = {"launches": ev["FIXUP_LAUNCHES"],
+                          "max_abs_err": err, "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": bound,
+                          "library_ms": lib_ms, "query_ms": main_s * 1e3}
+            if parts > 1:
+                continue
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                times.append(time.perf_counter() - t0)
+            print(f"{label} best of 3: {min(times) * 1e3:.3f} ms, median "
+                  f"{float(np.median(times)) * 1e3:.3f} ms")
+            device_ms = profile_query(label, run, ["K14c"], reps=1)
+            out[parts]["device_ms"] = device_ms["K14c"]
+            out[parts]["best_ms"] = min(times) * 1e3
+    finally:
+        WX.TorchWindowExec._sorted_chunks = sorted_chunks
+        # the phases after this one run with the default pool again
+        DM.shutdown()
+        DM.initialize(main_session.conf, main_session.device)
+    return out
+
+
 def rows_match(expected, actual, what: str) -> None:
     """In order; doubles within 1e-6 relative (the comparator the JAX
     package's TPC-DS oracle uses, rowcompare.val_eq), the rest exact."""
@@ -2469,7 +2806,8 @@ class Recorder:
             (window_ops, "window_fill", "K14of"),
             (string_ops, "string_column", "K13"),
             (decode_ops, "decode_dictionary", "K16"),
-            (decode_ops, "decode_rle", "K16r")]
+            (decode_ops, "decode_rle", "K16r"),
+            (window_ops, "running_fixup", "K14c")]
         self._saved = []
 
     def __enter__(self):
@@ -2484,6 +2822,13 @@ class Recorder:
                     _k = "K5d"   # the stage's code-space mode
                 counter = counter_of(K14O_PARTS.get(_k, _k))
                 before = getattr(*counter)
+                kept = a
+                if _k == "K14c":
+                    # K14c fixes its window columns in place: the record
+                    # keeps them as they came, on the host
+                    kept = a[:3] + ([(c.data.cpu(), c.validity.cpu(),
+                                      c.data_type, c.all_valid)
+                                     for c in a[3]],) + a[4:]
                 if self.mark:
                     import torch
                     with torch.profiler.record_function(
@@ -2492,7 +2837,7 @@ class Recorder:
                 else:
                     out = _fn(*a, **kw)
                 if getattr(*counter) != before:
-                    self.calls.append((_k, a, kw))
+                    self.calls.append((_k, kept, kw))
                 return out
             setattr(mod, name, wrapped)
         return self
@@ -3254,8 +3599,13 @@ def run_query(session, query: str, tables, rate: float,
     print(f"{label}: rows {rows}; {device_bytes} B of device columns; "
           f"first action (upload, builds, query) {first_s:.3f} s")
 
+    import importlib
     counters = [(*counter_of(k), k) for k in COUNTERS]
     for mod, attr, _k in counters:
+        setattr(mod, attr, 0)
+    ooc = [(importlib.import_module(f"spark_rapids_tpu_torch.{m}"), a)
+           for m, a in OOC_COUNTERS]
+    for mod, attr in ooc:
         setattr(mod, attr, 0)
     tr0, ks0, enc0 = session.transfers.stats(), kstats(), \
         ENC.encoding_stats()
@@ -3263,6 +3613,9 @@ def run_query(session, query: str, tables, rate: float,
     result = run()
     main_s = time.perf_counter() - t0
     launched = {k: getattr(mod, attr) for mod, attr, k in counters}
+    out_of_core = {a: getattr(mod, a) for mod, a in ooc}
+    check(not any(out_of_core.values()), f"{label} keeps its fast paths "
+          f"with the default pool: {out_of_core}")
     enc1 = ENC.encoding_stats()
     # the kernels the query must launch, and any other it did launch
     required = PARQUET_KERNELS[query] if parquet_root is not None else \
@@ -3369,7 +3722,9 @@ def run_query(session, query: str, tables, rate: float,
     print(f"{label} breakdown: kernels {kernel_ms:.4f} ms (each timed "
           f"alone, syncs inside), rest {best * 1e3 - kernel_ms:.4f} ms of "
           f"{best * 1e3:.4f} ms")
-    return launches, timed, {"rows": result, "numpy": numpy_rows}
+    return launches, timed, {"rows": result, "numpy": numpy_rows,
+                             "peak": torch.cuda.max_memory_allocated()
+                             / 2 ** 30}
 
 
 def scan_and_upload(session, dfs, label: str) -> int:
@@ -3703,6 +4058,13 @@ def main() -> int:
         print(f"{what} ({shapes[what]}): {ms_:.4f} ms, plain {plain_} ms, "
               f"bound {bound_} ms, library {lib_}")
 
+    # -- phase 2l: K14c and the chunked bounded path ------------------------
+    t0 = time.perf_counter()
+    errs12, slice12_one = check_slice12(session, rng, rate)
+    print(f"K14c (the running window's carry: every kind, key type and "
+          f"chunk case) vs plain and the chunked bounded path vs one batch: "
+          f"pass ({time.perf_counter() - t0:.1f} s), max |d| {errs12}")
+
     phase("kernels checked")
 
     # -- phase 3: the bench recipe at full size -----------------------------
@@ -3916,6 +4278,13 @@ def main() -> int:
                 args.sf == 1000 or own_sf.get(q) == OWN_SF.get(q),
                 small_cuts.pop(q, None))
             one_part[q] = got
+            if q == "q51":
+                # phase 9f: the same tables under a 128 MiB pool
+                phase(f"{q} run, checked and timed "
+                      f"({time.perf_counter() - q0:.1f} s)")
+                q0 = time.perf_counter()
+                ooc = run_q51_out_of_core(session, tables_, rate, got,
+                                          got["peak"], (1, args.parts))
             del tables_
         else:
             # phase 10: the query over tables cut into partitions
@@ -3924,7 +4293,9 @@ def main() -> int:
                 parts=parts, reference=one_part[q])
         where = " from parquet" if parquet else "" if parts == 1 \
             else f" at {parts} partitions"
-        phase(f"{q}{where} run, checked and timed "
+        done = " out of core (phase 9f)" if (q, parts, parquet) == \
+            ("q51", 1, False) else where
+        phase(f"{q}{done} run, checked and timed "
               f"({time.perf_counter() - q0:.1f} s)")
         for k in launches:
             name_, route, source, replaces = TPCDS_KERNELS[k]
@@ -4058,6 +4429,25 @@ def main() -> int:
             "launches": 0, "max_abs_err": errs11[k], "ms": ms_,
             "plain_ms": plain_, "bound_ms": bound_, "bound_by": "bytes",
             "library_ms": lib_, "per": "launch", "passed": True})
+    # K14c: phase 9f's main path (q51 under a 128 MiB pool, one
+    # partition), with phase 2l's 2**20 + 3-row chunk beside it
+    _name, route, source, replaces = TPCDS_KERNELS["K14c"]
+    one_ooc = ooc[1]
+    ms_, plain_, bound_, lib_ = slice12_one["K14c"]
+    kernels.append({
+        "name": "running_fixup.q51_out_of_core",
+        "path": "q51 out of core (phase 9f, 128 MiB pool)",
+        "route": route, "source": source, "replaces": replaces,
+        "launches": one_ooc["launches"],
+        "max_abs_err": max(errs12["K14c"], one_ooc["max_abs_err"]),
+        "ms": one_ooc["ms"], "plain_ms": one_ooc["plain_ms"],
+        "bound_ms": one_ooc["bound_ms"], "bound_by": "bytes",
+        "library_ms": one_ooc["library_ms"],
+        "device_ms": one_ooc.get("device_ms"), "per": "query",
+        "launches_at_4_partitions": ooc[args.parts]["launches"],
+        "phase_2l_ms": ms_, "phase_2l_plain_ms": plain_,
+        "phase_2l_bound_ms": bound_, "phase_2l_library_ms": lib_,
+        "passed": True})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -47,6 +47,36 @@ class HostColumnarBatch:
     def to_pydict(self) -> Dict[str, list]:
         return {n: c.to_pylist() for n, c in zip(self.names, self.columns)}
 
+    def nbytes(self) -> int:
+        """Bytes of the columns' planes (a dictionary column's codes and
+        its dictionary)."""
+        total = 0
+        for c in self.columns:
+            arrow = getattr(c, "arrow", None)
+            if arrow is not None:
+                total += arrow.nbytes
+                continue
+            total += c.data.nbytes
+            if c.validity is not None:
+                total += c.validity.nbytes
+            if c.offsets is not None:
+                total += c.offsets.nbytes
+        return total
+
+    def take(self, idx: np.ndarray) -> "HostColumnarBatch":
+        """The rows ``idx`` in that order (through Arrow's take)."""
+        import pyarrow as pa
+        out = batch_from_arrow(self.to_arrow().take(pa.array(idx)))
+        out.names = list(self.names)
+        return out
+
+    def to_arrow(self):
+        """The batch as a pyarrow Table (a dictionary column decoded)."""
+        import pyarrow as pa
+        from spark_rapids_tpu_torch.io.multifile import host_arrow
+        return pa.Table.from_arrays([host_arrow(c) for c in self.columns],
+                                    names=self.names)
+
     def to_rows(self) -> List[dict]:
         d = self.to_pydict()
         return [dict(zip(d.keys(), row)) for row in zip(*d.values())]
@@ -85,6 +115,18 @@ class ColumnarBatch:
         k = min(k, self.row_count)
         return ColumnarBatch([c.front(k) for c in self.columns], k,
                              self.names)
+
+    def nbytes(self) -> int:
+        """Bytes of the columns' planes on the device (a string's whole
+        chars plane; a dictionary column's codes, not its shared
+        dictionary): what the memory runtime accounts for the batch."""
+        total = 0
+        for c in self.columns:
+            total += c.data.numel() * c.data.element_size() + \
+                c.validity.numel()
+            if c.offsets is not None:
+                total += c.offsets.numel() * c.offsets.element_size()
+        return total
 
 
 def _is_text(values) -> bool:

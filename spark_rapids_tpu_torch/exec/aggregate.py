@@ -20,12 +20,26 @@ first, beside the columns, as the JAX package's ``keyed_inputs`` does:
 a numeric one by K6, a string one (a substring, a concat) by K13.  Over
 several partitions it runs PARTIAL (the buffers, unfinished), then,
 behind a hash exchange on the keys, FINAL (K9's merge kinds over the
-buffers, then the finish)."""
+buffers, then the finish).
+
+A FINAL partition merges out of core (``merge_partials_out_of_core``,
+``_repartition_spillables`` and ``_key_hash_u32``, ``:119-230``; the
+FINAL merge's ``too_big`` branch, ``exec/fused.py:596-640``): its
+batches are registered with the memory runtime as spillables and, where
+their bytes pass ``free_device_headroom(2)`` (read with them counted) or
+a ``SplitAndRetryOOM`` surfaces, they are re-partitioned on the host
+into ``MERGE_BUCKETS`` groups of disjoint keys by 4 fresh bits a level
+of Spark's murmur3 of the keys (up to depth 7), and each group merges
+through K9's merge kinds on its own, recursing on a group that still
+does not fit.  ``FORCE_REPARTITION_BELOW_DEPTH`` forces the re-partition
+while the depth is below it, and ``REPARTITION_EVENTS`` counts the
+re-partition passes, as in the JAX package."""
 
 from __future__ import annotations
 
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
@@ -35,9 +49,17 @@ from spark_rapids_tpu_torch.expressions.aggregates import (
 from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
                                                      Expression, output_name)
 from spark_rapids_tpu_torch.plan.base import ExecContext, Partitions, \
-    UnaryExec
+    UnaryExec, owned_partitions
 
 PARTIAL, FINAL, COMPLETE = "partial", "final", "complete"
+#: re-partition fan-out a level; 4 bits of the 32-bit key hash a level,
+#: so 7 levels use the hash up
+MERGE_BUCKETS = 16
+_MAX_REPARTITION_DEPTH = 7
+#: test hook: re-partition while the depth is below this value
+FORCE_REPARTITION_BELOW_DEPTH = 0
+#: re-partition passes (tests and chip_smoke.py read it)
+REPARTITION_EVENTS = 0
 #: the update kind of a count(DISTINCT)'s buffer, and its keyed_inputs kind
 DISTINCT = "distinct"
 
@@ -487,6 +509,101 @@ class TorchKeyedAggregateExec(UnaryExec):
                              transfers)
 
     def execute(self, ctx: ExecContext) -> Partitions:
+        from spark_rapids_tpu_torch.memory.spillable import spillable_pieces
         from spark_rapids_tpu_torch.ops.batch_ops import concat_batches
-        return [[self.aggregate_batch(concat_batches(part), ctx.transfers)]
-                if part else [] for part in self.child.execute(ctx)]
+        out = []
+        for part in owned_partitions(self.child.execute(ctx)):
+            if not part:
+                out.append([])
+            elif self.mode != FINAL or not any(b.row_count for b in part):
+                out.append([self.aggregate_batch(concat_batches(part),
+                                                 ctx.transfers)])
+            else:
+                live = [b for b in part if b.row_count]
+                part.clear()
+                spills = spillable_pieces(live, ctx.transfers)
+                out.append(list(merge_partials_out_of_core(
+                    self, spills, ctx.transfers)))
+        return out
+
+
+def _key_hash_u32(hb, nk: int) -> np.ndarray:
+    """Spark's murmur3 (seed 42) of each row's keys, the first ``nk``
+    columns of a host batch, as uint32 (K11h's plain hash on host
+    planes)."""
+    from spark_rapids_tpu_torch.exec.sort import _host_key_column
+    from spark_rapids_tpu_torch.ops.partition_ops import murmur3_rows
+    h = murmur3_rows([_host_key_column(c) for c in hb.columns[:nk]])
+    return h.numpy().astype(np.int64).astype(np.uint32)
+
+
+def _repartition_spillables(spills, nk: int, depth: int):
+    """The spillable buffer batches split on the host into
+    ``MERGE_BUCKETS`` groups of disjoint keys, by the hash's bits ``4 *
+    depth`` up, so a bucket of one level splits again at the next."""
+    from spark_rapids_tpu_torch.memory.spillable import \
+        SpillableColumnarBatch
+    global REPARTITION_EVENTS
+    REPARTITION_EVENTS += 1
+    buckets = [[] for _ in range(MERGE_BUCKETS)]
+    for sb in spills:
+        hb = sb.get_host_batch()
+        device = sb.device
+        sb.close()
+        h = _key_hash_u32(hb, nk)
+        pid = ((h >> np.uint32(4 * depth)) % MERGE_BUCKETS).astype(np.int64)
+        order = np.argsort(pid, kind="stable")
+        counts = np.bincount(pid, minlength=MERGE_BUCKETS)
+        moved = hb.take(order)
+        off = 0
+        for k in range(MERGE_BUCKETS):
+            if counts[k]:
+                buckets[k].append(SpillableColumnarBatch.from_host(
+                    moved.slice(off, int(counts[k])), catalog=sb.catalog,
+                    device=device))
+            off += int(counts[k])
+    return buckets
+
+
+def merge_partials_out_of_core(agg: "TorchKeyedAggregateExec", spills,
+                               transfers, depth: int = 0):
+    """A FINAL group-by over spillable buffer batches: the merged (and
+    finished) batches, whose key sets are pairwise disjoint.  One concat
+    and K9 merge under a retry frame where they fit, else the re-partition
+    and a merge per bucket (JAX ``:173``)."""
+    from spark_rapids_tpu_torch.memory.device_manager import \
+        free_device_headroom
+    from spark_rapids_tpu_torch.memory.retry import (SplitAndRetryOOM,
+                                                     maybe_inject_oom,
+                                                     with_retry_no_split)
+    from spark_rapids_tpu_torch.ops.batch_ops import concat_batches
+    nk = agg.layout.num_keys
+
+    def attempt():
+        maybe_inject_oom()
+        bs = [sb.get_batch() for sb in spills]
+        return agg.aggregate_batch(concat_batches(bs) if len(bs) > 1
+                                   else bs[0], transfers)
+
+    too_big = False
+    if depth < _MAX_REPARTITION_DEPTH:
+        too_big = depth < FORCE_REPARTITION_BELOW_DEPTH
+        if not too_big:
+            budget = free_device_headroom(2)
+            if budget is not None:
+                too_big = sum(sb.sized_nbytes for sb in spills) > budget
+    if not too_big:
+        try:
+            merged = with_retry_no_split(None, attempt)
+            for sb in spills:
+                sb.close()
+            yield merged
+            return
+        except SplitAndRetryOOM:
+            # merge state cannot shrink by running again: re-partition
+            if depth >= _MAX_REPARTITION_DEPTH:
+                raise
+    for bucket in _repartition_spillables(spills, nk, depth):
+        if bucket:
+            yield from merge_partials_out_of_core(agg, bucket, transfers,
+                                                  depth + 1)

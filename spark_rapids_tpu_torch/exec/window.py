@@ -30,11 +30,33 @@ one end unbounded, the other neither the current row nor unbounded);
 and what the port cannot run yet: a ranking function without an ORDER
 BY or over a frame, and a min or max of a string or boolean (the JAX
 program runs those on its CPU engine).
+
+Out of core (``execute_partition``'s budget decision, ``:465-499``):
+where a partition's bytes pass ``free_device_headroom(4)`` (or the
+session forces it), a window of running shapes only
+(``_running_eligible``, ``:378``: row_number, rank, dense_rank and ROWS
+UNBOUNDED PRECEDING .. CURRENT ROW sums, counts, minima and maxima) runs
+``_running_windows`` (``:502-518``): the external sort of
+``exec/sort.py`` streams the partition in sorted chunks, each chunk's
+functions run on the chunk alone (K14, K14r, K14s, with no sort or
+gather of their own), and K14c (``ops/window_ops.py running_fixup``)
+shifts the rows that continue the previous chunk's last partition by the
+carry, which stays on the card.  A window of fixed-bound ROWS frames and
+lag/lead whose preceding + following span ``P + F`` is at most
+``spark.rapids.sql.window.batched.bounded.rowLimit`` (``_bounded_span``,
+``:351``) runs ``_bounded_windows`` (``:520-583``): each chunk is joined
+(K7c) behind the previous chunk's last ``P + F`` rows (a K7 gather), and
+only rows whose frames lie whole in that batch are emitted.  The row
+counts are exact on the host, so the emitted range is a slice and no
+kernel is needed beyond K7, K7c, K14b and K14o.  ``RUNNING_WINDOW_EVENTS``
+and ``BOUNDED_WINDOW_EVENTS`` count the passes.
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
+
+import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
@@ -42,8 +64,13 @@ from spark_rapids_tpu_torch.expressions import window_exprs as WE
 from spark_rapids_tpu_torch.expressions.base import Expression, Literal
 from spark_rapids_tpu_torch.ops import window_ops as W
 from spark_rapids_tpu_torch.plan.base import (ExecContext, Partitions,
-                                              UnaryExec)
+                                              UnaryExec, owned_partitions)
 
+
+#: passes of the chunked running and bounded paths (tests and
+#: chip_smoke.py read them)
+RUNNING_WINDOW_EVENTS = 0
+BOUNDED_WINDOW_EVENTS = 0
 
 #: K14's ranking kind of each ranking function
 _RANKING = {WE.RowNumber: W.WIN_ROW_NUMBER, WE.Rank: W.WIN_RANK,
@@ -141,12 +168,50 @@ def _check_minmax_frame(wexpr, func) -> None:
         "neither the current row nor unbounded)")
 
 
-class TorchWindowExec(UnaryExec):
-    """``window_cols``: ``[(name, WindowExpression)]`` sharing one spec."""
+def _bounded_span(lowered, max_span: int) -> Optional[Tuple[int, int]]:
+    """``(P, F)``, the most preceding and following rows any function
+    reads, when every one is a ROWS frame with two finite bounds or a
+    lag/lead, and ``0 < P + F <= max_span``; else None."""
+    p = f = 0
+    for kind, _e in lowered:
+        if isinstance(kind, W.OffsetFn):
+            p, f = max(p, -kind.offset), max(f, kind.offset)
+        elif isinstance(kind, W.FrameAgg) and kind.bounded:
+            p, f = max(p, -kind.lo), max(f, kind.hi)
+        else:
+            return None
+    if p + f == 0 or p + f > max_span:
+        return None
+    return p, f
 
-    def __init__(self, window_cols, child):
+
+def _running_eligible(lowered) -> bool:
+    """Every function's state is a fixed-size carry (JAX ``:378``)."""
+    for kind, _e in lowered:
+        try:
+            W.fixup_kind(kind)
+        except ValueError:
+            return False
+    return True
+
+
+class TorchWindowExec(UnaryExec):
+    """``window_cols``: ``[(name, WindowExpression)]`` sharing one spec.
+    ``force_running``, ``force_bounded`` and ``force_out_of_core_sort``
+    take the chunked paths (and the external sort under them) whatever
+    the pool holds; ``max_span`` is the widest ``P + F`` the bounded path
+    carries."""
+
+    def __init__(self, window_cols, child, force_running: bool = False,
+                 force_bounded: bool = False,
+                 force_out_of_core_sort: bool = False,
+                 max_span: int = 4096):
         from spark_rapids_tpu_torch.exec.fused import StageProgram
         super().__init__(child)
+        self.force_running = force_running
+        self.force_bounded = force_bounded
+        self.force_out_of_core_sort = force_out_of_core_sort
+        self.max_span = max_span
         self.window_cols = list(window_cols)
         spec = self.window_cols[0][1].spec
         self.partition_exprs = list(spec.partition_exprs)
@@ -181,7 +246,16 @@ class TorchWindowExec(UnaryExec):
                          for name, w in self.window_cols)
         return f"TorchWindow[{cols}]"
 
-    def window_batch(self, batch: ColumnarBatch, transfers) -> ColumnarBatch:
+    def window_batch(self, batch: ColumnarBatch, transfers,
+                     presorted: bool = False) -> ColumnarBatch:
+        payload, _k, _o, outs = self._windows(batch, transfers, presorted)
+        return ColumnarBatch(payload + outs, batch.row_count,
+                             self._schema.names)
+
+    def _windows(self, batch: ColumnarBatch, transfers,
+                 presorted: bool = False):
+        """``(payload, partition keys, order keys, window columns)`` of
+        one batch, all in the window's sorted order."""
         from spark_rapids_tpu_torch.exec.fused import (LiteralArgs,
                                                        project_batch)
         program = self.program
@@ -195,20 +269,102 @@ class TorchWindowExec(UnaryExec):
         nk, no = len(self.partition_exprs), len(self.order_exprs)
         it = iter(evaluated[nk + no:])
         values = [None if e is None else next(it) for _k, e in self.lowered]
+        keys = evaluated[:nk + no]
         payload, outs = W.compute_windows(
-            batch.columns, evaluated[:nk], values,
+            list(batch.columns) + keys, evaluated[:nk], values,
             [k for k, _e in self.lowered], batch.row_count, batch.device,
-            transfers, evaluated[nk:nk + no], self.orders)
-        return ColumnarBatch(payload + outs, batch.row_count,
-                             self._schema.names)
+            transfers, evaluated[nk:nk + no], self.orders, presorted)
+        n_payload = len(batch.columns)
+        return payload[:n_payload], payload[n_payload:n_payload + nk], \
+            payload[n_payload + nk:], outs
 
     def execute(self, ctx: ExecContext) -> Partitions:
+        return [list(self.window_partition(part, ctx.transfers))
+                if part else []
+                for part in owned_partitions(self.child.execute(ctx))]
+
+    def window_partition(self, batches, transfers):
+        """One partition: the whole partition in one batch where it fits
+        ``free_device_headroom(4)``, else (or forced) the chunked running
+        or bounded path where the functions allow it (JAX ``:465-491``).
+        A chunked path empties the list handed in: the sort registers the
+        batches as spillables, and the catalog holds them from then on."""
+        from spark_rapids_tpu_torch.memory.device_manager import \
+            free_device_headroom
         from spark_rapids_tpu_torch.ops.batch_ops import concat_batches
-        out = []
-        for part in self.child.execute(ctx):
-            if part:
-                out.append([self.window_batch(concat_batches(part),
-                                              ctx.transfers)])
-            else:
-                out.append([])
-        return out
+        live = [b for b in batches if b.row_count]
+        if live:
+            est = sum(b.nbytes() for b in live)
+            budget = free_device_headroom(4)
+            over = budget is not None and est > budget
+            running = _running_eligible(self.lowered) and \
+                (self.force_running or over)
+            span = _bounded_span(self.lowered, self.max_span)
+            if running or span is not None and (self.force_bounded or over):
+                batches.clear()
+                yield from (self._running_windows(live, transfers) if running
+                            else self._bounded_windows(live, transfers,
+                                                       *span))
+                return
+        yield self.window_batch(concat_batches(batches), transfers)
+
+    def _sorted_chunks(self, batches, transfers):
+        """The partition through the sort by (partition keys ascending,
+        nulls first; order keys), chunk by chunk."""
+        from spark_rapids_tpu_torch.exec.sort import SortSpec, TorchSortExec
+        specs = [SortSpec(e, True, True) for e in self.partition_exprs]
+        specs += [SortSpec(e, a, nf) for e, (a, nf) in
+                  zip(self.order_exprs, self.orders)]
+        # a sort over this exec's input; it takes the batches (and empties
+        # the list) itself, never running its child
+        sorter = TorchSortExec(specs, self.child,
+                               self.force_out_of_core_sort)
+        return sorter.sort_partition(batches, transfers)
+
+    def _running_windows(self, batches, transfers):
+        """The running path (JAX ``_running_windows`` ``:493``): each
+        sorted chunk's functions, then K14c with the carry."""
+        global RUNNING_WINDOW_EVENTS
+        RUNNING_WINDOW_EVENTS += 1
+        kinds = [W.fixup_kind(k) for k, _e in self.lowered]
+        carry = None
+        for chunk in self._sorted_chunks(batches, transfers):
+            payload, pkeys, okeys, outs = self._windows(chunk, transfers,
+                                                        presorted=True)
+            fixed, carry = W.running_fixup(pkeys, okeys, kinds, outs,
+                                           chunk.row_count, carry,
+                                           transfers)
+            yield ColumnarBatch(payload + fixed, chunk.row_count,
+                                self._schema.names)
+
+    def _bounded_windows(self, batches, transfers, p: int, f: int):
+        """The chunked bounded path (JAX ``_bounded_windows`` ``:520``):
+        each chunk behind the previous batch's last ``p + f`` rows; the
+        rows ``[skip, rc - f)`` of the joined batch have their whole
+        frames in it and are emitted; the last chunk's tail at the end."""
+        from spark_rapids_tpu_torch.ops.batch_ops import (concat_batches,
+                                                          gather_batch,
+                                                          slice_batch)
+        global BOUNDED_WINDOW_EVENTS
+        BOUNDED_WINDOW_EVENTS += 1
+        span = p + f
+        carry, skip, last = None, 0, None
+        for chunk in self._sorted_chunks(batches, transfers):
+            combined = chunk if carry is None else \
+                concat_batches([carry, chunk])
+            rc = combined.row_count
+            out = self.window_batch(combined, transfers, presorted=True)
+            emit_hi = max(rc - f, skip)
+            if emit_hi > skip:
+                yield slice_batch(out, skip, emit_hi - skip, transfers)
+            carried = min(rc, span)
+            idx = torch.arange(rc - carried, rc, dtype=torch.int64,
+                               device=combined.device)
+            carry = gather_batch(combined, idx, transfers, unique=True)
+            # of the carried rows, the last rc - emit_hi were not emitted
+            skip = carried - (rc - emit_hi)
+            last = (out, rc, emit_hi)
+        if last is not None:
+            out, rc, emit_hi = last
+            if rc > emit_hi:
+                yield slice_batch(out, emit_hi, rc - emit_hi, transfers)

@@ -345,3 +345,38 @@ def concat_batches_plain(batches: Sequence[ColumnarBatch]
                                  all_valid, torch.cat(pieces)))
     return ColumnarBatch(cols, sum(b.row_count for b in batches),
                          first.names)
+
+
+def slice_columns(columns: Sequence[DeviceColumn], start: int, length: int,
+                  transfers, exact: bool = False) -> List[DeviceColumn]:
+    """Rows ``[start, start + length)``: views of the fixed-width planes;
+    a string column through K7 (its chars plane the input's size, or,
+    with ``exact``, sized exactly after one sync)."""
+    strings = [c for c in columns if c.is_string]
+    taken = iter(gather_columns(
+        strings, torch.arange(start, start + length, dtype=torch.int64,
+                              device=strings[0].device),
+        transfers, unique=not exact) if strings else [])
+    end = start + length
+    return [next(taken) if c.is_string else
+            DeviceColumn(c.data[start:end], c.validity[start:end],
+                         c.data_type, c.all_valid) for c in columns]
+
+
+def slice_batch(batch: ColumnarBatch, start: int, length: int, transfers,
+                exact: bool = False) -> ColumnarBatch:
+    return ColumnarBatch(slice_columns(batch.columns, start, length,
+                                       transfers, exact), length,
+                         batch.names)
+
+
+def row_pieces(batch: ColumnarBatch, max_bytes: int, transfers
+               ) -> List[ColumnarBatch]:
+    """The batch in row slices of about ``max_bytes`` each (at least one
+    row; the batch itself when it fits), string columns sized exactly."""
+    n, size = batch.row_count, batch.nbytes()
+    if size <= max_bytes or n <= 1:
+        return [batch]
+    per = max(1, n * max_bytes // size)
+    return [slice_batch(batch, s, min(per, n - s), transfers, exact=True)
+            for s in range(0, n, per)]

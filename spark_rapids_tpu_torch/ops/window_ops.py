@@ -958,7 +958,8 @@ def compute_windows(payload: Sequence[DeviceColumn],
                     values: Sequence[Optional[DeviceColumn]], kinds,
                     n: int, device: torch.device, transfers,
                     order_keys: Sequence[DeviceColumn] = (),
-                    orders: Sequence[Tuple[bool, bool]] = ()
+                    orders: Sequence[Tuple[bool, bool]] = (),
+                    presorted: bool = False
                     ) -> Tuple[List[DeviceColumn], List[DeviceColumn]]:
     """``(payload sorted by the keys, one column per function)`` of ``n``
     rows on ``device``: K8 and K7 when there are keys, then, by kind, K14's
@@ -968,9 +969,11 @@ def compute_windows(payload: Sequence[DeviceColumn],
     ``FrameAgg`` of an unbounded frame; its whole-partition sums, counts
     and means go to K14's reduction), K14b (a ``FrameAgg`` of a bounded
     ROWS frame), or K14o (``OffsetFn``: the source rows, K7's gather of
-    the input, its default; ``NTileFn``)."""
+    the input, its default; ``NTileFn``).  With ``presorted`` the rows
+    are already in that order (a chunk of the external sort) and are
+    neither sorted nor gathered."""
     every = list(keys) + list(order_keys)
-    if every and n > 1:
+    if every and n > 1 and not presorted:
         perm = sort_ops.sort_permutation(
             every, [sort_ops.SortOrder(i, True, True)
                     for i in range(len(keys))] +
@@ -1034,3 +1037,307 @@ def compute_windows(payload: Sequence[DeviceColumn],
                 outs[j] = col if f.default is None else \
                     window_fill(col, m, f.default)
     return list(payload), outs
+
+
+# -- K14c: the running window's carry between chunks --
+
+#: K14c's kinds (csrc/window_carry.cu FixKind)
+FIX_ROW_NUMBER, FIX_RANK, FIX_DENSE_RANK, FIX_SUM, FIX_COUNT, FIX_MIN, \
+    FIX_MAX = range(7)
+FIX_RANKING = (FIX_ROW_NUMBER, FIX_RANK, FIX_DENSE_RANK)
+#: functions one K14c launch takes (csrc/window_carry.cu kMaxFuncs)
+FIXUP_MAX_FUNCS = 8
+#: int64 words of K14c's scratch (3 a block of at most 132 * 32, then
+#: the bounds)
+FIXUP_SCRATCH = 3 * 132 * 32 + 3
+#: launches of K14c (wrapper calls that launch it)
+FIXUP_LAUNCHES = 0
+
+_FIX_SIGNATURES = {"srt_window_fixup": "iippppppppqiipppppppppppp"}
+
+
+@dataclasses.dataclass
+class RunningCarry:
+    """K14c's state between two chunks, on the chunks' device: the last
+    row's key columns (partition keys, then order keys; one row each),
+    ``state`` = int64 ``[rows, rank, dense]`` (the rows of the last
+    partition group seen so far, the last row's rank and dense rank), and
+    per function the last row's ``(value, validity)`` (one element each;
+    None for a ranking function)."""
+    keys: List[DeviceColumn]
+    state: torch.Tensor
+    values: List[Optional[Tuple[torch.Tensor, torch.Tensor]]]
+
+
+def fixup_kind(func) -> int:
+    """K14c's kind of a running window function (a ranking kind, or a
+    ``FrameAgg`` running sum, count, min or max); ValueError for one the
+    chunked running path does not carry."""
+    ranking = {WIN_ROW_NUMBER: FIX_ROW_NUMBER, WIN_RANK: FIX_RANK,
+               WIN_DENSE_RANK: FIX_DENSE_RANK}
+    if isinstance(func, int) and func in ranking:
+        return ranking[func]
+    if isinstance(func, FrameAgg) and func.frame == "rows" and \
+            func.lo is None and func.hi == 0:
+        kinds = {WIN_SUM_I64: FIX_SUM, WIN_SUM_F64: FIX_SUM,
+                 WIN_COUNT: FIX_COUNT, WIN_COUNT_ALL: FIX_COUNT,
+                 WIN_MIN: FIX_MIN, WIN_MAX: FIX_MAX}
+        if func.kind in kinds:
+            return kinds[func.kind]
+    raise ValueError(f"{func!r} is not a running window function K14c "
+                     "carries")
+
+
+def load_fixup_library():
+    """Builds (first call) and binds ``csrc/window_carry.cu``."""
+    from spark_rapids_tpu_torch.exec.stage_compiler import get_or_build
+    from spark_rapids_tpu_torch.kernels.build import load_cuda
+    return get_or_build("window.running_fixup", "csrc/window_carry.cu",
+                        lambda: load_cuda("window_carry.cu",
+                                          _FIX_SIGNATURES))
+
+
+def _check_fixup(pkeys, okeys, kinds, outs, n: int, carry) -> None:
+    _check_rank(pkeys, okeys, (), n, outs[0].device if outs else
+                (pkeys[0].device if pkeys else okeys[0].device))
+    if len(kinds) != len(outs):
+        raise ValueError("one window column per function")
+    if len(kinds) > FIXUP_MAX_FUNCS:
+        raise NotImplementedError(
+            f"K14c takes at most {FIXUP_MAX_FUNCS} functions")
+    for k, c in zip(kinds, outs):
+        if k not in range(7):
+            raise ValueError(f"unknown K14c kind {k}")
+        if c.row_count != n or c.is_string:
+            raise ValueError("a window column of the chunk's rows")
+        if k in FIX_RANKING and c.data_type != T.INT:
+            raise TypeError("a ranking column is int32")
+        if k not in FIX_RANKING and c.data_type not in _VTYPE:
+            raise TypeError(f"K14c carries int, date, long and double "
+                            f"aggregates, got {c.data_type}")
+    if carry is not None:
+        if len(carry.keys) != len(pkeys) + len(okeys) or \
+                len(carry.values) != len(kinds):
+            raise ValueError("a carry of another window")
+        for a, b in zip(carry.keys, list(pkeys) + list(okeys)):
+            if a.data_type != b.data_type or a.row_count != 1:
+                raise ValueError("the carry's key row must match the keys")
+
+
+def running_fixup(pkeys: Sequence[DeviceColumn],
+                  okeys: Sequence[DeviceColumn], kinds: Sequence[int],
+                  outs: Sequence[DeviceColumn], n: int,
+                  carry: Optional[RunningCarry], transfers
+                  ) -> Tuple[List[DeviceColumn], Optional[RunningCarry]]:
+    """K14c's wrapper: the window columns ``outs`` of one chunk of ``n``
+    rows (sorted by the partition keys ``pkeys``, then the order keys
+    ``okeys``) fixed by ``carry`` (None: the stream's first chunk), and
+    the carry to the next chunk.  A chunk of no row changes nothing.
+
+    On the card the kernel fixes the planes of ``outs`` in place (K14's
+    fresh outputs, which nothing else holds; a plane that is not
+    contiguous, or that two columns share, is copied first) and returns
+    columns over them; a caller that needs ``outs`` as they were passes
+    copies.  The plain version, which the CPU takes, returns new planes."""
+    _check_fixup(pkeys, okeys, kinds, outs, n, carry)
+    keys = list(pkeys) + list(okeys)
+    device = outs[0].device if outs else keys[0].device
+    if device.type == "cpu":
+        return running_fixup_plain(pkeys, okeys, kinds, outs, n, carry,
+                                   transfers)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if n == 0:
+        return list(outs), carry
+    from spark_rapids_tpu_torch.kernels.build import (check_launch, int32s,
+                                                      pointers)
+    lib = load_fixup_library()
+    first = carry is None
+    seen = set()
+
+    def owned(t):
+        if not t.is_contiguous() or t.data_ptr() in seen:
+            t = t.clone(memory_format=torch.contiguous_format)
+        seen.add(t.data_ptr())
+        return t
+    fixed = [DeviceColumn(owned(c.data), owned(c.validity), c.data_type,
+                          c.all_valid) for c in outs]
+    state = torch.empty(3, dtype=torch.int64, device=device)
+    values = [None if k in FIX_RANKING else
+              (torch.empty(1, dtype=c.data.dtype, device=device),
+               torch.empty(1, dtype=torch.bool, device=device))
+              for k, c in zip(kinds, outs)]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        # scratch is held by name until the launch is queued: a tensor
+        # freed at once would let the next one reuse its memory
+        kdata = [k.data.contiguous() for k in keys]
+        kvalid = [None if k.all_valid else
+                  k.validity.contiguous().view(torch.uint8) for k in keys]
+        ckeys = [] if first else carry.keys
+        cdata = [k.data.contiguous() for k in ckeys]
+        cvalid = [k.validity.contiguous().view(torch.uint8) for k in ckeys]
+        scratch = torch.empty(FIXUP_SCRATCH, dtype=torch.int64,
+                              device=device)
+        none = [None] * len(kinds)
+        c_vals = none if first else [None if v is None else v[0]
+                                     for v in carry.values]
+        c_valid = none if first else [
+            None if v is None else v[1].view(torch.uint8)
+            for v in carry.values]
+        c_state = None if first else carry.state
+        check_launch(lib.srt_window_fixup(
+            len(pkeys), len(keys),
+            int32s([KEY_CODES[k.data_type] for k in keys]),
+            int32s([int(k.is_string and k.offsets.dtype == torch.int64)
+                    for k in keys]),
+            pointers(kdata), pointers(kvalid),
+            pointers([k.offsets for k in keys]),
+            pointers(cdata), pointers(cvalid),
+            pointers([k.offsets for k in ckeys]), n, int(first),
+            len(kinds), int32s(list(kinds)),
+            int32s([0 if k in FIX_RANKING else _VTYPE[c.data_type]
+                    for k, c in zip(kinds, outs)]),
+            pointers([c.data for c in fixed]),
+            pointers([c.validity.view(torch.uint8) for c in fixed]),
+            pointers(c_vals), pointers(c_valid),
+            pointers([None if v is None else v[0] for v in values]),
+            pointers([None if v is None else v[1].view(torch.uint8)
+                      for v in values]),
+            None if c_state is None else c_state.data_ptr(),
+            state.data_ptr(), scratch.data_ptr(), stream), "K14c fixup")
+        last = torch.full((1,), n - 1, dtype=torch.int64, device=device)
+        new_keys = batch_ops.gather_columns(keys, last, transfers,
+                                            unique=True)
+    global FIXUP_LAUNCHES
+    FIXUP_LAUNCHES += 1
+    return fixed, RunningCarry(new_keys, state, values)
+
+
+def _equal_to_row(columns: Sequence[DeviceColumn],
+                  row: Sequence[DeviceColumn]) -> torch.Tensor:
+    """Rows of ``columns`` whose keys equal the one row of ``row``: a null
+    equals a null, doubles by their normalised bits, strings byte for
+    byte (``csrc/keys.cuh keys_equal``)."""
+    from spark_rapids_tpu_torch.expressions.base import Col
+    from spark_rapids_tpu_torch.expressions.predicates import \
+        string_equals_literal
+    n = columns[0].row_count if columns else 0
+    eq = None
+    for c, r in zip(columns, row):
+        rv = bool(r.validity[0])
+        if c.is_string:
+            off = r.offsets.to(torch.int64)
+            raw = bytes(r.data[int(off[0]):int(off[1])].cpu().tolist())
+            same = string_equals_literal(Col(c.data, c.validity, c.offsets),
+                                         raw)
+        else:
+            same = key_words_plain(c) == key_words_plain(r)[0]
+        ok = ~c.validity if not rv else c.validity & same
+        eq = ok if eq is None else eq & ok
+    if eq is None:
+        return torch.ones(n, dtype=torch.bool,
+                          device=columns[0].device if columns else None)
+    return eq
+
+
+def _spark_extreme(kind: int, a: torch.Tensor, b: torch.Tensor
+                   ) -> torch.Tensor:
+    """min or max with NaN the greatest value (JAX ``_spark_minmax``)."""
+    if a.dtype.is_floating_point:
+        na, nb = torch.isnan(a), torch.isnan(b)
+        if kind == FIX_MIN:
+            return torch.where(na, b, torch.where(nb, a, torch.minimum(a, b)))
+        return torch.where(na, a, torch.where(nb, b, torch.maximum(a, b)))
+    return torch.minimum(a, b) if kind == FIX_MIN else torch.maximum(a, b)
+
+
+def carried_prefix(pkeys: Sequence[DeviceColumn],
+                   carry: Optional[RunningCarry], n: int, device
+                   ) -> torch.Tensor:
+    """The rows of a chunk of ``n`` rows that continue the carry's last
+    partition (the JAX program's cumulative ``prefix``; none without a
+    carry): the rows ``[0, L)`` K14c fixes."""
+    if carry is None:
+        return torch.zeros(n, dtype=torch.bool, device=device)
+    eqp = _equal_to_row(pkeys, carry.keys[:len(pkeys)]) if pkeys else \
+        torch.ones(n, dtype=torch.bool, device=device)
+    return torch.cumprod(eqp.to(torch.int32), 0).to(torch.bool)
+
+
+def running_fixup_plain(pkeys: Sequence[DeviceColumn],
+                        okeys: Sequence[DeviceColumn], kinds: Sequence[int],
+                        outs: Sequence[DeviceColumn], n: int,
+                        carry: Optional[RunningCarry], transfers
+                        ) -> Tuple[List[DeviceColumn],
+                                   Optional[RunningCarry]]:
+    """The plain PyTorch version of K14c, step by step the JAX program's
+    ``_make_running_fixup`` (``exec/window.py:637-764``): the cumulative
+    equality with the carried keys (``prefix``, ``same_peer``), each
+    function's shift, the next carry from the last row (its rows: the
+    rows equal to the last row's partition keys, plus the carried rows
+    when the whole chunk continued them)."""
+    _check_fixup(pkeys, okeys, kinds, outs, n, carry)
+    if n == 0:
+        return list(outs), carry
+    keys = list(pkeys) + list(okeys)
+    device = outs[0].device if outs else keys[0].device
+    np_ = len(pkeys)
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    prefix = carried_prefix(pkeys, carry, n, device)
+    if carry is None:
+        same_peer = prefix
+        c_rows = c_rank = c_dense = zero
+    else:
+        eqo = _equal_to_row(okeys, carry.keys[np_:]) if okeys else \
+            torch.ones(n, dtype=torch.bool, device=device)
+        # the cumulative (eqp & eqo), eqp's being the prefix
+        same_peer = torch.cumprod(eqo.to(torch.int32), 0) \
+            .to(torch.bool) & prefix
+        c_rows, c_rank, c_dense = carry.state[0], carry.state[1], \
+            carry.state[2]
+    cont = same_peer[0].to(torch.int64)
+    fixed, values = [], []
+    rank_last = dense_last = zero
+    for j, (kind, c) in enumerate(zip(kinds, outs)):
+        d, v = c.data, c.validity
+        if kind == FIX_ROW_NUMBER:
+            d2, v2 = torch.where(prefix, d + c_rows.to(d.dtype), d), v
+        elif kind == FIX_RANK:
+            d2 = torch.where(same_peer, c_rank.to(d.dtype),
+                             torch.where(prefix, d + c_rows.to(d.dtype), d))
+            v2 = v
+            rank_last = d2[n - 1].to(torch.int64)
+        elif kind == FIX_DENSE_RANK:
+            d2 = torch.where(prefix, d + (c_dense - cont).to(d.dtype), d)
+            v2 = v
+            dense_last = d2[n - 1].to(torch.int64)
+        elif carry is None:
+            d2, v2 = d, v
+        else:
+            acc_d, acc_v = carry.values[j]
+            acc_d, acc_v = acc_d[0].to(d.dtype), acc_v[0]
+            if kind == FIX_COUNT:
+                d2, v2 = torch.where(prefix, d + acc_d, d), v
+            elif kind == FIX_SUM:
+                base = torch.where(v, d, torch.zeros_like(d))
+                addend = torch.where(acc_v, acc_d, torch.zeros_like(acc_d))
+                d2 = torch.where(prefix, base + addend, d)
+                v2 = v | (prefix & acc_v)
+            else:
+                comb = _spark_extreme(kind, d, acc_d.expand_as(d))
+                pick = torch.where(v & acc_v, comb, torch.where(v, d, acc_d))
+                d2 = torch.where(prefix, pick, d)
+                v2 = v | (prefix & acc_v)
+        fixed.append(DeviceColumn(d2, v2, c.data_type))
+        values.append(None if kind in FIX_RANKING else
+                      (d2[n - 1:n].clone(), v2[n - 1:n].clone()))
+    last = torch.full((1,), n - 1, dtype=torch.int64, device=device)
+    new_keys = batch_ops.gather_columns_plain(keys, last, transfers,
+                                              unique=True)
+    eql = _equal_to_row(pkeys, new_keys[:np_]) if pkeys else \
+        torch.ones(n, dtype=torch.bool, device=device)
+    rows = eql.to(torch.int64).sum() + torch.where(prefix[n - 1], c_rows,
+                                                   zero)
+    state = torch.stack([rows, rank_last, dense_last])
+    return fixed, RunningCarry(new_keys, state, values)

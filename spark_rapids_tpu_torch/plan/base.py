@@ -10,7 +10,7 @@ returns its output partitions, each a list of device batches."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, Iterator, List, Sequence
 
 import torch
 
@@ -21,6 +21,18 @@ from spark_rapids_tpu_torch.columnar.transfer import TransferGateway
 from spark_rapids_tpu_torch.expressions.base import Expression, output_name
 
 Partitions = List[List[ColumnarBatch]]
+
+
+def owned_partitions(parts: Partitions) -> Iterator[List[ColumnarBatch]]:
+    """Each partition of a child's output as a list of its own, the
+    child's reference to it dropped as it is handed on: a consumer that
+    registers the batches as spillables and empties the list leaves the
+    catalog the only holder of batches nothing else keeps (a cached
+    scan's or a CTE's lists are left as they are)."""
+    parts = list(parts)
+    parts.reverse()
+    while parts:
+        yield list(parts.pop())
 
 
 class ExecContext:

@@ -2,11 +2,13 @@
 the logical plan a DataFrame builds into port execs, pushes a filter down
 to the file scan under it, fuses each filter/project chain into a kernel
 (``plan/stages.py``), puts the decode of encoded columns where an
-operator needs values (``plan/encoding.py``), and refuses whatever the
-port cannot run yet, naming it."""
+operator needs values (``plan/encoding.py``), hands the out-of-core test
+keys to the sort and window execs as instance fields, and refuses
+whatever the port cannot run yet, naming it."""
 
 from __future__ import annotations
 
+from spark_rapids_tpu_torch import config as C
 from spark_rapids_tpu_torch.exec.aggregate import (TorchHashAggregateExec,
                                                    TorchKeyedAggregateExec)
 from spark_rapids_tpu_torch.exec.basic import (TorchCteCacheExec,
@@ -108,11 +110,17 @@ class TorchOverrides:
         if isinstance(node, L.Exchange):
             return TorchShuffleExchangeExec(node.partitioning, child)
         if isinstance(node, L.Sort):
-            return TorchSortExec(node.specs, child)
+            return TorchSortExec(node.specs, child,
+                                 self.conf.get_bool(C.FORCE_OOC_SORT))
         if isinstance(node, L.Limit):
             return TorchLimitExec(node.n, child)
         if isinstance(node, L.Window):
-            return TorchWindowExec(node.window_cols, child)
+            return TorchWindowExec(
+                node.window_cols, child,
+                force_running=self.conf.get_bool(C.FORCE_RUNNING_WINDOW),
+                force_bounded=self.conf.get_bool(C.FORCE_BOUNDED_WINDOW),
+                force_out_of_core_sort=self.conf.get_bool(C.FORCE_OOC_SORT),
+                max_span=self.conf.get_int(C.BOUNDED_WINDOW_MAX_SPAN))
         if isinstance(node, L.Expand):
             return TorchExpandExec(node.projections, node.schema, child)
         raise NotImplementedError(

@@ -24,7 +24,10 @@ behind a hash exchange on its partition keys (``:416-425``).  A limit
 takes the partitions in order.
 
 A session runs on ``cuda:0`` unless it is given ``device="cpu"``; without a
-CUDA device and without that, it is refused."""
+CUDA device and without that, it is refused.  The first session of a
+process initializes the memory runtime (``memory/device_manager.py``)
+with its conf's pool; the out-of-core paths of the sort, the window and
+the FINAL group-by read its headroom."""
 
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ from spark_rapids_tpu_torch.columnar.transfer import TransferGateway
 from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
                                                      Expression,
                                                      bind_references, col)
-from spark_rapids_tpu_torch.memory.device_manager import resolve_device
+from spark_rapids_tpu_torch.memory.device_manager import (initialize,
+                                                          resolve_device)
 from spark_rapids_tpu_torch.plan import base as L
 
 
@@ -55,6 +59,8 @@ class TorchSession:
             else C.TorchConf(conf)
         self.device: torch.device = resolve_device(device)
         self.transfers = TransferGateway(self.device)
+        # the process's memory runtime: the first session shapes it
+        initialize(self.conf, self.device)
 
     @property
     def read(self) -> "_Reader":

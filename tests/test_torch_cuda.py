@@ -16,7 +16,12 @@ substring and concat), K10's null-safe mode and K5's packed-word IN, K16
 (dictionary decode of every type, RLE expansion), K5's code-space mode,
 and TPC-DS q3, q1, q7, q15, q12, q20, q13, q19, q16, q17, q10, q18, q6,
 q28, q36, q51, q8 and q5 end to end against the CPU run (q3, q18, q51, q8
-and q5 also over four partitions; q3, q7 and q19 also from parquet).
+and q5 also over four partitions; q3, q7 and q19 also from parquet);
+out of core: K14c (the running window's carry) chunk by chunk against
+its plain version, the external sort against the in-memory one, the
+out-of-core FINAL merge (forced re-partition) against the in-memory
+merge, and q51 under a 256 KiB pool at 1 and 4 partitions against its
+in-memory rows.
 
 Every test needs a CUDA card and skips without one.  This file imports
 nothing of JAX, so it runs where JAX is not installed:
@@ -1471,3 +1476,163 @@ def test_code_space_fused_aggregate_matches_the_cpu_run(card, tmp_path):
     assert FU.LAUNCHES == before + 3    # one a row group
     assert got == run(TorchSession(device="cpu"))
     assert got[0]["n"] > 0
+
+
+# -- out of core (K14c, the external sort, the out-of-core merge) --
+
+@pytest.fixture
+def runtime_reset():
+    """The memory runtime shaped anew by the test's session, and dropped
+    after it (the pool is a process's)."""
+    from spark_rapids_tpu_torch.memory import device_manager as DM
+    DM.shutdown()
+    yield
+    DM.shutdown()
+
+
+def same_carry(got, ref):
+    """Two K14c carries: the key row, the state and every aggregate's
+    value (where valid) and validity, exactly."""
+    assert (got is None) == (ref is None)
+    if got is None:
+        return
+    same(got.keys, ref.keys)
+    assert torch.equal(got.state, ref.state)
+    for g, r in zip(got.values, ref.values):
+        assert (g is None) == (r is None)
+        if g is not None:
+            dt = {torch.int32: T.INT, torch.int64: T.LONG,
+                  torch.float64: T.DOUBLE}[r[0].dtype]
+            same_frame(DeviceColumn(g[0], g[1], dt),
+                       DeviceColumn(r[0], r[1], dt))
+
+
+def test_running_fixup_matches_plain(card):
+    """K14c against its plain version chunk by chunk over a sorted stream
+    (chunks of 0, 1, 1000, 5000 and 1000 rows; the first form, a chunk
+    continuing the carry whole, a group boundary at row 0, a group and
+    a peer run across a boundary; int, string and long partition keys
+    with nulls, a double order key with NaN, +-inf, -0.0 and nulls; every
+    kind K14c carries); each fixed column and the carry (key row, rows,
+    rank, dense rank, aggregates).  The kernel fixes the window columns in
+    place (the plain version, run first, leaves them as they were)."""
+    from spark_rapids_tpu_torch.ops import window_ops as W
+    from spark_rapids_tpu_torch.testing import fixup_cases as FC
+    rng = np.random.default_rng(31)
+    sizes = (0, 1, 1000, 5000, 1000)
+    pk, ok, outs_a, outs_b = FC.stream(rng, "cuda", card.transfers, sizes)
+    for kinds, outs in ((FC.KINDS_A, outs_a), (FC.KINDS_B, outs_b)):
+        ref = FC.run_stream(W.running_fixup_plain, pk, ok, kinds, outs,
+                            card.transfers, sizes)
+        before = W.FIXUP_LAUNCHES
+        got = FC.run_stream(W.running_fixup, pk, ok, kinds, outs,
+                            card.transfers, sizes)
+        assert W.FIXUP_LAUNCHES - before == sum(k > 0 for k in sizes)
+        torch.cuda.synchronize()
+        start = 0
+        for k, (gf, gc), (rf, rc) in zip(sizes, got, ref):
+            for g, r, o in zip(gf, rf, outs):
+                same_frame(g, r)
+                # fixed in place (an empty tensor has no address)
+                assert k == 0 or \
+                    g.data.data_ptr() == o.data[start:].data_ptr()
+            same_carry(gc, rc)
+            start += k
+
+
+def test_external_sort_matches_in_memory(card, runtime_reset):
+    """The external sort (forceOutOfCore, merge batches of 700 rows) over
+    ascending and descending keys, nulls first and last, NaN, -0.0 and
+    strings whose widths differ between runs, against the in-memory
+    sort on the CPU."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.exec import sort as SX
+    from spark_rapids_tpu_torch.exec.sort import SortSpec
+    rng = np.random.default_rng(5)
+    n = 5000
+    d = data(rng, n)
+    d["s"] = [None if rng.random() < 0.05 else "w" * int(rng.integers(
+        0, 3 if i < n // 2 else 30)) for i in range(n)]
+    d["v"] = [None if x is None else (float("nan") if rng.random() < 0.05
+                                      else x) for x in d["v"]]
+    specs = lambda: [SortSpec(F.col("s"), False, True),
+                     SortSpec(F.col("v"), True, False),
+                     SortSpec(F.col("a"), False, False),
+                     SortSpec(F.col("b"), True, True)]
+    prev = SX._MERGE_OUT_ROWS
+    SX._MERGE_OUT_ROWS = 700
+    try:
+        s = TorchSession({"spark.rapids.sql.test.sort.forceOutOfCore":
+                          "true"}, device="cuda")
+        before = SX.EXTERNAL_SORT_EVENTS
+        got = s.create_dataframe(d, 2, SCHEMA).order_by(*specs()).collect()
+        assert SX.EXTERNAL_SORT_EVENTS > before
+    finally:
+        SX._MERGE_OUT_ROWS = prev
+    ref = TorchSession(device="cpu").create_dataframe(
+        d, 2, SCHEMA).order_by(*specs()).collect()
+    assert len(got) == len(ref) == n
+    for g, r in zip(got, ref):
+        assert repr(g) == repr(r)
+
+
+def test_out_of_core_merge_matches_in_memory(card, runtime_reset):
+    """The FINAL group-by re-partitioned twice on the host
+    (FORCE_REPARTITION_BELOW_DEPTH = 2), each bucket through K9's merge
+    kinds, against the in-memory merge on the CPU."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.exec import aggregate as A
+    rng = np.random.default_rng(6)
+    d = data(rng, 6000, 40)
+
+    def q(s):
+        return s.create_dataframe(d, 3, SCHEMA).group_by("a", "s").agg(
+            F.sum("v").alias("sv"), F.count("b").alias("c"),
+            F.avg("b").alias("ab")).collect()
+    before = A.REPARTITION_EVENTS
+    A.FORCE_REPARTITION_BELOW_DEPTH = 2
+    try:
+        got = q(TorchSession(device="cuda"))
+    finally:
+        A.FORCE_REPARTITION_BELOW_DEPTH = 0
+    assert A.REPARTITION_EVENTS > before
+    ref = q(TorchSession(device="cpu"))
+    key = lambda r: (r["a"] is None, r["a"] or 0, r["s"] is None,
+                     r["s"] or "")
+    got.sort(key=key)
+    ref.sort(key=key)
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert (g["a"], g["s"], g["c"]) == (r["a"], r["s"], r["c"])
+        for k in ("sv", "ab"):
+            assert (g[k] is None) == (r[k] is None)
+            if r[k] is not None:
+                assert abs(g[k] - r[k]) <= 1e-9 * max(1.0, abs(r[k]))
+
+
+@pytest.mark.parametrize("parts", [1, 4])
+def test_q51_out_of_core_matches_in_memory(card, runtime_reset, parts):
+    """q51 at sf 5 under a 256 KiB pool: every window runs the chunked
+    running path over the external sort (K14c), at 4 partitions the
+    FINAL group-by re-partitions; the rows equal the in-memory run."""
+    from spark_rapids_tpu_torch.exec import aggregate as A
+    from spark_rapids_tpu_torch.exec import window as WX
+    from spark_rapids_tpu_torch.memory import device_manager as DM
+    from spark_rapids_tpu_torch.ops import window_ops as W
+    from spark_rapids_tpu_torch.testing import tpcds
+    names = ("web_sales", "store_sales", "date_dim")
+    t = tpcds.q51_tables(tpcds.generate_tables(5))
+    ref = tpcds.q51(*tpcds.partitioned_frames(card, t, names, parts)
+                    )[0].collect()
+    DM.shutdown()
+    s = TorchSession({"spark.rapids.tpu.memory.pool.size": "256k"},
+                     device="cuda")
+    ev = (WX.RUNNING_WINDOW_EVENTS, W.FIXUP_LAUNCHES, A.REPARTITION_EVENTS)
+    got = tpcds.q51(*tpcds.partitioned_frames(s, t, names, parts)
+                    )[0].collect()
+    assert got == ref and len(got) == 100
+    assert WX.RUNNING_WINDOW_EVENTS - ev[0] >= 3
+    assert W.FIXUP_LAUNCHES > ev[1]
+    if parts > 1:
+        assert A.REPARTITION_EVENTS > ev[2]
+    assert DM.memory_stats()["device_to_host"] > 0
