@@ -16,13 +16,21 @@ It holds each kernel against its plain PyTorch version on the card
 (phase 2h: the exchange's kernels and K9's merge kinds; phase 2i: the
 window frames and the full outer join; phase 2j: K13 and K10's
 null-safe mode; phase 2k: K16 and K5's code-space mode; phase 2l: K14c
-chunk by chunk, and the chunked bounded window path against one batch),
-then drives twelve paths through ``TorchSession()``, each query with the
-launch counters set to 0 just before it and read just after:
+chunk by chunk, and the chunked bounded window path against one batch;
+phase 2m: K9's min, max, first, last, first_valid and last_valid kinds
+(group-by and merge), K1's update forms of them and K3's, on 2^20+3 rows
+with nulls, NaN, +-0.0 and one group of every row), then drives fourteen
+paths through ``TorchSession()``, each query with the launch counters set
+to 0 just before it and read just after:
 
 - bench.py's recipe -- filter(w > t), project k+1, v*2.0 and
   murmur3(k, w), sum all three, collect -- on 128M rows in 4 partitions,
   checked against the CPU run and numpy;
+- phase 3b: the recipe's global form over the same table --
+  filter(w > t), then min(v), max(v), min(k), max(w), first(k), last(v),
+  first(v, ignore_nulls) and last(w, ignore_nulls) -- K1's update forms,
+  K3's fold and merge, K7's gather of the first/last rows, held against
+  numpy in partition order (no CPU run);
 - TPC-DS q3, q1 and q7 at sf 1000 (store_sales 30M rows, store_returns
   3M, customer and item 2M, date_dim 1461) at one partition, over tables
   generated once, each checked against a numpy version of the query and
@@ -73,8 +81,12 @@ launch counters set to 0 just before it and read just after:
   decode through K16; each held against its in-memory run and numpy,
   with the host read and the upload timed apart and the encoding
   counters printed, then timed and profiled alike;
+- phase 9g: TPC-DS q35 as written (no row: date_dim ends in 2001) and
+  q35v (``d_year = 2001``: a 6-key group-by folding count(*), min, max
+  and avg of three int columns, K9's min and max kinds) over the same
+  tables, checked and timed alike;
 - phase 10: q3, q1, q7, q12, q16, q17 without its item conjunct, q18,
-  q51 and q8 over the same tables cut into ``--parts`` partitions (the
+  q51, q8 and q35v over the same tables cut into ``--parts`` partitions (the
   JAX package's register_tables rule): every group-by, join, sort and
   window behind a hash or range exchange (K11h, K11r, K7s), PARTIAL/FINAL
   group-bys through K9's merge kinds, each query's rows held against its
@@ -212,6 +224,8 @@ COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
             "K16r": ("ops.decode_ops", "RLE_LAUNCHES"),
             "K5d": ("exec.fused", "CODE_SPACE_LAUNCHES"),
             "K14c": ("ops.window_ops", "FIXUP_LAUNCHES")}
+#: K9's launches with a min, max, first or last slot, a part of its count
+MIN_MAX_COUNTER = ("ops.agg_ops", "KEYED_MIN_MAX_LAUNCHES")
 #: the out-of-core paths' counters, which read 0 on every default-pool
 #: query (module, attribute)
 OOC_COUNTERS = (("exec.sort", "EXTERNAL_SORT_EVENTS"),
@@ -245,7 +259,10 @@ QUERY_KERNELS = {"q3": ("K5", "K7", "K8", "K9", "K10"),
                  "q51w": ("K5", "K7", "K8", "K9", "K10", "K14b", "K14o"),
                  "q8": ("K5", "K7", "K8", "K9", "K10", "K10n", "K13"),
                  "q5": ("K6", "K7", "K7c", "K7s", "K8", "K9", "K10",
-                        "K11h", "K11r", "K13")}
+                        "K11h", "K11r", "K13"),
+                 # as written no date passes: no group to finish or sort
+                 "q35": ("K5", "K7", "K10"),
+                 "q35v": ("K5", "K6", "K7", "K8", "K9", "K10")}
 #: phase 9e: the queries run from parquet, and the kernels each launches
 #: (q7's filters on five dictionary columns run in code space, K5d, and
 #: decode none; q3's and q19's string payloads decode through K16 ahead
@@ -263,7 +280,7 @@ Q7_CODE_SPACE_COLUMNS = ("cd_gender", "cd_marital_status",
 #: each launches beside its one-partition ones (q16 sorts its one-row
 #: global aggregate: no range exchange)
 PARTS_QUERIES = ("q3", "q1", "q7", "q12", "q16", "q17v", "q18", "q51",
-                 "q8")
+                 "q8", "q35v")
 PARTS_KERNELS = {"q16": ("K7c", "K11h", "K7s")}
 PARTS_DEFAULT_KERNELS = ("K7c", "K11h", "K11r", "K7s")
 #: the histogram the exchange's one read brings to the host (exec/
@@ -306,6 +323,18 @@ NTILE_REPLACES = ["spark_rapids_tpu/ops/window_ops.py:187"]
 FULL_REPLACES = ["spark_rapids_tpu/ops/join_ops.py:313",
                  "spark_rapids_tpu/ops/join_ops.py:418"]
 M2_REPLACES = ["spark_rapids_tpu/ops/agg_ops.py:490"]
+#: the JAX reductions K9's min and max kinds replace beside the keyed
+#: program (``_segment_reduce``'s min/max and first/last), and those of
+#: K1's update forms and K3's kinds (``_global_reduce``)
+MIN_MAX_REPLACES = ["spark_rapids_tpu/ops/agg_ops.py:82",
+                    "spark_rapids_tpu/ops/agg_ops.py:110"]
+GLOBAL_MIN_MAX_REPLACES = ["spark_rapids_tpu/ops/agg_ops.py:180",
+                           "spark_rapids_tpu/ops/agg_ops.py:199"]
+#: the tables of TPC-DS q35 (and q35v), in its recipe's order
+Q35_TABLES = ("customer", "customer_address", "customer_demographics",
+              "store_sales", "web_sales", "catalog_sales", "date_dim")
+#: phase 2m: rows of the min/max/first/last checks
+SLICE13_ROWS = (1 << 20) + 3
 #: data bytes of one table row (k int64, v double, w int32), as bench.py
 ROW_BYTES = 8 + 8 + 4
 F64_SUM_RTOL = 1e-10
@@ -784,12 +813,21 @@ def same_keyed(keys, inputs, kinds, got, ref, tr, what: str) -> float:
     the measured max |d|."""
     import torch
     from spark_rapids_tpu_torch.ops import agg_ops as G
+    from spark_rapids_tpu_torch.testing import minmax_cases as MC
     (rep, res), (rrep, rres) = got, ref
     err = same_indices(rep, rrep, f"{what}: groups")
     gid, _ = G.group_rows_plain(keys, tr)
     for j, ((gd, gv), (rd, rv)) in enumerate(zip(res, rres)):
         check(bool(torch.equal(gv.cpu(), rv.cpu())),
               f"{what}, aggregate {j}: validity")
+        if kinds[j] in G.KEYED_KEEPS_TYPE:
+            # min, max, first and last: exact, doubles by their bits; the
+            # max |d| by value (doubles over the finite ones)
+            check(gd.dtype == rd.dtype, f"{what}, aggregate {j}: type")
+            same_indices(MC.words(gd), MC.words(rd),
+                         f"{what}, aggregate {j}: values")
+            err = max(err, max_diff(gd, rd))
+            continue
         if kinds[j] == G.KEYED_M2:
             err = max(err, same_m2(inputs[j], gid, rep.shape[0], gd, rd,
                                    f"{what}, aggregate {j}"))
@@ -2557,6 +2595,262 @@ def check_slice12(session, rng, rate: float):
     return err, timed
 
 
+def minmax_fused(session, hb):
+    """Phase 2m's K1 chain over a minmax_cases batch: ``g > 7``, then
+    min and max of each fixed-width column and the four row-order kinds
+    of every column: its fused exec."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.base import col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import GreaterThan
+    aggs = []
+    for c in ("i", "d", "l", "v"):
+        aggs += [F.min(c), F.max(c)]
+    for c in ("i", "d", "l", "v", "s"):
+        aggs += [F.first(c), F.last(c), F.first(c, True), F.last(c, True)]
+    return fused_exec_of(session.create_dataframe(hb).filter(
+        GreaterThan(col("g"), lit(7))).agg(
+        *[a.alias(f"a{j}") for j, a in enumerate(aggs)]))
+
+
+def same_words(got, ref, doubles, what: str) -> float:
+    """K3's output, or a K1 table folded by K3's plain version, against
+    the plain version's: the validity and the valid words exactly;
+    returns the measured max |d| over the valid words, by value (the
+    words that ``doubles`` marks as doubles, over the finite ones)."""
+    import torch
+    check(bool(torch.equal(got[1], ref[1])), f"{what}: validity")
+    gw = torch.where(ref[1], got[0], 0)
+    rw = torch.where(ref[1], ref[0], 0)
+    check(bool(torch.equal(gw, rw)), f"{what}: words")
+    return max(max_diff(gw[~doubles], rw[~doubles]),
+               max_diff(gw[doubles].view(torch.float64),
+                        rw[doubles].view(torch.float64)))
+
+
+def global_bytes(values, kinds) -> int:
+    """Bytes K3 must move over a ``[rows, columns]`` word table of
+    ``kinds``: sum, min and max read a cell's word and validity (9 B),
+    count its validity byte alone; first_valid and last_valid read the
+    validity bytes and the picked row's 9 B, first and last the picked
+    row's 9 B alone; 9 B a column out."""
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    n = values.shape[0]
+    total = 0
+    for kind in kinds:
+        if kind in (G.FIRST, G.LAST):
+            total += 9 * min(n, 1)
+        elif kind in (G.FIRST_VALID, G.LAST_VALID):
+            total += n + 9 * min(n, 1)
+        elif kind == G.COUNT:
+            total += n
+        else:
+            total += 9 * n
+    return total + 9 * len(kinds)
+
+
+def keyed_bytes(keys, inputs, kinds, res) -> int:
+    """Bytes K9 must move: its keys; each distinct input once, whole
+    where a slot folds every row of it (sum, count, m2, min, max), else
+    its validity where a first_valid or last_valid slot reads it, and
+    each pick slot's picked row of each group (a string's validity alone:
+    its pick writes the row, which K7 gathers); a group index and each
+    slot's output (word and validity) per group."""
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    groups = res[0][0].shape[0] if res else 0
+    need = {}
+    for c, k in zip(inputs, kinds):
+        if c is None:
+            continue
+        e = need.setdefault(id(c), [c, False, False, 0])
+        if k not in G.KEYED_PICK:
+            e[1] = True
+        elif k in (G.KEYED_FIRST_VALID, G.KEYED_LAST_VALID):
+            e[2] = True
+        if k in G.KEYED_PICK:
+            e[3] += 1
+    total = sum(column_bytes(c) for c in keys)
+    for c, whole, valid, picks in need.values():
+        if whole:
+            total += column_bytes(c)
+            continue
+        if valid and not c.all_valid:
+            total += c.row_count
+        total += picks * ((0 if c.all_valid else groups) if c.is_string
+                          else column_bytes(c, groups))
+    return total + groups * 8 + sum(v.numel() * v.element_size() + ok.numel()
+                                    for v, ok in res)
+
+
+def check_slice13(session, rng, rate: float):
+    """Phase 2m: on testing/minmax_cases.py batches of 0, 1, 1000 and
+    2^20+3 rows (nulls, NaN, +-inf, +-0.0 in both orders, INT64_MIN and
+    MAX, strings, an all-null and an all-NaN group), against their plain
+    versions, exactly (doubles by their bits): K9's min, max, first, last,
+    first_valid and last_valid over 4096 groups and over one group of
+    every row; K9's merge kinds over the two halves' partials; K3's kinds
+    (a string's by its rows), and -0.0 against 0.0 in both orders; K1's
+    update forms (folded by K3's plain version) and the rows K7 gathers.
+    Returns the measured max |d| by kernel (by value; the comparisons are
+    exact, so a pass measures 0) and, at 2^20+3 rows, each kernel's (ms,
+    plain ms, bound ms, library ms)."""
+    import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    from spark_rapids_tpu_torch.testing import minmax_cases as MC
+    tr = session.transfers
+    errs = {"K9": 0.0, "K1": 0.0, "K3": 0.0}
+    timed = {}
+    specs = MC.global_specs()
+    k3_doubles = torch.tensor([dt == T.DOUBLE for _o, _k, _c, dt in specs],
+                              device=session.device)
+    for n in (0, 1, 1000, SLICE13_ROWS):
+        hb = MC.host_batch(int(rng.integers(1 << 30)), n)
+        b = tr.upload_batch(hb)
+        inputs, kinds = MC.keyed_slots(b.columns)
+        for key in (0, 1):
+            keys = [b.columns[key]]
+            got = G.keyed_aggregate(keys, inputs, kinds, tr)
+            torch.cuda.synchronize()
+            errs["K9"] = max(errs["K9"], same_keyed(
+                keys, inputs, kinds, got, G.keyed_aggregate_plain(
+                    keys, inputs, kinds, tr), tr,
+                f"K9, {n} rows, key {key}"))
+        # the merge kinds over the halves' partials (fixed-width slots)
+        mkeys, merged, fk = MC.merged_halves(b.columns, inputs, kinds, tr)
+        got = G.keyed_aggregate(mkeys, merged, fk, tr)
+        torch.cuda.synchronize()
+        errs["K9"] = max(errs["K9"], same_keyed(
+            mkeys, merged, fk, got, G.keyed_aggregate_plain(
+                mkeys, merged, fk, tr), tr, f"K9 merge, {n} rows"))
+        # K3's kinds
+        values, valid, k3 = G.pack_columns(b.columns, specs)
+        got = G.global_reduce(values, valid, k3)
+        torch.cuda.synchronize()
+        errs["K3"] = max(errs["K3"], same_words(
+            got, G.global_reduce_plain(values, valid, k3), k3_doubles,
+            f"K3, {n} rows"))
+        # K1's update forms, folded by K3's plain version, and K7's rows
+        fx = minmax_fused(session, hb)
+        tb = tr.upload_batch(hb)
+        lits = FU.LiteralArgs.upload(fx.promoted, tr)
+        folded = []
+        for table in (FU.fused_agg_update(fx.program, tb, lits),
+                      FU.fused_agg_update_plain(fx.program, tb, lits)):
+            w, ok = G.global_reduce_plain(*table, fx.program.fold_kinds)
+            folded.append((w, ok, fx.program.buffer_row(
+                w, ok, tb, fx.scalar.buffer_names, tr)))
+        torch.cuda.synchronize()
+        (kw, kv, krow), (pw, pv, prow) = folded
+        # the min and max buffers of doubles hold values; the row kinds'
+        # buffers hold rows
+        k1_doubles = torch.tensor([k in (G.MIN_F64, G.MAX_F64)
+                                   for k in fx.program.fold_kinds],
+                                  device=session.device)
+        errs["K1"] = max(errs["K1"], same_words(
+            (kw, kv), (pw, pv), k1_doubles, f"K1, {n} rows"),
+            same_columns(krow.columns, prow.columns, f"K1's rows, {n} rows"))
+    for first in (0.0, -0.0):
+        zeros = torch.tensor([first, -first, first], dtype=torch.float64,
+                             device=session.device).view(torch.int64)
+        ones = torch.ones(3, 1, dtype=torch.bool, device=session.device)
+        for kind, sign in ((G.MIN_F64, True), (G.MAX_F64, False)):
+            w, _ok = G.global_reduce(zeros[:, None].contiguous(), ones,
+                                     [kind])
+            check(bool(torch.signbit(w.view(torch.float64))[0]) == sign,
+                  f"K3 {kind} of zeros, {first} first")
+    # times at 2^20+3 rows: the last loop's batch and its calls
+    keys = [b.columns[0]]
+    rep, res, gid = G.keyed_aggregate(keys, inputs, kinds, tr,
+                                      row_groups=True)
+
+    def fold_only(cols, ks, groups, n_out):
+        """The library's fold of the min/max slots over K9's own group
+        ids (``scatter_reduce``; the fold only)."""
+        mm = [(c.data, "amin" if k == G.KEYED_MIN else "amax")
+              for c, k in zip(cols, ks) if k in (G.KEYED_MIN, G.KEYED_MAX)]
+        return lambda: [
+            torch.zeros(n_out, dtype=x.dtype, device=x.device)
+            .scatter_reduce_(0, groups, x, how, include_self=False)
+            for x, how in mm]
+    timed["K9"] = (
+        time_ms(lambda: G.keyed_aggregate(keys, inputs, kinds, tr), 5),
+        time_ms(lambda: G.keyed_aggregate_plain(keys, inputs, kinds, tr),
+                2, 1),
+        keyed_bytes(keys, inputs, kinds, res) / rate * 1e3,
+        time_ms(fold_only(inputs, kinds, gid, rep.shape[0]), 5))
+    mrep, mres, mgid = G.keyed_aggregate(mkeys, merged, fk, tr,
+                                         row_groups=True)
+    timed["K9 merge"] = (
+        time_ms(lambda: G.keyed_aggregate(mkeys, merged, fk, tr), 5),
+        time_ms(lambda: G.keyed_aggregate_plain(mkeys, merged, fk, tr), 2,
+                1),
+        keyed_bytes(mkeys, merged, fk, mres) / rate * 1e3,
+        time_ms(fold_only(merged, fk, mgid, mrep.shape[0]), 5))
+    ints = torch.where(valid, values, INT64_MAX)
+    timed["K3"] = (
+        time_ms(lambda: G.global_reduce(values, valid, k3), 20),
+        time_ms(lambda: G.global_reduce_plain(values, valid, k3), 2, 1),
+        global_bytes(values, k3) / rate * 1e3,
+        time_ms(lambda: torch.amin(ints, 0), 20))
+    table = FU.fused_agg_update(fx.program, tb, lits)
+    # the chain's one string reference is the row kinds' argument, whose
+    # validity alone K1 reads
+    k1_in = sum(column_bytes(c) if not c.is_string else
+                0 if c.all_valid else c.row_count
+                for c in (tb.columns[o] for o in fx.program.used))
+    timed["K1"] = (
+        time_ms(lambda: FU.fused_agg_update(fx.program, tb, lits), 10),
+        time_ms(lambda: FU.fused_agg_update_plain(fx.program, tb, lits), 2,
+                1),
+        (k1_in + 9 * table[0].numel()) / rate * 1e3, None)
+    return errs, timed
+
+
+def query_3b(df, threshold=0):
+    """Phase 3b: the recipe's global form, ``filter(w > t)`` then min,
+    max, first and last of its columns."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions import predicates as P
+    from spark_rapids_tpu_torch.expressions.base import col, lit
+    return (df.filter(P.GreaterThan(col("w"), lit(threshold)))
+            .agg(F.min("v").alias("min_v"), F.max("v").alias("max_v"),
+                 F.min("k").alias("min_k"), F.max("w").alias("max_w"),
+                 F.first("k").alias("first_k"), F.last("v").alias("last_v"),
+                 F.first("v", True).alias("first_v"),
+                 F.last("w", True).alias("last_w")))
+
+
+def numpy_3b(data, parts: int, threshold=0) -> dict:
+    """Phase 3b in numpy, partition by partition as the port cuts the
+    table (``create_dataframe``): each partition's buffers, then the
+    merge in partition order, where ``first`` and ``last`` take the first
+    and last partition's buffer even when that partition kept no row (the
+    JAX merge rule, ROADMAP queue 3); the table holds no null."""
+    n = len(data["k"])
+    per = -(-n // parts)
+    bufs = []
+    for p in range(parts):
+        lo, hi = p * per, min(n, (p + 1) * per)
+        sel = np.flatnonzero(data["w"][lo:hi] > threshold) + lo
+        bufs.append(sel)
+    every = np.concatenate(bufs)
+
+    def value(name, rows):
+        return None if not len(rows) else data[name][rows].item()
+    out = {"min_v": value("v", [every[np.argmin(data["v"][every])]])
+           if len(every) else None,
+           "max_v": value("v", [every[np.argmax(data["v"][every])]])
+           if len(every) else None,
+           "min_k": int(data["k"][every].min()) if len(every) else None,
+           "max_w": int(data["w"][every].max()) if len(every) else None,
+           "first_k": value("k", bufs[0][:1]),
+           "last_v": value("v", bufs[-1][-1:]),
+           "first_v": value("v", every[:1]),
+           "last_w": value("w", every[-1:])}
+    return out
+
+
 #: phase 9f: the device pool of q51 out of core
 OOC_POOL = "128m"
 
@@ -2965,6 +3259,7 @@ def same_kernel1(args, got, ref, what: str) -> float:
     buffer's tolerance from the call's own inputs (the sum of |x| over the
     rows the chain keeps)."""
     import torch
+    from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.expressions.base import EvalContext
     from spark_rapids_tpu_torch.expressions.evaluator import batch_cols
     from spark_rapids_tpu_torch.ops import agg_ops as G
@@ -2983,9 +3278,12 @@ def same_kernel1(args, got, ref, what: str) -> float:
             x = c.data.to(torch.float64)
             abs_sum = max(abs_sum, float(torch.where(
                 sel & c.valid & torch.isfinite(x), x.abs(), 0.0).sum()))
+    # a min or max compares its word exactly, a first/last its row
+    types = [dt if kind == "sum" else T.LONG
+             for _o, kind, _cv, dt in program.update_specs]
     return compare_rows(G.global_reduce_plain(*got, program.fold_kinds),
                         G.global_reduce_plain(*ref, program.fold_kinds),
-                        program.buffer_types, max(abs_sum, 1.0), what)
+                        types, max(abs_sum, 1.0), what)
 
 
 def same_kernel2(args, got, ref, what: str) -> float:
@@ -2995,8 +3293,9 @@ def same_kernel2(args, got, ref, what: str) -> float:
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.ops import agg_ops as G
     values, valid, kinds = args[:3]
-    types = [T.DOUBLE if k in (G.SUM_F64, G.MIN_F64, G.MAX_F64) else T.LONG
-             for k in kinds]
+    # a double sum within the tolerance; every other word (a double's min
+    # or max by its bits, a picked row's word) exactly
+    types = [T.DOUBLE if k == G.SUM_F64 else T.LONG for k in kinds]
     f = values.view(torch.float64)
     abs_sum = float(torch.where(valid.bool() & torch.isfinite(f), f.abs(),
                                 0.0).sum()) if values.numel() else 0.0
@@ -3179,7 +3478,7 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
                                f" columns: {ms:.4f} ms")
         elif name == "K3":
             values = args[0]
-            o["bytes"] += 9 * values.numel() + 9 * values.shape[1]
+            o["bytes"] += global_bytes(values, args[2])
             o["shapes"].append(f"{values.shape[0]}x{values.shape[1]}: "
                                f"{ms:.4f} ms")
         elif name == "K15d":
@@ -3250,9 +3549,7 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
             keys, inputs = args[0], args[1]
             rep, res = got[:2]
             g = rep.shape[0]
-            o["bytes"] += sum(column_bytes(c) for c in keys) + \
-                sum(column_bytes(c) for c in inputs if c is not None) + \
-                g * (8 + sum(9 for _ in res))
+            o["bytes"] += keyed_bytes(keys, inputs, args[2], res)
             o["shapes"].append(f"{keys[0].row_count}->{g} groups: "
                                f"{ms:.4f} ms")
         elif name == "K14":
@@ -3486,22 +3783,29 @@ QUERIES = {
     "q5": ("q5", ("store_sales", "store_returns", "catalog_sales",
                   "catalog_returns", "web_sales", "web_returns", "date_dim",
                   "store", "catalog_page", "web_site"), "store_sales"),
+    "q35": ("q35", Q35_TABLES, "store_sales"),
+    "q35v": ("q35", Q35_TABLES, "store_sales"),
 }
+#: the queries whose K9 folds min and max (K9 entries name the JAX
+#: reductions beside the keyed program)
+MIN_MAX_QUERIES = ("q35v",)
 #: the queries that must join on a string key (K10)
 STRING_JOIN_QUERIES = ("q6",)
 #: keyword arguments of a query's recipe and numpy version: q17v is q17
-#: with its ``sr_item_sk = cs_item_sk`` conjunct dropped
-QUERY_KW = {"q17v": {"same_item": False}}
+#: with its ``sr_item_sk = cs_item_sk`` conjunct dropped, q35v is q35
+#: with ``d_year = 2001`` (as written it keeps no row)
+QUERY_KW = {"q17v": {"same_item": False}, "q35v": {"year": 2001}}
 #: the rows each query gives at sf 1000 (q3: at least; q17 as written:
 #: whatever numpy gives, none at sf 1 to 20)
 QUERY_ROWS = {"q3": 10, "q1": 100, "q7": 100, "q15": 40, "q12": 100,
               "q20": 100, "q13": 1, "q19": 100, "q16": 1, "q17": None,
               "q17v": 100, "q10": 100, "q18": 100, "q6": 10, "q28": 1,
-              "q36": 100, "q51": 100, "q51w": 1, "q8": 9, "q5": 100}
-#: phases 4 to 9d, in bench.py's TPC-DS order within each slice
+              "q36": 100, "q51": 100, "q51w": 1, "q8": 9, "q5": 100,
+              "q35": 0, "q35v": 100}
+#: phases 4 to 9g, in bench.py's TPC-DS order within each slice
 TPCDS_ORDER = ("q3", "q1", "q7", "q15", "q12", "q20", "q13", "q19", "q16",
                "q17", "q17v", "q10", "q18", "q6", "q28", "q36", "q51",
-               "q51w", "q8", "q5")
+               "q51w", "q8", "q5", "q35", "q35v")
 #: the queries run at a scale of their own (at most ``--sf``), their CPU
 #: run held against a card run at a tenth of it: q5's web returns join
 #: web_sales on a page drawn from 60 values on both sides, about
@@ -3607,12 +3911,16 @@ def run_query(session, query: str, tables, rate: float,
            for m, a in OOC_COUNTERS]
     for mod, attr in ooc:
         setattr(mod, attr, 0)
+    mm_mod = importlib.import_module(
+        f"spark_rapids_tpu_torch.{MIN_MAX_COUNTER[0]}")
+    setattr(mm_mod, MIN_MAX_COUNTER[1], 0)
     tr0, ks0, enc0 = session.transfers.stats(), kstats(), \
         ENC.encoding_stats()
     t0 = time.perf_counter()
     result = run()
     main_s = time.perf_counter() - t0
     launched = {k: getattr(mod, attr) for mod, attr, k in counters}
+    min_max_launches = getattr(mm_mod, MIN_MAX_COUNTER[1])
     out_of_core = {a: getattr(mod, a) for mod, a in ooc}
     check(not any(out_of_core.values()), f"{label} keeps its fast paths "
           f"with the default pool: {out_of_core}")
@@ -3695,6 +4003,18 @@ def run_query(session, query: str, tables, rate: float,
                 for k in kernels}
     check(recorded == launches, f"every launch of the {label} main path "
           f"was recorded: {recorded} vs {launches}")
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    recorded_mm = sum(c[0] == "K9" and any(k in G.KEYED_KEEPS_TYPE
+                                           for k in c[1][2])
+                      for c in rec.calls)
+    check(recorded_mm == min_max_launches, f"{label}: K9's launches with a "
+          f"min, max, first or last slot, {min_max_launches} on the main "
+          f"path, {recorded_mm} recorded")
+    if query in MIN_MAX_QUERIES:
+        check(min_max_launches > 0, f"{label} launched K9's min, max, "
+              f"first and last kinds")
+        print(f"{label}: {min_max_launches} of K9's launches on the main "
+              f"path have a min, max, first or last slot")
     if query in STRING_JOIN_QUERIES:
         from spark_rapids_tpu_torch.ops.join_ops import key_list
         check(any(k == "K10" and any(c.is_string for c in key_list(a[0]))
@@ -3724,7 +4044,7 @@ def run_query(session, query: str, tables, rate: float,
           f"{best * 1e3:.4f} ms")
     return launches, timed, {"rows": result, "numpy": numpy_rows,
                              "peak": torch.cuda.max_memory_allocated()
-                             / 2 ** 30}
+                             / 2 ** 30, "min_max_launches": min_max_launches}
 
 
 def scan_and_upload(session, dfs, label: str) -> int:
@@ -4065,6 +4385,18 @@ def main() -> int:
           f"chunk case) vs plain and the chunked bounded path vs one batch: "
           f"pass ({time.perf_counter() - t0:.1f} s), max |d| {errs12}")
 
+    # -- phase 2m: K9's, K1's and K3's min, max, first and last -------------
+    t0 = time.perf_counter()
+    errs13, slice13_one = check_slice13(session, rng, rate)
+    print(f"K9 (min, max, first, last, first_valid, last_valid; by 4096 "
+          f"groups, by one group, and merging partials), K3 (the same "
+          f"kinds, +-0.0 in both orders), K1 (their update forms) and K7 "
+          f"(the picked rows) vs plain: pass "
+          f"({time.perf_counter() - t0:.1f} s), max |d| {errs13}")
+    for what, (ms_, plain_, bound_, lib_) in slice13_one.items():
+        print(f"{what} new kinds ({SLICE13_ROWS} rows): {ms_:.4f} ms, plain "
+              f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
+
     phase("kernels checked")
 
     # -- phase 3: the bench recipe at full size -----------------------------
@@ -4223,9 +4555,75 @@ def main() -> int:
               f"{kernels[-1]['ms']:.4f} ms, plain "
               f"{kernels[-1]['plain_ms']:.4f} ms, library "
               f"{kernels[-1]['library_ms']:.4f} ms")
+    phase("bench recipe's kernels timed")
+
+    # -- phase 3b: the recipe's global form (min, max, first, last) ---------
+    first3b = query_3b(df).collect()
+    counted3b = ("K1", "K3", "K7", "K7c")
+    for k in counted3b:
+        setattr(*counter_of(k), 0)
+    tr0, ks0 = session.transfers.stats(), kstats()
+    t0 = time.perf_counter()
+    result3b = query_3b(df).collect()
+    main3b_s = time.perf_counter() - t0
+    launches3b = {k: getattr(*counter_of(k)) for k in counted3b}
+    tr1, ks1 = session.transfers.stats(), kstats()
+    print(f"phase 3b main path: {main3b_s * 1e3:.3f} ms, launches "
+          f"{launches3b}, transfers {({k: tr1[k] - tr0[k] for k in tr1})}")
+    check(launches3b == {"K1": args.parts, "K3": args.parts + 1,
+                         "K7": 4 * args.parts, "K7c": int(args.parts > 1)},
+          f"phase 3b: K1 and K3 a partition, K3's merge, K7 a first/last "
+          f"a partition, K7c: {launches3b}")
+    check(tr1["syncs"] - tr0["syncs"] == 1, "phase 3b: one sync per query")
+    check(ks1["builds"] == ks0["builds"], "phase 3b builds nothing anew")
+    check(result3b == first3b, "phase 3b: a repeated query, the same row")
+    want3b = numpy_3b(data, args.parts)
+    check(result3b == [want3b], f"phase 3b matches numpy in partition "
+          f"order: {result3b} vs {want3b}")
+    times3b = []
+    for _ in range(args.reps):
+        t0 = time.perf_counter()
+        query_3b(df).collect()
+        times3b.append(time.perf_counter() - t0)
+    with Recorder() as rec3b:
+        query_3b(df).collect()
+    recorded3b = {k: sum(c[0] == k for c in rec3b.calls) for k in counted3b}
+    check(recorded3b == launches3b, f"every phase 3b launch was recorded: "
+          f"{recorded3b}")
+    timed3b = time_kernels(session, rec3b.calls, rate, 5, counted3b)
+    print(f"phase 3b result {result3b[0]} matches numpy; best of "
+          f"{args.reps} {min(times3b) * 1e3:.3f} ms, median "
+          f"{float(np.median(times3b)) * 1e3:.3f} ms, "
+          f"{args.rows / min(times3b):.6e} rows/s")
+    for k, o in timed3b.items():
+        print(f"  {k}: {o['ms']:.4f} ms per query over {launches3b[k]} "
+              f"launches (per launch: {'; '.join(o['shapes'])}), plain "
+              f"{o['plain_ms']:.4f} ms, bound {o['bound_ms']:.6f} ms "
+              f"({o['bytes']} B), library {o['library_ms']}, max |d| "
+              f"{o['max_abs_err']}")
+    for k, name_ in (("K1", "fused_agg_update"), ("K3", "global_reduce"),
+                     ("K7", "gather"), ("K7c", "concat")):
+        _name, route, source, replaces = TPCDS_KERNELS[k]
+        o = timed3b[k]
+        entry = {"name": f"{name_}.recipe_global",
+                 "path": "phase 3b (the recipe's global form)",
+                 "route": route, "source": source, "replaces": replaces,
+                 "launches": launches3b[k], "max_abs_err": max(
+                     o["max_abs_err"], errs13.get(k, 0.0)),
+                 "ms": o["ms"], "plain_ms": o["plain_ms"],
+                 "bound_ms": o["bound_ms"], "bound_by": "bytes",
+                 "library_ms": o["library_ms"], "per": "query",
+                 "passed": True}
+        if k in ("K1", "K3"):
+            entry["also_replaces"] = GLOBAL_MIN_MAX_REPLACES
+            ms_, plain_, bound_, lib_ = slice13_one[k]
+            entry.update({"phase_2m_ms": ms_, "phase_2m_plain_ms": plain_,
+                          "phase_2m_bound_ms": bound_,
+                          "phase_2m_library_ms": lib_})
+        kernels.append(entry)
     del df, data, part0, words, valid
 
-    phase("bench recipe's kernels timed")
+    phase("phase 3b run, checked and timed")
 
     # -- phase 4: TPC-DS q3 at full size; phase 5: q1 and q7; phase 6: q15,
     # q12 and q20 ---------------------------------------------------------
@@ -4253,6 +4651,7 @@ def main() -> int:
     # the same tables
     parts_cuts, parquet_cuts, one_part = {}, {}, {}
     parquet_root = None
+    min_max_launches = {False: 0, True: 0}
     runs = [(q, 1, False) for q in TPCDS_ORDER] + \
         [(q, 1, True) for q in PARQUET_QUERIES] + \
         [(q, args.parts, False) for q in PARTS_QUERIES]
@@ -4262,7 +4661,7 @@ def main() -> int:
             # phase 9e: the query from parquet files of the same tables
             if parquet_root is None:
                 parquet_root = write_parquet(tpcds, parquet_cuts, args.sf)
-            launches, timed, _got = run_query(
+            launches, timed, got = run_query(
                 session, q, parquet_cuts.pop(q), rate, args.sf == 1000,
                 reference=one_part[q], parquet_root=parquet_root)
             if not parquet_cuts:
@@ -4288,7 +4687,7 @@ def main() -> int:
             del tables_
         else:
             # phase 10: the query over tables cut into partitions
-            launches, timed, _got = run_query(
+            launches, timed, got = run_query(
                 session, q, parts_cuts.pop(q), rate, args.sf == 1000,
                 parts=parts, reference=one_part[q])
         where = " from parquet" if parquet else "" if parts == 1 \
@@ -4312,7 +4711,7 @@ def main() -> int:
                                    errs6.get(k, 0.0), errs7.get(k, 0.0),
                                    errs8.get(k, 0.0), errs9.get(k, 0.0),
                                    errs10.get(k, 0.0), errs11.get(k, 0.0),
-                                   o["max_abs_err"]),
+                                   errs13.get(k, 0.0), o["max_abs_err"]),
                 "ms": o["ms"], "plain_ms": o["plain_ms"],
                 "bound_ms": o["bound_ms"], "bound_by": "bytes",
                 "library_ms": o["library_ms"], "device_ms": o["device_ms"],
@@ -4369,6 +4768,12 @@ def main() -> int:
                 entry["merge_ms"] = ms_
                 entry["merge_plain_ms"] = plain_
                 entry["merge_bound_ms"] = bound_
+            if q in MIN_MAX_QUERIES and k == "K9":
+                entry["also_replaces"] = entry.get("also_replaces", []) + \
+                    MIN_MAX_REPLACES
+                # K9's launches with a min, max, first or last slot in the
+                # main-path run (at 4 partitions PARTIAL's and FINAL's)
+                min_max_launches[parts > 1] = got["min_max_launches"]
             if k in ("K14r", "K10x"):
                 what = "rank" if k == "K14r" else "cross"
                 if k == "K14r":
@@ -4417,6 +4822,31 @@ def main() -> int:
                     entry["phase_2k_stage_over_decoded_strings_ms"] = \
                         slice11_one["K5 = over the decoded strings"][0]
             kernels.append(entry)
+    # K9's min, max, first and last kinds: q35v's main path at one
+    # partition, and the merge's at 4 (PARTIAL and FINAL), with phase 2m's
+    # times (2^20+3 rows into 4096 groups, 28 slots; the merge of the two
+    # halves' partials, 24 slots; library: torch's scatter_reduce of the
+    # min/max slots over K9's own group ids, the fold only)
+    check(min_max_launches[False] == 1 and (args.parts == 1 or args.parts
+          < min_max_launches[True] <= 2 * args.parts), f"q35v's group-by is "
+          f"one K9 launch at one partition, PARTIAL's and FINAL's at "
+          f"{args.parts}: {min_max_launches}")
+    _name, route, source, replaces = TPCDS_KERNELS["K9"]
+    for what, name_, path, merge in (
+            ("K9", "keyed_agg.min_max_first_last", "q35v", False),
+            ("K9 merge", "keyed_agg.min_max_first_last_merge",
+             f"q35v at {args.parts} partitions", True)):
+        ms_, plain_, bound_, lib_ = slice13_one[what]
+        kernels.append({
+            "name": name_, "path": f"{path} (launches); phase 2m (times)",
+            "route": route, "source": source,
+            "replaces": "spark_rapids_tpu/ops/agg_ops.py:82",
+            "also_replaces": MIN_MAX_REPLACES,
+            "launches": min_max_launches[merge],
+            "max_abs_err": errs13["K9"],
+            "ms": ms_, "plain_ms": plain_, "bound_ms": bound_,
+            "bound_by": "bytes", "library_ms": lib_, "per": "launch",
+            "passed": True})
     # K16's forms that no query path runs: the fixed-width dictionary and
     # RLE (off by default, as in the JAX package), held and timed in 2k
     for k, what, name_ in (("K16", "K16 longs", "decode_dictionary.fixed"),

@@ -1,7 +1,8 @@
 // Device helpers shared by the port's CUDA kernels (gather, hash join,
-// keyed aggregation, sort): a block-wide exclusive scan, a device-wide
-// exclusive scan of int64 values in three passes, murmur3's 64-bit
-// finalizer, and the grid size of a grid-stride loop.
+// keyed and global aggregation, sort): a block-wide exclusive scan, a
+// device-wide exclusive scan of int64 values in three passes, murmur3's
+// 64-bit finalizer, the ordered word of a double, and the grid size of a
+// grid-stride loop.
 //
 // The device-wide scan reads its values through a functor, so a caller can
 // scan values it computes on the fly (string lengths through a gather map,
@@ -34,6 +35,13 @@ inline unsigned grid_for(int64_t n, int threads = kThreads) {
 
 inline unsigned tiles_for(int64_t n) {
   return static_cast<unsigned>((n + kScanTile - 1) / kScanTile);
+}
+
+// a double's bits as an int64 that orders as the double does (-0.0 below
+// 0.0): min and max of doubles compare these words (K3, K9).  The map is
+// its own inverse.
+__device__ __forceinline__ long long f64_order(long long bits) {
+  return bits ^ ((bits >> 63) & 0x7fffffffffffffffLL);
 }
 
 __device__ __forceinline__ uint64_t fmix64(uint64_t h) {

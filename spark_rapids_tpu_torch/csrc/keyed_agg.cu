@@ -9,7 +9,8 @@
 // Keys: up to 8 columns of int, date, long, double or string (keys.cuh);
 // a null is a value of its own, so nulls form their own group, and a
 // double key groups -0.0 with 0.0 and every NaN together.
-// Aggregates: up to 32 of long sum (int or long input, wrapping), double
+// Aggregates: up to 32 of min, max, first, last (below), long sum (int or
+// long input, wrapping), double
 // sum (of a double input, or of an int or long one converted row by row:
 // an average's sum), count of valid inputs, count of rows, and m2 (the
 // variance family's sum of squared deviations from the group's mean over
@@ -26,6 +27,20 @@
 // n = sum n_i, mean = sum n_i mean_i / n (0 when n is 0), m2 = sum (m2_i +
 // n_i (mean_i - mean)^2), the mean first and then the sum, in row order;
 // both always valid, as the JAX package writes them.
+// Min and max (ops/agg_ops.py:82-109 _segment_reduce) of an int, date,
+// long or double input, written in the input's type: a double is
+// compared by its bits mapped to an int64 that orders as the double does
+// (f64_order: -0.0 below 0.0, as the JAX device path's segment_min and
+// segment_max give them), NaN kept apart as a flag (Spark: NaN is greater
+// than every value; min is NaN only when every present value is).
+// First and last (:110-125) take the group's first or last row in row
+// order (step 4 keeps each group's rows in row order), the _valid kinds
+// its first or last present row; a fixed-width input's value is copied
+// bit for bit, and for a string input (:134 _lengths_reduce) the kernel
+// writes the row, or -1 for a null, which the caller gathers (K7).  The
+// same kinds merge a FINAL aggregate's buffer rows in the order the
+// exchange gave them.  A group with no present value of a min or max, or
+// no row of a _valid kind, is null and holds 0.
 //
 // Steps (srt_agg_groups, then the host reads the group count -- the one
 // sync -- then srt_agg_reduce):
@@ -43,8 +58,9 @@
 //   5. one thread per group folds its rows in row order: the double sums
 //      and m2 do not depend on timing, and equal those of a sequential
 //      sum in row order.
-// The caller gathers the key columns through group_rep (K7); gid, each
-// row's group id, is there for K15d (distinct.cu) over the same groups.
+// The caller gathers the key columns through group_rep (K7), and a string
+// first/last through its rows; gid, each row's group id, is there for
+// K15d (distinct.cu) over the same groups.
 //
 // Bound: at the main path's size (about ten thousand rows into a few
 // thousand groups) launch latency; at scale each row is read a few times
@@ -54,6 +70,7 @@
 
 namespace {
 
+using srt::f64_order;
 using srt::Keys;
 using srt::kThreads;
 
@@ -62,8 +79,11 @@ constexpr long long kEmpty = -1;
 
 enum AggKind : int32_t { kSumI64 = 0, kSumF64 = 1, kCount = 2,
                          kCountAll = 3, kM2 = 4, kChanMean = 5,
-                         kChanM2 = 6 };
-enum InType : int32_t { kInInt32 = 0, kInInt64 = 1, kInFloat64 = 2 };
+                         kChanM2 = 6, kMin = 7, kMax = 8, kFirst = 9,
+                         kLast = 10, kFirstValid = 11, kLastValid = 12 };
+enum InType : int32_t { kInInt32 = 0, kInInt64 = 1, kInFloat64 = 2,
+                        kInString = 3 };
+constexpr long long kNanBits = 0x7ff8000000000000LL;
 
 struct Aggs {
   int32_t n;
@@ -231,6 +251,88 @@ __device__ double agg_chan(const Aggs& a, int j, int64_t lo, int64_t hi,
   return m2;
 }
 
+// input j of row r as an int64 word: an int widened, a long as it is, a
+// double's bits
+__device__ __forceinline__ long long agg_word(const Aggs& a, int j,
+                                              int64_t r) {
+  return a.in_type[j] == kInInt32
+             ? static_cast<long long>(
+                   static_cast<const int32_t*>(a.data[j])[r])
+             : static_cast<const long long*>(a.data[j])[r];
+}
+
+// writes word w (in the input's type) as group g's output of aggregate j
+__device__ __forceinline__ void agg_store(const Aggs& a, int j, int64_t g,
+                                          long long w) {
+  if (a.in_type[j] == kInInt32)
+    static_cast<int32_t*>(a.out[j])[g] = static_cast<int32_t>(w);
+  else
+    static_cast<long long*>(a.out[j])[g] = w;
+}
+
+// min or max of aggregate j over the group's rows perm[lo..hi)
+__device__ void agg_min_max(const Aggs& a, int j, int64_t g, int64_t lo,
+                            int64_t hi, const long long* __restrict__ perm) {
+  const bool is_min = a.kind[j] == kMin;
+  const bool dbl = a.in_type[j] == kInFloat64;
+  long long best = is_min ? 0x7fffffffffffffffLL : (-0x7fffffffffffffffLL - 1);
+  bool any = false, nan = false, num = false;
+  for (int64_t p = lo; p < hi; ++p) {
+    const long long r = perm[p];
+    if (!agg_present(a, j, r)) continue;
+    any = true;
+    long long w = agg_word(a, j, r);
+    if (dbl) {
+      if (isnan(__longlong_as_double(w))) {
+        nan = true;
+        continue;
+      }
+      num = true;
+      w = f64_order(w);
+    }
+    best = is_min ? (w < best ? w : best) : (w > best ? w : best);
+  }
+  long long out = 0;
+  if (any) {
+    if (!dbl)
+      out = best;
+    else if (is_min ? !num : nan)
+      out = kNanBits;
+    else
+      out = f64_order(best);
+  }
+  agg_store(a, j, g, out);
+  a.out_valid[j][g] = any ? 1 : 0;
+}
+
+// first or last (present) row of aggregate j over the group's rows
+// perm[lo..hi), in row order
+__device__ void agg_pick(const Aggs& a, int j, int64_t g, int64_t lo,
+                         int64_t hi, const long long* __restrict__ perm) {
+  const int kind = a.kind[j];
+  const bool valid_only = kind == kFirstValid || kind == kLastValid;
+  long long row = -1;
+  if (kind == kFirst || kind == kFirstValid) {
+    for (int64_t p = lo; p < hi; ++p)
+      if (!valid_only || agg_present(a, j, perm[p])) {
+        row = perm[p];
+        break;
+      }
+  } else {
+    for (int64_t p = hi - 1; p >= lo; --p)
+      if (!valid_only || agg_present(a, j, perm[p])) {
+        row = perm[p];
+        break;
+      }
+  }
+  const bool ok = row >= 0 && agg_present(a, j, row);
+  if (a.in_type[j] == kInString)
+    static_cast<long long*>(a.out[j])[g] = ok ? row : -1;
+  else
+    agg_store(a, j, g, row >= 0 ? agg_word(a, j, row) : 0);
+  a.out_valid[j][g] = ok ? 1 : 0;
+}
+
 __global__ void __launch_bounds__(kThreads)
     agg_fold(Aggs a, int64_t n_groups, const int64_t* __restrict__ seg,
              const long long* __restrict__ perm) {
@@ -250,6 +352,14 @@ __global__ void __launch_bounds__(kThreads)
       if (kind == kChanMean || kind == kChanM2) {
         static_cast<double*>(a.out[j])[g] = agg_chan(a, j, lo, hi, perm);
         a.out_valid[j][g] = 1;
+        continue;
+      }
+      if (kind == kMin || kind == kMax) {
+        agg_min_max(a, j, g, lo, hi, perm);
+        continue;
+      }
+      if (kind >= kFirst) {
+        agg_pick(a, j, g, lo, hi, perm);
         continue;
       }
       unsigned long long u = 0;
@@ -353,7 +463,9 @@ extern "C" int srt_agg_reduce(int32_t n_aggs, const int32_t* kind,
   Aggs a;
   a.n = n_aggs;
   for (int j = 0; j < n_aggs; ++j) {
-    if (kind[j] < kSumI64 || kind[j] > kChanM2)
+    if (kind[j] < kSumI64 || kind[j] > kLastValid ||
+        in_type[j] < kInInt32 || in_type[j] > kInString ||
+        (in_type[j] == kInString && kind[j] < kFirst))
       return static_cast<int>(cudaErrorInvalidValue);
     const bool chan = kind[j] == kChanMean || kind[j] == kChanM2;
     if (chan && (aux_n[j] == nullptr || aux_mean[j] == nullptr))

@@ -8,10 +8,11 @@ and evaluates the final projection, as ``TpuHashAggregateExec(FINAL)``
 does through ``merge_partials_out_of_core`` (``:173``).
 
 ``TorchKeyedAggregateExec`` is a group-by per partition: K9
-(``ops/agg_ops.py keyed_aggregate``) groups the rows and folds sum, count
-and m2 per group, writing each aggregate's result and its validity (a sum
-of no present value is null, as Spark has it), and K7 gathers the key
-columns from each group's first row.  An average folds a double sum and a
+(``ops/agg_ops.py keyed_aggregate``) groups the rows and folds sum, count,
+m2, min, max, first and last per group, writing each aggregate's result
+and its validity (a sum of no present value is null, as Spark has it),
+and K7 gathers the key columns from each group's first row (and a string
+first/last from the row K9 picked).  An average folds a double sum and a
 count, the variance family a count and m2, and K6 (exec/fused.py)
 evaluates their final expressions over the groups.  Groups come out in
 order of first appearance.  The batches of one partition (an Expand's)
@@ -149,20 +150,31 @@ class _AggLayout:
         return exprs
 
 
-def merge_partials(layout: _AggLayout, partials: Sequence[ColumnarBatch]
-                   ) -> ColumnarBatch:
-    """One buffer row from the partial rows (kernel 2, merge kinds)."""
+def merge_partials(layout: _AggLayout, partials: Sequence[ColumnarBatch],
+                   transfers=None) -> ColumnarBatch:
+    """One buffer row from the partial rows (kernel 2, merge kinds; K7
+    for a string first/last), in their order: a ``first`` merge takes the
+    first partial row even where its value is null, as the JAX merge does
+    (ROADMAP queue 3)."""
     from spark_rapids_tpu_torch.ops.agg_ops import global_aggregate
     from spark_rapids_tpu_torch.ops.batch_ops import concat_batches
     return global_aggregate(concat_batches(partials), layout.merge_specs(),
-                            layout.buffer_names)
+                            layout.buffer_names, transfers)
 
 
 def finish(layout: _AggLayout, buffers: ColumnarBatch) -> ColumnarBatch:
     """The final projection, e.g. ``If(cnt > 0, sum, NULL)``: torch glue
-    over one row on this slice."""
+    over one row on this slice; a result that is a buffer as it is (a
+    count, a min, max, first or last, of any type) is that buffer."""
+    from spark_rapids_tpu_torch.exec.fused import bare_ordinal
     from spark_rapids_tpu_torch.expressions.evaluator import eval_exprs
-    return eval_exprs(layout.final_exprs(), buffers)
+    exprs = layout.final_exprs()
+    bare = [bare_ordinal(e) for e in exprs]
+    computed = [e for e, b in zip(exprs, bare) if b is None]
+    done = iter(eval_exprs(computed, buffers).columns if computed else ())
+    cols = [next(done) if b is None else buffers.columns[b] for b in bare]
+    return ColumnarBatch(cols, buffers.row_count,
+                         [output_name(e) for e in exprs])
 
 
 class TorchHashAggregateExec(UnaryExec):
@@ -188,8 +200,8 @@ class TorchHashAggregateExec(UnaryExec):
         out = []
         for part in self.child.execute(ctx):
             if part:
-                out.append([finish(self.layout,
-                                   merge_partials(self.layout, part))])
+                out.append([finish(self.layout, merge_partials(
+                    self.layout, part, ctx.transfers))])
         return out
 
 
@@ -226,14 +238,15 @@ def keyed_inputs(layout: _AggLayout, partial: bool = False):
     aggregates that fold the same value share a slot (q17's ``count``,
     ``avg`` and ``stddev_samp`` of one column share its count);
     ``per_agg[i]`` is the slot indices aggregate ``i`` reads: one for a
-    sum or a count, a double sum and a count of present values for an
+    sum, a count, a min, max, first or last (K9's kind of its buffer, of
+    the input's type), a double sum and a count of present values for an
     average, a count and m2 for the variance family, and a K15d count
     (``DISTINCT``) for a ``count(DISTINCT)``.  With ``partial`` (the
     PARTIAL buffers) a sum also reads a count and the variance family a
     double sum (its mean's).  Raises NotImplementedError, naming it, for
     what K9 and K15d cannot fold yet."""
     from spark_rapids_tpu_torch.expressions.aggregates import (
-        Average, Count, CountDistinct, Sum, _CentralMoment)
+        Average, Count, CountDistinct, First, Min, Sum, _CentralMoment)
     from spark_rapids_tpu_torch.expressions.base import Literal
     from spark_rapids_tpu_torch.ops import agg_ops as G
     for k in layout.grouping:
@@ -263,13 +276,18 @@ def keyed_inputs(layout: _AggLayout, partial: bool = False):
             per_agg.append((slot(None, G.KEYED_COUNT_ALL, T.LONG),))
             continue
         o = _column_of(e)
-        if o < 0 or not isinstance(f, (Sum, Count, Average,
+        if o < 0 or not isinstance(f, (Sum, Count, Average, Min, First,
                                        _CentralMoment)):
             raise NotImplementedError(
                 f"aggregate {f.sql()} in a group-by is not in the port yet "
-                "(sum, count, avg and the variance family of a column "
-                "are)")
-        if isinstance(f, Count):
+                "(sum, count, avg, min, max, first, last and the variance "
+                "family of a column are)")
+        if isinstance(f, (Min, First)):
+            # one buffer of the input's type; K9 keeps the type
+            spec, = f.buffers()
+            per_agg.append((slot(o, G.KEYED_KINDS[spec.update_kind],
+                                 f.data_type),))
+        elif isinstance(f, Count):
             per_agg.append((slot(o, G.KEYED_COUNT, T.LONG),))
         elif isinstance(f, Average):
             # K9 converts an int or long input to double row by row
@@ -305,13 +323,16 @@ def merge_inputs(layout: _AggLayout):
     order.  A sum or a count merges as the sum of its buffer column (a
     count's sum is a sum, not a count); the variance family's triple by
     the Chan merge, whose ``aux`` is the triple's (count, mean)
-    ordinals."""
+    ordinals; a min, max, first or last by its own kind over the buffer
+    rows, in the order the exchange delivers them."""
     from spark_rapids_tpu_torch.ops import agg_ops as G
     nk = layout.num_keys
     out = []
     for j, (_ai, spec) in enumerate(layout.flat):
         kind = _MERGE_KINDS.get(spec.merge_kind, spec.merge_kind)
-        if kind == "sum":
+        if kind in G.KEYED_KINDS:
+            out.append((nk + j, G.KEYED_KINDS[kind], None))
+        elif kind == "sum":
             out.append((nk + j, G.KEYED_SUM_F64 if spec.dtype.is_floating
                         else G.KEYED_SUM_I64, None))
         elif kind in ("chan_mean", "chan_m2"):
@@ -473,8 +494,10 @@ class TorchKeyedAggregateExec(UnaryExec):
             group_rep, results = got
             n_groups = group_rep.shape[0]
             cols = gather_columns(keys, group_rep, transfers, unique=True)
-            cols += [DeviceColumn(v, ok, self._folded.types[nk + j])
-                     for j, (v, ok) in enumerate(results)]
+            cols += [_slot_column(batch.columns[o], kind, v, ok,
+                                  self._folded.types[nk + j], transfers)
+                     for j, ((o, kind, _a), (v, ok)) in
+                     enumerate(zip(self.merges, results))]
             folded = ColumnarBatch(cols, n_groups, self._folded.names)
         else:
             keys = [batch.columns[k.ordinal] for k in self.layout.grouping] \
@@ -494,7 +517,9 @@ class TorchKeyedAggregateExec(UnaryExec):
             cols = gather_columns(keys, group_rep, transfers, unique=True)
             for o, kind, dt in self.inputs:
                 if kind != DISTINCT:
-                    cols.append(DeviceColumn(*next(results), dt))
+                    cols.append(_slot_column(
+                        None if o is None else batch.columns[o], kind,
+                        *next(results), dt, transfers))
                     continue
                 counts = count_distinct(batch.columns[o], got[2],
                                         n_groups) \
@@ -525,6 +550,20 @@ class TorchKeyedAggregateExec(UnaryExec):
                 out.append(list(merge_partials_out_of_core(
                     self, spills, ctx.transfers)))
         return out
+
+
+def _slot_column(c, kind: int, values: torch.Tensor, ok: torch.Tensor,
+                 dt: T.DataType, transfers):
+    """A K9 slot's result as a column: a string first/last is K9's rows of
+    ``c`` (-1 for a null), which K7 gathers (each row once: groups are
+    disjoint, so no sync sizes the chars); any other is K9's values."""
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.ops.agg_ops import KEYED_PICK
+    from spark_rapids_tpu_torch.ops.batch_ops import gather_columns
+    if kind in KEYED_PICK and c.is_string:
+        return gather_columns([c], values, transfers, unique=True,
+                              nullable=True)[0]
+    return DeviceColumn(values, ok, dt)
 
 
 def _key_hash_u32(hb, nk: int) -> np.ndarray:

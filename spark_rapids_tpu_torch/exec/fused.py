@@ -16,6 +16,15 @@ column's plane, a string column's chars and offsets (q13's filter reads
 three strings, compared with literals' bytes inside the kernel), and the
 validity plane of a column that may hold nulls.
 
+A min or max buffer folds as kernel 2's min or max; a first or last
+buffer is a row number in kernel 1 and kernel 2 (the least or greatest
+row a program selected, folded by min or max within the batch), and
+``FusedAggProgram.buffer_row`` gathers the batch's value there (K7), as
+``global_agg_trace`` picks the row (JAX ``ops/agg_ops.py:199-208``).  A
+partition's batches, then the partitions, merge under the JAX merge
+kinds (kernel 2's ``FIRST`` takes the first buffer row even where its
+value is null: ROADMAP queue 3).
+
 Bound: the kernel reads every plane it takes once (on the slice-1 path 8
 + 8 + 4 bytes of data per row, and no validity: the bench's columns hold
 no null; on q13 ten fixed-width columns and a few bytes of each string),
@@ -121,14 +130,35 @@ class FusedAggProgram:
                     tuple((o, k, cv, str(dt))
                           for o, k, cv, dt in self.update_specs),
                     n_literals)
-        #: kernel 2 kinds that fold partial rows: sums add, counts add
-        self.fold_kinds = [
-            agg_ops.SUM_F64 if kind == "sum" and dt.is_floating
-            else agg_ops.SUM_I64
-            for _o, kind, _cv, dt in self.update_specs]
+        #: kernel 2 kinds that fold partial rows: sums and counts add,
+        #: min and max fold as themselves, first and last rows by min and
+        #: max
+        self.fold_kinds = [_fold_kind(kind, dt)
+                           for _o, kind, _cv, dt in self.update_specs]
         self.buffer_types = [dt for _o, _k, _cv, dt in self.update_specs]
+        #: the input column whose value each first/last buffer gathers
+        self.picks = [None] * len(self.update_specs)
+        for j, (o, kind, _cv, _dt) in enumerate(self.update_specs):
+            if kind in agg_ops.ROW_KINDS:
+                self.picks[j] = bare_ordinal(self.update_inputs[o])
+                if self.picks[j] is None:
+                    raise NotImplementedError(
+                        f"{kind} of a computed value "
+                        f"({self.update_exprs[o].sql()}) in a global "
+                        "aggregate is not in the port yet (of a column is)")
         self._encoded = {}
         self._setup()
+
+    def buffer_row(self, words: torch.Tensor, ok: torch.Tensor,
+                   batch: ColumnarBatch, names: Sequence[str],
+                   transfers) -> ColumnarBatch:
+        """The batch's buffer row from kernel 2's fold of kernel 1's
+        table: a first/last buffer's word is a row of ``batch``, whose
+        value K7 gathers (a null where no row was picked)."""
+        return agg_ops.unpack_row(
+            words, ok, self.buffer_types, names,
+            [None if b is None else batch.columns[b] for b in self.picks],
+            transfers)
 
     def _setup(self) -> None:
         self.used = K.referenced_columns(self.conditions +
@@ -162,6 +192,17 @@ class FusedAggProgram:
                 self.input_types, nullable, self.conditions,
                 self.update_inputs, self.update_specs, self.n_literals,
                 self.n_tables)))
+
+
+def _fold_kind(kind: str, dtype: T.DataType) -> int:
+    """Kernel 2's kind that folds kernel 1's partial rows of a buffer."""
+    if kind in agg_ops.ROW_KINDS:
+        return agg_ops.MIN_I64 if kind.startswith("first") \
+            else agg_ops.MAX_I64
+    if kind in ("min", "max"):
+        return agg_ops.reduce_kind(kind, dtype)
+    return agg_ops.SUM_F64 if kind == "sum" and dtype.is_floating \
+        else agg_ops.SUM_I64
 
 
 def code_space_variant(program, plan):
@@ -308,6 +349,21 @@ def fused_agg_update_plain(program: FusedAggProgram, batch: ColumnarBatch,
             words.append(present.sum())
             oks.append(torch.ones((), dtype=torch.bool, device=dev))
             continue
+        if kind in agg_ops.ROW_KINDS:
+            r = agg_ops.row_pick_plain(
+                batch.row_count, present if kind.endswith("_valid") else sel,
+                agg_ops.FIRST_VALID if kind.startswith("first")
+                else agg_ops.LAST_VALID)
+            words.append(r.clamp(min=0))
+            oks.append(r >= 0)
+            continue
+        if kind in ("min", "max"):
+            x = c.data.to(torch.float64).view(torch.int64) \
+                if dtype.is_floating else c.data.to(torch.int64)
+            words.append(agg_ops.min_max_plain(
+                x, present, agg_ops.reduce_kind(kind, dtype)))
+            oks.append(present.any())
+            continue
         if dtype.is_floating:
             s = torch.where(present, c.data.to(torch.float64), 0.0).sum()
             words.append(s.reshape(1).view(torch.int64)[0])
@@ -378,8 +434,8 @@ class TorchFusedAggExec(UnaryExec):
         words, valid = fused_agg_update(program, batch, lits)
         row, row_valid = agg_ops.global_reduce(words, valid,
                                                self.program.fold_kinds)
-        return agg_ops.unpack_row(row, row_valid, self.program.buffer_types,
-                                  self.scalar.buffer_names)
+        return self.program.buffer_row(row, row_valid, batch,
+                                       self.scalar.buffer_names, transfers)
 
     def distinct_row(self, part: List[ColumnarBatch], ctx: ExecContext
                      ) -> ColumnarBatch:
@@ -398,7 +454,8 @@ class TorchFusedAggExec(UnaryExec):
             lits = LiteralArgs.upload(self.promoted, ctx.transfers)
             scalar = iter(finish(self.scalar, merge_partials(
                 self.scalar, [self.update_batch(batch, lits,
-                                                ctx.transfers)])).columns)
+                                                ctx.transfers)],
+                ctx.transfers)).columns)
         cols = []
         for i in range(len(self.layout.aggs)):
             if i not in self.distinct:
@@ -422,8 +479,8 @@ class TorchFusedAggExec(UnaryExec):
             if self.mode == PARTIAL:
                 out.append(rows)
             elif rows:
-                out.append([finish(self.layout,
-                                   merge_partials(self.layout, rows))])
+                out.append([finish(self.layout, merge_partials(
+                    self.layout, rows, ctx.transfers))])
         return out
 
 

@@ -130,8 +130,10 @@ class Average(AggregateFunction):
 
 
 class Min(AggregateFunction):
-    """``min`` (JAX ``:124``); in the port a window function only (K14s,
-    K14b): a group-by ``min`` is still refused by name."""
+    """``min`` (JAX ``:124``): of the input's type, buffer kind ``min``;
+    K9 folds it in a group-by (and merges it, FINAL), K1 and K3 in a
+    global aggregate, K14s and K14b over a window.  Strings are refused
+    by name, as on the JAX device path."""
 
     def __init__(self, child: Expression):
         super().__init__([child])
@@ -148,10 +150,43 @@ class Min(AggregateFunction):
 
 
 class Max(Min):
-    """``max`` (JAX ``:139``); a window function only, as ``Min``."""
+    """``max`` (JAX ``:139``), as ``Min``."""
 
     def buffers(self):
         return [BufferSpec("max", self.data_type, "max", "max")]
+
+
+class First(AggregateFunction):
+    """``first(e, ignore_nulls)`` (JAX ``:190``): the first row's value in
+    row order (kind ``first``), or the first non-null one (``first_valid``
+    with ``ignore_nulls``), of the input's type; the merge takes the same
+    kind over the buffer rows, so a global ``first`` over a partition
+    that kept no row is null, as the JAX package gives it (ROADMAP queue
+    3)."""
+
+    kind = "first"
+
+    def __init__(self, child: Expression, ignore_nulls: bool = False):
+        super().__init__([child])
+        self.ignore_nulls = ignore_nulls
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type
+
+    def buffers(self):
+        kind = f"{self.kind}_valid" if self.ignore_nulls else self.kind
+        return [BufferSpec(self.kind, self.data_type, kind, kind)]
+
+    def evaluate(self, refs):
+        return refs[0]
+
+
+class Last(First):
+    """``last(e, ignore_nulls)`` (JAX ``:209``), as ``First`` from the
+    other end."""
+
+    kind = "last"
 
 
 class CountDistinct(AggregateFunction):

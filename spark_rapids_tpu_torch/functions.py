@@ -7,7 +7,7 @@ from spark_rapids_tpu_torch.expressions import window_exprs as W
 from spark_rapids_tpu_torch.expressions.base import Expression, col, lit
 
 __all__ = ["col", "lit", "sum", "count", "count_distinct", "avg", "min",
-           "max", "stddev", "stddev_samp", "stddev_pop", "var_samp",
+           "max", "first", "last", "stddev", "stddev_samp", "stddev_pop", "var_samp",
            "var_pop", "asc", "desc", "substring", "concat", "when",
            "grouping",
            "row_number", "rank", "dense_rank", "ntile", "lag", "lead",
@@ -29,16 +29,30 @@ def avg(e):
 
 
 def min(e):  # noqa: A001 - mirrors pyspark.sql.functions naming
-    """``min`` over a window (K14s, K14b); a group-by ``min`` is not in the
-    port yet."""
+    """``min`` of an int, date, long or double column: K9 in a group-by,
+    K1 and K3 in a global aggregate, K14s and K14b over a window."""
     from spark_rapids_tpu_torch.expressions.aggregates import Min
     return Min(_expr(e))
 
 
 def max(e):  # noqa: A001
-    """``max`` over a window (K14s, K14b), as ``min``."""
+    """``max``, as ``min``."""
     from spark_rapids_tpu_torch.expressions.aggregates import Max
     return Max(_expr(e))
+
+
+def first(e, ignore_nulls=False):
+    """The first row's value (the first non-null one with
+    ``ignore_nulls``) of an int, date, long, double or string column: K9
+    in a group-by, K1, K3 and K7 in a global aggregate."""
+    from spark_rapids_tpu_torch.expressions.aggregates import First
+    return First(_expr(e), ignore_nulls)
+
+
+def last(e, ignore_nulls=False):
+    """The last row's value, as ``first``."""
+    from spark_rapids_tpu_torch.expressions.aggregates import Last
+    return Last(_expr(e), ignore_nulls)
 
 
 def count(e="*"):

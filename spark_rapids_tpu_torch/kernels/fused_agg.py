@@ -21,7 +21,18 @@ signature from the expression tree:
   its bits, or a count) and a validity byte, into an ``[n_programs,
   n_buffers]`` table the wrapper allocates.  No atomics: kernel 2 folds
   the table in a fixed order, and for a given grid every addition happens
-  in a fixed order.
+  in a fixed order;
+- min and max (``_global_reduce`` ``:180-198``) keep an int64 word a lane:
+  an int, date or long widened, a double's bits mapped to an int64 that
+  orders as the double does (-0.0 below 0.0), with NaN counted apart, as
+  ``_segment_reduce`` keeps it; the program writes its min or max (a
+  double's NaN where its rule says), which kernel 2 folds under the same
+  kind;
+- first and last (and their ``_valid`` forms, ``:199-208``) keep the
+  lowest or highest selected row (present row) a lane; the program writes
+  its lowest or highest row, "none" (not valid) where it selected none,
+  and kernel 2 folds the rows by min or max, so a program with no row is
+  skipped within a batch; the caller gathers the value (K7).
 
 Promoted literals (``plan/stages.py``) are read from a runtime table of
 int64 words, so one built kernel serves every literal value.  K5 and K6
@@ -52,6 +63,7 @@ from spark_rapids_tpu_torch.expressions import predicates as P
 from spark_rapids_tpu_torch.expressions import strings as ST
 from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
                                                      Expression, Literal)
+from spark_rapids_tpu_torch.ops.agg_ops import ROW_KINDS
 from spark_rapids_tpu_torch.plan.stages import PromotedLiteral
 
 KERNEL_NAME = "fused_agg_update"
@@ -680,6 +692,64 @@ def table_params(n_tables: int) -> List[str]:
     return [f"tab{s}" for s in range(n_tables)]
 
 
+_INT64_MAX = 2 ** 63 - 1
+_INT64_MIN = -(2 ** 63)
+
+
+def _min_max(em: ChainEmitter, j: int, kind: str, v: str,
+             vtype: T.DataType, present: str, inits: List[str]) -> str:
+    """A min or max buffer's lane accumulator and the program's word: an
+    int64 a lane (an int or date widened; a double's bits in an order
+    that puts -0.0 below 0.0, its NaN flagged apart) and the program's
+    reduction of it, a double's NaN where Spark's rule gives one."""
+    ident = _INT64_MAX if kind == "min" else _INT64_MIN
+    pick = "tl.minimum" if kind == "min" else "tl.maximum"
+    fold = "tl.min" if kind == "min" else "tl.max"
+    inits.append(f"acc{j} = tl.full([BLOCK], {ident}, tl.int64)")
+    if not vtype.is_floating:
+        w = em.cast(v, vtype, T.LONG)
+        em.lines.append(f"acc{j} = {pick}(acc{j}, tl.where({present}, {w}, "
+                        f"{ident}))")
+        return f"{fold}(acc{j}, axis=0)"
+    bits = em.let(f"{v}.to(tl.int64, bitcast=True)")
+    order = em.let(f"{bits} ^ (({bits} >> 63) & {_INT64_MAX})")
+    num = em.both(present, em.let(f"{v} == {v}"))
+    nan = em.both(present, em.let(f"{v} != {v}"))
+    inits.append(f"nan{j} = tl.zeros([BLOCK], tl.int32)")
+    em.lines.append(f"acc{j} = {pick}(acc{j}, tl.where({num}, {order}, "
+                    f"{ident}))")
+    em.lines.append(f"nan{j} = nan{j} | {nan}.to(tl.int32)")
+    # the fold of the lanes, back to bits; a NaN where the rule says
+    best = f"{fold}(acc{j}, axis=0)"
+    back = f"({best} ^ (({best} >> 63) & {_INT64_MAX}))"
+    has_nan = f"(tl.max(nan{j}, axis=0) > 0)"
+    nan_word = 0x7ff8000000000000
+    if kind == "max":
+        return f"tl.where({has_nan}, {nan_word}, {back})"
+    # min: NaN only where no number was present (the fold kept the
+    # identity)
+    return f"tl.where({has_nan} & ({best} == {ident}), {nan_word}, {back})"
+
+
+def _row_pick(em: ChainEmitter, j: int, kind: str, sel: str, present: str,
+              inits: List[str]) -> Tuple[str, str]:
+    """A row-order buffer's lane accumulator: the lowest (first) or
+    highest (last) row the chain selected, of the present rows for the
+    ``_valid`` kinds; the program's word is its row, not valid where it
+    has none."""
+    cond = present if kind.endswith("_valid") else sel
+    if kind.startswith("first"):
+        inits.append(f"acc{j} = tl.full([BLOCK], {_INT64_MAX}, tl.int64)")
+        em.lines.append(f"acc{j} = tl.minimum(acc{j}, tl.where({cond}, offs, "
+                        f"{_INT64_MAX}))")
+        word = f"tl.min(acc{j}, axis=0)"
+        return word, f"({word} != {_INT64_MAX}).to(tl.uint8)"
+    inits.append(f"acc{j} = tl.full([BLOCK], -1, tl.int64)")
+    em.lines.append(f"acc{j} = tl.maximum(acc{j}, tl.where({cond}, offs, -1))")
+    word = f"tl.max(acc{j}, axis=0)"
+    return word, f"({word} >= 0).to(tl.uint8)"
+
+
 def kernel_source(input_types: Sequence[T.DataType], nullable: Sequence[bool],
                   conditions: Sequence[Expression],
                   update_exprs: Sequence[Expression], update_specs,
@@ -693,8 +763,10 @@ def kernel_source(input_types: Sequence[T.DataType], nullable: Sequence[bool],
     then the literal table, then the tables of its code-space conjuncts
     (``n_tables``; a dictionary column's codes are read as an INT
     column).  ``update_specs`` are ``(ordinal, kind,
-    count_valid_only, dtype)`` over ``update_exprs``; kinds ``sum`` and
-    ``count`` have kernel forms."""
+    count_valid_only, dtype)`` over ``update_exprs``; kinds ``sum``,
+    ``count``, ``min``, ``max`` and the row-order kinds (``first``,
+    ``last``, ``first_valid``, ``last_valid``: a row number) have kernel
+    forms."""
     em = ChainEmitter()
     used = referenced_columns(list(conditions) + list(update_exprs))
     params, cols, sel = load_columns(input_types, nullable, used,
@@ -727,6 +799,11 @@ def kernel_source(input_types: Sequence[T.DataType], nullable: Sequence[bool],
             if dtype.is_floating:
                 word = f"{word}.to(tl.int64, bitcast=True)"
             ok = f"({count} > 0).to(tl.uint8)"
+        elif kind in ("min", "max") and dtype in _TL:
+            word = _min_max(em, j, kind, v, e.data_type, present, inits)
+            ok = f"({count} > 0).to(tl.uint8)"
+        elif kind in ROW_KINDS:
+            word, ok = _row_pick(em, j, kind, sel, present, inits)
         else:
             raise NotImplementedError(
                 f"update kind {kind!r} over {dtype} has no kernel form yet")

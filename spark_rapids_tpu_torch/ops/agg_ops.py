@@ -14,13 +14,23 @@ output is one word and one validity flag per column.  On a CUDA tensor it
 launches ``csrc/global_reduce.cu`` (one block per column, a fixed-order
 tree, no atomics); on a CPU tensor it runs ``global_reduce_plain``.
 
-Kinds: sum (int64 wraps; double), count, and min / max with NaN greater
-than every other value.  The other kinds of ``_global_reduce`` (first,
-last, mean, m2, decimal sums) are not in this slice and raise.
+Kinds: sum (int64 wraps; double), count, min / max (int, date and long
+as their int64 words; doubles with NaN greater than every other value,
+and -0.0 below 0.0, as the JAX device path's ``jnp.min`` gives them),
+and first, last, first_valid and last_valid: the word of the first or
+last row, or of the first or last valid row, in row order (the JAX merge
+kinds over buffer rows, ``_global_reduce`` ``:196-208``: a ``first``
+merge takes the first row even when its value is null).  A string
+column's first/last is reduced over its row numbers (``pack_columns``)
+and gathered by K7 (``global_aggregate``), as ``global_agg_trace``
+``:293-310`` picks the row.  The other kinds of ``_global_reduce`` (mean,
+m2, decimal sums) are not in this port yet and raise.
 
-Bound: the kernel reads each cell once (9 bytes) and writes 9 bytes per
-column, so it is bound by device memory bytes; at the main path's sizes
-(tens of thousands of rows) its launch latency dominates."""
+Bound: by device memory bytes.  Sum, min and max need each cell once (9
+bytes), count its validity byte; first_valid and last_valid need the
+validity bytes and the picked row, first and last the picked row alone;
+9 bytes a column out.  At the main path's sizes (tens of thousands of
+rows) its launch latency dominates."""
 
 from __future__ import annotations
 
@@ -33,7 +43,15 @@ from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.ops.join_ops import table_size
 
-SUM_I64, SUM_F64, COUNT, MIN_I64, MAX_I64, MIN_F64, MAX_F64 = range(7)
+(SUM_I64, SUM_F64, COUNT, MIN_I64, MAX_I64, MIN_F64, MAX_F64, FIRST, LAST,
+ FIRST_VALID, LAST_VALID) = range(11)
+#: kernel 2's kind of each row-order reduction
+ROW_KINDS = {"first": FIRST, "last": LAST, "first_valid": FIRST_VALID,
+             "last_valid": LAST_VALID}
+#: the types min and max take (strings are refused, as on the JAX device
+#: path, ``exec/aggregate.py:663``), and the types first and last take
+MIN_MAX_TYPES = (T.INT, T.DATE, T.LONG, T.DOUBLE)
+FIRST_LAST_TYPES = MIN_MAX_TYPES + (T.STRING,)
 #: columns one launch takes (the kind table is passed by value)
 MAX_COLUMNS = 64
 
@@ -42,6 +60,8 @@ LAUNCHES = 0
 
 INT64_MIN = -(2 ** 63)
 INT64_MAX = 2 ** 63 - 1
+#: the quiet NaN a min or max of NaNs gives (its bits)
+_NAN_WORD = 0x7ff8000000000000
 
 
 def reduce_kind(kind: str, dtype: T.DataType) -> int:
@@ -50,10 +70,12 @@ def reduce_kind(kind: str, dtype: T.DataType) -> int:
         return COUNT
     if kind == "sum" and dtype.is_numeric:
         return SUM_F64 if dtype.is_floating else SUM_I64
-    if kind in ("min", "max") and dtype.is_numeric:
+    if kind in ("min", "max") and dtype in MIN_MAX_TYPES:
         if dtype.is_floating:
             return MIN_F64 if kind == "min" else MAX_F64
         return MIN_I64 if kind == "min" else MAX_I64
+    if kind in ROW_KINDS and dtype in FIRST_LAST_TYPES:
+        return ROW_KINDS[kind]
     raise NotImplementedError(
         f"reduction {kind!r} over {dtype} is not in this port yet")
 
@@ -80,7 +102,7 @@ def _check(values: torch.Tensor, valid: torch.Tensor,
         raise ValueError("values and valid lie on different devices")
     if len(kinds) != values.shape[1]:
         raise ValueError(f"{len(kinds)} kinds for {values.shape[1]} columns")
-    if any(k not in range(7) for k in kinds):
+    if any(k not in range(11) for k in kinds):
         raise ValueError(f"unknown reduction kind in {list(kinds)}")
 
 
@@ -113,6 +135,42 @@ def global_reduce(values: torch.Tensor, valid: torch.Tensor,
     return out, out_valid
 
 
+def f64_order(bits: torch.Tensor) -> torch.Tensor:
+    """A double's bits as an int64 that orders as the double does, -0.0
+    below 0.0 (its own inverse)."""
+    return bits ^ ((bits >> 63) & INT64_MAX)
+
+
+def min_max_plain(v: torch.Tensor, p: torch.Tensor, kind: int
+                  ) -> torch.Tensor:
+    """The min or max word of the valid words ``v[p]`` under kernel 2's
+    rules (an int64 word, or a double's bits)."""
+    is_min = kind in (MIN_I64, MIN_F64)
+    ident = v.new_full((1,), INT64_MAX if is_min else INT64_MIN)
+
+    def fold(z):
+        z = torch.cat([z, ident])
+        return z.min() if is_min else z.max()
+    if kind in (MIN_I64, MAX_I64):
+        return fold(torch.where(p, v, ident))
+    nan = p & torch.isnan(v.view(torch.float64))
+    num = p & ~nan
+    r = fold(torch.where(num, f64_order(v), ident))
+    to_nan = nan.any() & ~num.any() if is_min else nan.any()
+    return torch.where(to_nan, _NAN_WORD, f64_order(r))
+
+
+def row_pick_plain(n: int, p: torch.Tensor, kind: int) -> torch.Tensor:
+    """The row a row-order kind picks (-1 for none): the first or last
+    row, or the first or last valid one."""
+    pos = torch.arange(n, dtype=torch.int64, device=p.device)
+    none = pos.new_full((1,), -1)
+    picked = pos if kind in (FIRST, LAST) else pos[p]
+    if kind in (FIRST, FIRST_VALID):
+        return torch.cat([picked, none])[0]
+    return torch.cat([none, picked])[-1]
+
+
 def global_reduce_plain(values: torch.Tensor, valid: torch.Tensor,
                         kinds: Sequence[int]
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -136,24 +194,16 @@ def global_reduce_plain(values: torch.Tensor, valid: torch.Tensor,
         elif kind == COUNT:
             w, any_valid = p.sum(), torch.ones((), dtype=torch.bool,
                                                 device=dev)
-        elif kind in (MIN_I64, MAX_I64):
-            z = torch.where(p, v, INT64_MAX if kind == MIN_I64 else INT64_MIN)
-            w = z.min() if kind == MIN_I64 else z.max()
-        else:
-            f = v.view(torch.float64)
-            if kind == SUM_F64:
-                r = torch.where(p, f, 0.0).sum()
-            else:
-                nan = p & torch.isnan(f)
-                num = p & ~torch.isnan(f)
-                if kind == MIN_F64:
-                    r = torch.where(num, f, float("inf")).min()
-                    to_nan = nan.any() & ~num.any()
-                else:
-                    r = torch.where(num, f, float("-inf")).max()
-                    to_nan = nan.any()
-                r = torch.where(to_nan, float("nan"), r)
+        elif kind == SUM_F64:
+            r = torch.where(p, v.view(torch.float64), 0.0).sum()
             w = r.reshape(1).view(torch.int64)[0]
+        elif kind in ROW_KINDS.values():
+            r = row_pick_plain(n_rows, p, kind)
+            at = r.clamp(min=0)
+            w = torch.where(r >= 0, v[at], 0)
+            any_valid = (r >= 0) & p[at]
+        else:
+            w = min_max_plain(v, p, kind)
         words.append(w)
         oks.append(any_valid)
     return torch.stack(words), torch.stack(oks)
@@ -162,12 +212,17 @@ def global_reduce_plain(values: torch.Tensor, valid: torch.Tensor,
 def pack_columns(columns: Sequence[DeviceColumn], specs
                  ) -> Tuple[torch.Tensor, torch.Tensor, List[int]]:
     """Word and validity tables for ``specs`` =
-    ``[(ordinal, kind, count_valid_only, buffer dtype)]`` over columns."""
+    ``[(ordinal, kind, count_valid_only, buffer dtype)]`` over columns.  A
+    string column (first/last only) gives its row numbers, which
+    ``global_aggregate`` gathers by."""
     words, valids, kinds = [], [], []
     for ordinal, kind, count_valid_only, _dt in specs:
         c = columns[ordinal]
         kinds.append(reduce_kind(kind, c.data_type))
-        if c.data_type.is_floating:
+        if c.is_string:
+            words.append(torch.arange(c.row_count, dtype=torch.int64,
+                                      device=c.device))
+        elif c.data_type.is_floating:
             words.append(c.data.view(torch.int64))
         else:
             words.append(c.data.to(torch.int64))
@@ -179,12 +234,20 @@ def pack_columns(columns: Sequence[DeviceColumn], specs
 
 
 def unpack_row(words: torch.Tensor, valid: torch.Tensor,
-               dtypes: Sequence[T.DataType], names: Sequence[str]
-               ) -> ColumnarBatch:
-    """A one-row batch from kernel 2's output words."""
+               dtypes: Sequence[T.DataType], names: Sequence[str],
+               picks=None, transfers=None) -> ColumnarBatch:
+    """A one-row batch from kernel 2's output words.  Where ``picks[j]``
+    is a column, word ``j`` is the row of it to take, which K7 gathers (a
+    null where the word is not valid)."""
     cols = []
     for j, dt in enumerate(dtypes):
         w = words[j:j + 1]
+        if picks is not None and picks[j] is not None:
+            from spark_rapids_tpu_torch.ops.batch_ops import gather_columns
+            rows = torch.where(valid[j:j + 1], w, -1)
+            cols += gather_columns([picks[j]], rows, transfers,
+                                   unique=True, nullable=True)
+            continue
         data = w.view(torch.float64) if dt.is_floating \
             else w.to(dt.torch_dtype)
         cols.append(DeviceColumn(data, valid[j:j + 1], dt))
@@ -192,12 +255,17 @@ def unpack_row(words: torch.Tensor, valid: torch.Tensor,
 
 
 def global_aggregate(batch: ColumnarBatch, specs,
-                     names: Sequence[str] = ()) -> ColumnarBatch:
-    """One buffer row from all of ``batch``'s rows (kernel 2 on the card)."""
+                     names: Sequence[str] = (),
+                     transfers=None) -> ColumnarBatch:
+    """One buffer row from all of ``batch``'s rows (kernel 2 on the card;
+    K7 for a string first/last)."""
     values, valid, kinds = pack_columns(batch.columns, specs)
     words, ok = global_reduce(values, valid, kinds)
     names = list(names) or [f"a{j}" for j in range(len(specs))]
-    return unpack_row(words, ok, [s[3] for s in specs], names)
+    strings = [batch.columns[s[0]] if batch.columns[s[0]].is_string
+               else None for s in specs]
+    return unpack_row(words, ok, [s[3] for s in specs], names, strings,
+                      transfers)
 
 
 # -- K9: keyed aggregation ----------------------------------------------------
@@ -226,16 +294,39 @@ def global_aggregate(batch: ColumnarBatch, specs,
 # the buffer columns, and the joint Chan merge of (n, mean, m2) triples
 # (``:466-487``) is ``KEYED_CHAN_MEAN`` and ``KEYED_CHAN_M2``, whose
 # ``aux`` entry gives the triple's n and mean columns.
+#
+# Min and max (``_segment_reduce`` ``:82-109``) take an int, date, long or
+# double input and keep its type: a double's NaN is greater than every
+# other value (min skips NaN unless every present value is NaN; max is
+# NaN if any present value is) and -0.0 is below 0.0, as the JAX device
+# path's ``segment_min``/``segment_max`` give them.  First and last
+# (``:110-125``) take the group's first or last row in row order, the
+# ``_valid`` kinds its first or last present row; an int, date, long or
+# double input keeps its type, and for a string input (``_lengths_reduce``
+# ``:134``) K9 writes the row (-1 for a null), which K7 gathers.  A group
+# with no present value of a min or max, or no row of a ``_valid`` kind,
+# is null and holds 0.  The same kinds merge a FINAL aggregate's buffer
+# rows, in the order the exchange delivers them.
 
 #: K9 aggregate kinds (csrc/keyed_agg.cu AggKind)
 (KEYED_SUM_I64, KEYED_SUM_F64, KEYED_COUNT, KEYED_COUNT_ALL, KEYED_M2,
- KEYED_CHAN_MEAN, KEYED_CHAN_M2) = range(7)
+ KEYED_CHAN_MEAN, KEYED_CHAN_M2, KEYED_MIN, KEYED_MAX, KEYED_FIRST,
+ KEYED_LAST, KEYED_FIRST_VALID, KEYED_LAST_VALID) = range(13)
 #: the Chan merge kinds (an (n, mean) aux pair each)
 _KEYED_CHAN = (KEYED_CHAN_MEAN, KEYED_CHAN_M2)
 #: the kinds whose result is a double
 _KEYED_F64 = (KEYED_SUM_F64, KEYED_M2) + _KEYED_CHAN
+#: the row-order kinds, and the kinds whose result keeps the input's type
+KEYED_PICK = (KEYED_FIRST, KEYED_LAST, KEYED_FIRST_VALID, KEYED_LAST_VALID)
+KEYED_KEEPS_TYPE = (KEYED_MIN, KEYED_MAX) + KEYED_PICK
+#: K9's kind of each buffer kind that keeps its input's type
+KEYED_KINDS = {"min": KEYED_MIN, "max": KEYED_MAX, "first": KEYED_FIRST,
+               "last": KEYED_LAST, "first_valid": KEYED_FIRST_VALID,
+               "last_valid": KEYED_LAST_VALID}
 #: launches of K9 (wrapper calls that launch it)
 KEYED_LAUNCHES = 0
+#: those of K9's launches with a min, max, first or last slot
+KEYED_MIN_MAX_LAUNCHES = 0
 MAX_KEYS = 8
 MAX_AGGS = 32
 SCAN_TILE = 1024
@@ -244,7 +335,9 @@ RADIX_TILE = 256
 #: key type codes (csrc/keys.cuh KeyType)
 KEY_CODES = {T.INT: 0, T.DATE: 0, T.LONG: 1, T.DOUBLE: 2, T.STRING: 3}
 KEYED_KEY_TYPES = tuple(KEY_CODES)
-_IN_CODES = {T.INT: 0, T.LONG: 1, T.DOUBLE: 2}
+_IN_CODES = {T.INT: 0, T.DATE: 0, T.LONG: 1, T.DOUBLE: 2, T.STRING: 3}
+#: the inputs of the sum kinds and m2
+_SUM_TYPES = (T.INT, T.LONG, T.DOUBLE)
 
 _KEYED_SIGNATURES = {
     "srt_agg_groups": "ipppppqpppqpppp",
@@ -286,21 +379,39 @@ def _check_keyed(keys: Sequence[DeviceColumn], inputs, kinds,
     for c, kind in zip(inputs, kinds):
         if kind in _KEYED_CHAN:
             continue
-        if kind not in range(5):
+        if kind not in range(13):
             raise ValueError(f"unknown keyed aggregate kind {kind}")
         if kind == KEYED_COUNT_ALL:
             continue
         if c is None or c.row_count != n:
             raise ValueError("an aggregate input of the keys' rows is "
                              "needed")
-        if kind != KEYED_COUNT and c.data_type not in _IN_CODES:
+        if kind in (KEYED_MIN, KEYED_MAX):
+            if c.is_string:
+                raise NotImplementedError(
+                    "min/max over strings not on device yet (as on the JAX "
+                    "device path)")
+            if c.data_type not in MIN_MAX_TYPES:
+                raise NotImplementedError(
+                    f"min/max over {c.data_type} is not in the port yet")
+        elif kind in KEYED_PICK:
+            if c.data_type not in FIRST_LAST_TYPES:
+                raise NotImplementedError(
+                    f"first/last over {c.data_type} is not in the port yet")
+        elif kind != KEYED_COUNT and c.data_type not in _SUM_TYPES:
             raise NotImplementedError(
-                f"a sum over {c.data_type} is not in the port yet")
+                f"a sum or m2 over {c.data_type} is not in the port yet")
         if kind == KEYED_SUM_I64 and c.data_type == T.DOUBLE:
             raise TypeError("a long sum needs an int or long input")
-        if kind == KEYED_M2 and c.data_type not in _IN_CODES:
-            raise NotImplementedError(
-                f"m2 over {c.data_type} is not in the port yet")
+
+
+def keyed_out_dtype(kind: int, c: Optional[DeviceColumn]) -> torch.dtype:
+    """The dtype of K9's output for aggregate ``kind`` over ``c``: the
+    input's own for min, max and first/last (int64 rows for a string),
+    double for the double sums, m2 and the Chan merge, else int64."""
+    if kind in KEYED_KEEPS_TYPE:
+        return torch.int64 if c.is_string else c.data.dtype
+    return torch.float64 if kind in _KEYED_F64 else torch.int64
 
 
 def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
@@ -310,7 +421,8 @@ def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
     ``group_rep[g]`` is the first row of group ``g``; groups are numbered
     in order of first appearance.  ``inputs[j]`` is the column aggregate
     ``j`` folds (None for a count of rows; a Chan merge kind's own column,
-    the partial means or m2s).  ``aux[j]`` is a Chan merge kind's ``(n,
+    the partial means or m2s); a first/last of a string column gives the
+    row to gather (-1 for a null).  ``aux[j]`` is a Chan merge kind's ``(n,
     mean)`` columns (None elsewhere).  With ``row_groups`` a third element
     is each row's group id (int64), for K15d over the same groups."""
     _check_keyed(keys, inputs, kinds, aux)
@@ -352,8 +464,8 @@ def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
             slots.data_ptr(), rep.data_ptr(), size, slot_of.data_ptr(),
             rank.data_ptr(), tiles.data_ptr(), stream), "K9 groups")
         n_groups, = transfers.read_counts([rank[n]])
-        outs = [empty(n_groups, torch.float64 if kind in _KEYED_F64
-                      else torch.int64) for kind in kinds]
+        outs = [empty(n_groups, keyed_out_dtype(kind, c))
+                for kind, c in zip(kinds, inputs)]
         valids = [empty(n_groups, torch.bool) for _ in kinds]
         group_rep = empty(n_groups)
         idata = [None if c is None else c.data.contiguous() for c in inputs]
@@ -382,8 +494,10 @@ def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
             perm.data_ptr(), perm_tmp.data_ptr(), hist.data_ptr(),
             digit_total.data_ptr(), group_tiles.data_ptr(), stream),
             "K9 reduce")
-    global KEYED_LAUNCHES
+    global KEYED_LAUNCHES, KEYED_MIN_MAX_LAUNCHES
     KEYED_LAUNCHES += 1
+    if any(k in KEYED_KEEPS_TYPE for k in kinds):
+        KEYED_MIN_MAX_LAUNCHES += 1
     if row_groups:
         return group_rep, list(zip(outs, valids)), gid
     return group_rep, list(zip(outs, valids))
@@ -537,6 +651,59 @@ def _chan_plain(gid: torch.Tensor, g: int, kind: int, c: DeviceColumn,
                                                 0.0))
 
 
+def _min_max_plain(gid: torch.Tensor, g: int, kind: int,
+                   c: DeviceColumn) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each group's min or max of its present values (a double's in
+    ``f64_order``, NaN kept apart); 0 and null with none."""
+    is_min = kind == KEYED_MIN
+    ident = INT64_MAX if is_min else INT64_MIN
+    present = c.validity
+    reduce = "amin" if is_min else "amax"
+
+    def flags(m):
+        return torch.zeros(g, dtype=torch.int64, device=gid.device) \
+            .index_add_(0, gid, m.to(torch.int64)) > 0
+    ok = flags(present)
+    if c.data_type.is_floating:
+        nan = present & torch.isnan(c.data)
+        num = present & ~nan
+        o = f64_order(c.data.contiguous().view(torch.int64))
+        red = torch.full((g,), ident, dtype=torch.int64, device=gid.device) \
+            .scatter_reduce_(0, gid, torch.where(num, o, ident), reduce)
+        to_nan = flags(nan) & (~flags(num) if is_min else ok)
+        word = torch.where(to_nan, _NAN_WORD, f64_order(red))
+        return torch.where(ok, word, 0).view(torch.float64), ok
+    x = c.data.to(torch.int64)
+    red = torch.full((g,), ident, dtype=torch.int64, device=gid.device) \
+        .scatter_reduce_(0, gid, torch.where(present, x, ident), reduce)
+    return torch.where(ok, red, 0).to(c.data.dtype), ok
+
+
+def _pick_plain(gid: torch.Tensor, g: int, kind: int,
+                c: DeviceColumn) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each group's first or last row (its first or last present row for
+    the ``_valid`` kinds) in row order: the value there (0 where there is
+    none), or for a string the row (-1 for a null)."""
+    n = gid.shape[0]
+    pos = torch.arange(n, dtype=torch.int64, device=gid.device)
+    cond = c.validity if kind in (KEYED_FIRST_VALID, KEYED_LAST_VALID) \
+        else torch.ones_like(c.validity)
+    if kind in (KEYED_FIRST, KEYED_FIRST_VALID):
+        idx = torch.full((g,), n, dtype=torch.int64, device=gid.device) \
+            .scatter_reduce_(0, gid, torch.where(cond, pos, n), "amin")
+        found = idx < n
+    else:
+        idx = torch.full((g,), -1, dtype=torch.int64, device=gid.device) \
+            .scatter_reduce_(0, gid, torch.where(cond, pos, -1), "amax")
+        found = idx >= 0
+    at = idx.clamp(0, max(n - 1, 0))
+    ok = found & c.validity[at]
+    if c.is_string:
+        return torch.where(ok, idx, -1), ok
+    zero = torch.zeros((), dtype=c.data.dtype, device=gid.device)
+    return torch.where(found, c.data[at], zero), ok
+
+
 def keyed_aggregate_plain(keys: Sequence[DeviceColumn], inputs, kinds,
                           transfers, row_groups: bool = False,
                           aux=None) -> Tuple:
@@ -551,6 +718,12 @@ def keyed_aggregate_plain(keys: Sequence[DeviceColumn], inputs, kinds,
         if kind in _KEYED_CHAN:
             out.append((_chan_plain(gid, g, kind, c, *pair),
                         torch.ones(g, dtype=torch.bool, device=device)))
+            continue
+        if kind in KEYED_PICK:
+            out.append(_pick_plain(gid, g, kind, c))
+            continue
+        if kind in (KEYED_MIN, KEYED_MAX):
+            out.append(_min_max_plain(gid, g, kind, c))
             continue
         present = torch.ones_like(gid, dtype=torch.bool) \
             if kind == KEYED_COUNT_ALL else c.validity

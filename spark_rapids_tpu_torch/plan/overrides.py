@@ -9,6 +9,7 @@ whatever the port cannot run yet, naming it."""
 from __future__ import annotations
 
 from spark_rapids_tpu_torch import config as C
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec.aggregate import (TorchHashAggregateExec,
                                                    TorchKeyedAggregateExec)
 from spark_rapids_tpu_torch.exec.basic import (TorchCteCacheExec,
@@ -25,12 +26,37 @@ from spark_rapids_tpu_torch.exec.sort import TorchSortExec
 from spark_rapids_tpu_torch.exec.window import TorchWindowExec
 from spark_rapids_tpu_torch.expressions.aggregates import (Average, Count,
                                                            CountDistinct,
-                                                           Sum,
+                                                           First, Min, Sum,
                                                            _CentralMoment)
 from spark_rapids_tpu_torch.plan import base as L
 from spark_rapids_tpu_torch.plan.stages import fuse_device_stages
 
-_SUPPORTED_AGGREGATES = (Sum, Count, Average, CountDistinct, _CentralMoment)
+#: (``Max`` is a ``Min``, ``Last`` a ``First``)
+_SUPPORTED_AGGREGATES = (Sum, Count, Average, CountDistinct, _CentralMoment,
+                         Min, First)
+
+
+def check_min_max_first_last(f) -> None:
+    """Refuses by name a min or max of strings (the JAX device path's
+    ``exec/aggregate.py:663`` tag) and a min, max, first or last of a type
+    K9, K1 and K3 do not take (the JAX device path takes no boolean,
+    float, decimal or binary one either)."""
+    from spark_rapids_tpu_torch.ops.agg_ops import (FIRST_LAST_TYPES,
+                                                    MIN_MAX_TYPES)
+    dt = f.children[0].data_type
+    if isinstance(f, Min):
+        if dt == T.STRING:
+            raise NotImplementedError(
+                f"{f.sql()}: min/max over strings not on device yet (as on "
+                "the JAX device path)")
+        if dt not in MIN_MAX_TYPES:
+            raise NotImplementedError(
+                f"{f.sql()}: min/max over {dt} is not in the port yet (int, "
+                "date, long and double are)")
+    elif isinstance(f, First) and dt not in FIRST_LAST_TYPES:
+        raise NotImplementedError(
+            f"{f.sql()}: first/last over {dt} is not in the port yet (int, "
+            "date, long, double and string are)")
 
 
 class TorchOverrides:
@@ -98,6 +124,7 @@ class TorchOverrides:
                     raise NotImplementedError(
                         f"aggregate {type(a.func).__name__} is not in the "
                         "port yet")
+                check_min_max_first_last(a.func)
                 if isinstance(a.func, _CentralMoment) and \
                         not node.layout.num_keys:
                     raise NotImplementedError(

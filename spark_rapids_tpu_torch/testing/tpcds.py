@@ -19,7 +19,7 @@ are the queries of ``spark_rapids_tpu/testing/tpcds_queries.py`` as
 DataFrame recipes (the port has no SQL front end), and ``q3_numpy`` to
 ``q16_numpy`` the same queries in numpy; later slices add more, each with
 its ``_COLUMNS``, ``_tables`` and ``_numpy`` (q17, q10, q18, q6, q28,
-q36, q51, q51w, q8 and q5)."""
+q36, q51, q51w, q8, q5 and q35)."""
 
 from __future__ import annotations
 
@@ -1510,6 +1510,134 @@ def q10_numpy(tables: Dict[str, dict], year=2000, months=(1, 4),
         out.append({name: row.get(name, counts[key]) for name in Q10_OUTPUT})
     out = [{k: (int(v) if isinstance(v, np.integer) else v)
             for k, v in r.items()} for r in out]
+    return out if limit is None else out[:limit]
+
+
+#: the columns of each table that TPC-DS q35 reads
+Q35_COLUMNS = {
+    "customer": ["c_customer_sk", "c_current_addr_sk", "c_current_cdemo_sk"],
+    "customer_address": ["ca_address_sk", "ca_state"],
+    "customer_demographics": ["cd_demo_sk", "cd_gender", "cd_marital_status",
+                              "cd_dep_count", "cd_dep_employed_count",
+                              "cd_dep_college_count"],
+    "store_sales": ["ss_sold_date_sk", "ss_customer_sk"],
+    "web_sales": ["ws_sold_date_sk", "ws_bill_customer_sk"],
+    "catalog_sales": ["cs_sold_date_sk", "cs_ship_customer_sk"],
+    "date_dim": ["d_date_sk", "d_year", "d_qoy"],
+}
+#: q35's six grouping keys (and its sort keys), and the three dependant
+#: counts each of which it folds into a count, min, max and avg
+Q35_KEYS = ("ca_state", "cd_gender", "cd_marital_status", "cd_dep_count",
+            "cd_dep_employed_count", "cd_dep_college_count")
+Q35_DEPS = ("cd_dep_count", "cd_dep_employed_count", "cd_dep_college_count")
+#: q35's output columns, in the query's order
+Q35_OUTPUT = ("ca_state", "cd_gender", "cd_marital_status", "cd_dep_count",
+              "cnt1", "mn1", "mx1", "av1", "cd_dep_employed_count", "cnt2",
+              "mn2", "mx2", "av2", "cd_dep_college_count", "cnt3", "mn3",
+              "mx3", "av3")
+
+
+def q35_tables(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """The q35 columns of ``generate_tables``' output."""
+    return {t: {c: tables[t][c] for c in cols}
+            for t, cols in Q35_COLUMNS.items()}
+
+
+def q35(customer, customer_address, customer_demographics, store_sales,
+        web_sales, catalog_sales, date_dim, year=2002, qoy_below=4,
+        limit=100):
+    """TPC-DS q35 through the port's DataFrame API, over DataFrames of the
+    ``Q35_COLUMNS`` of each table, in q10's plan shape (the JAX
+    analyzer's ``_exists_join``): customer joined with its address and
+    its demographics; the top-level ``EXISTS`` over store_sales of the
+    year's first three quarters a left semi join; the two ``OR``-ed
+    ``EXISTS`` left outer joins with the distinct customers of web_sales
+    and catalog_sales beside TRUE markers, and the filter ``m1 OR m2``;
+    then, by the six keys, three ``count(*)`` (one K9 slot) and the
+    ``min``, ``max`` and ``avg`` of each dependant count (K9's min and
+    max kinds, a double sum and a count, K6's finish), ordered by the
+    keys, in the query's column order.  As written (``year=2002``) it
+    keeps no row: the generator's ``date_dim`` ends in 2001; q35v is
+    ``year=2001``.  Returns ``(result, parts)`` (``joined``, ``agg``,
+    ``sorted``).  ``limit=None`` drops the limit."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.expressions.base import Alias, col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import (
+        And, EqualTo, LessThan, Or)
+
+    def dates(name):
+        return date_dim.filter(And(EqualTo(col("d_year"), lit(year)),
+                                   LessThan(col("d_qoy"), lit(qoy_below)))) \
+            .select(Alias(col("d_date_sk"), name))
+
+    def buyers(sales, prefix, customer_col):
+        return (sales.join(dates(f"{prefix}_sold_date_sk"),
+                           on=f"{prefix}_sold_date_sk")
+                .select(Alias(col(customer_col), "c_customer_sk")))
+
+    def marker(sales, prefix, customer_col, name):
+        return buyers(sales, prefix, customer_col).distinct() \
+            .select(col("c_customer_sk"), Alias(lit(True), name))
+    ca = customer_address.select(Alias(col("ca_address_sk"),
+                                       "c_current_addr_sk"), col("ca_state"))
+    cd = customer_demographics.select(
+        Alias(col("cd_demo_sk"), "c_current_cdemo_sk"),
+        *[col(k) for k in Q35_KEYS[1:]])
+    joined = (customer.join(ca, on="c_current_addr_sk")
+              .join(cd, on="c_current_cdemo_sk")
+              .join(buyers(store_sales, "ss", "ss_customer_sk"),
+                    on="c_customer_sk", how="semi")
+              .join(marker(web_sales, "ws", "ws_bill_customer_sk", "m1"),
+                    on="c_customer_sk", how="left")
+              .join(marker(catalog_sales, "cs", "cs_ship_customer_sk",
+                           "m2"), on="c_customer_sk", how="left")
+              .filter(Or(col("m1"), col("m2"))))
+    folds = []
+    for j, dep in enumerate(Q35_DEPS, 1):
+        folds += [F.count("*").alias(f"cnt{j}"), F.min(dep).alias(f"mn{j}"),
+                  F.max(dep).alias(f"mx{j}"), F.avg(dep).alias(f"av{j}")]
+    agg = joined.group_by(*Q35_KEYS).agg(*folds)
+    ordered = agg.order_by(*Q35_KEYS)
+    out = ordered if limit is None else ordered.limit(limit)
+    out = out.select(*[col(c) for c in Q35_OUTPUT])
+    return out, {"joined": joined, "agg": agg, "sorted": ordered}
+
+
+def q35_numpy(tables: Dict[str, dict], year=2002, qoy_below=4,
+              limit=100) -> list:
+    """TPC-DS q35 in numpy over ``q35_tables`` output: the rows as
+    dicts."""
+    c, ca = tables["customer"], tables["customer_address"]
+    cd, d = tables["customer_demographics"], tables["date_dim"]
+    dates = d["d_date_sk"][(d["d_year"] == year) & (d["d_qoy"] < qoy_below)]
+
+    def buyers(table, prefix, customer_col):
+        t = tables[table]
+        return t[customer_col][np.isin(t[f"{prefix}_sold_date_sk"], dates)]
+    sk = c["c_customer_sk"]
+    sel = np.isin(sk, buyers("store_sales", "ss", "ss_customer_sk"))
+    sel &= np.isin(sk, buyers("web_sales", "ws", "ws_bill_customer_sk")) | \
+        np.isin(sk, buyers("catalog_sales", "cs", "cs_ship_customer_sk"))
+    has_ca, ca_at = _lookup(ca["ca_address_sk"], c["c_current_addr_sk"])
+    has_cd, cd_at = _lookup(cd["cd_demo_sk"], c["c_current_cdemo_sk"])
+    sel &= has_ca & has_cd
+    groups: Dict[tuple, list] = {}
+    for a, r in zip(ca_at[sel].tolist(), cd_at[sel].tolist()):
+        key = (ca["ca_state"][a],) + tuple(
+            cd[k][r].item() if isinstance(cd[k][r], np.generic) else cd[k][r]
+            for k in Q35_KEYS[1:])
+        groups.setdefault(key, []).append(key[3:])
+    out = []
+    for key in sorted(groups):
+        deps = np.array(groups[key], dtype=np.int64)
+        row = dict(zip(Q35_KEYS, key))
+        for j in range(3):
+            x = deps[:, j]
+            row[f"cnt{j + 1}"] = len(x)
+            row[f"mn{j + 1}"] = int(x.min())
+            row[f"mx{j + 1}"] = int(x.max())
+            row[f"av{j + 1}"] = float(x.sum()) / len(x)
+        out.append({name: row[name] for name in Q35_OUTPUT})
     return out if limit is None else out[:limit]
 
 

@@ -158,8 +158,11 @@ def test_reduce_plain_matches_words_api():
 
 
 def test_unsupported_kind_raises():
-    with pytest.raises(NotImplementedError, match="first"):
-        G.reduce_kind("first", T.LONG)
+    # first and last are kernel 2 kinds; mean is not
+    with pytest.raises(NotImplementedError, match="mean"):
+        G.reduce_kind("mean", T.DOUBLE)
+    with pytest.raises(NotImplementedError, match="min"):
+        G.reduce_kind("min", T.STRING)
     with pytest.raises(ValueError, match="kinds"):
         G.global_reduce(torch.zeros(1, 2, dtype=torch.int64),
                         torch.ones(1, 2, dtype=torch.bool), [G.SUM_I64])

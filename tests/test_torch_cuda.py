@@ -14,9 +14,11 @@ K14o (lag/lead source rows, their default, ntile), K10f (the full outer
 join), IS NULL / IS NOT NULL in K5 and K6, K13 (computed strings:
 substring and concat), K10's null-safe mode and K5's packed-word IN, K16
 (dictionary decode of every type, RLE expansion), K5's code-space mode,
-and TPC-DS q3, q1, q7, q15, q12, q20, q13, q19, q16, q17, q10, q18, q6,
-q28, q36, q51, q8 and q5 end to end against the CPU run (q3, q18, q51, q8
-and q5 also over four partitions; q3, q7 and q19 also from parquet);
+K9's, K1's and K3's min, max, first and last kinds (and K9's merge of
+them), and TPC-DS q3, q1, q7, q15, q12, q20, q13, q19, q16, q17, q10,
+q18, q6, q28, q36, q51, q8, q5, q35 and q35v end to end against the CPU
+run (q3, q18, q51, q8, q5 and q35v also over four partitions; q3, q7 and
+q19 also from parquet);
 out of core: K14c (the running window's carry) chunk by chunk against
 its plain version, the external sort against the in-memory one, the
 out-of-core FINAL merge (forced re-partition) against the in-memory
@@ -1636,3 +1638,149 @@ def test_q51_out_of_core_matches_in_memory(card, runtime_reset, parts):
     if parts > 1:
         assert A.REPARTITION_EVENTS > ev[2]
     assert DM.memory_stats()["device_to_host"] > 0
+
+
+@pytest.mark.parametrize("n", [1, 1000, (1 << 20) + 3])
+def test_keyed_min_max_first_last_match_plain(card, n):
+    """K9's min, max, first, last, first_valid and last_valid of int,
+    date, long and double values (and the row kinds of strings) against
+    the plain version, by the groups and by one group of every row; then
+    the same kinds merging the two halves' partials, as a FINAL
+    aggregate merges the buffer rows an exchange delivers."""
+    from spark_rapids_tpu_torch.testing import minmax_cases as MC
+    b = card.transfers.upload_batch(MC.host_batch(61, n))
+    inputs, kinds = MC.keyed_slots(b.columns)
+    for key in (0, 1):
+        keys = [b.columns[key]]
+        got = G.keyed_aggregate(keys, inputs, kinds, card.transfers)
+        torch.cuda.synchronize()
+        MC.same_keyed(got, G.keyed_aggregate_plain(keys, inputs, kinds,
+                                                   card.transfers),
+                      f"K9, {n} rows, key {key}")
+    merged_keys, merged, mk = MC.merged_halves(b.columns, inputs, kinds,
+                                               card.transfers)
+    got = G.keyed_aggregate(merged_keys, merged, mk, card.transfers)
+    torch.cuda.synchronize()
+    MC.same_keyed(got, G.keyed_aggregate_plain(merged_keys, merged, mk,
+                                               card.transfers),
+                  f"K9 merge, {n} rows")
+
+
+@pytest.mark.parametrize("n", [0, 1, 4097, (1 << 20) + 3])
+def test_global_reduce_new_kinds_match_plain(card, n):
+    """K3's min and max of int, date, long and double words (-0.0 below
+    0.0 in either order) and its first, last, first_valid and last_valid
+    (a string's by its rows) against the plain version, exactly."""
+    from spark_rapids_tpu_torch.testing import minmax_cases as MC
+    b = card.transfers.upload_batch(MC.host_batch(62, n))
+    values, valid, kinds = G.pack_columns(b.columns, MC.global_specs())
+    got = G.global_reduce(values, valid, kinds)
+    torch.cuda.synchronize()
+    ref = G.global_reduce_plain(values, valid, kinds)
+    assert torch.equal(got[1], ref[1])
+    assert torch.equal(torch.where(ref[1], got[0], 0),
+                       torch.where(ref[1], ref[0], 0))
+    for first in (0.0, -0.0):
+        zeros = torch.tensor([first, -first, first], dtype=torch.float64,
+                             device="cuda").view(torch.int64)[:, None]
+        ones = torch.ones_like(zeros, dtype=torch.bool)
+        for kind, sign in ((G.MIN_F64, True), (G.MAX_F64, False)):
+            w, _ok = G.global_reduce(zeros, ones, [kind])
+            assert bool(torch.signbit(w.view(torch.float64))[0]) == sign
+
+
+@pytest.mark.parametrize("parts", [1, 3])
+def test_fused_min_max_first_last_match_plain(card, parts):
+    """K1's min, max and row-order update forms (K3's fold, K7's
+    gather) against the plain version on each partition, and the global
+    aggregate over 1 and 3 partitions against the CPU run."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.expressions.base import col, lit
+    from spark_rapids_tpu_torch.expressions.predicates import GreaterThan
+    from spark_rapids_tpu_torch.testing import minmax_cases as MC
+    hb = MC.host_batch(63, (1 << 20) + 3)
+
+    def q(session):
+        scan = session.create_dataframe(hb, num_partitions=parts)
+        aggs = []
+        for c in ("i", "d", "l", "v"):
+            aggs += [F.min(c), F.max(c)]
+        for c in ("i", "d", "l", "v", "s"):
+            aggs += [F.first(c), F.last(c), F.first(c, True),
+                     F.last(c, True)]
+        return scan, scan.filter(GreaterThan(col("g"), lit(7))).agg(
+            *[a.alias(f"a{j}") for j, a in enumerate(aggs)])
+    scan, df = q(card)
+    fx = [n for n in _walk(df.executed_plan())
+          if isinstance(n, FU.TorchFusedAggExec)][0]
+    lits = FU.LiteralArgs.upload(fx.promoted, card.transfers)
+    for p in scan._plan.partitions:
+        batch = card.transfers.upload_batch(p[0])
+        kw, kv = FU.fused_agg_update(fx.program, batch, lits)
+        pw, pv = FU.fused_agg_update_plain(fx.program, batch, lits)
+        got = G.global_reduce_plain(kw, kv, fx.program.fold_kinds)
+        ref = G.global_reduce_plain(pw, pv, fx.program.fold_kinds)
+        assert torch.equal(got[1], ref[1])
+        assert torch.equal(torch.where(ref[1], got[0], 0),
+                           torch.where(ref[1], ref[0], 0))
+    got = df.collect()
+    ref = q(TorchSession(device="cpu"))[1].collect()
+    assert len(got) == len(ref) == 1
+    for k in ref[0]:
+        x, y = got[0][k], ref[0][k]
+        assert (x == y) or (x != x and y != y), (k, x, y)
+        if isinstance(x, float):
+            assert np.signbit(x) == np.signbit(y), k
+
+
+def _walk(node):
+    yield node
+    for c in node.children:
+        yield from _walk(c)
+
+
+@pytest.mark.parametrize("parts", [1, 4])
+def test_group_by_min_max_first_last_match_the_cpu_run(card, parts):
+    """A group-by of every new kind (strings' first and last too) at one
+    partition and, PARTIAL/FINAL through K9's merge kinds, at four."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.testing import minmax_cases as MC
+    hb = MC.host_batch(64, 200_000, groups=300)
+
+    def q(session):
+        aggs = []
+        for c in ("i", "d", "l", "v"):
+            aggs += [F.min(c), F.max(c)]
+        for c in ("i", "d", "l", "v", "s"):
+            aggs += [F.first(c), F.last(c), F.first(c, True),
+                     F.last(c, True)]
+        return session.create_dataframe(hb, num_partitions=parts) \
+            .group_by("g").agg(*[a.alias(f"a{j}") for j, a in
+                                 enumerate(aggs)]).collect()
+    got = sorted(q(card), key=lambda r: r["g"])
+    ref = sorted(q(TorchSession(device="cpu")), key=lambda r: r["g"])
+    assert len(got) == len(ref) == 300
+    for g, r in zip(got, ref):
+        for k in r:
+            x, y = g[k], r[k]
+            assert (x == y) or (x != x and y != y), (k, x, y)
+            if isinstance(x, float):
+                assert np.signbit(x) == np.signbit(y), k
+
+
+@pytest.mark.parametrize("year,parts", [(2002, 1), (2001, 1), (2001, 4)])
+def test_q35_matches_the_cpu_run(card, year, parts):
+    """q35 as written (no row: date_dim ends in 2001) and q35v (year
+    2001) at sf 2 on the card against the CPU run and numpy."""
+    from spark_rapids_tpu_torch.testing import tpcds
+    names = ("customer", "customer_address", "customer_demographics",
+             "store_sales", "web_sales", "catalog_sales", "date_dim")
+    t = tpcds.q35_tables(tpcds.generate_tables(2))
+    got = tpcds.q35(*tpcds.partitioned_frames(card, t, names, parts),
+                    year=year)[0].collect()
+    ref = tpcds.q35(*[TorchSession(device="cpu").create_dataframe(t[n])
+                      for n in names], year=year)[0].collect()
+    assert len(got) == len(ref) == (0 if year == 2002 else 100)
+    assert got == ref
+    assert ref == tpcds.q35_numpy(t, year=year)
