@@ -10,8 +10,9 @@ kernels/fused_agg.py and kernels/fused_stage.py) and kernel 2, K7, K7c,
 K8, K9, K10 (with its full outer mode K10f and its null-safe mode K10n),
 K10x, K14 (with its ranking pass K14r and its frame kinds K14s, K14b and
 K14o), K15d, K11h, K11r and K7s, K13 (computed strings), K16 (the
-decode of dictionary and RLE columns) and K14c (the running window's
-carry between chunks) (csrc/*.cu, one nvcc each, all started together).
+decode of dictionary and RLE columns), K14c (the running window's
+carry between chunks) and the decimal avg finish (csrc/decimal.cu)
+(csrc/*.cu, one nvcc each, all started together).
 It holds each kernel against its plain PyTorch version on the card
 (phase 2h: the exchange's kernels and K9's merge kinds; phase 2i: the
 window frames and the full outer join; phase 2j: K13 and K10's
@@ -19,7 +20,10 @@ null-safe mode; phase 2k: K16 and K5's code-space mode; phase 2l: K14c
 chunk by chunk, and the chunked bounded window path against one batch;
 phase 2m: K9's min, max, first, last, first_valid and last_valid kinds
 (group-by and merge), K1's update forms of them and K3's, on 2^20+3 rows
-with nulls, NaN, +-0.0 and one group of every row), then drives fourteen
+with nulls, NaN, +-0.0 and one group of every row; phase 2n: K12, the
+decimal arithmetic, inside K6, K5 and K1, K9's and K3's decimal sum
+kinds, the decimal avg finish, K8's decimal words and K7, K7c and K7s on
+decimal128 rows, on 2^20+3 rows, bit for bit), then drives sixteen
 paths through ``TorchSession()``, each query with the launch counters set
 to 0 just before it and read just after:
 
@@ -31,6 +35,11 @@ to 0 just before it and read just after:
   first(v, ignore_nulls) and last(w, ignore_nulls) -- K1's update forms,
   K3's fold and merge, K7's gather of the first/last rows, held against
   numpy in partition order (no CPU run);
+- phase 3d: the recipe's decimal form over the same table with ``d`` =
+  ``v`` rounded to cents as DECIMAL(7,2) -- filter(w > t), then k + 1,
+  d * 2, d - w, d * w, (d * w) * d and murmur3(k, w), and their sums --
+  K12 inside K1 with its 128-bit sums, K3's 128-bit fold and merge, held
+  against exact integers (no CPU run);
 - TPC-DS q3, q1 and q7 at sf 1000 (store_sales 30M rows, store_returns
   3M, customer and item 2M, date_dim 1461) at one partition, over tables
   generated once, each checked against a numpy version of the query and
@@ -85,15 +94,22 @@ to 0 just before it and read just after:
   q35v (``d_year = 2001``: a 6-key group-by folding count(*), min, max
   and avg of three int columns, K9's min and max kinds) over the same
   tables, checked and timed alike;
+- phase 9h: TPC-DS q3, q19 and q7 over the same tables with every money
+  column they read as DECIMAL(7,2) cents (``tpcds.decimal_money``):
+  decimal64 sums in K9, K8's decimal sort words, q7's decimal averages
+  through the avg finish, each held against numpy in int64 cents and the
+  CPU run, with Spark's result types, timed alike;
 - phase 10: q3, q1, q7, q12, q16, q17 without its item conjunct, q18,
-  q51, q8 and q35v over the same tables cut into ``--parts`` partitions (the
+  q51, q8, q35v, q3d and q7d over the same tables cut into ``--parts``
+  partitions (the
   JAX package's register_tables rule): every group-by, join, sort and
   window behind a hash or range exchange (K11h, K11r, K7s), PARTIAL/FINAL
   group-bys through K9's merge kinds, each query's rows held against its
   one-partition run and numpy, timed and profiled alike.
 
 The CPU run of each query of phases 4 to 9 is held against a card run
-over tables at a tenth of the scale (sf 100; q5's at sf 1), to keep the
+over tables at a tenth of the scale (sf 100; q5's at sf 1), and phase
+3's against a card run over the first tenth of its rows, to keep the
 script inside its time.  Each phase prints its seconds.
 
 Every check that fails ends the run with a non-zero exit.  The last two
@@ -106,6 +122,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import decimal
 import json
 import math
 import os
@@ -124,7 +141,7 @@ INT64_MAX = 2 ** 63 - 1
 CUDA_SOURCES = ("global_reduce.cu", "gather.cu", "sort.cu", "keyed_agg.cu",
                 "hash_join.cu", "window.cu", "distinct.cu", "concat.cu",
                 "cross_join.cu", "partition.cu", "strings.cu", "decode.cu",
-                "window_carry.cu")
+                "window_carry.cu", "decimal.cu")
 #: the TPC-DS kernels: name, route, source, the JAX program each replaces
 TPCDS_KERNELS = {
     "K1": ("fused_agg_update", "triton",
@@ -196,6 +213,9 @@ TPCDS_KERNELS = {
     "K14c": ("running_fixup", "cuda",
              "spark_rapids_tpu_torch/csrc/window_carry.cu",
              "spark_rapids_tpu/exec/window.py:637"),
+    "K12avg": ("decimal_avg", "cuda",
+               "spark_rapids_tpu_torch/csrc/decimal.cu",
+               "spark_rapids_tpu/expressions/aggregates.py:182"),
 }
 #: each TPC-DS kernel's launch counter: module and attribute
 COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
@@ -223,7 +243,17 @@ COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
             "K16": ("ops.decode_ops", "DICT_LAUNCHES"),
             "K16r": ("ops.decode_ops", "RLE_LAUNCHES"),
             "K5d": ("exec.fused", "CODE_SPACE_LAUNCHES"),
-            "K14c": ("ops.window_ops", "FIXUP_LAUNCHES")}
+            "K14c": ("ops.window_ops", "FIXUP_LAUNCHES"),
+            "K12avg": ("ops.decimal_ops", "AVG_LAUNCHES")}
+#: the decimal forms' launches, each a part of a kernel's count: K1, K5
+#: and K6 running K12, K9 with a decimal sum slot, K3 with a decimal128
+#: sum, K8 with a decimal key
+DECIMAL_COUNTERS = {"K12": ("exec.fused", "DECIMAL_LAUNCHES"),
+                    "K12s": ("exec.fused", "DECIMAL_STAGE_LAUNCHES"),
+                    "K12p": ("exec.fused", "DECIMAL_PROJECT_LAUNCHES"),
+                    "K9d": ("ops.agg_ops", "KEYED_DECIMAL_LAUNCHES"),
+                    "K3d": ("ops.agg_ops", "DECIMAL_LAUNCHES"),
+                    "K8d": ("ops.sort_ops", "DECIMAL_LAUNCHES")}
 #: K9's launches with a min, max, first or last slot, a part of its count
 MIN_MAX_COUNTER = ("ops.agg_ops", "KEYED_MIN_MAX_LAUNCHES")
 #: the out-of-core paths' counters, which read 0 on every default-pool
@@ -262,7 +292,25 @@ QUERY_KERNELS = {"q3": ("K5", "K7", "K8", "K9", "K10"),
                         "K11h", "K11r", "K13"),
                  # as written no date passes: no group to finish or sort
                  "q35": ("K5", "K7", "K10"),
-                 "q35v": ("K5", "K6", "K7", "K8", "K9", "K10")}
+                 "q35v": ("K5", "K6", "K7", "K8", "K9", "K10"),
+                 # phase 9h: q3, q19 and q7 over DECIMAL(7,2) money
+                 "q3d": ("K5", "K7", "K8", "K9", "K10"),
+                 "q19d": ("K5", "K7", "K8", "K9", "K10"),
+                 "q7d": ("K5", "K6", "K7", "K8", "K9", "K10", "K12avg")}
+#: the JAX programs the decimal forms replace: K12 (``tpu_binary_eval``,
+#: with ``compare`` and ``decimal_to_double``), the decimal sums of
+#: ``_segment_reduce`` (K9) and ``_global_reduce`` (K1, K3), K8's decimal
+#: words (``sortable_words``)
+DECIMAL_REPLACES = {
+    "K12": "spark_rapids_tpu/expressions/decimal_math.py:530",
+    "K12 also": ["spark_rapids_tpu/expressions/decimal_math.py:653",
+                 "spark_rapids_tpu/expressions/decimal_math.py:612"],
+    "K9d": "spark_rapids_tpu/ops/agg_ops.py:62",
+    "K3d": "spark_rapids_tpu/ops/agg_ops.py:166",
+    "K8d": "spark_rapids_tpu/ops/sort_ops.py:101"}
+#: phase 9h's queries, and the decimal forms each must launch
+DECIMAL_QUERIES = {"q3d": ("K9d", "K8d"), "q19d": ("K9d", "K8d"),
+                   "q7d": ("K9d",)}
 #: phase 9e: the queries run from parquet, and the kernels each launches
 #: (q7's filters on five dictionary columns run in code space, K5d, and
 #: decode none; q3's and q19's string payloads decode through K16 ahead
@@ -280,7 +328,7 @@ Q7_CODE_SPACE_COLUMNS = ("cd_gender", "cd_marital_status",
 #: each launches beside its one-partition ones (q16 sorts its one-row
 #: global aggregate: no range exchange)
 PARTS_QUERIES = ("q3", "q1", "q7", "q12", "q16", "q17v", "q18", "q51",
-                 "q8", "q35v")
+                 "q8", "q35v", "q3d", "q7d")
 PARTS_KERNELS = {"q16": ("K7c", "K11h", "K7s")}
 PARTS_DEFAULT_KERNELS = ("K7c", "K11h", "K11r", "K7s")
 #: the histogram the exchange's one read brings to the host (exec/
@@ -2643,6 +2691,8 @@ def global_bytes(values, kinds) -> int:
             total += n + 9 * min(n, 1)
         elif kind == G.COUNT:
             total += n
+        elif kind == G.DEC128_LO:
+            total += 8 * n   # its validity is the hi column's
         else:
             total += 9 * n
     return total + 9 * len(kinds)
@@ -2805,6 +2855,334 @@ def check_slice13(session, rng, rate: float):
                 1),
         (k1_in + 9 * table[0].numel()) / rate * 1e3, None)
     return errs, timed
+
+
+#: phase 2n: rows of the decimal checks
+SLICE14_ROWS = (1 << 20) + 3
+
+
+def check_slice14(session, rng, rate: float):
+    """Phase 2n: on ``testing/decimal_cases.py``'s batch of 2^20+3 rows
+    (decimal(7,2), (18,4), (20,4) and (30,6) columns with nulls and their
+    bounds; int and long partners), each decimal kernel against its plain
+    version, bit for bit: K12 inside K6 (every operation the JAX gate
+    admits, comparisons, casts, If), inside K5 (behind a filter) and
+    inside K1 (the recipe's decimal form, 128-bit sums); K9's decimal64
+    and decimal128 sum kinds over 4096 groups; K3's decimal128 sum; the
+    decimal avg finish; K8's decimal64 and decimal128 words; K7, K7c and
+    K7s moving decimal128 rows.  Returns the measured max |d| by kernel
+    and each form's (ms, plain ms, bound ms, library ms)."""
+    import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import (HostColumnarBatch,
+                                                       decimal_column,
+                                                       host_column)
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.expressions.base import (Alias,
+                                                         bind_references)
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    from spark_rapids_tpu_torch.ops import batch_ops as BO
+    from spark_rapids_tpu_torch.ops import decimal_ops as DO
+    from spark_rapids_tpu_torch.ops import partition_ops as PO
+    from spark_rapids_tpu_torch.ops import sort_ops as S
+    from spark_rapids_tpu_torch.testing import decimal_cases as DC
+    tr = session.transfers
+    n = SLICE14_ROWS
+    hb = DC.decimal_batch(n, int(rng.integers(1 << 30)))
+    b = tr.upload_batch(hb)
+    cols = dict(zip(b.names, b.columns))
+    none = FU.LiteralArgs([])
+    errs, timed = {}, {}
+
+    def program(ops):
+        return FU.StageProgram(ops, hb.schema, 0)
+
+    def bound(used_cols, out_cols) -> float:
+        return (sum(column_bytes(c) for c in used_cols) +
+                sum(column_bytes(c) for c in out_cols)) / rate * 1e3
+
+    # K12 inside K6: every operation, comparison and cast
+    exprs = [Alias(bind_references(x, hb.schema), f"o{j}") for j, x in
+             enumerate(DC.k12_expressions() + DC.k12_predicates())]
+    p6 = program([("project", exprs)])
+    got = FU.fused_project(p6, b, none)
+    torch.cuda.synchronize()
+    errs["K12 in K6"] = same_columns(
+        got, FU.fused_project_plain(p6, b, none), "K12 in K6")
+    timed["K12 in K6"] = (
+        time_ms(lambda: FU.fused_project(p6, b, none), 5),
+        time_ms(lambda: FU.fused_project_plain(p6, b, none), 2, 1),
+        bound([b.columns[i] for i in p6.used], got), None)
+    # K12 inside K5: the operations behind a filter
+    from spark_rapids_tpu_torch.expressions import predicates as P
+    from spark_rapids_tpu_torch.expressions.base import col
+    cond = bind_references(P.GreaterThan(col("a"), col("w")), hb.schema)
+    outs = [Alias(bind_references(x, hb.schema), f"o{j}")
+            for j, x in enumerate(DC.k12_expressions())]
+    p5 = program([("filter", cond), ("project", outs)])
+    got5 = FU.fused_stage_compact(p5, b, none, tr)
+    torch.cuda.synchronize()
+    errs["K12 in K5"] = same_output(
+        "K5", (p5, b, none, tr), {}, got5,
+        FU.fused_stage_compact_plain(p5, b, none, tr), tr, "K12 in K5")
+    timed["K12 in K5"] = (
+        time_ms(lambda: FU.fused_stage_compact(p5, b, none, tr), 5),
+        time_ms(lambda: FU.fused_stage_compact_plain(p5, b, none, tr), 2,
+                1),
+        (sum(column_bytes(b.columns[i]) for i in p5.used) +
+         8 * got5[0].shape[0] + sum(column_bytes(c) for c in got5[1]))
+        / rate * 1e3, None)
+    # K12 inside K1: the recipe's decimal form, its 128-bit sums
+    k = cols["k"].data.cpu().numpy()
+    w = cols["w"].data.cpu().numpy()
+    d = DC.cents(rng, n, -300.0, 300.0)
+    rb = HostColumnarBatch([host_column(k), host_column(w),
+                            decimal_column(d, DC.MONEY)], n, ["k", "w", "d"])
+    fx = fused_exec_of(DC.recipe_decimal(session.create_dataframe(rb)))
+    tb = tr.upload_batch(rb)
+    lits = FU.LiteralArgs.upload(fx.promoted, tr)
+    table = FU.fused_agg_update(fx.program, tb, lits)
+    torch.cuda.synchronize()
+    errs["K12 in K1"] = same_kernel1(
+        (fx.program, tb, lits), table,
+        FU.fused_agg_update_plain(fx.program, tb, lits), "K12 in K1")
+    timed["K12 in K1"] = (
+        time_ms(lambda: FU.fused_agg_update(fx.program, tb, lits), 10),
+        time_ms(lambda: FU.fused_agg_update_plain(fx.program, tb, lits), 2,
+                1),
+        (sum(column_bytes(tb.columns[i]) for i in fx.program.used) +
+         9 * table[0].numel()) / rate * 1e3, None)
+    # K9's decimal sum kinds over 4096 groups: decimal64 (the long sum of
+    # a decimal(7,2)'s cents) and decimal128 (a decimal(30,6), and a
+    # decimal(18,4) summed into 128 bits)
+    g = DeviceColumn(torch.from_numpy(rng.integers(0, 4096, n)).to(
+        session.device), torch.ones(n, dtype=torch.bool,
+                                    device=session.device), T.LONG, True)
+    for what, ins, kinds in (
+            ("K9 decimal64 sum", [cols["a"]], [G.KEYED_SUM_I64]),
+            ("K9 decimal128 sum", [cols["e"], cols["b"]],
+             [G.KEYED_SUM_DEC128, G.KEYED_SUM_DEC128])):
+        rep, res, gid = G.keyed_aggregate([g], ins, kinds, tr,
+                                          row_groups=True)
+        torch.cuda.synchronize()
+        errs[what] = same_keyed([g], ins, kinds, (rep, res),
+                                G.keyed_aggregate_plain([g], ins, kinds, tr),
+                                tr, what)
+        library = None
+        if what == "K9 decimal64 sum":
+            x = ins[0]
+
+            def library(x=x, gid=gid, groups=rep.shape[0]):
+                return torch.zeros(groups, dtype=torch.int64,
+                                   device=x.device).index_add_(
+                    0, gid, torch.where(x.validity, x.data, 0))
+        timed[what] = (
+            time_ms(lambda: G.keyed_aggregate([g], ins, kinds, tr), 5),
+            time_ms(lambda: G.keyed_aggregate_plain([g], ins, kinds, tr), 2,
+                    1),
+            keyed_bytes([g], ins, kinds, res) / rate * 1e3,
+            None if library is None else time_ms(library, 5))
+    # K3's decimal128 sum over the rows of a decimal(30,6)
+    values, valid, k3 = G.pack_columns([cols["e"]], [
+        (0, "sum", True, T.DecimalType(38, 6))])
+    got3 = G.global_reduce(values, valid, k3)
+    torch.cuda.synchronize()
+    errs["K3 decimal128 sum"] = same_kernel2(
+        (values, valid, k3), got3, G.global_reduce_plain(values, valid, k3),
+        "K3 decimal128 sum")
+    timed["K3 decimal128 sum"] = (
+        time_ms(lambda: G.global_reduce(values, valid, k3), 20),
+        time_ms(lambda: G.global_reduce_plain(values, valid, k3), 2, 1),
+        global_bytes(values, k3) / rate * 1e3, None)
+    # the decimal avg finish: decimal(17,2) sums and counts
+    sums = torch.from_numpy(DC.cents(rng, n, -1e9, 1e9)).to(session.device)
+    counts = torch.from_numpy(rng.integers(0, 100_000, n)).to(session.device)
+    ok_in = cols["a"].validity
+    ones = torch.ones_like(ok_in)
+    got_avg = DO.avg_finish(sums, ok_in, counts, ones, DC.MONEY)
+    torch.cuda.synchronize()
+    ref_avg = DO.avg_finish_plain(sums, ok_in, counts, ones, DC.MONEY)
+    check(bool(torch.equal(got_avg[1], ref_avg[1])), "avg finish: validity")
+    errs["avg finish"] = same_indices(got_avg[0], ref_avg[0],
+                                      "avg finish: averages")
+    timed["avg finish"] = (
+        time_ms(lambda: DO.avg_finish(sums, ok_in, counts, ones, DC.MONEY),
+                10),
+        time_ms(lambda: DO.avg_finish_plain(sums, ok_in, counts, ones,
+                                            DC.MONEY), 1, 0),
+        avg_bytes(sums, got_avg[0]) / rate * 1e3, None)
+    # K8's decimal words: a decimal64 key descending, a decimal128 key
+    # ascending (nulls first)
+    for what, key, order in (("K8 decimal64 key", cols["a"],
+                              S.SortOrder(0, False, False)),
+                             ("K8 decimal128 key", cols["e"],
+                              S.SortOrder(0, True, True))):
+        perm = S.sort_permutation([key], [order], tr)
+        torch.cuda.synchronize()
+        errs[what] = same_indices(perm, S.sort_permutation_plain(
+            [key], [order], tr), what)
+        library = None
+        if not key.data_type.is_decimal128:
+            word = S.order_words_plain(key, order)[-1]
+
+            def library(word=word):
+                return torch.argsort(word, stable=True)
+        timed[what] = (
+            time_ms(lambda: S.sort_permutation([key], [order], tr), 5),
+            time_ms(lambda: S.sort_permutation_plain([key], [order], tr), 2,
+                    1),
+            (column_bytes(key) + 8 * n) / rate * 1e3,
+            None if library is None else time_ms(library, 5))
+    # K7, K7c and K7s on decimal128 rows (16-byte planes)
+    wide = [cols["c"], cols["e"]]
+    idx = torch.from_numpy(rng.integers(-1, n, n)).to(session.device)
+    got7 = BO.gather_columns(wide, idx, tr, unique=True, nullable=True)
+    torch.cuda.synchronize()
+    errs["K7 decimal128"] = same_columns(got7, BO.gather_columns_plain(
+        wide, idx, tr, unique=True, nullable=True), "K7 decimal128")
+    timed["K7 decimal128"] = (
+        time_ms(lambda: BO.gather_columns(wide, idx, tr, unique=True,
+                                          nullable=True), 10),
+        time_ms(lambda: BO.gather_columns_plain(wide, idx, tr, unique=True,
+                                                nullable=True), 2, 1),
+        (8 * n + sum(2 * column_bytes(c) for c in got7)) / rate * 1e3, None)
+    thirds = [BO.slice_batch(b.select([2, 3], ["c", "e"]), i * (n // 3),
+                             n // 3, tr) for i in range(3)]
+    got7c = BO.concat_batches(thirds)
+    torch.cuda.synchronize()
+    errs["K7c decimal128"] = same_columns(
+        got7c.columns, BO.concat_batches_plain(thirds).columns,
+        "K7c decimal128")
+    pids = torch.from_numpy(rng.integers(0, 4, n).astype(np.int32)).to(
+        session.device)
+    counts4 = torch.bincount(pids.long(), minlength=4)
+    got7s = PO.split_columns(wide, pids, counts4.tolist())
+    torch.cuda.synchronize()
+    errs["K7s decimal128"] = max([same_columns(
+        x, y, f"K7s decimal128, partition {p}") for p, (x, y) in enumerate(
+        zip(got7s, PO.split_columns_plain(wide, pids, counts4.tolist())))]
+        + [0.0])
+    return errs, timed
+
+
+def query_3d(df, threshold=0):
+    """Phase 3d: the recipe's decimal form (``testing/decimal_cases.py
+    recipe_decimal``)."""
+    from spark_rapids_tpu_torch.testing import decimal_cases as DC
+    return DC.recipe_decimal(df, threshold)
+
+
+def run_3d(session, data, args, rate: float, errs14, slice14_one,
+           recipe_row):
+    """Phase 3d: the recipe's decimal form over the recipe's table
+    with ``d`` = ``v`` rounded to cents as DECIMAL(7,2), at
+    ``args.parts`` partitions: launches (every K1 running K12, every K3
+    a decimal128 sum), one sync, the sums' types and values against
+    exact integers (``sk`` and ``sh`` against phase 3's ``recipe_row``),
+    best and median of ``args.reps``, and its kernels (K1, K3, K7c) held
+    against their plain versions and timed; returns their entries of the
+    kernels line."""
+    from spark_rapids_tpu_torch.columnar.batch import (HostColumnarBatch,
+                                                       decimal_column,
+                                                       host_column)
+    from spark_rapids_tpu_torch.columnar.column import decimal_value
+    from spark_rapids_tpu_torch.exec.stage_compiler import stats as kstats
+    from spark_rapids_tpu_torch.testing import decimal_cases as DC
+    kernels = []
+    cents = np.rint(data["v"] * 100).astype(np.int64)   # v to cents
+    hb3d = HostColumnarBatch([host_column(data["k"]), host_column(data["w"]),
+                              decimal_column(cents, DC.MONEY)], args.rows,
+                             ["k", "w", "d"])
+    df3d = session.create_dataframe(hb3d, num_partitions=args.parts)
+    first3d = query_3d(df3d).collect()
+    counted3d = ("K1", "K3", "K7c")
+    for k in counted3d:
+        setattr(*counter_of(k), 0)
+    dec3d = {k: counter_of_decimal(k) for k in ("K12", "K3d")}
+    for mod, attr in dec3d.values():
+        setattr(mod, attr, 0)
+    tr0, ks0 = session.transfers.stats(), kstats()
+    t0 = time.perf_counter()
+    result3d = query_3d(df3d).collect()
+    main3d_s = time.perf_counter() - t0
+    launches3d = {k: getattr(*counter_of(k)) for k in counted3d}
+    decimal3d = {k: getattr(mod, a) for k, (mod, a) in dec3d.items()}
+    tr1, ks1 = session.transfers.stats(), kstats()
+    print(f"phase 3d main path: {main3d_s * 1e3:.3f} ms, launches "
+          f"{launches3d}, of them running K12 or a decimal128 sum "
+          f"{decimal3d}, transfers {({k: tr1[k] - tr0[k] for k in tr1})}")
+    check(launches3d == {"K1": args.parts, "K3": args.parts + 1,
+                         "K7c": int(args.parts > 1)},
+          f"phase 3d: K1 and K3 a partition, K3's merge, K7c: {launches3d}")
+    check(decimal3d == {"K12": args.parts, "K3d": args.parts + 1},
+          f"phase 3d: every K1 runs K12, every K3 a decimal128 sum: "
+          f"{decimal3d}")
+    check(tr1["syncs"] - tr0["syncs"] == 1, "phase 3d: one sync per query")
+    check(ks1["builds"] == ks0["builds"], "phase 3d builds nothing anew")
+    check(result3d == first3d, "phase 3d: a repeated query, the same row")
+    types3d = dict(zip(query_3d(df3d).schema.names,
+                       query_3d(df3d).schema.types))
+    exact3d = DC.recipe_decimal_exact(data["k"], data["w"], cents)
+    for name_, dt in DC.RECIPE_SUM_TYPES.items():
+        check(types3d[name_] == dt, f"phase 3d: {name_} is {dt}: "
+              f"{types3d[name_]}")
+        got_ = result3d[0][name_]
+        check(got_ == decimal_value(exact3d[name_], dt.scale) and
+              got_.as_tuple().exponent == -dt.scale,
+              f"phase 3d: {name_} {got_} is the exact {exact3d[name_]}")
+    check(result3d[0]["sk"] == recipe_row["sk"] and
+          result3d[0]["sh"] == recipe_row["sh"],
+          f"phase 3d: sk, sh {result3d[0]} are phase 3's {recipe_row}")
+    times3d = []
+    for _ in range(args.reps):
+        t0 = time.perf_counter()
+        query_3d(df3d).collect()
+        times3d.append(time.perf_counter() - t0)
+    with Recorder() as rec3d:
+        query_3d(df3d).collect()
+    recorded3d = {k: sum(c[0] == k for c in rec3d.calls) for k in counted3d}
+    check(recorded3d == launches3d, f"every phase 3d launch was recorded: "
+          f"{recorded3d}")
+    timed3d = time_kernels(session, rec3d.calls, rate, 5, counted3d)
+    print(f"phase 3d result {result3d[0]} is exact; best of {args.reps} "
+          f"{min(times3d) * 1e3:.3f} ms, median "
+          f"{float(np.median(times3d)) * 1e3:.3f} ms, "
+          f"{args.rows / min(times3d):.6e} rows/s")
+    for k, o in timed3d.items():
+        print(f"  {k}: {o['ms']:.4f} ms per query over {launches3d[k]} "
+              f"launches (per launch: {'; '.join(o['shapes'])}), plain "
+              f"{o['plain_ms']:.4f} ms, bound {o['bound_ms']:.6f} ms "
+              f"({o['bytes']} B), library {o['library_ms']}, max |d| "
+              f"{o['max_abs_err']}")
+    for k, name_, err_key in (
+            ("K1", "k12_fused_agg_update.recipe_decimal", "K12 in K1"),
+            ("K3", "global_reduce.decimal128_sum", "K3 decimal128 sum"),
+            ("K7c", "concat.recipe_decimal", None)):
+        _name, route, source, replaces = TPCDS_KERNELS[k]
+        o = timed3d[k]
+        entry = {"name": name_,
+                 "path": "phase 3d (the recipe's decimal form)",
+                 "route": route, "source": source, "replaces": replaces,
+                 "launches": launches3d[k], "max_abs_err": max(
+                     o["max_abs_err"], errs14.get(err_key, 0.0)),
+                 "ms": o["ms"], "plain_ms": o["plain_ms"],
+                 "bound_ms": o["bound_ms"], "bound_by": "bytes",
+                 "library_ms": o["library_ms"], "per": "query",
+                 "passed": True}
+        if k == "K1":
+            entry["replaces"] = DECIMAL_REPLACES["K12"]
+            entry["also_replaces"] = [replaces, DECIMAL_REPLACES["K3d"]]
+        if k == "K3":
+            entry["replaces"] = DECIMAL_REPLACES["K3d"]
+            entry["also_replaces"] = [replaces]
+        if err_key is not None:
+            ms_, plain_, bound_, lib_ = slice14_one[err_key]
+            entry.update({"phase_2n_ms": ms_, "phase_2n_plain_ms": plain_,
+                          "phase_2n_bound_ms": bound_,
+                          "phase_2n_library_ms": lib_})
+        kernels.append(entry)
+    return kernels
 
 
 def query_3b(df, threshold=0):
@@ -3048,9 +3426,20 @@ def rows_match(expected, actual, what: str) -> None:
             if isinstance(x, float) and isinstance(y, float):
                 ok = x == y or abs(x - y) <= max(1e-9, 1e-6 * max(abs(x),
                                                                   abs(y)))
+            elif isinstance(x, decimal.Decimal):
+                # exact, at the same scale (Spark's result type)
+                ok = isinstance(y, decimal.Decimal) and x == y and \
+                    x.as_tuple().exponent == y.as_tuple().exponent
             else:
                 ok = x == y
             check(ok, f"{what}: row {i} {key} {x!r} vs {y!r}")
+
+
+def counter_of_decimal(form: str):
+    """(module, attribute) of a decimal form's launch counter."""
+    import importlib
+    mod, attr = DECIMAL_COUNTERS[form]
+    return importlib.import_module(f"spark_rapids_tpu_torch.{mod}"), attr
 
 
 def counter_of(kernel: str):
@@ -3071,9 +3460,9 @@ class Recorder:
         self.mark = mark
         from spark_rapids_tpu_torch.exec import fused, joins
         from spark_rapids_tpu_torch.ops import (agg_ops, batch_ops,
-                                                decode_ops, partition_ops,
-                                                sort_ops, string_ops,
-                                                window_ops)
+                                                decimal_ops, decode_ops,
+                                                partition_ops, sort_ops,
+                                                string_ops, window_ops)
         self.calls = []
         self._patches = [
             (fused, "fused_agg_update", "K1"),
@@ -3101,7 +3490,8 @@ class Recorder:
             (string_ops, "string_column", "K13"),
             (decode_ops, "decode_dictionary", "K16"),
             (decode_ops, "decode_rle", "K16r"),
-            (window_ops, "running_fixup", "K14c")]
+            (window_ops, "running_fixup", "K14c"),
+            (decimal_ops, "avg_finish", "K12avg")]
         self._saved = []
 
     def __enter__(self):
@@ -3157,7 +3547,9 @@ def column_bytes(c, rows=None) -> int:
     if c.is_string:
         return c.offsets.element_size() * (n + 1) + int(c.offsets[-1]) + \
             (0 if c.all_valid else n)
-    return n * (c.data.element_size() + (0 if c.all_valid else 1))
+    width = c.data.element_size() * (c.data.shape[1] if c.data.dim() == 2
+                                     else 1)
+    return n * (width + (0 if c.all_valid else 1))
 
 
 def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
@@ -3202,6 +3594,9 @@ def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
                    same_indices(got[1], ref[1], f"{what}: build rows"))
     if name == "K1":
         return same_kernel1(args, got, ref, what)
+    if name == "K12avg":
+        check(bool(torch_equal(got[1], ref[1])), f"{what}: validity")
+        return same_indices(got[0], ref[0], f"{what}: averages")
     if name == "K3":
         return same_kernel2(args, got, ref, what)
     if name == "K15d":
@@ -3218,6 +3613,19 @@ def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
         return same_indices(got[0], ref[0], f"{what}: kept rows")
     return max(same_indices(g, r, f"{what}: {side} rows")
                for g, r, side in zip(got, ref, ("probe", "build")))
+
+
+def avg_bytes(sdata, out) -> int:
+    """Bytes the decimal avg finish must move: the sums, their validity,
+    the counts and their validity read, the averages and their validity
+    written."""
+    n = sdata.shape[0]
+    return sdata.numel() * 8 + n + 8 * n + n + out.numel() * 8 + n
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return torch.equal(a.cpu(), b.cpu())
 
 
 def k16_bytes(args, got) -> int:
@@ -3278,9 +3686,12 @@ def same_kernel1(args, got, ref, what: str) -> float:
             x = c.data.to(torch.float64)
             abs_sum = max(abs_sum, float(torch.where(
                 sel & c.valid & torch.isfinite(x), x.abs(), 0.0).sum()))
-    # a min or max compares its word exactly, a first/last its row
-    types = [dt if kind == "sum" else T.LONG
-             for _o, kind, _cv, dt in program.update_specs]
+    # a min or max compares its word exactly, a first/last its row, a
+    # decimal128 sum its two words
+    from spark_rapids_tpu_torch.kernels.fused_agg import buffer_words
+    types = [dt if kind == "sum" and dt.is_floating else T.LONG
+             for _o, kind, _cv, dt in program.update_specs
+             for _w in range(buffer_words(dt))]
     return compare_rows(G.global_reduce_plain(*got, program.fold_kinds),
                         G.global_reduce_plain(*ref, program.fold_kinds),
                         types, max(abs_sum, 1.0), what)
@@ -3418,6 +3829,7 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
     from spark_rapids_tpu_torch.exec import fused as FU
     from spark_rapids_tpu_torch.ops import agg_ops as G
     from spark_rapids_tpu_torch.ops import batch_ops as BO
+    from spark_rapids_tpu_torch.ops import decimal_ops as DO
     from spark_rapids_tpu_torch.ops import decode_ops as D
     from spark_rapids_tpu_torch.ops import join_ops as J
     from spark_rapids_tpu_torch.ops import partition_ops as PO
@@ -3440,7 +3852,8 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
              "K14of": W.window_fill_plain, "K10f": J.join_pairs_plain,
              "K10n": J.join_pairs_plain, "K13": SO.string_column_plain,
              "K16": D.decode_dictionary_plain, "K16r": D.decode_rle_plain,
-             "K5d": FU.fused_stage_compact_plain}
+             "K5d": FU.fused_stage_compact_plain,
+             "K12avg": DO.avg_finish_plain}
     kernel = {"K1": FU.fused_agg_update, "K3": G.global_reduce,
               "K15d": G.count_distinct,
               "K5": FU.fused_stage_compact, "K6": FU.fused_project,
@@ -3455,7 +3868,7 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
               "K14of": W.window_fill, "K10f": J.join_pairs,
               "K10n": J.join_pairs, "K13": SO.string_column,
               "K16": D.decode_dictionary, "K16r": D.decode_rle,
-              "K5d": FU.fused_stage_compact}
+              "K5d": FU.fused_stage_compact, "K12avg": DO.avg_finish}
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "library_ms": 0.0,
                "shapes": [], "max_abs_err": 0.0} for k in kernels}
     for i, (name, args, kw) in enumerate(calls):
@@ -3645,6 +4058,11 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
             o["bytes"] += k16_bytes(args, got)
             o["shapes"].append(f"{got.row_count} rows from "
                                f"{args[0].shape[0]} runs: {ms:.4f} ms")
+        elif name == "K12avg":
+            sdata = args[0]
+            n = sdata.shape[0]
+            o["bytes"] += avg_bytes(sdata, got[0])
+            o["shapes"].append(f"{n} groups: {ms:.4f} ms")
         elif name == "K10x":
             n_probe, n_build = args[:2]
             o["bytes"] += 16 * n_probe * n_build
@@ -3785,6 +4203,11 @@ QUERIES = {
                   "store", "catalog_page", "web_site"), "store_sales"),
     "q35": ("q35", Q35_TABLES, "store_sales"),
     "q35v": ("q35", Q35_TABLES, "store_sales"),
+    "q3d": ("q3", ("date_dim", "store_sales", "item"), "store_sales"),
+    "q19d": ("q19", ("date_dim", "store_sales", "item", "customer",
+                     "customer_address", "store"), "store_sales"),
+    "q7d": ("q7", ("store_sales", "customer_demographics", "date_dim",
+                   "item", "promotion"), "store_sales"),
 }
 #: the queries whose K9 folds min and max (K9 entries name the JAX
 #: reductions beside the keyed program)
@@ -3801,11 +4224,11 @@ QUERY_ROWS = {"q3": 10, "q1": 100, "q7": 100, "q15": 40, "q12": 100,
               "q20": 100, "q13": 1, "q19": 100, "q16": 1, "q17": None,
               "q17v": 100, "q10": 100, "q18": 100, "q6": 10, "q28": 1,
               "q36": 100, "q51": 100, "q51w": 1, "q8": 9, "q5": 100,
-              "q35": 0, "q35v": 100}
+              "q35": 0, "q35v": 100, "q3d": 10, "q19d": 100, "q7d": 100}
 #: phases 4 to 9g, in bench.py's TPC-DS order within each slice
 TPCDS_ORDER = ("q3", "q1", "q7", "q15", "q12", "q20", "q13", "q19", "q16",
                "q17", "q17v", "q10", "q18", "q6", "q28", "q36", "q51",
-               "q51w", "q8", "q5", "q35", "q35v")
+               "q51w", "q8", "q5", "q35", "q35v", "q3d", "q19d", "q7d")
 #: the queries run at a scale of their own (at most ``--sf``), their CPU
 #: run held against a card run at a tenth of it: q5's web returns join
 #: web_sales on a page drawn from 60 values on both sides, about
@@ -3914,6 +4337,10 @@ def run_query(session, query: str, tables, rate: float,
     mm_mod = importlib.import_module(
         f"spark_rapids_tpu_torch.{MIN_MAX_COUNTER[0]}")
     setattr(mm_mod, MIN_MAX_COUNTER[1], 0)
+    dec = {k: (importlib.import_module(f"spark_rapids_tpu_torch.{m}"), a)
+           for k, (m, a) in DECIMAL_COUNTERS.items()}
+    for mod, attr in dec.values():
+        setattr(mod, attr, 0)
     tr0, ks0, enc0 = session.transfers.stats(), kstats(), \
         ENC.encoding_stats()
     t0 = time.perf_counter()
@@ -3921,6 +4348,7 @@ def run_query(session, query: str, tables, rate: float,
     main_s = time.perf_counter() - t0
     launched = {k: getattr(mod, attr) for mod, attr, k in counters}
     min_max_launches = getattr(mm_mod, MIN_MAX_COUNTER[1])
+    decimal_launches = {k: getattr(mod, a) for k, (mod, a) in dec.items()}
     out_of_core = {a: getattr(mod, a) for mod, a in ooc}
     check(not any(out_of_core.values()), f"{label} keeps its fast paths "
           f"with the default pool: {out_of_core}")
@@ -3941,6 +4369,12 @@ def run_query(session, query: str, tables, rate: float,
           f"{({k: tr1[k] - tr0[k] for k in tr1})}, builds {builds}")
     for k, n in launches.items():
         check(n > 0, f"{label} launched {k}: {launches}")
+    if query in DECIMAL_QUERIES:
+        print(f"{label}: the decimal forms' launches on the main path "
+              f"{decimal_launches}")
+        for k in DECIMAL_QUERIES[query]:
+            check(decimal_launches[k] > 0, f"{label} launched {k}: "
+                  f"{decimal_launches}")
     if parquet_root is not None:
         decoded = {c: n - enc0["decoded_columns"].get(c, 0)
                    for c, n in enc1["decoded_columns"].items()
@@ -3957,7 +4391,7 @@ def run_query(session, query: str, tables, rate: float,
     want = QUERY_ROWS[query]
     if want is None:
         pass   # numpy says how many
-    elif query == "q3" or not full_size:
+    elif query in ("q3", "q3d") or not full_size:
         check(len(result) >= min(want, 10), f"{query} gives at least "
               f"{min(want, 10)} rows: {len(result)}")
     else:
@@ -4044,7 +4478,8 @@ def run_query(session, query: str, tables, rate: float,
           f"{best * 1e3:.4f} ms")
     return launches, timed, {"rows": result, "numpy": numpy_rows,
                              "peak": torch.cuda.max_memory_allocated()
-                             / 2 ** 30, "min_max_launches": min_max_launches}
+                             / 2 ** 30, "min_max_launches": min_max_launches,
+                             "decimal_launches": decimal_launches}
 
 
 def scan_and_upload(session, dfs, label: str) -> int:
@@ -4397,10 +4832,25 @@ def main() -> int:
         print(f"{what} new kinds ({SLICE13_ROWS} rows): {ms_:.4f} ms, plain "
               f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
 
+    # -- phase 2n: the decimal kernels ---------------------------------------
+    t0 = time.perf_counter()
+    errs14, slice14_one = check_slice14(session, rng, rate)
+    print(f"K12 (decimal arithmetic) in K6, K5 and K1, K9's decimal64 and "
+          f"decimal128 sums, K3's decimal128 sum, the decimal avg finish, "
+          f"K8's decimal words, K7/K7c/K7s on decimal128 rows vs plain: "
+          f"pass, bit for bit ({time.perf_counter() - t0:.1f} s), max |d| "
+          f"{errs14}")
+    for what, (ms_, plain_, bound_, lib_) in slice14_one.items():
+        print(f"{what} ({SLICE14_ROWS} rows): {ms_:.4f} ms, plain "
+              f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
+
     phase("kernels checked")
 
     # -- phase 3: the bench recipe at full size -----------------------------
+    t0 = time.perf_counter()
     data = build_data(args.rows)
+    print(f"the recipe's table ({args.rows} rows) built on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
     df = session.create_dataframe(data, num_partitions=args.parts)
     t0 = time.perf_counter()
     first = query(df).collect()
@@ -4439,21 +4889,32 @@ def main() -> int:
         query(df).collect()
         best = min(best, time.perf_counter() - t0)
 
+    # the CPU run over the first tenth of the rows, against a card run
+    # over the same rows (the whole table's CPU run took about 180 s)
+    tenth = {c: v[:args.rows // 10] for c, v in data.items()}
     cpu = TorchSession(device="cpu")
-    ref = query(cpu.create_dataframe(data, num_partitions=args.parts)
+    t0 = time.perf_counter()
+    ref = query(cpu.create_dataframe(tenth, num_partitions=args.parts)
                 ).collect()
-    r, c = result[0], ref[0]
+    cpu_s = time.perf_counter() - t0
+    card10 = query(session.create_dataframe(
+        tenth, num_partitions=args.parts)).collect()
+    r, c = card10[0], ref[0]
     check(r["sk"] == c["sk"] and r["sh"] == c["sh"],
-          f"sk, sh match the CPU run: {r} vs {c}")
+          f"sk, sh match the CPU run over the first tenth: {r} vs {c}")
     check(abs(r["sv"] - c["sv"]) < 1e-6 * abs(c["sv"]),
-          f"sv matches the CPU run: {r} vs {c}")
+          f"sv matches the CPU run over the first tenth: {r} vs {c}")
+    print(f"the CPU run over the first {args.rows // 10} rows matches the "
+          f"card's ({cpu_s:.1f} s)")
+    r = result[0]
     sel = data["w"] > 0
     np_sk = int(np.sum(data["k"][sel] + 1))
     np_sv = float(np.sum(data["v"][sel] * 2.0))
     check(r["sk"] == np_sk, f"sk matches numpy: {r['sk']} vs {np_sk}")
     check(abs(r["sv"] - np_sv) < 1e-6 * abs(np_sv),
           f"sv matches numpy: {r['sv']} vs {np_sv}")
-    print(f"result {result[0]} matches the CPU run and numpy")
+    print(f"result {result[0]} matches numpy (and, over the first tenth "
+          f"of the rows, the CPU run)")
 
     phase("bench recipe run and checked")
 
@@ -4621,9 +5082,14 @@ def main() -> int:
                           "phase_2m_bound_ms": bound_,
                           "phase_2m_library_ms": lib_})
         kernels.append(entry)
-    del df, data, part0, words, valid
-
+    del df, part0, words, valid
     phase("phase 3b run, checked and timed")
+
+    # -- phase 3d: the recipe's decimal form (K12 inside K1) ----------------
+    kernels += run_3d(session, data, args, rate, errs14, slice14_one,
+                      result[0])
+    del data
+    phase("phase 3d run, checked and timed")
 
     # -- phase 4: TPC-DS q3 at full size; phase 5: q1 and q7; phase 6: q15,
     # q12 and q20 ---------------------------------------------------------
@@ -4644,6 +5110,10 @@ def main() -> int:
             tpcds.generate_tables(own_sf[q]))
         small_cuts[q] = getattr(tpcds, f"{q}_tables")(
             tpcds.generate_tables(own_sf[q] / 10))
+    # phase 9h: the same cuts with their money as DECIMAL(7,2) cents
+    for q in DECIMAL_QUERIES:
+        cuts[q] = tpcds.decimal_money(cuts[q])
+        small_cuts[q] = tpcds.decimal_money(small_cuts[q])
     print(f"TPC-DS sf {args.sf} and sf {args.sf / 10} generated (and "
           f"{own_sf}, a tenth of each) in {time.perf_counter() - t0:.1f} s")
     # phase 6: q15, q12 and q20; phase 7: q13, q19 and q16; phase 8: q17
@@ -4652,6 +5122,10 @@ def main() -> int:
     parts_cuts, parquet_cuts, one_part = {}, {}, {}
     parquet_root = None
     min_max_launches = {False: 0, True: 0}
+    #: the decimal forms' main-path launches: one-partition (phase 9h) and
+    #: all runs
+    decimal_launches = {False: dict.fromkeys(DECIMAL_COUNTERS, 0),
+                        True: dict.fromkeys(DECIMAL_COUNTERS, 0)}
     runs = [(q, 1, False) for q in TPCDS_ORDER] + \
         [(q, 1, True) for q in PARQUET_QUERIES] + \
         [(q, args.parts, False) for q in PARTS_QUERIES]
@@ -4690,6 +5164,10 @@ def main() -> int:
             launches, timed, got = run_query(
                 session, q, parts_cuts.pop(q), rate, args.sf == 1000,
                 parts=parts, reference=one_part[q])
+        for k, n_ in got["decimal_launches"].items():
+            decimal_launches[True][k] += n_
+            if parts == 1 and not parquet:
+                decimal_launches[False][k] += n_
         where = " from parquet" if parquet else "" if parts == 1 \
             else f" at {parts} partitions"
         done = " out of core (phase 9f)" if (q, parts, parquet) == \
@@ -4809,6 +5287,14 @@ def main() -> int:
                     entry[f"phase_2j_{key}_plain_ms"] = plain_
                     entry[f"phase_2j_{key}_bound_ms"] = bound_
                     entry[f"phase_2j_{key}_library_ms"] = lib_
+            if k == "K12avg":
+                ms_, plain_, bound_, lib_ = slice14_one["avg finish"]
+                entry.update({"phase_2n_ms": ms_,
+                              "phase_2n_plain_ms": plain_,
+                              "phase_2n_bound_ms": bound_,
+                              "phase_2n_library_ms": lib_,
+                              "max_abs_err": max(entry["max_abs_err"],
+                                                 errs14["avg finish"])})
             if k in ("K16", "K5d"):
                 for what, (ms_, plain_, bound_, lib_) in slice11_one.items():
                     if what.split(" ")[0] != k:
@@ -4822,6 +5308,40 @@ def main() -> int:
                     entry["phase_2k_stage_over_decoded_strings_ms"] = \
                         slice11_one["K5 = over the decoded strings"][0]
             kernels.append(entry)
+    # the decimal forms: their main-path launches (phase 9h at one
+    # partition, or every run) beside phase 2n's times at 2^20+3 rows
+    print(f"the decimal forms' main-path launches: at one partition "
+          f"{decimal_launches[False]}, in every run {decimal_launches[True]}")
+    for form, name_, kernel, launched in (
+            ("K12 in K6", "k12_fused_project", "K6",
+             decimal_launches[True]["K12p"]),
+            ("K12 in K5", "k12_fused_stage", "K5",
+             decimal_launches[True]["K12s"]),
+            ("K9 decimal64 sum", "keyed_agg.decimal64_sum", "K9",
+             decimal_launches[False]["K9d"]),
+            ("K9 decimal128 sum", "keyed_agg.decimal128_sum", "K9", 0),
+            ("K8 decimal64 key", "sort.decimal64_words", "K8",
+             decimal_launches[False]["K8d"]),
+            ("K8 decimal128 key", "sort.decimal128_words", "K8", 0),
+            ("K7 decimal128", "gather.decimal128_rows", "K7", 0)):
+        _name, route, source, replaces = TPCDS_KERNELS[kernel]
+        key = {"K6": "K12", "K5": "K12", "K9": "K9d", "K8": "K8d"}.get(kernel)
+        ms_, plain_, bound_, lib_ = slice14_one[form]
+        kernels.append({
+            "name": name_,
+            "path": "phase 9h and 10 (launches); phase 2n (times)"
+                    if launched else "phase 2n (no query path)",
+            "route": route, "source": source,
+            "replaces": DECIMAL_REPLACES.get(key, replaces),
+            "also_replaces": [replaces] + (DECIMAL_REPLACES["K12 also"]
+                                           if key == "K12" else []),
+            "launches": launched, "max_abs_err": errs14[form], "ms": ms_,
+            "plain_ms": plain_, "bound_ms": bound_, "bound_by": "bytes",
+            "library_ms": lib_, "per": "launch", "passed": True})
+    check(decimal_launches[False]["K9d"] >= 3 and
+          decimal_launches[False]["K8d"] >= 2,
+          f"phase 9h: K9's decimal sums and K8's decimal words ran: "
+          f"{decimal_launches}")
     # K9's min, max, first and last kinds: q35v's main path at one
     # partition, and the merge's at 4 (PARTIAL and FINAL), with phase 2m's
     # times (2^20+3 rows into 4096 groups, 28 slots; the merge of the two

@@ -13,13 +13,17 @@ kept encoded, a ``columnar/encoding.py HostDictionaryColumn``."""
 from __future__ import annotations
 
 import datetime
+import decimal
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar.column import DeviceColumn, HostColumn
+from spark_rapids_tpu_torch.columnar.column import (DeviceColumn,
+                                                    HostColumn,
+                                                    decimal128_words,
+                                                    unscaled_of)
 
 
 class HostColumnarBatch:
@@ -130,16 +134,48 @@ class ColumnarBatch:
 
 
 def _is_text(values) -> bool:
-    if isinstance(values, np.ndarray) and values.dtype.kind in ("U", "S"):
-        return True
+    if isinstance(values, np.ndarray) and values.dtype != object:
+        # a typed array says so without a look at its values
+        return values.dtype.kind in ("U", "S")
     return any(isinstance(v, str) for v in values if v is not None)
+
+
+def decimal_column(values, dt: T.DecimalType,
+                   validity: Optional[np.ndarray] = None) -> HostColumn:
+    """A decimal host column of unscaled values: an int64 array (cents
+    under a DECIMAL(7,2), say), an object array of Python ints, or a
+    ``[rows, 2]`` (hi, lo) array for a decimal128; exact, never through
+    a float."""
+    arr = np.asarray(values)
+    if dt.is_decimal128 and not (arr.ndim == 2 and arr.dtype == np.int64):
+        arr = decimal128_words([int(v) for v in arr.tolist()])
+    elif not dt.is_decimal128 and arr.dtype != np.int64:
+        arr = np.array([int(v) for v in arr.tolist()], dtype=np.int64)
+    return HostColumn(arr, validity, dt)
 
 
 def host_column(values, dt: Optional[T.DataType] = None) -> HostColumn:
     """One host column from a numpy array (no nulls unless it holds
-    ``None`` objects) or a list (``None`` is a null)."""
+    ``None`` objects) or a list (``None`` is a null); a ``HostColumn`` as
+    it is.  A decimal column takes ``decimal.Decimal`` values (a list of
+    them with no ``dt`` is decimal(38,18), as pyspark infers it), or,
+    with a ``DecimalType`` ``dt``, an int64 array of unscaled values."""
+    if isinstance(values, HostColumn):
+        return values
     if isinstance(dt, T.StringType) or (dt is None and _is_text(values)):
         return HostColumn.from_strings(list(values))
+    if dt is None and not isinstance(values, np.ndarray) and \
+            any(isinstance(v, decimal.Decimal) for v in values):
+        dt = T.DecimalType(38, 18)
+    if isinstance(dt, T.DecimalType):
+        if isinstance(values, np.ndarray) and values.dtype != object:
+            return decimal_column(values, dt)
+        values = list(values)
+        valid = np.array([v is not None for v in values], dtype=bool)
+        data = [0 if v is None else unscaled_of(v, dt.scale)
+                for v in values]
+        return decimal_column(np.array(data, dtype=object), dt,
+                              None if valid.all() else valid)
     if isinstance(values, np.ndarray) and values.dtype != object:
         return HostColumn(values, None,
                           dt or T.from_numpy_dtype(values.dtype))
@@ -188,6 +224,8 @@ def batch_from_numpy(columns: Sequence[Tuple[np.ndarray,
             values = list(data) if validity is None else \
                 [v if ok else None for v, ok in zip(data, validity)]
             cols.append(HostColumn.from_strings(values))
+        elif isinstance(f.data_type, T.DecimalType):
+            cols.append(decimal_column(data, f.data_type, validity))
         else:
             cols.append(HostColumn(data, validity, f.data_type))
     n = len(cols[0]) if cols else 0

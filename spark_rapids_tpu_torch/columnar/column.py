@@ -13,10 +13,17 @@ uint8 ``data`` plane of chars; row ``i`` is ``data[offsets[i]:offsets[i +
 1]]`` and a null row has length 0.  ``offsets[0]`` is 0, and the chars plane
 may run past ``offsets[-1]`` (a front slice or a compaction keeps the
 plane it had).  The JAX package's padded ``uint8[bucket, width]`` planes
-are a static-shape workaround and are not used."""
+are a static-shape workaround and are not used.
+
+A decimal column holds its unscaled values (``columnar/column.py:15-16``
+of the JAX package): int64 for decimal64, an int64 ``[rows, 2]`` plane of
+(hi word, lo word bits) for decimal128, on the host and on the card;
+``to_pylist`` gives ``decimal.Decimal`` values, as the JAX package's rows
+do."""
 
 from __future__ import annotations
 
+import decimal
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -26,6 +33,59 @@ from spark_rapids_tpu_torch import types as T
 
 #: the largest chars plane int32 offsets address
 INT32_CHARS = 2 ** 31 - 1
+
+
+def is_decimal128(dt: T.DataType) -> bool:
+    return isinstance(dt, T.DecimalType) and dt.is_decimal128
+
+
+def unscaled_ints(data) -> List[int]:
+    """Python ints of unscaled decimal values: an int64 array (decimal64)
+    or a ``[rows, 2]`` (hi, lo bits) array (decimal128), exactly."""
+    data = np.asarray(data)
+    if data.ndim == 1:
+        return data.tolist()
+    return [(hi << 64) | (lo & _MASK64) for hi, lo in data.tolist()]
+
+
+#: a context wide enough that no decimal of 38 digits rounds
+EXACT = decimal.Context(prec=80)
+
+
+def decimal_value(unscaled: int, scale: int) -> decimal.Decimal:
+    """The ``Decimal`` of an unscaled integer at ``scale``, exactly."""
+    return decimal.Decimal(unscaled).scaleb(-scale, EXACT)
+
+
+def unscaled_of(value, scale: int) -> int:
+    """The unscaled integer of a Decimal, int or float at ``scale`` (a
+    float through its decimal repr), rounded HALF_UP."""
+    d = value if isinstance(value, decimal.Decimal) else \
+        decimal.Decimal(repr(value) if isinstance(value, float) else value)
+    return int(d.scaleb(scale, EXACT).to_integral_value(
+        decimal.ROUND_HALF_UP, EXACT))
+
+
+def words_of(v: int) -> tuple:
+    """A Python int below 2^127 in magnitude as signed (hi, lo) words."""
+    lo = v & _MASK64
+    return v >> 64, lo - (1 << 64) if lo >= 1 << 63 else lo
+
+
+def decimal128_words(values: Sequence[int]) -> np.ndarray:
+    """An int64 ``[rows, 2]`` (hi, lo bits) array of Python ints."""
+    return np.array([words_of(v) for v in values],
+                    dtype=np.int64).reshape(-1, 2)
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def empty_data(n: int, dt: T.DataType, device) -> torch.Tensor:
+    """An uninitialised data plane of ``n`` rows of fixed-width type
+    ``dt`` (``[n, 2]`` for a decimal128)."""
+    return torch.empty((n, 2) if is_decimal128(dt) else n,
+                       dtype=dt.torch_dtype, device=device)
 
 
 class HostColumn:
@@ -39,8 +99,12 @@ class HostColumn:
                  data_type: T.DataType,
                  offsets: Optional[np.ndarray] = None):
         data = np.asarray(data)
-        if data.ndim != 1:
-            raise ValueError(f"column data must be 1-D, got {data.shape}")
+        wide = is_decimal128(data_type)
+        if data.ndim != (2 if wide else 1) or \
+                (wide and data.shape[1] != 2):
+            raise ValueError(f"a {data_type} column's data must be "
+                             f"{'[rows, 2]' if wide else '1-D'}, got "
+                             f"{data.shape}")
         if isinstance(data_type, T.StringType):
             if offsets is None:
                 raise ValueError("a string column needs offsets")
@@ -105,6 +169,9 @@ class HostColumn:
         package's rows give it."""
         if isinstance(self.data_type, T.DateType):
             values = [T.days_date(d) for d in self.data.tolist()]
+        elif isinstance(self.data_type, T.DecimalType):
+            values = [decimal_value(u, self.data_type.scale)
+                      for u in unscaled_ints(self.data)]
         elif self.offsets is None:
             values = self.data.tolist()
         else:
@@ -145,6 +212,11 @@ class DeviceColumn:
                 raise TypeError(f"{data_type} column needs "
                                 f"{data_type.torch_dtype} data, got "
                                 f"{data.dtype}")
+            if data.dim() != (2 if is_decimal128(data_type) else 1) or \
+                    (data.dim() == 2 and data.shape[1] != 2):
+                raise TypeError(f"a {data_type} column needs "
+                                f"{'[rows, 2]' if data.dim() == 2 else '1-D'}"
+                                f" data, got {tuple(data.shape)}")
             n = data.shape[0]
         if validity.dtype != torch.bool or tuple(validity.shape) != (n,):
             raise TypeError("validity must be a bool tensor of one flag per "

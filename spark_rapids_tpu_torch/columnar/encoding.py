@@ -124,6 +124,27 @@ def host_decoded(arrow_array):
     return arrow_array
 
 
+def decimal_words_of_arrow(arr, dt: T.DecimalType) -> np.ndarray:
+    """The unscaled values of an Arrow decimal128 array, exactly: its
+    16-byte little-endian words read as (lo, hi) int64 pairs; the lo word
+    for a decimal64, (hi, lo) for a decimal128; 0 under a null."""
+    import pyarrow as pa
+    if not pa.types.is_decimal128(arr.type):
+        raise TypeError(f"an Arrow {arr.type} array is not decimal128")
+    n = len(arr)
+    buf = arr.buffers()[1]
+    words = np.frombuffer(buf, dtype=np.int64)[2 * arr.offset:
+                                               2 * (arr.offset + n)] \
+        .reshape(n, 2) if n else np.zeros((0, 2), dtype=np.int64)
+    if arr.null_count:
+        import pyarrow.compute as pc
+        words = np.where(pc.is_valid(arr).to_numpy(
+            zero_copy_only=False)[:, None], words, 0)
+    if dt.is_decimal128:
+        return np.ascontiguousarray(words[:, ::-1])
+    return np.ascontiguousarray(words[:, 0])
+
+
 def host_column_from_arrow(arr, dt: Optional[T.DataType] = None
                            ) -> HostColumn:
     """A plain ``HostColumn`` (numpy planes) of an Arrow array: zeros under
@@ -155,6 +176,8 @@ def host_column_from_arrow(arr, dt: Optional[T.DataType] = None
             np.zeros(0, dtype=np.uint8)
         return HostColumn(chars, validity, T.STRING,
                           (offs - odt(lo)).astype(odt))
+    if isinstance(dt, T.DecimalType):
+        return HostColumn(decimal_words_of_arrow(arr, dt), validity, dt)
     if isinstance(dt, T.DateType):
         arr = arr.cast(pa.int32())
     if isinstance(dt, T.NullType):

@@ -77,6 +77,7 @@ __global__ void __launch_bounds__(kThreads)
     case 2: copy_values<uint16_t>(in, j, tid, stride, dst); return;
     case 4: copy_values<uint32_t>(in, j, tid, stride, dst); return;
     case 8: copy_values<unsigned long long>(in, j, tid, stride, dst); return;
+    case 16: copy_values<longlong2>(in, j, tid, stride, dst); return;
     default: break;
   }
   // a string column: the chars of the inputs before this one
@@ -117,7 +118,8 @@ extern "C" int srt_concat_column(int32_t n_inputs, int32_t width,
                                  void* dst_valid, void* dst_offsets,
                                  void* dst_chars, void* stream) {
   if (n_inputs < 1 || n_inputs > kMaxInputs ||
-      (width != 0 && width != 1 && width != 2 && width != 4 && width != 8))
+      (width != 0 && width != 1 && width != 2 && width != 4 && width != 8 &&
+       width != 16))
     return static_cast<int>(cudaErrorInvalidValue);
   Inputs in;
   in.n = n_inputs;

@@ -9,7 +9,8 @@
 // null extension of gather_join_output for a left outer join's unmatched
 // rows.
 //
-// Fixed-width planes (1, 2, 4 or 8 bytes a row: data and validity bytes)
+// Fixed-width planes (1, 2, 4, 8 or 16 bytes a row: data and validity
+// bytes; 16, a decimal128's (hi, lo) pair)
 // go in one launch, one grid row (blockIdx.y) per plane.  A string column
 // takes three steps: output offsets are the exclusive scan of the gathered
 // rows' lengths (common.cuh, lengths read through the map on the fly),
@@ -47,6 +48,7 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t r = idx[i];
     if (r < 0) {
       switch (w) {
+        case 16: static_cast<longlong2*>(dst)[i] = make_longlong2(0, 0); break;
         case 8: static_cast<int64_t*>(dst)[i] = 0; break;
         case 4: static_cast<int32_t*>(dst)[i] = 0; break;
         case 2: static_cast<int16_t*>(dst)[i] = 0; break;
@@ -55,6 +57,10 @@ __global__ void __launch_bounds__(kThreads)
       continue;
     }
     switch (w) {
+      case 16:
+        static_cast<longlong2*>(dst)[i] =
+            static_cast<const longlong2*>(src)[r];
+        break;
       case 8:
         static_cast<int64_t*>(dst)[i] = static_cast<const int64_t*>(src)[r];
         break;

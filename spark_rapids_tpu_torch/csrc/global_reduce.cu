@@ -39,6 +39,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "decimal.cuh"
 
 namespace {
 
@@ -59,6 +60,8 @@ enum Kind : int32_t {
   kLast = 8,        // the last row's
   kFirstValid = 9,  // the first valid row's
   kLastValid = 10,  // the last valid row's
+  kSumDec128 = 11,  // a decimal128 sum: this column hi, the next lo
+  kDec128Lo = 12,   // the lo word of the column before (written there)
 };
 
 __device__ __forceinline__ bool first_kind(int kind) {
@@ -66,7 +69,7 @@ __device__ __forceinline__ bool first_kind(int kind) {
 }
 
 __device__ __forceinline__ bool row_kind(int kind) {
-  return kind >= kFirst;
+  return kind >= kFirst && kind <= kLastValid;
 }
 
 struct KindTable {
@@ -78,6 +81,7 @@ struct Acc {
   long long i;           // int64 min / max; a double's f64_order min /
                          // max over non-NaN values; a row-order kind's row
   double f;              // double sum
+  srt::u128 w;           // decimal128 sum (wraps)
   int any;               // a valid row was seen
   int nan;               // a valid NaN was seen
   int num;               // a valid non-NaN double was seen
@@ -90,6 +94,7 @@ __device__ __forceinline__ Acc identity(int kind) {
             ? INT64_MAX
             : (row_kind(kind) ? -1LL : INT64_MIN);
   a.f = 0.0;
+  a.w = 0;
   a.any = 0;
   a.nan = 0;
   a.num = 0;
@@ -147,6 +152,9 @@ __device__ __forceinline__ void combine(Acc& a, const Acc& b, int kind) {
     case kSumF64:
       a.f += b.f;
       break;
+    case kSumDec128:
+      a.w += b.w;
+      break;
     default:  // max kinds, last kinds
       a.i = b.i > a.i ? b.i : a.i;
   }
@@ -161,8 +169,18 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ Acc partial[kThreads];
   const int col = blockIdx.x;
   const int kind = kinds.kind[col];
+  if (kind == kDec128Lo) return;  // written by the column before
   Acc acc = identity(kind);
-  if (row_kind(kind)) {
+  if (kind == kSumDec128) {
+    for (int64_t r = threadIdx.x; r < n_rows; r += kThreads) {
+      const int64_t idx = r * n_cols + col;
+      if (!valid[idx]) continue;
+      acc.any = 1;
+      acc.w += (static_cast<srt::u128>(static_cast<uint64_t>(values[idx]))
+                << 64) |
+               static_cast<srt::u128>(static_cast<uint64_t>(values[idx + 1]));
+    }
+  } else if (row_kind(kind)) {
     // the least or greatest row this thread sees that the kind counts
     const bool any_row = kind == kFirst || kind == kLast;
     for (int64_t r = threadIdx.x; r < n_rows; r += kThreads) {
@@ -205,6 +223,11 @@ __global__ void __launch_bounds__(kThreads)
     case kSumF64:
       word = __double_as_longlong(a.f);
       break;
+    case kSumDec128:
+      word = static_cast<int64_t>(static_cast<uint64_t>(a.w >> 64));
+      out[col + 1] = static_cast<int64_t>(static_cast<uint64_t>(a.w));
+      out_valid[col + 1] = ok;
+      break;
     case kMinF64:
     case kMaxF64: {
       // max: any NaN wins; min: NaN only when every valid value is NaN
@@ -233,7 +256,10 @@ extern "C" int srt_global_reduce(const void* values, const void* valid,
     return static_cast<int>(cudaErrorInvalidValue);
   KindTable table;
   for (int64_t c = 0; c < n_cols; ++c) {
-    if (kinds[c] < kSumI64 || kinds[c] > kLastValid)
+    if (kinds[c] < kSumI64 || kinds[c] > kDec128Lo ||
+        (kinds[c] == kSumDec128) !=
+            (c + 1 < n_cols && kinds[c + 1] == kDec128Lo) ||
+        (kinds[c] == kDec128Lo && (c == 0 || kinds[c - 1] != kSumDec128)))
       return static_cast<int>(cudaErrorInvalidValue);
     table.kind[c] = kinds[c];
   }

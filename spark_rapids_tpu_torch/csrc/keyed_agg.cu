@@ -10,7 +10,11 @@
 // a null is a value of its own, so nulls form their own group, and a
 // double key groups -0.0 with 0.0 and every NaN together.
 // Aggregates: up to 32 of min, max, first, last (below), long sum (int or
-// long input, wrapping), double
+// long input, wrapping; a decimal64 sum is this kind over its unscaled
+// int64 values, as _segment_reduce sums them), decimal128 sum (a
+// decimal64 or decimal128 input summed as __int128, wrapping mod 2^128 as
+// the JAX package's limb sums do, ops/agg_ops.py:62-77; [groups, 2]
+// (hi, lo) out), double
 // sum (of a double input, or of an int or long one converted row by row:
 // an average's sum), count of valid inputs, count of rows, and m2 (the
 // variance family's sum of squared deviations from the group's mean over
@@ -65,6 +69,7 @@
 // Bound: at the main path's size (about ten thousand rows into a few
 // thousand groups) launch latency; at scale each row is read a few times
 // (hash, insert, assign, sort passes, fold).
+#include "decimal.cuh"
 #include "keys.cuh"
 #include "radix.cuh"
 
@@ -80,9 +85,10 @@ constexpr long long kEmpty = -1;
 enum AggKind : int32_t { kSumI64 = 0, kSumF64 = 1, kCount = 2,
                          kCountAll = 3, kM2 = 4, kChanMean = 5,
                          kChanM2 = 6, kMin = 7, kMax = 8, kFirst = 9,
-                         kLast = 10, kFirstValid = 11, kLastValid = 12 };
+                         kLast = 10, kFirstValid = 11, kLastValid = 12,
+                         kSumDec128 = 13 };
 enum InType : int32_t { kInInt32 = 0, kInInt64 = 1, kInFloat64 = 2,
-                        kInString = 3 };
+                        kInString = 3, kInDec128 = 4 };
 constexpr long long kNanBits = 0x7ff8000000000000LL;
 
 struct Aggs {
@@ -333,6 +339,26 @@ __device__ void agg_pick(const Aggs& a, int j, int64_t g, int64_t lo,
   a.out_valid[j][g] = ok ? 1 : 0;
 }
 
+// decimal128 sum of aggregate j over the group's rows perm[lo..hi), in
+// row order (wrapping); null for a group with no present value
+__device__ void agg_sum_dec128(const Aggs& a, int j, int64_t g, int64_t lo,
+                               int64_t hi, const long long* __restrict__ perm) {
+  srt::u128 acc = 0;
+  bool any = false;
+  const int64_t* data = static_cast<const int64_t*>(a.data[j]);
+  for (int64_t p = lo; p < hi; ++p) {
+    const long long r = perm[p];
+    if (!agg_present(a, j, r)) continue;
+    any = true;
+    acc += static_cast<srt::u128>(a.in_type[j] == kInDec128
+                                      ? srt::load_i128(data, r)
+                                      : static_cast<srt::i128>(data[r]));
+  }
+  srt::store_i128(static_cast<int64_t*>(a.out[j]), g,
+                  static_cast<srt::i128>(acc));
+  a.out_valid[j][g] = any ? 1 : 0;
+}
+
 __global__ void __launch_bounds__(kThreads)
     agg_fold(Aggs a, int64_t n_groups, const int64_t* __restrict__ seg,
              const long long* __restrict__ perm) {
@@ -356,6 +382,10 @@ __global__ void __launch_bounds__(kThreads)
       }
       if (kind == kMin || kind == kMax) {
         agg_min_max(a, j, g, lo, hi, perm);
+        continue;
+      }
+      if (kind == kSumDec128) {
+        agg_sum_dec128(a, j, g, lo, hi, perm);
         continue;
       }
       if (kind >= kFirst) {
@@ -463,9 +493,14 @@ extern "C" int srt_agg_reduce(int32_t n_aggs, const int32_t* kind,
   Aggs a;
   a.n = n_aggs;
   for (int j = 0; j < n_aggs; ++j) {
-    if (kind[j] < kSumI64 || kind[j] > kLastValid ||
-        in_type[j] < kInInt32 || in_type[j] > kInString ||
-        (in_type[j] == kInString && kind[j] < kFirst))
+    // a decimal128 input is the decimal128 sum's alone, which also takes
+    // a decimal64 (int64) input
+    const bool wide_in = in_type[j] == kInDec128;
+    if (kind[j] < kSumI64 || kind[j] > kSumDec128 ||
+        in_type[j] < kInInt32 || in_type[j] > kInDec128 ||
+        (in_type[j] == kInString && kind[j] < kFirst) ||
+        (wide_in && kind[j] != kSumDec128) ||
+        (kind[j] == kSumDec128 && !wide_in && in_type[j] != kInInt64))
       return static_cast<int>(cudaErrorInvalidValue);
     const bool chan = kind[j] == kChanMean || kind[j] == kChanM2;
     if (chan && (aux_n[j] == nullptr || aux_mean[j] == nullptr))

@@ -297,6 +297,10 @@ __global__ void __launch_bounds__(kThreads)
        i < n; i += stride) {
     const long long j = dest[i];
     switch (w) {
+      case 16:
+        static_cast<longlong2*>(dst)[j] =
+            static_cast<const longlong2*>(src)[i];
+        break;
       case 8:
         static_cast<int64_t*>(dst)[j] = static_cast<const int64_t*>(src)[i];
         break;
@@ -499,7 +503,7 @@ extern "C" int srt_split_rows(const void* pids, int64_t n, int32_t n_parts,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7s, step 2: n_planes fixed-width planes (width 1, 2, 4 or 8 bytes)
+// K7s, step 2: n_planes fixed-width planes (width 1, 2, 4, 8 or 16 bytes)
 // scattered through dest.
 extern "C" int srt_split_fixed(const void* dest, int64_t n, int32_t n_planes,
                                const void* const* src, void* const* dst,

@@ -19,7 +19,11 @@
 //       double -0.0 becomes 0.0, every NaN the positive quiet NaN (so NaN
 //              sorts after +inf); then bits ^ 2^63 when the sign is clear
 //              and ~bits when it is set;
-//     descending flips the value word's bits (not the rank word's).
+//       decimal64 as its unscaled int64 (a long);
+//       decimal128 (a [rows, 2] (hi, lo) plane) as two words, the hi word
+//              as a long, then the lo word's bits as they are
+//              (ops/sort_ops.py:101-111 of the JAX package);
+//     descending flips the value words' bits (not the rank word's).
 //   - a string key (string_words) has ceil(longest / 7) value words (at
 //     least one), the JAX package's _string_words (:71) bit for bit: 7
 //     bytes a word, big-endian, each byte stored as byte + 1 in a 9-bit
@@ -38,7 +42,8 @@ namespace {
 
 using srt::kThreads;
 
-enum KeyType : int32_t { kInt32 = 0, kInt64 = 1, kFloat64 = 2 };
+enum KeyType : int32_t { kInt32 = 0, kInt64 = 1, kFloat64 = 2,
+                         kDec128Hi = 3, kDec128Lo = 4 };
 
 __global__ void __launch_bounds__(kThreads)
     sort_words(const void* __restrict__ data, int32_t type,
@@ -61,6 +66,12 @@ __global__ void __launch_bounds__(kThreads)
       } else if (type == kInt64) {
         w = static_cast<uint64_t>(static_cast<const int64_t*>(data)[i]) ^
             0x8000000000000000ULL;
+      } else if (type == kDec128Hi) {
+        w = static_cast<uint64_t>(static_cast<const int64_t*>(data)[2 * i]) ^
+            0x8000000000000000ULL;
+      } else if (type == kDec128Lo) {
+        w = static_cast<uint64_t>(
+            static_cast<const int64_t*>(data)[2 * i + 1]);
       } else {
         double x = static_cast<const double*>(data)[i];
         if (x == 0.0) x = 0.0;
@@ -174,7 +185,7 @@ extern "C" int srt_sort_words(const void* data, int32_t type,
                               int32_t ascending, int32_t nulls_first,
                               void* rank_word, void* value_word,
                               void* stream) {
-  if (type < kInt32 || type > kFloat64)
+  if (type < kInt32 || type > kDec128Lo)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   sort_words<<<srt::grid_for(n), kThreads, 0,

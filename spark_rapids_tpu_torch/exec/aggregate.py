@@ -289,6 +289,11 @@ def keyed_inputs(layout: _AggLayout, partial: bool = False):
                                  f.data_type),))
         elif isinstance(f, Count):
             per_agg.append((slot(o, G.KEYED_COUNT, T.LONG),))
+        elif isinstance(f, Average) and f.decimal:
+            # a decimal sum and a count; the finish is csrc/decimal.cu's
+            total = f.buffers()[0].dtype
+            per_agg.append((slot(o, decimal_sum_kind(total), total),
+                            slot(o, G.KEYED_COUNT, T.LONG)))
         elif isinstance(f, Average):
             # K9 converts an int or long input to double row by row
             per_agg.append((slot(o, G.KEYED_SUM_F64, T.DOUBLE),
@@ -302,6 +307,8 @@ def keyed_inputs(layout: _AggLayout, partial: bool = False):
             # K9 widens int to long itself
             total = slot(o, G.KEYED_SUM_F64, T.DOUBLE) \
                 if f.data_type.is_floating else \
+                slot(o, decimal_sum_kind(f.data_type), f.data_type) \
+                if isinstance(f.data_type, T.DecimalType) else \
                 slot(o, G.KEYED_SUM_I64, T.LONG)
             per_agg.append((total, slot(o, G.KEYED_COUNT, T.LONG))
                            if partial else (total,))
@@ -310,6 +317,13 @@ def keyed_inputs(layout: _AggLayout, partial: bool = False):
             f"a group-by of more than {G.MAX_AGGS} distinct K9 slots is "
             "not in the port yet")
     return slots, per_agg
+
+
+def decimal_sum_kind(total: T.DecimalType) -> int:
+    """K9's kind of a decimal sum buffer: the long sum of a decimal64's
+    unscaled values, the 128-bit sum for a decimal128."""
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    return G.KEYED_SUM_DEC128 if total.is_decimal128 else G.KEYED_SUM_I64
 
 
 #: K9 kind of each merge kind over a buffer column
@@ -334,6 +348,8 @@ def merge_inputs(layout: _AggLayout):
             out.append((nk + j, G.KEYED_KINDS[kind], None))
         elif kind == "sum":
             out.append((nk + j, G.KEYED_SUM_F64 if spec.dtype.is_floating
+                        else decimal_sum_kind(spec.dtype)
+                        if isinstance(spec.dtype, T.DecimalType)
                         else G.KEYED_SUM_I64, None))
         elif kind in ("chan_mean", "chan_m2"):
             first = j - (1 if kind == "chan_mean" else 2)

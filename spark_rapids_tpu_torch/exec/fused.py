@@ -56,7 +56,7 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
-from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn, empty_data
 from spark_rapids_tpu_torch.exec.stage_compiler import get_or_build
 from spark_rapids_tpu_torch.expressions.base import (Alias, BoundReference,
                                                      EvalContext,
@@ -76,6 +76,10 @@ PROGRAMS_PER_SM = 2
 
 #: launches of kernel 1 (incremented only where the kernel is launched)
 LAUNCHES = 0
+#: those launches of K1 whose chain runs K12 (a decimal operation,
+#: comparison, cast or selection: ``kernels/fused_agg.py runs_k12``); K5's
+#: and K6's are ``DECIMAL_STAGE_LAUNCHES`` and ``DECIMAL_PROJECT_LAUNCHES``
+DECIMAL_LAUNCHES = 0
 
 
 def chain_string(ops, promoted) -> str:
@@ -130,11 +134,15 @@ class FusedAggProgram:
                     tuple((o, k, cv, str(dt))
                           for o, k, cv, dt in self.update_specs),
                     n_literals)
-        #: kernel 2 kinds that fold partial rows: sums and counts add,
+        #: kernel 2 kinds that fold partial rows, a word each: sums and
+        #: counts add (a decimal128 sum's two words as one 128-bit sum),
         #: min and max fold as themselves, first and last rows by min and
         #: max
-        self.fold_kinds = [_fold_kind(kind, dt)
-                           for _o, kind, _cv, dt in self.update_specs]
+        self.fold_kinds = []
+        for _o, kind, _cv, dt in self.update_specs:
+            self.fold_kinds.append(_fold_kind(kind, dt))
+            if K.buffer_words(dt) == 2:
+                self.fold_kinds.append(agg_ops.DEC128_LO)
         self.buffer_types = [dt for _o, _k, _cv, dt in self.update_specs]
         #: the input column whose value each first/last buffer gathers
         self.picks = [None] * len(self.update_specs)
@@ -163,6 +171,7 @@ class FusedAggProgram:
     def _setup(self) -> None:
         self.used = K.referenced_columns(self.conditions +
                                          self.update_inputs)
+        self.runs_k12 = K.runs_k12(self.conditions + self.update_inputs)
         # the kernel for columns that all may hold nulls; emitting it
         # checks that every expression has a kernel form
         self.compiled = self.kernel_for((True,) * len(self.input_types))
@@ -199,7 +208,8 @@ def _fold_kind(kind: str, dtype: T.DataType) -> int:
     if kind in agg_ops.ROW_KINDS:
         return agg_ops.MIN_I64 if kind.startswith("first") \
             else agg_ops.MAX_I64
-    if kind in ("min", "max"):
+    if kind in ("min", "max") or (kind == "sum" and
+                                  isinstance(dtype, T.DecimalType)):
         return agg_ops.reduce_kind(kind, dtype)
     return agg_ops.SUM_F64 if kind == "sum" and dtype.is_floating \
         else agg_ops.SUM_I64
@@ -293,9 +303,10 @@ def _check_batch(program: FusedAggProgram, batch: ColumnarBatch) -> None:
 def fused_agg_update(program: FusedAggProgram, batch: ColumnarBatch,
                      lits: LiteralArgs) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 1's wrapper: ``(words, valid)`` tables of shape
-    ``[n_programs, n_buffers]``, one partial row per program instance."""
+    ``[n_programs, n_words]``, one partial row per program instance (a
+    word a buffer, two for a decimal128 sum)."""
     _check_batch(program, batch)
-    n_buffers = len(program.update_specs)
+    n_buffers = len(program.fold_kinds)
     device = batch.device
     if device.type == "cpu":
         return fused_agg_update_plain(program, batch, lits)
@@ -305,8 +316,10 @@ def fused_agg_update(program: FusedAggProgram, batch: ColumnarBatch,
     if n == 0:
         # a grid of 0 is an error: no launch, one empty partial row
         return (torch.zeros((1, n_buffers), dtype=torch.int64, device=device),
-                torch.tensor([[k == "count" for _o, k, _c, _d in
-                               program.update_specs]], device=device))
+                torch.tensor([[k == "count"
+                               for _o, k, _c, dt in program.update_specs
+                               for _w in range(K.buffer_words(dt))]],
+                             device=device))
     if program.n_literals and (lits.words is None or
                                lits.words.device != device):
         raise ValueError("the literal table must lie on the batch's device")
@@ -321,8 +334,9 @@ def fused_agg_update(program: FusedAggProgram, batch: ColumnarBatch,
         tuple(not c.all_valid for c in batch.columns)).kernel()
     with torch.cuda.device(device):
         kernel[(n_programs,)](*args, BLOCK=BLOCK_ROWS, num_warps=NUM_WARPS)
-    global LAUNCHES
+    global LAUNCHES, DECIMAL_LAUNCHES
     LAUNCHES += 1
+    DECIMAL_LAUNCHES += program.runs_k12
     return out, out_valid
 
 
@@ -364,7 +378,11 @@ def fused_agg_update_plain(program: FusedAggProgram, batch: ColumnarBatch,
                 x, present, agg_ops.reduce_kind(kind, dtype)))
             oks.append(present.any())
             continue
-        if dtype.is_floating:
+        if K.buffer_words(dtype) == 2:
+            words += list(agg_ops.sum128_plain(c.data[:, 0], c.data[:, 1],
+                                               present))
+            oks += [present.any()]
+        elif dtype.is_floating:
             s = torch.where(present, c.data.to(torch.float64), 0.0).sum()
             words.append(s.reshape(1).view(torch.int64)[0])
         else:
@@ -499,9 +517,11 @@ class TorchFusedAggExec(UnaryExec):
 
 #: launches of K5 (wrapper calls that launch it), and of K5 in its
 #: code-space mode (a stage with lookup tables of dictionary conjuncts,
-#: ``columnar/encoding.py DictContains``), counted apart
+#: ``columnar/encoding.py DictContains``), counted apart; and those of
+#: either that run K12
 STAGE_LAUNCHES = 0
 CODE_SPACE_LAUNCHES = 0
+DECIMAL_STAGE_LAUNCHES = 0
 #: rows per tile, warps per program of K5's count and write kernels
 STAGE_BLOCK = 1024
 STAGE_WARPS = 4
@@ -550,6 +570,7 @@ class StageProgram:
     survivors alone)."""
 
     def __init__(self, ops, schema: T.StructType, n_literals: int):
+        from spark_rapids_tpu_torch.expressions.aggregates import avg_form
         from spark_rapids_tpu_torch.expressions.strings import k13_form
         from spark_rapids_tpu_torch.kernels.fused_stage import \
             string_view_ordinal
@@ -557,8 +578,10 @@ class StageProgram:
         self.conditions, outputs = flatten_chain(ops, schema)
         self.outputs = outputs
         self.bare = [bare_ordinal(e) for e in outputs]
-        #: K13's form of each output it writes, else None
-        self.strings = [None if b is not None else k13_form(e)
+        #: the form of each output written after K5 or K6: K13's of a
+        #: computed string, the decimal avg finish's; else None
+        self.strings = [None if b is not None else
+                        k13_form(e) or avg_form(e)
                         for e, b in zip(outputs, self.bare)]
         self.computed = [e for e, b, f in zip(outputs, self.bare,
                                               self.strings)
@@ -575,6 +598,7 @@ class StageProgram:
 
     def _setup(self) -> None:
         self.used = K.referenced_columns(self.conditions + self.computed)
+        self.runs_k12 = K.runs_k12(self.conditions + self.computed)
         # emitting checks that every expression has a kernel form
         self.kernel_for((True,) * len(self.input_types))
 
@@ -606,8 +630,8 @@ class StageProgram:
         """The ``n`` output rows' columns in order: a bare one from
         ``bare`` (by input ordinal), a kernel-computed one from
         ``kernel_outs`` (K5's or K6's, in order), a string one written by
-        K13 from the ``inputs`` columns (``rows``: the input row of each
-        output row)."""
+        K13, or a decimal average by its finish, from the ``inputs``
+        columns (``rows``: the input row of each output row)."""
         it = iter(kernel_outs)
         out = []
         for b, form in zip(self.bare, self.strings):
@@ -675,8 +699,7 @@ def fused_stage_compact(program: StageProgram, batch: ColumnarBatch,
     n = batch.row_count
     if n == 0:
         return (torch.empty(0, dtype=torch.int64, device=device),
-                [DeviceColumn(torch.empty(0, dtype=e.data_type.torch_dtype,
-                                          device=device),
+                [DeviceColumn(empty_data(0, e.data_type, device),
                               torch.empty(0, dtype=torch.bool,
                                           device=device), e.data_type)
                  for e in program.computed])
@@ -696,8 +719,7 @@ def fused_stage_compact(program: StageProgram, batch: ColumnarBatch,
         idx = torch.empty(total, dtype=torch.int64, device=device)
         outs, planes = [], []
         for e in program.computed:
-            data = torch.empty(total, dtype=e.data_type.torch_dtype,
-                               device=device)
+            data = empty_data(total, e.data_type, device)
             valid = torch.empty(total, dtype=torch.bool, device=device)
             outs.append(DeviceColumn(data, valid, e.data_type))
             planes += [data.view(torch.uint8) if data.dtype == torch.bool
@@ -706,7 +728,8 @@ def fused_stage_compact(program: StageProgram, batch: ColumnarBatch,
             fk.kernel(S.WRITE_KERNEL)[(n_tiles,)](
                 *args, counts, idx, *planes, n, BLOCK=STAGE_BLOCK,
                 num_warps=STAGE_WARPS)
-    global STAGE_LAUNCHES, CODE_SPACE_LAUNCHES
+    global STAGE_LAUNCHES, CODE_SPACE_LAUNCHES, DECIMAL_STAGE_LAUNCHES
+    DECIMAL_STAGE_LAUNCHES += program.runs_k12
     if program.n_tables:
         CODE_SPACE_LAUNCHES += 1
     else:
@@ -805,8 +828,9 @@ class TorchFusedStageExec(UnaryExec):
 # outputs read once and writes each output's data and validity once; a
 # division is the most arithmetic it does per row.
 
-#: launches of K6 (wrapper calls that launch it)
+#: launches of K6 (wrapper calls that launch it), and those that run K12
 PROJECT_LAUNCHES = 0
+DECIMAL_PROJECT_LAUNCHES = 0
 
 
 def fused_project(program: StageProgram, batch: ColumnarBatch,
@@ -834,7 +858,7 @@ def fused_project(program: StageProgram, batch: ColumnarBatch,
             outs.append(_string_view(batch, e, valid))
             planes.append(valid.view(torch.uint8))
             continue
-        data = torch.empty(n, dtype=e.data_type.torch_dtype, device=device)
+        data = empty_data(n, e.data_type, device)
         outs.append(DeviceColumn(data, valid, e.data_type))
         planes += [data.view(torch.uint8) if data.dtype == torch.bool
                    else data, valid.view(torch.uint8)]
@@ -846,8 +870,9 @@ def fused_project(program: StageProgram, batch: ColumnarBatch,
     with torch.cuda.device(device):
         fk.kernel(S.PROJECT_KERNEL)[(-(-n // STAGE_BLOCK),)](
             *args, *planes, n, BLOCK=STAGE_BLOCK, num_warps=STAGE_WARPS)
-    global PROJECT_LAUNCHES
+    global PROJECT_LAUNCHES, DECIMAL_PROJECT_LAUNCHES
     PROJECT_LAUNCHES += 1
+    DECIMAL_PROJECT_LAUNCHES += program.runs_k12
     return outs
 
 

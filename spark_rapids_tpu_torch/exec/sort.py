@@ -37,6 +37,7 @@ from typing import Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch,
                                                    HostColumnarBatch)
 from spark_rapids_tpu_torch.expressions.base import Expression
@@ -132,10 +133,12 @@ class TorchSortExec(UnaryExec):
         self.specs = list(specs)
         self.force_out_of_core = force_out_of_core
         for s in self.specs:
-            if s.expr.data_type not in SORT_KEY_TYPES:
+            if s.expr.data_type not in SORT_KEY_TYPES and \
+                    not isinstance(s.expr.data_type, T.DecimalType):
                 raise NotImplementedError(
                     f"a sort key of {s.expr.data_type} is not in the port "
-                    "yet (int, date, long, double and string keys are)")
+                    "yet (int, date, long, double, decimal and string keys "
+                    "are)")
         # the key columns: K6 computes those that are not columns
         self.keys = StageProgram([("project", [s.expr for s in self.specs])],
                                  child.schema, 0)

@@ -145,8 +145,10 @@ def lower_window_expr(wexpr) -> Tuple[object, Optional[Expression]]:
         low = over(W.WIN_MAX if isinstance(f, Max) else W.WIN_MIN, child)
         _check_minmax_frame(wexpr, low[0])
         return low
-    if not child.data_type.is_numeric:
-        raise NotImplementedError(f"{f.sql()} of {child.data_type}")
+    if not child.data_type.is_numeric or \
+            isinstance(child.data_type, T.DecimalType):
+        raise NotImplementedError(f"{f.sql()} of {child.data_type} over a "
+                                  "window is not in the port yet")
     want = T.DOUBLE if isinstance(f, Average) else f.data_type
     value = child if child.data_type == want else Cast(child, want)
     if isinstance(f, Average):

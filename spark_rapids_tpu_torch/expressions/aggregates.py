@@ -4,7 +4,19 @@ update kind and a merge kind, and a final expression over the merged
 buffers.  ``Average`` (``:154``) keeps the JAX package's buffers: a double
 sum of ``Cast(child, DOUBLE)`` and a count, and the final expression
 ``If(cnt > 0, sum / cnt, NULL)``; the variance family (``_CentralMoment``,
-``:228``) its count, mean and m2."""
+``:228``) its count, mean and m2.
+
+Decimals (``:72-75``, ``:154-190``): ``sum`` of decimal(p, s) is
+decimal(min(38, p + 10), s), a decimal buffer summed exactly (K9, K1 and
+K3's decimal sum kinds: they wrap past 128 bits as the JAX kernels do,
+which below the 38-digit clamp takes more than 10^10 rows).  ``avg`` of
+decimal(p, s) is decimal(min(38, p + 4), min(38, s + 4)) by Spark's rule:
+its buffers are that sum and a count, and its final value
+(``DecimalAverage``) divides the sum by the count at the scale of
+Spark's ``Divide(sum, cast(count as decimal(20,0)))`` and casts the
+quotient to the result type, both HALF_UP, NULL for a count of 0.  The
+JAX package divides as doubles and casts back through its faulty cast
+(ROADMAP queue 3)."""
 
 from __future__ import annotations
 
@@ -54,7 +66,20 @@ class AggregateFunction(Expression):
 
 
 def _sum_result_type(dt: T.DataType) -> T.DataType:
+    if isinstance(dt, T.DecimalType):
+        return T.DecimalType(min(38, dt.precision + 10), dt.scale)
     return T.DOUBLE if dt.is_floating else T.LONG
+
+
+def avg_types(dt: T.DecimalType):
+    """``(sum, quotient, result)`` types of ``avg`` over a decimal: the
+    sum buffer's, Spark's ``Divide(sum, cast(count as decimal(20,0)))``,
+    and the average's."""
+    from spark_rapids_tpu_torch.expressions.decimal_math import \
+        binary_result_type
+    total = _sum_result_type(dt)
+    return (total, binary_result_type("div", total, T.DecimalType(20, 0)),
+            T.DecimalType(min(38, dt.precision + 4), min(dt.scale + 4, 38)))
 
 
 class Sum(AggregateFunction):
@@ -107,18 +132,31 @@ class Average(AggregateFunction):
         super().__init__([child])
 
     @property
+    def decimal(self) -> bool:
+        return isinstance(self.children[0].data_type, T.DecimalType)
+
+    @property
     def data_type(self):
+        if self.decimal:
+            return avg_types(self.children[0].data_type)[2]
         return T.DOUBLE
 
     def inputs(self):
         from spark_rapids_tpu_torch.expressions.cast import Cast
+        if self.decimal:
+            return [self.children[0]]
         return [Cast(self.children[0], T.DOUBLE)]
 
     def buffers(self):
-        return [BufferSpec("sum", T.DOUBLE, "sum", "sum"),
+        total = avg_types(self.children[0].data_type)[0] if self.decimal \
+            else T.DOUBLE
+        return [BufferSpec("sum", total, "sum", "sum"),
                 BufferSpec("cnt", T.LONG, "count", "sum")]
 
     def evaluate(self, refs):
+        if self.decimal:
+            return DecimalAverage(refs[0], refs[1],
+                                  self.children[0].data_type)
         from spark_rapids_tpu_torch.expressions.arithmetic import Divide
         from spark_rapids_tpu_torch.expressions.cast import Cast
         from spark_rapids_tpu_torch.expressions.conditional import If
@@ -127,6 +165,75 @@ class Average(AggregateFunction):
         return If(GreaterThan(refs[1], Literal(0, T.LONG)),
                   Divide(Cast(refs[0], T.DOUBLE), Cast(refs[1], T.DOUBLE)),
                   Literal(None, T.DOUBLE))
+
+
+class DecimalAverage(Expression):
+    """The final value of ``avg`` over decimal(p, s) from its buffers
+    (a decimal sum and a count), by Spark's rule (``avg_types``): the
+    sum divided by the count at the quotient's scale, then cast to the
+    result type, both HALF_UP; NULL for a count of 0 or an overflow.
+    Its kernel is ``csrc/decimal.cu`` (``ops/decimal_ops.py
+    avg_finish``): a K6 projection leaves it out and launches it after
+    itself (``avg_form``)."""
+
+    def __init__(self, total: Expression, count: Expression,
+                 input_type: T.DecimalType):
+        super().__init__([total, count])
+        self.input_type = input_type
+
+    @property
+    def data_type(self):
+        return avg_types(self.input_type)[2]
+
+    def sql(self):
+        return (f"decimal_avg({self.children[0].sql()}, "
+                f"{self.children[1].sql()})")
+
+    def eval(self, ctx) -> "Col":
+        from spark_rapids_tpu_torch.expressions.base import Col
+        from spark_rapids_tpu_torch.ops.decimal_ops import avg_finish
+        s, c = (ch.eval(ctx) for ch in self.children)
+        data, valid = avg_finish(s.data, s.valid, c.data, c.valid,
+                                 self.input_type)
+        return Col(data, valid)
+
+
+class AvgForm:
+    """A ``DecimalAverage`` output of a projection over its two input
+    columns (the form ``exec/fused.py StageProgram`` runs after K6)."""
+
+    def __init__(self, e: DecimalAverage, total: int, count: int):
+        self.input_type = e.input_type
+        self.total = total
+        self.count = count
+
+    def run(self, columns, n: int, device, transfers, rows=None):
+        from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+        from spark_rapids_tpu_torch.ops.decimal_ops import avg_finish
+        if rows is not None:
+            raise NotImplementedError("a decimal avg's finish behind a "
+                                      "filter is not in the port")
+        s, c = columns[self.total], columns[self.count]
+        data, valid = avg_finish(s.data, s.validity, c.data, c.validity,
+                                 self.input_type)
+        return DeviceColumn(data, valid, avg_types(self.input_type)[2])
+
+
+def avg_form(e: Expression):
+    """The ``AvgForm`` of a projection output that is a ``DecimalAverage``
+    of two columns, else None."""
+    from spark_rapids_tpu_torch.expressions.base import (Alias,
+                                                         BoundReference)
+    while isinstance(e, Alias):
+        e = e.children[0]
+    if not isinstance(e, DecimalAverage):
+        return None
+    total, count = e.children
+    if not (isinstance(total, BoundReference) and
+            isinstance(count, BoundReference)):
+        raise NotImplementedError(f"{e.sql()}: a decimal avg's finish of "
+                                  "computed buffers is not in the port")
+    return AvgForm(e, total.ordinal, count.ordinal)
 
 
 class Min(AggregateFunction):

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import copy
 import datetime
+import decimal
 from typing import Callable, List, Optional, Sequence
 
 import torch
@@ -55,10 +56,20 @@ class EvalContext:
             return Col(chars, torch.full((n,), value is not None,
                                          dtype=torch.bool,
                                          device=self.device), offsets)
+        wide = isinstance(dtype, T.DecimalType) and dtype.is_decimal128
         if value is None:
-            return Col(torch.zeros(n, dtype=dtype.torch_dtype or torch.int64,
+            return Col(torch.zeros((n, 2) if wide else n,
+                                   dtype=dtype.torch_dtype or torch.int64,
                                    device=self.device),
                        torch.zeros(n, dtype=torch.bool, device=self.device))
+        if isinstance(dtype, T.DecimalType):
+            from spark_rapids_tpu_torch.columnar.column import (
+                unscaled_of, words_of)
+            u = unscaled_of(value, dtype.scale)
+            data = torch.tensor([words_of(u)] if wide else [u],
+                                dtype=torch.int64, device=self.device)
+            return Col(data.expand((n, 2) if wide else (n,)).contiguous(),
+                       torch.ones(n, dtype=torch.bool, device=self.device))
         if isinstance(dtype, T.DateType):
             value = T.date_days(value)
         return Col(torch.full((n,), value, dtype=dtype.torch_dtype,
@@ -129,6 +140,8 @@ class Literal(Expression):
     def sql(self):
         if isinstance(self._dtype, T.DateType) and self.value is not None:
             return f"DATE '{self.value.isoformat()}'"
+        if isinstance(self.value, decimal.Decimal):
+            return f"{self.value}BD"
         return repr(self.value)
 
     def eval(self, ctx):
@@ -228,6 +241,15 @@ def _infer_literal_type(value) -> T.DataType:
     if isinstance(value, datetime.date) and \
             not isinstance(value, datetime.datetime):
         return T.DATE
+    if isinstance(value, decimal.Decimal):
+        # Spark's type of a BigDecimal literal: its digits and scale
+        sign, digits, exponent = value.as_tuple()
+        scale = max(0, -exponent)
+        precision = max(len(digits) + max(0, exponent), scale, 1)
+        if precision > T.DecimalType.MAX_PRECISION:
+            raise NotImplementedError(f"literal {value!r} has more than 38 "
+                                      "digits")
+        return T.DecimalType(precision, scale)
     raise NotImplementedError(
         f"literal {value!r} of {type(value).__name__} is not in this port")
 

@@ -28,10 +28,22 @@ class If(Expression):
         return f"if({p.sql()}, {a.sql()}, {b.sql()})"
 
     def eval(self, ctx: EvalContext) -> Col:
-        rt = self.data_type.torch_dtype
-        p, a, b = (c.eval(ctx) for c in self.children)
+        from spark_rapids_tpu_torch.expressions.cast import Cast
+        rt = self.data_type
+        p = self.children[0].eval(ctx)
+
+        def branch(c):
+            # a decimal branch of another type is rescaled to the result's
+            if not isinstance(rt, T.DecimalType) or c.data_type == rt:
+                return c.eval(ctx)
+            if isinstance(c.data_type, T.NullType):
+                return ctx.full(None, rt)
+            return Cast(c, rt).eval(ctx)
+        a, b = branch(self.children[1]), branch(self.children[2])
         cond = p.data & p.valid
-        return Col(torch.where(cond, a.data.to(rt), b.data.to(rt)),
+        wide = cond[:, None] if a.data.dim() == 2 else cond
+        return Col(torch.where(wide, a.data.to(rt.torch_dtype),
+                               b.data.to(rt.torch_dtype)),
                    torch.where(cond, a.valid, b.valid))
 
 

@@ -14,7 +14,12 @@ and ``null OR true`` is true; otherwise a null operand gives null.
 are never null.  ``In`` (``:413``) is
 the OR chain of ``value = option`` over its literal options, so a null
 value gives null, NaN matches a NaN option, and a null option makes a
-miss null."""
+miss null.
+
+A decimal compares with a decimal, int or long across scales, exactly
+(``predicates.py:64-78``, ``decimal_math.compare``); with a double as a
+double (``decimal_to_double``).  A scale mix the JAX package sends to its
+host tier is refused by name."""
 
 from __future__ import annotations
 
@@ -23,7 +28,8 @@ from typing import Sequence
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.expressions.arithmetic import BinaryExpr
+from spark_rapids_tpu_torch.expressions import decimal_math as DM
+from spark_rapids_tpu_torch.expressions.arithmetic import BinaryExpr, convert
 from spark_rapids_tpu_torch.expressions.base import (BoundReference, Col,
                                                      EvalContext, Expression,
                                                      Literal)
@@ -74,6 +80,22 @@ class BinaryComparison(BinaryExpr):
     def _cmp(self, a, b, floating: bool):
         raise NotImplementedError
 
+    def _from_order(self, lt, eq):
+        """This comparison from ``x < y`` and ``x == y``."""
+        raise NotImplementedError
+
+    def decimal_space(self) -> bool:
+        """Both operands are decimal, int or long, one a decimal; refuses
+        by name a scale mix the JAX package sends to its host tier."""
+        lt, rt = self.left.data_type, self.right.data_type
+        if not DM.decimal_operands(lt, rt):
+            return False
+        reason = DM.compare_supported(lt, rt)
+        if reason is not None:
+            raise NotImplementedError(f"{self.sql()}: {reason}, which the "
+                                      "port does not have")
+        return True
+
     def _string_equal(self, ctx: EvalContext) -> Col:
         """``=`` of the two string operands, a literal's bytes compared
         directly."""
@@ -98,13 +120,24 @@ class BinaryComparison(BinaryExpr):
                        eq.valid)
         a = self.left.eval(ctx)
         b = self.right.eval(ctx)
-        out = self._cmp(a.data.to(ot.torch_dtype), b.data.to(ot.torch_dtype),
+        if self.decimal_space():
+            lt, rt = self.left.data_type, self.right.data_type
+            less, eq = DM.compare(DM.operand(a.data, lt),
+                                  T.integral_decimal(lt),
+                                  DM.operand(b.data, rt),
+                                  T.integral_decimal(rt), DM.TORCH)
+            return Col(self._from_order(less, eq), a.valid & b.valid)
+        out = self._cmp(convert(a.data, self.left.data_type, ot),
+                        convert(b.data, self.right.data_type, ot),
                         ot.is_floating)
         return Col(out, a.valid & b.valid)
 
 
 class GreaterThan(BinaryComparison):
     symbol = ">"
+
+    def _from_order(self, lt, eq):
+        return ~(lt | eq)
 
     def _cmp(self, a, b, floating):
         if floating:
@@ -115,6 +148,9 @@ class GreaterThan(BinaryComparison):
 class GreaterThanOrEqual(BinaryComparison):
     symbol = ">="
 
+    def _from_order(self, lt, eq):
+        return ~lt
+
     def _cmp(self, a, b, floating):
         if floating:
             return (a >= b) | torch.isnan(a)
@@ -124,6 +160,9 @@ class GreaterThanOrEqual(BinaryComparison):
 class LessThan(BinaryComparison):
     symbol = "<"
 
+    def _from_order(self, lt, eq):
+        return lt
+
     def _cmp(self, a, b, floating):
         if floating:
             return (a < b) | (torch.isnan(b) & ~torch.isnan(a))
@@ -132,6 +171,9 @@ class LessThan(BinaryComparison):
 
 class LessThanOrEqual(BinaryComparison):
     symbol = "<="
+
+    def _from_order(self, lt, eq):
+        return lt | eq
 
     def _cmp(self, a, b, floating):
         if floating:
@@ -145,6 +187,9 @@ class EqualTo(BinaryComparison):
 
     symbol = "="
 
+    def _from_order(self, lt, eq):
+        return eq
+
     def _cmp(self, a, b, floating):
         if floating:
             return (a == b) | (torch.isnan(a) & torch.isnan(b))
@@ -155,6 +200,9 @@ class NotEqual(BinaryComparison):
     """``<>``: NOT ``=``, so NaN <> NaN is false and -0.0 <> 0.0 too."""
 
     symbol = "<>"
+
+    def _from_order(self, lt, eq):
+        return ~eq
 
     def _cmp(self, a, b, floating):
         return ~EqualTo._cmp(self, a, b, floating)

@@ -19,11 +19,15 @@ def _expr(e) -> Expression:
 
 
 def sum(e):  # noqa: A001 - mirrors pyspark.sql.functions naming
+    """``sum``: a long of ints and longs, a double of doubles, and of a
+    decimal(p, s) a decimal(min(38, p + 10), s), summed exactly."""
     from spark_rapids_tpu_torch.expressions.aggregates import Sum
     return Sum(_expr(e))
 
 
 def avg(e):
+    """``avg``: a double, or of a decimal(p, s) a decimal(p + 4, s + 4)
+    by Spark's rule (HALF_UP; ``expressions/aggregates.py avg_types``)."""
     from spark_rapids_tpu_torch.expressions.aggregates import Average
     return Average(_expr(e))
 

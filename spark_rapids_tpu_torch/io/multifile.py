@@ -155,6 +155,15 @@ def host_arrow(col):
         return pa.Array.from_buffers(typ, len(col), [
             bitmap, pa.py_buffer(col.offsets), pa.py_buffer(col.data)])
     mask = None if col.validity is None else ~col.validity
+    if isinstance(col.data_type, T.DecimalType):
+        # (lo, hi) little-endian 16-byte words: exact, never a float
+        d = col.data
+        words = np.stack([d, d >> 63], 1) if d.ndim == 1 else d[:, ::-1]
+        bitmap = None if col.validity is None else \
+            pa.array(col.validity).buffers()[1]
+        return pa.Array.from_buffers(
+            T.to_arrow(col.data_type), len(col),
+            [bitmap, pa.py_buffer(np.ascontiguousarray(words))])
     if isinstance(col.data_type, T.DateType):
         return pa.array(col.data, type=pa.int32(), mask=mask).cast(
             pa.date32())

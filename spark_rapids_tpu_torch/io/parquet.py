@@ -145,8 +145,14 @@ class CpuParquetScan(MultiFileScanBase):
         if missing:
             raise KeyError(f"no column {missing} in {self.paths[0]} "
                            f"({unified.names})")
-        return T.StructType([T.StructField(n, T.from_arrow(
-            unified.field(n).type)) for n in names])
+        fields = [T.StructField(n, T.from_arrow(unified.field(n).type))
+                  for n in names]
+        for f in fields:
+            if isinstance(f.data_type, T.DecimalType):
+                raise NotImplementedError(
+                    f"a parquet {f.data_type.simple_name} column ({f.name}) is "
+                    "not in the port's scan yet")
+        return T.StructType(fields)
 
     def _check_rebase(self, f) -> None:
         md = f.metadata.metadata or {}

@@ -34,6 +34,19 @@ signature from the expression tree:
   and kernel 2 folds the rows by min or max, so a program with no row is
   skipped within a batch; the caller gathers the value (K7).
 
+Decimals (K12, ``expressions/decimal_math.py``): a decimal64 value is an
+int64 of the kernel, a decimal128 a (hi, lo) pair of int64 values (a
+column's ``[rows, 2]`` plane loaded as two planes); ``Sym`` values run
+``decimal_math``'s algorithms (the plain version's own code) and write
+them into the kernel as int64 operations, so the kernel does the plain
+version's arithmetic step for step: add, subtract, multiply, divide and
+remainder with rescales and bound checks against 10^p, the 64 x 64 ->
+128 multiply in 32-bit limbs, the 128-bit add and the HALF_UP divide by
+10^d, comparisons across scales, the decimal casts.  A decimal128 sum
+(``_segment_reduce``'s four 32-bit limbs) keeps four int64 limb sums a
+lane; the program sums them, propagates the carries once and writes the
+(hi, lo) pair as two words of its partial row.
+
 Promoted literals (``plan/stages.py``) are read from a runtime table of
 int64 words, so one built kernel serves every literal value.  K5 and K6
 (``kernels/fused_stage.py``) share the emitters and ``load_columns``:
@@ -53,9 +66,11 @@ import struct
 from typing import Callable, Dict, List, Sequence, Tuple
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.column import unscaled_of, words_of
 from spark_rapids_tpu_torch.columnar.encoding import DictContains
 from spark_rapids_tpu_torch.expressions import arithmetic as A
 from spark_rapids_tpu_torch.expressions import cast as CA
+from spark_rapids_tpu_torch.expressions import decimal_math as DM
 from spark_rapids_tpu_torch.expressions import conditional as CO
 from spark_rapids_tpu_torch.expressions import hashing as H
 from spark_rapids_tpu_torch.expressions import mathexprs as M
@@ -98,6 +113,8 @@ def literal_word(value, dtype: T.DataType) -> int:
     """A literal's value as the int64 word the kernel reads."""
     if dtype.is_floating:
         return f64_bits(value)
+    if isinstance(dtype, T.DecimalType):
+        return unscaled_of(value, dtype.scale)
     if isinstance(dtype, T.DateType):
         return T.date_days(value)
     return int(value)
@@ -158,6 +175,76 @@ def _murmur3_long(x, seed, BLOCK: tl.constexpr):
 '''
 
 
+def _i64(c: int) -> str:
+    """An int64 constant as kernel source (INT64_MIN as an expression: its
+    magnitude is no int64 literal)."""
+    return "(-9223372036854775807 - 1)" if c == -(1 << 63) else f"({c})"
+
+
+class Sym:
+    """A value of a kernel being emitted (an int64 or a mask), named in
+    its source: Python's operators on it write the Triton operation and
+    give the result's name (``ChainEmitter.let``), so
+    ``expressions/decimal_math.py``'s algorithms emit themselves."""
+
+    __slots__ = ("em", "name")
+    __hash__ = None
+
+    def __init__(self, em: "ChainEmitter", name: str):
+        self.em = em
+        self.name = name
+
+    def __str__(self) -> str:
+        return self.name
+
+    def _op(self, op: str, other, swap: bool = False) -> "Sym":
+        o = other.name if isinstance(other, Sym) else _i64(int(other))
+        a, b = (o, self.name) if swap else (self.name, o)
+        return Sym(self.em, self.em.let(f"{a} {op} {b}"))
+
+    def __add__(self, o): return self._op("+", o)
+    def __radd__(self, o): return self._op("+", o, True)
+    def __sub__(self, o): return self._op("-", o)
+    def __rsub__(self, o): return self._op("-", o, True)
+    def __mul__(self, o): return self._op("*", o)
+    def __rmul__(self, o): return self._op("*", o, True)
+    def __floordiv__(self, o): return self._op("//", o)
+    def __mod__(self, o): return self._op("%", o)
+    def __and__(self, o): return self._op("&", o)
+    def __rand__(self, o): return self._op("&", o, True)
+    def __or__(self, o): return self._op("|", o)
+    def __ror__(self, o): return self._op("|", o, True)
+    def __xor__(self, o): return self._op("^", o)
+    def __lshift__(self, o): return self._op("<<", o)
+    def __rshift__(self, o): return self._op(">>", o)
+    def __lt__(self, o): return self._op("<", o)
+    def __le__(self, o): return self._op("<=", o)
+    def __gt__(self, o): return self._op(">", o)
+    def __ge__(self, o): return self._op(">=", o)
+    def __eq__(self, o): return self._op("==", o)
+    def __ne__(self, o): return self._op("!=", o)
+
+    def __invert__(self):
+        return Sym(self.em, self.em.let(f"~{self.name}"))
+
+
+class KernelBackend:
+    """``decimal_math``'s backend that writes a kernel (``Sym`` values)."""
+
+    def __init__(self, em: "ChainEmitter"):
+        self.em = em
+
+    def _term(self, x) -> str:
+        return x.name if isinstance(x, Sym) else _i64(int(x))
+
+    def where(self, mask, a, b) -> Sym:
+        return Sym(self.em, self.em.let(
+            f"tl.where({mask}, {self._term(a)}, {self._term(b)})"))
+
+    def i64(self, mask) -> Sym:
+        return Sym(self.em, self.em.let(f"{mask}.to(tl.int64)"))
+
+
 class ChainEmitter:
     """Accumulates the body of one kernel."""
 
@@ -175,6 +262,9 @@ class ChainEmitter:
         #: as (chars, offsets parameter, None); ``string_view`` loads its
         #: offsets at first use.
         self.strings: Dict[str, Tuple[str, str, object]] = {}
+        #: a decimal128 value's name -> its (hi, lo) int64 names
+        self.wide: Dict[str, Tuple[str, str]] = {}
+        self.backend = KernelBackend(self)
 
     def let(self, code: str, hoist: bool = False) -> str:
         """Names the value of ``code``; the same code (every emitted
@@ -222,6 +312,12 @@ class ChainEmitter:
     def cast(self, value: str, src: T.DataType, dst: T.DataType) -> str:
         if src == dst:
             return value
+        if isinstance(src, T.DecimalType) and dst.is_floating:
+            if src.is_decimal128:
+                raise NotImplementedError(f"a {src} as a double has no "
+                                          "kernel form (a decimal64 has)")
+            scale, _ = self.constant(10.0 ** src.scale, T.DOUBLE)
+            return self.let(f"{value}.to(tl.float64) / {scale}")
         if dst not in _TL:
             raise NotImplementedError(f"no kernel form for {dst}")
         return self.let(f"{value}.to({_TL[dst]})")
@@ -229,6 +325,16 @@ class ChainEmitter:
     def constant(self, value, dtype: T.DataType) -> Value:
         if isinstance(dtype, T.BooleanType):
             return (self.TRUE if value else self.FALSE,
+                    self.FALSE if value is None else self.TRUE)
+        if isinstance(dtype, T.DecimalType):
+            u = 0 if value is None else unscaled_of(value, dtype.scale)
+            if dtype.is_decimal128:
+                hi, lo = words_of(u)
+                return self.wide_value(
+                    self.let(f"tl.full([BLOCK], {_i64(hi)}, tl.int64)"),
+                    self.let(f"tl.full([BLOCK], {_i64(lo)}, tl.int64)")), \
+                    self.FALSE if value is None else self.TRUE
+            return (self.let(f"tl.full([BLOCK], {_i64(u)}, tl.int64)"),
                     self.FALSE if value is None else self.TRUE)
         if value is None:
             tl_type = _TL.get(dtype, "tl.int32")
@@ -240,6 +346,30 @@ class ChainEmitter:
             raise NotImplementedError(f"no kernel form for a {dtype} literal")
         return self.let(f"tl.full([BLOCK], {literal_word(value, dtype)}, "
                         f"{_TL[dtype]})"), self.TRUE
+
+    def wide_value(self, hi: str, lo: str) -> str:
+        """The name of the decimal128 value (hi, lo); a key of
+        ``self.wide``, never code of the kernel."""
+        name = f"wide[{hi},{lo}]"
+        self.wide[name] = (hi, lo)
+        return name
+
+    def operand(self, v: str, dt: T.DataType) -> tuple:
+        """A decimal, int or long value as a ``decimal_math`` operand."""
+        if isinstance(dt, T.DecimalType) and dt.is_decimal128:
+            hi, lo = self.wide[v]
+            return ("128", Sym(self, hi), Sym(self, lo))
+        return ("64", Sym(self, self.cast(v, dt, T.LONG)
+                          if dt == T.INT else v))
+
+    def decimal_result(self, value, ok, valid: str) -> Value:
+        """A ``decimal_math`` result, valid where ``ok`` and ``valid``,
+        0 elsewhere (as the plain version's ``result_data``)."""
+        full = self.both(valid, str(ok))
+        parts = [self.let(f"tl.where({full}, {x}, 0)") for x in value[1:]]
+        if value[0] == "128":
+            return self.wide_value(*parts), full
+        return parts[0], full
 
     def slot(self, slot: int, dtype: T.DataType) -> str:
         """The value of promoted literal ``slot``, read from the table."""
@@ -293,8 +423,23 @@ def _promoted_literal(em, e, cols):
 _ARITH = {A.Add: "+", A.Subtract: "-", A.Multiply: "*"}
 
 
+def _decimal_binary(em, e, cols, out: T.DecimalType) -> Value:
+    """K12: a decimal ``+``, ``-``, ``*``, ``/`` or ``%``
+    (``decimal_math.binary``), valid where its operands are and it does
+    not overflow or divide by zero."""
+    lt, rt = e.left.data_type, e.right.data_type
+    (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
+    value, ok = DM.binary(e.decimal_op, em.operand(a, lt),
+                          T.integral_decimal(lt), em.operand(b, rt),
+                          T.integral_decimal(rt), out, em.backend)
+    return em.decimal_result(value, ok, em.both(av, bv))
+
+
 @emits(*_ARITH)
 def _arithmetic(em, e, cols):
+    out = e.decimal_type()
+    if out is not None:
+        return _decimal_binary(em, e, cols, out)
     rt = e.data_type
     (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
     a = em.cast(a, e.left.data_type, rt)
@@ -312,8 +457,21 @@ _ORDER = {
 }
 
 
+def _decimal_compare(em, e, cols) -> Value:
+    """K12: a comparison of two decimal operands across scales
+    (``decimal_math.compare``)."""
+    lt, rt = e.left.data_type, e.right.data_type
+    (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
+    less, eq = DM.compare(em.operand(a, lt), T.integral_decimal(lt),
+                          em.operand(b, rt), T.integral_decimal(rt),
+                          em.backend)
+    return str(e._from_order(less, eq)), em.both(av, bv)
+
+
 @emits(*_ORDER)
 def _order_comparison(em, e, cols):
+    if e.decimal_space():
+        return _decimal_compare(em, e, cols)
     ot = e.operand_type
     if ot not in _TL:
         raise NotImplementedError(
@@ -374,6 +532,13 @@ def _string_equality(em, e, cols) -> Value:
 
 def _equality(em, e, cols) -> Value:
     """``=`` of ``e``'s operands (NaN equals NaN)."""
+    if e.decimal_space():
+        lt, rt = e.left.data_type, e.right.data_type
+        (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
+        less, eq = DM.compare(em.operand(a, lt), T.integral_decimal(lt),
+                              em.operand(b, rt), T.integral_decimal(rt),
+                              em.backend)
+        return str(eq), em.both(av, bv)
     ot = e.operand_type
     if isinstance(ot, T.StringType):
         return _string_equality(em, e, cols)
@@ -537,6 +702,9 @@ def _or(em, e, cols):
 
 @emits(A.Divide)
 def _divide(em, e, cols):
+    out = e.decimal_type()
+    if out is not None:
+        return _decimal_binary(em, e, cols, out)
     (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
     a = em.cast(a, e.left.data_type, T.DOUBLE)
     b = em.cast(b, e.right.data_type, T.DOUBLE)
@@ -557,10 +725,34 @@ def _sqrt(em, e, cols):
                    f"tl.sqrt({x}))"), valid)
 
 
+def _decimal_branch(em, c, v: str, valid: str, rt: T.DecimalType):
+    """An ``If`` branch as a ``decimal_math`` operand of the result type
+    (rescaled where its type differs; a NULL literal a null zero) and its
+    validity."""
+    dt = c.data_type
+    if dt == rt:
+        return em.operand(v, rt), valid
+    if isinstance(dt, T.NullType):
+        z, _ = em.constant(None, rt)
+        return em.operand(z, rt), em.FALSE
+    value, ok = DM.rescale(em.operand(v, dt), T.integral_decimal(dt), rt,
+                           em.backend)
+    return value, em.both(valid, str(ok))
+
+
 @emits(CO.If)
 def _if(em, e, cols):
     rt = e.data_type
     (p, pv), (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
+    if isinstance(rt, T.DecimalType):
+        cond = em.both(pv, p)
+        (x, xv), (y, yv) = (_decimal_branch(em, c, v, valid, rt)
+                            for c, v, valid in ((e.children[1], a, av),
+                                                (e.children[2], b, bv)))
+        parts = [em.let(f"tl.where({cond}, {xa}, {ya})")
+                 for xa, ya in zip(x[1:], y[1:])]
+        data = em.wide_value(*parts) if rt.is_decimal128 else parts[0]
+        return data, em.let(f"({cond} & {xv}) | ((~{cond}) & {yv})")
     a = em.cast(a, e.children[1].data_type, rt)
     b = em.cast(b, e.children[2].data_type, rt)
     cond = em.both(pv, p)   # a null predicate takes the else branch
@@ -576,6 +768,9 @@ def _integral_division(em, e, cols):
     (``0 - a`` wraps for INT64_MIN; ``% -1`` is 0), where C is
     undefined."""
     e.check_operands()
+    out = e.decimal_type()
+    if out is not None:
+        return _decimal_binary(em, e, cols, out)
     rt = e.data_type if isinstance(e, A.Remainder) else T.LONG
     (a, av), (b, bv) = (em.emit(c, cols) for c in e.children)
     a = em.cast(a, e.left.data_type, rt)
@@ -612,7 +807,12 @@ def _case_when(em, e, cols):
 @emits(CA.Cast)
 def _cast(em, e, cols):
     v, valid = em.emit(e.children[0], cols)
-    return em.cast(v, e.children[0].data_type, e.data_type), valid
+    src, dst = e.children[0].data_type, e.data_type
+    if src != dst and CA.decimal_cast(src, dst):
+        value, ok = DM.rescale(em.operand(v, src), T.integral_decimal(src),
+                               dst, em.backend)
+        return em.decimal_result(value, ok, valid)
+    return em.cast(v, src, dst), valid
 
 
 @emits(H.Murmur3Hash)
@@ -631,6 +831,20 @@ def _murmur3(em, e, cols):
         h = hashed if valid == em.TRUE else \
             em.let(f"tl.where({valid}, {hashed}, {h})")
     return em.let(f"{h}.to(tl.int32, bitcast=True)"), em.TRUE
+
+
+def runs_k12(exprs: Sequence[Expression]) -> bool:
+    """Whether a chain's expressions run K12: an operation, comparison,
+    cast or selection over a decimal value (a decimal column read as it
+    is does not)."""
+    def visit(e) -> bool:
+        if not isinstance(e, (BoundReference, Alias, Literal)) and (
+                isinstance(e.data_type, T.DecimalType) or
+                any(isinstance(c.data_type, T.DecimalType)
+                    for c in e.children)):
+            return True
+        return any(visit(c) for c in e.children)
+    return any(visit(e) for e in exprs)
 
 
 def referenced_columns(exprs: Sequence[Expression]) -> List[int]:
@@ -663,11 +877,18 @@ def load_columns(input_types, nullable, used, conditions, em: ChainEmitter
         if isinstance(dt, T.StringType):
             params.append(f"in{i}_off")
             em.strings[f"x{i}"] = (f"in{i}", f"in{i}_off", None)
+        elif isinstance(dt, T.DecimalType) and dt.is_decimal128:
+            # the [rows, 2] plane's hi and lo words
+            em.lines += [f"x{i}h = tl.load(in{i} + 2 * offs, mask=inb, "
+                         "other=0)",
+                         f"x{i}l = tl.load(in{i} + 2 * offs + 1, mask=inb, "
+                         "other=0)"]
+            em.wide[f"x{i}"] = (f"x{i}h", f"x{i}l")
         else:
             load = f"tl.load(in{i} + offs, mask=inb, other=0)"
             if isinstance(dt, T.BooleanType):
                 load += " != 0"
-            elif dt not in _TL:
+            elif dt not in _TL and not isinstance(dt, T.DecimalType):
                 raise NotImplementedError(
                     f"a {dt} column cannot be read inside a fused kernel "
                     "yet")
@@ -750,6 +971,40 @@ def _row_pick(em: ChainEmitter, j: int, kind: str, sel: str, present: str,
     return word, f"({word} >= 0).to(tl.uint8)"
 
 
+def buffer_words(dtype: T.DataType) -> int:
+    """Words a buffer takes in a partial row: two for a decimal128 (its
+    hi and lo words), else one."""
+    return 2 if isinstance(dtype, T.DecimalType) and dtype.is_decimal128 \
+        else 1
+
+
+def _wide_sum(em: ChainEmitter, j: int, value, present: str,
+              inits: List[str], stores: List[str], col: int) -> str:
+    """A decimal128 sum buffer (``_segment_reduce``'s four limbs): each
+    lane adds the 32-bit limbs of its present values into four int64
+    sums (a limb is below 2^32 and a lane's rows below 2^31: no sum
+    wraps); the program sums the lanes, carries once (scalars, after the
+    tile loop) and stores the lo word at ``col + 1``; its hi word is the
+    returned word.  The sum wraps mod 2^128, as the JAX kernel's does."""
+    hi, lo = value[1], value[2]
+    limbs = DM.split(hi, lo)
+    post = []
+    for k, limb in enumerate(limbs):
+        inits.append(f"acc{j}_{k} = tl.zeros([BLOCK], tl.int64)")
+        em.lines.append(f"acc{j}_{k} += tl.where({present}, {limb}, 0)")
+        post.append(f"s{j}_{k} = tl.sum(acc{j}_{k}, axis=0)")
+    for k in range(4):
+        carry = "" if k == 0 else f" + (s{j}_{k - 1} >> 32)"
+        post.append(f"s{j}_{k} = s{j}_{k}{carry}")
+    for k in range(4):
+        post.append(f"n{j}_{k} = s{j}_{k} & {DM.M32}")
+    post.append(f"lo{j} = n{j}_0 | (n{j}_1 << 32)")
+    post.append(f"hi{j} = n{j}_2 | (n{j}_3 << 32)")
+    stores += post
+    stores.append(f"tl.store(out + row + {col + 1}, lo{j})")
+    return f"hi{j}"
+
+
 def kernel_source(input_types: Sequence[T.DataType], nullable: Sequence[bool],
                   conditions: Sequence[Expression],
                   update_exprs: Sequence[Expression], update_specs,
@@ -774,9 +1029,10 @@ def kernel_source(input_types: Sequence[T.DataType], nullable: Sequence[bool],
     if n_literals:
         params.append("lits")
     params += table_params(n_tables)
-    n_buffers = len(update_specs)
+    n_words = sum(buffer_words(dt) for _o, _k, _c, dt in update_specs)
     inits, stores = [], []
     counts: Dict[str, str] = {}   # presence mask -> its count accumulator
+    col = 0   # the buffer's first word in the partial row
     for j, (ordinal, kind, count_valid_only, dtype) in \
             enumerate(update_specs):
         e = update_exprs[ordinal]
@@ -790,10 +1046,19 @@ def kernel_source(input_types: Sequence[T.DataType], nullable: Sequence[bool],
         count = f"tl.sum({counts[present]}, axis=0)"
         if kind == "count":
             word, ok = count, "1"
-        elif kind == "sum" and dtype in (T.LONG, T.DOUBLE):
+        elif kind == "sum" and isinstance(dtype, T.DecimalType) and \
+                dtype.is_decimal128:
+            word = _wide_sum(em, j, em.operand(v, dtype), present, inits,
+                             stores, col)
+            ok = f"({count} > 0).to(tl.uint8)"
+            stores.append(f"tl.store(out_valid + row + {col + 1}, {ok})")
+        elif kind == "sum" and (dtype in (T.LONG, T.DOUBLE) or
+                                isinstance(dtype, T.DecimalType)):
             v = em.cast(v, e.data_type, dtype)
             zero = "0.0" if dtype.is_floating else "0"
-            inits.append(f"acc{j} = tl.zeros([BLOCK], {_TL[dtype]})")
+            tl_type = "tl.int64" if isinstance(dtype, T.DecimalType) \
+                else _TL[dtype]
+            inits.append(f"acc{j} = tl.zeros([BLOCK], {tl_type})")
             em.lines.append(f"acc{j} += tl.where({present}, {v}, {zero})")
             word = f"tl.sum(acc{j}, axis=0)"
             if dtype.is_floating:
@@ -807,8 +1072,9 @@ def kernel_source(input_types: Sequence[T.DataType], nullable: Sequence[bool],
         else:
             raise NotImplementedError(
                 f"update kind {kind!r} over {dtype} has no kernel form yet")
-        stores.append(f"tl.store(out + row + {j}, {word})")
-        stores.append(f"tl.store(out_valid + row + {j}, {ok})")
+        stores.append(f"tl.store(out + row + {col}, {word})")
+        stores.append(f"tl.store(out_valid + row + {col}, {ok})")
+        col += buffer_words(dtype)
     params += ["out", "out_valid", "n_rows"]
     loop = ["offs = tile.to(tl.int64) * BLOCK + lane",
             "inb = offs < n_rows",
@@ -822,7 +1088,7 @@ def kernel_source(input_types: Sequence[T.DataType], nullable: Sequence[bool],
             *inits,
             "for tile in range(pid, n_tiles, tl.num_programs(0)):",
             *(f"    {line}" for line in loop),
-            f"row = pid.to(tl.int64) * {n_buffers}",
+            f"row = pid.to(tl.int64) * {n_words}",
             *stores]
     header = (f"\n\n@triton.jit(do_not_specialize=[\"n_rows\"])\n"
               f"def {KERNEL_NAME}({', '.join(params)}, "

@@ -81,10 +81,25 @@ def _kernel_type(e: Expression) -> str:
     dt = e.data_type
     if isinstance(dt, T.BooleanType):
         return "tl.uint8"
+    if isinstance(dt, T.DecimalType):
+        return "tl.int64"
     if dt not in _TL:
         raise NotImplementedError(
             f"a computed {dt} output ({e.sql()}) has no kernel form yet")
     return _TL[dt]
+
+
+def _store(em: ChainEmitter, j: int, e: Expression, v: str, at: str,
+           mask: str) -> List[str]:
+    """The stores of computed output ``j`` (value ``v``) at row ``at``: a
+    decimal128's hi and lo words into its ``[rows, 2]`` plane."""
+    dt = e.data_type
+    if isinstance(dt, T.DecimalType) and dt.is_decimal128:
+        hi, lo = em.wide[v]
+        return [f"tl.store(out{j} + 2 * {at}, {hi}, mask={mask})",
+                f"tl.store(out{j} + 2 * {at} + 1, {lo}, mask={mask})"]
+    return [f"tl.store(out{j} + {at}, {v}.to({_kernel_type(e)}), "
+            f"mask={mask})"]
 
 
 def _kernel(name: str, params: List[str], em: ChainEmitter,
@@ -128,9 +143,8 @@ def stage_source(input_types: Sequence[T.DataType],
     outs, stores = [], []
     for j, e in enumerate(computed):
         v, valid = em.emit(e, cols)
-        kt = _kernel_type(e)
         outs += [f"out{j}", f"out{j}_valid"]
-        stores.append(f"tl.store(out{j} + dst, {v}.to({kt}), mask={sel})")
+        stores += _store(em, j, e, v, "dst", sel)
         stores.append(f"tl.store(out{j}_valid + dst, {valid}.to(tl.uint8), "
                       f"mask={sel})")
     tail = [f"k = {sel}.to(tl.int32)",
@@ -178,9 +192,8 @@ def project_source(input_types: Sequence[T.DataType],
             stores.append(f"tl.store(out{j}_valid + offs, "
                           f"{valid}.to(tl.uint8), mask=inb)")
             continue
-        kt = _kernel_type(e)
         outs += [f"out{j}", f"out{j}_valid"]
-        stores.append(f"tl.store(out{j} + offs, {v}.to({kt}), mask=inb)")
+        stores += _store(em, j, e, v, "offs", "inb")
         stores.append(f"tl.store(out{j}_valid + offs, {valid}.to(tl.uint8), "
                       "mask=inb)")
     lits = ["lits"] if n_literals else []

@@ -23,8 +23,12 @@ kinds over buffer rows, ``_global_reduce`` ``:196-208``: a ``first``
 merge takes the first row even when its value is null).  A string
 column's first/last is reduced over its row numbers (``pack_columns``)
 and gathered by K7 (``global_aggregate``), as ``global_agg_trace``
-``:293-310`` picks the row.  The other kinds of ``_global_reduce`` (mean,
-m2, decimal sums) are not in this port yet and raise.
+``:293-310`` picks the row.  A decimal64 sum is the int64 sum of its
+unscaled values; a decimal128 sum (``:166-180``) takes two word columns,
+the hi words (``SUM_DEC128``) and the lo words (``DEC128_LO``), summed
+as 128-bit integers, wrapping mod 2^128 as the JAX limb sums do.  The
+other kinds of ``_global_reduce`` (mean, m2) are not in this port yet and
+raise.
 
 Bound: by device memory bytes.  Sum, min and max need each cell once (9
 bytes), count its validity byte; first_valid and last_valid need the
@@ -44,7 +48,7 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.ops.join_ops import table_size
 
 (SUM_I64, SUM_F64, COUNT, MIN_I64, MAX_I64, MIN_F64, MAX_F64, FIRST, LAST,
- FIRST_VALID, LAST_VALID) = range(11)
+ FIRST_VALID, LAST_VALID, SUM_DEC128, DEC128_LO) = range(13)
 #: kernel 2's kind of each row-order reduction
 ROW_KINDS = {"first": FIRST, "last": LAST, "first_valid": FIRST_VALID,
              "last_valid": LAST_VALID}
@@ -55,8 +59,10 @@ FIRST_LAST_TYPES = MIN_MAX_TYPES + (T.STRING,)
 #: columns one launch takes (the kind table is passed by value)
 MAX_COLUMNS = 64
 
-#: launches of kernel 2 (incremented only where the kernel is launched)
+#: launches of kernel 2 (incremented only where the kernel is launched),
+#: and those with a decimal128 sum
 LAUNCHES = 0
+DECIMAL_LAUNCHES = 0
 
 INT64_MIN = -(2 ** 63)
 INT64_MAX = 2 ** 63 - 1
@@ -68,6 +74,8 @@ def reduce_kind(kind: str, dtype: T.DataType) -> int:
     """Kernel kind for a buffer reduction ``kind`` over a ``dtype`` column."""
     if kind == "count":
         return COUNT
+    if kind == "sum" and isinstance(dtype, T.DecimalType):
+        return SUM_DEC128 if dtype.is_decimal128 else SUM_I64
     if kind == "sum" and dtype.is_numeric:
         return SUM_F64 if dtype.is_floating else SUM_I64
     if kind in ("min", "max") and dtype in MIN_MAX_TYPES:
@@ -102,8 +110,14 @@ def _check(values: torch.Tensor, valid: torch.Tensor,
         raise ValueError("values and valid lie on different devices")
     if len(kinds) != values.shape[1]:
         raise ValueError(f"{len(kinds)} kinds for {values.shape[1]} columns")
-    if any(k not in range(11) for k in kinds):
+    if any(k not in range(13) for k in kinds):
         raise ValueError(f"unknown reduction kind in {list(kinds)}")
+    for j, k in enumerate(kinds):
+        if (k == SUM_DEC128) != (j + 1 < len(kinds) and
+                                 kinds[j + 1] == DEC128_LO) or \
+                (k == DEC128_LO and (j == 0 or kinds[j - 1] != SUM_DEC128)):
+            raise ValueError("a decimal128 sum is a SUM_DEC128 column and "
+                             "the DEC128_LO column after it")
 
 
 def global_reduce(values: torch.Tensor, valid: torch.Tensor,
@@ -130,8 +144,9 @@ def global_reduce(values: torch.Tensor, valid: torch.Tensor,
             values.data_ptr(), valid.data_ptr(), n_rows, n_cols,
             int32s(kinds), out.data_ptr(), out_valid.data_ptr(), stream),
             "kernel 2 (global_reduce)")
-    global LAUNCHES
+    global LAUNCHES, DECIMAL_LAUNCHES
     LAUNCHES += 1
+    DECIMAL_LAUNCHES += SUM_DEC128 in kinds
     return out, out_valid
 
 
@@ -158,6 +173,22 @@ def min_max_plain(v: torch.Tensor, p: torch.Tensor, kind: int
     r = fold(torch.where(num, f64_order(v), ident))
     to_nan = nan.any() & ~num.any() if is_min else nan.any()
     return torch.where(to_nan, _NAN_WORD, f64_order(r))
+
+
+def sum128_plain(hi: torch.Tensor, lo: torch.Tensor, p: torch.Tensor,
+                 gid: Optional[torch.Tensor] = None, g: int = 1):
+    """The 128-bit sums of the present (hi, lo) values, wrapping mod
+    2^128, as ``_segment_reduce`` forms them: four 32-bit limb sums in
+    int64, one carry pass; one sum, or one a group of ``gid``."""
+    from spark_rapids_tpu_torch.expressions import decimal_math as DM
+    limbs = DM.split(hi, lo)
+    if gid is None:
+        sums = [torch.where(p, x, 0).sum() for x in limbs]
+    else:
+        sums = [torch.zeros(g, dtype=torch.int64, device=hi.device)
+                .index_add_(0, gid, torch.where(p, x, 0)) for x in limbs]
+    norm, _carry = DM.normalize(sums)
+    return DM.join(norm)
 
 
 def row_pick_plain(n: int, p: torch.Tensor, kind: int) -> torch.Tensor:
@@ -189,6 +220,13 @@ def global_reduce_plain(values: torch.Tensor, valid: torch.Tensor,
             oks.append(torch.tensor(kind == COUNT, device=dev))
             continue
         any_valid = p.any()
+        if kind == DEC128_LO:
+            continue   # written with the SUM_DEC128 column before it
+        if kind == SUM_DEC128:
+            hi, lo = sum128_plain(v, values[:, j + 1], p)
+            words += [hi, lo]
+            oks += [any_valid, any_valid]
+            continue
         if kind == SUM_I64:
             w = torch.where(p, v, 0).sum()
         elif kind == COUNT:
@@ -219,6 +257,12 @@ def pack_columns(columns: Sequence[DeviceColumn], specs
     for ordinal, kind, count_valid_only, _dt in specs:
         c = columns[ordinal]
         kinds.append(reduce_kind(kind, c.data_type))
+        if kinds[-1] == SUM_DEC128:
+            # the hi words, then the lo words
+            words += [c.data[:, 0], c.data[:, 1]]
+            valids += [c.validity, c.validity]
+            kinds.append(DEC128_LO)
+            continue
         if c.is_string:
             words.append(torch.arange(c.row_count, dtype=torch.int64,
                                       device=c.device))
@@ -240,17 +284,24 @@ def unpack_row(words: torch.Tensor, valid: torch.Tensor,
     is a column, word ``j`` is the row of it to take, which K7 gathers (a
     null where the word is not valid)."""
     cols = []
+    at = 0   # the buffer's first word
     for j, dt in enumerate(dtypes):
-        w = words[j:j + 1]
+        w = words[at:at + 1]
+        at += 1
+        if isinstance(dt, T.DecimalType) and dt.is_decimal128:
+            cols.append(DeviceColumn(words[at - 1:at + 1].reshape(1, 2)
+                                     .clone(), valid[at - 1:at], dt))
+            at += 1
+            continue
         if picks is not None and picks[j] is not None:
             from spark_rapids_tpu_torch.ops.batch_ops import gather_columns
-            rows = torch.where(valid[j:j + 1], w, -1)
+            rows = torch.where(valid[at - 1:at], w, -1)
             cols += gather_columns([picks[j]], rows, transfers,
                                    unique=True, nullable=True)
             continue
         data = w.view(torch.float64) if dt.is_floating \
             else w.to(dt.torch_dtype)
-        cols.append(DeviceColumn(data, valid[j:j + 1], dt))
+        cols.append(DeviceColumn(data, valid[at - 1:at], dt))
     return ColumnarBatch(cols, 1, names)
 
 
@@ -307,11 +358,18 @@ def global_aggregate(batch: ColumnarBatch, specs,
 # with no present value of a min or max, or no row of a ``_valid`` kind,
 # is null and holds 0.  The same kinds merge a FINAL aggregate's buffer
 # rows, in the order the exchange delivers them.
+#
+# Decimal sums (``_segment_reduce`` ``:62-77``): a decimal64 sum is the
+# long sum kind over its unscaled int64 values (wrapping); a decimal128
+# sum (``KEYED_SUM_DEC128``) adds a decimal64 or decimal128 input as
+# 128-bit integers, wrapping mod 2^128 as the JAX limb sums do, into a
+# ``[groups, 2]`` (hi, lo) plane; both merge FINAL buffers as themselves.
 
 #: K9 aggregate kinds (csrc/keyed_agg.cu AggKind)
 (KEYED_SUM_I64, KEYED_SUM_F64, KEYED_COUNT, KEYED_COUNT_ALL, KEYED_M2,
  KEYED_CHAN_MEAN, KEYED_CHAN_M2, KEYED_MIN, KEYED_MAX, KEYED_FIRST,
- KEYED_LAST, KEYED_FIRST_VALID, KEYED_LAST_VALID) = range(13)
+ KEYED_LAST, KEYED_FIRST_VALID, KEYED_LAST_VALID,
+ KEYED_SUM_DEC128) = range(14)
 #: the Chan merge kinds (an (n, mean) aux pair each)
 _KEYED_CHAN = (KEYED_CHAN_MEAN, KEYED_CHAN_M2)
 #: the kinds whose result is a double
@@ -325,8 +383,10 @@ KEYED_KINDS = {"min": KEYED_MIN, "max": KEYED_MAX, "first": KEYED_FIRST,
                "last_valid": KEYED_LAST_VALID}
 #: launches of K9 (wrapper calls that launch it)
 KEYED_LAUNCHES = 0
-#: those of K9's launches with a min, max, first or last slot
+#: those of K9's launches with a min, max, first or last slot, and those
+#: with a decimal sum slot (decimal64 or decimal128)
 KEYED_MIN_MAX_LAUNCHES = 0
+KEYED_DECIMAL_LAUNCHES = 0
 MAX_KEYS = 8
 MAX_AGGS = 32
 SCAN_TILE = 1024
@@ -336,6 +396,19 @@ RADIX_TILE = 256
 KEY_CODES = {T.INT: 0, T.DATE: 0, T.LONG: 1, T.DOUBLE: 2, T.STRING: 3}
 KEYED_KEY_TYPES = tuple(KEY_CODES)
 _IN_CODES = {T.INT: 0, T.DATE: 0, T.LONG: 1, T.DOUBLE: 2, T.STRING: 3}
+#: K9's input code of a decimal128 (a [rows, 2] plane)
+_IN_DEC128 = 4
+
+
+def _in_code(c: Optional[DeviceColumn], kind: int) -> int:
+    """K9's input type code of an aggregate input (csrc/keyed_agg.cu
+    InType): a decimal64 is its int64, a decimal128 its own; a count
+    reads no data, so its input's is 0."""
+    if c is None or kind in (KEYED_COUNT, KEYED_COUNT_ALL):
+        return 0
+    if isinstance(c.data_type, T.DecimalType):
+        return _IN_DEC128 if c.data_type.is_decimal128 else _IN_CODES[T.LONG]
+    return _IN_CODES.get(c.data_type, 0)
 #: the inputs of the sum kinds and m2
 _SUM_TYPES = (T.INT, T.LONG, T.DOUBLE)
 
@@ -379,7 +452,7 @@ def _check_keyed(keys: Sequence[DeviceColumn], inputs, kinds,
     for c, kind in zip(inputs, kinds):
         if kind in _KEYED_CHAN:
             continue
-        if kind not in range(13):
+        if kind not in range(14):
             raise ValueError(f"unknown keyed aggregate kind {kind}")
         if kind == KEYED_COUNT_ALL:
             continue
@@ -398,6 +471,15 @@ def _check_keyed(keys: Sequence[DeviceColumn], inputs, kinds,
             if c.data_type not in FIRST_LAST_TYPES:
                 raise NotImplementedError(
                     f"first/last over {c.data_type} is not in the port yet")
+        elif kind == KEYED_SUM_DEC128:
+            if not isinstance(c.data_type, T.DecimalType):
+                raise TypeError("a decimal128 sum needs a decimal input")
+        elif isinstance(c.data_type, T.DecimalType):
+            if kind != KEYED_COUNT and (kind != KEYED_SUM_I64 or
+                                        c.data_type.is_decimal128):
+                raise NotImplementedError(
+                    f"K9's kind {kind} over {c.data_type} is not in the "
+                    "port yet (its sums and counts are)")
         elif kind != KEYED_COUNT and c.data_type not in _SUM_TYPES:
             raise NotImplementedError(
                 f"a sum or m2 over {c.data_type} is not in the port yet")
@@ -464,7 +546,8 @@ def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
             slots.data_ptr(), rep.data_ptr(), size, slot_of.data_ptr(),
             rank.data_ptr(), tiles.data_ptr(), stream), "K9 groups")
         n_groups, = transfers.read_counts([rank[n]])
-        outs = [empty(n_groups, keyed_out_dtype(kind, c))
+        outs = [empty((n_groups, 2) if kind == KEYED_SUM_DEC128
+                      else n_groups, keyed_out_dtype(kind, c))
                 for kind, c in zip(kinds, inputs)]
         valids = [empty(n_groups, torch.bool) for _ in kinds]
         group_rep = empty(n_groups)
@@ -483,8 +566,7 @@ def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
         group_tiles = empty(max(1, -(-n_groups // SCAN_TILE)))
         check_launch(lib.srt_agg_reduce(
             len(kinds), int32s(list(kinds)),
-            int32s([_IN_CODES.get(None if c is None else c.data_type, 0)
-                    for c in inputs]),
+            int32s([_in_code(c, k) for c, k in zip(inputs, kinds)]),
             pointers(idata), pointers(ivalid), pointers(outs),
             pointers(valids), pointers(aux_n), pointers(aux_n_valid),
             pointers(aux_mean), pointers(aux_mean_valid), n, n_groups,
@@ -494,10 +576,14 @@ def keyed_aggregate(keys: Sequence[DeviceColumn], inputs, kinds,
             perm.data_ptr(), perm_tmp.data_ptr(), hist.data_ptr(),
             digit_total.data_ptr(), group_tiles.data_ptr(), stream),
             "K9 reduce")
-    global KEYED_LAUNCHES, KEYED_MIN_MAX_LAUNCHES
+    global KEYED_LAUNCHES, KEYED_MIN_MAX_LAUNCHES, KEYED_DECIMAL_LAUNCHES
     KEYED_LAUNCHES += 1
     if any(k in KEYED_KEEPS_TYPE for k in kinds):
         KEYED_MIN_MAX_LAUNCHES += 1
+    if any(isinstance(c.data_type, T.DecimalType) and k not in
+           (KEYED_COUNT, KEYED_COUNT_ALL)
+           for c, k in zip(inputs, kinds) if c is not None):
+        KEYED_DECIMAL_LAUNCHES += 1
     if row_groups:
         return group_rep, list(zip(outs, valids)), gid
     return group_rep, list(zip(outs, valids))
@@ -724,6 +810,14 @@ def keyed_aggregate_plain(keys: Sequence[DeviceColumn], inputs, kinds,
             continue
         if kind in (KEYED_MIN, KEYED_MAX):
             out.append(_min_max_plain(gid, g, kind, c))
+            continue
+        if kind == KEYED_SUM_DEC128:
+            hi, lo = (c.data[:, 0], c.data[:, 1]) if c.data.dim() == 2 \
+                else (c.data >> 63, c.data)
+            cnt = torch.zeros(g, dtype=torch.int64, device=device) \
+                .index_add_(0, gid, c.validity.to(torch.int64))
+            out.append((torch.stack(sum128_plain(hi, lo, c.validity, gid,
+                                                 g), 1), cnt > 0))
             continue
         present = torch.ones_like(gid, dtype=torch.bool) \
             if kind == KEYED_COUNT_ALL else c.validity

@@ -82,8 +82,31 @@ def _empty(c: DeviceColumn, device) -> DeviceColumn:
         return DeviceColumn(torch.empty(0, dtype=torch.uint8, device=device),
                             valid, c.data_type, c.all_valid,
                             torch.zeros(1, dtype=torch.int64, device=device))
-    return DeviceColumn(torch.empty(0, dtype=c.data.dtype, device=device),
+    return DeviceColumn(torch.empty((0,) + tuple(c.data.shape[1:]),
+                                    dtype=c.data.dtype, device=device),
                         valid, c.data_type, c.all_valid)
+
+
+def row_bytes(t: torch.Tensor) -> int:
+    """Bytes a row of a fixed-width plane: 16 for a decimal128's [rows, 2]
+    (hi, lo) plane."""
+    return t.element_size() * (t.shape[1] if t.dim() == 2 else 1)
+
+
+def fixed_plane(t: torch.Tensor) -> torch.Tensor:
+    """A fixed-width plane as a kernel reads it: contiguous, and a
+    16-byte plane (a decimal128's) on a 16-byte boundary, copied where a
+    view starts between two."""
+    t = t.contiguous()
+    if row_bytes(t) == 16 and t.data_ptr() % 16:
+        t = t.clone()
+    return t
+
+
+def empty_rows(t: torch.Tensor, n: int) -> torch.Tensor:
+    """An uninitialised plane of ``n`` rows shaped like plane ``t``."""
+    return torch.empty((n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                       device=t.device)
 
 
 def gather_columns(columns: Sequence[DeviceColumn], idx: torch.Tensor,
@@ -115,9 +138,9 @@ def gather_columns(columns: Sequence[DeviceColumn], idx: torch.Tensor,
                            valid.view(torch.uint8), 1))
             data = None
             if not c.is_string:
-                src = c.data.contiguous()
-                data = torch.empty(n, dtype=src.dtype, device=device)
-                planes.append((src, data, src.element_size()))
+                src = fixed_plane(c.data)
+                data = empty_rows(src, n)
+                planes.append((src, data, row_bytes(src)))
             outs.append([data, valid])
         for k in range(0, len(planes), MAX_PLANES):
             chunk = planes[k:k + MAX_PLANES]
@@ -175,10 +198,13 @@ def gather_columns_plain(columns: Sequence[DeviceColumn], idx: torch.Tensor,
 
     def take(plane: torch.Tensor) -> torch.Tensor:
         """plane[idx], 0 where idx is -1."""
+        shape = (n,) + tuple(plane.shape[1:])
         if not plane.numel():
-            return torch.zeros(n, dtype=plane.dtype, device=idx.device)
-        return torch.where(null, torch.zeros((), dtype=plane.dtype,
-                                             device=idx.device), plane[safe])
+            return torch.zeros(shape, dtype=plane.dtype, device=idx.device)
+        rows = plane[safe]
+        return torch.where(null.view((n,) + (1,) * (rows.dim() - 1)),
+                           torch.zeros((), dtype=plane.dtype,
+                                       device=idx.device), rows)
 
     for c in columns:
         valid = take(c.validity)
@@ -223,7 +249,9 @@ def empty_batch(schema: T.StructType, device: torch.device
                 torch.empty(0, dtype=torch.uint8, device=device), valid, dt,
                 True, torch.zeros(1, dtype=torch.int64, device=device)))
         else:
-            cols.append(DeviceColumn(torch.empty(0, dtype=dt.torch_dtype,
+            wide = isinstance(dt, T.DecimalType) and dt.is_decimal128
+            cols.append(DeviceColumn(torch.empty((0, 2) if wide else 0,
+                                                 dtype=dt.torch_dtype,
                                                  device=device), valid, dt,
                                      True))
     return ColumnarBatch(cols, 0, schema.names)
@@ -283,7 +311,8 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
         for i, c0 in enumerate(first.columns):
             ins = [b.columns[i] for b in batches]
             # held by name until the launch is queued
-            data = [c.data.contiguous() for c in ins]
+            data = [c.data.contiguous() if c.is_string else
+                    fixed_plane(c.data) for c in ins]
             valid = [None if c.all_valid else
                      c.validity.contiguous().view(torch.uint8) for c in ins]
             out_valid = torch.empty(n, dtype=torch.bool, device=device)
@@ -304,9 +333,9 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
                 cols.append(DeviceColumn(chars, out_valid, c0.data_type,
                                          all_valid, out_off))
                 continue
-            out = torch.empty(n, dtype=data[0].dtype, device=device)
+            out = empty_rows(data[0], n)
             check_launch(lib.srt_concat_column(
-                len(ins), out.element_size(), pointers(data),
+                len(ins), row_bytes(out), pointers(data),
                 pointers(valid), pointers([]), int32s([]), int64s(rows),
                 max(rows), out.data_ptr(), out_valid.data_ptr(), None, None,
                 stream), "K7c concat")

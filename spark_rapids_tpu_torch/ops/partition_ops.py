@@ -65,6 +65,17 @@ _HASH_STRING, _HASH_INT_AS_LONG = 3, 6
 _RANGE_CODES = {T.INT: 0, T.DATE: 0, T.LONG: 1, T.DOUBLE: 2, T.STRING: 3}
 RANGE_KEY_TYPES = tuple(_RANGE_CODES)
 
+
+def _range_code(dt: T.DataType) -> int:
+    """K11r's code of a key type: a decimal64 is its unscaled long."""
+    if isinstance(dt, T.DecimalType) and not dt.is_decimal128:
+        return _RANGE_CODES[T.LONG]
+    if dt not in _RANGE_CODES:
+        raise NotImplementedError(
+            f"a range key of {dt} is not in the port yet (int, date, long, "
+            "double, decimal64 and string keys are)")
+    return _RANGE_CODES[dt]
+
 _SIGNATURES = {
     "srt_hash_partition": "ipppppqipippp" + "p",
     "srt_range_partition": "ipppppqppppqppipipppp",
@@ -99,7 +110,7 @@ def _planes(c) -> HashColumn:
 def hash_code(c: HashColumn, as_long: bool = False) -> int:
     if c.offsets is not None:
         return _HASH_STRING
-    if c.data.dtype not in _HASH_CODES:
+    if c.data.dtype not in _HASH_CODES or c.data.dim() != 1:
         raise NotImplementedError(
             f"a hash key of {c.data.dtype} is not in the port yet")
     code = _HASH_CODES[c.data.dtype]
@@ -260,10 +271,7 @@ def _check_range(keys, bounds, orders, n_parts) -> None:
         raise ValueError("one bound column and one order per key")
     _check_parts(n_parts)
     for k, b in zip(keys, bounds):
-        if k.data_type not in _RANGE_CODES:
-            raise NotImplementedError(
-                f"a range key of {k.data_type} is not in the port yet "
-                "(int, date, long, double and string keys are)")
+        _range_code(k.data_type)
         if b.data_type != k.data_type:
             raise TypeError(f"a bound of {b.data_type} for a key of "
                             f"{k.data_type}")
@@ -315,7 +323,7 @@ def range_partition(keys: Sequence[DeviceColumn],
                              dtype=torch.int64, device=device)
         soffs, soff64, sptrs = _string_args(strings)
         check_launch(lib.srt_range_partition(
-            len(keys), int32s([_RANGE_CODES[k.data_type] for k in keys]),
+            len(keys), int32s([_range_code(k.data_type) for k in keys]),
             off64, *(pointers(h) for h in held), n, boff64,
             *(pointers(h) for h in bheld), bounds[0].row_count,
             int32s([int(a) for a, _nf in orders]),
@@ -460,6 +468,8 @@ def split_columns(columns: Sequence[DeviceColumn], pids: torch.Tensor,
                                    transfers)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
+    from spark_rapids_tpu_torch.ops.batch_ops import (empty_rows,
+                                                      fixed_plane, row_bytes)
     from spark_rapids_tpu_torch.kernels.build import (check_launch, int32s,
                                                       pointers)
     lib = load_library()
@@ -490,9 +500,9 @@ def split_columns(columns: Sequence[DeviceColumn], pids: torch.Tensor,
             if c.is_string:
                 planes.append([None, valid, None])
                 continue
-            src = c.data.contiguous()
-            data = empty(n, src.dtype)
-            fixed.append((src, data, src.element_size()))
+            src = fixed_plane(c.data)
+            data = empty_rows(src, n)
+            fixed.append((src, data, row_bytes(src)))
             planes.append([data, valid, None])
         for k in range(0, len(fixed), MAX_PLANES):
             chunk = fixed[k:k + MAX_PLANES]

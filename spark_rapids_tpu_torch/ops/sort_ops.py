@@ -24,22 +24,29 @@ length is computed on the card and read through the gateway (one sync
 for each string key), since the number of radix passes is the host's to
 choose.
 
+A decimal64 key is its unscaled int64 (a long's word); a decimal128 key
+(``:101-111``, ``:182``) two words, its hi word as a long's, then its lo
+word's bits unsigned.
+
 On CPU tensors ``sort_permutation_plain`` builds words with the same order
 as int64 values and sorts them stably with ``torch.sort``, last key first.
-Int, date (its int32 days), long, double and string keys are ported."""
+Int, date (its int32 days), long, double, decimal and string keys are
+ported."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 
-#: launches of K8 (wrapper calls that launch it)
+#: launches of K8 (wrapper calls that launch it), and those with a
+#: decimal key
 LAUNCHES = 0
+DECIMAL_LAUNCHES = 0
 RADIX_TILE = 256
 
 _KEY_CODES = {T.INT: 0, T.DATE: 0, T.LONG: 1, T.DOUBLE: 2}
@@ -82,10 +89,23 @@ def load_library():
                         lambda: load_cuda("sort.cu", _SIGNATURES))
 
 
+#: K8's key codes of a decimal128's hi and lo words (csrc/sort.cu)
+_DEC128_HI, _DEC128_LO = 3, 4
+
+
+def _value_words(dt: T.DataType) -> List[Tuple[int, int]]:
+    """(key code, bits) of each value word of a fixed-width key."""
+    if isinstance(dt, T.DecimalType):
+        return [(_DEC128_HI, 64), (_DEC128_LO, 64)] if dt.is_decimal128 \
+            else [(_KEY_CODES[T.LONG], 64)]
+    return [(_KEY_CODES[dt], _VALUE_BITS[dt])]
+
+
 def _check(columns: Sequence[DeviceColumn], orders, transfers) -> None:
     for o in orders:
         c = columns[o.ordinal]
-        if c.data_type not in SORT_KEY_TYPES:
+        if c.data_type not in SORT_KEY_TYPES and \
+                not isinstance(c.data_type, T.DecimalType):
             raise NotImplementedError(
                 f"a sort key of {c.data_type} is not in the port yet "
                 "(int, date, long, double and string keys are)")
@@ -154,21 +174,22 @@ def sort_permutation(columns: Sequence[DeviceColumn],
                 words += list(value.view(n_words, n))
                 bits += [64] * n_words
                 continue
-            value = empty(n)
             data = c.data.contiguous()
             valid = None if c.all_valid else \
                 c.validity.contiguous().view(torch.uint8)
-            check_launch(lib.srt_sort_words(
-                data.data_ptr(), _KEY_CODES[c.data_type],
-                None if valid is None else valid.data_ptr(), n,
-                int(o.ascending), int(o.nulls_first),
-                None if rank is None else rank.data_ptr(), value.data_ptr(),
-                stream), "K8 words")
             if rank is not None:
                 words.append(rank)
                 bits.append(1)
-            words.append(value)
-            bits.append(_VALUE_BITS[c.data_type])
+            for code, width in _value_words(c.data_type):
+                value = empty(n)
+                check_launch(lib.srt_sort_words(
+                    data.data_ptr(), code,
+                    None if valid is None else valid.data_ptr(), n,
+                    int(o.ascending), int(o.nulls_first),
+                    None if rank is None else rank.data_ptr(),
+                    value.data_ptr(), stream), "K8 words")
+                words.append(value)
+                bits.append(width)
         perm = empty(n)
         # scratch is held by name until the launch is queued: a tensor
         # freed at once would let the next one reuse its memory
@@ -177,8 +198,10 @@ def sort_permutation(columns: Sequence[DeviceColumn],
         check_launch(lib.srt_sort_perm(
             pointers(words), int32s(bits), len(words), n, perm.data_ptr(),
             *(t.data_ptr() for t in scratch), stream), "K8 radix sort")
-    global LAUNCHES
+    global LAUNCHES, DECIMAL_LAUNCHES
     LAUNCHES += 1
+    DECIMAL_LAUNCHES += any(isinstance(columns[o.ordinal].data_type,
+                                       T.DecimalType) for o in orders)
     return perm
 
 
@@ -215,6 +238,10 @@ def order_words_plain(c: DeviceColumn, o: SortOrder,
     if c.is_string:
         ws = string_words_plain(c, n_words)
         return words + [w if o.ascending else ~w for w in ws]
+    if isinstance(c.data_type, T.DecimalType) and c.data_type.is_decimal128:
+        ws = [c.data[:, 0], c.data[:, 1] ^ _SIGN]   # lo unsigned
+        return words + [torch.where(c.validity, w, 0) if o.ascending
+                        else ~torch.where(c.validity, w, 0) for w in ws]
     if c.data_type.is_floating:
         x = torch.where(c.data == 0, 0.0, c.data)
         x = torch.where(torch.isnan(x), float("nan"), x)

@@ -24,9 +24,12 @@ q36, q51, q51w, q8, q5 and q35)."""
 from __future__ import annotations
 
 import datetime
+import decimal
 from typing import Dict
 
 import numpy as np
+
+from spark_rapids_tpu_torch import types as T
 
 
 _BASE = {
@@ -422,6 +425,83 @@ Q3_COLUMNS = {
 }
 
 
+#: the money columns of ``generate_tables`` (its ``_money`` columns and
+#: the net profits): TPC-DS types them DECIMAL(7,2), the JAX generator
+#: draws them as doubles of whole cents (``spark_rapids_tpu/testing/
+#: tpcds.py:8``, ``:78-79``, ``:329``), at most 30,000.00 in magnitude
+MONEY_COLUMNS = frozenset(
+    ["i_current_price", "i_wholesale_cost", "sr_return_amt", "sr_net_loss",
+     "cr_return_amount", "cr_refunded_cash", "cr_net_loss", "wr_return_amt",
+     "wr_net_loss"] +
+    [f"{p}_{c}" for p in ("ss", "cs", "ws")
+     for c in ("list_price", "sales_price", "ext_sales_price",
+               "ext_discount_amt", "ext_wholesale_cost", "ext_list_price",
+               "coupon_amt", "net_profit", "net_paid", "wholesale_cost",
+               "ext_ship_cost")])
+MONEY = T.DecimalType(7, 2)
+
+
+def decimal_money(tables: Dict[str, dict]) -> Dict[str, dict]:
+    """``tables`` (a query's cut of ``generate_tables``, whose arrays it
+    shares) with every money column a DECIMAL(7,2) host column of int64
+    cents (``np.rint(v * 100)``: exact, every value being whole cents
+    below 2^53 / 100); the values do not change.  Only the columns
+    given are converted, so a caller keeps one copy of the tables."""
+    from spark_rapids_tpu_torch.columnar.batch import decimal_column
+    return {t: {c: decimal_column(np.rint(np.asarray(v) * 100)
+                                  .astype(np.int64), MONEY)
+                if c in MONEY_COLUMNS else v for c, v in cols.items()}
+            for t, cols in tables.items()}
+
+
+def _plane(values) -> np.ndarray:
+    """A column's values for the numpy versions: the array, or a decimal
+    host column's unscaled int64 plane."""
+    return values.data if hasattr(values, "data_type") else values
+
+
+def _is_money(values) -> bool:
+    return hasattr(values, "data_type")
+
+
+def _money_out(total, values):
+    """A sum of ``values``' plane: a ``Decimal`` at the column's scale for
+    a decimal column (``total`` in its unscaled units), else as is."""
+    if _is_money(values):
+        from spark_rapids_tpu_torch.columnar.column import decimal_value
+        return decimal_value(int(total), values.data_type.scale)
+    return total
+
+
+def spark_decimal_avg(total: int, count: int, dt: T.DecimalType):
+    """Spark's ``avg`` of decimal ``dt`` from the unscaled sum and the
+    count, in Python ``decimal``: ``Divide(sum, cast(count as
+    decimal(20,0)))`` at its scale, then the cast to decimal(p + 4, s +
+    4), both ROUND_HALF_UP; None for a count of 0 or where either step
+    overflows its precision (Spark's non-ANSI ``CheckOverflow``)."""
+    if count == 0:
+        return None
+    sum_scale = dt.scale
+    sum_precision = min(38, dt.precision + 10)
+    # Divide's result type (DecimalPrecision, allowPrecisionLoss)
+    scale = max(6, sum_scale + 20 + 1)
+    digits = sum_precision - sum_scale
+    if digits + scale > 38:
+        scale = max(38 - digits, min(scale, 6))
+    out_scale = min(dt.scale + 4, 38)
+    out_digits = min(38, dt.precision + 4) - out_scale
+    with decimal.localcontext() as ctx:
+        ctx.prec = 120
+        q = decimal.Decimal(total).scaleb(-sum_scale) / decimal.Decimal(count)
+        q = q.quantize(decimal.Decimal(1).scaleb(-scale),
+                       rounding=decimal.ROUND_HALF_UP)
+        if abs(q) >= decimal.Decimal(10) ** min(38 - scale, digits):
+            return None
+        q = q.quantize(decimal.Decimal(1).scaleb(-out_scale),
+                       rounding=decimal.ROUND_HALF_UP)
+        return None if abs(q) >= decimal.Decimal(10) ** out_digits else q
+
+
 def partitioned_frames(session, tables: Dict[str, dict], names,
                        num_partitions: int = 2) -> list:
     """Each named table (a column dict or a host batch) as a DataFrame at
@@ -488,17 +568,19 @@ def q3_numpy(tables: Dict[str, dict], manufact_id=128, month=11,
                            i["i_brand"][imask].tolist())))
     sel = np.isin(s["ss_sold_date_sk"], np.fromiter(year_of, np.int64)) & \
         np.isin(s["ss_item_sk"], np.fromiter(item_of, np.int64))
+    money = s["ss_ext_sales_price"]
+    zero = 0 if _is_money(money) else 0.0
     sums: Dict[tuple, float] = {}
     for dk, ik, v in zip(s["ss_sold_date_sk"][sel].tolist(),
                          s["ss_item_sk"][sel].tolist(),
-                         s["ss_ext_sales_price"][sel].tolist()):
+                         _plane(money)[sel].tolist()):
         key = (year_of[dk],) + item_of[ik]
-        sums[key] = sums.get(key, 0.0) + v
+        sums[key] = sums.get(key, zero) + v
     rows = sorted(sums.items(), key=lambda kv: (kv[0][0], -kv[1], kv[0][1]))
     if limit is not None:
         rows = rows[:limit]
-    return [{"d_year": k[0], "brand_id": k[1], "brand": k[2], "sum_agg": v}
-            for k, v in rows]
+    return [{"d_year": k[0], "brand_id": k[1], "brand": k[2],
+             "sum_agg": _money_out(v, money)} for k, v in rows]
 
 
 #: the columns of each table that TPC-DS q1 reads
@@ -666,20 +748,27 @@ def q7_numpy(tables: Dict[str, dict], year=2000, gender="M", marital="S",
         & np.isin(ss["ss_promo_sk"], promos) & \
         np.isin(ss["ss_item_sk"], i["i_item_sk"])
     item_id = dict(zip(i["i_item_sk"].tolist(), i["i_item_id"]))
-    cols = ("ss_quantity", "ss_list_price", "ss_coupon_amt",
-            "ss_sales_price")
+    cols = [ss[c] for c in ("ss_quantity", "ss_list_price", "ss_coupon_amt",
+                            "ss_sales_price")]
+    zeros = [0 if _is_money(c) else 0.0 for c in cols]
     acc: Dict[str, list] = {}
     for row in zip(ss["ss_item_sk"][sel].tolist(),
-                   *(ss[c][sel].tolist() for c in cols)):
-        a = acc.setdefault(item_id[row[0]], [0.0, 0.0, 0.0, 0.0, 0])
+                   *(_plane(c)[sel].tolist() for c in cols)):
+        a = acc.setdefault(item_id[row[0]], zeros + [0])
         for j in range(4):
             a[j] += row[1 + j]
         a[4] += 1
     rows = sorted(acc.items())
     if limit is not None:
         rows = rows[:limit]
-    return [{"i_item_id": k, "agg1": a[0] / a[4], "agg2": a[1] / a[4],
-             "agg3": a[2] / a[4], "agg4": a[3] / a[4]} for k, a in rows]
+
+    def avg(total, n, c):
+        if _is_money(c):
+            return spark_decimal_avg(total, n, c.data_type)
+        return total / n
+    return [{"i_item_id": k,
+             **{f"agg{j + 1}": avg(a[j], a[4], cols[j]) for j in range(4)}}
+            for k, a in rows]
 
 
 #: the columns of each table that TPC-DS q15 reads
@@ -1093,21 +1182,24 @@ def q19_numpy(tables: Dict[str, dict], manager_id=8, month=11, year=1998,
     found, store_at = _lookup(s["s_store_sk"], ss["ss_store_sk"][rows])
     rows, item_at, addr_at, store_at = (rows[found], item_at[found],
                                         addr_at[found], store_at[found])
+    money = ss["ss_ext_sales_price"]
+    zero = 0 if _is_money(money) else 0.0
     sums: Dict[tuple, float] = {}
-    for r, ia, aa, sa in zip(rows.tolist(), item_at.tolist(),
+    for v, ia, aa, sa in zip(_plane(money)[rows].tolist(), item_at.tolist(),
                              addr_at.tolist(), store_at.tolist()):
         if ca["ca_zip"][aa][:5] == s["s_zip"][sa][:5]:
             continue
         key = (int(i["i_brand_id"][ia]), i["i_brand"][ia],
                int(i["i_manufact_id"][ia]), i["i_manufact"][ia])
-        sums[key] = sums.get(key, 0.0) + float(ss["ss_ext_sales_price"][r])
+        sums[key] = sums.get(key, zero) + v
     out = sorted(sums.items(),
                  key=lambda kv: (-kv[1], kv[0][1], kv[0][0], kv[0][2],
                                  kv[0][3]))
     if limit is not None:
         out = out[:limit]
     return [{"brand_id": k[0], "brand": k[1], "i_manufact_id": k[2],
-             "i_manufact": k[3], "ext_price": v} for k, v in out]
+             "i_manufact": k[3], "ext_price": _money_out(v, money)}
+            for k, v in out]
 
 
 #: the columns of each table that TPC-DS q16 reads

@@ -2,7 +2,10 @@
 the port's queries need, each with its numpy (host) and torch (device)
 dtype.  A string has neither: its column is Arrow offsets plus a uint8
 chars plane (``columnar/column.py``).  A date is int32 days since the
-epoch (``types.py:131``), as the JAX package keeps it."""
+epoch (``types.py:131``), as the JAX package keeps it.  A decimal
+(``DecimalType``, ``types.py:142-172``) is its unscaled integer: int64 up
+to 18 digits (decimal64), an int64 ``[rows, 2]`` (hi, lo) pair past them
+(decimal128), as the JAX package's device columns hold it."""
 
 from __future__ import annotations
 
@@ -15,10 +18,11 @@ import torch
 
 __all__ = [
     "DataType", "NullType", "BooleanType", "IntegerType", "LongType",
-    "DoubleType", "StringType", "DateType", "StructField", "StructType",
+    "DoubleType", "StringType", "DateType", "DecimalType", "StructField",
+    "StructType",
     "NULL", "BOOLEAN", "INT", "LONG", "DOUBLE", "STRING", "DATE",
     "from_numpy_dtype", "common_type", "date_days", "days_date",
-    "from_arrow", "to_arrow",
+    "from_arrow", "to_arrow", "integral_decimal",
 ]
 
 
@@ -36,7 +40,8 @@ class DataType:
 
     @property
     def is_numeric(self) -> bool:
-        return isinstance(self, (IntegerType, LongType, DoubleType))
+        return isinstance(self, (IntegerType, LongType, DoubleType,
+                                 DecimalType))
 
     @property
     def is_integral(self) -> bool:
@@ -92,6 +97,53 @@ class DateType(DataType):
     numeric: it takes no arithmetic."""
     np_dtype = np.dtype(np.int32)
     torch_dtype = torch.int32
+
+
+class DecimalType(DataType):
+    """Fixed-point decimal(precision, scale) (``spark_rapids_tpu/types.py
+    :142``): the unscaled value, int64 for a precision up to
+    ``MAX_LONG_DIGITS`` (decimal64), an int64 ``[rows, 2]`` (hi word, lo
+    word bits) pair up to ``MAX_PRECISION`` (decimal128).  It is numeric
+    but neither integral nor floating: its arithmetic and comparisons are
+    ``expressions/decimal_math.py``'s."""
+
+    MAX_PRECISION = 38
+    MAX_LONG_DIGITS = 18
+    torch_dtype = torch.int64
+
+    def __init__(self, precision: int = 10, scale: int = 0):
+        if not 0 < precision <= self.MAX_PRECISION:
+            raise ValueError(f"decimal precision out of range: {precision}")
+        if not 0 <= scale <= precision:
+            raise ValueError(f"decimal scale {scale} out of range for "
+                             f"precision {precision}")
+        self.precision = int(precision)
+        self.scale = int(scale)
+
+    @property
+    def np_dtype(self):
+        return np.dtype(np.int64)
+
+    @property
+    def is_decimal128(self) -> bool:
+        return self.precision > self.MAX_LONG_DIGITS
+
+    @property
+    def simple_name(self) -> str:
+        return f"decimal({self.precision},{self.scale})"
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, DecimalType) and \
+            (self.precision, self.scale) == (other.precision, other.scale)
+
+    def __hash__(self) -> int:
+        return hash(("decimal", self.precision, self.scale))
+
+    def __repr__(self) -> str:
+        return f"DecimalType({self.precision},{self.scale})"
+
+    def __str__(self) -> str:
+        return self.simple_name
 
 
 NULL = NullType()
@@ -157,6 +209,8 @@ def from_arrow(at) -> DataType:
         return DATE
     if pa.types.is_null(at):
         return NULL
+    if pa.types.is_decimal128(at):
+        return DecimalType(at.precision, at.scale)
     raise NotImplementedError(f"an Arrow {at} column is not in the port "
                               "yet")
 
@@ -164,6 +218,8 @@ def from_arrow(at) -> DataType:
 def to_arrow(dt: DataType):
     """The Arrow type of a port type (the parquet writer's)."""
     import pyarrow as pa
+    if isinstance(dt, DecimalType):
+        return pa.decimal128(dt.precision, dt.scale)
     arrow = {BooleanType: pa.bool_(), IntegerType: pa.int32(),
              LongType: pa.int64(), DoubleType: pa.float64(),
              StringType: pa.string(), DateType: pa.date32(),
@@ -172,17 +228,43 @@ def to_arrow(dt: DataType):
 
 
 def common_type(a: DataType, b: DataType) -> DataType:
-    """Least common numeric promotion."""
+    """Least common numeric promotion.  Two decimals widen to the
+    decimal that holds both (Spark's ``DecimalPrecision.widerDecimalType``),
+    a decimal and an int or long to the decimal that holds the integer's
+    digits too, a decimal and a double to double."""
     if a == b:
         return a
     if isinstance(a, NullType):
         return b
     if isinstance(b, NullType):
         return a
+    if isinstance(a, DecimalType) or isinstance(b, DecimalType):
+        if a.is_floating or b.is_floating:
+            return DOUBLE
+        da, db = integral_decimal(a), integral_decimal(b)
+        if da is None or db is None:
+            raise TypeError(f"no common type for {a} and {b}")
+        scale = max(da.scale, db.scale)
+        digits = max(da.precision - da.scale, db.precision - db.scale)
+        return DecimalType(min(digits + scale, DecimalType.MAX_PRECISION),
+                           scale)
     if a.is_numeric and b.is_numeric:
         return _PROMOTION_ORDER[max(_PROMOTION_ORDER.index(a),
                                     _PROMOTION_ORDER.index(b))]
     raise TypeError(f"no common type for {a} and {b}")
+
+
+def integral_decimal(dt: DataType) -> Optional[DecimalType]:
+    """The decimal view of a decimal, int or long (Spark's widening of an
+    integral operand: int as decimal(10,0), long as decimal(19,0)); None
+    for any other type."""
+    if isinstance(dt, DecimalType):
+        return dt
+    if isinstance(dt, IntegerType):
+        return DecimalType(10, 0)
+    if isinstance(dt, LongType):
+        return DecimalType(19, 0)
+    return None
 
 
 @dataclasses.dataclass(frozen=True)
