@@ -141,7 +141,7 @@ INT64_MAX = 2 ** 63 - 1
 CUDA_SOURCES = ("global_reduce.cu", "gather.cu", "sort.cu", "keyed_agg.cu",
                 "hash_join.cu", "window.cu", "distinct.cu", "concat.cu",
                 "cross_join.cu", "partition.cu", "strings.cu", "decode.cu",
-                "window_carry.cu", "decimal.cu")
+                "window_carry.cu", "decimal.cu", "collect.cu")
 #: the TPC-DS kernels: name, route, source, the JAX program each replaces
 TPCDS_KERNELS = {
     "K1": ("fused_agg_update", "triton",
@@ -216,6 +216,13 @@ TPCDS_KERNELS = {
     "K12avg": ("decimal_avg", "cuda",
                "spark_rapids_tpu_torch/csrc/decimal.cu",
                "spark_rapids_tpu/expressions/aggregates.py:182"),
+    "K15": ("collect_list", "cuda", "spark_rapids_tpu_torch/csrc/collect.cu",
+            "spark_rapids_tpu/ops/agg_ops.py:550"),
+    "K15s": ("collect_set", "cuda", "spark_rapids_tpu_torch/csrc/collect.cu",
+             "spark_rapids_tpu/ops/agg_ops.py:550"),
+    "K13l": ("string_length", "cuda",
+             "spark_rapids_tpu_torch/csrc/strings.cu",
+             "spark_rapids_tpu/expressions/strings.py:49"),
 }
 #: each TPC-DS kernel's launch counter: module and attribute
 COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
@@ -244,7 +251,10 @@ COUNTERS = {"K1": ("exec.fused", "LAUNCHES"),
             "K16r": ("ops.decode_ops", "RLE_LAUNCHES"),
             "K5d": ("exec.fused", "CODE_SPACE_LAUNCHES"),
             "K14c": ("ops.window_ops", "FIXUP_LAUNCHES"),
-            "K12avg": ("ops.decimal_ops", "AVG_LAUNCHES")}
+            "K12avg": ("ops.decimal_ops", "AVG_LAUNCHES"),
+            "K15": ("ops.agg_ops", "COLLECT_LAUNCHES"),
+            "K15s": ("ops.agg_ops", "COLLECT_SET_LAUNCHES"),
+            "K13l": ("ops.string_ops", "LENGTH_LAUNCHES")}
 #: the decimal forms' launches, each a part of a kernel's count: K1, K5
 #: and K6 running K12, K9 with a decimal sum slot, K3 with a decimal128
 #: sum, K8 with a decimal key
@@ -700,8 +710,9 @@ def same_indices(got, ref, what: str) -> float:
 
 def same_columns(got, ref, what: str) -> float:
     """Columns equal plane by plane (doubles bit for bit; a string's chars
-    up to its last offset), compared where they lie; returns the measured
-    max |d| over the data, offsets and validity planes."""
+    and an array's elements up to its last offset), compared where they
+    lie; returns the measured max |d| over the data, offsets and validity
+    planes."""
     import torch
     check(len(got) == len(ref), f"{what}: column count")
     err = 0.0
@@ -712,12 +723,16 @@ def same_columns(got, ref, what: str) -> float:
         gv, rv = g.validity, r.validity
         check(bool(torch.equal(gv, rv)), f"{w}: validity")
         err = max(err, max_diff(gv, rv))
-        if g.is_string:
+        if g.offsets is not None:
+            # a string's chars, or an array's elements (doubles by bits),
+            # up to the last offset
             go, ro = g.offsets.long(), r.offsets.long()
             check(bool(torch.equal(go, ro)), f"{w}: offsets")
             end = int(ro[-1])
             gc, rc = g.data[:end], r.data[:end]
-            check(bool(torch.equal(gc, rc)), f"{w}: chars")
+            bits = (gc.view(torch.int64), rc.view(torch.int64)) \
+                if gc.dtype == torch.float64 else (gc, rc)
+            check(bool(torch.equal(*bits)), f"{w}: chars or elements")
             err = max(err, max_diff(go, ro), max_diff(gc, rc))
         else:
             gd, rd = g.data, r.data
@@ -3491,7 +3506,9 @@ class Recorder:
             (decode_ops, "decode_dictionary", "K16"),
             (decode_ops, "decode_rle", "K16r"),
             (window_ops, "running_fixup", "K14c"),
-            (decimal_ops, "avg_finish", "K12avg")]
+            (decimal_ops, "avg_finish", "K12avg"),
+            (agg_ops, "collect", "K15"),
+            (string_ops, "string_length", "K13l")]
         self._saved = []
 
     def __enter__(self):
@@ -3504,6 +3521,9 @@ class Recorder:
                     _k = k10_name(kw)
                 if _k == "K5" and a[0].n_tables:
                     _k = "K5d"   # the stage's code-space mode
+                if _k == "K15" and (a[3] if len(a) > 3 else
+                                    kw.get("distinct")):
+                    _k = "K15s"   # K15's set mode
                 counter = counter_of(K14O_PARTS.get(_k, _k))
                 before = getattr(*counter)
                 kept = a
@@ -3542,10 +3562,13 @@ def k10_name(kw) -> str:
 
 
 def column_bytes(c, rows=None) -> int:
-    """Bytes of a column's planes (of ``rows`` rows of a fixed-width one)."""
+    """Bytes of a column's planes (of ``rows`` rows of a fixed-width one;
+    a string's or an array's whole)."""
     n = c.row_count if rows is None else rows
-    if c.is_string:
-        return c.offsets.element_size() * (n + 1) + int(c.offsets[-1]) + \
+    if c.offsets is not None:
+        # a string's chars, an array's elements
+        return c.offsets.element_size() * (n + 1) + \
+            int(c.offsets[-1]) * c.data.element_size() + \
             (0 if c.all_valid else n)
     width = c.data.element_size() * (c.data.shape[1] if c.data.dim() == 2
                                      else 1)
@@ -3560,7 +3583,7 @@ def same_output(name: str, args, kw, got, ref, tr, what: str) -> float:
                    same_columns(got[1], ref[1], what))
     if name in ("K6", "K7"):
         return same_columns(got, ref, what)
-    if name in ("K13", "K16", "K16r"):
+    if name in ("K13", "K16", "K16r", "K13l", "K15", "K15s"):
         return same_columns([got], [ref], what)
     if name == "K7c":
         check(got.row_count == ref.row_count, f"{what}: row count")
@@ -3645,11 +3668,14 @@ def k16_bytes(args, got) -> int:
 
 def k13_bytes(args, kw, got) -> int:
     """Bytes K13 must move for one call: each column part's offsets of the
-    rows it reads, its validity and the chars the output copies from it,
+    rows it reads, its validity and the chars the function needs from it,
     the row map, and the output's offsets, validity and chars."""
     from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+
+    def arg(i, name, default=None):
+        return kw.get(name, args[i] if len(args) > i else default)
     parts = args[1]
-    rows = kw.get("rows", args[7] if len(args) > 7 else None)
+    pos, length, rows = arg(5, "pos", 1), arg(6, "length"), arg(7, "rows")
     n = got.row_count
     out = 8 * (n + 1) + n + int(got.offsets[-1])
     read = 0 if rows is None else 8 * n
@@ -3657,8 +3683,75 @@ def k13_bytes(args, kw, got) -> int:
         if isinstance(p, DeviceColumn):
             read += p.offsets.element_size() * (n + 1) + \
                 (0 if p.all_valid else n)
+    if args[0] == 0 and pos >= 0 and length is not None:
+        # neither the clamp nor the take needs the row's character count:
+        # a row is read up to the lead byte after its last character
+        return read + out + substring_reach(parts[0], rows, pos, length)
+    if args[0] in (0, 3, 4):
+        # a substring from the end or to the end counts the row's
+        # characters and a case map maps them: each input row's bytes
+        # are read once
+        return read + out + row_chars(parts[0], rows)
     # the copied chars: every output byte was read once from a part
     return read + out + int(got.offsets[-1])
+
+
+def substring_reach(c, rows, pos: int, length: int) -> int:
+    """The chars a substring at character ``pos >= 0`` of ``length``
+    characters must read of the (valid) rows of string column ``c``: the
+    skipped prefix, the substring and the lead byte after it, or the
+    whole row where the substring reaches its end."""
+    import torch
+    from spark_rapids_tpu_torch.ops import string_ops as SO
+    off = c.offsets.long()
+    first, last = off[:-1], off[1:]
+    valid = c.validity
+    if rows is not None:
+        first, last, valid = first[rows], last[rows], valid[rows]
+    b0, take = SO.substring_range(c.data, first, last, pos, length)
+    reach = torch.minimum(b0 + take + 1, last) - first
+    return int(reach[valid].sum())
+
+
+def k13l_bytes(column, n: int, rows=None) -> int:
+    """Bytes K13's length pass must move: the rows' offsets, validity and
+    chars (and the row map) read, an int32 and a validity byte a row
+    written."""
+    return column.offsets.element_size() * (n + 1) + \
+        (0 if column.all_valid else n) + row_chars(column, rows) + \
+        (0 if rows is None else 8 * n) + 5 * n
+
+
+def k15_bytes(values, gid, got) -> int:
+    """Bytes K15 must move: the values and their validity and the group
+    ids read once, the offsets, validity and elements written."""
+    n = values.row_count
+    return column_bytes(values) + (0 if gid is None else 8 * n) + \
+        column_bytes(got)
+
+
+def k15_library(values, gid):
+    """One PyTorch call that gives a collect_set's distinct (group, value)
+    pairs: ``torch.unique(dim=0)`` over the stacked present (group id,
+    value word) rows (the normalizing of the words is not timed)."""
+    import torch
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    keep = values.validity
+    words = G.collect_words_plain(values)[keep]
+    g = torch.zeros_like(words) if gid is None else gid[keep]
+    pairs = torch.stack([g, words], 1)
+
+    def library(pairs=pairs):
+        return torch.unique(pairs, dim=0)
+    return library
+
+
+def row_chars(c, rows=None) -> int:
+    """The chars of the rows of string column ``c`` (``rows`` of them)."""
+    off = c.offsets.long()
+    if rows is None:
+        return int(off[-1] - off[0])
+    return int((off[rows + 1] - off[rows]).sum())
 
 
 def same_kernel1(args, got, ref, what: str) -> float:
@@ -3821,8 +3914,8 @@ def k5_library(program, batch, lits):
 
 def time_kernels(session, calls, rate: float, reps: int, kernels):
     """Per query: each kernel's device ms, plain ms, bound ms and library
-    ms, summed over its recorded launches, and the max |d| of its output
-    on each of them against its plain version's.  A kernel's library ms
+    ms, summed over its recorded launches (0 with ``reps`` 0), and the
+    max |d| of its output on each of them against its plain version's.  A kernel's library ms
     is None when one of its launches has no one-call PyTorch
     equivalent."""
     import torch
@@ -3853,7 +3946,8 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
              "K10n": J.join_pairs_plain, "K13": SO.string_column_plain,
              "K16": D.decode_dictionary_plain, "K16r": D.decode_rle_plain,
              "K5d": FU.fused_stage_compact_plain,
-             "K12avg": DO.avg_finish_plain}
+             "K12avg": DO.avg_finish_plain, "K15": G.collect_plain,
+             "K15s": G.collect_plain, "K13l": SO.string_length_plain}
     kernel = {"K1": FU.fused_agg_update, "K3": G.global_reduce,
               "K15d": G.count_distinct,
               "K5": FU.fused_stage_compact, "K6": FU.fused_project,
@@ -3868,7 +3962,9 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
               "K14of": W.window_fill, "K10f": J.join_pairs,
               "K10n": J.join_pairs, "K13": SO.string_column,
               "K16": D.decode_dictionary, "K16r": D.decode_rle,
-              "K5d": FU.fused_stage_compact, "K12avg": DO.avg_finish}
+              "K5d": FU.fused_stage_compact, "K12avg": DO.avg_finish,
+              "K15": G.collect, "K15s": G.collect,
+              "K13l": SO.string_length}
     out = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "library_ms": 0.0,
                "shapes": [], "max_abs_err": 0.0} for k in kernels}
     for i, (name, args, kw) in enumerate(calls):
@@ -3878,9 +3974,12 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
         o["max_abs_err"] = max(o["max_abs_err"], same_output(
             name, args, kw, got, plain[name](*args, **kw), tr,
             f"main path, {name} call {i}"))
-        ms = time_ms(lambda: kernel[name](*args, **kw), reps)
+        # reps 0: compared only, not timed
+        ms = time_ms(lambda: kernel[name](*args, **kw), reps) if reps \
+            else 0.0
         o["ms"] += ms
-        o["plain_ms"] += time_ms(lambda: plain[name](*args, **kw), 2, 1)
+        o["plain_ms"] += time_ms(lambda: plain[name](*args, **kw), 2, 1) \
+            if reps else 0.0
         library = None
         if name == "K1":
             program, batch = args[0], args[1]
@@ -4042,9 +4141,24 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
         elif name == "K13":
             n = got.row_count
             o["bytes"] += k13_bytes(args, kw, got)
+            form = {0: "substring", 1: "concat", 3: "upper",
+                    4: "lower"}[args[0]]
             o["shapes"].append(f"{n} rows -> {int(got.offsets[-1])} chars "
-                               f"({'substring' if args[0] == 0 else 'concat'}"
-                               f" of {len(args[1])} parts): {ms:.4f} ms")
+                               f"({form} of {len(args[1])} parts): "
+                               f"{ms:.4f} ms")
+        elif name == "K13l":
+            column, n = args[0], args[1]
+            rows = args[2] if len(args) > 2 else kw.get("rows")
+            o["bytes"] += k13l_bytes(column, n, rows)
+            o["shapes"].append(f"length of {n} rows: {ms:.4f} ms")
+        elif name in ("K15", "K15s"):
+            values, gid, groups = args[0], args[1], args[2]
+            o["bytes"] += k15_bytes(values, gid, got)
+            o["shapes"].append(f"{values.row_count} rows -> {groups} "
+                               f"groups, {int(got.offsets[-1])} elements: "
+                               f"{ms:.4f} ms")
+            if name == "K15s":
+                library = k15_library(values, gid)
         elif name == "K16":
             o["bytes"] += k16_bytes(args, got)
             o["shapes"].append(f"{got.row_count} rows from "
@@ -4086,7 +4200,7 @@ def time_kernels(session, calls, rate: float, reps: int, kernels):
                                f"{ms:.4f} ms")
         if library is None or o["library_ms"] is None:
             o["library_ms"] = None
-        else:
+        elif reps:
             o["library_ms"] += time_ms(library, reps)
     for o in out.values():
         o["bound_ms"] = o["bytes"] / rate * 1e3
@@ -4579,6 +4693,439 @@ def check_against_cpu(query, recipe, names, tables, cross_tables, session,
     print(f"{query} matches numpy and the CPU run{scale} ({cpu_s:.1f} s); "
           f"first rows {result[:2]}")
     return numpy_rows
+
+
+SLICE15_ROWS = (1 << 20) + 3
+#: phase 2o's collect groups: 4096, and one group of every row
+SLICE15_GROUPS = (4096, 1)
+
+
+def check_slice15(session, rng, rate: float):
+    """Phase 2o: K13's length pass, its case maps (upper, lower) and its
+    substring by characters at every pos class, each also through a row
+    map, over 2**20 + 3 rows of 0- to 40-byte strings (``testing/
+    text_cases.py``: ASCII, 'é', 'ß', 'İ', sigma final and inner,
+    case-ignorable marks, CJK, emoji, bytes outside UTF-8, 10% nulls);
+    the substring view in K6 and K5, compared byte by byte with K13's
+    written substrings; K15 in list and set mode over 4096 groups and one
+    group of every row on long, int, date, boolean, double (NaN, +-0.0,
+    +-inf) and decimal64 values with 15% nulls -- each against its plain
+    version, bit for bit.  Then each timed at that size.  Returns the max
+    |d| of each and the timings (library: ``torch.unique(dim=0)`` over
+    the stacked (group, value) rows for a set; none for the others)."""
+    import torch
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.exec import fused as FU
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    from spark_rapids_tpu_torch.ops import string_ops as SO
+    from spark_rapids_tpu_torch.testing import text_cases as TC
+    tr, dev = session.transfers, session.device
+    n = SLICE15_ROWS
+    err = {k: 0.0 for k in ("K13l", "K13 case", "K13 substring", "K6 view",
+                            "K5 view", "K15", "K15s")}
+    timed = {}
+    a = tr.upload_column(TC.string_column(rng, n))
+    rows = torch.from_numpy(rng.integers(0, n, n // 3)).to(dev)
+    for r in (None, rows):
+        m = n if r is None else r.shape[0]
+        got = SO.string_length(a, m, r)
+        torch.cuda.synchronize()
+        err["K13l"] = max(err["K13l"], same_columns(
+            [got], [SO.string_length_plain(a, m, r)], f"K13 length, {m} rows"))
+        for op, kw in [(SO.UPPER, {}), (SO.LOWER, {})] + [
+                (SO.SUBSTRING, {"pos": p, "length": ln})
+                for p, ln in TC.SUBSTRINGS]:
+            got = SO.string_column(op, [a], m, dev, tr, rows=r, **kw)
+            torch.cuda.synchronize()
+            key = "K13 substring" if op == SO.SUBSTRING else "K13 case"
+            err[key] = max(err[key], same_columns(
+                [got], [SO.string_column_plain(op, [a], m, dev, tr, rows=r,
+                                               **kw)],
+                f"K13 op {op} {kw}, {m} rows"))
+    # the view: K6 and K5 compare it with K13's written substrings
+    written = [SO.string_column(SO.SUBSTRING, [a], n, dev, tr, pos=p,
+                                length=ln) for p, ln in TC.SUBSTRINGS]
+    schema = T.StructType([T.StructField("s", T.STRING)] + [
+        T.StructField(f"w{j}", T.STRING) for j in range(len(written))])
+    batch = ColumnarBatch([a] + written, n, schema.names)
+    lits = FU.LiteralArgs([])
+    present = int(a.validity.sum())
+    k6 = TC.view_program(schema, TC.SUBSTRINGS, False)
+    got = FU.fused_project(k6, batch, lits)
+    torch.cuda.synchronize()
+    err["K6 view"] = same_columns(got, FU.fused_project_plain(k6, batch,
+                                                              lits),
+                                  "K6 substring views")
+    for c in got[:-1]:
+        check(bool((c.data | ~c.validity).all()) and
+              int(c.validity.sum()) == present,
+              "K6: each substring view equals K13's written substring")
+    k5 = TC.view_program(schema, TC.SUBSTRINGS, True)
+    got5 = FU.fused_stage_compact(k5, batch, lits, tr)
+    torch.cuda.synchronize()
+    ref5 = FU.fused_stage_compact_plain(k5, batch, lits, tr)
+    err["K5 view"] = max(same_indices(got5[0], ref5[0], "K5 view survivors"),
+                         same_columns(got5[1], ref5[1], "K5 view outputs"))
+    check(got5[0].shape[0] == present, f"K5: every present row passes its "
+          f"substring views ({got5[0].shape[0]} of {present})")
+    # K15: list and set, 4096 groups and one group
+    for kind in TC.COLLECT_TYPES:
+        v = tr.upload_column(TC.collect_values(rng, kind, n))
+        for groups in SLICE15_GROUPS:
+            gid = None if groups == 1 else \
+                torch.from_numpy(rng.integers(0, groups, n)).to(dev)
+            for distinct in (False, True):
+                got = G.collect(v, gid, groups, distinct, tr)
+                torch.cuda.synchronize()
+                key = "K15s" if distinct else "K15"
+                err[key] = max(err[key], same_columns(
+                    [got], [G.collect_plain(v, gid, groups, distinct, tr)],
+                    f"K15 {kind}, {groups} groups, set {distinct}"))
+    # times at 2**20 + 3 rows
+    m = n
+    for what, op, kw in (("K13 upper", SO.UPPER, {}),
+                         ("K13 lower", SO.LOWER, {}),
+                         ("K13 substring", SO.SUBSTRING,
+                          {"pos": 1, "length": 4})):
+        out = SO.string_column(op, [a], m, dev, tr, **kw)
+        timed[what] = (
+            time_ms(lambda: SO.string_column(op, [a], m, dev, tr, **kw), 10),
+            time_ms(lambda: SO.string_column_plain(op, [a], m, dev, tr,
+                                                   **kw), 2, 1),
+            k13_bytes((op, [a], m), kw, out) / rate * 1e3, None)
+    timed["K13 length"] = (
+        time_ms(lambda: SO.string_length(a, m), 20),
+        time_ms(lambda: SO.string_length_plain(a, m), 3, 1),
+        k13l_bytes(a, m) / rate * 1e3, None)
+    # the views: K6's reads of s and the written substrings, its bytes out
+    k6_bytes = sum(column_bytes(c) for c in batch.columns) + \
+        2 * m * (len(written) + 1)
+    timed["K6 view"] = (
+        time_ms(lambda: FU.fused_project(k6, batch, lits), 10),
+        time_ms(lambda: FU.fused_project_plain(k6, batch, lits), 2, 1),
+        k6_bytes / rate * 1e3, None)
+    v = tr.upload_column(TC.collect_values(rng, "long", n))
+    gid = torch.from_numpy(rng.integers(0, 4096, n)).to(dev)
+    for what, g, groups, distinct in (("K15 list", gid, 4096, False),
+                                      ("K15 set", gid, 4096, True),
+                                      ("K15 set one group", None, 1, True)):
+        out = G.collect(v, g, groups, distinct, tr)
+        timed[what] = (
+            time_ms(lambda: G.collect(v, g, groups, distinct, tr), 10),
+            time_ms(lambda: G.collect_plain(v, g, groups, distinct, tr), 3,
+                    1),
+            k15_bytes(v, g, out) / rate * 1e3,
+            time_ms(k15_library(v, g), 5) if distinct else None)
+    return err, timed
+
+
+#: phase 9i: ScaleTest's fact rows (the largest whose skew join fits the
+#: card: PERF.md section 4), the rows of its check against the CPU run,
+#: its timed runs
+SCALE_ROWS = 500_000
+SCALE_CHECK_ROWS = 50_000
+SCALE_REPS = 3
+#: the kernels of this slice each query's main path must launch
+SCALE_KERNELS = {"collect_set": ("K15s",), "filter_project": ("K13l",),
+                 "string_ops": ("K13",)}
+#: the queries of tens of seconds a run (skew_join: K9 folds 676 groups of
+#: about 590,000 rows on one thread each): no warm-up (every kernel they
+#: run is built by then) and best of 2, to keep the script inside its time
+SCALE_SLOW = ("skew_join",)
+#: the queries phase 9i profiles (one run each): the slowest, and the two
+#: that run this slice's kernels most
+SCALE_PROFILED = ("skew_join", "join_two_dims", "rollup", "agg_multi",
+                  "collect_set", "string_ops")
+
+
+def scale_counts(rows: int, seed: int = 7) -> dict:
+    """Each ScaleTest query's row count from the generated planes, in
+    numpy (the joins from key counts, the group-bys from distinct keys, a
+    null a key of its own)."""
+    from spark_rapids_tpu_torch.testing import datagen as PD
+    from spark_rapids_tpu_torch.testing import scaletest as ST
+    specs = ST.table_specs(rows, seed)
+    t = {name: PD.gen_batch(g, n, s_) for name, (g, n, s_, _p) in
+         specs.items()}
+    fact, dim, dim2 = t["fact"], t["dim"], t["dim2"]
+
+    def planes(hb, name):
+        c = hb.columns[hb.names.index(name)]
+        return c.data, (np.ones(len(c), bool) if c.validity is None
+                        else c.validity)
+    fkey, _ = planes(fact, "key")
+    dkey, _ = planes(dim, "key")
+    key2, key2_ok = planes(fact, "key2")
+    v2, v2_ok = planes(fact, "v2")
+    # the keys hold the generator's specials (the int64 extremes) too
+    keys = np.unique(np.concatenate([fkey, dkey]))
+    cf = np.bincount(np.searchsorted(keys, fkey), minlength=len(keys))
+    cd = np.bincount(np.searchsorted(keys, dkey), minlength=len(keys))
+    inner = int((cf * cd).sum())
+    left = inner + int(cf[cd == 0].sum())
+    full = left + int(cd[cf == 0].sum())
+    matched = cd[np.searchsorted(keys, fkey)] > 0
+
+    def distinct_keys(k, ok):
+        return len(np.unique(k[ok])) + int((~ok).any())
+    groups = distinct_keys(key2, key2_ok)
+    dname = dim.columns[dim.names.index("name")].to_pylist()
+    d2key, _ = planes(dim2, "key2")
+    grp = dim2.columns[dim2.names.index("grp")].to_pylist()
+    joined_key2 = set(key2[key2_ok & matched].tolist())
+    s_vals = fact.columns[fact.names.index("s")].to_pylist()
+    d, d_ok = planes(fact, "d")
+    pos, small = v2_ok & (v2 > 0), v2_ok & (v2 < 500)
+    both = set(key2[pos & key2_ok].tolist()) & \
+        set(key2[small & key2_ok].tolist())
+    null_both = bool((pos & ~key2_ok).any() and (small & ~key2_ok).any())
+    pairs = set(zip(key2.tolist(), key2_ok.tolist(), s_vals))
+    rollup = len({(k if ok else None, s_) for k, ok, s_ in pairs}) + \
+        groups + 1
+    return {
+        "agg_sum": groups, "agg_multi": groups, "join_inner": inner,
+        "join_left": left,
+        "join_two_dims": len({g_ for k, g_ in zip(d2key.tolist(), grp)
+                              if k in joined_key2}),
+        "sort_limit": min(100, rows), "filter_project": int(pos.sum()),
+        "distinct": groups, "window_rank": rows, "union_count": groups,
+        "join_full": full, "join_semi": int(cf[cd > 0].sum()),
+        "join_anti": int(cf[cd == 0].sum()), "window_running_sum": rows,
+        "window_bounded": rows, "window_lag_lead": rows,
+        "rollup": rollup, "count_distinct": groups, "collect_set": groups,
+        "string_ops": len({None if x is None else x[:4] for x in s_vals}),
+        "skew_join": len({nm for k, nm in zip(dkey.tolist(), dname)
+                          if k == 0}),
+        "intersect": len(both) + int(null_both),
+        "range_sort": rows,
+        "date_agg": min(50, distinct_keys(d, d_ok)),
+    }
+
+
+def run_scaletest(session, rate: float, rows: int, check_rows: int,
+                  reps: int):
+    """Phase 9i: ScaleTest's 24 queries through ``testing/scaletest.py``'s
+    own ``run_scale_test`` over ``build_tables(session, rows)`` (seed 7,
+    2 partitions): per query one warm-up, then ``reps`` timed runs (a
+    ``SCALE_SLOW`` query no warm-up and 2), the first of them the main
+    path (every launch counter set to 0 just
+    before it and read just after), its syncs and peak memory; each row
+    count against numpy (``scale_counts``); this slice's kernels launched
+    where ``SCALE_KERNELS`` says, and their main-path calls held against
+    their plain versions and timed.  Then all 24 queries at
+    ``check_rows`` on the card against the port's CPU run (``scaletest.
+    rows_agree``), every kernel call of that run against its plain
+    version.  Returns (per-query report, the new kernels' timings, their
+    main-path launches, the max |d| of every kernel at the check size)."""
+    import torch
+    from spark_rapids_tpu_torch import TorchSession
+    from spark_rapids_tpu_torch.ops import string_ops as SO
+    from spark_rapids_tpu_torch.testing import scaletest as ST
+    t0 = time.perf_counter()
+    tables = ST.build_tables(session, rows)
+    expected = scale_counts(rows)
+    print(f"9i: ScaleTest tables at {rows} fact rows built on the host in "
+          f"{time.perf_counter() - t0:.1f} s")
+    report, launched = {}, {}
+    names = ST.QUERY_NAMES
+    for name in names:
+        q0 = time.perf_counter()
+        slow = name in SCALE_SLOW
+        if not slow:
+            warm = ST.run_scale_test(session, queries=[name], tables=tables)
+            check(warm[0]["status"] == "OK", f"9i {name} warm-up: "
+                  f"{warm[0]['status']}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in COUNTERS:
+            setattr(*counter_of(k), 0)
+        SO.CASE_LAUNCHES = SO.SUBSTRING_LAUNCHES = 0
+        tr0 = session.transfers.stats()
+        main = ST.run_scale_test(session, queries=[name], tables=tables)
+        launches = {k: getattr(*counter_of(k)) for k in COUNTERS
+                    if getattr(*counter_of(k))}
+        launches["K13 case"] = SO.CASE_LAUNCHES
+        launches["K13 substring"] = SO.SUBSTRING_LAUNCHES
+        tr1 = session.transfers.stats()
+        peak = torch.cuda.max_memory_allocated()
+        rest = ST.run_scale_test(session, queries=[name], tables=tables,
+                                 iterations=(2 if slow else reps) - 1)
+        runs = main + rest
+        for r in runs:
+            check(r["status"] == "OK", f"9i {name}: {r['status']}")
+        secs = [r["seconds"] for r in runs]
+        got_rows = main[0]["rows"]
+        check(got_rows == expected[name], f"9i {name}: {got_rows} rows, "
+              f"numpy says {expected[name]}")
+        for k in SCALE_KERNELS.get(name, ()):
+            check(launches.get(k, 0) > 0, f"9i {name}: {k} launched on the "
+                  f"main path ({launches})")
+        if name == "string_ops":
+            check(launches["K13 case"] > 0 and launches["K13 substring"] > 0,
+                  f"9i string_ops: K13's upper and substring launched "
+                  f"({launches})")
+        launched[name] = launches
+        report[name] = {"ms_best": min(secs) * 1e3,
+                        "ms_median": float(np.median(secs)) * 1e3,
+                        "rows": got_rows,
+                        "syncs": tr1["syncs"] - tr0["syncs"],
+                        "peak_gib": peak / 2 ** 30, "launches": {
+                            k: v for k, v in launches.items() if v}}
+        print(f"9i {name}: best {min(secs) * 1e3:.3f} ms, median "
+              f"{float(np.median(secs)) * 1e3:.3f} ms of {len(secs)}, rows "
+              f"{got_rows}, syncs {tr1['syncs'] - tr0['syncs']}, peak "
+              f"{peak / 2 ** 30:.3f} GiB, launches "
+              f"{report[name]['launches']} "
+              f"({time.perf_counter() - q0:.1f} s)")
+    # device time by kernel and idle share of the slowest queries
+    queries = dict(ST._queries())
+    for name in SCALE_PROFILED:
+        report[name]["device_ms"] = profile_query(
+            f"9i {name}", lambda q=queries[name]: q(tables).collect_batch(),
+            sorted(k for k in report[name]["launches"] if k in COUNTERS),
+            reps=1)
+    # this slice's kernels at the main path's shapes
+    new = ("K15s", "K13l", "K13")
+    with Recorder() as rec:
+        for name in SCALE_KERNELS:
+            ST.run_scale_test(session, queries=[name], tables=tables)
+    calls = [c for c in rec.calls if c[0] in new]
+    timed = time_kernels(session, calls, rate, 5, new)
+    for k, o in timed.items():
+        print(f"9i {k} at the main path's shapes: {o['ms']:.4f} ms over "
+              f"{len(o['shapes'])} calls ({'; '.join(o['shapes'])}), plain "
+              f"{o['plain_ms']:.4f} ms, bound {o['bound_ms']:.6f} ms, "
+              f"library {o['library_ms']}, max |d| {o['max_abs_err']}")
+    del tables
+    # rows at check_rows: the card against the port's CPU run
+    t0 = time.perf_counter()
+    cpu = TorchSession(device="cpu")
+    card_t = ST.build_tables(session, check_rows)
+    card_abs = ST.abs_tables(session, check_rows)
+    cpu_t = ST.build_tables(cpu, check_rows)
+    errs = {}
+    with Recorder() as rec:
+        card_rows = {name: q(card_t).collect() for name, q in ST._queries()}
+    for name, q in ST._queries():
+        bounds = q(card_abs).collect() if name in ST.SUMS else None
+        diff = ST.rows_agree(name, card_rows[name], q(cpu_t).collect(),
+                             bounds)
+        check(diff is None, f"9i at {check_rows} rows: {diff}")
+    kinds = sorted({K14O_PARTS.get(c[0], c[0]) for c in rec.calls})
+    checked = time_kernels(session, rec.calls, rate, 0, kinds)
+    for k, o in checked.items():
+        errs[k] = o["max_abs_err"]
+    print(f"9i: all {len(names)} queries at {check_rows} rows on the card "
+          f"equal the CPU run; every kernel call of that run equals its "
+          f"plain version: max |d| {errs} ({time.perf_counter() - t0:.1f} "
+          "s)")
+    return report, timed, launched, errs
+
+
+def run_slice15(session, rate: float, phase):
+    """Phases 2o and 9i, and the kernels line's entries of K15, K13's
+    length, case maps and substring by characters and the substring
+    view."""
+    rng = np.random.default_rng(15)
+    t0 = time.perf_counter()
+    errs15, one = check_slice15(session, rng, rate)
+    print(f"K15 (collect_list, collect_set: 4096 groups and one group; "
+          f"long, int, date, boolean, double, decimal64), K13 (length, upper,"
+          f" lower, substring by characters, through row maps), the "
+          f"substring view in K6 and K5 against K13's written substrings, "
+          f"vs plain: pass, bit for bit ({time.perf_counter() - t0:.1f} s), "
+          f"max |d| {errs15}")
+    for what, (ms_, plain_, bound_, lib_) in one.items():
+        print(f"{what} ({SLICE15_ROWS} rows): {ms_:.4f} ms, plain "
+              f"{plain_:.4f} ms, bound {bound_:.6f} ms, library {lib_}")
+    phase("phase 2o checked")
+    report, timed, launched, errs = run_scaletest(
+        session, rate, SCALE_ROWS, SCALE_CHECK_ROWS, SCALE_REPS)
+    print("9i report: " + json.dumps({"rows": SCALE_ROWS,
+                                      "partitions": 2, "queries": report}))
+    phase("phase 9i (ScaleTest) run, checked and timed")
+    source = "spark_rapids_tpu_torch/csrc/"
+    k13 = "spark_rapids_tpu/expressions/strings.py"
+    collect_also = ["spark_rapids_tpu/ops/agg_ops.py:646",
+                    "spark_rapids_tpu/ops/agg_ops.py:530"]
+
+    def from_2o(what):
+        ms_, plain_, bound_, lib_ = one[what]
+        return {"ms": ms_, "plain_ms": plain_, "bound_ms": bound_,
+                "library_ms": lib_}
+
+    def from_path(k):
+        o = timed[k]
+        return {"ms": o["ms"], "plain_ms": o["plain_ms"],
+                "bound_ms": o["bound_ms"], "library_ms": o["library_ms"]}
+
+    def phase_2o(what):
+        return {f"phase_2o_{k}": v for k, v in from_2o(what).items()}
+    out = [
+        dict(name="collect_set.scaletest", path="ScaleTest collect_set "
+             f"(phase 9i, {SCALE_ROWS} rows)", route="cuda",
+             source=source + "collect.cu",
+             replaces="spark_rapids_tpu/ops/agg_ops.py:550",
+             also_replaces=collect_also,
+             launches=launched["collect_set"].get("K15s", 0),
+             max_abs_err=max(errs15["K15s"], timed["K15s"]["max_abs_err"],
+                             errs.get("K15s", 0.0)),
+             **from_path("K15s"), bound_by="bytes", per="query",
+             **phase_2o("K15 set"), passed=True),
+        dict(name="collect_list", path="phase 2o (no query path)",
+             route="cuda", source=source + "collect.cu",
+             replaces="spark_rapids_tpu/ops/agg_ops.py:550",
+             also_replaces=collect_also, launches=0,
+             max_abs_err=errs15["K15"], **from_2o("K15 list"),
+             bound_by="bytes", per="launch", passed=True),
+        dict(name="string_length.scaletest", path="ScaleTest filter_project"
+             f" (phase 9i, {SCALE_ROWS} rows)", route="cuda",
+             source=source + "strings.cu", replaces=f"{k13}:49",
+             launches=launched["filter_project"].get("K13l", 0),
+             max_abs_err=max(errs15["K13l"], timed["K13l"]["max_abs_err"],
+                             errs.get("K13l", 0.0)),
+             **from_path("K13l"), bound_by="bytes", per="query",
+             **phase_2o("K13 length"), passed=True),
+        dict(name="string_column.scaletest", path="ScaleTest string_ops "
+             f"(phase 9i, {SCALE_ROWS} rows: upper, substring and "
+             "concat)", route="cuda", source=source + "strings.cu",
+             replaces=f"{k13}:179", also_replaces=[f"{k13}:78",
+                                                   f"{k13}:115"],
+             launches=launched["string_ops"].get("K13", 0),
+             max_abs_err=max(errs15["K13 case"], errs15["K13 substring"],
+                             timed["K13"]["max_abs_err"],
+                             errs.get("K13", 0.0)),
+             **from_path("K13"), bound_by="bytes", per="query",
+             passed=True),
+        dict(name="string_case_map", path="ScaleTest string_ops (launches);"
+             " phase 2o (times, upper)", route="cuda",
+             source=source + "strings.cu", replaces=f"{k13}:78",
+             launches=launched["string_ops"].get("K13 case", 0),
+             max_abs_err=errs15["K13 case"], **from_2o("K13 upper"),
+             bound_by="bytes", per="launch",
+             lower_ms=one["K13 lower"][0],
+             lower_plain_ms=one["K13 lower"][1],
+             lower_bound_ms=one["K13 lower"][2], passed=True),
+        dict(name="string_column.substring_chars", path="ScaleTest "
+             "string_ops (launches); phase 2o (times, substring(s, 1, 4))",
+             route="cuda", source=source + "strings.cu",
+             replaces=f"{k13}:179",
+             launches=launched["string_ops"].get("K13 substring", 0),
+             max_abs_err=errs15["K13 substring"],
+             **from_2o("K13 substring"), bound_by="bytes", per="launch",
+             passed=True),
+        dict(name="fused_project.substring_view", path="phase 2o (K6 and "
+             "K5 against K13's written substrings; no ScaleTest query "
+             "compares a substring)", route="triton",
+             source="spark_rapids_tpu_torch/kernels/fused_agg.py",
+             replaces="spark_rapids_tpu/expressions/strings.py:179",
+             launches=0, max_abs_err=max(errs15["K6 view"],
+                                         errs15["K5 view"]),
+             **from_2o("K6 view"), bound_by="bytes", per="launch",
+             passed=True),
+    ]
+    return out
 
 
 def main() -> int:
@@ -5398,6 +5945,9 @@ def main() -> int:
         "phase_2l_ms": ms_, "phase_2l_plain_ms": plain_,
         "phase_2l_bound_ms": bound_, "phase_2l_library_ms": lib_,
         "passed": True})
+    # phases 2o and 9i: ScaleTest (K15, K13's length and case maps,
+    # substring by characters)
+    kernels += run_slice15(session, rate, phase)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

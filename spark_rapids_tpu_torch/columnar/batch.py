@@ -164,6 +164,13 @@ def host_column(values, dt: Optional[T.DataType] = None) -> HostColumn:
         return values
     if isinstance(dt, T.StringType) or (dt is None and _is_text(values)):
         return HostColumn.from_strings(list(values))
+    if isinstance(dt, T.ArrayType) or (
+            not isinstance(values, np.ndarray) or values.dtype == object) \
+            and any(isinstance(v, (list, tuple, np.ndarray))
+                    for v in values):
+        raise NotImplementedError(
+            "an array input column is not in the port yet (an array is an "
+            "output of collect_list and collect_set only)")
     if dt is None and not isinstance(values, np.ndarray) and \
             any(isinstance(v, decimal.Decimal) for v in values):
         dt = T.DecimalType(38, 18)

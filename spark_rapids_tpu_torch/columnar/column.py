@@ -15,6 +15,15 @@ may run past ``offsets[-1]`` (a front slice or a compaction keeps the
 plane it had).  The JAX package's padded ``uint8[bucket, width]`` planes
 are a static-shape workaround and are not used.
 
+An array column (``T.ArrayType``, the output of ``collect_list`` and
+``collect_set``) has a string's layout with elements in place of bytes:
+int64 ``offsets`` of ``row_count + 1`` entries and a 1-D ``data`` plane of
+the element type (a decimal64's unscaled int64); row ``i`` is
+``data[offsets[i]:offsets[i + 1]]``.  Its elements hold no null (the
+collect aggregates skip nulls), so it has a row validity plane only.
+The JAX package's padded ``[groups, max width]`` plane with an element
+validity plane is a static-shape form and is not used.
+
 A decimal column holds its unscaled values (``columnar/column.py:15-16``
 of the JAX package): int64 for decimal64, an int64 ``[rows, 2]`` plane of
 (hi word, lo word bits) for decimal128, on the host and on the card;
@@ -88,6 +97,21 @@ def empty_data(n: int, dt: T.DataType, device) -> torch.Tensor:
                        dtype=dt.torch_dtype, device=device)
 
 
+def _check_array(dt: T.ArrayType, data, offsets) -> None:
+    """An array column's planes: int64 offsets of rows + 1 entries and a
+    1-D plane of elements of ``dt.element``, a fixed-width type."""
+    if offsets is None or offsets.dtype not in (np.int64, torch.int64) \
+            or offsets.ndim != 1 or offsets.shape[0] < 1:
+        raise TypeError("an array column needs int64 offsets of rows + 1 "
+                        "entries")
+    want = dt.element.torch_dtype if isinstance(data, torch.Tensor) else \
+        dt.element.np_dtype
+    if want is None or is_decimal128(dt.element) or data.ndim != 1 or \
+            data.dtype != want:
+        raise TypeError(f"an {dt} column needs a 1-D plane of {want}, got "
+                        f"{data.dtype} {tuple(data.shape)}")
+
+
 class HostColumn:
     """numpy data plane plus an optional bool validity plane (None: no
     nulls).  Values under a null slot are unspecified.  A string column
@@ -105,7 +129,10 @@ class HostColumn:
             raise ValueError(f"a {data_type} column's data must be "
                              f"{'[rows, 2]' if wide else '1-D'}, got "
                              f"{data.shape}")
-        if isinstance(data_type, T.StringType):
+        if isinstance(data_type, T.ArrayType):
+            _check_array(data_type, data, offsets)
+            n = len(offsets) - 1
+        elif isinstance(data_type, T.StringType):
             if offsets is None:
                 raise ValueError("a string column needs offsets")
             offsets = np.asarray(offsets)
@@ -172,6 +199,12 @@ class HostColumn:
         elif isinstance(self.data_type, T.DecimalType):
             values = [decimal_value(u, self.data_type.scale)
                       for u in unscaled_ints(self.data)]
+        elif isinstance(self.data_type, T.ArrayType):
+            elements = HostColumn(self.data, None,
+                                  self.data_type.element).to_pylist()
+            offs = self.offsets.tolist()
+            values = [elements[offs[i]:offs[i + 1]]
+                      for i in range(len(offs) - 1)]
         elif self.offsets is None:
             values = self.data.tolist()
         else:
@@ -196,7 +229,10 @@ class DeviceColumn:
     def __init__(self, data: torch.Tensor, validity: torch.Tensor,
                  data_type: T.DataType, all_valid: bool = False,
                  offsets: Optional[torch.Tensor] = None):
-        if isinstance(data_type, T.StringType):
+        if isinstance(data_type, T.ArrayType):
+            _check_array(data_type, data, offsets)
+            n = offsets.shape[0] - 1
+        elif isinstance(data_type, T.StringType):
             if offsets is None or offsets.dtype not in (torch.int32,
                                                         torch.int64) \
                     or offsets.dim() != 1 or offsets.shape[0] < 1:
@@ -239,7 +275,11 @@ class DeviceColumn:
 
     @property
     def is_string(self) -> bool:
-        return self.offsets is not None
+        return self.offsets is not None and not self.is_array
+
+    @property
+    def is_array(self) -> bool:
+        return isinstance(self.data_type, T.ArrayType)
 
     def front(self, k: int) -> "DeviceColumn":
         """The first ``k`` rows: views, no launch (a string keeps its chars

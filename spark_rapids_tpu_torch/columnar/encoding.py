@@ -153,6 +153,10 @@ def host_column_from_arrow(arr, dt: Optional[T.DataType] = None
     import pyarrow.compute as pc
     arr = host_decoded(arr)
     dt = dt or T.from_arrow(arr.type)
+    if isinstance(dt, T.ArrayType):
+        raise NotImplementedError(
+            f"an {dt} input column is not in the port yet (an array is an "
+            "output of collect_list and collect_set only)")
     n = len(arr)
     validity = None
     if arr.null_count:

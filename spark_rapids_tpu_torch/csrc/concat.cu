@@ -19,7 +19,9 @@
 //     are copied after the chars before it.  The chars plane is sized by
 //     the host as the sum of the inputs' chars planes, an upper bound the
 //     copied chars may stop short of (a plane that runs past its last
-//     offset, as columnar/column.py allows).
+//     offset, as columnar/column.py allows).  An array column (a
+//     collect's output: int64 offsets and an element plane) is joined
+//     the same way, its elements of 1, 4 or 8 bytes in place of chars.
 //
 // A null validity pointer is an input with no null.
 //
@@ -36,7 +38,8 @@ constexpr int kMaxInputs = 32;
 
 struct Inputs {
   int32_t n;          // inputs
-  int32_t width;      // bytes of a fixed-width value; 0: a string column
+  int32_t width;      // bytes of a fixed-width value; 0: a variable one
+  int32_t elem;       // bytes of a variable column's element (1: chars)
   const void* data[kMaxInputs];      // values, or a string's chars
   const uint8_t* valid[kMaxInputs];  // validity bytes (null: all valid)
   const void* offsets[kMaxInputs];   // a string's offsets
@@ -60,9 +63,21 @@ __device__ __forceinline__ void copy_values(const Inputs& in, int j,
   for (int64_t i = tid; i < in.rows[j]; i += stride) out[i] = src[i];
 }
 
+// a variable column's elements [first, first + len) of one input, after
+// the base elements of the inputs before it
+template <class W>
+__device__ __forceinline__ void copy_elements(const void* src, int64_t first,
+                                              int64_t base, int64_t len,
+                                              int64_t tid, int64_t stride,
+                                              void* dst) {
+  const W* in = static_cast<const W*>(src) + first;
+  W* out = static_cast<W*>(dst) + base;
+  for (int64_t b = tid; b < len; b += stride) out[b] = in[b];
+}
+
 __global__ void __launch_bounds__(kThreads)
     concat_column(Inputs in, void* dst, uint8_t* dst_valid,
-                  int64_t* dst_offsets, uint8_t* dst_chars) {
+                  int64_t* dst_offsets, void* dst_chars) {
   const int j = blockIdx.y;
   const int64_t n = in.rows[j];
   const int64_t start = in.row_start[j];
@@ -97,17 +112,29 @@ __global__ void __launch_bounds__(kThreads)
   // the end of this input's rows: the next input's first offset, or the
   // total after the last (inputs of no row write the same value)
   if (tid == 0) dst_offsets[start + n] = base + len;
-  const uint8_t* chars = static_cast<const uint8_t*>(in.data[j]) + first;
-  for (int64_t b = tid; b < len; b += stride) dst_chars[base + b] = chars[b];
+  switch (in.elem) {
+    case 4:
+      copy_elements<uint32_t>(in.data[j], first, base, len, tid, stride,
+                              dst_chars);
+      return;
+    case 8:
+      copy_elements<unsigned long long>(in.data[j], first, base, len, tid,
+                                        stride, dst_chars);
+      return;
+    default:
+      copy_elements<uint8_t>(in.data[j], first, base, len, tid, stride,
+                             dst_chars);
+  }
 }
 
 }  // namespace
 
 // One column of n_inputs batches into one.  width: bytes of a value (1,
-// 2, 4 or 8), or 0 for a string column, whose inputs give offsets (int64
+// 2, 4, 8 or 16), or 0 (or -1) for a string column, or -e for an array
+// column of e-byte elements (1, 4 or 8), whose inputs give offsets (int64
 // where off64[j], else int32) and whose output gives int64 dst_offsets
-// (total rows + 1) and dst_chars.  data[j], valid[j] (null: no null),
-// rows[j]: input j.  max_items: the most rows, or chars, of any input
+// (total rows + 1) and dst_chars (the chars, or the elements).  data[j],
+// valid[j] (null: no null), rows[j]: input j.  max_items: the most rows, or chars, of any input
 // (the grid's width).
 extern "C" int srt_concat_column(int32_t n_inputs, int32_t width,
                                  const void* const* data,
@@ -119,18 +146,19 @@ extern "C" int srt_concat_column(int32_t n_inputs, int32_t width,
                                  void* dst_chars, void* stream) {
   if (n_inputs < 1 || n_inputs > kMaxInputs ||
       (width != 0 && width != 1 && width != 2 && width != 4 && width != 8 &&
-       width != 16))
+       width != 16 && width != -1 && width != -4 && width != -8))
     return static_cast<int>(cudaErrorInvalidValue);
   Inputs in;
   in.n = n_inputs;
-  in.width = width;
+  in.width = width > 0 ? width : 0;
+  in.elem = width > 0 ? 0 : (width == 0 ? 1 : -width);
   int64_t start = 0;
   for (int j = 0; j < n_inputs; ++j) {
     if (rows[j] < 0) return static_cast<int>(cudaErrorInvalidValue);
     in.data[j] = data[j];
     in.valid[j] = static_cast<const uint8_t*>(valid[j]);
-    in.offsets[j] = width == 0 ? offsets[j] : nullptr;
-    in.off64[j] = width == 0 ? off64[j] : 0;
+    in.offsets[j] = in.width == 0 ? offsets[j] : nullptr;
+    in.off64[j] = in.width == 0 ? off64[j] : 0;
     in.rows[j] = rows[j];
     in.row_start[j] = start;
     start += rows[j];
@@ -139,6 +167,6 @@ extern "C" int srt_concat_column(int32_t n_inputs, int32_t width,
   const dim3 grid(srt::grid_for(max_items), n_inputs);
   concat_column<<<grid, kThreads, 0, s>>>(
       in, dst, static_cast<uint8_t*>(dst_valid),
-      static_cast<int64_t*>(dst_offsets), static_cast<uint8_t*>(dst_chars));
+      static_cast<int64_t*>(dst_offsets), dst_chars);
   return static_cast<int>(cudaGetLastError());
 }

@@ -63,6 +63,11 @@ FORCE_REPARTITION_BELOW_DEPTH = 0
 REPARTITION_EVENTS = 0
 #: the update kind of a count(DISTINCT)'s buffer, and its keyed_inputs kind
 DISTINCT = "distinct"
+#: the update kinds of collect_list's and collect_set's buffers (K15's),
+#: and their keyed_inputs kinds
+LIST, SET = "list", "set"
+#: the kinds that run in COMPLETE mode over the raw rows, beside K9
+COMPLETE_KINDS = (DISTINCT, LIST, SET)
 
 
 class _AggLayout:
@@ -79,9 +84,12 @@ class _AggLayout:
                 self.flat.append((ai, spec))
 
     @property
-    def has_distinct(self) -> bool:
-        """A ``count(DISTINCT)`` is among the aggregates (K15d's)."""
-        return any(spec.update_kind == DISTINCT for _ai, spec in self.flat)
+    def requires_complete(self) -> bool:
+        """A ``count(DISTINCT)`` (K15d's), ``collect_list`` or
+        ``collect_set`` (K15's) is among the aggregates: COMPLETE mode
+        over the raw rows."""
+        return any(spec.update_kind in COMPLETE_KINDS
+                   for _ai, spec in self.flat)
 
     def key_name(self, i: int) -> str:
         return output_name(self.grouping[i])
@@ -221,6 +229,25 @@ def distinct_input(f) -> int:
     return e.ordinal
 
 
+def collect_input(f) -> int:
+    """The input ordinal of ``collect_list(x)`` or ``collect_set(x)``:
+    ``x`` must be a column of a type K15 takes; raises
+    NotImplementedError, naming it, else."""
+    from spark_rapids_tpu_torch.ops import agg_ops as G
+    e = f.children[0]
+    if not G.collects(e.data_type):
+        raise NotImplementedError(
+            f"{f.sql()}: a collect of {e.data_type} is not in the port (of "
+            "int, date, long, double, boolean and decimal64 is; the JAX "
+            "package runs strings, binary, decimal128 and nested values on "
+            "its host tier)")
+    if not isinstance(e, BoundReference):
+        raise NotImplementedError(
+            f"{f.sql()}: a collect of an expression is not in the port yet "
+            "(of a column is)")
+    return e.ordinal
+
+
 def _column_of(e) -> int:
     """The column ordinal K9 reads for input ``e``: a column, or a
     widening cast of one (K9 widens int to long and converts to double
@@ -246,7 +273,8 @@ def keyed_inputs(layout: _AggLayout, partial: bool = False):
     double sum (its mean's).  Raises NotImplementedError, naming it, for
     what K9 and K15d cannot fold yet."""
     from spark_rapids_tpu_torch.expressions.aggregates import (
-        Average, Count, CountDistinct, First, Min, Sum, _CentralMoment)
+        Average, CollectList, Count, CountDistinct, First, Min, Sum,
+        _CentralMoment)
     from spark_rapids_tpu_torch.expressions.base import Literal
     from spark_rapids_tpu_torch.ops import agg_ops as G
     for k in layout.grouping:
@@ -270,6 +298,11 @@ def keyed_inputs(layout: _AggLayout, partial: bool = False):
             if partial:
                 raise ValueError(f"{f.sql()} runs in COMPLETE mode only")
             per_agg.append((slot(distinct_input(f), DISTINCT, T.LONG),))
+            continue
+        if isinstance(f, CollectList):
+            if partial:
+                raise ValueError(f"{f.sql()} runs in COMPLETE mode only")
+            per_agg.append((slot(collect_input(f), f.kind, f.data_type),))
             continue
         if isinstance(f, Count) and isinstance(e, Literal) and \
                 e.value is not None:
@@ -312,7 +345,8 @@ def keyed_inputs(layout: _AggLayout, partial: bool = False):
                 slot(o, G.KEYED_SUM_I64, T.LONG)
             per_agg.append((total, slot(o, G.KEYED_COUNT, T.LONG))
                            if partial else (total,))
-    if sum(kind != DISTINCT for _o, kind, _dt in slots) > G.MAX_AGGS:
+    if sum(kind not in COMPLETE_KINDS for _o, kind, _dt in slots) > \
+            G.MAX_AGGS:
         raise NotImplementedError(
             f"a group-by of more than {G.MAX_AGGS} distinct K9 slots is "
             "not in the port yet")
@@ -377,8 +411,9 @@ class TorchKeyedAggregateExec(UnaryExec):
     - COMPLETE: the results (an average's ``If(cnt > 0, sum / cnt,
       NULL)``, ``stddev_samp``'s ``If(n > 1, sqrt(m2 / (n - 1)), NULL)``).
       A ``count(DISTINCT)`` is K15d's over K9's groups (its row group
-      ids), as ``_complete_collect`` (``exec/aggregate.py:510``) zips its
-      collect slots with the scalar ones.
+      ids), and a ``collect_list`` or ``collect_set`` K15's, as
+      ``_complete_collect`` (``exec/aggregate.py:510``) zips its collect
+      slots with the scalar ones by group.
     - PARTIAL: the buffer layout, unfinished (``_AggLayout.buffer_schema``
       ``:58``): a sum's sum and count, a count, an average's double sum
       and count, the variance family's (count, mean, m2) with the count a
@@ -495,7 +530,8 @@ class TorchKeyedAggregateExec(UnaryExec):
         from spark_rapids_tpu_torch.columnar.column import DeviceColumn
         from spark_rapids_tpu_torch.exec.fused import (LiteralArgs,
                                                        project_batch)
-        from spark_rapids_tpu_torch.ops.agg_ops import (count_distinct,
+        from spark_rapids_tpu_torch.ops.agg_ops import (collect,
+                                                        count_distinct,
                                                         keyed_aggregate)
         from spark_rapids_tpu_torch.ops.batch_ops import gather_columns
         nk = self.layout.num_keys
@@ -521,7 +557,8 @@ class TorchKeyedAggregateExec(UnaryExec):
                     self.keys, batch, LiteralArgs([]),
                     [f"_key{j}" for j in range(nk)], transfers).columns
             scalar = [(o, kind) for o, kind, _dt in self.inputs
-                      if kind != DISTINCT]
+                      if kind not in COMPLETE_KINDS]
+            # K15d and K15 read each row's group
             distinct = len(scalar) < len(self.inputs)
             got = keyed_aggregate(
                 keys, [None if o is None else batch.columns[o]
@@ -532,10 +569,14 @@ class TorchKeyedAggregateExec(UnaryExec):
             n_groups = group_rep.shape[0]
             cols = gather_columns(keys, group_rep, transfers, unique=True)
             for o, kind, dt in self.inputs:
-                if kind != DISTINCT:
+                if kind not in COMPLETE_KINDS:
                     cols.append(_slot_column(
                         None if o is None else batch.columns[o], kind,
                         *next(results), dt, transfers))
+                    continue
+                if kind != DISTINCT:
+                    cols.append(collect(batch.columns[o], got[2], n_groups,
+                                        kind == SET, transfers))
                     continue
                 counts = count_distinct(batch.columns[o], got[2],
                                         n_groups) \

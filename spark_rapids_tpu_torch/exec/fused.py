@@ -399,7 +399,8 @@ class TorchFusedAggExec(UnaryExec):
     evaluates the final projection.
 
     A ``count(DISTINCT)`` (COMPLETE over one batch, no chain: the planner
-    runs the chain as a stage below) is K15d's over one group, beside
+    runs the chain as a stage below) is K15d's over one group, and a
+    ``collect_list`` or ``collect_set`` K15's (``[]`` over no row), beside
     kernel 1 for the other aggregates, as the JAX package's
     ``_complete_collect`` (``exec/aggregate.py:510``) runs its collect
     slots beside the scalar ones."""
@@ -407,21 +408,26 @@ class TorchFusedAggExec(UnaryExec):
     def __init__(self, ops, layout, mode: str, child, promoted=()):
         from spark_rapids_tpu_torch.exec.aggregate import (COMPLETE,
                                                            _AggLayout,
+                                                           collect_input,
                                                            distinct_input)
-        from spark_rapids_tpu_torch.expressions.aggregates import \
-            CountDistinct
+        from spark_rapids_tpu_torch.expressions.aggregates import (
+            CollectList, CountDistinct)
         super().__init__(child)
         self.ops = list(ops)
         self.layout = layout
         self.mode = mode
         self.promoted = list(promoted)
-        #: agg index -> the input ordinal of each count(DISTINCT)
+        #: agg index -> the input ordinal of each count(DISTINCT), and of
+        #: each collect_list or collect_set
         self.distinct = {i: distinct_input(a.func)
                          for i, a in enumerate(layout.aggs)
                          if isinstance(a.func, CountDistinct)}
+        self.distinct.update({i: collect_input(a.func)
+                              for i, a in enumerate(layout.aggs)
+                              if isinstance(a.func, CollectList)})
         if self.distinct and (mode != COMPLETE or self.ops):
-            raise ValueError("a count(DISTINCT) runs in COMPLETE mode over "
-                             "a chain's output")
+            raise ValueError("a count(DISTINCT) or a collect runs in "
+                             "COMPLETE mode over a chain's output")
         #: the aggregates kernel 1 updates
         self.scalar = _AggLayout([], [a for i, a in enumerate(layout.aggs)
                                       if i not in self.distinct])
@@ -457,11 +463,13 @@ class TorchFusedAggExec(UnaryExec):
 
     def distinct_row(self, part: List[ColumnarBatch], ctx: ExecContext
                      ) -> ColumnarBatch:
-        """The result row of an aggregation with a ``count(DISTINCT)``:
-        kernel 1 and 2 for the other aggregates, K15d for each distinct
-        count."""
-        from spark_rapids_tpu_torch.exec.aggregate import finish, \
-            merge_partials
+        """The result row of an aggregation with a ``count(DISTINCT)`` or a
+        collect: kernel 1 and 2 for the other aggregates, K15d for each
+        distinct count, K15 for each collect."""
+        from spark_rapids_tpu_torch.exec.aggregate import (SET, finish,
+                                                           merge_partials)
+        from spark_rapids_tpu_torch.expressions.aggregates import \
+            CollectList
         if len(part) != 1:
             raise NotImplementedError(
                 f"count(DISTINCT) over {len(part)} batches is not in the "
@@ -479,7 +487,13 @@ class TorchFusedAggExec(UnaryExec):
             if i not in self.distinct:
                 cols.append(next(scalar))
                 continue
-            counts = agg_ops.count_distinct(batch.columns[self.distinct[i]])
+            f = self.layout.aggs[i].func
+            values = batch.columns[self.distinct[i]]
+            if isinstance(f, CollectList):
+                cols.append(agg_ops.collect(values, None, 1,
+                                            f.kind == SET, ctx.transfers))
+                continue
+            counts = agg_ops.count_distinct(values)
             cols.append(DeviceColumn(counts, torch.ones_like(
                 counts, dtype=torch.bool), T.LONG))
         return ColumnarBatch(cols, 1, self.layout.result_schema.names)

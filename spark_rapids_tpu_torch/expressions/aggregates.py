@@ -323,6 +323,48 @@ class CountDistinct(AggregateFunction):
         return refs[0]
 
 
+class CollectList(AggregateFunction):
+    """collect_list(x): the group's present values in row order, an array
+    of x's type with no null element (``[]`` for an empty or all-null
+    group, never null), as the JAX package's ``CollectList``
+    (``:307``) plans it: COMPLETE mode over the raw rows (K15)."""
+
+    requires_complete = True
+    #: the update kind of its buffer (exec/aggregate.py)
+    kind = "list"
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def data_type(self):
+        return T.ArrayType(self.children[0].data_type, contains_null=False)
+
+    @property
+    def nullable(self):
+        return False
+
+    def sql(self):
+        return f"{self.kind_name}({self.children[0].sql()})"
+
+    kind_name = "collect_list"
+
+    def buffers(self):
+        return [BufferSpec(self.kind, self.data_type, self.kind, self.kind)]
+
+    def evaluate(self, refs):
+        return refs[0]
+
+
+class CollectSet(CollectList):
+    """collect_set(x): the group's distinct present values (-0.0 equals
+    0.0, every NaN is one value), each once, in first-seen order (JAX
+    ``:324``; Spark leaves the order unspecified)."""
+
+    kind = "set"
+    kind_name = "collect_set"
+
+
 class _CentralMoment(AggregateFunction):
     """The variance family over the JAX package's buffers (``:228``):
     count, mean and m2 (the sum of squared deviations from the group's

@@ -1,20 +1,26 @@
 """String functions (the analog of ``spark_rapids_tpu/expressions/
-strings.py``): ``Substring`` (``:157``), ``Concat`` (``:105``) and, with a
+strings.py``): ``Substring`` (``:157``), ``Concat`` (``:105``),
+``Length`` (``:42``), ``Upper`` and ``Lower`` (``:68-102``) and, with a
 plain form only, ``Like`` (``:313``).
 
-``Substring`` works on bytes, as the JAX package's device form does: a
-1-based ``pos`` (0 acts as 1, a negative one counts from the end) and an
-optional ``len``.  ``pos`` and ``len`` are integer literals.  ``Concat``
-is NULL if any input is NULL; its inputs are string columns and string
-literals.
+``Substring`` works on characters, as Spark and the JAX CPU engine do (a
+character is a byte that is not a continuation byte with the
+continuation bytes after it; the JAX device form cuts bytes, ROADMAP
+queue 3): a 1-based ``pos`` (0 acts as 1, a negative one counts from the
+end, clamped first) and an optional ``len``.  ``pos`` and ``len`` are
+integer literals.  ``Concat`` is NULL if any input is NULL; its inputs
+are string columns and string literals.  ``Length`` counts characters
+(an INT).  ``Upper`` and ``Lower`` map by Python's ``str.upper`` and
+``str.lower``, the JAX CPU engine's rule (the JAX device form maps ASCII
+only).
 
-Their plain ``eval`` builds the result's offsets and chars
-(``ops/string_ops.py``, K13's plain form).  On the kernel path a
-``Substring`` that ``=`` or ``IN`` compares stays a byte view ``(start,
-length)`` into the value's own chars (``kernels/fused_agg.py``), so no
-string is written; every other consumer gets a string column that K13
-writes (``k13_form``: a substring of a string column, a concat of string
-columns and literals, a string literal)."""
+Their plain ``eval`` builds the result's planes (``ops/string_ops.py``,
+K13's plain form).  On the kernel path a ``Substring`` that ``=`` or
+``IN`` compares stays a view ``(start, length)`` into the value's own
+chars (``kernels/fused_agg.py``), so no string is written; every other
+consumer gets a column that K13 writes (``k13_form``: a substring, an
+upper or lower case, or the length of a string column, a concat of
+string columns and literals, a string literal)."""
 
 from __future__ import annotations
 
@@ -85,6 +91,65 @@ class Substring(Expression):
                            pos=self.pos, length=self.length)
 
 
+class _StringMap(Expression):
+    """A function of one string (``Length``, ``Upper``, ``Lower``)."""
+
+    #: its ``ops/string_ops.py`` op
+    op = None
+    name = ""
+
+    def __init__(self, child: Expression):
+        super().__init__([child])
+
+    @property
+    def data_type(self):
+        return T.STRING
+
+    def sql(self):
+        return f"{self.name}({self.children[0].sql()})"
+
+    def _child(self, ctx: EvalContext) -> Col:
+        c = self.children[0]
+        if not isinstance(c.data_type, T.StringType):
+            raise NotImplementedError(
+                f"{self.sql()}: {self.name} of {c.data_type} is not in the "
+                "port (of a string is)")
+        return c.eval(ctx)
+
+    def eval(self, ctx: EvalContext) -> Col:
+        v = self._child(ctx)
+        chars, offsets, valid = SO.compute_plain(
+            self.op, [(v.data, v.offsets, v.valid)], ctx.row_count,
+            ctx.device, int)
+        return Col(chars, valid, offsets)
+
+
+class Length(_StringMap):
+    """``length(s)``: its characters, an INT (null for a null)."""
+
+    op = SO.LENGTH
+    name = "length"
+
+    @property
+    def data_type(self):
+        return T.INT
+
+    def eval(self, ctx: EvalContext) -> Col:
+        v = self._child(ctx)
+        count, valid = SO.length_plain(v.data, v.offsets, v.valid)
+        return Col(count, valid)
+
+
+class Upper(_StringMap):
+    op = SO.UPPER
+    name = "upper"
+
+
+class Lower(_StringMap):
+    op = SO.LOWER
+    name = "lower"
+
+
 class Concat(Expression):
     """``concat(...)``: NULL if any input is NULL (Spark's rule)."""
 
@@ -110,10 +175,10 @@ class Concat(Expression):
 
 
 class StringForm:
-    """What K13 writes for one computed string output: ``op``
-    (``SUBSTRING`` or ``CONCAT``), its parts (an input column's ordinal,
-    or a literal's bytes or None) and a substring's ``pos`` and
-    ``length``."""
+    """What K13 writes for one computed output: ``op`` (``SUBSTRING``,
+    ``CONCAT``, ``UPPER``, ``LOWER``, or ``LENGTH``, K13's length pass),
+    its parts (an input column's ordinal, or a literal's bytes or None)
+    and a substring's ``pos`` and ``length``."""
 
     def __init__(self, op: int, parts: List, pos: int = 1,
                  length: Optional[int] = None):
@@ -128,6 +193,8 @@ class StringForm:
         rows (``rows``: the input row of each)."""
         parts = [columns[p] if isinstance(p, int) else p
                  for p in self.parts]
+        if self.op == SO.LENGTH:
+            return SO.string_length(parts[0], n, rows)
         return SO.string_column(self.op, parts, n, device, transfers,
                                 self.pos, self.length, rows)
 
@@ -155,11 +222,15 @@ def _string_part(e: Expression):
 
 
 def k13_form(e: Expression) -> Optional[StringForm]:
-    """The K13 form of a computed string output over input columns: a
-    substring of a string column, a concat of string columns and
-    literals (at most ``ops/string_ops.py MAX_PARTS``), or a string
-    literal (a concat of one literal); None for any other expression."""
+    """The K13 form of a computed output over input columns: a substring,
+    an upper or lower case or the length of a string column, a concat of
+    string columns and literals (at most ``ops/string_ops.py
+    MAX_PARTS``), or a string literal (a concat of one literal); None for
+    any other expression."""
     e = _unalias(e)
+    if isinstance(e, _StringMap):
+        part = _string_part(e.children[0])
+        return StringForm(e.op, [part]) if isinstance(part, int) else None
     if isinstance(e, Substring):
         part = _string_part(e.children[0])
         return StringForm(SO.SUBSTRING, [part], e.pos, e.length) \

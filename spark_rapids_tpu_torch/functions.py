@@ -8,7 +8,8 @@ from spark_rapids_tpu_torch.expressions.base import Expression, col, lit
 
 __all__ = ["col", "lit", "sum", "count", "count_distinct", "avg", "min",
            "max", "first", "last", "stddev", "stddev_samp", "stddev_pop", "var_samp",
-           "var_pop", "asc", "desc", "substring", "concat", "when",
+           "var_pop", "asc", "desc", "substring", "concat", "length",
+           "upper", "lower", "collect_list", "collect_set", "when",
            "grouping",
            "row_number", "rank", "dense_rank", "ntile", "lag", "lead",
            "Window", "WindowBuilder"]
@@ -121,6 +122,35 @@ def concat(*cols):
     (``expressions/strings.py Concat``)."""
     from spark_rapids_tpu_torch.expressions.strings import Concat
     return Concat(*[_expr(c) for c in cols])
+
+
+def length(e):
+    """Characters of a string (JAX ``functions.py:416``)."""
+    from spark_rapids_tpu_torch.expressions.strings import Length
+    return Length(_expr(e))
+
+
+def upper(e):
+    from spark_rapids_tpu_torch.expressions.strings import Upper
+    return Upper(_expr(e))
+
+
+def lower(e):
+    from spark_rapids_tpu_torch.expressions.strings import Lower
+    return Lower(_expr(e))
+
+
+def collect_list(e):
+    """The present values of each group, in row order (K15)."""
+    from spark_rapids_tpu_torch.expressions.aggregates import CollectList
+    return CollectList(_expr(e))
+
+
+def collect_set(e):
+    """The distinct present values of each group, in first-seen order
+    (K15)."""
+    from spark_rapids_tpu_torch.expressions.aggregates import CollectSet
+    return CollectSet(_expr(e))
 
 
 def when(condition, value):

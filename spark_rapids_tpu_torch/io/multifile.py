@@ -147,6 +147,15 @@ def host_arrow(col):
     from spark_rapids_tpu_torch.columnar.encoding import HostDictionaryColumn
     if isinstance(col, HostDictionaryColumn):
         return col.arrow.dictionary_decode()
+    if isinstance(col.data_type, T.ArrayType):
+        # a large_list over the elements' plain array
+        bitmap = None if col.validity is None else \
+            pa.array(col.validity).buffers()[1]
+        values = host_arrow(type(col)(col.data, None, col.data_type.element))
+        return pa.LargeListArray.from_buffers(
+            T.to_arrow(col.data_type), len(col),
+            [bitmap, pa.py_buffer(np.ascontiguousarray(col.offsets))],
+            children=[values])
     if col.offsets is not None:
         typ = pa.string() if col.offsets.dtype == np.int32 \
             else pa.large_string()

@@ -654,28 +654,58 @@ def _in(em, e, cols):
 
 @emits(ST.Substring)
 def _substring(em, e, cols):
-    """A byte view into the value's chars (``Substring.bounds``, with the
-    literal ``pos`` and ``len`` folded into the source)."""
+    """A view into the value's chars by characters (``Substring``, with
+    the literal ``pos`` and ``len`` folded into the source): a byte loop
+    finds the first bytes of the start character and of the character
+    after the last, counting the non-continuation bytes, as
+    ``csrc/strings.cu`` does, and ends once every row of the tile has
+    passed that character or its value's end.  A negative ``pos`` counts
+    the value's characters in a first loop over the tile's longest
+    value."""
     v, valid = em.emit(e.children[0], cols)
     chars, start, length = em.string_view(v, e.children[0].sql())
     pos = e.pos
-    if pos > 0:
-        skip = em.let(f"tl.where({length} < {pos - 1}, {length}, "
-                      f"{pos - 1})")
-    elif pos < 0:
-        skip = em.let(f"tl.where({length} + {pos} > 0, {length} + {pos}, "
-                      "0)")
+    slen = max(ST.NO_LENGTH if e.length is None else e.length, 0)
+    em._n += 1
+    k = em._n
+    top, j, byte = f"stop{k}", f"sj{k}", f"sb{k}"
+    nch, c0, c1 = f"snch{k}", f"sc0_{k}", f"sc1_{k}"
+    b0, b1, cnt, more = f"sb0_{k}", f"sb1_{k}", f"scnt{k}", f"smore{k}"
+    load = (f"    {byte} = tl.load({chars} + {start} + {j}, mask=inb & "
+            f"({j} < {length}), other=0).to(tl.int32)")
+    lead = f"(({j} < {length}) & (({byte} & 0xC0) != 0x80))"
+    lines = [f"{top} = tl.max(tl.where(inb, {length}, 0), axis=0)"
+             ".to(tl.int32)"]
+    if pos < 0:
+        # the start counts from the end: the characters first
+        lines += [f"{nch} = tl.zeros([BLOCK], tl.int64)",
+                  f"for {j} in range(0, {top}):", load,
+                  f"    {nch} += {lead}.to(tl.int64)",
+                  f"{c0} = tl.maximum({nch} + {pos}, 0)",
+                  f"{c1} = {c0} + tl.minimum({nch} - {c0}, {slen})"]
     else:
-        skip = None
-    rest = length if skip is None else em.let(f"{length} - {skip}")
-    slen = ST.NO_LENGTH if e.length is None else e.length
-    if slen <= 0:
-        out_len = em.let(f"{length} * 0")
-    elif e.length is None:
-        out_len = rest
-    else:
-        out_len = em.let(f"tl.where({rest} < {slen}, {rest}, {slen})")
-    begin = start if skip is None else em.let(f"{start} + {skip}")
+        # past the last character neither is found: both stay the end
+        first = max(pos - 1, 0)
+        lines += [f"{c0} = tl.full([BLOCK], {first}, tl.int64)",
+                  f"{c1} = tl.full([BLOCK], {first + slen}, tl.int64)"]
+    # c0 <= c1 and the count only grows: past c1 nothing more is found
+    lines += [f"{b0} = {length} + 0", f"{b1} = {length} + 0",
+              f"{cnt} = tl.zeros([BLOCK], tl.int64)",
+              f"{j} = {top} * 0", f"{more} = {top} > 0",
+              f"while {more}:",
+              # a row past c1 reads no more bytes
+              load.replace("mask=inb & ", f"mask=inb & ({cnt} <= {c1}) & "),
+              f"    {b0} = tl.where({lead} & ({cnt} == {c0}), {j}, {b0})"
+              ".to(tl.int64)",
+              f"    {b1} = tl.where({lead} & ({cnt} == {c1}), {j}, {b1})"
+              ".to(tl.int64)",
+              f"    {cnt} += {lead}.to(tl.int64)",
+              f"    {j} += 1",
+              f"    {more} = tl.max(tl.where(inb & ({j} < {length}) & "
+              f"({cnt} <= {c1}), 1, 0), axis=0) > 0"]
+    em.lines += lines
+    begin = em.let(f"{start} + {b0}")
+    out_len = em.let(f"{b1} - {b0}")
     # the view's name is a key of em.strings, never code of the kernel
     name = f"view[{begin},{out_len}]"
     em.strings[name] = (chars, begin, out_len)

@@ -32,7 +32,8 @@ A string column is read through its chars and offsets (``in{i}``,
 compare two such views (two columns' chars buffers: the lengths first,
 then a byte loop bounded by the tile's longest equal length).  A computed
 string output is K13's (``ops/string_ops.py``: a substring, a concat, a
-string literal), written after these kernels, or, for K6's string ``CASE
+string literal, an upper or lower case; and a string's length), written
+after these kernels, or, for K6's string ``CASE
 WHEN`` over one column and nulls, a view of that column, whose validity
 plane alone K6 writes; any other is refused, by its expression.
 
@@ -168,8 +169,8 @@ def string_view_ordinal(e: Expression) -> int:
     if not isinstance(e, CaseWhen):
         raise NotImplementedError(
             f"a computed {e.data_type} output ({e.sql()}) has no kernel "
-            "form yet (K13 writes a substring of a string column and a "
-            "concat of string columns and literals)")
+            "form yet (K13 writes a substring, an upper or lower case of "
+            "a string column and a concat of string columns and literals)")
     return e.view_column().ordinal
 
 

@@ -5,7 +5,8 @@ the global reduction of aggregation buffers, kernel 2 (K3 in ROADMAP;
 (``keyed_agg_trace`` ``:390``, ``_segment_reduce`` ``:52``,
 ``_masked_group_words`` ``:38``), below ``keyed_aggregate``, and the
 distinct count, K15d (``collect_phase1/2`` ``:550``, ``:646`` with the
-distinct flag), below ``count_distinct``.
+distinct flag), below ``count_distinct``, and collect_list and
+collect_set, K15 (the same programs), below ``collect``.
 
 ``global_reduce`` is the kernel's wrapper.  Its input is a table of 8-byte
 words ``[n_rows, n_cols]`` (int64 as is, double as its bits) with a
@@ -944,3 +945,191 @@ def count_distinct_plain(values: DeviceColumn,
     _pair, first = group_rows_plain([group_col, values], None)
     first = first[values.validity[first]]
     return counts.index_add_(0, g[first], torch.ones_like(first))
+
+
+# -- K15: collect_list and collect_set -------------------------------------
+#
+# ``collect`` is K15's wrapper (``csrc/collect.cu``): the present values of
+# each group into an array column of ``n_groups`` rows, every row valid
+# (an empty group gives ``[]``).  List mode keeps every present row in row
+# order; set mode each distinct (group, value) once, at its least row, in
+# first-seen order.  On CUDA columns it launches the count (hash set in
+# set mode, per-group counts, their scan), reads the total through the
+# gateway (one counted sync) and launches the write (a stable radix sort
+# by group, the gather).  ``collect_plain`` gives the same planes with
+# stable ``torch.sort``s.
+
+#: launches of K15 in list and in set mode (wrapper calls that launch it)
+COLLECT_LAUNCHES = 0
+COLLECT_SET_LAUNCHES = 0
+#: the element types K15 collects (a string, binary, decimal128 or nested
+#: element goes to the JAX package's host tier, and is refused here)
+COLLECT_TYPES = (T.INT, T.DATE, T.LONG, T.DOUBLE, T.BOOLEAN)
+_COLLECT_SIGNATURES = {
+    "srt_collect_count": "iippp" + "qqi" + "ppqpppp" + "p",
+    "srt_collect_write": "ippp" + "qqq" + "pppppp" + "p",
+}
+
+
+def collects(dt: T.DataType) -> bool:
+    """K15 takes elements of ``dt``: int, date, long, double, boolean or
+    decimal64."""
+    return dt in COLLECT_TYPES or (isinstance(dt, T.DecimalType) and
+                                   not dt.is_decimal128)
+
+
+def load_collect_library():
+    """Builds (first call) and binds ``csrc/collect.cu``."""
+    from spark_rapids_tpu_torch.exec.stage_compiler import get_or_build
+    from spark_rapids_tpu_torch.kernels.build import load_cuda
+    return get_or_build("agg.collect", "csrc/collect.cu",
+                        lambda: load_cuda("collect.cu", _COLLECT_SIGNATURES))
+
+
+def _check_collect(values: DeviceColumn, gid: Optional[torch.Tensor],
+                   n_groups: int) -> None:
+    if values.is_string or values.is_array or not collects(values.data_type):
+        raise NotImplementedError(
+            f"collect_list/collect_set of {values.data_type} is not in the "
+            "port (of int, date, long, double, boolean and decimal64 is; "
+            "the JAX package runs the others on its host tier)")
+    if gid is None:
+        if n_groups != 1:
+            raise ValueError("without group ids there is one group")
+        return
+    if gid.dtype != torch.int64 or gid.shape != (values.row_count,):
+        raise ValueError("one int64 group id per row is needed")
+    if gid.device != values.device:
+        raise ValueError("values and group ids lie on different devices")
+    if n_groups < 0:
+        raise ValueError("a negative group count")
+
+
+def _empty_arrays(values: DeviceColumn, n_groups: int) -> DeviceColumn:
+    device = values.device
+    return DeviceColumn(values.data[:0].clone(),
+                        torch.ones(n_groups, dtype=torch.bool, device=device),
+                        T.ArrayType(values.data_type, contains_null=False),
+                        all_valid=True,
+                        offsets=torch.zeros(n_groups + 1, dtype=torch.int64,
+                                            device=device))
+
+
+def collect(values: DeviceColumn, gid: Optional[torch.Tensor] = None,
+            n_groups: int = 1, distinct: bool = False,
+            transfers=None) -> DeviceColumn:
+    """K15's wrapper: an array column of ``n_groups`` rows, row ``g`` the
+    present values of the rows with ``gid == g`` (None: one group) in
+    row order, each distinct value once at its first row with
+    ``distinct``.  The total is read through ``transfers``."""
+    _check_collect(values, gid, n_groups)
+    device = values.device
+    if device.type == "cpu":
+        return collect_plain(values, gid, n_groups, distinct, transfers)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if transfers is None:
+        raise ValueError("K15 reads its total through the transfer gateway")
+    n = values.row_count
+    if n_groups == 0:
+        return _empty_arrays(values, 0)
+    from spark_rapids_tpu_torch.kernels.build import check_launch
+    lib = load_collect_library()
+    data = values.data.contiguous()
+    width = data.element_size()
+    tiles = max(1, -(-n // RADIX_TILE))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        # held by name until the launches are queued
+        raw = data.view(torch.uint8) if data.dtype == torch.bool else data
+        valid = None if values.all_valid else \
+            values.validity.contiguous().view(torch.uint8)
+        groups = None if gid is None else gid.contiguous()
+        words = torch.empty(max(n, 1), dtype=torch.int64, device=device)
+        size = table_size(n) if distinct else 0
+        slots = torch.empty(max(size, 1), dtype=torch.int64, device=device) \
+            if distinct else None
+        slot_of = torch.empty(max(n, 1), dtype=torch.int64, device=device) \
+            if distinct else None
+        keep = torch.empty(max(n, 1), dtype=torch.uint8, device=device)
+        offsets = torch.empty(n_groups + 1, dtype=torch.int64, device=device)
+        scratch = torch.empty(max(1, -(-n_groups // SCAN_TILE)),
+                              dtype=torch.int64, device=device)
+        check_launch(lib.srt_collect_count(
+            width, int(values.data_type == T.DOUBLE), raw.data_ptr(),
+            None if valid is None else valid.data_ptr(),
+            None if groups is None else groups.data_ptr(), n, n_groups,
+            int(distinct), words.data_ptr(),
+            None if slots is None else slots.data_ptr(), size,
+            None if slot_of is None else slot_of.data_ptr(),
+            keep.data_ptr(), offsets.data_ptr(), scratch.data_ptr(),
+            stream), "K15 count")
+        total, = transfers.read_counts([offsets[n_groups]])
+        out = torch.empty(total, dtype=data.dtype, device=device)
+        perm = torch.empty(max(n, 1), dtype=torch.int64, device=device)
+        perm_tmp = torch.empty(max(n, 1), dtype=torch.int64, device=device)
+        hist = torch.empty(256 * tiles, dtype=torch.int32, device=device)
+        digit_total = torch.empty(256, dtype=torch.int64, device=device)
+        check_launch(lib.srt_collect_write(
+            width, raw.data_ptr(),
+            None if groups is None else groups.data_ptr(), keep.data_ptr(),
+            n, n_groups, total, words.data_ptr(), perm.data_ptr(),
+            perm_tmp.data_ptr(), hist.data_ptr(), digit_total.data_ptr(),
+            (out.view(torch.uint8) if out.dtype == torch.bool
+             else out).data_ptr(), stream), "K15 write")
+    global COLLECT_LAUNCHES, COLLECT_SET_LAUNCHES
+    if distinct:
+        COLLECT_SET_LAUNCHES += 1
+    else:
+        COLLECT_LAUNCHES += 1
+    return DeviceColumn(out, torch.ones(n_groups, dtype=torch.bool,
+                                        device=device),
+                        T.ArrayType(values.data_type, contains_null=False),
+                        all_valid=True, offsets=offsets)
+
+
+def collect_words_plain(values: DeviceColumn) -> torch.Tensor:
+    """int64 words that equal values share (a double's -0.0 as 0.0, every
+    NaN as one), as ``csrc/collect.cu`` makes them."""
+    d = values.data
+    if d.dtype == torch.float64:
+        bits = d.view(torch.int64)
+        bits = torch.where(d == 0.0, 0, bits)
+        return torch.where(torch.isnan(d), _NAN_WORD, bits)
+    return d.to(torch.int64)
+
+
+def collect_plain(values: DeviceColumn, gid: Optional[torch.Tensor] = None,
+                  n_groups: int = 1, distinct: bool = False,
+                  transfers=None) -> DeviceColumn:
+    """The plain PyTorch version of K15 (it reads the total through the
+    gateway, as the kernel does, when one is given)."""
+    _check_collect(values, gid, n_groups)
+    device = values.device
+    n = values.row_count
+    if n_groups == 0:
+        return _empty_arrays(values, 0)
+    g = torch.zeros(n, dtype=torch.int64, device=device) if gid is None \
+        else gid
+    rows = torch.nonzero(values.validity).reshape(-1)
+    if distinct and rows.numel():
+        # stable sorts: by word, then by group; the first row of each
+        # (group, word) run is its least row
+        w = collect_words_plain(values)[rows]
+        order = torch.sort(w, stable=True).indices
+        order = order[torch.sort(g[rows][order], stable=True).indices]
+        rw, rg = w[order], g[rows][order]
+        first = torch.ones_like(rw, dtype=torch.bool)
+        first[1:] = (rw[1:] != rw[:-1]) | (rg[1:] != rg[:-1])
+        rows = torch.sort(rows[order][first]).values
+    # the kept rows by group, in row order within a group
+    rows = rows[torch.sort(g[rows], stable=True).indices]
+    counts = torch.bincount(g[rows], minlength=n_groups)
+    offsets = torch.zeros(n_groups + 1, dtype=torch.int64, device=device)
+    torch.cumsum(counts, 0, out=offsets[1:])
+    if transfers is not None and n:
+        transfers.read_counts([offsets[n_groups]])
+    return DeviceColumn(values.data[rows], torch.ones(
+        n_groups, dtype=torch.bool, device=device),
+        T.ArrayType(values.data_type, contains_null=False), all_valid=True,
+        offsets=offsets)

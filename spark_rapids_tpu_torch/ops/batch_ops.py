@@ -311,25 +311,28 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
         for i, c0 in enumerate(first.columns):
             ins = [b.columns[i] for b in batches]
             # held by name until the launch is queued
-            data = [c.data.contiguous() if c.is_string else
+            data = [c.data.contiguous() if c.offsets is not None else
                     fixed_plane(c.data) for c in ins]
             valid = [None if c.all_valid else
                      c.validity.contiguous().view(torch.uint8) for c in ins]
             out_valid = torch.empty(n, dtype=torch.bool, device=device)
             all_valid = all(c.all_valid for c in ins)
-            if c0.is_string:
+            if c0.offsets is not None:
+                # a string's chars, or an array's elements (of their width)
                 offsets = [c.offsets.contiguous() for c in ins]
                 chars = torch.empty(sum(d.numel() for d in data),
-                                    dtype=torch.uint8, device=device)
+                                    dtype=c0.data.dtype, device=device)
                 out_off = torch.empty(n + 1, dtype=torch.int64,
                                       device=device)
                 check_launch(lib.srt_concat_column(
-                    len(ins), 0, pointers(data), pointers(valid),
+                    len(ins), -chars.element_size(), pointers(
+                        [d.view(torch.uint8) if d.dtype == torch.bool
+                         else d for d in data]), pointers(valid),
                     pointers(offsets),
                     int32s([int(o.dtype == torch.int64) for o in offsets]),
                     int64s(rows), max(rows + [d.numel() for d in data]),
                     None, out_valid.data_ptr(), out_off.data_ptr(),
-                    chars.data_ptr(), stream), "K7c concat (string)")
+                    chars.data_ptr(), stream), "K7c concat (variable)")
                 cols.append(DeviceColumn(chars, out_valid, c0.data_type,
                                          all_valid, out_off))
                 continue
@@ -349,7 +352,8 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
 def concat_batches_plain(batches: Sequence[ColumnarBatch]
                          ) -> ColumnarBatch:
     """The plain PyTorch version of K7c: ``torch.cat`` of each plane, a
-    string's offsets rebased by the chars before it."""
+    string's (an array's) offsets rebased by the chars (elements) before
+    it."""
     _check_concat(batches)
     first = batches[0]
     cols = []
@@ -357,7 +361,7 @@ def concat_batches_plain(batches: Sequence[ColumnarBatch]
         ins = [b.columns[i] for b in batches]
         valid = torch.cat([c.validity for c in ins])
         all_valid = all(c.all_valid for c in ins)
-        if not c0.is_string:
+        if c0.offsets is None:
             cols.append(DeviceColumn(torch.cat([c.data for c in ins]), valid,
                                      c0.data_type, all_valid))
             continue

@@ -4,7 +4,8 @@ to the file scan under it, fuses each filter/project chain into a kernel
 (``plan/stages.py``), puts the decode of encoded columns where an
 operator needs values (``plan/encoding.py``), hands the out-of-core test
 keys to the sort and window execs as instance fields, and refuses
-whatever the port cannot run yet, naming it."""
+whatever the port cannot run yet, naming it (an operator over an array
+column among them: an array is a collect's output only)."""
 
 from __future__ import annotations
 
@@ -24,16 +25,19 @@ from spark_rapids_tpu_torch.exec.joins import (
     CROSS, TorchBroadcastNestedLoopJoinExec, TorchHashJoinExec)
 from spark_rapids_tpu_torch.exec.sort import TorchSortExec
 from spark_rapids_tpu_torch.exec.window import TorchWindowExec
-from spark_rapids_tpu_torch.expressions.aggregates import (Average, Count,
+from spark_rapids_tpu_torch.expressions.aggregates import (Average,
+                                                           CollectList,
+                                                           Count,
                                                            CountDistinct,
                                                            First, Min, Sum,
                                                            _CentralMoment)
 from spark_rapids_tpu_torch.plan import base as L
 from spark_rapids_tpu_torch.plan.stages import fuse_device_stages
 
-#: (``Max`` is a ``Min``, ``Last`` a ``First``)
+#: (``Max`` is a ``Min``, ``Last`` a ``First``, ``CollectSet`` a
+#: ``CollectList``)
 _SUPPORTED_AGGREGATES = (Sum, Count, Average, CountDistinct, _CentralMoment,
-                         Min, First)
+                         Min, First, CollectList)
 
 
 def check_min_max_first_last(f) -> None:
@@ -57,6 +61,27 @@ def check_min_max_first_last(f) -> None:
         raise NotImplementedError(
             f"{f.sql()}: first/last over {dt} is not in the port yet (int, "
             "date, long, double and string are)")
+
+
+def check_collect(f) -> None:
+    """The JAX device path's gate on a collect (``exec/aggregate.py:684-
+    703``): an int, long, double, date, boolean or decimal64 element runs
+    on the card (K15); a string, binary, decimal128 or nested one goes to
+    the JAX package's host tier, and is refused here by name."""
+    from spark_rapids_tpu_torch.exec.aggregate import collect_input
+    if isinstance(f, CollectList):
+        collect_input(f)
+
+
+def refuse_arrays(node, child) -> None:
+    """An array column is an output only (of a collect): any operator that
+    would read one is refused by name."""
+    for f in child.schema.fields:
+        if isinstance(f.data_type, T.ArrayType):
+            raise NotImplementedError(
+                f"{type(node).__name__} over the array column {f.name} "
+                f"({f.data_type}) is not in the port yet (an array is an "
+                "output of collect_list and collect_set only)")
 
 
 class TorchOverrides:
@@ -100,6 +125,8 @@ class TorchOverrides:
                 isinstance(node.children[0], L.FileScan):
             return TorchFilterExec(node.condition, self._file_scan(
                 node.children[0], node.condition))
+        for c in node.children:
+            refuse_arrays(node, c)
         if isinstance(node, L.Join) and node.how == CROSS:
             return TorchBroadcastNestedLoopJoinExec(
                 self._convert(node.children[0]),
@@ -125,6 +152,7 @@ class TorchOverrides:
                         f"aggregate {type(a.func).__name__} is not in the "
                         "port yet")
                 check_min_max_first_last(a.func)
+                check_collect(a.func)
                 if isinstance(a.func, _CentralMoment) and \
                         not node.layout.num_keys:
                     raise NotImplementedError(

@@ -140,9 +140,9 @@ def fuse_device_stages(plan):
     def fuse_node(node):
         if isinstance(node, TorchHashAggregateExec) and \
                 node.mode != FINAL and not node.layout.num_keys:
-            if node.layout.has_distinct:
-                # K15d reads the chain's output rows: the chain runs as a
-                # stage of its own, and kernel 1 takes no chain
+            if node.layout.requires_complete:
+                # K15d and K15 read the chain's output rows: the chain
+                # runs as a stage of its own, and kernel 1 takes no chain
                 return TorchFusedAggExec([], node.layout, node.mode,
                                          fuse(node.child))
             ops, base = chain_of(node.child)

@@ -6,7 +6,8 @@ expressions, extracted as ``_plan_windows`` ``:392`` does), ``join``
 (``:637``; inner, left, right and full outer, left semi and left anti, on
 one or several key columns, and cross), ``group_by`` (``:729``), ``rollup`` (``:736``;
 lowered to an Expand and a group-by, ``_expand_for_grouping_sets``
-``:973``) and ``agg`` (``grouping()`` after a rollup), ``distinct``
+``:973``) and ``agg`` (``grouping()`` after a rollup) or ``count``
+(``:1253``), ``distinct``
 (``:771``), ``order_by`` (``:602``), ``limit`` (``:515``), ``union``
 (``:539``), ``intersect`` (``:495``; a null-safe semi join), ``collect``
 and ``scalar``).
@@ -78,6 +79,12 @@ class TorchSession:
             raise TypeError(f"cannot create a DataFrame from {type(data)}")
         if num_partitions < 1:
             raise ValueError("num_partitions must be at least 1")
+        for name, dt in zip(hb.names, hb.schema.types):
+            if isinstance(dt, T.ArrayType):
+                raise NotImplementedError(
+                    f"an {dt} input column ({name}) is not in the port yet "
+                    "(an array is an output of collect_list and "
+                    "collect_set only)")
         n = hb.row_count
         per = -(-n // num_partitions) if n else 1
         parts = [[hb.slice(i * per, min(per, n - i * per))]
@@ -432,6 +439,13 @@ class GroupedData:
         return DataFrame(_plan_aggregate(layout, self._df._plan),
                          self._df._session)
 
+    def count(self) -> DataFrame:
+        """The keys and ``count(1)`` as ``count`` (JAX ``session.py:1253``):
+        K9's count of every row."""
+        from spark_rapids_tpu_torch.expressions.aggregates import Count
+        from spark_rapids_tpu_torch.expressions.base import Literal
+        return self.agg(Alias(Count(Literal(1, T.INT)), "count"))
+
     def _agg_grouping_sets(self, aggs, outputs) -> DataFrame:
         """One Expand projection per grouping set -- each key, or a null
         of its type where the set does not group it; the grouping id
@@ -511,9 +525,10 @@ def _plan_aggregate(layout, child: L.LogicalPlan) -> L.LogicalPlan:
     """A group-by (or a global aggregate) of ``child``: COMPLETE over one
     partition; over several, PARTIAL, an exchange on the buffer keys by
     hash (one partition without keys) and FINAL; an aggregation with a
-    ``count(DISTINCT)`` COMPLETE behind an exchange of the raw rows by
-    the keys (one partition without keys), as ``requires_complete``
-    aggregates are planned (JAX ``session.py:1083-1108``)."""
+    ``count(DISTINCT)``, ``collect_list`` or ``collect_set`` COMPLETE
+    behind an exchange of the raw rows by the keys (one partition without
+    keys), as ``requires_complete`` aggregates are planned (JAX
+    ``session.py:1083-1108``)."""
     from spark_rapids_tpu_torch.exec.aggregate import (COMPLETE, FINAL,
                                                        PARTIAL)
     from spark_rapids_tpu_torch.plan.partitioning import (
@@ -522,7 +537,7 @@ def _plan_aggregate(layout, child: L.LogicalPlan) -> L.LogicalPlan:
     if n == 1:
         return L.Aggregate(layout, COMPLETE, child)
     nk = layout.num_keys
-    if layout.has_distinct:
+    if layout.requires_complete:
         part = HashPartitioning(layout.grouping, n) if nk \
             else SinglePartitioning()
         return L.Aggregate(layout, COMPLETE, L.Exchange(part, child))

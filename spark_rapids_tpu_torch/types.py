@@ -5,7 +5,10 @@ chars plane (``columnar/column.py``).  A date is int32 days since the
 epoch (``types.py:131``), as the JAX package keeps it.  A decimal
 (``DecimalType``, ``types.py:142-172``) is its unscaled integer: int64 up
 to 18 digits (decimal64), an int64 ``[rows, 2]`` (hi, lo) pair past them
-(decimal128), as the JAX package's device columns hold it."""
+(decimal128), as the JAX package's device columns hold it.  An array
+(``ArrayType``, ``types.py:175``) is a string's layout with elements in
+place of bytes: int64 offsets and a plane of its element type; in the
+port it is an output only (of ``collect_list`` and ``collect_set``)."""
 
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import torch
 
 __all__ = [
     "DataType", "NullType", "BooleanType", "IntegerType", "LongType",
-    "DoubleType", "StringType", "DateType", "DecimalType", "StructField",
+    "DoubleType", "StringType", "DateType", "DecimalType", "ArrayType",
+    "StructField",
     "StructType",
     "NULL", "BOOLEAN", "INT", "LONG", "DOUBLE", "STRING", "DATE",
     "from_numpy_dtype", "common_type", "date_days", "days_date",
@@ -146,6 +150,44 @@ class DecimalType(DataType):
         return self.simple_name
 
 
+class ArrayType(DataType):
+    """A variable-length list of ``element`` values (``spark_rapids_tpu/
+    types.py:175``); ``contains_null`` False when no element is null (the
+    type of ``collect_list`` and ``collect_set``).  Its host and device
+    data plane is the elements' (``element.np_dtype``,
+    ``element.torch_dtype``), cut into rows by int64 offsets."""
+
+    def __init__(self, element: DataType, contains_null: bool = True):
+        self.element = element
+        self.contains_null = bool(contains_null)
+
+    @property
+    def np_dtype(self):
+        return self.element.np_dtype
+
+    @property
+    def torch_dtype(self):
+        return self.element.torch_dtype
+
+    @property
+    def simple_name(self) -> str:
+        return f"array<{self.element.simple_name}>"
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, ArrayType) and \
+            (self.element, self.contains_null) == (other.element,
+                                                   other.contains_null)
+
+    def __hash__(self) -> int:
+        return hash(("array", self.element, self.contains_null))
+
+    def __repr__(self) -> str:
+        return f"ArrayType({self.element!r}, {self.contains_null})"
+
+    def __str__(self) -> str:
+        return self.simple_name
+
+
 NULL = NullType()
 BOOLEAN = BooleanType()
 INT = IntegerType()
@@ -211,6 +253,9 @@ def from_arrow(at) -> DataType:
         return NULL
     if pa.types.is_decimal128(at):
         return DecimalType(at.precision, at.scale)
+    if pa.types.is_list(at) or pa.types.is_large_list(at):
+        return ArrayType(from_arrow(at.value_type),
+                         at.value_field.nullable)
     raise NotImplementedError(f"an Arrow {at} column is not in the port "
                               "yet")
 
@@ -220,6 +265,9 @@ def to_arrow(dt: DataType):
     import pyarrow as pa
     if isinstance(dt, DecimalType):
         return pa.decimal128(dt.precision, dt.scale)
+    if isinstance(dt, ArrayType):
+        return pa.large_list(pa.field("element", to_arrow(dt.element),
+                                      dt.contains_null))
     arrow = {BooleanType: pa.bool_(), IntegerType: pa.int32(),
              LongType: pa.int64(), DoubleType: pa.float64(),
              StringType: pa.string(), DateType: pa.date32(),
